@@ -1,0 +1,107 @@
+"""Model configuration and architecture registry (the port's own copy).
+
+Mirrors ``repro/configs/base.py`` field for field for the parts the serving
+path reads, so a test can build the same config in both packages.  Pipeline
+plans and input shapes of the JAX package are not part of this slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+MIXER_ATTN = "attn"          # self attention (GQA / MHA)
+MIXER_MLA = "mla"            # DeepSeek-V2 multi-head latent attention
+MIXER_MAMBA = "mamba"        # Mamba-1 selective SSM
+MIXER_RWKV = "rwkv"          # RWKV-6 (Finch) time mix
+MIXER_CROSS = "cross"        # cross-attention
+
+MLP_DENSE = "dense"
+MLP_MOE = "moe"
+
+
+@dataclass(frozen=True)
+class LayerKind:
+    """Static description of one layer position inside the repeating pattern."""
+    mixer: str = MIXER_ATTN
+    mlp: str = MLP_DENSE
+    extra_cross: bool = False
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 => d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    rms_eps: float = 1e-6
+    tie_embeddings: bool = True
+    sliding_window: int = 0
+    global_every: int = 0
+    pattern: tuple[LayerKind, ...] = (LayerKind(),)
+    encoder_layers: int = 0
+    n_memory_tokens: int = 0
+    mlp_act: str = "swiglu"
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def pattern_size(self) -> int:
+        return len(self.pattern)
+
+    def layer_kind(self, layer_idx: int) -> LayerKind:
+        return self.pattern[layer_idx % self.pattern_size]
+
+    def is_global_layer(self, layer_idx: int) -> bool:
+        """Every ``global_every``-th layer is global (gemma3-style)."""
+        if not self.global_every:
+            return True
+        j = layer_idx % self.pattern_size if self.pattern_size > 1 else layer_idx
+        return (j % self.global_every) == (self.global_every - 1)
+
+    def param_count(self) -> int:
+        """Exact parameter count (embedding + blocks + head)."""
+        from repro_torch.models.transformer import count_params
+        return count_params(self)
+
+
+_REGISTRY: dict[str, "ArchSpec"] = {}
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    config: ModelConfig
+    smoke_config: ModelConfig
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.config.name] = spec
+    return spec
+
+
+def get_arch(name: str) -> ArchSpec:
+    if not _REGISTRY:
+        _load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)} "
+                       "(other architectures are still to be ported, see "
+                       "ROADMAP.md)")
+    return _REGISTRY[name]
+
+
+def _load_all() -> None:
+    from repro_torch.configs import qwen1_5_0_5b  # noqa: F401  (registers)
+
+
+def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Build a reduced same-family config for smoke tests."""
+    return dataclasses.replace(cfg, **overrides)

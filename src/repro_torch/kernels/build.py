@@ -1,0 +1,146 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source has a plain C interface.  It is compiled with ``nvcc`` for
+Hopper (``sm_90a``) into a shared library under ``build/kernels/`` at the
+repository root, and loaded with ``ctypes``.  A library's file name carries
+a hash of its source and flags, so an edited source rebuilds on first use
+and an unchanged one is loaded as it is.  ``load_all`` starts one ``nvcc``
+per source at once and waits for all of them.
+
+There is no fallback: without ``nvcc`` the build raises, and only a tensor
+on the CPU takes a kernel's plain PyTorch version (see the wrappers).
+
+Every wrapper adds one to ``launches[name]`` when it launches its kernel,
+and nowhere else, so a run can show which kernels its path went through.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+CUDA_HOME_DEFAULT = "/usr/local/cuda"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+# name -> (C function, argtypes) for every entry point of a library
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES: dict[str, dict[str, list]] = {
+    "decode_attention": {
+        # q, k, v, cache_len, out, B, H, Kh, Smax, hd, hdv, scale, dtype, stream
+        "decode_attention_launch":
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k_pool, v_pool, tables, cache_len, out,
+        # B, H, Kh, block_size, M, hd, hdv, scale, dtype, stream
+        "paged_decode_attention_launch":
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    },
+    "flash_attention": {
+        # q, k, v, out, B, Sq, Skv, H, Kh, hd, hdv,
+        # q_offset, causal, window, scale, dtype, stream
+        "flash_attention_launch":
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+             _P],
+    },
+}
+
+launches: collections.Counter = collections.Counter()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    launches.clear()
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then the
+    toolkit's default location.  Raises if there is none."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append(os.path.join(CUDA_HOME_DEFAULT, "bin", "nvcc"))
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        f"{CUDA_HOME_DEFAULT}/bin): the repro_torch CUDA kernels are built "
+        "from kernels/csrc/*.cu with the CUDA toolkit for sm_90a. Install the "
+        "toolkit or point CUDA_HOME at it; for CPU tensors the wrappers use "
+        "their plain PyTorch versions and need no build.")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build(nvcc: str, outs: dict[str, Path]) -> None:
+    """Run one nvcc per source, all at once; raise on the first failure
+    after every compiler process has ended."""
+    jobs = []
+    for name, out in outs.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((proc, cmd, tmp, out))
+    errors = []
+    for proc, cmd, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{out.name}:\n{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out)         # atomic: readers never see half
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def _load(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
+def load_all(names=None) -> dict[str, ctypes.CDLL]:
+    """Build (in parallel) and load every named kernel library."""
+    names = list(SIGNATURES if names is None else names)
+    todo = [n for n in names if n not in _LIBS]
+    if todo:
+        paths = {n: _lib_path(n) for n in todo}
+        missing = {n: paths[n] for n in todo if not paths[n].exists()}
+        if missing:
+            nvcc = find_nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _build(nvcc, missing)
+        for n in todo:
+            _LIBS[n] = _load(n, paths[n])
+    return {n: _LIBS[n] for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built on first use."""
+    return load_all([name])[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
+                           "(cudaGetLastError after the launch)")

@@ -1,0 +1,168 @@
+"""Flash-decode: one query token per slot against a dense or paged KV cache.
+
+Ports ``repro/kernels/decode_attention.py`` (``decode_attention`` and
+``paged_decode_attention``, Pallas TPU kernels).  The CUDA kernels are in
+``csrc/decode_attention.cu``; its header says what bounds them on an H100
+and how the design answers it.
+
+Both functions keep the Pallas signatures and semantics: q ``(B, H, hd)``;
+dense caches ``(B, Kh, Smax, hd/hdv)``; pools ``(n_blocks, Kh, block_size,
+hd/hdv)`` with ``block_tables (B, M)`` int32 (0 = the null block);
+``cache_len`` a scalar or ``(B,)``; f32 online softmax with a finite
+``-1e30`` mask; out ``(B, H, hdv)`` in q's dtype.  Positions at or past
+``cache_len`` contribute exactly zero, whatever those rows hold.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)      # instantiated (hd == hdv) in the .cu
+MAX_GROUP = 8                      # H / Kh held in registers by the kernel
+
+
+def _lengths(cache_len, B: int, device) -> torch.Tensor:
+    cl = torch.as_tensor(cache_len, device=device)
+    return cl.reshape(-1).to(torch.int32).expand(B).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+def decode_attention_plain(q, k_cache, v_cache, cache_len, *, scale=None):
+    """Masked softmax over the whole cache, in f32, materialized."""
+    B, H, hd = q.shape
+    Kh, Smax = k_cache.shape[1], k_cache.shape[2]
+    hdv = v_cache.shape[-1]
+    G = H // Kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    cl = _lengths(cache_len, B, q.device)
+    qf = (q.float() * scale).reshape(B, Kh, G, hd)
+    s = torch.einsum("bhgk,bhjk->bhgj", qf, k_cache.float())
+    mask = (torch.arange(Smax, device=q.device)[None, :]
+            < cl[:, None])[:, None, None, :]                  # (B,1,1,Smax)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    # dead rows may hold anything (NaN included): zero them so 0 * x is 0
+    vf = torch.where(mask[:, :, 0, :, None], v_cache.float(),
+                     torch.zeros((), device=q.device))
+    o = torch.einsum("bhgj,bhjk->bhgk", p, vf) / torch.clamp(l, min=1e-30)
+    return o.reshape(B, H, hdv).to(q.dtype)
+
+
+def gather_pages(pool, block_tables):
+    """Logical ``(B, Kh, M * bs, hd)`` view of each slot's blocks."""
+    B, M = block_tables.shape
+    g = pool[block_tables.long()]                             # (B,M,Kh,bs,hd)
+    return g.movedim(2, 1).reshape(B, pool.shape[1], M * pool.shape[2],
+                                   pool.shape[3])
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, cache_len,
+                                 *, scale=None):
+    """Gather the logical view, then the dense plain version: for equal live
+    rows it gives the dense layout's bits."""
+    return decode_attention_plain(q, gather_pages(k_pool, block_tables),
+                                  gather_pages(v_pool, block_tables),
+                                  cache_len, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda(q, caches, hd, hdv, H, Kh):
+    for t in (q, *caches):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError("decode attention: q, k and v must share one "
+                             f"device and dtype, got {t.device}/{t.dtype} "
+                             f"vs {q.device}/{q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("decode attention: inputs must be contiguous")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"decode attention kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if hd != hdv or hd not in HEAD_DIMS:
+        raise ValueError(f"decode attention kernel is built for hd == hdv "
+                         f"in {HEAD_DIMS}, got hd={hd}, hdv={hdv}")
+    if H % Kh or H // Kh > MAX_GROUP:
+        raise ValueError(f"decode attention kernel needs H % Kh == 0 and "
+                         f"H / Kh <= {MAX_GROUP}, got H={H}, Kh={Kh}")
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
+    """q: (B, H, hd); caches: (B, Kh, Smax, hd/hdv); cache_len: scalar or
+    (B,).  Returns (B, H, hdv)."""
+    B, H, hd = q.shape
+    Kh, Smax = k_cache.shape[1], k_cache.shape[2]
+    hdv = v_cache.shape[-1]
+    if k_cache.shape[:3] != v_cache.shape[:3] or k_cache.shape[0] != B \
+            or k_cache.shape[3] != hd:
+        raise ValueError(f"decode attention: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)}")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention: no kernel for {q.device}")
+    _check_cuda(q, (k_cache, v_cache), hd, hdv, H, Kh)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    cl = _lengths(cache_len, B, q.device)
+    out = torch.empty((B, H, hdv), dtype=q.dtype, device=q.device)
+    lib = build.library("decode_attention")
+    err = lib.decode_attention_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cl.data_ptr(),
+        out.data_ptr(), B, H, Kh, Smax, hd, hdv, scale, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "decode_attention")
+    build.launches["decode_attention"] += 1
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
+                           scale=None):
+    """Flash-decode over a paged KV cache.
+
+    q: (B, H, hd); pools: (n_blocks, Kh, block_size, hd/hdv); block_tables:
+    (B, M) int32 physical ids (0 = null / unallocated); cache_len: scalar or
+    (B,) live token counts.  Returns (B, H, hdv)."""
+    B, H, hd = q.shape
+    Kh, bs = k_pool.shape[1], k_pool.shape[2]
+    hdv = v_pool.shape[-1]
+    M = block_tables.shape[1]
+    if k_pool.shape[:3] != v_pool.shape[:3] or k_pool.shape[3] != hd \
+            or block_tables.shape[0] != B:
+        raise ValueError(f"paged decode attention: bad shapes "
+                         f"q{tuple(q.shape)} k{tuple(k_pool.shape)} "
+                         f"v{tuple(v_pool.shape)} "
+                         f"tables{tuple(block_tables.shape)}")
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            cache_len, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged decode attention: no kernel for {q.device}")
+    _check_cuda(q, (k_pool, v_pool), hd, hdv, H, Kh)
+    if block_tables.dtype != torch.int32 or not block_tables.is_contiguous() \
+            or block_tables.device != q.device:
+        raise ValueError("paged decode attention: block_tables must be a "
+                         "contiguous int32 tensor on q's device")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    cl = _lengths(cache_len, B, q.device)
+    out = torch.empty((B, H, hdv), dtype=q.dtype, device=q.device)
+    lib = build.library("decode_attention")
+    err = lib.paged_decode_attention_launch(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), cl.data_ptr(), out.data_ptr(), B, H, Kh, bs,
+        M, hd, hdv, scale, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_decode_attention")
+    build.launches["paged_decode_attention"] += 1
+    return out

@@ -1,0 +1,142 @@
+"""KV cache construction, the paged block allocator and stage regrouping.
+
+Ports the attention-layer part of ``repro/models/kvcache.py``.  Two layouts:
+
+* **dense**: per-layer ``(batch, Kh, max_seq, hd)`` rows;
+* **paged**: per-layer block pools ``(n_blocks, Kh, block_size, hd)`` plus
+  per-slot block tables (host side) mapping logical token blocks to
+  physical ones.  Tables are shared across layers, so refactoring stays a
+  zero-copy re-view of the per-layer list.
+
+Physical block 0 is the **null block**: unallocated table entries point at
+it, so bucket padding and idle slots write into a block no masked read sees.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import MIXER_ATTN, ModelConfig
+
+
+def _attn_only(cfg: ModelConfig, layers) -> None:
+    for i in layers:
+        if cfg.layer_kind(i).mixer != MIXER_ATTN or (
+                cfg.sliding_window and not cfg.is_global_layer(i)):
+            raise NotImplementedError(
+                f"{cfg.name}: caches for layer {i} ({cfg.layer_kind(i)}) are "
+                "not ported to repro_torch yet; see ROADMAP.md, section 1")
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None,
+               layers: Optional[range] = None) -> list:
+    """Zero dense caches for ``layers`` (default: all)."""
+    device = resolve_device(device)
+    layers = layers if layers is not None else range(cfg.n_layers)
+    _attn_only(cfg, layers)
+    shape = (batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
+    return [{"mixer": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+            for _ in layers]
+
+
+NULL_BLOCK = 0          # physical block 0: trash target for masked writes
+
+
+def can_page(cfg: ModelConfig) -> bool:
+    """Paging covers unwindowed full self-attention only."""
+    mixers = {k.mixer for k in cfg.pattern}
+    return (mixers == {MIXER_ATTN}
+            and not any(k.extra_cross for k in cfg.pattern)
+            and cfg.sliding_window == 0
+            and cfg.encoder_layers == 0)
+
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     dtype=torch.bfloat16, device=None,
+                     layers: Optional[range] = None) -> list:
+    """Zero block pools for ``layers`` (default: all)."""
+    device = resolve_device(device)
+    layers = layers if layers is not None else range(cfg.n_layers)
+    _attn_only(cfg, layers)
+    shape = (n_blocks, cfg.n_kv_heads, block_size, cfg.resolved_head_dim)
+    return [{"mixer": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+            for _ in layers]
+
+
+def blocks_for(n_tokens: int, block_size: int) -> int:
+    """Physical blocks needed to hold ``n_tokens``."""
+    return -(-max(n_tokens, 0) // block_size)
+
+
+class BlockAllocator:
+    """Host-side LIFO free list over physical cache blocks.
+
+    A fresh allocator hands out ascending ids and reuses the most recently
+    freed first, so paged runs are reproducible.  Block 0 (``NULL_BLOCK``)
+    is never handed out.  ``alloc(n)`` is all-or-nothing: it returns
+    ``None`` and changes nothing when fewer than ``n`` blocks are free."""
+
+    def __init__(self, n_blocks: int, block_size: int):
+        if n_blocks < 2:
+            raise ValueError("need at least one usable block + the null")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        self._free = list(range(n_blocks - 1, 0, -1))   # pop() yields 1, 2, …
+        self._used: set[int] = set()
+
+    @property
+    def n_usable(self) -> int:
+        return self.n_blocks - 1
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        return len(self._used)
+
+    def occupancy(self) -> float:
+        """Fraction of usable blocks currently allocated."""
+        return self.n_used / max(self.n_usable, 1)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def alloc(self, n: int) -> Optional[list[int]]:
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        self._used.update(out)
+        return out
+
+    def free(self, ids) -> None:
+        for b in ids:
+            if b not in self._used:
+                raise ValueError(f"double free / foreign block {b}")
+            self._used.discard(b)
+            self._free.append(b)
+
+
+def fragmentation(live_tokens: int, n_used_blocks: int,
+                  block_size: int) -> float:
+    """Allocated-but-dead token slots in tail blocks, as a fraction of
+    allocated capacity (0 when nothing is allocated)."""
+    cap = n_used_blocks * block_size
+    if cap <= 0:
+        return 0.0
+    return max(cap - live_tokens, 0) / cap
+
+
+def group_by_stage(per_layer: list, boundaries: list[int]) -> list[list]:
+    """Split a per-layer list into per-stage lists at ``boundaries`` (stage
+    start indices).  Zero-copy: only the Python list is re-sliced."""
+    ends = list(boundaries[1:]) + [len(per_layer)]
+    return [per_layer[b:e] for b, e in zip(boundaries, ends)]

@@ -1,0 +1,219 @@
+"""Core layers of the serving path: RMSNorm, RoPE, GQA attention, SwiGLU.
+
+Ports the main-path subset of ``repro/models/layers.py`` with the same
+param layout (``wq (d, H, hd)``, ``wk/wv (d, Kh, hd)``, ``wo (H, hd, d)``,
+``bq/bk/bv``) and cache layout (dense ``(B, Kh, Smax, hd)`` rows, paged
+``(n_blocks, Kh, block_size, hd)`` pools).
+
+Caches are written in place: where the JAX package donates a cache and
+returns a new one, these functions write the new rows into the tensors
+they were given and return the same dict.  Attention goes through the
+kernel wrappers, which take their plain versions for CPU tensors and launch
+the CUDA kernels for CUDA tensors.
+
+Sliding windows, chunked prefill (``kv_extent``) and the sequence- and
+tensor-parallel branches are not ported yet (see ROADMAP.md) and raise.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  gather_pages,
+                                                  paged_decode_attention)
+from repro_torch.kernels.flash_attention import flash_attention
+
+Params = dict
+
+
+def _todo(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md, "
+        "section 1 (modules to port)")
+
+
+# ---------------------------------------------------------------------------
+# Norms and rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rms_norm(params: Params, x: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    # a Python-scalar base: a tensor made from theta on the card would be a
+    # host-to-device copy, which waits for the stream, in every layer
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                     device=device) / head_dim
+    return 1.0 / torch.pow(float(theta), e)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., seq, heads, hd); positions: (seq,) or (batch, seq)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                      # (hd/2,)
+    angles = positions.float()[..., :, None] * freqs             # (.., S, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _qkv(params: Params, x: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return q, k, v
+
+
+def _positions(pos0, S: int, device) -> torch.Tensor:
+    """(S,) for a scalar pos0, (B, S) for a per-slot vector."""
+    p0 = torch.as_tensor(pos0, device=device)
+    ar = torch.arange(S, device=device)
+    return (p0[:, None] + ar) if p0.ndim == 1 else p0 + ar
+
+
+def _paged_attention(q, k, v, cache, block_table, *, pos0, wo, causal,
+                     paged_kernel):
+    """Attention over block pools and per-slot block tables.
+
+    Decode (S == 1) writes each slot's new row into its tail block and
+    attends over its table; idle slots (all-null tables) write into the
+    null block 0, which no masked read sees.  Prefill (S > 1, batch 1) writes
+    the whole prompt through the table and attends over the fresh k/v, as
+    the dense path does; bucket padding past the slot's blocks lands in the
+    null block."""
+    B, S, H, hd = q.shape
+    kp, vp = cache["k"], cache["v"]
+    bs = kp.shape[2]
+    km = k.movedim(1, 2).to(kp.dtype)                  # (B, Kh, S, hd)
+    vm = v.movedim(1, 2).to(vp.dtype)
+    bt = block_table
+    if S == 1:
+        p0 = torch.as_tensor(pos0, device=q.device).reshape(-1).expand(B)
+        p0 = p0.long()
+        pid = bt[torch.arange(B, device=q.device), p0 // bs].long()
+        off = p0 % bs
+        kp[pid, :, off, :] = km[:, :, 0, :]             # (B, Kh, hd)
+        vp[pid, :, off, :] = vm[:, :, 0, :]
+        if paged_kernel:
+            out = paged_decode_attention(q[:, 0].contiguous(), kp, vp,
+                                         bt.to(torch.int32).contiguous(),
+                                         p0 + 1)
+        else:
+            # the gathered logical view has a dense cache's shape and
+            # masking, so its outputs are bit-identical to the dense layout
+            out = decode_attention(q[:, 0].contiguous(), gather_pages(kp, bt),
+                                   gather_pages(vp, bt), p0 + 1)
+        out = out[:, None]
+    else:
+        if B != 1:
+            raise ValueError("paged prefill runs one slot at a time")
+        p0 = int(torch.as_tensor(pos0).reshape(-1)[0])
+        pos = p0 + torch.arange(S, device=q.device)
+        pids = bt[0, pos // bs].long()
+        offs = pos % bs
+        kp[pids, :, offs, :] = km[0].movedim(0, 1)      # (S, Kh, hd)
+        vp[pids, :, offs, :] = vm[0].movedim(0, 1)
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, q_offset=0)
+    y = torch.einsum("bshk,hkd->bsd", out, wo)
+    return y, cache
+
+
+def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+                    pos0, cache=None, is_global: bool = True,
+                    causal: bool = True, tp_axis=None, sp_axis=None,
+                    block_table=None, paged_kernel: bool = False,
+                    kv_extent: int = 0):
+    """Self attention: prefill (cache None or being filled) or decode.
+
+    pos0: absolute position of x[:, 0]; an int, or for ragged decode a
+    (B,) tensor of per-slot positions.  cache: None or dict(k, v),
+    head-major, written in place.  block_table: paged KV, (B, M) physical
+    block ids per slot; ``paged_kernel`` picks the block-walk kernel over
+    the gather path.  Returns (y, cache, aux)."""
+    B, S, _ = x.shape
+    window = 0 if is_global else cfg.sliding_window
+    if window:
+        raise _todo("sliding-window attention")
+    if kv_extent:
+        raise _todo("chunked prefill (kv_extent)")
+    if tp_axis is not None or sp_axis is not None:
+        raise _todo("tensor/sequence-parallel attention")
+    q, k, v = _qkv(params, x)
+    if cfg.rope_theta:
+        positions = _positions(pos0, S, x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if block_table is not None and cache is not None:
+        y, cache = _paged_attention(q, k, v, cache, block_table, pos0=pos0,
+                                    wo=params["wo"], causal=causal,
+                                    paged_kernel=paged_kernel)
+        return y, cache, aux
+
+    if cache is not None:
+        kc, vc = cache["k"], cache["v"]
+        Smax = kc.shape[2]
+        km = k.movedim(1, 2).to(kc.dtype)              # (B, Kh, S, hd)
+        vm = v.movedim(1, 2).to(vc.dtype)
+        pos_vec = torch.is_tensor(pos0) and pos0.ndim == 1
+        if S == 1 and pos_vec:
+            # ragged decode: one write row per slot (continuous batching)
+            bi = torch.arange(B, device=x.device)
+            slots = pos0.long()
+            kc[bi, :, slots, :] = km[:, :, 0, :]         # (B, Kh, hd)
+            vc[bi, :, slots, :] = vm[:, :, 0, :]
+        elif S == 1:
+            p = int(pos0)
+            kc[:, :, p:p + 1] = km
+            vc[:, :, p:p + 1] = vm
+        elif S <= Smax:
+            kc[:, :, :S] = km
+            vc[:, :, :S] = vm
+        else:
+            raise _todo("prefill longer than the cache (ring layout)")
+
+    if S == 1 and cache is not None:
+        cl = (pos0 + 1) if torch.is_tensor(pos0) else int(pos0) + 1
+        out = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
+                               cl)[:, None]
+    else:
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, q_offset=0)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, cache, aux
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def apply_mlp(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+              tp_axis=None):
+    if tp_axis is not None:
+        raise _todo("tensor-parallel MLP")
+    if "w1" in params or cfg.mlp_act != "swiglu":
+        raise _todo(f"the {cfg.mlp_act} MLP")
+    g = torch.matmul(x, params["w_gate"])
+    u = torch.matmul(x, params["w_up"])
+    y = torch.matmul(F.silu(g) * u, params["w_down"])
+    return y, None, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,0 +1,159 @@
+"""Block composition for the serving path: pre-norm attention + dense MLP.
+
+Ports the attention/dense-MLP part of ``repro/models/transformer.py``.  The
+JAX package stacks same-kind blocks and runs them with ``lax.scan``
+(``stack_blocks``, ``scan_threshold``); PyTorch runs eagerly, so the port
+loops over layers in Python and keeps one param dict per block.
+``scan_runs`` stays, as the partition of a layer range into same-kind runs.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import (MIXER_ATTN, MLP_DENSE, LayerKind,
+                                      ModelConfig)
+from repro_torch.models import layers as L
+
+
+@dataclass
+class BlockCtx:
+    pos0: Any = 0                      # int, or (B,) positions for decode
+    cache: Any = None                  # per-layer cache dict or None
+    is_global: bool = True
+    causal: bool = True
+    tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
+    block_table: Any = None            # paged KV: (B, max_blocks) ids
+    paged_kernel: bool = False         # block-walk kernel vs gather decode
+    kv_extent: int = 0                 # chunked prefill (not ported yet)
+
+
+def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
+    if kind.mixer != MIXER_ATTN or kind.mlp != MLP_DENSE or kind.extra_cross:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kind {kind} is not ported to repro_torch "
+            "yet (attention + dense MLP only); see ROADMAP.md, section 1")
+
+
+# ---------------------------------------------------------------------------
+# Param shapes and init
+# ---------------------------------------------------------------------------
+
+def block_spec(cfg: ModelConfig, kind: LayerKind) -> dict:
+    """Param tree of one block as (shape, init) leaves; init is a normal
+    std, or "ones"/"zeros".  Scales follow repro/models/layers.py."""
+    _check_kind(cfg, kind)
+    d, H, Kh, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    ff = cfg.d_ff
+    s = 1.0 / math.sqrt(d)
+    mixer = {"wq": ((d, H, hd), s), "wk": ((d, Kh, hd), s),
+             "wv": ((d, Kh, hd), s),
+             "wo": ((H, hd, d), s / math.sqrt(2 * cfg.n_layers))}
+    if cfg.qkv_bias:
+        mixer.update(bq=((H, hd), "zeros"), bk=((Kh, hd), "zeros"),
+                     bv=((Kh, hd), "zeros"))
+    sf = 1.0 / math.sqrt(ff) / math.sqrt(2 * cfg.n_layers)
+    return {"ln1": {"scale": ((d,), "ones")}, "mixer": mixer,
+            "ln2": {"scale": ((d,), "ones")},
+            "mlp": {"w_gate": ((d, ff), s), "w_up": ((d, ff), s),
+                    "w_down": ((ff, d), sf)}}
+
+
+def model_spec(cfg: ModelConfig) -> dict:
+    if not cfg.tie_embeddings or cfg.encoder_layers or cfg.rope_theta == 0:
+        raise NotImplementedError(
+            f"{cfg.name}: untied heads, encoders and learned positions are "
+            "not ported to repro_torch yet; see ROADMAP.md, section 1")
+    return {"embed": ((cfg.vocab_size, cfg.d_model),
+                      1.0 / math.sqrt(cfg.d_model)),
+            "final_norm": {"scale": ((cfg.d_model,), "ones")},
+            "blocks": [block_spec(cfg, cfg.layer_kind(i))
+                       for i in range(cfg.n_layers)]}
+
+
+def _materialize(spec, generator, dtype, device):
+    if isinstance(spec, dict):
+        return {k: _materialize(v, generator, dtype, device)
+                for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [_materialize(v, generator, dtype, device) for v in spec]
+    shape, init = spec
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * init).to(device=device, dtype=dtype)
+
+
+def init_block(cfg: ModelConfig, kind: LayerKind, generator: torch.Generator,
+               dtype=torch.float32, device=None) -> dict:
+    return _materialize(block_spec(cfg, kind), generator, dtype,
+                        resolve_device(device))
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               dtype=torch.float32, device=None) -> dict:
+    """Random params with the JAX package's layout and scales, drawn from
+    ``generator``.  The numbers differ from ``repro``'s (another generator);
+    tests carry JAX-made params across with ``convert.params_from_numpy``."""
+    return _materialize(model_spec(cfg), generator, dtype,
+                        resolve_device(device))
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Exact parameter count from the param shapes (no allocation)."""
+    def walk(spec):
+        if isinstance(spec, dict):
+            return sum(walk(v) for v in spec.values())
+        if isinstance(spec, list):
+            return sum(walk(v) for v in spec)
+        return math.prod(spec[0])
+    return walk(model_spec(cfg))
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+def apply_block(cfg: ModelConfig, kind: LayerKind, params: dict,
+                x: torch.Tensor, ctx: BlockCtx):
+    """Returns (x, new_cache, aux); the cache is updated in place."""
+    _check_kind(cfg, kind)
+    cache = ctx.cache or {}
+    h = L.rms_norm(params["ln1"], x, cfg.rms_eps)
+    y, mc, aux = L.apply_attention(
+        cfg, params["mixer"], h, pos0=ctx.pos0, cache=cache.get("mixer"),
+        is_global=ctx.is_global, causal=ctx.causal, tp_axis=ctx.tp_axis,
+        sp_axis=ctx.sp_axis if ctx.is_global else None,
+        block_table=ctx.block_table, paged_kernel=ctx.paged_kernel,
+        kv_extent=ctx.kv_extent)
+    x = x + y
+    h = L.rms_norm(params["ln2"], x, cfg.rms_eps)
+    y, _, a = L.apply_mlp(cfg, params["mlp"], h, tp_axis=ctx.tp_axis)
+    x = x + y
+    return x, ({"mixer": mc} if mc is not None else None), aux + a
+
+
+def scan_runs(cfg: ModelConfig, lo: int, hi: int) -> list[tuple[int, int]]:
+    """Partition layers [lo, hi) into maximal runs of identical layer kind
+    and global/local flavor."""
+    runs: list[tuple[int, int]] = []
+    start = lo
+    prev = None
+    for li in range(lo, hi):
+        sig = (cfg.layer_kind(li), cfg.is_global_layer(li))
+        if prev is not None and sig != prev:
+            runs.append((start, li))
+            start = li
+        prev = sig
+    if hi > lo:
+        runs.append((start, hi))
+    return runs

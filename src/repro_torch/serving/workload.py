@@ -1,0 +1,79 @@
+"""Requests and synthetic arrival processes (the port's own copy).
+
+Mirrors ``repro/serving/workload.py``'s ``Request`` and ``synth_requests``
+and ``repro/core/cv_monitor.py``'s ``gamma_interarrivals``, so the same
+seed gives the same requests in both packages.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+
+@dataclass
+class Request:
+    rid: int
+    arrival: float
+    prompt_len: int
+    max_new_tokens: int
+    model: str = "default"
+    deadline_s: float = 10.0            # SLO budget from arrival
+    priority: int = 1                   # 0 interactive / 1 standard / 2 batch
+    # lifecycle (filled by the engine)
+    start: float = -1.0
+    first_token: float = -1.0
+    finish: float = -1.0
+    enqueued_at: float = -1.0           # when THIS attempt entered the queue
+    queue_wait: float = 0.0
+    retry_at: float = 0.0               # earliest re-admission time
+    # greedy tokens of the completed request (set by the engine)
+    output: Optional[list] = None
+
+    @property
+    def latency(self) -> float:
+        return self.finish - self.arrival if self.finish >= 0 else math.inf
+
+    @property
+    def met_slo(self) -> bool:
+        return self.latency <= self.deadline_s
+
+
+def gamma_interarrivals(rng, rate: float, cv: float, n: int) -> list[float]:
+    """Gamma-distributed intervals with exact target CV: shape k = 1/cv²,
+    scale = 1/(rate·k).  cv=1 is Poisson."""
+    if cv <= 0:
+        return [1.0 / rate] * n
+    k = 1.0 / (cv * cv)
+    theta = 1.0 / (rate * k)
+    return list(rng.gamma(k, theta, size=n))
+
+
+def synth_requests(rng: np.random.Generator, *, rate: float, cv: float,
+                   duration: float, prompt_mean: int = 512,
+                   decode_mean: int = 64, model: str = "default",
+                   t0: float = 0.0, deadline_s: float = 10.0,
+                   priority_mix: tuple | None = None) -> list[Request]:
+    """Gamma-process arrivals with target CV; Splitwise-like length mix."""
+    n = int(rate * duration * 1.5) + 16
+    ivs = gamma_interarrivals(rng, rate, cv, n)
+    out = []
+    t = t0
+    rid = 0
+    for iv in ivs:
+        t += iv
+        if t > t0 + duration:
+            break
+        p = int(np.clip(rng.lognormal(math.log(prompt_mean), 0.8), 16, 8192))
+        d = int(np.clip(rng.lognormal(math.log(decode_mean), 0.6), 4, 1024))
+        prio = 1
+        if priority_mix is not None:
+            mix = np.asarray(priority_mix, dtype=float)
+            prio = int(rng.choice(len(mix), p=mix / mix.sum()))
+        out.append(Request(rid=rid, arrival=t, prompt_len=p,
+                           max_new_tokens=d, model=model,
+                           deadline_s=deadline_s, priority=prio))
+        rid += 1
+    return out

@@ -1,0 +1,74 @@
+"""repro_torch stands alone: it imports neither jax nor the JAX package.
+
+The import check runs in a fresh interpreter, since this test process has
+already imported jax; a source scan backs it up."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "src" / "repro_torch"
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any import of jax or repro now fails
+sys.modules["repro"] = None
+import torch
+torch.set_num_threads(1)
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+from repro_torch.configs.base import get_arch
+from repro_torch.models.transformer import init_model
+from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
+                                        KVCacheConfig)
+from repro_torch.serving.workload import Request
+cfg = get_arch("qwen1.5-0.5b").smoke_config
+params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+for kv in (KVCacheConfig(), KVCacheConfig(paged=True, block_size=8)):
+    eng = FlexPipeEngine(cfg, params, [0, 2],
+                         EngineConfig(max_batch=2, max_seq=32, kv=kv),
+                         device="cpu")
+    reqs = [Request(rid=i, arrival=0.0, prompt_len=5 + i, max_new_tokens=3)
+            for i in range(3)]
+    assert eng.run(reqs).completed == 3
+    assert all(len(r.output) == 3 for r in reqs)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("MODULES", len(names))
+"""
+
+
+def test_package_imports_and_serves_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-c", _CHILD], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n = int(r.stdout.split("MODULES")[1])
+    assert n >= 15
+
+
+def _imported_modules(path: Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module or "")
+    return mods
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax_and_no_repro(path):
+    bad = {m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path} imports {sorted(bad)}"

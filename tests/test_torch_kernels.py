@@ -1,0 +1,231 @@
+"""repro_torch kernels: plain PyTorch versions held against the JAX oracles
+and the Pallas kernels (interpret mode), wrapper dispatch, build.py's
+error without nvcc.  The CUDA kernels themselves are tested in
+test_torch_cuda.py, which imports no JAX so it also runs on a GPU machine."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref
+from repro.kernels.decode_attention import (
+    decode_attention as pl_decode, paged_decode_attention as pl_paged)
+from repro.kernels.flash_attention import flash_attention as pl_flash
+from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_plain, gather_pages,
+    paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+
+torch.set_num_threads(2)
+
+TOL = {"float32": dict(atol=3e-5, rtol=3e-5),
+       "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _rand(rng, shape, dt="float32"):
+    """Same values for both frameworks: f32 numpy, rounded once to dt."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    t = torch.from_numpy(x).to(TORCH_DT[dt])
+    return t, jnp.asarray(t.float().numpy()).astype(dt)
+
+
+def _np(x):
+    return np.asarray(x.float() if torch.is_tensor(x) else x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,hd,causal,window", [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 64, 256, 8, 8, 32, True, 0),
+    (2, 96, 96, 4, 1, 64, True, 32),      # GQA + sliding window
+    (1, 33, 190, 2, 2, 16, False, 0),     # ragged, non-causal
+    (1, 1, 128, 4, 2, 64, True, 0),       # single query row
+])
+def test_flash_plain_vs_ref_and_pallas(dt, B, Sq, Skv, H, Kh, hd, causal,
+                                       window):
+    rng = np.random.default_rng(Sq * 7 + Skv)
+    q, qj = _rand(rng, (B, Sq, H, hd), dt)
+    k, kj = _rand(rng, (B, Skv, Kh, hd), dt)
+    v, vj = _rand(rng, (B, Skv, Kh, hd), dt)
+    out = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == q.dtype and out.shape == (B, Sq, H, hd)
+    expect = ref.attention_ref(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(_np(out), _np(expect), **TOL[dt])
+    pallas = pl_flash(qj, kj, vj, causal=causal, window=window, block_q=32,
+                      block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), **TOL[dt])
+
+
+@pytest.mark.parametrize("c0,L", [(0, 32), (32, 32), (96, 32), (64, 17)])
+def test_flash_q_offset_matches_full_rows(c0, L):
+    rng = np.random.default_rng(c0 + L)
+    q, qj = _rand(rng, (1, 128, 4, 32))
+    k, kj = _rand(rng, (1, 128, 2, 32))
+    v, vj = _rand(rng, (1, 128, 2, 32))
+    full = flash_attention_plain(q, k, v, causal=True)
+    chunk = flash_attention_plain(q[:, c0:c0 + L], k, v, causal=True,
+                                  q_offset=c0)
+    np.testing.assert_allclose(_np(chunk), _np(full)[:, c0:c0 + L],
+                               atol=3e-5, rtol=3e-5)
+    pallas = pl_flash(qj[:, c0:c0 + L], kj, vj, causal=True, q_offset=c0,
+                      block_q=32, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(chunk), _np(pallas), atol=3e-5, rtol=3e-5)
+
+
+def test_flash_fully_masked_rows_are_zero():
+    """A causal query before every key (q_offset < 0 past the span) sees no
+    key: the Pallas kernels return 0 there, and so does the plain version."""
+    rng = np.random.default_rng(3)
+    q, _ = _rand(rng, (1, 4, 2, 16))
+    k, _ = _rand(rng, (1, 8, 2, 16))
+    out = flash_attention_plain(q, k, k, causal=True, q_offset=-4)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# decode attention (dense and paged)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Kh,hd,Smax,lens", [
+    (2, 4, 2, 64, 300, [293, 17]),
+    (1, 8, 8, 32, 512, [505]),
+    (4, 4, 1, 128, 64, [64, 1, 33, 0]),   # full, one row, ragged, empty
+    (2, 4, 2, 16, 100, [100, 37]),        # Smax not a multiple of a tile
+])
+def test_decode_plain_vs_ref_and_pallas(dt, B, H, Kh, hd, Smax, lens):
+    rng = np.random.default_rng(Smax + B)
+    q, qj = _rand(rng, (B, H, hd), dt)
+    kc, kj = _rand(rng, (B, Kh, Smax, hd), dt)
+    vc, vj = _rand(rng, (B, Kh, Smax, hd), dt)
+    cl = np.asarray(lens, np.int32)
+    out = decode_attention_plain(q, kc, vc, torch.from_numpy(cl))
+    assert out.dtype == q.dtype and out.shape == (B, H, hd)
+    pallas = pl_decode(qj, kj, vj, jnp.asarray(cl), block_k=64,
+                       interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), **TOL[dt])
+    live = cl > 0                 # the jnp oracle is NaN on an empty cache
+    expect = ref.decode_attention_ref(qj, kj, vj, jnp.asarray(cl))
+    np.testing.assert_allclose(_np(out)[live], _np(expect)[live], **TOL[dt])
+
+
+def test_decode_dead_rows_contribute_zero():
+    """Rows at or past cache_len may hold anything, NaN included."""
+    rng = np.random.default_rng(5)
+    q, _ = _rand(rng, (2, 4, 16))
+    kc, _ = _rand(rng, (2, 2, 40, 16))
+    vc, _ = _rand(rng, (2, 2, 40, 16))
+    cl = torch.tensor([13, 40], dtype=torch.int32)
+    clean = decode_attention_plain(q, kc, vc, cl)
+    kc[0, :, 13:] = float("nan")
+    vc[0, :, 13:] = float("inf")
+    assert torch.equal(decode_attention_plain(q, kc, vc, cl), clean)
+
+
+def _paged_setup(rng, B, Kh, hd, bs, M, lens):
+    """Pools with each slot's live blocks at random physical ids; dead and
+    unallocated table entries point at the null block 0."""
+    n_blocks = 1 + B * M
+    perm = rng.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((B, M), np.int32)
+    kp = rng.standard_normal((n_blocks, Kh, bs, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_blocks, Kh, bs, hd)).astype(np.float32)
+    idx = 0
+    for b in range(B):
+        for j in range(-(-int(lens[b]) // bs)):
+            tables[b, j] = perm[idx]
+            idx += 1
+    return kp, vp, tables
+
+
+@pytest.mark.parametrize("B,H,Kh,hd,bs,M,lens", [
+    (3, 4, 2, 16, 16, 6, [5, 96, 33]),
+    (2, 4, 4, 32, 8, 4, [1, 32]),         # MHA, full tail block
+    (1, 8, 2, 16, 32, 3, [70]),           # GQA 4, partial tail
+    (2, 4, 4, 16, 16, 4, [0, 20]),        # an empty slot: all-null table
+])
+def test_paged_plain_vs_pallas_and_dense(B, H, Kh, hd, bs, M, lens):
+    rng = np.random.default_rng(B * 10 + M)
+    kp, vp, tables = _paged_setup(rng, B, Kh, hd, bs, M, lens)
+    q, qj = _rand(rng, (B, H, hd))
+    cl = np.asarray(lens, np.int32)
+    kt, vt, bt = (torch.from_numpy(kp), torch.from_numpy(vp),
+                  torch.from_numpy(tables))
+    out = paged_decode_attention_plain(q, kt, vt, bt, torch.from_numpy(cl))
+    pallas = pl_paged(qj, jnp.asarray(kp), jnp.asarray(vp),
+                      jnp.asarray(tables), jnp.asarray(cl), interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), atol=3e-5, rtol=3e-5)
+    # the gathered logical view through the dense version: same bits
+    dense = decode_attention_plain(q, gather_pages(kt, bt),
+                                   gather_pages(vt, bt), torch.from_numpy(cl))
+    assert torch.equal(out, dense)
+
+
+def test_gather_pages_layout():
+    rng = np.random.default_rng(9)
+    kp, _, tables = _paged_setup(rng, 2, 2, 8, 4, 3, [9, 4])
+    g = gather_pages(torch.from_numpy(kp), torch.from_numpy(tables))
+    assert g.shape == (2, 2, 12, 8)
+    # logical row 5 of slot 0 is row 1 of its second block
+    np.testing.assert_array_equal(g[0, :, 5].numpy(), kp[tables[0, 1], :, 1])
+
+
+# ---------------------------------------------------------------------------
+# wrappers and build.py
+# ---------------------------------------------------------------------------
+
+def test_cpu_wrappers_use_plain_versions_and_count_nothing():
+    build.reset_launches()
+    rng = np.random.default_rng(11)
+    q, _ = _rand(rng, (2, 4, 16))
+    kc, _ = _rand(rng, (2, 2, 24, 16))
+    cl = torch.tensor([24, 7], dtype=torch.int32)
+    assert torch.equal(decode_attention(q, kc, kc, cl),
+                       decode_attention_plain(q, kc, kc, cl))
+    kp, vp, tables = _paged_setup(rng, 2, 2, 16, 8, 3, [24, 7])
+    args = (q, torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(tables), cl)
+    assert torch.equal(paged_decode_attention(*args),
+                       paged_decode_attention_plain(*args))
+    qf, _ = _rand(rng, (1, 12, 4, 16))
+    kf, _ = _rand(rng, (1, 20, 2, 16))
+    assert torch.equal(flash_attention(qf, kf, kf, q_offset=3),
+                       flash_attention_plain(qf, kf, kf, q_offset=3))
+    assert sum(build.launches.values()) == 0
+
+
+def test_wrappers_reject_other_devices():
+    q = torch.zeros((1, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attention(q, torch.zeros((1, 2, 8, 16), device="meta"),
+                         torch.zeros((1, 2, 8, 16), device="meta"), 4)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build, "CUDA_HOME_DEFAULT", str(tmp_path / "none"))
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_all()
+    assert not (tmp_path / "kernels").exists()
+
+
+def test_library_names_hash_their_sources():
+    p = build._lib_path("decode_attention")
+    assert p.parent == build.BUILD_DIR and p.suffix == ".so"
+    assert p != build._lib_path("flash_attention")
+    assert p == build._lib_path("decode_attention")
+
