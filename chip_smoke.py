@@ -9,9 +9,10 @@ Phases, each fatal on failure:
   2. build every CUDA kernel from src/repro_torch/kernels/csrc into
      build/kernels/ (one nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version on the card, f32 and
-     bf16, at the serving path's shapes; time kernel, plain version and one
+     bf16, at the serving paths' shapes; time kernel, plain version and one
      PyTorch library call computing the same function, beside the bound;
-  4. check the port's logits on the card against its CPU path (smoke size);
+  4. check the port's logits on the card against its CPU path (smoke size,
+     qwen1.5-0.5b and rwkv6-1.6b);
   5. serve full-width qwen1.5-0.5b (random weights from seed 0): a dense
      run through FlexPipeEngine.run, then dense, paged-gather and
      paged-kernel runs refactored [0,12] -> [0,6,12,18] -> [0,12] mid-stream;
@@ -19,7 +20,12 @@ Phases, each fatal on failure:
      must have been launched by the engine;
   6. time a cold and a warm refactor of a loaded dense engine (the cold
      one must allocate far less than the live cache), then profile a few
-     dense decode ticks: device time by kernel, idle share.
+     dense decode ticks: device time by kernel, idle share;
+  7. serve full-width rwkv6-1.6b the same way (dense only: its state does
+     not page): run(), then a run refactored at the same ticks, streams
+     bit-identical, every WKV step of the path in the wkv6 kernel, and each
+     generated token of two requests equal to a whole-sequence forward's;
+  8. phase 6 for the rwkv6-1.6b engine.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -45,6 +51,17 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 # bf16: 2.5x the largest error these shapes showed on an H100 (2.0e-3)
 TOL = {"float32": 3e-5, "bfloat16": 5e-3}
+# wkv6, times the plain version's mean |y|: f32 as tests/test_kernels.py's
+# wkv tolerance; bf16 one ulp (2^-7) of the largest |y|, which stays under
+# about 6 mean |y| here (kernel and plain round y to bf16 apart)
+WKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# H100 SXM maximum SM clock (data sheet) and the latency of a dependent f32
+# fused multiply-add, in cycles: the floor S dependent WKV steps set
+SM_CLOCK_HZ = 1.98e9
+FMA_CYCLES = 4
+# decode == forward is required where the forward's top-2 logit margin
+# exceeds this (the two paths sum in different orders)
+MARGIN_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -65,12 +82,17 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+    """Mean device time of one call, by CUDA events around ``iters`` calls.
+    A device-side sleep ahead of the first event lets the host queue every
+    call first, so a kernel shorter than its wrapper's host time is timed on
+    the device, not at the host's enqueue rate (a call that alone queues
+    more than the sleep still reads high)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(0.05 * SM_CLOCK_HZ))        # about 50 ms
     a.record()
     for _ in range(iters):
         fn()
@@ -217,6 +239,7 @@ def kernel_checks(torch):
                             qt, kt, vt, is_causal=True)),
                     bound_ms=t_bound, bound_by=by,
                     shape=f"B=1 Sq=Skv=512 H=Kh=16 hd=64 causal f32")
+    wkv_checks(torch, rnd, results)
     for name, r in results.items():
         lib = r["library_ms"]
         log(f"  {name:24s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -226,29 +249,118 @@ def kernel_checks(torch):
     return results
 
 
+def wkv_checks(torch, rnd, results):
+    """wkv6 against wkv6_plain at the rwkv6-1.6b path's two shapes (prefill
+    B=1 S=512, decode B=8 S=1; H=32, hd=64), the chunk-composition
+    property, and both shapes timed beside their bounds."""
+    from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain
+
+    H, hd = 32, 64
+    r_ = results.setdefault("wkv6", {"max_abs_err": 0.0,
+                                     "max_abs_err_bf16": 0.0})
+
+    def inputs(B, S, dt, state):
+        r, k, v = (rnd((B, S, H, hd), dt) * 0.5 for _ in range(3))
+        w = (torch.sigmoid(rnd((B, S, H, hd), "float32")) * 0.5
+             + 0.45).to(r.dtype)
+        u = rnd((H, hd), "float32") * 0.1
+        st0 = rnd((B, H, hd, hd), "float32") if state else None
+        return r, k, v, w, u, st0
+
+    def compare(dt, case, out, ref):
+        (y, st), (y_ref, st_ref) = out, ref
+        torch.cuda.synchronize()
+        mean_y = float(y_ref.float().abs().mean())
+        mean_s = float(st_ref.abs().mean())
+        err = float((y.float() - y_ref.float()).abs().max())
+        err_s = float((st - st_ref).abs().max())
+        key = "max_abs_err" if dt == "float32" else "max_abs_err_bf16"
+        if err >= r_[key]:
+            r_[key] = err
+            r_["mean_abs_out" if dt == "float32"
+               else "mean_abs_out_bf16"] = mean_y
+        log(f"  {'wkv6':24s} {dt:8s} {case:34s} max|err| y {err:.3e} "
+            f"(tol {WKV_TOL[dt]:g} x mean|y| {mean_y:.3e}), state "
+            f"{err_s:.3e} (tol {WKV_TOL['float32']:g} x {mean_s:.3e})")
+        check(bool(torch.isfinite(y.float()).all())
+              and bool(torch.isfinite(st).all()),
+              f"wkv6 {dt} {case}: non-finite output")
+        check(err <= WKV_TOL[dt] * mean_y,
+              f"wkv6 {dt} {case}: y error {err} > {WKV_TOL[dt]} x {mean_y}")
+        check(err_s <= WKV_TOL["float32"] * mean_s,
+              f"wkv6 {dt} {case}: state error {err_s}")
+
+    for dt in ("float32", "bfloat16"):
+        for B, S, state, label in ((1, 512, False, "prefill S=512, no state0"),
+                                   (1, 512, True, "prefill S=512, state0"),
+                                   (8, 1, True, "decode B=8, state0")):
+            args = inputs(B, S, dt, state)
+            ref = wkv6_plain(*args)        # before wkv6 overwrites state0
+            compare(dt, label, wkv6(*args), ref)
+    # chunk composition: [0, s1) then [s1, S) from the carried state
+    r, k, v, w, u, st0 = inputs(1, 512, "float32", True)
+    s1 = 200
+    whole = wkv6(r, k, v, w, u, st0.clone())
+    y1, st1 = wkv6(r[:, :s1].contiguous(), k[:, :s1].contiguous(),
+                   v[:, :s1].contiguous(), w[:, :s1].contiguous(), u, st0)
+    y2, st2 = wkv6(r[:, s1:].contiguous(), k[:, s1:].contiguous(),
+                   v[:, s1:].contiguous(), w[:, s1:].contiguous(), u, st1)
+    compare("float32", f"chunks [0,{s1}) + [{s1},512)",
+            (torch.cat([y1, y2], 1), st2), whole)
+
+    def timing(B, S):
+        """(ms, plain ms, bound ms, by, floor ms) of one f32 call with a
+        state0, as the serving path makes it (each timed call carries the
+        state on from the last)."""
+        args = inputs(B, S, "float32", True)
+        nbytes = (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd) * 4
+        # 5 flops per state element and step: y += r * (S + u k v) (one
+        # multiply-add with u k v shared by a row) and S = w S + k v
+        ops = 5 * B * H * hd * hd * S
+        t_bound, by = bound(nbytes, ops, "float32")
+        return (time_ms(torch, lambda: wkv6(*args)),
+                time_ms(torch, lambda: wkv6_plain(*args), iters=3),
+                t_bound, by, S * FMA_CYCLES / SM_CLOCK_HZ * 1e3)
+
+    # the floor of S dependent steps is a data-sheet reckoning, not a
+    # measurement: it goes to the log, not to the kernels line
+    ms, plain, t_bound, by, floor = timing(8, 1)
+    r_.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=t_bound,
+              bound_by=by, shape=f"decode B=8 S=1 H={H} hd={hd} f32, state0")
+    log(f"  {'wkv6 decode':24s} 1 dependent step {floor:.6f} ms "
+        f"(S x {FMA_CYCLES} cycles at {SM_CLOCK_HZ / 1e9:g} GHz)")
+    ms, plain, t_bound, by, floor = timing(1, 512)
+    r_["prefill"] = dict(ms=ms, plain_ms=plain, bound_ms=t_bound,
+                         bound_by=by,
+                         shape=f"prefill B=1 S=512 H={H} hd={hd} f32, state0")
+    log(f"  {'wkv6 prefill':24s} {ms:.4f} ms  plain {plain:.4f} ms  library "
+        f"n/a  bound {t_bound:.4f} ms ({by}), {512} dependent steps "
+        f"{floor:.4f} ms, measured {ms / 512 * 1e-3 * SM_CLOCK_HZ:.0f} "
+        f"cycles per step  [{r_['prefill']['shape']}]")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the port's logits on the card against its CPU path
 # ---------------------------------------------------------------------------
 
-def small_model_check(torch):
+def small_model_check(torch, arch):
     from repro_torch.configs.base import get_arch
+    from repro_torch.convert import tree_from_numpy, tree_to_numpy
     from repro_torch.models import model as M
     from repro_torch.models.transformer import init_model
 
-    cfg = get_arch("qwen1.5-0.5b").smoke_config
+    cfg = get_arch(arch).smoke_config
     cpu = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
-    gpu = {"embed": cpu["embed"].cuda(),
-           "final_norm": {"scale": cpu["final_norm"]["scale"].cuda()},
-           "blocks": [{k: {n: t.cuda() for n, t in v.items()}
-                       for k, v in b.items()} for b in cpu["blocks"]]}
+    gpu = tree_from_numpy(tree_to_numpy(cpu), "cuda")
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))
     lc, _, _ = M.forward(cfg, cpu, {"tokens": torch.from_numpy(toks)})
     lg, _, _ = M.forward(cfg, gpu, {"tokens": torch.from_numpy(toks).cuda()})
     err = float((lg.cpu() - lc).abs().max())
-    log(f"  smoke-size forward, card vs CPU: logits {tuple(lg.shape)}, "
-        f"max|err| {err:.3e} (tol 1e-4)")
+    log(f"  {arch} smoke-size forward, card vs CPU: logits "
+        f"{tuple(lg.shape)}, max|err| {err:.3e} (tol 1e-4)")
     check(bool(torch.isfinite(lg).all()), "non-finite logits on the card")
-    check(err <= 1e-4, f"card logits differ from the CPU path by {err}")
+    check(err <= 1e-4, f"{arch}: card logits differ from the CPU path by "
+          f"{err}")
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +402,7 @@ def serve(torch, label, cfg, params, kv, refactors):
     torch.cuda.synchronize()
     build.reset_launches()
     t0 = time.perf_counter()
-    decode_s, decode_tok, decode_ticks, ticks = 0.0, 0, 0, 0
+    decode_s, decode_tok, decode_ticks, ticks, ticks_decoding = 0.0, 0, 0, 0, 0
     if refactors is None:
         eng.run(reqs)                          # the user's entry point
     else:
@@ -305,6 +417,7 @@ def serve(torch, label, cfg, params, kv, refactors):
             t1 = time.perf_counter()
             rep = eng.step(now)
             dt = time.perf_counter() - t1      # step ends in a host sync
+            ticks_decoding += rep.decoded > 0
             if rep.admitted == 0 and rep.decoded:
                 decode_s += dt
                 decode_tok += rep.decoded
@@ -323,6 +436,7 @@ def serve(torch, label, cfg, params, kv, refactors):
         check(eng.block_stats()["used_blocks"] == 0,
               f"{label}: blocks leaked")
     info = {"wall_s": wall, "launches": launches, "ticks": ticks,
+            "ticks_decoding": ticks_decoding,
             "refactors": len(eng.refactor_events)}
     if decode_ticks:
         info.update(decode_tok_per_s=decode_tok / decode_s,
@@ -334,9 +448,10 @@ def serve(torch, label, cfg, params, kv, refactors):
     return streams, reqs, info
 
 
-def profile_decode(torch, cfg, params, ticks=5):
+def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     """Device time by kernel over a few steady dense decode ticks at batch 8,
-    and the device's idle share of their wall time."""
+    and the device's idle share of their wall time.  A cold refactor may
+    allocate at most 1/``extra_limit`` of the live cache."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
@@ -368,8 +483,9 @@ def profile_decode(torch, cfg, params, ticks=5):
           f"cold refactor accounting: {cold}")
     check(warm["compile_cache_hit"] and warm["new_traces"] == 0,
           f"warm refactor accounting: {warm}")
-    check(extra * 20 <= live,
-          f"cold refactor allocated {extra} B beside a {live} B live cache")
+    check(extra * extra_limit <= live,
+          f"cold refactor allocated {extra} B beside a {live} B live cache "
+          f"(limit 1/{extra_limit})")
     # which calls of one tick wait for the device (the B-id copy must)
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
@@ -393,39 +509,85 @@ def profile_decode(torch, cfg, params, ticks=5):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
-    if not rows:
+    out = {"cold_refactor_ms": cold["t"] * 1e3, "cold_extra_bytes": extra,
+           "live_cache_bytes": live, "warm_refactor_ms": warm["t"] * 1e3,
+           "syncs_per_tick": len(syncs)}
+    if rows:
+        rows.sort(key=lambda r: -r[1])
+        out.update(profiled_ms_per_tick=wall_us / ticks / 1e3,
+                   busy_ms_per_tick=busy_us / ticks / 1e3,
+                   idle_share=1 - busy_us / wall_us)
+        log(f"  {ticks} decode ticks: wall {out['profiled_ms_per_tick']:.3f} "
+            f"ms/tick, device busy {out['busy_ms_per_tick']:.3f} ms/tick, "
+            f"idle share {out['idle_share']:.3f} (profiler on)")
+        ours = ("decode_kernel", "flash_kernel", "wkv6_kernel")
+        for i, (key, us, n) in enumerate(rows):
+            if i < 10 or any(k in key for k in ours):
+                log(f"    {us / ticks:10.1f} us/tick {n / ticks:6.1f}/tick  "
+                    f"{key[:80]}")
+    else:
         log("  profiler saw no device time: not measured")
-        return
-    rows.sort(key=lambda r: -r[1])
-    log(f"  {ticks} decode ticks: wall {wall_us / ticks / 1e3:.3f} ms/tick, "
-        f"device busy {busy_us / ticks / 1e3:.3f} ms/tick, idle share "
-        f"{1 - busy_us / wall_us:.3f} (profiler on)")
-    for key, us, n in rows[:10]:
-        log(f"    {us / ticks:10.1f} us/tick {n / ticks:6.1f}/tick  {key[:80]}")
+    log(f"  {cfg.name} profile summary on {card}: {json.dumps(out)}")
+    return out
 
 
-def serving(torch, card):
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def decode_equals_forward(torch, cfg, params, reqs):
+    """Each generated token of ``reqs`` is the argmax of one whole-sequence
+    forward over prompt + output, wherever that forward's top-2 margin
+    exceeds MARGIN_TOL."""
+    from repro_torch.models import model as M
+    checked, skipped, low = 0, 0, float("inf")
+    for req in reqs:
+        toks = np.concatenate([req.prompt_tokens, req.output[:-1]])
+        logits, _, _ = M.forward(cfg, params,
+                                 {"tokens": torch.from_numpy(toks)[None].cuda()})
+        tail = logits[0, len(req.prompt_tokens) - 1:].float()
+        top = torch.topk(tail, 2, dim=-1)
+        margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+        ids = top.indices[:, 0].cpu().numpy()
+        for j, tok in enumerate(req.output):
+            if margin[j] <= MARGIN_TOL:
+                skipped += 1
+                continue
+            checked += 1
+            low = min(low, float(margin[j]))
+            check(int(ids[j]) == tok,
+                  f"request {req.rid}: token {j} is {tok} on the decode "
+                  f"path, {int(ids[j])} by forward (margin {margin[j]:.3e})")
+    log(f"  decode == forward for requests {[r.rid for r in reqs]}: "
+        f"{checked} tokens equal, {skipped} skipped (top-2 margin <= "
+        f"{MARGIN_TOL:g}), smallest margin checked {low:.3e}")
+
+
+def serving(torch, card, arch, generator, refactored, prefix=""):
+    """Serve full-width ``arch``: a dense run through run(), then one run
+    per ``refactored`` entry (label -> KV config) refactored mid-stream;
+    every stream must equal the run() streams."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models.transformer import init_model
 
-    cfg = get_arch("qwen1.5-0.5b").config
+    cfg = get_arch(arch).config
     t0 = time.perf_counter()
-    params = init_model(cfg, torch.Generator().manual_seed(0), device="cuda")
-    n = sum(t.numel() for t in [params["embed"], params["final_norm"]["scale"]]
-            + [t for b in params["blocks"] for v in b.values()
-               for t in v.values()])
-    log(f"  qwen1.5-0.5b: {cfg.n_layers} layers, d={cfg.d_model}, "
+    params = init_model(cfg, generator, device="cuda")
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
         f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {n} params f32 "
         f"({time.perf_counter() - t0:.1f} s to init)")
     check(n == cfg.param_count(), "param count mismatch")
     moves = {10: [0, 6, 12, 18], 30: [0, 12]}
-    base, _, info_a = serve(torch, "dense run()", cfg, params, {}, None)
-    runs = {"dense run()": info_a}
-    for label, kv in (("dense refactored", {}),
-                      ("paged gather refact.", dict(paged=True,
-                                                    block_size=16)),
-                      ("paged kernel refact.", dict(paged=True, block_size=16,
-                                                    paged_kernel=True))):
+    base, base_reqs, info_a = serve(torch, prefix + "dense run()", cfg,
+                                    params, {}, None)
+    runs = {prefix + "dense run()": info_a}
+    for label, kv in refactored.items():
+        label = prefix + label
         streams, reqs, info = serve(torch, label, cfg, params, kv, moves)
         runs[label] = info
         check(info["refactors"] == 2, f"{label}: refactors did not happen")
@@ -439,13 +601,11 @@ def serving(torch, card):
                 f"(top-2 logit margin there {m:.3e})")
             raise SmokeFailure(f"{label}: streams differ from the dense run")
         log(f"  {label}: all 16 streams bit-identical to the dense run")
-    a = runs["dense refactored"]
-    log(f"  decode: {a['decode_tok_per_s']:.1f} tok/s, "
+    a = runs[prefix + "dense refactored"]
+    log(f"  {arch} decode: {a['decode_tok_per_s']:.1f} tok/s, "
         f"{a['decode_ms_per_tick']:.3f} ms/tick at batch 8 (dense, f32) "
         f"on {card}")
-    log("== 6. where a dense decode tick's time goes")
-    profile_decode(torch, cfg, params)
-    return runs
+    return cfg, params, base_reqs, runs
 
 
 # ---------------------------------------------------------------------------
@@ -480,25 +640,61 @@ def main() -> int:
     log("== 3. kernels vs plain versions")
     kres = kernel_checks(torch)
     log("== 4. small-input model check")
-    small_model_check(torch)
+    for arch in ("qwen1.5-0.5b", "rwkv6-1.6b"):
+        small_model_check(torch, arch)
     log("== 5. serving qwen1.5-0.5b")
-    runs = serving(torch, card)
+    cfg, params, _, runs = serving(
+        torch, card, "qwen1.5-0.5b", torch.Generator().manual_seed(0),
+        {"dense refactored": {},
+         "paged gather refact.": dict(paged=True, block_size=16),
+         "paged kernel refact.": dict(paged=True, block_size=16,
+                                      paged_kernel=True)})
+    log("== 6. where a dense decode tick's time goes")
+    profile_decode(torch, card, cfg, params, 20)
+    del cfg, params
+    torch.cuda.empty_cache()
+    log("== 7. serving rwkv6-1.6b")
+    # 1/10: a cold refactor's throwaway tick holds one layer's scratch
+    # state (B x (H hd^2 + 2 d) f32, 1/24 of the live state; the kernel
+    # updates it in place) and the B x V f32 logits (1/49): about 1/16 in
+    # all, and no second copy of the live state
+    cfg, params, reqs, rwkv_runs = serving(
+        torch, card, "rwkv6-1.6b",
+        torch.Generator(device="cuda").manual_seed(0),
+        {"dense refactored": {}}, prefix="rwkv6 ")
+    runs.update(rwkv_runs)
+    ref = rwkv_runs["rwkv6 dense refactored"]
+    want = cfg.n_layers * (len(reqs) + ref["ticks_decoding"])
+    got = ref["launches"].get("wkv6", 0)
+    log(f"  wkv6 launches in the refactored run: {got} = {cfg.n_layers} x "
+        f"({len(reqs)} prefills + {ref['ticks_decoding']} decode ticks): "
+        f"{want}")
+    check(got == want, "not every WKV step of the rwkv6 path ran in wkv6")
+    decode_equals_forward(torch, cfg, params,
+                          sorted(reqs, key=lambda r: r.prompt_len)[::15])
+    log("== 8. where an rwkv6 decode tick's time goes")
+    profile_decode(torch, card, cfg, params, 10)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
-             "paged_decode_attention": "paged kernel refact."}
+             "paged_decode_attention": "paged kernel refact.",
+             "wkv6": "rwkv6 dense run()"}
     replaces = {
         "decode_attention": "src/repro/kernels/decode_attention.py:87",
         "paged_decode_attention": "src/repro/kernels/decode_attention.py:183",
-        "flash_attention": "src/repro/kernels/flash_attention.py:71"}
+        "flash_attention": "src/repro/kernels/flash_attention.py:71",
+        "wkv6": "src/repro/kernels/rwkv6_wkv.py:59"}
     sources = {
         "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "paged_decode_attention":
             "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+        "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "wkv6": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu"}
+    tolerance = {name: (TOL["float32"], TOL["bfloat16"]) for name in paths}
+    tolerance["wkv6"] = ("%g x mean|y|" % WKV_TOL["float32"],
+                         "%g x mean|y|" % WKV_TOL["bfloat16"])
     kernels = []
-    for name in ("decode_attention", "paged_decode_attention",
-                 "flash_attention"):
+    for name in paths:
         n = runs[paths[name]]["launches"].get(name, 0)
         check(n > 0, f"{name} was not launched on the serving path")
         r = kres[name]
@@ -509,11 +705,14 @@ def main() -> int:
             "max_abs_err_bf16": r["max_abs_err_bf16"],
             "mean_abs_out": r["mean_abs_out"],
             "mean_abs_out_bf16": r["mean_abs_out_bf16"],
-            "tolerance": TOL["float32"], "tolerance_bf16": TOL["bfloat16"],
+            "tolerance": tolerance[name][0],
+            "tolerance_bf16": tolerance[name][1],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "launched_in": paths[name]})
+        if "prefill" in r:
+            kernels[-1]["prefill"] = r["prefill"]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

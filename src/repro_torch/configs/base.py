@@ -2,12 +2,13 @@
 
 Mirrors ``repro/configs/base.py`` field for field for the parts the serving
 path reads, so a test can build the same config in both packages.  Pipeline
-plans and input shapes of the JAX package are not part of this slice.
+plans and input shapes of the JAX package are not part of the port yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 MIXER_ATTN = "attn"          # self attention (GQA / MHA)
 MIXER_MLA = "mla"            # DeepSeek-V2 multi-head latent attention
@@ -28,6 +29,14 @@ class LayerKind:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """RWKV-6 sizes (the JAX package's Mamba fields are not ported yet)."""
+    head_size: int = 64
+    decay_lora: int = 64
+    mix_lora: int = 32
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -45,6 +54,7 @@ class ModelConfig:
     sliding_window: int = 0
     global_every: int = 0
     pattern: tuple[LayerKind, ...] = (LayerKind(),)
+    ssm: Optional[SSMConfig] = None
     encoder_layers: int = 0
     n_memory_tokens: int = 0
     mlp_act: str = "swiglu"
@@ -100,6 +110,7 @@ def get_arch(name: str) -> ArchSpec:
 
 def _load_all() -> None:
     from repro_torch.configs import qwen1_5_0_5b  # noqa: F401  (registers)
+    from repro_torch.configs import rwkv6_1_6b  # noqa: F401
 
 
 def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,14 +1,17 @@
 """Weight and cache bridge between numpy trees and torch tensors.
 
 The JAX package keeps params and caches as nested dicts and lists of arrays
-(``repro.models.transformer.init_model``): ``embed (V, d)`` (tied head),
-``final_norm.scale``, and per block ``ln1/ln2.scale``, ``mixer.wq (d, H, hd)``,
+(``repro.models.transformer.init_model``): ``embed (V, d)``, ``lm_head (d, V)``
+when the head is untied, ``final_norm.scale``, and per block
+``ln1/ln2.scale`` plus, for attention, ``mixer.wq (d, H, hd)``,
 ``mixer.wk/wv (d, Kh, hd)``, ``mixer.wo (H, hd, d)``, ``mixer.bq/bk/bv`` and
-``mlp.w_gate/w_up (d, ff)``, ``mlp.w_down (ff, d)``.  Caches are per-layer
-lists of ``{"mixer": {"k", "v"}}`` with dense ``(B, Kh, Smax, hd)`` rows or
-paged ``(n_blocks, Kh, block_size, hd)`` pools.  This module keeps that
-layout unchanged and only swaps the leaf type, so it takes numpy (after
-``np.asarray`` on the JAX side) and never imports JAX.
+``mlp.w_gate/w_up (d, ff)``, ``mlp.w_down (ff, d)``, or, for RWKV-6, the
+``mixer`` tree of ``repro.models.ssm.init_rwkv`` (nested ``tm.{w,k,v,r,g}``).
+Caches are per-layer lists of ``{"mixer": {"k", "v"}}`` with dense
+``(B, Kh, Smax, hd)`` rows or paged ``(n_blocks, Kh, block_size, hd)`` pools,
+or RWKV state ``{"mixer": {"sx_tm", "sx_cm", "wkv"}}``.  This module keeps
+that layout unchanged and only swaps the leaf type, so it takes numpy
+(after ``np.asarray`` on the JAX side) and never imports JAX.
 """
 from __future__ import annotations
 
@@ -76,12 +79,13 @@ def params_from_numpy(tree: dict, device, dtype=torch.float32) -> dict:
 
 
 def cache_from_numpy(caches: list, device, dtype=None) -> list:
-    """Dense or paged per-layer caches (numpy leaves) -> torch tensors."""
+    """Dense, paged or recurrent per-layer caches (numpy leaves) -> torch
+    tensors."""
     return tree_from_numpy(caches, device, dtype)
 
 
 def cache_to_numpy(caches: list) -> list:
-    """Dense or paged per-layer caches -> numpy leaves."""
+    """Dense, paged or recurrent per-layer caches -> numpy leaves."""
     return tree_to_numpy(caches)
 
 

@@ -48,6 +48,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
              _P],
     },
+    "rwkv6_wkv": {
+        # r, k, v, w, u, state (in and out), y, B, S, H, hd, dtype, stream
+        "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 launches: collections.Counter = collections.Counter()

@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels: element conversion, warp
+// Helpers shared by the kernels: element conversion, warp
 // reductions and the dtype codes of the C interface.
 #pragma once
 

@@ -1,11 +1,14 @@
 """KV cache construction, the paged block allocator and stage regrouping.
 
-Ports the attention-layer part of ``repro/models/kvcache.py``.  Two layouts:
+Ports the attention- and RWKV-layer parts of ``repro/models/kvcache.py``.
+Two layouts:
 
-* **dense**: per-layer ``(batch, Kh, max_seq, hd)`` rows;
-* **paged**: per-layer block pools ``(n_blocks, Kh, block_size, hd)`` plus
-  per-slot block tables (host side) mapping logical token blocks to
-  physical ones.  Tables are shared across layers, so refactoring stays a
+* **dense**: per-layer ``(batch, Kh, max_seq, hd)`` rows; an RWKV layer
+  holds its recurrent state instead, ``{"sx_tm": (batch, d), "sx_cm":
+  (batch, d), "wkv": (batch, H, hd, hd)}``, whatever ``max_seq`` is;
+* **paged** (attention only): per-layer block pools
+  ``(n_blocks, Kh, block_size, hd)`` plus per-slot block tables (host
+  side) mapping logical token blocks to physical ones.  Tables are shared across layers, so refactoring stays a
   zero-copy re-view of the per-layer list.
 
 Physical block 0 is the **null block**: unallocated table entries point at
@@ -18,12 +21,13 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import MIXER_ATTN, ModelConfig
+from repro_torch.configs.base import MIXER_ATTN, MIXER_RWKV, ModelConfig
+from repro_torch.models.ssm import rwkv_dims
 
 
-def _attn_only(cfg: ModelConfig, layers) -> None:
+def _check_ported(cfg: ModelConfig, layers, mixers) -> None:
     for i in layers:
-        if cfg.layer_kind(i).mixer != MIXER_ATTN or (
+        if cfg.layer_kind(i).mixer not in mixers or (
                 cfg.sliding_window and not cfg.is_global_layer(i)):
             raise NotImplementedError(
                 f"{cfg.name}: caches for layer {i} ({cfg.layer_kind(i)}) are "
@@ -36,11 +40,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Zero dense caches for ``layers`` (default: all)."""
     device = resolve_device(device)
     layers = layers if layers is not None else range(cfg.n_layers)
-    _attn_only(cfg, layers)
-    shape = (batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
-    return [{"mixer": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
-            for _ in layers]
+    _check_ported(cfg, layers, (MIXER_ATTN, MIXER_RWKV))
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    out = []
+    for i in layers:
+        if cfg.layer_kind(i).mixer == MIXER_RWKV:
+            H, hd = rwkv_dims(cfg)
+            out.append({"mixer": {"sx_tm": zeros(batch, cfg.d_model),
+                                  "sx_cm": zeros(batch, cfg.d_model),
+                                  "wkv": zeros(batch, H, hd, hd)}})
+        else:
+            shape = (batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
+            out.append({"mixer": {"k": zeros(*shape), "v": zeros(*shape)}})
+    return out
 
 
 NULL_BLOCK = 0          # physical block 0: trash target for masked writes
@@ -61,7 +76,7 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
     """Zero block pools for ``layers`` (default: all)."""
     device = resolve_device(device)
     layers = layers if layers is not None else range(cfg.n_layers)
-    _attn_only(cfg, layers)
+    _check_ported(cfg, layers, (MIXER_ATTN,))
     shape = (n_blocks, cfg.n_kv_heads, block_size, cfg.resolved_head_dim)
     return [{"mixer": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)}}

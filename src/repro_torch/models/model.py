@@ -1,7 +1,7 @@
 """Model-level entry points: embed, head, forward, prefill, decode, generate.
 
-Ports ``repro/models/model.py`` for decoder-only models with tied
-embeddings.  These are the single-program reference paths; the serving
+Ports ``repro/models/model.py`` for decoder-only models, with tied or
+untied heads.  These are the single-program reference paths; the serving
 engine composes the same blocks per stage.
 """
 from __future__ import annotations
@@ -25,9 +25,11 @@ def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Final norm, then the tied embedding as the output projection."""
+    """Final norm, then the output projection: the tied embedding, or
+    ``lm_head (d, V)``."""
     h = L.rms_norm(params["final_norm"], x, cfg.rms_eps)
-    return torch.matmul(h, params["embed"].t())
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return torch.matmul(h, w)
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,

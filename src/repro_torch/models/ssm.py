@@ -1,0 +1,138 @@
+"""Recurrent mixer: RWKV-6 (Finch) time mix and channel mix.
+
+Ports the RWKV half of ``repro/models/ssm.py`` with the same param layout
+(``maa_x``, ``tm.{w,k,v,r,g}.{maa,A,B}``, ``w0``, ``wA``, ``wB``, ``u``,
+``Wr/Wk/Wv/Wg/Wo``, ``ln_x``, ``maa_k``, ``maa_r``, ``Wk_cm``, ``Wv_cm``,
+``Wr_cm``) and cache layout ``{"sx_tm": (B, d), "sx_cm": (B, d), "wkv":
+(B, H, hd, hd)}``.  One function serves sequence mode (prefill, forward)
+and step mode (decode, S == 1): both read the cache, when given, as the
+initial state.
+
+Where the JAX package scans the recurrence in jnp (``_wkv_scan``), the port
+runs every WKV step through ``kernels.rwkv6_wkv.wkv6``: its plain version on
+the CPU, the CUDA kernel on the card.  Caches are written in place (JAX
+returns new ones): the kernel overwrites the state it reads, so an f32 WKV
+cache with f32 activations is updated with no copy; otherwise the new
+state, like the token-shift rows, is copied in after the layer, cast as the
+JAX code casts it (to the activations' dtype, then to the cache's).
+
+Mamba-1 and the tensor-parallel branch are not ported yet (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.rwkv6_wkv import wkv6
+from repro_torch.models.layers import rms_norm
+
+_MIX_NAMES = ("w", "k", "v", "r", "g")
+
+
+def rwkv_dims(cfg: ModelConfig) -> tuple[int, int]:
+    """(heads, head size) of the WKV state."""
+    return cfg.d_model // cfg.ssm.head_size, cfg.ssm.head_size
+
+
+def rwkv_spec(cfg: ModelConfig) -> dict:
+    """Param tree of one RWKV-6 mixer as (shape, init) leaves, with the
+    scales of ``repro.models.ssm.init_rwkv`` (see transformer.block_spec)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    s = cfg.ssm
+    sc = 1.0 / math.sqrt(d)
+    return {
+        "maa_x": ((d,), "zeros"),
+        "tm": {n: {"maa": ((d,), "zeros"), "A": ((d, s.mix_lora), sc),
+                   "B": ((s.mix_lora, d), "zeros")} for n in _MIX_NAMES},
+        "w0": ((d,), ("full", -6.0)),      # decay bias: slow decay at init
+        "wA": ((d, s.decay_lora), sc),
+        "wB": ((s.decay_lora, d), "zeros"),
+        "u": ((d,), 0.1),
+        "Wr": ((d, d), sc), "Wk": ((d, d), sc), "Wv": ((d, d), sc),
+        "Wg": ((d, d), sc),
+        "Wo": ((d, d), sc / math.sqrt(2 * cfg.n_layers)),
+        "ln_x": ((d,), "ones"),
+        "maa_k": ((d,), "zeros"), "maa_r": ((d,), "zeros"),
+        "Wk_cm": ((d, ff), sc), "Wv_cm": ((ff, d), 1.0 / math.sqrt(ff)),
+        "Wr_cm": ((d, d), sc),
+    }
+
+
+def _ddlerp(p: dict, x, sx, xxx):
+    """Data-dependent lerp: x + (sx - x) * (maa + tanh(xxx @ A) @ B)."""
+    mix = p["maa"] + torch.matmul(torch.tanh(torch.matmul(xxx, p["A"])),
+                                  p["B"])
+    return x + (sx - x) * mix
+
+
+def _shifted(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """x shifted one step right in time, ``prev`` (B, d) (or zero) first."""
+    B, _, d = x.shape
+    first = (prev[:, None, :].to(x.dtype) if prev is not None
+             else torch.zeros((B, 1, d), dtype=x.dtype, device=x.device))
+    return torch.cat([first, x[:, :-1, :]], dim=1)
+
+
+def apply_rwkv(cfg: ModelConfig, params: dict, x_res: torch.Tensor, *,
+               cache: Optional[dict] = None, tp_axis=None, ln1=None,
+               ln2=None):
+    """Full RWKV-6 layer: ln1 + time mix + residual, then ln2 + channel mix
+    + residual (the layer owns both residuals).  ``cache``: None, or the
+    layer's state dict, read as the initial state and overwritten with the
+    final one.  Returns (x, cache, aux)."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "tensor-parallel RWKV is not ported to repro_torch yet; see "
+            "ROADMAP.md, section 1")
+    B, S, _ = x_res.shape
+    H, hd = rwkv_dims(cfg)
+    x = rms_norm(ln1, x_res, cfg.rms_eps)
+    # ---- time mix --------------------------------------------------------
+    sx = _shifted(x, cache["sx_tm"] if cache is not None else None)
+    sx_tm_last = x[:, -1, :]
+    xxx = x + (sx - x) * params["maa_x"]
+    tm = params["tm"]
+    xw, xk, xv, xr, xg = (_ddlerp(tm[n], x, sx, xxx) for n in _MIX_NAMES)
+
+    dh = params["Wr"].shape[1]
+    r = torch.matmul(xr, params["Wr"]).reshape(B, S, H, hd)
+    k = torch.matmul(xk, params["Wk"]).reshape(B, S, H, hd)
+    v = torch.matmul(xv, params["Wv"]).reshape(B, S, H, hd)
+    g = F.silu(torch.matmul(xg, params["Wg"]))
+    w = torch.exp(-torch.exp((params["w0"] + torch.matmul(
+        torch.tanh(torch.matmul(xw, params["wA"])), params["wB"])).float()))
+    w = w.reshape(B, S, H, hd)
+    u = params["u"].reshape(H, hd).float().contiguous()
+    # an f32 contiguous cache is its own st0, and the kernel updates it
+    st0 = cache["wkv"].float().contiguous() if cache is not None else None
+    y, sT = wkv6(r.float().contiguous(), k.float().contiguous(),
+                 v.float().contiguous(), w.contiguous(), u, st0)
+    y = y.reshape(B, S, dh).to(x.dtype)
+    # group norm per head: population variance, eps 1e-5 as in the reference
+    yf = y.reshape(B, S, H, hd).float()
+    yf = (yf - yf.mean(-1, keepdim=True)) * torch.rsqrt(
+        yf.var(-1, keepdim=True, correction=0) + 1e-5)
+    y = (yf.reshape(B, S, dh) * params["ln_x"].float()).to(x.dtype)
+    y = y * g
+    x_res = x_res + torch.matmul(y, params["Wo"])
+
+    # ---- channel mix -----------------------------------------------------
+    x = rms_norm(ln2, x_res, cfg.rms_eps)
+    sx2 = _shifted(x, cache["sx_cm"] if cache is not None else None)
+    sx_cm_last = x[:, -1, :]
+    xk2 = x + (sx2 - x) * params["maa_k"]
+    xr2 = x + (sx2 - x) * params["maa_r"]
+    kk = torch.square(F.relu(torch.matmul(xk2, params["Wk_cm"])))
+    kv = torch.matmul(kk, params["Wv_cm"])
+    out = x_res + torch.sigmoid(torch.matmul(xr2, params["Wr_cm"])) * kv
+
+    if cache is not None:
+        cache["sx_tm"].copy_(sx_tm_last)
+        cache["sx_cm"].copy_(sx_cm_last)
+        if not (sT is cache["wkv"] and x.dtype == torch.float32):
+            cache["wkv"].copy_(sT.to(x.dtype))
+    return out, cache, torch.zeros((), dtype=torch.float32, device=x.device)

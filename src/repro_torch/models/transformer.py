@@ -1,6 +1,8 @@
-"""Block composition for the serving path: pre-norm attention + dense MLP.
+"""Block composition for the serving path: pre-norm attention + dense MLP,
+and RWKV-6 blocks, which own their two residuals and have no separate MLP.
 
-Ports the attention/dense-MLP part of ``repro/models/transformer.py``.  The
+Ports the attention/dense-MLP and RWKV parts of
+``repro/models/transformer.py``.  The
 JAX package stacks same-kind blocks and runs them with ``lax.scan``
 (``stack_blocks``, ``scan_threshold``); PyTorch runs eagerly, so the port
 loops over layers in Python and keeps one param dict per block.
@@ -15,9 +17,10 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (MIXER_ATTN, MLP_DENSE, LayerKind,
-                                      ModelConfig)
+from repro_torch.configs.base import (MIXER_ATTN, MIXER_RWKV, MLP_DENSE,
+                                      LayerKind, ModelConfig)
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 
 
 @dataclass
@@ -33,11 +36,15 @@ class BlockCtx:
     kv_extent: int = 0                 # chunked prefill (not ported yet)
 
 
+_PORTED_KINDS = ((MIXER_ATTN, MLP_DENSE), (MIXER_RWKV, "rwkv_cm"))
+
+
 def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
-    if kind.mixer != MIXER_ATTN or kind.mlp != MLP_DENSE or kind.extra_cross:
+    if (kind.mixer, kind.mlp) not in _PORTED_KINDS or kind.extra_cross:
         raise NotImplementedError(
             f"{cfg.name}: layer kind {kind} is not ported to repro_torch "
-            "yet (attention + dense MLP only); see ROADMAP.md, section 1")
+            "yet (attention + dense MLP, and RWKV-6, only); see ROADMAP.md, "
+            "section 1")
 
 
 # ---------------------------------------------------------------------------
@@ -46,8 +53,13 @@ def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
 
 def block_spec(cfg: ModelConfig, kind: LayerKind) -> dict:
     """Param tree of one block as (shape, init) leaves; init is a normal
-    std, or "ones"/"zeros".  Scales follow repro/models/layers.py."""
+    std, "ones"/"zeros", or ("full", value).  Scales follow
+    repro/models/layers.py and repro/models/ssm.py."""
     _check_kind(cfg, kind)
+    if kind.mixer == MIXER_RWKV:
+        d = cfg.d_model
+        return {"ln1": {"scale": ((d,), "ones")}, "mixer": ssm.rwkv_spec(cfg),
+                "ln2": {"scale": ((d,), "ones")}}
     d, H, Kh, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     ff = cfg.d_ff
@@ -66,15 +78,18 @@ def block_spec(cfg: ModelConfig, kind: LayerKind) -> dict:
 
 
 def model_spec(cfg: ModelConfig) -> dict:
-    if not cfg.tie_embeddings or cfg.encoder_layers or cfg.rope_theta == 0:
+    if cfg.encoder_layers or cfg.rope_theta == 0:
         raise NotImplementedError(
-            f"{cfg.name}: untied heads, encoders and learned positions are "
-            "not ported to repro_torch yet; see ROADMAP.md, section 1")
-    return {"embed": ((cfg.vocab_size, cfg.d_model),
-                      1.0 / math.sqrt(cfg.d_model)),
+            f"{cfg.name}: encoders and learned positions are not ported to "
+            "repro_torch yet; see ROADMAP.md, section 1")
+    s = 1.0 / math.sqrt(cfg.d_model)
+    spec = {"embed": ((cfg.vocab_size, cfg.d_model), s),
             "final_norm": {"scale": ((cfg.d_model,), "ones")},
             "blocks": [block_spec(cfg, cfg.layer_kind(i))
                        for i in range(cfg.n_layers)]}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ((cfg.d_model, cfg.vocab_size), s)
+    return spec
 
 
 def _materialize(spec, generator, dtype, device):
@@ -88,6 +103,8 @@ def _materialize(spec, generator, dtype, device):
         return torch.ones(shape, dtype=dtype, device=device)
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=device)
+    if isinstance(init, tuple):                        # ("full", value)
+        return torch.full(shape, init[1], dtype=dtype, device=device)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * init).to(device=device, dtype=dtype)
@@ -128,6 +145,12 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, params: dict,
     """Returns (x, new_cache, aux); the cache is updated in place."""
     _check_kind(cfg, kind)
     cache = ctx.cache or {}
+    if kind.mixer == MIXER_RWKV:
+        x, mc, aux = ssm.apply_rwkv(cfg, params["mixer"], x,
+                                    cache=cache.get("mixer"),
+                                    tp_axis=ctx.tp_axis, ln1=params["ln1"],
+                                    ln2=params["ln2"])
+        return x, ({"mixer": mc} if mc is not None else None), aux
     h = L.rms_norm(params["ln1"], x, cfg.rms_eps)
     y, mc, aux = L.apply_attention(
         cfg, params["mixer"], h, pos0=ctx.pos0, cache=cache.get("mixer"),

@@ -1,16 +1,18 @@
 """FlexPipe serving engine on PyTorch: the data plane with live refactoring.
 
-Ports the dense and paged serving path of ``repro/serving/engine.py``.  The
-model is cut into pipeline stages at ``boundaries``; a ``refactor()``
-re-groups the stage boundaries between decode ticks without dropping a
-request, and greedy streams across it are bit-identical to an
-uninterrupted run.
+Ports the dense and paged serving path of ``repro/serving/engine.py``, for
+attention models and, dense only, RWKV-6.  The model is cut into pipeline
+stages at ``boundaries``; a ``refactor()`` re-groups the stage boundaries
+between decode ticks without dropping a request, and greedy streams across
+it are bit-identical to an uninterrupted run.
 
-Hot path: admission prefills a whole prompt, padded to a pow2 bucket, stage
-by stage, writing its KV rows in place into the slot (dense rows, or blocks
-through the slot's table).  A decode tick is one fused program: embed, every
-stage, lm_head and an argmax on the device; the only per-tick sync is the
-copy of B int32 ids to the host (plus the first token of each prefill).
+Hot path: admission prefills a whole prompt stage by stage, writing its KV
+rows in place into the slot (dense rows, or blocks through the slot's
+table).  Attention prompts are padded to a pow2 bucket; recurrent (RWKV)
+prompts run at their exact length, from a zeroed slot state.  A decode
+tick is one fused program: embed, every stage, lm_head and an argmax on
+the device; the only per-tick sync is the copy of B int32 ids to the host
+(plus the first token of each prefill).
 Caches are preallocated tensors written in place (JAX donates them).
 
 A refactor only re-views the per-layer cache list under new stage
@@ -244,10 +246,12 @@ class FlexPipeEngine:
                           self.cache_dtype, device=self.device, layers=layers)
 
     def _scratch_caches(self, n_layers: int, batch: int, seq: int) -> list:
-        """Dummy caches for warm-up runs: one ``(batch, Kh, seq, hd)`` pair,
-        or a pool of the null block alone when paged, shared by all
-        ``n_layers`` layers.  Warming a configuration (also inside a cold
-        ``refactor()``) so never allocates on the scale of the live cache."""
+        """Dummy caches for warm-up runs: one ``(batch, Kh, seq, hd)`` pair
+        (one ``batch``-row recurrent state for RWKV), or a pool of the null
+        block alone when paged, shared by all ``n_layers`` layers (every
+        ported pattern has one layer kind).  Warming a configuration (also
+        inside a cold ``refactor()``) so never allocates on the scale of the
+        live cache."""
         if self.ecfg.paged:
             one = init_paged_cache(self.cfg, 1, self.ecfg.block_size,
                                    self.cache_dtype, device=self.device,

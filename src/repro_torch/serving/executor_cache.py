@@ -19,7 +19,10 @@ state survive it.
 * ``stage_prefill(lo, hi, ...)``: the prompt pass over layers [lo, hi),
   keyed by range so configurations that cut the model at the same points
   share it.  It writes the prompt's rows in place into the slot's row of
-  the live cache (a view of it), or through the slot's block table.
+  the live cache (a view of it), or through the slot's block table.  A
+  recurrent (RWKV) layer reads its cache as the initial state, so its slot
+  row is zeroed first: a reused slot holds the last request's state, and
+  idle-slot decode ticks write garbage there.
 * ``stage_decode(lo, hi)``: the per-stage decode tick (unfused fallback).
 
 JAX donates cache buffers and returns new ones; here programs write into
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import MIXER_ATTN, ModelConfig
+from repro_torch.configs.base import MIXER_ATTN, MIXER_RWKV, ModelConfig
 from repro_torch.models.model import embed_tokens, lm_head
 from repro_torch.models.transformer import BlockCtx, apply_block
 
@@ -102,6 +105,9 @@ class StagePrefillProgram:
                 cache = {"mixer": {n: t[slot:slot + 1] for n, t
                                    in caches[i]["mixer"].items()}}
                 bt = None
+                if cfg.layer_kind(li).mixer == MIXER_RWKV:
+                    for t in cache["mixer"].values():
+                        t.zero_()
             ctx = BlockCtx(pos0=0, cache=cache,
                            is_global=cfg.is_global_layer(li), block_table=bt)
             x, _, _ = apply_block(cfg, cfg.layer_kind(li), bp, x, ctx)
@@ -142,7 +148,8 @@ class ExecutorCache:
         self.misses = 0
         self.builds = 0
         self._local: dict = {}
-        self.head_params = {k: params[k] for k in ("embed", "final_norm")}
+        self.head_params = {k: params[k] for k in
+                            ("embed", "final_norm", "lm_head") if k in params}
         mixers = {cfg.layer_kind(i).mixer for i in range(cfg.n_layers)}
         # padding a prompt to a bucket is only safe where padded rows are
         # masked downstream: position-masked attention caches

@@ -16,6 +16,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
                                         KVCacheConfig)
@@ -26,6 +27,10 @@ torch.set_num_threads(2)
 TOL = {"float32": dict(atol=3e-5, rtol=3e-5),
        "bfloat16": dict(atol=5e-3, rtol=5e-3)}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# wkv6, times the plain output's mean |y|: f32 as tests/test_kernels.py's
+# wkv tolerance; bf16 one ulp (2^-7) of the largest |y|, which stays under
+# about 6 mean |y| for these inputs (kernel and plain round y apart)
+WKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 @pytest.fixture
@@ -123,3 +128,67 @@ def test_cuda_engine_paths_agree(cuda_dev):
         assert build.launches[want] > 0 and build.launches["flash_attention"]
         streams.append([r.output for r in reqs])
     assert streams[0] == streams[1] == streams[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,hd,with_state", [
+    (1, 512, 32, 64, False), (1, 300, 4, 64, True), (8, 1, 32, 64, True),
+    (3, 40, 4, 16, True), (2, 17, 2, 16, False),
+])
+def test_cuda_wkv6_kernel(cuda_dev, dt, B, S, H, hd, with_state):
+    """The kernel against its plain version on the same card, tolerance
+    relative to the plain output's mean |y| (y grows with the state)."""
+    rng = np.random.default_rng(3)
+    r, k, v = (_rand(rng, (B, S, H, hd), dt, cuda_dev) * 0.5
+               for _ in range(3))
+    w = torch.sigmoid(_rand(rng, (B, S, H, hd), "float32", cuda_dev)) \
+        * 0.5 + 0.45
+    w = w.to(DTYPES[dt])
+    u = _rand(rng, (H, hd), "float32", cuda_dev) * 0.1
+    st0 = (_rand(rng, (B, H, hd, hd), "float32", cuda_dev) if with_state
+           else None)
+    first = st0.clone() if with_state else None
+    y_ref, st_ref = wkv6_plain(r, k, v, w, u, st0)
+    y, st = wkv6(r, k, v, w, u, st0)
+    assert y.dtype == r.dtype and st.dtype == torch.float32
+    assert st0 is None or st is st0           # the state updated in place
+    torch.testing.assert_close(
+        y.float(), y_ref.float(), rtol=0,
+        atol=WKV_TOL[dt] * float(y_ref.float().abs().mean()))
+    # the state is f32 in both dtypes, from the same rounded inputs
+    torch.testing.assert_close(
+        st, st_ref, rtol=0,
+        atol=WKV_TOL["float32"] * float(st_ref.abs().mean()))
+    y2, st2 = wkv6(r, k, v, w, u, first)  # run to run: the same bits
+    assert torch.equal(st2, st) and torch.equal(y2, y)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_engine_paths_agree(cuda_dev):
+    """Smoke-size rwkv6 on the card: run() and a refactored fused engine,
+    more requests than slots, give the same greedy streams through wkv6."""
+    cfg = get_arch("rwkv6-1.6b").smoke_config
+    params = init_model(cfg, torch.Generator().manual_seed(0),
+                        device=cuda_dev)
+    streams = []
+    for refactor in (False, True):
+        eng = FlexPipeEngine(cfg, params, [0, 2],
+                             EngineConfig(max_batch=2, max_seq=64,
+                                          warm_profiles=(4,)))
+        reqs = [Request(rid=i, arrival=0.0, prompt_len=5 + 7 * i,
+                        max_new_tokens=8) for i in range(5)]
+        build.reset_launches()
+        if refactor:
+            for r in reqs:
+                eng.submit(r, now=0.0)
+            for t in range(80):
+                if t == 5:
+                    assert eng.refactor([0, 1, 2, 3])["compile_cache_hit"]
+                eng.step(t * 0.05)
+        else:
+            eng.run(reqs)
+        assert all(r.output is not None and len(r.output) == 8 for r in reqs)
+        assert build.launches["wkv6"] > 0
+        streams.append([r.output for r in reqs])
+    assert streams[0] == streams[1]

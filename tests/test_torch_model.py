@@ -42,14 +42,27 @@ def _close(a, b, **tol):
 # configs, init and the bridge
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("which", ["config", "smoke_config"])
-def test_configs_match_the_reference(which):
-    mine = getattr(get_arch("qwen1.5-0.5b"), which)
-    theirs = getattr(jax_arch("qwen1.5-0.5b"), which)
-    for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-              "vocab_size", "resolved_head_dim", "qkv_bias", "rope_theta",
-              "rms_eps", "tie_embeddings", "sliding_window", "mlp_act"):
+@pytest.mark.parametrize("arch,which", [
+    pytest.param("qwen1.5-0.5b", "config", id="config"),
+    pytest.param("qwen1.5-0.5b", "smoke_config", id="smoke_config"),
+    pytest.param("rwkv6-1.6b", "config", id="rwkv6-config"),
+    pytest.param("rwkv6-1.6b", "smoke_config", id="rwkv6-smoke_config"),
+])
+def test_configs_match_the_reference(arch, which):
+    mine = getattr(get_arch(arch), which)
+    theirs = getattr(jax_arch(arch), which)
+    for f in ("name", "family", "n_layers", "d_model", "n_heads",
+              "n_kv_heads", "d_ff", "vocab_size", "resolved_head_dim",
+              "qkv_bias", "rope_theta", "rms_eps", "tie_embeddings",
+              "sliding_window", "mlp_act", "source"):
         assert getattr(mine, f) == getattr(theirs, f), f
+    assert [(k.mixer, k.mlp, k.extra_cross) for k in mine.pattern] == \
+        [(k.mixer, k.mlp, k.extra_cross) for k in theirs.pattern]
+    if theirs.ssm is not None:
+        for f in ("head_size", "decay_lora", "mix_lora"):
+            assert getattr(mine.ssm, f) == getattr(theirs.ssm, f), f
+    else:
+        assert mine.ssm is None
     assert count_params(mine) == jax_count_params(theirs)
     assert mine.param_count() == count_params(mine)
 
