@@ -9,8 +9,11 @@ Phases, each fatal on failure:
   2. build every CUDA kernel from src/repro_torch/kernels/csrc into
      build/kernels/ (one nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version on the card, f32 and
-     bf16, at the serving paths' shapes; time kernel, plain version and one
-     PyTorch library call computing the same function, beside the bound;
+     bf16, at the serving paths' shapes and at decode lengths straddling
+     the split kernel's chunks; the paged kernel, the gather path and the
+     dense kernel must agree bit for bit on equal live rows; time kernel,
+     plain version and one PyTorch library call computing the same
+     function, beside the bound;
   4. check the port's logits on the card against its CPU path (smoke size,
      qwen1.5-0.5b and rwkv6-1.6b);
   5. serve full-width qwen1.5-0.5b (random weights from seed 0): a dense
@@ -48,8 +51,15 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data sheet peaks (NVIDIA), dense, at the 700 W limit
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
-# bf16: 2.5x the largest error these shapes showed on an H100 (2.0e-3)
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12,
+            # f32 products on the tensor cores as 3xTF32: three TF32
+            # products (495 TFLOP/s) for each f32 one
+            "tf32x3": 495e12 / 3}
+# bf16: 2.5x the largest error these shapes showed on an H100 (2.0e-3).
+# Beyond it a bf16 output may only be the plain output's neighbour: a flip
+# of the final rounding, which two summation orders cannot rule out where
+# the exact value lies next to a rounding midpoint; at |out| >= 1 one bf16
+# ulp (>= 7.8e-3) exceeds 5e-3.  Such flips are counted and reported.
 TOL = {"float32": 3e-5, "bfloat16": 5e-3}
 # wkv6, times the plain version's mean |y|: f32 as tests/test_kernels.py's
 # wkv tolerance; bf16 one ulp (2^-7) of the largest |y|, which stays under
@@ -114,8 +124,8 @@ def bound(bytes_moved, ops, dtype):
 def kernel_checks(torch):
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain, paged_decode_attention,
-        paged_decode_attention_plain)
+        CHUNK, decode_attention, decode_attention_plain, gather_pages,
+        paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
         attention_mask, flash_attention, flash_attention_plain)
     import torch.nn.functional as F
@@ -132,32 +142,53 @@ def kernel_checks(torch):
 
     def compare(name, dt, out, ref, case):
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
         typical = float(ref.float().abs().mean())
         finite = bool(torch.isfinite(out.float()).all())
+        over = diff > TOL[dt]
+        flips = 0
+        if dt == "bfloat16":     # neighbours: bit patterns one apart
+            near = (out.view(torch.int16).int()
+                    - ref.view(torch.int16).int()).abs() == 1
+            flips = int((over & near).sum())
+            over = over & ~near
         r = results.setdefault(name, {"max_abs_err": 0.0,
-                                      "max_abs_err_bf16": 0.0})
+                                      "max_abs_err_bf16": 0.0,
+                                      "bf16_rounding_flips": 0})
+        r["bf16_rounding_flips"] += flips
         key = "max_abs_err" if dt == "float32" else "max_abs_err_bf16"
         if err >= r[key]:
             r[key] = err
             r["mean_abs_out" if dt == "float32"
               else "mean_abs_out_bf16"] = typical
         log(f"  {name:24s} {dt:8s} {case:34s} max|err| {err:.3e} "
-            f"(tol {TOL[dt]:g}), mean|out| {typical:.3e}")
+            f"(tol {TOL[dt]:g}), mean|out| {typical:.3e}"
+            + (f", {flips} of {out.numel()} one-ulp rounding flips over "
+               "the tolerance" if flips else ""))
         check(finite, f"{name} {dt} {case}: non-finite output")
-        check(err <= TOL[dt], f"{name} {dt} {case}: error {err} > {TOL[dt]}")
+        check(not bool(over.any()), f"{name} {dt} {case}: error {err} > "
+              f"{TOL[dt]}" + (" beyond a one-ulp rounding flip"
+                              if dt == "bfloat16" else ""))
 
     # --- dense and paged decode: B=8, H=Kh=16, hd=64, Smax=1024 ---------
     B, H, Kh, hd, Smax, bs = 8, 16, 16, 64, 1024, 16
     M = Smax // bs
     n_blocks = 1 + B * M
-    lens = np.array([1024, 1, 17, 512, 600, 333, 1000, 64], np.int32)
-    for dt in ("float32", "bfloat16"):
+    ragged = np.array([1024, 1, 17, 512, 600, 333, 1000, 64], np.int32)
+    # lengths straddling the split kernel's chunk boundaries
+    edges = np.array([0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1,
+                      Smax, 600], np.int32)
+
+    def decode_case(dt, lens, label):
+        """Dense and paged kernels against their plain versions, then the
+        paged kernel, the gather path and the dense kernel on the same live
+        rows: the same bits, and the same bits again on a second call."""
         q = rnd((B, H, hd), dt)
         kc, vc = rnd((B, Kh, Smax, hd), dt), rnd((B, Kh, Smax, hd), dt)
         cl = torch.from_numpy(lens).to(dev)
         compare("decode_attention", dt, decode_attention(q, kc, vc, cl),
-                decode_attention_plain(q, kc, vc, cl), "ragged cache_len")
+                decode_attention_plain(q, kc, vc, cl), label)
         # pools: live blocks at shuffled ids, one dead block past the live
         # length per slot (as after admission), null (0) entries elsewhere
         kp = rnd((n_blocks, Kh, bs, hd), dt)
@@ -172,12 +203,33 @@ def kernel_checks(torch):
             i += nb
         bt = torch.from_numpy(tables).to(dev)
         pcl = torch.from_numpy(plens).to(dev)
-        compare("paged_decode_attention", dt,
-                paged_decode_attention(q, kp, vp, bt, pcl),
+        paged = paged_decode_attention(q, kp, vp, bt, pcl)
+        compare("paged_decode_attention", dt, paged,
                 paged_decode_attention_plain(q, kp, vp, bt, pcl),
-                "bs=16, null + dead blocks")
+                label + ", null + dead blocks")
+        kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
+        kd, vd = kc.clone(), vc.clone()
+        for b, n in enumerate(plens.tolist()):
+            kd[b, :, :n] = kg[b, :, :n]
+            vd[b, :, :n] = vg[b, :, :n]
+        same = {"gather path": decode_attention(q, kg, vg, pcl),
+                "dense kernel": decode_attention(q, kd, vd, pcl),
+                "paged kernel again": paged_decode_attention(q, kp, vp, bt,
+                                                             pcl)}
+        torch.cuda.synchronize()
+        for what, out in same.items():
+            check(torch.equal(out, paged), f"decode {dt} {label}: the {what} "
+                  "differs from the paged kernel on equal live rows")
+        log(f"  {'decode paths':24s} {dt:8s} {label:34s} paged kernel == "
+            f"gather path == dense kernel == paged again, bit for bit")
+        return q, kc, vc, cl, kp, vp, bt, pcl, plens
+
+    for dt in ("float32", "bfloat16"):
+        decode_case(dt, edges, f"lengths at chunk edges (C={CHUNK})")
+        q, kc, vc, cl, kp, vp, bt, pcl, plens = decode_case(
+            dt, ragged, "ragged cache_len")
         if dt == "float32":
-            live = int(lens.sum())
+            live = int(ragged.sum())
             es = 4
             nbytes = (B * H * hd * 2 + live * Kh * 2 * hd) * es + B * 4
             ops = 2 * H * live * 2 * hd
@@ -213,6 +265,8 @@ def kernel_checks(torch):
         (1, 128, 640, 16, 16, 0, 256, "Sq=128 Skv=640 q_offset=256"),
         (1, 512, 512, 16, 16, 128, None, "Sq=Skv=512 window=128"),
         (1, 512, 512, 16, 8, 0, None, "GQA G=2 Sq=Skv=512"),
+        (1, 64, 64, 16, 16, 0, None, "Sq=Skv=64 (small bucket)"),
+        (1, 1024, 1024, 16, 16, 0, None, "Sq=Skv=1024 end-aligned"),
     ]
     for dt in ("float32", "bfloat16"):
         for (Bq, Sq, Skv, Hq, Khq, win, qo, label) in cases:
@@ -227,7 +281,13 @@ def kernel_checks(torch):
                                            device="cpu").sum())
                 nbytes = (2 * Bq * Sq * Hq * hd + 2 * Bq * Skv * Khq * hd) * 4
                 ops = 2 * 2 * hd * Bq * Hq * pairs
-                t_bound, by = bound(nbytes, ops, dt)
+                # f32 runs on the tensor cores as 3xTF32
+                t_bound, by = bound(nbytes, ops, "tf32x3")
+                log(f"  {'flash_attention bound':24s} bytes "
+                    f"{nbytes / PEAK_BYTES * 1e3:.5f} ms, 3xTF32 "
+                    f"{ops / PEAK_OPS['tf32x3'] * 1e3:.5f} ms, f32 CUDA "
+                    f"cores {ops / PEAK_OPS['float32'] * 1e3:.5f} ms "
+                    f"({ops} ops, {pairs} unmasked pairs per head)")
                 qt, kt, vt = (x.transpose(1, 2).contiguous()
                               for x in (q, k, v))
                 results["flash_attention"].update(
@@ -239,6 +299,15 @@ def kernel_checks(torch):
                             qt, kt, vt, is_causal=True)),
                     bound_ms=t_bound, bound_by=by,
                     shape=f"B=1 Sq=Skv=512 H=Kh=16 hd=64 causal f32")
+            if dt == "float32" and label.startswith("Sq=Skv=1024"):
+                qt, kt, vt = (x.transpose(1, 2).contiguous()
+                              for x in (q, k, v))
+                ms = time_ms(torch, lambda: flash_attention(q, k, v, **kw))
+                lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
+                log(f"  {'flash_attention':24s} {ms:.4f} ms  library "
+                    f"{lib:.4f} ms  [B=1 Sq=Skv=1024 H=Kh=16 hd=64 causal "
+                    f"f32]")
     wkv_checks(torch, rnd, results)
     for name, r in results.items():
         lib = r["library_ms"]
@@ -520,7 +589,8 @@ def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
         log(f"  {ticks} decode ticks: wall {out['profiled_ms_per_tick']:.3f} "
             f"ms/tick, device busy {out['busy_ms_per_tick']:.3f} ms/tick, "
             f"idle share {out['idle_share']:.3f} (profiler on)")
-        ours = ("decode_kernel", "flash_kernel", "wkv6_kernel")
+        ours = ("decode_split_kernel", "decode_combine_kernel",
+                "flash_kernel", "wkv6_kernel")
         for i, (key, us, n) in enumerate(rows):
             if i < 10 or any(k in key for k in ours):
                 log(f"    {us / ticks:10.1f} us/tick {n / ticks:6.1f}/tick  "
@@ -690,7 +760,9 @@ def main() -> int:
             "src/repro_torch/kernels/csrc/decode_attention.cu",
         "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "wkv6": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu"}
-    tolerance = {name: (TOL["float32"], TOL["bfloat16"]) for name in paths}
+    tolerance = {name: (TOL["float32"], "%g, or one bf16 ulp (a flip of the "
+                        "final rounding)" % TOL["bfloat16"])
+                 for name in paths}
     tolerance["wkv6"] = ("%g x mean|y|" % WKV_TOL["float32"],
                          "%g x mean|y|" % WKV_TOL["bfloat16"])
     kernels = []
@@ -707,6 +779,7 @@ def main() -> int:
             "mean_abs_out_bf16": r["mean_abs_out_bf16"],
             "tolerance": tolerance[name][0],
             "tolerance_bf16": tolerance[name][1],
+            "bf16_rounding_flips": r.get("bf16_rounding_flips", 0),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],

@@ -33,13 +33,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: dict[str, dict[str, list]] = {
     "decode_attention": {
-        # q, k, v, cache_len, out, B, H, Kh, Smax, hd, hdv, scale, dtype, stream
+        # q, k, v, cache_len, scratch, out,
+        # B, H, Kh, Smax, hd, hdv, scale, dtype, stream
         "decode_attention_launch":
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-        # q, k_pool, v_pool, tables, cache_len, out,
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k_pool, v_pool, tables, cache_len, scratch, out,
         # B, H, Kh, block_size, M, hd, hdv, scale, dtype, stream
         "paged_decode_attention_launch":
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+             _P],
     },
     "flash_attention": {
         # q, k, v, out, B, Sq, Skv, H, Kh, hd, hdv,

@@ -6,25 +6,39 @@
 //
 // Bound on an H100: bytes.  Each (slot, kv head) reads its cache_len live
 // K and V rows once and does 2*G*(hd+hdv) flops per row, far below the
-// ~20 flops per byte at which f32 CUDA cores, let alone tensor cores, would
-// limit it.  The design therefore only has to read each live row once and
-// nothing else:
-//   * one CTA of 4 warps per (b, kv head); its G = H/Kh query rows share
-//     every K/V row read (GQA), with q * scale kept in shared memory;
-//   * the CTA walks tiles of 32 positions only up to cache_len[b] (the
-//     Pallas grid walks every Smax block), warp w taking tiles w, w+4, ...;
-//     lane j scores position 32t+j, then the warp adds p_j * v_j over the
-//     tile with the lanes spread across hdv, so V reads are coalesced;
-//   * positions >= cache_len are never read, so garbage rows (bucket
-//     padding, the null block) add exactly zero;
-//   * the four warps' online-softmax states merge in warp order through
-//     shared memory: no atomics, the same inputs give the same bits.
-// Dense and paged share this core and differ only in how a position maps
-// to a cache row, so for equal live rows their outputs are bit-identical
-// (the engine's paged == dense invariant).  The paged CTA reads
-// block_tables[b, p / bs] itself instead of relying on scalar prefetch and
-// stops at the last live block.  Split-KV across CTAs, TMA and tensor
-// cores are left to a later, performance-focused change.
+// ~20 flops per byte at which f32 CUDA cores would limit it.  The design
+// keeps as many 16-byte loads in flight as the live rows allow:
+//   * split-KV: the logical positions are cut into fixed chunks of kChunk
+//     (= CHUNK in kernels/decode_attention.py) and decode_split_kernel runs
+//     one CTA of 4 warps per (b*Kh + kh, chunk), so a slot with a long
+//     cache spreads over many SMs; a CTA whose chunk starts at or past
+//     cache_len[b] exits at once;
+//   * inside a chunk warp w takes positions [32w, 32w + 32); each K or V row
+//     is read as 16-byte vectors (float4 or 8 bf16) by the lanes of one row
+//     group, so one load instruction of the warp covers 32 / (lanes per
+//     row) whole rows (2 at hd=64 f32), and up to four of them are issued
+//     before any is used;
+//   * a row's q.k is reduced by a fixed-order xor-shuffle across its lanes;
+//     each row group keeps an online-softmax state per query row (the G =
+//     H/Kh rows of a kv head share every K/V row read), the groups merge by
+//     an xor butterfly, then the warps merge in warp order through shared
+//     memory; the CTA writes its partial (m, l, acc[hdv]) per query row to
+//     an f32 scratch tensor the wrapper allocates;
+//   * decode_combine_kernel, one CTA per (b, kh), merges the live chunks
+//     (those below ceil(cache_len / kChunk)) in chunk order and writes the
+//     output in q's dtype.
+// A wrapper call therefore makes two CUDA launches (split, then combine) on
+// one stream and counts as one launch in build.launches.  No atomics: every
+// sum has a fixed order, so the same inputs give the same bits.
+// Positions at or past cache_len are never read, so garbage rows (bucket
+// padding, the null block) add exactly zero.  Dense and paged share this
+// core and differ only in how a logical position maps to a cache row; the
+// chunk boundaries are logical positions that depend neither on Smax nor on
+// the block size, so dense, the gather path (a dense call on the gathered
+// view) and the paged kernel sum the same rows in the same order and their
+// outputs are bit-identical for equal live rows (the engine's paged ==
+// dense invariant).  The paged CTA reads block_tables[b, p / bs] itself.
+// TMA loads of the chunk are left to a later change.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -32,162 +46,252 @@
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kTile = 32;   // positions per warp step: one per lane
-constexpr int kMaxG = 8;    // query rows per kv head held in registers
+constexpr int kChunk = 128;                 // positions per split CTA
+constexpr int kPerWarp = kChunk / kWarps;   // positions per warp
+constexpr int kMaxG = 8;                    // query rows per kv head
 
-template <typename T, int HD, int HDV, bool PAGED>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ cache_len,
-              const int* __restrict__ tables, T* __restrict__ out, int H,
-              int Kh, int rows, int M, float scale) {
-  // rows: Smax (dense) or block_size (paged); M: table width (paged)
-  constexpr int DPL = (HDV + 31) / 32;   // hdv elements per lane
-  __shared__ float qs[kMaxG][HD];
-  __shared__ float wm[kWarps][kMaxG];
-  __shared__ float wl[kWarps][kMaxG];
-  __shared__ float wacc[kWarps][kMaxG][HDV];
-
-  const int b = blockIdx.x / Kh;
-  const int kh = blockIdx.x % Kh;
-  const int G = H / Kh;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    const int g = i / HD, d = i % HD;
-    qs[g][d] = rt::to_f32(q[((int64_t)b * H + kh * G + g) * HD + d]) * scale;
+// a 16-byte vector of T, widened to f32
+__device__ __forceinline__ void widen(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void widen(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);           // bf16 -> f32 exactly
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-  __syncthreads();
+}
 
+template <typename T, int HD, int KG, bool PAGED>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ cache_len,
+                    const int* __restrict__ tables, float* __restrict__ part,
+                    int H, int Kh, int rows, int M, int nch, float scale) {
+  // rows: Smax (dense) or block_size (paged); M: table width (paged)
+  constexpr int VEC = 16 / sizeof(T);         // elements per 16-byte load
+  constexpr int LPR = HD / VEC;               // lanes per cache row
+  constexpr int RPI = 32 / LPR;               // rows per warp-wide load
+  constexpr int STEPS = kPerWarp / RPI;
+  constexpr int U = STEPS < 4 ? STEPS : 4;    // loads issued before use
+  static_assert(HD % VEC == 0 && 32 % LPR == 0 && kPerWarp % RPI == 0, "");
+  __shared__ float wm[kWarps][KG];
+  __shared__ float wl[kWarps][KG];
+  __shared__ float wacc[kWarps][KG][HD];
+
+  const int bkh = blockIdx.x;
+  const int b = bkh / Kh;
+  const int kh = bkh % Kh;
+  const int chunk = blockIdx.y;
+  const int G = H / Kh;
   const int cap = PAGED ? M * rows : rows;
   const int len = min(cache_len[b], cap);
+  const int c0 = chunk * kChunk;
+  if (c0 >= len) return;                      // dead chunk: the whole CTA
 
-  float m[kMaxG], l[kMaxG], acc[kMaxG][DPL];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r = lane / LPR;                   // row within a warp-wide load
+  const int c = lane % LPR;                   // 16-byte column of the row
+
+  float qv[KG][VEC];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int g = 0; g < KG; ++g) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      qv[g][e] = g < G
+          ? rt::to_f32(q[((int64_t)b * H + kh * G + g) * HD + c * VEC + e]) *
+                scale
+          : 0.f;
+  }
+  float m[KG], l[KG], acc[KG][VEC];
+#pragma unroll
+  for (int g = 0; g < KG; ++g) {
     m[g] = rt::kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
 
-  for (int t = warp; t * kTile < len; t += kWarps) {
-    const int p = t * kTile + lane;
-    const bool valid = p < len;
-    int64_t row = 0;
-    if (valid) {
-      if (PAGED) {
-        const int64_t pid = tables[(int64_t)b * M + p / rows];
-        row = (pid * Kh + kh) * rows + p % rows;
-      } else {
-        row = ((int64_t)b * Kh + kh) * rows + p;
+  const int w0 = c0 + warp * kPerWarp;
+#pragma unroll 1
+  for (int i0 = 0; i0 < STEPS && w0 + i0 * RPI < len; i0 += U) {
+    uint4 kr[U], vr[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = w0 + (i0 + u) * RPI + r;
+      ok[u] = p < len;
+      kr[u] = make_uint4(0u, 0u, 0u, 0u);
+      vr[u] = kr[u];
+      if (ok[u]) {
+        int64_t row;
+        if (PAGED) {
+          const int64_t pid = tables[(int64_t)b * M + p / rows];
+          row = (pid * Kh + kh) * rows + p % rows;
+        } else {
+          row = ((int64_t)b * Kh + kh) * rows + p;
+        }
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(k + row * HD) + c);
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(v + row * HD) + c);
       }
     }
-    float s[kMaxG];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
-    if (valid) {
-      const T* kr = k + row * HD;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const float kd = rt::to_f32(kr[d]);
+    for (int u = 0; u < U; ++u) {
+      float kf[VEC], vf[VEC];
+      widen(kr[u], kf);
+      widen(vr[u], vf);
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g)
-          if (g < G) s[g] += qs[g][d] * kd;
-      }
-    }
+      for (int g = 0; g < KG; ++g) {
+        float s = 0.f;
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        const float sg = valid ? s[g] : rt::kNegInf;
-        const float mn = fmaxf(m[g], rt::warp_max(sg));
-        const float pg = valid ? expf(sg - mn) : 0.f;
-        const float corr = expf(m[g] - mn);
-        l[g] = l[g] * corr + rt::warp_sum(pg);
+        for (int e = 0; e < VEC; ++e) s += qv[g][e] * kf[e];
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[g][i] *= corr;
-        m[g] = mn;
-        s[g] = pg;                       // s now holds this lane's p
-      }
-    }
-    const int n = min(kTile, len - t * kTile);
-    for (int j = 0; j < n; ++j) {
-      const int64_t rj = __shfl_sync(rt::kFull, row, j);
-      const T* vr = v + rj * HDV;
-      float vd[DPL];
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          s += __shfl_xor_sync(rt::kFull, s, o);
+        if (ok[u] && g < G) {
+          const float mn = fmaxf(m[g], s);
+          const float corr = expf(m[g] - mn);
+          const float p = expf(s - mn);
+          l[g] = l[g] * corr + p;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        vd[i] = d < HDV ? rt::to_f32(vr[d]) : 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          const float pj = __shfl_sync(rt::kFull, s[g], j);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[g][i] += pj * vd[i];
+          for (int e = 0; e < VEC; ++e)
+            acc[g][e] = acc[g][e] * corr + p * vf[e];
+          m[g] = mn;
         }
       }
     }
   }
 
+  // merge the row groups of the warp (lanes c, c + LPR, ...): xor butterfly
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      if (lane == 0) {
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < KG; ++g) {
+      const float mo = __shfl_xor_sync(rt::kFull, m[g], o);
+      const float lo = __shfl_xor_sync(rt::kFull, l[g], o);
+      const float mn = fmaxf(m[g], mo);
+      const float ca = expf(m[g] - mn);
+      const float cb = expf(mo - mn);
+      l[g] = l[g] * ca + lo * cb;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float ao = __shfl_xor_sync(rt::kFull, acc[g][e], o);
+        acc[g][e] = acc[g][e] * ca + ao * cb;
+      }
+      m[g] = mn;
+    }
+  }
+  // once a multiply-add is contracted the butterfly's lanes need not agree
+  // bit for bit, so one fixed row group writes the warp's state
+  if (r == 0) {
+#pragma unroll
+    for (int g = 0; g < KG; ++g) {
+      if (c == 0) {
         wm[warp][g] = m[g];
         wl[warp][g] = l[g];
       }
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < HDV) wacc[warp][g][d] = acc[g][i];
-      }
+      for (int e = 0; e < VEC; ++e) wacc[warp][g][c * VEC + e] = acc[g][e];
     }
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < G * HDV; i += blockDim.x) {
-    const int g = i / HDV, d = i % HDV;
+  // the warps merge in warp order; one partial (m, l, acc[HD]) per query row
+  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
+    const int g = i / HD, d = i % HD;
     float mx = rt::kNegInf;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w][g]);
     float L = 0.f, O = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(wm[w][g] - mx);
-      L += wl[w][g] * c;
-      O += wacc[w][g][d] * c;
+      const float cw = expf(wm[w][g] - mx);
+      L += wl[w][g] * cw;
+      O += wacc[w][g][d] * cw;
     }
-    out[((int64_t)b * H + kh * G + g) * HDV + d] =
+    float* pp = part + (((int64_t)bkh * nch + chunk) * G + g) * (HD + 2);
+    if (d == 0) {
+      pp[0] = mx;
+      pp[1] = L;
+    }
+    pp[2 + d] = O;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_combine_kernel(const float* __restrict__ part,
+                      const int* __restrict__ cache_len, T* __restrict__ out,
+                      int H, int Kh, int cap, int nch) {
+  const int bkh = blockIdx.x;
+  const int b = bkh / Kh;
+  const int kh = bkh % Kh;
+  const int G = H / Kh;
+  const int len = min(cache_len[b], cap);
+  const int live = len > 0 ? (len + kChunk - 1) / kChunk : 0;
+  const int64_t stride = (int64_t)G * (HD + 2);   // from one chunk to the next
+  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
+    const int g = i / HD, d = i % HD;
+    const float* pp = part + ((int64_t)bkh * nch * G + g) * (HD + 2);
+    float mx = rt::kNegInf;
+    for (int s = 0; s < live; ++s) mx = fmaxf(mx, pp[s * stride]);
+    float L = 0.f, O = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float* ps = pp + s * stride;
+      const float cs = expf(ps[0] - mx);
+      L += ps[1] * cs;
+      O += ps[2 + d] * cs;
+    }
+    out[((int64_t)b * H + kh * G + g) * HD + d] =
         rt::from_f32<T>(O / fmaxf(L, 1e-30f));
   }
 }
 
-template <typename T, int HD, int HDV, bool PAGED>
+template <typename T, int HD, int KG, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* cache_len, void* out, int B, int H, int Kh, int rows,
-           int M, float scale, cudaStream_t stream) {
-  decode_kernel<T, HD, HDV, PAGED><<<B * Kh, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(cache_len),
-      static_cast<const int*>(tables), static_cast<T*>(out), H, Kh, rows, M,
-      scale);
+           const void* cache_len, void* scratch, void* out, int B, int H,
+           int Kh, int rows, int M, float scale, cudaStream_t stream) {
+  const int cap = PAGED ? M * rows : rows;
+  const int nch = cap > 0 ? (cap + kChunk - 1) / kChunk : 1;
+  decode_split_kernel<T, HD, KG, PAGED>
+      <<<dim3(B * Kh, nch), kWarps * 32, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const int*>(cache_len),
+          static_cast<const int*>(tables), static_cast<float*>(scratch), H,
+          Kh, rows, M, nch, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decode_combine_kernel<T, HD><<<B * Kh, kWarps * 32, 0, stream>>>(
+      static_cast<const float*>(scratch), static_cast<const int*>(cache_len),
+      static_cast<T*>(out), H, Kh, cap, nch);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const void* tables,
-             const void* cache_len, void* out, int B, int H, int Kh, int rows,
-             int M, int hd, int hdv, float scale, int dtype, void* stream) {
-  if (B <= 0 || Kh <= 0 || H % Kh != 0 || H / Kh > kMaxG)
+             const void* cache_len, void* scratch, void* out, int B, int H,
+             int Kh, int rows, int M, int hd, int hdv, float scale, int dtype,
+             void* stream) {
+  if (B <= 0 || Kh <= 0 || H % Kh != 0 || H / Kh > kMaxG || rows < 0 ||
+      M < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = H / Kh;
+#define RT_G(T, D, KG)                                                     \
+  return launch<T, D, KG, PAGED>(q, k, v, tables, cache_len, scratch, out, \
+                                 B, H, Kh, rows, M, scale, s);
 #define RT_CASE(T, D)                                                      \
-  if (hd == D && hdv == D)                                                 \
-    return launch<T, D, D, PAGED>(q, k, v, tables, cache_len, out, B, H,   \
-                                  Kh, rows, M, scale, s);
+  if (hd == D && hdv == D) {                                               \
+    if (G == 1) RT_G(T, D, 1)                                              \
+    if (G == 2) RT_G(T, D, 2)                                              \
+    if (G <= 4) RT_G(T, D, 4)                                              \
+    RT_G(T, D, 8)                                                          \
+  }
   if (dtype == rt::kDtypeF32) {
     RT_CASE(float, 16) RT_CASE(float, 32) RT_CASE(float, 64)
     RT_CASE(float, 128)
@@ -196,6 +300,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
     RT_CASE(__nv_bfloat16, 64) RT_CASE(__nv_bfloat16, 128)
   }
 #undef RT_CASE
+#undef RT_G
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -203,17 +308,18 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
 
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* cache_len,
-                                       void* out, int B, int H, int Kh,
-                                       int Smax, int hd, int hdv, float scale,
-                                       int dtype, void* stream) {
-  return dispatch<false>(q, k, v, nullptr, cache_len, out, B, H, Kh, Smax, 0,
-                         hd, hdv, scale, dtype, stream);
+                                       void* scratch, void* out, int B, int H,
+                                       int Kh, int Smax, int hd, int hdv,
+                                       float scale, int dtype, void* stream) {
+  return dispatch<false>(q, k, v, nullptr, cache_len, scratch, out, B, H, Kh,
+                         Smax, 0, hd, hdv, scale, dtype, stream);
 }
 
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
-    const void* cache_len, void* out, int B, int H, int Kh, int block_size,
-    int M, int hd, int hdv, float scale, int dtype, void* stream) {
-  return dispatch<true>(q, k_pool, v_pool, tables, cache_len, out, B, H, Kh,
-                        block_size, M, hd, hdv, scale, dtype, stream);
+    const void* cache_len, void* scratch, void* out, int B, int H, int Kh,
+    int block_size, int M, int hd, int hdv, float scale, int dtype,
+    void* stream) {
+  return dispatch<true>(q, k_pool, v_pool, tables, cache_len, scratch, out, B,
+                        H, Kh, block_size, M, hd, hdv, scale, dtype, stream);
 }

@@ -5,66 +5,278 @@
 //
 // Bound on an H100: operations.  At Sq = Skv = 512 and hd = 64 a head does
 // about 2 * 2 * 512 * 512 / 2 * 64 causal flops against 4 * 512 * 64 * 4
-// bytes of q, k, v and out: ~64 flops per byte, above the f32 CUDA-core
-// ridge of ~20.  This first version runs on CUDA cores in f32 (no wgmma or
-// TMA yet), so its design aims at doing only the work the mask allows and
-// reading shared memory without bank conflicts:
-//   * one CTA of 4 warps per (b*h, tile of 16 query rows); each warp owns 4
-//     rows; q * scale for the tile sits in shared memory;
-//   * K and V tiles of 32 positions are staged in shared memory (K rows
-//     padded by one float so lane j reading row j hits 32 distinct banks);
+// bytes of q, k, v and out: ~64 flops per byte, so the products belong on
+// the tensor cores.  The design:
+//   * one CTA of 8 warps per (b*h, tile of 64 query rows): each m16 row
+//     tile has two warps, one per half of every kv tile's keys, each with
+//     its own online-softmax state; the pair merges once, at the end, in
+//     a fixed order.  At Sq=512 and 16 heads the grid has only 128 CTAs,
+//     one per SM, so two warps per scheduler are what hides the mma.sync
+//     and shared-memory latencies that one warp alone leaves exposed (on
+//     an H100, 4 warps per CTA ran 1.10x behind SDPA there).  blockIdx.y
+//     is reversed,
+//     so the tiles with the most causal kv tiles start first and the
+//     triangle's long rows do not finish last;
+//   * K and V tiles of 64 positions pass through a 2-stage ring in dynamic
+//     shared memory, filled by 16-byte cp.async.cg copies (commit_group /
+//     wait_group): tile t+1 loads while tile t computes.  Rows are padded
+//     so that every fragment load hits 32 distinct banks;
+//   * S = Q.K^T and O += P.V run on the tensor cores with mma.sync:
+//       - f32: m16n8k8 TF32 in 3xTF32 form, x = big + small with big =
+//         cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and each
+//         product as small.big + big.small + big.big summed in f32, which
+//         keeps f32 accuracy (1xTF32 keeps about three decimal digits);
+//       - bf16: m16n8k16 with f32 accumulation, V read by ldmatrix.trans;
+//         P (f32) enters P.V as a bf16 pair hi + lo, two products, so the
+//         output keeps f32 accuracy up to its final rounding to bf16;
+//   * the online softmax runs on the accumulator fragments, in the log2
+//     domain; a row's max and sum are taken across the 4 lanes that share
+//     it by two xor-shuffles in a fixed order.  P's accumulator layout
+//     (columns 2t, 2t+1) is not TF32's A-operand layout (columns t, t+4):
+//     instead of moving P, the P.V product takes the keys of a k-step in
+//     the order 0, 2, 4, 6, 1, 3, 5, 7, so P's registers are its A operand
+//     as they stand and V's B operand reads rows 2t and 2t+1;
 //   * the CTA visits only kv tiles the causal bound and the window can
-//     reach (the Pallas kernel visits every tile and masks);
+//     reach; the mask (finite -1e30, causal, window) is applied only on
+//     tiles the bound or the ragged kv edge cut;
 //   * q_offset, Sq and Skv are runtime ints, so one build serves every
 //     prompt length and chunk offset; ragged q and kv edges are masked
-//     here, with no padded copies of the inputs;
-//   * f32 online softmax with the finite -1e30 mask; every sum runs in a
-//     fixed order with no atomics, so the same inputs give the same bits.
-// Shared memory above 48 KB (large head dims) is requested through the
-// dynamic-shared-memory attribute.
+//     here (cp.async zero-fills rows past Skv), with no padded copies;
+//   * every sum has a fixed order and there are no atomics: the same inputs
+//     give the same bits.
+// wgmma is left for later: with tf32 it needs both operands K-major, and V
+// in P.V is MN-major, so it needs a transpose in shared memory.  TMA is too:
+// its descriptors come from cuTensorMapEncodeTiled in libcuda.
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBQ = kWarps * kRowsPerWarp;   // query rows per CTA
-constexpr int kBK = 32;                      // kv positions per tile
+constexpr int kRowWarps = 4;       // m16 row tiles per CTA
+constexpr int kKeyHalves = 2;      // warps per row tile, one per key half
+constexpr int kThreads = 32 * kRowWarps * kKeyHalves;
+constexpr int kBQ = 16 * kRowWarps;   // query rows per CTA
+constexpr int kBK = 64;               // kv positions per tile
+constexpr int kWK = kBK / kKeyHalves; // keys of a tile per warp
+constexpr int kNT = kWK / 8;          // n8 tiles of S per warp and tile
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD, int HDV>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * HD + kBK * (HD + 1) + kBK * HDV);
+// shared-memory row stride in elements of a D-wide Q, K or V row.  f32:
+// padded by 4, so lane (g, t) reading row g, column t of Q or K hits bank
+// 4g + t, and rows 2t and 2t+1 of V at column g hit banks 8t + g.  bf16:
+// padded by 8, so 32-bit fragment loads of Q and K and ldmatrix rows of V
+// do not conflict.
+template <typename T, int D>
+__host__ __device__ constexpr int stride() {
+  return D + (sizeof(T) == 4 ? 4 : 8);
 }
 
 template <typename T, int HD, int HDV>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr size_t smem_bytes() {
+  return sizeof(T) * (kBQ * stride<T, HD>() + 2 * kBK * stride<T, HD>() +
+                      2 * kBK * stride<T, HDV>());
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_size 0 writes zeros (rows past Skv)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 3xTF32: a and b as big + small pairs, small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const float b0, const float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split(b0, bb0, bs0);
+  split(b1, bb1, bs1);
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// (x, y) as a bf16 pair hi plus the pair of what it rounded off, lo
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+// S (16 x kWK per warp) = Q_warp . K_half^T, raw (unscaled) scores
+template <int HD>
+__device__ __forceinline__ void scores(float (&s)[kNT][4], const float* qs,
+                                       const float* ks, int g, int t) {
+  constexpr int QS = stride<float, HD>(), KS = QS;
+#pragma unroll
+  for (int ks8 = 0; ks8 < HD / 8; ++ks8) {
+    const int c = ks8 * 8 + t;
+    uint32_t ab[4], as[4];
+    split(qs[g * QS + c], ab[0], as[0]);
+    split(qs[(g + 8) * QS + c], ab[1], as[1]);
+    split(qs[g * QS + c + 4], ab[2], as[2]);
+    split(qs[(g + 8) * QS + c + 4], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const float* kr = ks + (8 * j + g) * KS + c;
+      mma_3xtf32(s[j], ab, as, kr[0], kr[4]);
+    }
+  }
+}
+template <int HD>
+__device__ __forceinline__ void scores(float (&s)[kNT][4],
+                                       const __nv_bfloat16* qs,
+                                       const __nv_bfloat16* ks, int g, int t) {
+  constexpr int QS = stride<__nv_bfloat16, HD>(), KS = QS;
+#pragma unroll
+  for (int k16 = 0; k16 < HD / 16; ++k16) {
+    const int c = k16 * 16 + 2 * t;
+    uint32_t a[4];
+    a[0] = *reinterpret_cast<const uint32_t*>(qs + g * QS + c);
+    a[1] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * QS + c);
+    a[2] = *reinterpret_cast<const uint32_t*>(qs + g * QS + c + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * QS + c + 8);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const __nv_bfloat16* kr = ks + (8 * j + g) * KS + c;
+      mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(kr),
+               *reinterpret_cast<const uint32_t*>(kr + 8));
+    }
+  }
+}
+
+// O (16 x HDV per warp) += P . V_tile.  f32: the k-step over keys 8j..8j+7
+// takes them in the order 0,2,4,6,1,3,5,7, so P's accumulator registers
+// (columns 2t, 2t+1) are the A operand's (k = t, t+4) as they stand.
+template <int HDV>
+__device__ __forceinline__ void accumulate(float (&o)[HDV / 8][4],
+                                           const float (&p)[kNT][4],
+                                           const float* vs, int g, int t) {
+  constexpr int VS = stride<float, HDV>();
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    uint32_t ab[4], as[4];
+    split(p[j][0], ab[0], as[0]);   // (g,   key 2t)
+    split(p[j][2], ab[1], as[1]);   // (g+8, key 2t)
+    split(p[j][1], ab[2], as[2]);   // (g,   key 2t+1)
+    split(p[j][3], ab[3], as[3]);   // (g+8, key 2t+1)
+    const float* v0 = vs + (8 * j + 2 * t) * VS + g;
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n)
+      mma_3xtf32(o[n], ab, as, v0[8 * n], v0[VS + 8 * n]);
+  }
+}
+template <int HDV>
+__device__ __forceinline__ void accumulate(float (&o)[HDV / 8][4],
+                                           const float (&p)[kNT][4],
+                                           const __nv_bfloat16* vs, int g,
+                                           int t) {
+  constexpr int VS = stride<__nv_bfloat16, HDV>();
+  const int lane = 4 * g + t;
+#pragma unroll
+  for (int k16 = 0; k16 < kWK / 16; ++k16) {
+    uint32_t ah[4], al[4];
+    split_bf16(p[2 * k16][0], p[2 * k16][1], ah[0], al[0]);
+    split_bf16(p[2 * k16][2], p[2 * k16][3], ah[1], al[1]);
+    split_bf16(p[2 * k16 + 1][0], p[2 * k16 + 1][1], ah[2], al[2]);
+    split_bf16(p[2 * k16 + 1][2], p[2 * k16 + 1][3], ah[3], al[3]);
+    // lanes 0-15 address rows 16 k16 + 0..15; .trans gives each lane the
+    // pair (keys 2t, 2t+1; column g) of both 8x8 matrices
+    const __nv_bfloat16* row = vs + (16 * k16 + (lane & 15)) * VS;
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n) {
+      uint32_t b0, b1;
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+          : "=r"(b0), "=r"(b1)
+          : "r"(smem_addr(row + 8 * n)));
+      mma_bf16(o[n], al, b0, b1);
+      mma_bf16(o[n], ah, b0, b1);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float x, float y);
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                      float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
+}
+
+template <typename T, int HD, int HDV>
+__global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
              int H, int Kh, int q_offset, int causal, int window,
              float scale) {
-  constexpr int DPL = (HDV + 31) / 32;
-  constexpr int KS = HD + 1;                  // padded K row stride
-  extern __shared__ float smem[];
-  float* qs = smem;                           // kBQ x HD
-  float* ks = qs + kBQ * HD;                  // kBK x KS
-  float* vs = ks + kBK * KS;                  // kBK x HDV
+  constexpr int QS = stride<T, HD>(), KS = QS, VS = stride<T, HDV>();
+  constexpr int KCH = HD * sizeof(T) / 16;    // 16-byte pieces per K row
+  constexpr int VCH = HDV * sizeof(T) / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);     // kBQ x QS
+  T* kring = qs + kBQ * QS;                   // 2 x kBK x KS
+  T* vring = kring + 2 * kBK * KS;            // 2 x kBK x VS
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int kh = h / (H / Kh);
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
   const int warp = threadIdx.x / 32;
+  const int rw = warp % kRowWarps;            // row tile of this warp
+  const int kg = warp / kRowWarps;            // key half of this warp
   const int lane = threadIdx.x % 32;
-
-  // q: (B, Sq, H, HD); k: (B, Skv, Kh, HD); v: (B, Skv, Kh, HDV)
-  for (int i = threadIdx.x; i < kBQ * HD; i += blockDim.x) {
-    const int r = i / HD, d = i % HD, qi = q0 + r;
-    qs[i] = qi < Sq
-        ? rt::to_f32(q[(((int64_t)b * Sq + qi) * H + h) * HD + d]) * scale
-        : 0.f;
-  }
+  const int g = lane / 4;                     // fragment row group
+  const int t = lane % 4;                     // thread in the group
 
   // kv span any row of this tile can see
   const int last_q = min(q0 + kBQ, Sq) - 1;
@@ -74,84 +286,180 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     kv_hi = min(Skv, q_offset + last_q + 1);
     if (window) kv_lo = max(0, q_offset + q0 - window + 1);
   }
+  const int tile0 = (kv_lo / kBK) * kBK;
+  const int n_tiles = kv_hi > tile0 ? (kv_hi - tile0 + kBK - 1) / kBK : 0;
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = rt::kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+  const int64_t krow0 = (int64_t)b * Skv * Kh + kh;   // row p at + p * Kh
+  auto load_tile = [&](int it) {
+    const int base = tile0 + it * kBK;
+    T* kd = kring + (it & 1) * kBK * KS;
+    T* vd = vring + (it & 1) * kBK * VS;
+    for (int i = threadIdx.x; i < kBK * KCH; i += blockDim.x) {
+      const int r = i / KCH, c = i % KCH, p = base + r;
+      const bool ok = p < Skv;
+      const T* src = k + ((krow0 + (int64_t)(ok ? p : 0) * Kh) * HD) +
+                     c * (16 / sizeof(T));
+      cp_async16(kd + r * KS + c * (16 / sizeof(T)), src, ok);
+    }
+    for (int i = threadIdx.x; i < kBK * VCH; i += blockDim.x) {
+      const int r = i / VCH, c = i % VCH, p = base + r;
+      const bool ok = p < Skv;
+      const T* src = v + ((krow0 + (int64_t)(ok ? p : 0) * Kh) * HDV) +
+                     c * (16 / sizeof(T));
+      cp_async16(vd + r * VS + c * (16 / sizeof(T)), src, ok);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(0);
+
+  // q (B, Sq, H, HD): raw rows, zeros past Sq; the scale goes on S
+  for (int i = threadIdx.x; i < kBQ * HD; i += blockDim.x) {
+    const int r = i / HD, d = i % HD, qi = q0 + r;
+    qs[r * QS + d] = qi < Sq ? q[(((int64_t)b * Sq + qi) * H + h) * HD + d]
+                             : rt::from_f32<T>(0.f);
   }
 
-  for (int t0 = (kv_lo / kBK) * kBK; t0 < kv_hi; t0 += kBK) {
-    __syncthreads();   // q tile written / previous kv tile consumed
-    for (int i = threadIdx.x; i < kBK * HD; i += blockDim.x) {
-      const int j = i / HD, d = i % HD, kp = t0 + j;
-      ks[j * KS + d] = kp < Skv
-          ? rt::to_f32(k[(((int64_t)b * Skv + kp) * Kh + kh) * HD + d])
-          : 0.f;
-    }
-    for (int i = threadIdx.x; i < kBK * HDV; i += blockDim.x) {
-      const int j = i / HDV, d = i % HDV, kp = t0 + j;
-      vs[i] = kp < Skv
-          ? rt::to_f32(v[(((int64_t)b * Skv + kp) * Kh + kh) * HDV + d])
-          : 0.f;
-    }
-    __syncthreads();
+  const float qk_scale = scale * kLog2e;
+  const int row0 = q0 + 16 * rw + g;          // query rows g and g + 8
+  const int qp0 = q_offset + row0, qp1 = qp0 + 8;   // absolute positions
+  const T* qw = qs + 16 * rw * QS;
 
-    const int kp = t0 + lane;
-    float p[kRowsPerWarp];
+  float o[HDV / 8][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = warp * kRowsPerWarp + r;
-      const int qp = q_offset + q0 + row;      // absolute query position
-      bool valid = kp < Skv;
-      if (causal) {
-        valid = valid && kp <= qp;
-        if (window) valid = valid && kp > qp - window;
-      }
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < HD; ++d) s += qs[row * HD + d] * ks[lane * KS + d];
-      s = valid ? s : rt::kNegInf;
-      const float mn = fmaxf(m[r], rt::warp_max(s));
-      p[r] = valid ? expf(s - mn) : 0.f;
-      const float corr = expf(m[r] - mn);
-      l[r] = l[r] * corr + rt::warp_sum(p[r]);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= corr;
-      m[r] = mn;
+  for (int n = 0; n < HDV / 8; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = rt::kNegInf, m1 = rt::kNegInf;   // running max, log2 domain
+  float l0 = 0.f, l1 = 0.f;                   // this lane's partial sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float vd[DPL];
+    __syncthreads();   // tile it (and q) visible to every warp
+    const T* kt = kring + ((it & 1) * kBK + kg * kWK) * KS;
+    const T* vt = vring + ((it & 1) * kBK + kg * kWK) * VS;
+    const int t0 = tile0 + it * kBK;            // the CTA's tile
+    const int w0 = t0 + kg * kWK;               // this warp's keys
+
+    float s[kNT][4];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        vd[i] = d < HDV ? vs[j * HDV + d] : 0.f;
+    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    scores<HD>(s, qw, kt, g, t);
+
+    // the mask matters only where the causal bound, the window or the
+    // ragged kv edge cuts this tile for some row of the CTA
+    const bool full =
+        t0 + kBK <= Skv &&
+        (!causal || (t0 + kBK - 1 <= q_offset + q0 &&
+                     (!window || t0 > q_offset + q0 + kBQ - 1 - window)));
+    float mx0 = rt::kNegInf, mx1 = rt::kNegInf;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * qk_scale;
+        if (!full) {
+          const int key = w0 + 8 * j + 2 * t + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          bool ok = key < Skv;
+          if (causal) {
+            ok = ok && key <= qp;
+            if (window) ok = ok && key > qp - window;
+          }
+          x = ok ? x : rt::kNegInf;
+        }
+        s[j][e] = x;
       }
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pj = __shfl_sync(rt::kFull, p[r], j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] += pj * vd[i];
-      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mn = e < 2 ? mn0 : mn1;
+        s[j][e] = s[j][e] > rt::kNegInf ? exp2f(s[j][e] - mn) : 0.f;
+      }
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n) {
+      o[n][0] *= c0;
+      o[n][1] *= c0;
+      o[n][2] *= c1;
+      o[n][3] *= c1;
+    }
+    accumulate<HDV>(o, s, vt, g, t);
+    __syncthreads();   // every warp is done with this stage before refill
   }
 
+  // row sums across the quad, in a fixed order
+  l0 += __shfl_xor_sync(rt::kFull, l0, 1);
+  l0 += __shfl_xor_sync(rt::kFull, l0, 2);
+  l1 += __shfl_xor_sync(rt::kFull, l1, 1);
+  l1 += __shfl_xor_sync(rt::kFull, l1, 2);
+
+  // the second key half hands its state to the first through the (now
+  // idle) ring, lane-major so neither side conflicts on banks; the first
+  // merges them in that order
+  constexpr int NV = HDV / 2 + 4;             // o fragment, m0, m1, l0, l1
+  static_assert(kRowWarps * NV * 32 * sizeof(float) <=
+                    sizeof(T) * 2 * kBK * (KS + VS), "merge buffer");
+  float* xb = reinterpret_cast<float*>(kring) + rw * NV * 32 + lane;
+  __syncthreads();                            // the ring is free
+  if (kg == 1) {
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int qi = q0 + warp * kRowsPerWarp + r;
-    if (qi >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    for (int n = 0; n < HDV / 8; ++n)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HDV)
-        out[(((int64_t)b * Sq + qi) * H + h) * HDV + d] =
-            rt::from_f32<T>(acc[r][i] * inv);
+      for (int e = 0; e < 4; ++e) xb[(4 * n + e) * 32] = o[n][e];
+    xb[(HDV / 2) * 32] = m0;
+    xb[(HDV / 2 + 1) * 32] = m1;
+    xb[(HDV / 2 + 2) * 32] = l0;
+    xb[(HDV / 2 + 3) * 32] = l1;
+  }
+  __syncthreads();
+  if (kg == 1) return;
+  {
+    const float pm0 = xb[(HDV / 2) * 32], pm1 = xb[(HDV / 2 + 1) * 32];
+    const float mn0 = fmaxf(m0, pm0), mn1 = fmaxf(m1, pm1);
+    const float a0 = exp2f(m0 - mn0), b0 = exp2f(pm0 - mn0);
+    const float a1 = exp2f(m1 - mn1), b1 = exp2f(pm1 - mn1);
+    l0 = l0 * a0 + xb[(HDV / 2 + 2) * 32] * b0;
+    l1 = l1 * a1 + xb[(HDV / 2 + 3) * 32] * b1;
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n) {
+      o[n][0] = o[n][0] * a0 + xb[(4 * n) * 32] * b0;
+      o[n][1] = o[n][1] * a0 + xb[(4 * n + 1) * 32] * b0;
+      o[n][2] = o[n][2] * a1 + xb[(4 * n + 2) * 32] * b1;
+      o[n][3] = o[n][3] * a1 + xb[(4 * n + 3) * 32] * b1;
     }
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < HDV / 8; ++n) {
+    const int d = 8 * n + 2 * t;
+    if (row0 < Sq)
+      store2<T>(out + (((int64_t)b * Sq + row0) * H + h) * HDV + d,
+                o[n][0] * inv0, o[n][1] * inv0);
+    if (row0 + 8 < Sq)
+      store2<T>(out + (((int64_t)b * Sq + row0 + 8) * H + h) * HDV + d,
+                o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
@@ -159,7 +467,8 @@ template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int H, int Kh, int q_offset, int causal,
            int window, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD, HDV>();
+  constexpr size_t bytes = smem_bytes<T, HD, HDV>();
+  static_assert(bytes <= 227 * 1024, "tile does not fit in shared memory");
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_kernel<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -167,7 +476,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_kernel<T, HD, HDV><<<grid, kWarps * 32, bytes, stream>>>(
+  flash_kernel<T, HD, HDV><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, Kh,
       q_offset, causal, window, scale);

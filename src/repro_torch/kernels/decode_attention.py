@@ -11,6 +11,13 @@ hd/hdv)`` with ``block_tables (B, M)`` int32 (0 = the null block);
 ``cache_len`` a scalar or ``(B,)``; f32 online softmax with a finite
 ``-1e30`` mask; out ``(B, H, hdv)`` in q's dtype.  Positions at or past
 ``cache_len`` contribute exactly zero, whatever those rows hold.
+
+The kernel splits the logical positions into fixed chunks of ``CHUNK``
+(split-KV), writes one partial softmax state per live chunk into an f32
+scratch tensor that the wrapper allocates, and merges the live chunks in
+chunk order.  ``chunk_plan``, ``decode_partials_plain`` and
+``decode_combine_plain`` are the plain versions of that plan, of the chunk
+pass and of the combine pass.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)      # instantiated (hd == hdv) in the .cu
 MAX_GROUP = 8                      # H / Kh held in registers by the kernel
+CHUNK = 128                        # positions per split CTA (kChunk, .cu)
 
 
 def _lengths(cache_len, B: int, device) -> torch.Tensor:
@@ -58,6 +66,81 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *, scale=None):
     return o.reshape(B, H, hdv).to(q.dtype)
 
 
+def n_chunks(cap: int) -> int:
+    """The split kernel's grid width for ``cap`` rows per slot."""
+    return max(1, -(-int(cap) // CHUNK))
+
+
+def chunk_plan(cache_len, cap: int):
+    """The kernel's split of a cache of ``cap`` rows per slot (Smax dense,
+    M * block_size paged): the grid's chunk count, and each slot's live
+    chunks as logical ``(start, end)`` positions.  The live chunks depend on
+    ``cache_len`` alone, not on ``cap`` or the block size."""
+    live = []
+    for n in torch.as_tensor(cache_len).reshape(-1).tolist():
+        n = min(int(n), int(cap))
+        live.append([(s, min(s + CHUNK, n)) for s in range(0, max(n, 0),
+                                                            CHUNK)])
+    return n_chunks(cap), live
+
+
+def decode_partials_plain(q, k_cache, v_cache, cache_len, *, scale=None):
+    """The chunk pass: per (slot, kv head, chunk, query row) the softmax
+    state ``m`` (max score), ``l`` (sum of exp) and ``acc`` (exp-weighted V
+    sum) over that chunk's live rows, in f32.  Dead chunks hold
+    (-1e30, 0, 0).  Shapes (B, Kh, n_chunks, G) and (..., hdv)."""
+    B, H, hd = q.shape
+    Kh, Smax = k_cache.shape[1], k_cache.shape[2]
+    hdv = v_cache.shape[-1]
+    G = H // Kh
+    C = n_chunks(Smax)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    cl = _lengths(cache_len, B, q.device)
+    qf = (q.float() * scale).reshape(B, Kh, G, hd)
+    pos = torch.arange(C * CHUNK, device=q.device)
+    live = (pos[None, :] < torch.clamp(cl, max=Smax)[:, None])    # (B, P)
+    pad = C * CHUNK - Smax
+    kf = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, pad))
+    mask = live[:, None, None, :]                                  # (B,1,1,P)
+    vf = torch.where(mask[:, :, 0, :, None], vf,
+                     torch.zeros((), device=q.device))
+    s = torch.einsum("bhgk,bhjk->bhgj", qf, kf)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s = s.reshape(B, Kh, G, C, CHUNK)
+    m = s.amax(dim=-1)                                      # (B, Kh, G, C)
+    p = torch.where(mask.reshape(B, 1, 1, C, CHUNK),
+                    torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgcj,bhcjk->bhgck", p,
+                       vf.reshape(B, Kh, C, CHUNK, hdv))
+    return m.transpose(2, 3), l.transpose(2, 3), acc.transpose(2, 3)
+
+
+def decode_combine_plain(m, l, acc, cache_len, *, cap: int, dtype):
+    """The combine pass: merge each slot's live chunks (those below
+    ceil(min(cache_len, cap) / CHUNK)) in chunk order; chunks past them are
+    never read.  Returns (B, H, hdv) in ``dtype``."""
+    B, Kh, C, G = m.shape
+    hdv = acc.shape[-1]
+    cl = torch.clamp(_lengths(cache_len, B, m.device), max=cap)
+    n_live = torch.div(cl + CHUNK - 1, CHUNK, rounding_mode="floor")
+    # a dead chunk may hold anything: it is selected out, never multiplied
+    mx = torch.full((B, Kh, G), NEG_INF, device=m.device)
+    for s in range(C):
+        live = (s < n_live)[:, None, None]
+        mx = torch.where(live, torch.maximum(mx, m[:, :, s]), mx)
+    L = torch.zeros((B, Kh, G), device=m.device)
+    O = torch.zeros((B, Kh, G, hdv), device=m.device)
+    for s in range(C):                         # chunk order, as the kernel
+        live = (s < n_live)[:, None, None]
+        c = torch.exp(m[:, :, s] - mx)
+        L = torch.where(live, L + l[:, :, s] * c, L)
+        O = torch.where(live[..., None], O + acc[:, :, s] * c[..., None], O)
+    o = O / torch.clamp(L, min=1e-30)[..., None]
+    return o.reshape(B, Kh * G, hdv).to(dtype)
+
+
 def gather_pages(pool, block_tables):
     """Logical ``(B, Kh, M * bs, hd)`` view of each slot's blocks."""
     B, M = block_tables.shape
@@ -87,6 +170,11 @@ def _check_cuda(q, caches, hd, hdv, H, Kh):
                              f"vs {q.device}/{q.dtype}")
         if not t.is_contiguous():
             raise ValueError("decode attention: inputs must be contiguous")
+    for t in caches:
+        if t.data_ptr() % 16:
+            raise ValueError("decode attention: the kernel reads cache rows "
+                             "as 16-byte vectors; k and v must start on a "
+                             "16-byte boundary")
     if q.dtype not in _DTYPES:
         raise TypeError(f"decode attention kernel takes float32 or "
                         f"bfloat16, got {q.dtype}")
@@ -96,6 +184,13 @@ def _check_cuda(q, caches, hd, hdv, H, Kh):
     if H % Kh or H // Kh > MAX_GROUP:
         raise ValueError(f"decode attention kernel needs H % Kh == 0 and "
                          f"H / Kh <= {MAX_GROUP}, got H={H}, Kh={Kh}")
+
+
+def _scratch(B, H, Kh, cap, hdv, device):
+    """The chunk pass's partials: (m, l, acc[hdv]) in f32 per (slot, kv
+    head, chunk, query row)."""
+    return torch.empty(B * H * n_chunks(cap) * (hdv + 2), dtype=torch.float32,
+                       device=device)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
@@ -117,10 +212,12 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     cl = _lengths(cache_len, B, q.device)
     out = torch.empty((B, H, hdv), dtype=q.dtype, device=q.device)
+    scratch = _scratch(B, H, Kh, Smax, hdv, q.device)
     lib = build.library("decode_attention")
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cl.data_ptr(),
-        out.data_ptr(), B, H, Kh, Smax, hd, hdv, scale, _DTYPES[q.dtype],
+        scratch.data_ptr(), out.data_ptr(), B, H, Kh, Smax, hd, hdv, scale,
+        _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attention")
     build.launches["decode_attention"] += 1
@@ -157,11 +254,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     cl = _lengths(cache_len, B, q.device)
     out = torch.empty((B, H, hdv), dtype=q.dtype, device=q.device)
+    scratch = _scratch(B, H, Kh, M * bs, hdv, q.device)
     lib = build.library("decode_attention")
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), cl.data_ptr(), out.data_ptr(), B, H, Kh, bs,
-        M, hd, hdv, scale, _DTYPES[q.dtype],
+        block_tables.data_ptr(), cl.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), B, H, Kh, bs, M, hd, hdv, scale, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_attention")
     build.launches["paged_decode_attention"] += 1

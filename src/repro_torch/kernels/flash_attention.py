@@ -81,6 +81,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              "device and dtype")
         if not t.is_contiguous():
             raise ValueError("flash attention: inputs must be contiguous")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash attention: the kernel copies k and v rows in "
+                         "16-byte pieces; both must start on a 16-byte "
+                         "boundary")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")

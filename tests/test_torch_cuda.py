@@ -12,8 +12,8 @@ import torch
 from repro_torch.configs.base import get_arch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
-    decode_attention, decode_attention_plain, paged_decode_attention,
-    paged_decode_attention_plain)
+    CHUNK, decode_attention, decode_attention_plain, gather_pages,
+    paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain
@@ -97,6 +97,111 @@ def test_cuda_flash_kernel(cuda_dev, dt, Sq, Skv, H, Kh, hd, causal, window,
     torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
                                flash_attention_plain(q, k, v, **kw).float(),
                                **TOL[dt])
+
+
+def _pools(rng, lens, Kh, hd, bs, M, dt, dev):
+    """Pools with each slot's live blocks at shuffled ids, one dead block
+    after them, and null (0) entries elsewhere."""
+    B = len(lens)
+    n_blocks = 1 + B * M
+    perm = rng.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((B, M), np.int32)
+    i = 0
+    for b in range(B):
+        n = min(-(-int(lens[b]) // bs) + 1, M)
+        tables[b, :n] = perm[i:i + n]
+        i += n
+    return (_rand(rng, (n_blocks, Kh, bs, hd), dt, dev),
+            _rand(rng, (n_blocks, Kh, bs, hd), dt, dev),
+            torch.from_numpy(tables).to(dev))
+
+
+# cache lengths that straddle the split kernel's chunk boundaries
+BOUNDARY_LENS = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1, 320]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_cuda_decode_chunk_boundaries(cuda_dev, dt, hd):
+    """Lengths {0, 1, C-1, C, C+1, 2C+1, Smax}, dense and paged, against the
+    plain versions."""
+    rng = np.random.default_rng(hd)
+    B, H, Kh, Smax, bs = len(BOUNDARY_LENS), 8, 4, 320, 16
+    q = _rand(rng, (B, H, hd), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    vc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    cl = torch.tensor(BOUNDARY_LENS, dtype=torch.int32, device=cuda_dev)
+    torch.testing.assert_close(decode_attention(q, kc, vc, cl).float(),
+                               decode_attention_plain(q, kc, vc, cl).float(),
+                               **TOL[dt])
+    kp, vp, bt = _pools(rng, BOUNDARY_LENS, Kh, hd, bs, Smax // bs, dt,
+                        cuda_dev)
+    torch.testing.assert_close(
+        paged_decode_attention(q, kp, vp, bt, cl).float(),
+        paged_decode_attention_plain(q, kp, vp, bt, cl).float(), **TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4])
+def test_cuda_decode_paths_bit_identical(cuda_dev, dt, G):
+    """The paged kernel, the gather path (the dense kernel on the gathered
+    view, Smax = M * bs) and the dense kernel on a cache of another Smax
+    holding the same live rows give the same bits, and so does a second
+    call."""
+    rng = np.random.default_rng(7 + G)
+    lens = [1024, 1, 17, CHUNK, 600, 333, 1000, 0]
+    B, Kh, hd, bs, M = len(lens), 4, 64, 16, 65
+    H = Kh * G
+    q = _rand(rng, (B, H, hd), dt, cuda_dev)
+    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, M, dt, cuda_dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda_dev)
+    paged = paged_decode_attention(q, kp, vp, bt, cl)
+    kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
+    gather = decode_attention(q, kg, vg, cl)
+    Smax = 1024                      # another width than M * bs = 1040
+    kd = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    vd = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    for b, n in enumerate(lens):
+        kd[b, :, :n] = kg[b, :, :n]
+        vd[b, :, :n] = vg[b, :, :n]
+    dense = decode_attention(q, kd, vd, cl)
+    assert torch.equal(paged, gather) and torch.equal(paged, dense)
+    assert torch.equal(paged_decode_attention(q, kp, vp, bt, cl), paged)
+    assert torch.equal(decode_attention(q, kd, vd, cl), dense)
+    torch.testing.assert_close(
+        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
+        **TOL[dt])
+
+
+# Sq off the 64-row tile, with and without q_offset, a window, GQA 2 and 8
+FLASH_EDGE_CASES = [  # (Sq, Skv, H, Kh, window, q_offset)
+    (1, 1, 4, 4, 0, None), (1, 200, 4, 4, 0, None), (63, 63, 4, 4, 0, None),
+    (65, 65, 4, 4, 0, None), (200, 200, 4, 4, 0, None),
+    (63, 300, 4, 4, 0, 100), (65, 300, 4, 2, 0, 0), (200, 330, 4, 4, 0, 130),
+    (200, 200, 4, 4, 64, None), (65, 300, 4, 4, 40, 200),
+    (200, 200, 4, 2, 0, None), (65, 200, 16, 2, 0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_cuda_flash_tile_edges(cuda_dev, dt, hd):
+    rng = np.random.default_rng(hd + 1)
+    for Sq, Skv, H, Kh, window, q_offset in FLASH_EDGE_CASES:
+        q = _rand(rng, (1, Sq, H, hd), dt, cuda_dev)
+        k = _rand(rng, (1, Skv, Kh, hd), dt, cuda_dev)
+        v = _rand(rng, (1, Skv, Kh, hd), dt, cuda_dev)
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        out = flash_attention(q, k, v, **kw)
+        torch.testing.assert_close(
+            out.float(), flash_attention_plain(q, k, v, **kw).float(),
+            **TOL[dt], msg=lambda m: f"Sq={Sq} Skv={Skv} H={H} Kh={Kh} "
+                                     f"window={window} q_offset={q_offset}: "
+                                     f"{m}")
+        assert torch.equal(flash_attention(q, k, v, **kw), out)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,8 @@ from repro.kernels.decode_attention import (
 from repro.kernels.flash_attention import flash_attention as pl_flash
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
-    decode_attention, decode_attention_plain, gather_pages,
+    CHUNK, chunk_plan, decode_attention, decode_attention_plain,
+    decode_combine_plain, decode_partials_plain, gather_pages,
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -176,6 +177,99 @@ def test_gather_pages_layout():
     assert g.shape == (2, 2, 12, 8)
     # logical row 5 of slot 0 is row 1 of its second block
     np.testing.assert_array_equal(g[0, :, 5].numpy(), kp[tables[0, 1], :, 1])
+
+
+# ---------------------------------------------------------------------------
+# the split-KV plan: fixed chunks merged in chunk order
+# ---------------------------------------------------------------------------
+
+BOUNDARY_LENS = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1, 300]
+
+
+@pytest.mark.parametrize("B,H,Kh,hd,Smax,lens", [
+    (7, 4, 2, 16, 300, BOUNDARY_LENS),
+    (3, 8, 1, 64, 1024, [1024, 513, 640]),   # G = 8, whole chunks
+    (2, 4, 4, 32, 100, [100, 37]),           # Smax under one chunk
+])
+def test_chunked_plain_equals_whole_softmax(B, H, Kh, hd, Smax, lens):
+    """The masked softmax cut at the fixed chunk boundaries and merged in
+    chunk order (the kernel's plan) equals the whole-cache plain version."""
+    rng = np.random.default_rng(Smax + hd)
+    q, _ = _rand(rng, (B, H, hd))
+    kc, _ = _rand(rng, (B, Kh, Smax, hd))
+    vc, _ = _rand(rng, (B, Kh, Smax, hd))
+    cl = torch.tensor(lens, dtype=torch.int32)
+    m, l, acc = decode_partials_plain(q, kc, vc, cl)
+    assert m.shape == (B, Kh, -(-Smax // CHUNK), H // Kh)
+    out = decode_combine_plain(m, l, acc, cl, cap=Smax, dtype=q.dtype)
+    np.testing.assert_allclose(_np(out), _np(decode_attention_plain(q, kc, vc,
+                                                                    cl)),
+                               atol=1e-6, rtol=1e-6)
+
+
+def test_chunks_past_cache_len_change_nothing():
+    """The combine never reads a chunk at or past ceil(cache_len / CHUNK):
+    garbage there (NaN, inf) leaves the output's bits as they were."""
+    rng = np.random.default_rng(4)
+    B, H, Kh, hd, Smax = 7, 4, 2, 16, 300
+    q, _ = _rand(rng, (B, H, hd))
+    kc, _ = _rand(rng, (B, Kh, Smax, hd))
+    vc, _ = _rand(rng, (B, Kh, Smax, hd))
+    cl = torch.tensor(BOUNDARY_LENS, dtype=torch.int32)
+    m, l, acc = decode_partials_plain(q, kc, vc, cl)
+    clean = decode_combine_plain(m, l, acc, cl, cap=Smax, dtype=q.dtype)
+    _, live = chunk_plan(cl, Smax)
+    for b, chunks in enumerate(live):
+        m[b, :, len(chunks):] = float("nan")
+        l[b, :, len(chunks):] = float("inf")
+        acc[b, :, len(chunks):] = float("nan")
+    assert torch.equal(decode_combine_plain(m, l, acc, cl, cap=Smax,
+                                            dtype=q.dtype), clean)
+    # and rows past cache_len never reach a live chunk's partials
+    kc2, vc2 = kc.clone(), vc.clone()
+    for b, n in enumerate(BOUNDARY_LENS):
+        kc2[b, :, n:] = float("nan")
+        vc2[b, :, n:] = float("inf")
+    m2, l2, acc2 = decode_partials_plain(q, kc2, vc2, cl)
+    assert torch.equal(decode_combine_plain(m2, l2, acc2, cl, cap=Smax,
+                                            dtype=q.dtype), clean)
+
+
+@pytest.mark.parametrize("bs,M", [(16, 64), (32, 32), (16, 65)])
+def test_chunk_plan_dense_equals_gathered_paged_view(bs, M):
+    """The live chunks are logical positions: a dense Smax=1024 cache and
+    the gathered view of a paged cache (Smax = M * bs) split alike."""
+    lens = [1024, 1, 17, 512, 600, 333, 1000, 64]
+    rng = np.random.default_rng(bs + M)
+    kp, _, tables = _paged_setup(rng, len(lens), 2, 8, bs, M, lens)
+    view = gather_pages(torch.from_numpy(kp), torch.from_numpy(tables))
+    cl = torch.tensor(lens, dtype=torch.int32)
+    n_dense, live_dense = chunk_plan(cl, 1024)
+    n_view, live_view = chunk_plan(cl, view.shape[2])
+    assert live_view == live_dense
+    assert n_view == n_dense or view.shape[2] != 1024
+    assert [c[-1][1] if c else 0 for c in live_dense] == lens
+    assert all(s % CHUNK == 0 for c in live_dense for s, _ in c)
+
+
+@pytest.mark.parametrize("lens", [BOUNDARY_LENS[:4], BOUNDARY_LENS[3:]])
+def test_cpu_decode_wrappers_at_chunk_boundaries(lens):
+    """On the CPU both decode wrappers are their plain versions, at lengths
+    that straddle the chunk boundaries, and count no launch."""
+    build.reset_launches()
+    rng = np.random.default_rng(len(lens))
+    B = len(lens)
+    q, _ = _rand(rng, (B, 4, 16))
+    kc, _ = _rand(rng, (B, 2, 320, 16))
+    cl = torch.tensor(lens, dtype=torch.int32)
+    assert torch.equal(decode_attention(q, kc, kc, cl),
+                       decode_attention_plain(q, kc, kc, cl))
+    kp, vp, tables = _paged_setup(rng, B, 2, 16, 16, 20, lens)
+    args = (q, torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(tables), cl)
+    assert torch.equal(paged_decode_attention(*args),
+                       paged_decode_attention_plain(*args))
+    assert sum(build.launches.values()) == 0
 
 
 # ---------------------------------------------------------------------------
