@@ -11,8 +11,9 @@ Phases, each fatal on failure:
   3. hold each kernel against its plain PyTorch version on the card, f32 and
      bf16, at the serving paths' shapes and at decode lengths straddling
      the split kernel's chunks; the paged kernel, the gather path and the
-     dense kernel must agree bit for bit on equal live rows; time kernel,
-     plain version and one PyTorch library call computing the same
+     dense kernel must agree bit for bit on equal live rows; wkv6 calls
+     chained through their state must give one whole call's bits; time
+     kernel, plain version and one PyTorch library call computing the same
      function, beside the bound;
   4. check the port's logits on the card against its CPU path (smoke size,
      qwen1.5-0.5b and rwkv6-1.6b);
@@ -28,7 +29,8 @@ Phases, each fatal on failure:
      not page): run(), then a run refactored at the same ticks, streams
      bit-identical, every WKV step of the path in the wkv6 kernel, and each
      generated token of two requests equal to a whole-sequence forward's;
-  8. phase 6 for the rwkv6-1.6b engine.
+  8. phase 6 for the rwkv6-1.6b engine, and one 512-token stage prefill's
+     wall time and device time by kernel.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -320,9 +322,10 @@ def kernel_checks(torch):
 
 def wkv_checks(torch, rnd, results):
     """wkv6 against wkv6_plain at the rwkv6-1.6b path's two shapes (prefill
-    B=1 S=512, decode B=8 S=1; H=32, hd=64), the chunk-composition
-    property, and both shapes timed beside their bounds."""
-    from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain
+    B=1 S=512, decode B=8 S=1; H=32, hd=64); chained calls against one whole
+    call, bit for bit; the decode shape and prompts of 64, 512 and 600 tokens
+    timed beside their bounds."""
+    from repro_torch.kernels.rwkv6_wkv import _geometry, wkv6, wkv6_plain
 
     H, hd = 32, 64
     r_ = results.setdefault("wkv6", {"max_abs_err": 0.0,
@@ -366,29 +369,55 @@ def wkv_checks(torch, rnd, results):
             args = inputs(B, S, dt, state)
             ref = wkv6_plain(*args)        # before wkv6 overwrites state0
             compare(dt, label, wkv6(*args), ref)
-    # chunk composition: [0, s1) then [s1, S) from the carried state
-    r, k, v, w, u, st0 = inputs(1, 512, "float32", True)
-    s1 = 200
-    whole = wkv6(r, k, v, w, u, st0.clone())
-    y1, st1 = wkv6(r[:, :s1].contiguous(), k[:, :s1].contiguous(),
-                   v[:, :s1].contiguous(), w[:, :s1].contiguous(), u, st0)
-    y2, st2 = wkv6(r[:, s1:].contiguous(), k[:, s1:].contiguous(),
-                   v[:, s1:].contiguous(), w[:, s1:].contiguous(), u, st1)
-    compare("float32", f"chunks [0,{s1}) + [{s1},512)",
-            (torch.cat([y1, y2], 1), st2), whole)
 
-    def timing(B, S):
-        """(ms, plain ms, bound ms, by, floor ms) of one f32 call with a
-        state0, as the serving path makes it (each timed call carries the
-        state on from the last)."""
-        args = inputs(B, S, "float32", True)
-        nbytes = (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd) * 4
+    # exact composition: calls chained through the state they leave give
+    # the bits of one whole call (a split inside a time tile, one at a
+    # multiple of it, a prefill then single-step decode calls, and 8 single
+    # steps against one 8-step call)
+    tt = _geometry(hd, torch.float32, 512).tile
+
+    def chained(args, cuts):
+        r, k, v, w, u, st = args
+        st, ys = st.clone(), []
+        for a, b in zip([0] + cuts, cuts + [r.shape[1]]):
+            y, st = wkv6(*(x[:, a:b].contiguous() for x in (r, k, v, w)), u,
+                         st)
+            ys.append(y)
+        return torch.cat(ys, 1), st
+
+    for dt in ("float32", "bfloat16"):
+        args = inputs(1, 512, dt, True)
+        short = tuple(x[:, :8].contiguous() for x in args[:4]) + args[4:]
+        for whole_args, cuts, label in (
+                (args, [200], "[0,200) + [200,512)"),
+                (args, [8 * tt], f"[0,{8 * tt}) + [{8 * tt},512) (8 TT)"),
+                (args, list(range(505, 512)), "[0,505) + 7 single steps"),
+                (short, list(range(1, 8)), "8 single steps vs one call")):
+            y, st = chained(whole_args, cuts)
+            y_w, st_w = wkv6(*whole_args[:5], whole_args[5].clone())
+            torch.cuda.synchronize()
+            check(torch.equal(y, y_w) and torch.equal(st, st_w),
+                  f"wkv6 {dt} {label}: chained calls differ from one call "
+                  f"(max |dy| {float((y.float() - y_w.float()).abs().max())}"
+                  f", max |dstate| {float((st - st_w).abs().max())})")
+            log(f"  {'wkv6 composition':24s} {dt:8s} {label:34s} y and state "
+                f"bit-identical to one call")
+
+    def timing(B, S, plain=True, dt="float32"):
+        """(ms, plain ms, bound ms, by, floor ms) of one call with a state0,
+        as the serving path makes it (each timed call carries the state on
+        from the last)."""
+        args = inputs(B, S, dt, True)
+        es = args[0].element_size()
+        nbytes = (5 * B * S * H * hd) * es + (H * hd + 2 * B * H * hd * hd) * 4
         # 5 flops per state element and step: y += r * (S + u k v) (one
-        # multiply-add with u k v shared by a row) and S = w S + k v
+        # multiply-add with u k v shared by a row) and S = w S + k v; f32
+        # arithmetic in both dtypes
         ops = 5 * B * H * hd * hd * S
         t_bound, by = bound(nbytes, ops, "float32")
         return (time_ms(torch, lambda: wkv6(*args)),
-                time_ms(torch, lambda: wkv6_plain(*args), iters=3),
+                time_ms(torch, lambda: wkv6_plain(*args), iters=3)
+                if plain else None,
                 t_bound, by, S * FMA_CYCLES / SM_CLOCK_HZ * 1e3)
 
     # the floor of S dependent steps is a data-sheet reckoning, not a
@@ -398,14 +427,27 @@ def wkv_checks(torch, rnd, results):
               bound_by=by, shape=f"decode B=8 S=1 H={H} hd={hd} f32, state0")
     log(f"  {'wkv6 decode':24s} 1 dependent step {floor:.6f} ms "
         f"(S x {FMA_CYCLES} cycles at {SM_CLOCK_HZ / 1e9:g} GHz)")
-    ms, plain, t_bound, by, floor = timing(1, 512)
-    r_["prefill"] = dict(ms=ms, plain_ms=plain, bound_ms=t_bound,
-                         bound_by=by,
-                         shape=f"prefill B=1 S=512 H={H} hd={hd} f32, state0")
-    log(f"  {'wkv6 prefill':24s} {ms:.4f} ms  plain {plain:.4f} ms  library "
-        f"n/a  bound {t_bound:.4f} ms ({by}), {512} dependent steps "
-        f"{floor:.4f} ms, measured {ms / 512 * 1e-3 * SM_CLOCK_HZ:.0f} "
-        f"cycles per step  [{r_['prefill']['shape']}]")
+    r_["prefill_lengths"] = []
+    for S in (64, 512, 600):
+        ms, plain, t_bound, by, floor = timing(1, S, plain=S == 512)
+        p = dict(ms=ms, bound_ms=t_bound, bound_by=by,
+                 shape=f"prefill B=1 S={S} H={H} hd={hd} f32, state0")
+        if S == 512:
+            r_["prefill"] = dict(p, plain_ms=plain)
+        else:
+            r_["prefill_lengths"].append(p)
+        log(f"  {'wkv6 prefill':24s} {ms:.4f} ms  plain "
+            f"{'%.4f ms' % plain if plain is not None else 'not timed'}  "
+            f"library n/a  bound {t_bound:.4f} ms ({by}), {S} dependent "
+            f"steps {floor:.4f} ms, measured "
+            f"{ms / S * 1e-3 * SM_CLOCK_HZ:.0f} cycles per step  "
+            f"[{p['shape']}]")
+    # bf16 halves the bytes a step reads from shared memory and adds the
+    # conversions to f32: beside f32, it shows which of the two holds a step
+    ms, _, t_bound, by, _ = timing(1, 512, plain=False, dt="bfloat16")
+    log(f"  {'wkv6 prefill':24s} {ms:.4f} ms  bound {t_bound:.4f} ms ({by}), "
+        f"{ms / 512 * 1e-3 * SM_CLOCK_HZ:.0f} cycles per step  [prefill B=1 "
+        f"S=512 H={H} hd={hd} bf16, state0]")
 
 
 # ---------------------------------------------------------------------------
@@ -517,12 +559,31 @@ def serve(torch, label, cfg, params, kv, refactors):
     return streams, reqs, info
 
 
+def kernel_profile(torch, fn, reps):
+    """``reps`` calls of ``fn`` under torch.profiler: the kernel events only
+    (an operator's device time repeats its kernels'), as (name, device us,
+    count) rows by time, and the wall time in us."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return rows, wall_us
+
+
 def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     """Device time by kernel over a few steady dense decode ticks at batch 8,
     and the device's idle share of their wall time.  A cold refactor may
     allocate at most 1/``extra_limit`` of the live cache."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
     from repro_torch.serving.workload import Request
 
@@ -566,23 +627,12 @@ def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     log(f"  synchronizing calls in one decode tick: {len(syncs)}")
     for m in syncs[:6]:
         log(f"    {m[:100]}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for t in range(ticks):
-            eng.decode_step(0.0)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # kernel events only: an operator's device time repeats its kernels'
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows, wall_us = kernel_profile(torch, lambda: eng.decode_step(0.0), ticks)
     busy_us = sum(r[1] for r in rows)
     out = {"cold_refactor_ms": cold["t"] * 1e3, "cold_extra_bytes": extra,
            "live_cache_bytes": live, "warm_refactor_ms": warm["t"] * 1e3,
            "syncs_per_tick": len(syncs)}
     if rows:
-        rows.sort(key=lambda r: -r[1])
         out.update(profiled_ms_per_tick=wall_us / ticks / 1e3,
                    busy_ms_per_tick=busy_us / ticks / 1e3,
                    idle_share=1 - busy_us / wall_us)
@@ -598,6 +648,55 @@ def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     else:
         log("  profiler saw no device time: not measured")
     log(f"  {cfg.name} profile summary on {card}: {json.dumps(out)}")
+    return out
+
+
+def profile_prefill(torch, card, cfg, params, S=512, reps=3):
+    """One full-width stage prefill of an S-token prompt (boundaries [0, 12],
+    a request into a free slot, as admission makes it): its wall time
+    unprofiled, which ends in the first token's copy to the host (the
+    engine's part of time to first token), and under the profiler its
+    device time by kernel and the wkv6 kernel's share of it."""
+    from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
+    from repro_torch.serving.workload import Request
+
+    eng = FlexPipeEngine(cfg, params, [0, 12],
+                         EngineConfig(max_batch=8, max_seq=1024))
+    rng = np.random.default_rng(1)
+    slots = iter(range(8))
+
+    def prefill():
+        req = Request(rid=0, arrival=0.0, prompt_len=S, max_new_tokens=32)
+        req.prompt_tokens = rng.integers(0, cfg.vocab_size, S)
+        eng._prefill_into_slot(next(slots), req)
+
+    prefill()                                  # warm
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        prefill()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rows, wall_us = kernel_profile(torch, prefill, 1)
+    busy_us = sum(r[1] for r in rows)
+    wkv_us = sum(r[1] for r in rows if "wkv6_kernel" in r[0])
+    out = {"prompt_tokens": S, "wall_ms": sorted(walls)[len(walls) // 2],
+           "wall_ms_all": walls}
+    if rows:
+        out.update(profiled_wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                   idle_share=1 - busy_us / wall_us,
+                   wkv6_ms=wkv_us / 1e3, wkv6_share=wkv_us / busy_us)
+        log(f"  one {S}-token stage prefill: wall {out['wall_ms']:.3f} ms "
+            f"(median of {reps}, unprofiled), device busy "
+            f"{out['busy_ms']:.3f} ms, wkv6 {out['wkv6_ms']:.3f} ms "
+            f"({out['wkv6_share']:.3f} of busy), idle share "
+            f"{out['idle_share']:.3f} (profiler on)")
+        for key, us, n in rows[:10]:
+            log(f"    {us:10.1f} us {n:5d} calls  {key[:80]}")
+    else:
+        log("  profiler saw no device time: not measured")
+    log(f"  {cfg.name} prefill summary on {card}: {json.dumps(out)}")
+    del eng
+    torch.cuda.empty_cache()
     return out
 
 
@@ -742,8 +841,9 @@ def main() -> int:
     check(got == want, "not every WKV step of the rwkv6 path ran in wkv6")
     decode_equals_forward(torch, cfg, params,
                           sorted(reqs, key=lambda r: r.prompt_len)[::15])
-    log("== 8. where an rwkv6 decode tick's time goes")
+    log("== 8. where an rwkv6 decode tick's and prefill's time goes")
     profile_decode(torch, card, cfg, params, 10)
+    profile_prefill(torch, card, cfg, params)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -786,6 +886,7 @@ def main() -> int:
             "launched_in": paths[name]})
         if "prefill" in r:
             kernels[-1]["prefill"] = r["prefill"]
+            kernels[-1]["prefill_lengths"] = r["prefill_lengths"]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

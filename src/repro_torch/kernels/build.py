@@ -51,8 +51,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
              _P],
     },
     "rwkv6_wkv": {
-        # r, k, v, w, u, state (in and out), y, B, S, H, hd, dtype, stream
-        "wkv6_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # r, k, v, w, u, state (in and out), y,
+        # B, S, H, hd, rows, dtype, smem, stream
+        "wkv6_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

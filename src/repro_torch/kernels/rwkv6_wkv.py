@@ -2,7 +2,8 @@
 
 Ports ``repro/kernels/rwkv6_wkv.py`` (``wkv6``, a Pallas TPU kernel).  The
 CUDA kernel is in ``csrc/rwkv6_wkv.cu``; its header says what bounds it on
-an H100 and how the design answers it.
+an H100 and how the design answers it.  ``_geometry`` computes its launch
+geometry, which the C launcher checks.
 
 ``wkv6`` keeps the Pallas signature and layout and adds ``state0``: r, k,
 v, w ``(B, S, H, hd)``; u ``(H, hd)``; per (b, h), from the state S
@@ -18,12 +19,50 @@ the reference ``repro.kernels.ref.wkv6_ref(..., state0=)``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)      # instantiated in the .cu
+# A call of at most this many steps (a decode tick) gives each lane 16 state
+# rows instead of 4: a quarter of the threads, so a batch-8 tick's CTAs fit
+# in one wave, and its time is the state's bytes.  hd = 16 keeps 4 rows (16
+# would leave a CTA of 16 threads).
+FEW_STEPS = 4
+_UNIT, _STAGES, _MAX_THREADS = 4, 3, 256   # kUnit, kStages, kMaxThreads
+
+
+class Geometry(NamedTuple):
+    rows: int            # state rows per lane (R)
+    lanes: int           # lanes per state column (G = hd / R)
+    cols: int            # state columns per CTA (JC)
+    threads: int         # per CTA (G x JC)
+    tile: int            # steps per time tile (TT)
+    ctas_per_head: int   # hd / JC
+    smem: int            # dynamic shared memory per CTA, bytes
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _geometry(hd: int, dtype: torch.dtype, S: int) -> Geometry:
+    """The kernel's launch geometry for a call of S steps: ``Geo`` and
+    ``smem_layout`` in csrc/rwkv6_wkv.cu, which refuses a shared-memory
+    size other than its own."""
+    R = 16 if S <= FEW_STEPS and hd >= 32 else 4
+    G = hd // R
+    JC = min(hd, _MAX_THREADS // G)
+    TT = 32 if hd <= 64 else 16
+    tts = min(TT, S)
+    stages = min(_STAGES, -(-S // TT))
+    stage = _round_up(tts * (3 * hd + JC) * dtype.itemsize, 16)
+    ps = _round_up(tts * JC, 32) + JC % 32
+    smem = stages * stage + 2 * (hd // _UNIT) * ps * 4
+    return Geometry(R, G, JC, G * JC, TT, hd // JC, smem)
 
 
 def wkv6_plain(r, k, v, w, u, state0=None):
@@ -81,14 +120,18 @@ def wkv6(r, k, v, w, u, state0=None):
     if not all(t.is_contiguous() for t in (r, k, v, w, u, state0)
                if t is not None):
         raise ValueError("wkv6: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("wkv6: r, k, v and w must be 16-byte aligned (the "
+                         "kernel copies them by cp.async)")
     y = torch.empty_like(r)
     st = (state0 if state0 is not None else
           torch.zeros(st_shape, dtype=torch.float32, device=r.device))
+    geo = _geometry(hd, r.dtype, S)
     lib = build.library("rwkv6_wkv")
     err = lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        st.data_ptr(), y.data_ptr(), B, S, H, hd, _DTYPES[r.dtype],
-        torch.cuda.current_stream(r.device).cuda_stream)
+        st.data_ptr(), y.data_ptr(), B, S, H, hd, geo.rows, _DTYPES[r.dtype],
+        geo.smem, torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "wkv6")
     build.launches["wkv6"] += 1
     return y, st

@@ -16,7 +16,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain
+from repro_torch.kernels.rwkv6_wkv import _geometry, wkv6, wkv6_plain
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
                                         KVCacheConfig)
@@ -235,24 +235,37 @@ def test_cuda_engine_paths_agree(cuda_dev):
     assert streams[0] == streams[1] == streams[2]
 
 
+def _wkv_inputs(rng, B, S, H, hd, dt, dev, with_state=True):
+    r, k, v = (_rand(rng, (B, S, H, hd), dt, dev) * 0.5 for _ in range(3))
+    w = torch.sigmoid(_rand(rng, (B, S, H, hd), "float32", dev)) * 0.5 + 0.45
+    u = _rand(rng, (H, hd), "float32", dev) * 0.1
+    st0 = (_rand(rng, (B, H, hd, hd), "float32", dev) if with_state
+           else None)
+    return r, k, v, w.to(DTYPES[dt]), u, st0
+
+
+def _tile(hd):
+    return _geometry(hd, torch.float32, 1 << 20).tile
+
+
+# B=1, H=32 at the time tile's edges (TT - 1, TT, TT + 1 steps) and at
+# 600 steps, for the two head sizes the serving shapes do not reach
+WKV_TILE_EDGES = [(1, S, 32, hd, True) for hd in (16, 128)
+                  for S in (1, _tile(hd) - 1, _tile(hd), _tile(hd) + 1, 600)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,hd,with_state", [
     (1, 512, 32, 64, False), (1, 300, 4, 64, True), (8, 1, 32, 64, True),
     (3, 40, 4, 16, True), (2, 17, 2, 16, False),
-])
+] + WKV_TILE_EDGES)
 def test_cuda_wkv6_kernel(cuda_dev, dt, B, S, H, hd, with_state):
     """The kernel against its plain version on the same card, tolerance
     relative to the plain output's mean |y| (y grows with the state)."""
     rng = np.random.default_rng(3)
-    r, k, v = (_rand(rng, (B, S, H, hd), dt, cuda_dev) * 0.5
-               for _ in range(3))
-    w = torch.sigmoid(_rand(rng, (B, S, H, hd), "float32", cuda_dev)) \
-        * 0.5 + 0.45
-    w = w.to(DTYPES[dt])
-    u = _rand(rng, (H, hd), "float32", cuda_dev) * 0.1
-    st0 = (_rand(rng, (B, H, hd, hd), "float32", cuda_dev) if with_state
-           else None)
+    r, k, v, w, u, st0 = _wkv_inputs(rng, B, S, H, hd, dt, cuda_dev,
+                                     with_state)
     first = st0.clone() if with_state else None
     y_ref, st_ref = wkv6_plain(r, k, v, w, u, st0)
     y, st = wkv6(r, k, v, w, u, st0)
@@ -267,6 +280,30 @@ def test_cuda_wkv6_kernel(cuda_dev, dt, B, S, H, hd, with_state):
         atol=WKV_TOL["float32"] * float(st_ref.abs().mean()))
     y2, st2 = wkv6(r, k, v, w, u, first)  # run to run: the same bits
     assert torch.equal(st2, st) and torch.equal(y2, y)
+
+
+# (S, cut points): a split inside a time tile, a split at a multiple of it
+# (8 TT), a prefill followed by single-step decode calls, and 8 chained
+# single steps against one 8-step call
+WKV_SPLITS = [(512, [200]), (512, [8 * _tile(64)]),
+              (512, list(range(505, 512))), (8, list(range(1, 8)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,cuts", WKV_SPLITS)
+def test_cuda_wkv6_composition_exact(cuda_dev, dt, S, cuts):
+    """A sequence cut into chained calls, each resuming from the state the
+    last one left, gives the bits of one whole call: y and the state."""
+    rng = np.random.default_rng(4)
+    r, k, v, w, u, st0 = _wkv_inputs(rng, 1, S, 32, 64, dt, cuda_dev)
+    y_whole, st_whole = wkv6(r, k, v, w, u, st0.clone())
+    st, ys = st0, []
+    for a, b in zip([0] + cuts, cuts + [S]):
+        y, st = wkv6(*(x[:, a:b].contiguous() for x in (r, k, v, w)), u, st)
+        ys.append(y)
+    assert torch.equal(torch.cat(ys, 1), y_whole)
+    assert torch.equal(st, st_whole)
 
 
 @pytest.mark.cuda

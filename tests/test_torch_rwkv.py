@@ -23,7 +23,8 @@ from repro.serving.workload import Request as JaxRequest
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import (cache_from_numpy, cache_to_numpy,
                                  params_from_numpy, tree_to_numpy)
-from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_plain
+from repro_torch.kernels.rwkv6_wkv import (FEW_STEPS, HEAD_DIMS, _geometry,
+                                           wkv6, wkv6_plain)
 from repro_torch.models import model as M
 from repro_torch.models import ssm
 from repro_torch.models.kvcache import init_cache
@@ -123,6 +124,27 @@ def test_wkv6_wrapper_dispatch():
         wkv6(r, k, v, w, u[:1])
     with pytest.raises(ValueError, match="no kernel"):
         wkv6(*(x.to("meta") for x in (r, k, v, w, u)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_wkv6_launch_geometry(hd, dtype):
+    """The CUDA kernel's launch geometry, from the wrapper's pure-Python
+    copy: whole warps, legal CTAs and a ring that fits, at every length."""
+    tt = _geometry(hd, dtype, 1 << 20).tile
+    for S in (0, 1, FEW_STEPS, FEW_STEPS + 1, tt - 1, tt, tt + 1, 3 * tt,
+              512, 600, 1 << 20):
+        g = _geometry(hd, dtype, S)
+        assert g.tile == tt
+        assert g.rows % 4 == 0 and g.rows * g.lanes == hd
+        assert hd % g.lanes == 0 and 32 % g.lanes == 0
+        assert g.threads == g.lanes * g.cols and g.threads % 32 == 0
+        assert g.threads <= 1024 and g.cols * g.ctas_per_head == hd
+        assert 0 <= g.smem <= 227 * 1024, (S, g)
+        assert g.rows == (16 if S <= FEW_STEPS and hd >= 32 else 4)
+    if hd == 64:               # rwkv6-1.6b's prefill: B=1, H=32
+        g = _geometry(hd, dtype, 512)
+        assert 32 * g.ctas_per_head * g.threads // 32 >= 1024
 
 
 # ---------------------------------------------------------------------------
