@@ -310,6 +310,30 @@ def kernel_checks(torch):
                 log(f"  {'flash_attention':24s} {ms:.4f} ms  library "
                     f"{lib:.4f} ms  [B=1 Sq=Skv=1024 H=Kh=16 hd=64 causal "
                     f"f32]")
+    flash_composition(torch, rnd)
+    # the chunked-prefill shape: a 128-row chunk at the end of a 512-token
+    # bucket, K/V read back from the cache (phase 9's chunk 128)
+    q = rnd((1, 128, 16, hd), "float32")
+    k, v = rnd((1, 512, 16, hd), "float32"), rnd((1, 512, 16, hd), "float32")
+    kw = dict(causal=True, q_offset=384)
+    mask = attention_mask(128, 512, causal=True, window=0, q_offset=384,
+                          device=dev)
+    pairs = int(mask.sum())
+    t_bound, by = bound((2 * 128 * 16 * hd + 2 * 512 * 16 * hd) * 4,
+                        2 * 2 * hd * 16 * pairs, "tf32x3")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    results["flash_attention"]["chunk"] = dict(
+        ms=time_ms(torch, lambda: flash_attention(q, k, v, **kw)),
+        plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v, **kw),
+                         iters=5),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)),
+        bound_ms=t_bound, bound_by=by,
+        shape="B=1 Sq=128 Skv=512 q_offset=384 H=Kh=16 hd=64 causal f32")
+    c = results["flash_attention"]["chunk"]
+    log(f"  {'flash_attention chunk':24s} {c['ms']:.4f} ms  plain "
+        f"{c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  bound "
+        f"{c['bound_ms']:.4f} ms ({by})  [{c['shape']}]")
     wkv_checks(torch, rnd, results)
     for name, r in results.items():
         lib = r["library_ms"]
@@ -318,6 +342,35 @@ def kernel_checks(torch):
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{r['shape']}]")
     build.reset_launches()       # comparison launches do not count
     return results
+
+
+def flash_composition(torch, rnd):
+    """Chunked prefill's invariant on the kernel: a prompt's rows computed
+    chunk by chunk (Sq = chunk, q_offset = c0, Skv = Sp, the bucket) equal
+    one whole call (Sq = Skv = Sp) bit for bit: the extra fully masked
+    tiles and the other warp's key half add only exact zeros and exact
+    scales of 1 to a row.  Chunks of 16 (like a prompt's last 16- or
+    32-token piece) sit off the kernel's 64-row tile."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    H, hd = 16, 64                         # qwen1.5-0.5b's attention
+    for dt in ("float32", "bfloat16"):
+        for Sp in (128, 512):
+            q = rnd((1, Sp, H, hd), dt)
+            k, v = rnd((1, Sp, H, hd), dt), rnd((1, Sp, H, hd), dt)
+            whole = flash_attention(q, k, v, causal=True, q_offset=0)
+            for chunk in (16, 64, 128):
+                parts = [flash_attention(q[:, c0:c0 + chunk].contiguous(), k,
+                                         v, causal=True, q_offset=c0)
+                         for c0 in range(0, Sp, chunk)]
+                got = torch.cat(parts, 1)
+                torch.cuda.synchronize()
+                check(torch.equal(got, whole),
+                      f"flash {dt} Sp={Sp} chunk={chunk}: chunked calls "
+                      f"differ from one call (max |d| "
+                      f"{float((got.float() - whole.float()).abs().max())})")
+                log(f"  {'flash composition':24s} {dt:8s} "
+                    f"{'Sp=%d, %d chunks of %d' % (Sp, Sp // chunk, chunk):34s}"
+                    f" bit-identical to one call")
 
 
 def wkv_checks(torch, rnd, results):
@@ -778,6 +831,379 @@ def serving(torch, card, arch, generator, refactored, prefix=""):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: chunked prefill, the fault path and admission control
+# ---------------------------------------------------------------------------
+
+TICK = 0.05                                  # simulated seconds per tick
+
+
+def serve_loop(torch, label, cfg, params, ecfg, *, boundaries=(0, 12),
+               refactors=None, faults=None):
+    """Submit phase 5's 16 requests and step the engine until every one has
+    completed with its 32 tokens, refactoring at the given ticks;
+    ``faults`` returns attach_faults' keywords.  Returns (streams,
+    requests, info, engine)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import FlexPipeEngine
+    from repro_torch.serving.workload import Request
+
+    eng = FlexPipeEngine(cfg, params, list(boundaries), ecfg)
+    if faults is not None:
+        eng.attach_faults(**faults())
+    reqs = make_requests(cfg, Request)
+    longest = max(reqs, key=lambda r: r.prompt_len)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for r in reqs:
+        eng.submit(r, now=0.0)
+    t0 = time.perf_counter()
+    now, ticks = 0.0, 0
+    mid_prefill, decoded_in_long_prefill, long_prefill_ticks = [], 0, 0
+    while len(eng.queue) or any(not s.done for s in eng.slots):
+        if refactors and ticks in refactors:
+            ev = eng.refactor(refactors[ticks])
+            check(ev["compile_cache_hit"] and ev["new_traces"] == 0,
+                  f"{label}: warmed refactor built programs: {ev}")
+        rep = eng.step(now)
+        if longest.start >= 0 and longest.first_token < 0:
+            long_prefill_ticks += 1
+            decoded_in_long_prefill += rep.decoded > 0
+        # after this tick: is a slot mid-prefill with committed rows?
+        mid_prefill.append(any(not s.done and not s.generated and s.pos > 0
+                               for s in eng.slots))
+        ticks += 1
+        now += TICK
+        check(ticks < 5000, f"{label}: did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.finish >= 0 and len(r.output) == 32 for r in reqs),
+          f"{label}: not every request completed with 32 tokens")
+    streams = {r.rid: list(r.output) for r in reqs}
+    check(all(0 <= t < cfg.vocab_size for st in streams.values() for t in st),
+          f"{label}: token ids out of range")
+    if eng.ecfg.paged:
+        check(eng.block_stats()["used_blocks"] == 0, f"{label}: blocks leaked")
+    info = {"wall_s": wall, "ticks": ticks,
+            "launches": dict(build.launches),
+            "counters": dict(eng.stats.counters),
+            "refactors": len(eng.refactor_events),
+            "long_prompt": longest.prompt_len,
+            "ticks_in_long_prefill": long_prefill_ticks,
+            "decode_ticks_in_long_prefill": decoded_in_long_prefill,
+            "mid_prefill": mid_prefill}
+    log(f"  {label:30s} " + json.dumps(
+        {k: v for k, v in info.items() if k != "mid_prefill"}))
+    return streams, reqs, info, eng
+
+
+def hold_streams(torch, cfg, params, label, got, ref, ref_reqs, exact):
+    """``exact`` rids must equal the reference streams; every other rid may
+    first differ only at a token whose top-2 logit margin (a whole-sequence
+    forward over the reference's prompt and tokens) is under MARGIN_TOL.
+    Returns the number of streams that differed."""
+    by_rid = {r.rid: r for r in ref_reqs}
+    differed = []
+    for rid, want in ref.items():
+        have = got.get(rid)
+        check(have is not None, f"{label}: request {rid} did not complete")
+        if have == want:
+            continue
+        check(rid not in exact, f"{label}: request {rid} differs from the "
+              "reference where the shapes are equal")
+        j = next((n for n, (a, b) in enumerate(zip(have, want)) if a != b),
+                 min(len(have), len(want)))
+        m = top2_margin(torch, cfg, params, by_rid[rid], j)
+        log(f"  {label}: request {rid} first differs at token {j} (top-2 "
+            f"margin of the reference there {m:.3e})")
+        check(m < MARGIN_TOL, f"{label}: request {rid} differs at token {j} "
+              f"where the reference's top-2 margin is {m:.3e} >= "
+              f"{MARGIN_TOL:g}")
+        differed.append(rid)
+    log(f"  {label}: {len(ref) - len(differed)} of {len(ref)} streams "
+        f"bit-identical to the reference ({len(exact)} required exact), "
+        f"{len(differed)} differ under the margin rule")
+    return len(differed)
+
+
+def time_chunks(torch, card, cfg, params, chunk=128, S=512):
+    """Wall time of one chunk at Lb = ``chunk`` (host clock around the
+    engine's chunk call, synchronized), a chunk's device time by kernel, and
+    the transposing copy a chunk makes per layer for kv_extent = S."""
+    from repro_torch.models.layers import _dense_rows
+    from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
+                                            PrefillConfig)
+    from repro_torch.serving.workload import Request
+
+    eng = FlexPipeEngine(cfg, params, [0, 12], EngineConfig(
+        max_batch=8, max_seq=1024, prefill=PrefillConfig(chunk=chunk)))
+    rng = np.random.default_rng(2)
+
+    def assign(slot):
+        req = Request(rid=slot, arrival=0.0, prompt_len=S, max_new_tokens=32)
+        req.prompt_tokens = rng.integers(0, cfg.vocab_size, S)
+        eng._assign_slot(slot, req, 0.0)
+
+    walls = []
+    for slot in range(4):                      # slot 0 warms the programs
+        assign(slot)
+        for _ in range(S // chunk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._prefill_chunk_into(slot, 0.0)
+            torch.cuda.synchronize()
+            if slot:
+                walls.append((time.perf_counter() - t0) * 1e3)
+    assign(4)
+    rows, wall_us = kernel_profile(
+        torch, lambda: eng._prefill_chunk_into(4, 0.0), 1)
+    busy = sum(r[1] for r in rows)
+    flash = sum(r[1] for r in rows if "flash_kernel" in r[0])
+    k = eng.caches[0]["mixer"]["k"][:1]
+    copy_ms = time_ms(torch, lambda: _dense_rows(k, S, torch.float32))
+    out = {"chunk": chunk, "kv_extent": S,
+           "wall_ms_per_chunk": sorted(walls)[len(walls) // 2],
+           "wall_ms_all": walls, "copy_ms_per_layer_leaf": copy_ms,
+           "copy_ms_per_chunk": copy_ms * 2 * cfg.n_layers}
+    if rows:
+        out.update(busy_ms=busy / 1e3, flash_ms=flash / 1e3,
+                   idle_share=1 - busy / wall_us)
+    log(f"  one chunk at Lb={chunk}, kv_extent={S}: wall "
+        f"{out['wall_ms_per_chunk']:.3f} ms (median of {len(walls)}, "
+        f"synchronized); transposing copy {copy_ms:.4f} ms per layer and "
+        f"leaf, {out['copy_ms_per_chunk']:.3f} ms per chunk")
+    for key, us, n in rows[:8]:
+        log(f"    {us:10.1f} us {n:5d} calls  {key[:80]}")
+    log(f"  chunk summary on {card}: {json.dumps(out)}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def chunked_phase(torch, card, cfg, params, base, base_reqs):
+    """Chunked prefill at chunk 128 (dense, paged gather and paged kernel,
+    refactored at ticks 10 and 30, and one dense run unrefactored) and 64:
+    streams exact among the chunk-128 runs, against whole-prompt prefill by
+    the margin rule where they differ; flash launched 24 times per chunk;
+    decode ticks during the longest prompt's prefill."""
+    from repro_torch.serving.engine import (EngineConfig, KVCacheConfig,
+                                            PrefillConfig)
+
+    moves = {10: [0, 6, 12, 18], 30: [0, 12]}
+    runs = {}
+
+    def ecfg(chunk, **kv):
+        return EngineConfig(max_batch=8, max_seq=1024, warm_profiles=(4,),
+                            prefill=PrefillConfig(chunk=chunk),
+                            kv=KVCacheConfig(**kv))
+
+    for label, chunk, kv, refs in (
+            ("chunk128 dense", 128, {}, None),
+            ("chunk128 dense refact.", 128, {}, moves),
+            ("chunk128 paged gather refact.", 128,
+             dict(paged=True, block_size=16), moves),
+            ("chunk128 paged kernel refact.", 128,
+             dict(paged=True, block_size=16, paged_kernel=True), moves),
+            ("chunk64 dense refact.", 64, {}, moves)):
+        streams, reqs, info, eng = serve_loop(torch, label, cfg, params,
+                                              ecfg(chunk, **kv),
+                                              refactors=refs)
+        n_chunks = info["counters"]["prefill_chunks"]
+        flash = info["launches"].get("flash_attention", 0)
+        log(f"  {label}: flash launches {flash} = {cfg.n_layers} x "
+            f"{n_chunks} chunks: {cfg.n_layers * n_chunks}")
+        check(flash == cfg.n_layers * n_chunks,
+              f"{label}: flash launches {flash} != 24 x {n_chunks} chunks")
+        check(info["decode_ticks_in_long_prefill"] > 0,
+              f"{label}: no decode tick ran during the {info['long_prompt']}"
+              "-token prompt's prefill")
+        if refs:
+            check(info["refactors"] == 2, f"{label}: refactors did not happen")
+        runs[label] = (streams, info, reqs)
+        del eng
+        torch.cuda.empty_cache()
+    ref = runs["chunk128 dense"][0]
+    for label in ("chunk128 dense refact.", "chunk128 paged gather refact.",
+                  "chunk128 paged kernel refact."):
+        check(runs[label][0] == ref, f"{label}: streams differ from the "
+              "unrefactored chunk-128 dense run (equal shapes)")
+    log("  chunk-128 runs (dense, refactored dense, paged gather, paged "
+        "kernel): all 16 streams bit-identical to each other")
+    differed = {
+        "chunk128 vs whole prompt": hold_streams(
+            torch, cfg, params, "chunk128 vs whole prompt", ref, base,
+            base_reqs, exact=()),
+        "chunk64 vs whole prompt": hold_streams(
+            torch, cfg, params, "chunk64 vs whole prompt",
+            runs["chunk64 dense refact."][0], base, base_reqs, exact=())}
+    return runs, differed
+
+
+def fault_phase(torch, card, cfg, params, base, base_reqs, chunk_ref,
+                chunk_info):
+    """Eq. 10 on the card: a stage of [0, 6, 12, 18] preempted at tick 22
+    (dense, paged kernel; two ticks after the last snapshot, so a delta is
+    replayed), a preemption while a chunked prefill is mid-prompt, and a
+    graceful migration under an injected slowdown.
+    Recoveries must be warm; streams exact where the replay rebuilt only
+    rows first made by decode ticks, by the margin rule elsewhere."""
+    from repro_torch.core.refactoring import (CacheSnapshot, merge_with_mask,
+                                              snapshot)
+    from repro_torch.serving.engine import (EngineConfig, KVCacheConfig,
+                                            PrefillConfig)
+    from repro_torch.serving.faults import (PREEMPT_STAGE, SLOWDOWN,
+                                            FaultEvent, FaultInjector,
+                                            StageHealthMonitor)
+
+    def ecfg(chunk=0, **kv):
+        return EngineConfig(max_batch=8, max_seq=1024, warm_profiles=(2, 3, 4),
+                            snapshot_interval=4,
+                            prefill=PrefillConfig(chunk=chunk),
+                            kv=KVCacheConfig(**kv))
+
+    def preempt(tick):
+        return lambda: dict(
+            injector=FaultInjector.scripted([FaultEvent(
+                t=(tick - 0.5) * TICK, kind=PREEMPT_STAGE, stage=1)]),
+            monitor=StageHealthMonitor())
+
+    # the chunked fault lands where a slot is mid-prompt (after a snapshot)
+    mid = next(t for t in range(12, len(chunk_info["mid_prefill"]))
+               if chunk_info["mid_prefill"][t - 1])
+    out = {}
+    for label, cfg_, tick, ref, ref_reqs in (
+            ("fault dense", ecfg(), 22, base, base_reqs),
+            ("fault paged kernel", ecfg(paged=True, block_size=16,
+                                        paged_kernel=True), 22, base,
+             base_reqs),
+            ("fault chunk128 mid-prompt", ecfg(128), mid, chunk_ref[0],
+             chunk_ref[1])):
+        streams, reqs, info, eng = serve_loop(
+            torch, label, cfg, params, cfg_, boundaries=(0, 6, 12, 18),
+            faults=preempt(tick))
+        recs = eng.recovery_events
+        check(len(recs) == 1 and recs[0]["kind"] == "emergency_refactor",
+              f"{label}: expected one emergency refactor, got {recs}")
+        check(info["counters"].get("graceful_migrations", 0) == 0,
+              f"{label}: a migration without an injected slowdown")
+        rec = recs[0]
+        check(rec["new_traces"] == 0 and rec["compile_cache_hit"]
+              and rec["was_warm"], f"{label}: recovery not warm: {rec}")
+        spans = rec["replay_spans"]
+        # exact: the replay rebuilt only rows that decode ticks made
+        exact = {rid for rid, (v, pos, plen) in spans.items() if v >= plen}
+        exact |= set(ref) - set(spans)        # ended or not yet admitted
+        if label.startswith("fault chunk"):
+            check(any(p < plen for _, p, plen in spans.values()),
+                  f"{label}: no slot was mid-prompt at the fault")
+        snap_bytes = sum(t.numel() * t.element_size()
+                         for c in eng._snap_caches
+                         for t in c["mixer"].values())
+        n_diff = hold_streams(torch, cfg, params, label, streams, ref,
+                              ref_reqs, exact)
+        out[label] = {
+            "tick": tick, "recovery_s": rec["recovery_s"],
+            "replayed_ticks": rec["replayed_ticks"],
+            "compile_cache_hit": rec["compile_cache_hit"],
+            "new_traces": rec["new_traces"], "to": rec["refactor"]["to"],
+            "snapshot_bytes": snap_bytes, "exact_required": len(exact),
+            "margin_rule_streams": n_diff,
+            "replay_spans": {str(k): v for k, v in spans.items()}}
+        if label == "fault dense":
+            # the snapshot's copy and a merge at the live horizons, timed
+            # on the loaded engine (its run is over, the values are spent)
+            pos = np.array([int(x) for x in eng._snapshot.valid_len])
+            pos[pos == 0] = 512
+            live = int(pos.max())
+            out[label]["snapshot_copy_ms"] = time_ms(
+                torch, lambda: snapshot(eng.caches, pos,
+                                        out=eng._snap_caches), iters=5)
+            out[label]["merge_ms"] = time_ms(
+                torch, lambda: merge_with_mask(
+                    CacheSnapshot(eng._snap_caches, pos), eng.caches, live),
+                iters=5)
+        log(f"  {label} on {card}: " + json.dumps(
+            {k: v for k, v in out[label].items() if k != "replay_spans"}))
+        del eng
+        torch.cuda.empty_cache()
+
+    def slow():
+        return dict(
+            injector=FaultInjector.scripted([FaultEvent(
+                t=9.5 * TICK, kind=SLOWDOWN, stage=1, factor=50.0,
+                duration=30.0)]),
+            monitor=StageHealthMonitor(straggler_factor=3.0, patience=3))
+
+    label = "graceful migration"
+    streams, _, info, eng = serve_loop(torch, label, cfg, params, ecfg(),
+                                       boundaries=(0, 6, 12, 18),
+                                       faults=slow)
+    migs = [r for r in eng.recovery_events
+            if r["kind"] == "graceful_migration"]
+    check(len(migs) == 1 and migs[0]["replayed_ticks"] == 0
+          and migs[0]["new_traces"] == 0 and migs[0]["compile_cache_hit"],
+          f"{label}: expected one warm migration, got {eng.recovery_events}")
+    check(streams == base, f"{label}: streams differ from the dense run")
+    out[label] = {"recovery_s": migs[0]["recovery_s"],
+                  "t": migs[0]["t"], "to": migs[0]["refactor"]["to"],
+                  "new_traces": 0}
+    log(f"  {label}: all 16 streams bit-identical to the dense run; "
+        + json.dumps(out[label]))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def admission_phase(torch, card, cfg, params, base, base_reqs):
+    """A burst of phase 5's requests at twice the rate its run() sustained,
+    with deadlines and priority classes: every request ends in exactly one
+    terminal state, every completed stream is a prefix of its unconstrained
+    stream."""
+    from repro_torch.serving.admission import AdmissionConfig
+    from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
+    from repro_torch.serving.workload import Request, audit_requests
+
+    makespan = max(r.finish for r in base_reqs) + TICK
+    rate = 2 * len(base_reqs) / makespan
+    reqs = make_requests(cfg, Request)
+    for i, r in enumerate(reqs):
+        r.arrival = i / rate
+        r.deadline_s = 0.75 * makespan
+        r.priority = i % 3                 # interactive, standard, batch
+    adm = AdmissionConfig(max_queue_depth=4, brownout_dwell_s=0.25,
+                          brownout_high=0.5)
+    eng = FlexPipeEngine(cfg, params, [0, 12], EngineConfig(
+        max_batch=8, max_seq=1024, admission=adm))
+    t0 = time.perf_counter()
+    stats = eng.run(reqs, time_per_tick=TICK)      # the user's entry point
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, violations = audit_requests(reqs)
+    check(not violations, f"admission: requests without one terminal "
+          f"state: {violations}")
+    check(counts["completed"] > 0, "admission: nothing completed")
+    for r in reqs:
+        if r.finish >= 0:
+            check(r.output == base[r.rid][:len(r.output)],
+                  f"admission: request {r.rid}'s stream is not a prefix of "
+                  "its unconstrained stream")
+    horizon = len(stats.queue_samples) * TICK
+    out = {"rate_req_per_s": rate, "deadline_s": 0.75 * makespan,
+           "sustained_req_per_s": len(base_reqs) / makespan,
+           "wall_s": wall, "counts": counts,
+           "goodput_req_per_s": stats.goodput(horizon),
+           "shed": len(eng.shed_requests),
+           "rejected": len(eng.rejected_requests),
+           "degraded": sum(r.degraded for r in reqs),
+           "overload": {k: v for k, v in stats.overload_summary().items()
+                        if k not in ("ttft", "blocks", "saturation")}}
+    log(f"  admission burst on {card} (simulated time, {TICK} s per tick): "
+        + json.dumps(out))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -812,7 +1238,7 @@ def main() -> int:
     for arch in ("qwen1.5-0.5b", "rwkv6-1.6b"):
         small_model_check(torch, arch)
     log("== 5. serving qwen1.5-0.5b")
-    cfg, params, _, runs = serving(
+    cfg, params, base_reqs, runs = serving(
         torch, card, "qwen1.5-0.5b", torch.Generator().manual_seed(0),
         {"dense refactored": {},
          "paged gather refact.": dict(paged=True, block_size=16),
@@ -820,8 +1246,7 @@ def main() -> int:
                                       paged_kernel=True)})
     log("== 6. where a dense decode tick's time goes")
     profile_decode(torch, card, cfg, params, 20)
-    del cfg, params
-    torch.cuda.empty_cache()
+    qwen = (cfg, params, base_reqs)           # phase 9 serves it again
     log("== 7. serving rwkv6-1.6b")
     # 1/10: a cold refactor's throwaway tick holds one layer's scratch
     # state (B x (H hd^2 + 2 d) f32, 1/24 of the live state; the kernel
@@ -844,6 +1269,23 @@ def main() -> int:
     log("== 8. where an rwkv6 decode tick's and prefill's time goes")
     profile_decode(torch, card, cfg, params, 10)
     profile_prefill(torch, card, cfg, params)
+    del cfg, params
+    torch.cuda.empty_cache()
+    log("== 9. qwen1.5-0.5b: chunked prefill, the fault path, admission")
+    cfg, params, base_reqs = qwen
+    base = {r.rid: list(r.output) for r in base_reqs}
+    chunk_runs, differed = chunked_phase(torch, card, cfg, params, base,
+                                         base_reqs)
+    chunk_timing = time_chunks(torch, card, cfg, params)
+    ref_streams, ref_info, ref_reqs = chunk_runs["chunk128 dense"]
+    fault_runs = fault_phase(torch, card, cfg, params, base, base_reqs,
+                             (ref_streams, ref_reqs), ref_info)
+    admission = admission_phase(torch, card, cfg, params, base, base_reqs)
+    log("  phase 9 summary on " + card + ": " + json.dumps({
+        "margin_rule_streams": differed, "chunk": chunk_timing,
+        "faults": {k: {kk: vv for kk, vv in v.items() if kk != "replay_spans"}
+                   for k, v in fault_runs.items()},
+        "admission": admission}))
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -884,6 +1326,12 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "launched_in": paths[name]})
+        if name == "flash_attention":
+            kernels[-1]["chunk"] = r["chunk"]
+            info = chunk_runs["chunk128 dense"][1]
+            kernels[-1]["launches_chunked"] = \
+                info["launches"]["flash_attention"]
+            kernels[-1]["chunked_launched_in"] = "chunk128 dense"
         if "prefill" in r:
             kernels[-1]["prefill"] = r["prefill"]
             kernels[-1]["prefill_lengths"] = r["prefill_lengths"]

@@ -11,8 +11,14 @@ they were given and return the same dict.  Attention goes through the
 kernel wrappers, which take their plain versions for CPU tensors and launch
 the CUDA kernels for CUDA tensors.
 
-Sliding windows, chunked prefill (``kv_extent``) and the sequence- and
-tensor-parallel branches are not ported yet (see ROADMAP.md) and raise.
+Chunked prefill (``kv_extent``) writes a chunk's rows at ``pos0`` and
+attends over cache rows ``[0, kv_extent)`` through the flash kernel with
+``q_offset = pos0``.  The cache is head-major ``(B, Kh, Smax, hd)`` and the
+kernel takes ``(B, Skv, Kh, hd)``, so each chunk makes one transposing copy
+of ``kv_extent`` rows per layer (a gather through the table when paged).
+
+Sliding windows and the sequence- and tensor-parallel branches are not
+ported yet (see ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -89,8 +95,23 @@ def _positions(pos0, S: int, device) -> torch.Tensor:
     return (p0[:, None] + ar) if p0.ndim == 1 else p0 + ar
 
 
+def _dense_rows(c: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """Rows [0, n) of a head-major cache, as the flash kernel's contiguous
+    ``(B, n, Kh, hd)`` (one transposing copy)."""
+    return c[:, :, :n].transpose(1, 2).to(dtype).contiguous()
+
+
+def _paged_rows(pool: torch.Tensor, ids: torch.Tensor, n: int,
+                dtype) -> torch.Tensor:
+    """Rows [0, n) of one slot's logical view, its blocks ``ids`` gathered
+    from the pool, as the flash kernel's contiguous ``(1, n, Kh, hd)``."""
+    nb, Kh, bs, hd = ids.shape[0], pool.shape[1], pool.shape[2], pool.shape[3]
+    g = pool[ids].permute(0, 2, 1, 3).reshape(1, nb * bs, Kh, hd)
+    return g[:, :n].to(dtype).contiguous()
+
+
 def _paged_attention(q, k, v, cache, block_table, *, pos0, wo, causal,
-                     paged_kernel):
+                     paged_kernel, kv_extent=0):
     """Attention over block pools and per-slot block tables.
 
     Decode (S == 1) writes each slot's new row into its tail block and
@@ -131,8 +152,15 @@ def _paged_attention(q, k, v, cache, block_table, *, pos0, wo, causal,
         offs = pos % bs
         kp[pids, :, offs, :] = km[0].movedim(0, 1)      # (S, Kh, hd)
         vp[pids, :, offs, :] = vm[0].movedim(0, 1)
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, q_offset=0)
+        if kv_extent:
+            ids = bt[0, :-(-kv_extent // bs)].long()
+            out = flash_attention(q.contiguous(),
+                                  _paged_rows(kp, ids, kv_extent, q.dtype),
+                                  _paged_rows(vp, ids, kv_extent, q.dtype),
+                                  causal=causal, q_offset=p0)
+        else:
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal, q_offset=0)
     y = torch.einsum("bshk,hkd->bsd", out, wo)
     return y, cache
 
@@ -153,8 +181,6 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     window = 0 if is_global else cfg.sliding_window
     if window:
         raise _todo("sliding-window attention")
-    if kv_extent:
-        raise _todo("chunked prefill (kv_extent)")
     if tp_axis is not None or sp_axis is not None:
         raise _todo("tensor/sequence-parallel attention")
     q, k, v = _qkv(params, x)
@@ -167,7 +193,8 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     if block_table is not None and cache is not None:
         y, cache = _paged_attention(q, k, v, cache, block_table, pos0=pos0,
                                     wo=params["wo"], causal=causal,
-                                    paged_kernel=paged_kernel)
+                                    paged_kernel=paged_kernel,
+                                    kv_extent=kv_extent)
         return y, cache, aux
 
     if cache is not None:
@@ -186,6 +213,10 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
             p = int(pos0)
             kc[:, :, p:p + 1] = km
             vc[:, :, p:p + 1] = vm
+        elif kv_extent:
+            p = int(pos0)                  # a chunk: rows [p, p + S)
+            kc[:, :, p:p + S] = km
+            vc[:, :, p:p + S] = vm
         elif S <= Smax:
             kc[:, :, :S] = km
             vc[:, :, :S] = vm
@@ -196,6 +227,11 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         cl = (pos0 + 1) if torch.is_tensor(pos0) else int(pos0) + 1
         out = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                                cl)[:, None]
+    elif kv_extent and cache is not None:
+        out = flash_attention(q.contiguous(),
+                              _dense_rows(cache["k"], kv_extent, q.dtype),
+                              _dense_rows(cache["v"], kv_extent, q.dtype),
+                              causal=causal, q_offset=int(pos0))
     else:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal, q_offset=0)

@@ -33,7 +33,8 @@ class BlockCtx:
     sp_axis: Optional[str] = None
     block_table: Any = None            # paged KV: (B, max_blocks) ids
     paged_kernel: bool = False         # block-walk kernel vs gather decode
-    kv_extent: int = 0                 # chunked prefill (not ported yet)
+    kv_extent: int = 0                 # chunked prefill: attend over cache
+                                       # rows [0, kv_extent) (0 = off)
 
 
 _PORTED_KINDS = ((MIXER_ATTN, MLP_DENSE), (MIXER_RWKV, "rwkv_cm"))

@@ -24,14 +24,25 @@ program runs the same per-layer loop, so a refactor changes no code that
 executes: it re-groups bookkeeping, and the refactor checks prove that slot
 and cache state survive the re-grouping (see executor_cache.py).
 
-Not ported yet (see ROADMAP.md) and raising ``NotImplementedError``:
-admission control (``EngineConfig(admission=...)``), chunked prefill
-(``PrefillConfig(chunk>0)``), snapshots and the fault path
-(``snapshot_interval``, ``attach_faults``) and a controller in ``run``.
+Chunked prefill (``PrefillConfig(chunk>0)``) splits a prompt into pow2
+chunks pumped round-robin under a per-tick token budget while decode slots
+keep emitting; every chunk attends over the whole prompt's bucket, so the
+streams equal whole-prompt prefill.  The fault path (``snapshot_interval``,
+``attach_faults``) keeps an Eq. 10 snapshot in a twin of the live caches,
+and on a lost stage zeroes its caches in place, refactors onto the
+survivors, restores committed rows from the snapshot and replays only the
+tokens decoded since.  Admission control (``EngineConfig(admission=...)``)
+bounds the queue, orders it by priority and deadline, sheds infeasible
+work and browns out budgets under sustained saturation.
+
+Not ported yet (see ROADMAP.md) and raising ``NotImplementedError``: a
+controller in ``run``, and the fault path for recurrent (RWKV) models,
+whose reference results are wrong (ROADMAP.md, section 3).
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -39,26 +50,38 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MIXER_RWKV, ModelConfig
 from repro_torch.convert import torch_dtype
+from repro_torch.core.refactoring import (CacheSnapshot, block_validity,
+                                          merge_paged_with_mask,
+                                          merge_with_mask, snapshot)
 from repro_torch.kernels import build
 from repro_torch.models.kvcache import (NULL_BLOCK, BlockAllocator,
                                         blocks_for, can_page,
                                         fragmentation, group_by_stage,
                                         init_cache, init_paged_cache)
 from repro_torch.models.model import embed_tokens, lm_head
+from repro_torch.serving.admission import (ADMITTED, PRIO_STANDARD, REJECTED,
+                                           AdmissionConfig, AdmissionQueue)
 from repro_torch.serving.executor_cache import ExecutorCache, stage_ranges
+from repro_torch.serving.faults import (COMM_TRANSIENT, OOM, PREEMPT_STAGE,
+                                        SLOWDOWN)
 from repro_torch.serving.metrics import ServingStats
 from repro_torch.serving.workload import Request
-
-ADMITTED = "admitted"
-PRIO_STANDARD = 1
 
 
 def _todo(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet; see ROADMAP.md, "
         f"section 1, item '{item}'")
+
+
+def _recurrent_faults():
+    return NotImplementedError(
+        "the fault path (emergency refactor and replay) is not served for "
+        "recurrent (RWKV) models: a delta replay cannot rebuild a lost "
+        "stage's state, and the reference's streams differ after one; see "
+        "ROADMAP.md, section 3, known quirks of the reference")
 
 
 def balanced_boundaries(n_layers: int, n_stages: int) -> list[int]:
@@ -90,9 +113,17 @@ class KVCacheConfig:
 @dataclass
 class PrefillConfig:
     """Prefill scheduling: ``buckets`` pads prompts to pow2 buckets.
-    ``chunk`` > 0 (chunked prefill) is not ported yet."""
+
+    ``chunk`` > 0 arms chunked prefill: each admitted prompt is split into
+    ``chunk``-token pieces (a power of two >= 16; the final partial piece
+    pads to its own pow2 bucket), and at most ``budget`` bucketed prompt
+    tokens (0: one chunk) run per tick, round-robin across mid-prefill
+    slots, while decode slots keep emitting.  Architectures that cannot
+    chunk exactly (non-attention mixers, windows, a non-f32 cache) warn and
+    prefill whole prompts, as the reference does."""
     buckets: bool = True
-    chunk: int = 0
+    chunk: int = 0          # tokens per prefill chunk (0: whole prompt)
+    budget: int = 0         # bucketed prompt tokens per tick (0: chunk)
 
 
 class EngineConfig:
@@ -106,7 +137,8 @@ class EngineConfig:
                  cache_dtype: str = "float32", eos_token: int = -1,
                  fused_decode: bool = True,
                  warm_profiles: tuple[int, ...] = (),
-                 snapshot_interval: int = 0, admission=None,
+                 snapshot_interval: int = 0,
+                 admission: Optional[AdmissionConfig] = None,
                  kv: Optional[KVCacheConfig] = None,
                  prefill: Optional[PrefillConfig] = None):
         self.max_batch = max_batch
@@ -117,19 +149,25 @@ class EngineConfig:
         # stage counts whose programs are built and run once at start, so
         # refactoring between them is a cache hit
         self.warm_profiles = warm_profiles
+        # Eq. 10 snapshot cadence in decode ticks (0: off): every interval-th
+        # tick the caches are copied into a twin allocated at construction,
+        # with each slot's committed length as its validity horizon
         self.snapshot_interval = snapshot_interval
+        # overload protection (serving/admission.py); None keeps the
+        # unbounded FIFO
         self.admission = admission
         self.kv = kv if kv is not None else KVCacheConfig()
         self.prefill = prefill if prefill is not None else PrefillConfig()
-        if admission is not None:
-            raise _todo("admission control (EngineConfig(admission=...))",
-                        "Admission control")
-        if self.prefill.chunk:
-            raise _todo("chunked prefill (PrefillConfig(chunk>0))",
-                        "Chunked prefill")
-        if snapshot_interval:
-            raise _todo("Eq. 10 snapshots (snapshot_interval>0)",
-                        "Fault path")
+        c = self.prefill.chunk
+        if c:
+            if c < 16 or (c & (c - 1)):
+                raise ValueError(
+                    f"prefill chunk must be a power of two >= 16, got {c}")
+            if self.max_seq % c:
+                raise ValueError(
+                    f"max_seq ({self.max_seq}) must be a multiple of the "
+                    f"prefill chunk ({c}) so chunk starts never cross the "
+                    "prompt bucket (bit-exactness invariant)")
 
     @property
     def paged(self) -> bool:
@@ -168,12 +206,12 @@ class TickReport:
     """What one ``step`` did."""
     now: float
     decoded: int           # tokens emitted by decode slots this tick
-    prefill_tokens: int    # chunked prefill tokens (0 until it is ported)
+    prefill_tokens: int    # bucketed prompt tokens pumped through chunks
     prefilling: int        # slots mid-prefill after the tick
     admitted: int          # requests assigned to slots this tick
     completed: int         # requests finished this tick
     queue_depth: int
-    recoveries: int        # fault recoveries (0 until the fault path)
+    recoveries: int        # emergency recoveries performed this tick
 
 
 @dataclass
@@ -183,7 +221,7 @@ class Slot:
     generated: list = field(default_factory=list)
     done: bool = True
     budget: int = 0                  # token budget clamped to fit max_seq
-    prompt: Optional[np.ndarray] = None
+    prompt: Optional[np.ndarray] = None  # admitted prompt (replay source)
 
 
 class FlexPipeEngine:
@@ -203,6 +241,7 @@ class FlexPipeEngine:
         self.allocator: Optional[BlockAllocator] = None
         self.block_tables: Optional[np.ndarray] = None
         self._slot_blocks: list[list[int]] = []
+        self._snap_tables: Optional[np.ndarray] = None
         self._max_blocks = 0
         if self.ecfg.paged:
             if not can_page(cfg):
@@ -225,14 +264,53 @@ class FlexPipeEngine:
         # canonical state: the per-layer cache list
         self.caches = self._init_caches()
         self.slots = [Slot() for _ in range(self.ecfg.max_batch)]
-        self.queue: list[Request] = []
+        # with an AdmissionConfig the queue IS the bounded EDF queue (list-
+        # compatible for len and append); without one, an unbounded FIFO
+        self.admission: Optional[AdmissionQueue] = None
+        if self.ecfg.admission is not None:
+            self.admission = AdmissionQueue(self.ecfg.admission,
+                                            stats=self.stats)
+            self.queue = self.admission
+        else:
+            self.queue: list[Request] = []
         self.executors = ExecutorCache(
             cfg, params, max_seq=self.ecfg.max_seq,
+            cache_dtype=self.cache_dtype,
             prefill_buckets=self.ecfg.prefill_buckets,
             paged=self.ecfg.paged, paged_kernel=self.ecfg.paged_kernel)
         self._fused = None
         if self.ecfg.fused_decode:
             self._fused, _ = self.executors.fused_decode(tuple(self.boundaries))
+        # chunked prefill: armed when asked for AND the architecture chunks
+        # exactly (attention only, no window, f32 cache)
+        self._chunk = 0
+        self._prefill_rr = 0          # round-robin cursor over prefill slots
+        if self.ecfg.prefill.chunk:
+            if self.executors.can_chunk:
+                self._chunk = self.ecfg.prefill.chunk
+            else:
+                warnings.warn(
+                    "prefill.chunk requested but this architecture cannot "
+                    "chunk bit-exactly (needs attention-only mixers, no "
+                    "sliding window, float32 cache); falling back to "
+                    "whole-prompt prefill", stacklevel=2)
+        # fault-tolerance state (armed by attach_faults)
+        self.faults = None               # FaultInjector
+        self.fault_policy = None         # FaultPolicy
+        self.health = None               # StageHealthMonitor
+        self.recovery_events: list[dict] = []
+        self.failed_requests: list[Request] = []
+        self._recurrent = any(cfg.layer_kind(i).mixer == MIXER_RWKV
+                              for i in range(cfg.n_layers))
+        # the Eq. 10 snapshot: a zeroed twin of the live caches, allocated
+        # once here and refilled in place every snapshot_interval ticks
+        self._snap_caches = (self._init_caches()
+                             if self.ecfg.snapshot_interval else None)
+        self._snapshot: Optional[CacheSnapshot] = None
+        self._snap_rids: list = []
+        self._dead: set[int] = set()
+        self._slowdowns: dict[int, tuple[float, float]] = {}
+        self._tick_count = 0
         if self.ecfg.warm_profiles:
             self.warmup(self.ecfg.warm_profiles)
 
@@ -398,15 +476,316 @@ class FlexPipeEngine:
         self.refactor_events.append(ev)
         return ev
 
-    def attach_faults(self, injector=None, policy=None, monitor=None):
-        raise _todo("the fault path (attach_faults)", "Fault path")
+    # ------------------------------------------------------------------
+    # Fault tolerance: detection, emergency refactor, replay
+    # ------------------------------------------------------------------
+    def attach_faults(self, injector=None, policy=None, monitor=None) -> None:
+        """Arm the fault stack (serving/faults.py): a FaultInjector that
+        schedules preemption, OOM, comm and slowdown events, a FaultPolicy
+        for request timeout, retry and degradation, and a
+        StageHealthMonitor whose heartbeats and tick watchdog detect them.
+
+        Recurrent (RWKV) models take the request policy only: a lost stage's
+        state cannot be rebuilt by a delta replay, and the reference's
+        streams differ after one (ROADMAP.md, section 3)."""
+        if self._recurrent and (injector is not None or monitor is not None):
+            raise _recurrent_faults()
+        self.faults = injector
+        self.fault_policy = policy
+        self.health = monitor
+        if monitor is not None:
+            monitor.reset(len(self.boundaries), 0.0)
+
+    def _maybe_snapshot(self) -> None:
+        """Every snapshot_interval-th tick, copy the caches into the twin
+        with each slot's committed length as its validity horizon."""
+        iv = self.ecfg.snapshot_interval
+        if not iv:
+            return
+        self._tick_count += 1
+        if self._tick_count % iv:
+            return
+        pos = np.array([0 if s.done else s.pos for s in self.slots],
+                       np.int64)
+        if not pos.any():
+            return
+        self._snapshot = snapshot(self.caches, pos, out=self._snap_caches)
+        self._snap_rids = [s.request.rid if (not s.done and s.request)
+                           else None for s in self.slots]
+        # paged: the snapshot-time tables map each slot's valid tokens to
+        # physical blocks; allocation is append-only while a slot lives, so
+        # they are a prefix of the live tables for a slot whose rid matches
+        self._snap_tables = (self.block_tables.copy()
+                             if self.ecfg.paged else None)
+
+    def fault_step(self, now: float) -> list[dict]:
+        """Pre-tick fault handling: poll injected events, beat surviving
+        stages, and run detection and emergency recovery."""
+        recs: list[dict] = []
+        if self.faults is None and not self._dead:
+            return recs
+        if self.faults is not None:
+            for ev in self.faults.poll(now):
+                n_stages = len(self.boundaries)
+                self.stats.bump("faults_injected")
+                self.stats.fault_log.append((now, ev.kind, ev.detail))
+                if ev.kind in (PREEMPT_STAGE, OOM):
+                    self.stats.bump("preemptions" if ev.kind == PREEMPT_STAGE
+                                    else "oom_events")
+                    self._dead.add(ev.stage % n_stages)
+                elif ev.kind == COMM_TRANSIENT:
+                    # the tick is retransmitted; no state is lost
+                    self.stats.bump("comm_errors")
+                elif ev.kind == SLOWDOWN:
+                    self.stats.bump("slowdowns")
+                    self._slowdowns[ev.stage % n_stages] = (
+                        now + ev.duration, ev.factor)
+        if not self._dead:
+            return recs
+        # dead stages miss their heartbeat window; with no monitor the
+        # dispatch failure itself is the detector
+        if self.health is not None:
+            for s in range(len(self.boundaries)):
+                if s not in self._dead:
+                    self.health.heartbeat(s, now)
+            detected = [s for s in self.health.dead_stages(now)
+                        if s in self._dead]
+        else:
+            detected = sorted(self._dead)
+        if detected:
+            recs.append(self._on_stage_failure(detected, now,
+                                               reason="preemption"))
+        return recs
+
+    def health_step(self, now: float, tick_wall_s: float) -> Optional[dict]:
+        """Post-tick watchdog: observe the decode tick's wall time (scaled by
+        any injected slowdown) and migrate away from a straggling stage once
+        the patience threshold trips."""
+        if self.health is None:
+            return None
+        slow = [(s, f) for s, (until, f) in self._slowdowns.items()
+                if until > now]
+        factor = max((f for _, f in slow), default=1.0)
+        verdict = self.health.observe_tick(tick_wall_s * factor)
+        if verdict == "straggler" and slow:
+            return self._migrate_from_straggler(slow[0][0], now)
+        return None
+
+    def _migrate_from_straggler(self, stage: int, now: float) -> dict:
+        """Graceful migration: the straggler is still reachable, so its KV
+        moves with the refactor (a zero-copy re-view); nothing is replayed
+        and the streams stay bit-identical."""
+        t0 = time.perf_counter()
+        n_new = max(len(self.boundaries) - 1, 1)
+        ev = self.refactor(self._boundaries_for(n_new))
+        ev["emergency"] = True
+        ev["reason"] = "straggler"
+        self._slowdowns.clear()
+        if self.health is not None:
+            self.health.reset(len(self.boundaries), now)
+        rec = {"t": now, "kind": "graceful_migration", "stage": stage,
+               "reason": "straggler", "recovery_s": time.perf_counter() - t0,
+               "refactor": ev, "replayed_ticks": 0,
+               "compile_cache_hit": ev["compile_cache_hit"],
+               "new_traces": ev["new_traces"]}
+        self.stats.bump("graceful_migrations")
+        self.stats.record_recovery(rec["recovery_s"], t=now,
+                                   kind="graceful_migration")
+        self.recovery_events.append(rec)
+        return rec
+
+    def _on_stage_failure(self, stages: list[int], now: float,
+                          reason: str = "preemption") -> dict:
+        """Emergency refactor after a stage is lost with its KV.
+
+        Detect, refactor, restore, replay: the lost stages' caches are
+        zeroed in place (that memory is gone; zeros, not ``torch.empty``,
+        because flash reads masked rows of a partly masked tile and
+        multiplies them by an exact 0, so they must be finite), the
+        boundaries re-partition onto the surviving stage count (a warm
+        profile means no builds), committed rows come back from the latest
+        Eq. 10 snapshot, and only the tokens decoded since it are replayed.
+        A slot the snapshot does not cover replays its whole history.  No
+        committed token is lost: the text lives on the host, in the
+        slots."""
+        if self._recurrent:
+            raise _recurrent_faults()
+        t0 = time.perf_counter()
+        B = self.ecfg.max_batch
+        ranges = self._stage_ranges()
+        stages = sorted({min(max(s, 0), len(ranges) - 1) for s in stages})
+        lost_layers = [li for s in stages for li in range(*ranges[s])]
+        for li in lost_layers:
+            for t in self.caches[li]["mixer"].values():
+                t.zero_()
+        n_new = max(len(ranges) - len(stages), 1)
+        nb = self._boundaries_for(n_new)
+        was_warm = self.executors.is_warm(nb)
+        ev = self.refactor(nb)
+        ev["emergency"] = True
+        ev["reason"] = reason
+        # Eq. 10 restore: rows below valid[i] from the snapshot; newer rows
+        # keep the live value (surviving stages) or the zeros just written
+        # (lost stages, rebuilt by the replay below)
+        valid = np.zeros(B, np.int64)
+        if self._snapshot is not None:
+            snap_pos = np.asarray(self._snapshot.valid_len)
+            for i, s in enumerate(self.slots):
+                if not s.done and s.request is not None \
+                        and i < len(self._snap_rids) \
+                        and self._snap_rids[i] == s.request.rid:
+                    valid[i] = min(int(snap_pos[i]), s.pos)
+            if valid.any():
+                snap = CacheSnapshot(self._snapshot.per_layer, valid)
+                if self.ecfg.paged:
+                    # block-granular: each covered slot's horizon through
+                    # the snapshot-time tables, per physical block
+                    bv = block_validity(self._snap_tables, valid,
+                                        self.ecfg.block_size,
+                                        self.ecfg.n_blocks)
+                    merge_paged_with_mask(snap, self.caches, bv)
+                else:
+                    live_len = int(max(s.pos for s in self.slots
+                                       if not s.done))
+                    merge_with_mask(snap, self.caches, live_len)
+        # per live request: (replay start, committed rows, prompt rows)
+        spans = {s.request.rid: (int(valid[i]), s.pos, len(s.prompt))
+                 for i, s in enumerate(self.slots)
+                 if not s.done and s.request is not None}
+        replayed = self._replay(valid)
+        dt = time.perf_counter() - t0
+        rec = {"t": now, "kind": "emergency_refactor", "reason": reason,
+               "stages_lost": stages, "layers_lost": lost_layers,
+               "recovery_s": dt, "refactor": ev, "was_warm": was_warm,
+               "replayed_ticks": replayed, "replay_spans": spans,
+               "compile_cache_hit": ev["compile_cache_hit"],
+               "new_traces": ev["new_traces"]}
+        self.stats.bump("emergency_refactors")
+        self.stats.bump("replayed_ticks", replayed)
+        self.stats.record_recovery(dt, t=now, kind="emergency_refactor",
+                                   detail=reason)
+        self.recovery_events.append(rec)
+        self._dead.clear()
+        self._slowdowns.clear()
+        if self.health is not None:
+            self.health.reset(len(self.boundaries), now)
+        return rec
+
+    def _replay(self, valid: np.ndarray) -> int:
+        """Rebuild lost rows through the decode program: slot i replays its
+        committed tokens at positions [valid[i], pos), the delta since the
+        snapshot, or its whole history when valid[i] == 0.  The same tokens
+        at the same positions through the same program rebuild a covered
+        slot's rows exactly; sampled ids are discarded.  A mid-prefill slot's
+        history is the prompt prefix its cursor has committed; a slot with
+        no row yet is skipped (its row-0 write is overwritten by chunk 0)."""
+        active = [i for i, s in enumerate(self.slots)
+                  if not s.done and s.pos > 0]
+        if not active:
+            return 0
+        B = self.ecfg.max_batch
+        hist = {}
+        for i in active:
+            s = self.slots[i]
+            if s.generated:
+                h = np.concatenate([np.asarray(s.prompt, dtype=np.int64),
+                                    np.asarray(s.generated[:-1],
+                                               dtype=np.int64)])
+            else:
+                h = np.asarray(s.prompt[:s.pos], dtype=np.int64)
+            assert len(h) == s.pos, "history must cover committed rows"
+            hist[i] = h
+        cursor = {i: int(valid[i]) for i in active}
+        ticks = 0
+        # replay allocates no blocks (rebuilt rows land in blocks the slots
+        # own), so one upload of the live tables serves every tick
+        tables = self._tables_dev()
+        while any(cursor[i] < self.slots[i].pos for i in active):
+            tok = np.zeros((B, 1), np.int64)
+            pos = np.zeros((B,), np.int64)
+            for i in active:
+                # caught-up slots rewrite their last row, to the same bits
+                p = min(cursor[i], self.slots[i].pos - 1)
+                tok[i, 0] = hist[i][p]
+                pos[i] = p
+            if self._fused is not None:
+                self._fused.step(self.caches, self._upload(tok),
+                                 self._upload(pos), tables)
+            else:
+                self._decode_unfused(self._upload(tok), self._upload(pos))
+            for i in active:
+                cursor[i] = min(cursor[i] + 1, self.slots[i].pos)
+            ticks += 1
+        return ticks
+
+    def _apply_fault_policy(self, now: float) -> None:
+        """Request-level timeout, retry and degradation (FaultPolicy)."""
+        pol = self.fault_policy
+        if pol is None:
+            return
+        for si, s in enumerate(self.slots):
+            if s.done or s.request is None:
+                continue
+            req = s.request
+            started = req.start if req.start >= 0 else now
+            if now - started <= pol.timeout_s:
+                continue
+            # abort this attempt; its partial output is discarded
+            s.done = True
+            s.request = None
+            s.generated = []
+            s.pos = 0
+            self._free_slot_blocks(si)
+            req.attempts += 1
+            self.stats.bump("timeouts")
+            if pol.should_retry(req.attempts):
+                self.stats.bump("retries")
+                req.retry_at = now + pol.backoff(req.attempts)
+                req.enqueued_at = now     # per-attempt queue accounting
+                if pol.degrade_last_attempt \
+                        and pol.is_last_attempt(req.attempts):
+                    req.max_new_tokens = pol.degraded_budget(
+                        req.max_new_tokens)
+                    req.degraded = True
+                    self.stats.bump("degraded")
+                self.queue.append(req)
+            else:
+                req.failed = True
+                req.fail_reason = f"timeout after {req.attempts} attempts"
+                self.stats.bump("request_failures")
+                self.failed_requests.append(req)
 
     # ------------------------------------------------------------------
     def submit(self, req: Request, now: Optional[float] = None) -> SubmitResult:
-        """Enqueue a request (unbounded FIFO)."""
-        req.enqueued_at = req.arrival if now is None else now
+        """Enqueue a request.  With admission control armed this is the
+        bounded fast-fail point: a full queue rejects at once, before any
+        prefill work is spent (the 503 path)."""
+        t = req.arrival if now is None else now
+        if self.admission is not None:
+            verdict = self.admission.submit(req, t)
+            reason = (ADMITTED if verdict == ADMITTED
+                      else (req.fail_reason or REJECTED))
+            return SubmitResult(verdict == ADMITTED, reason, len(self.queue))
+        req.enqueued_at = t
         self.queue.append(req)
         return SubmitResult(True, ADMITTED, len(self.queue))
+
+    @property
+    def rejected_requests(self) -> list[Request]:
+        return self.admission.rejected if self.admission is not None else []
+
+    @property
+    def shed_requests(self) -> list[Request]:
+        return self.admission.shed if self.admission is not None else []
+
+    def kv_used_frac(self) -> float:
+        """KV capacity committed by active requests, which the admission
+        watermarks gate on: the pool's occupancy when paged, committed slot
+        rows over all rows when dense."""
+        if self.ecfg.paged:
+            return self.allocator.occupancy()
+        used = sum(s.pos for s in self.slots if not s.done)
+        return used / float(self.ecfg.max_batch * self.ecfg.max_seq)
 
     # -- paged block lifecycle -----------------------------------------
     def _free_slot_blocks(self, i: int) -> None:
@@ -488,26 +867,47 @@ class FlexPipeEngine:
 
     # ------------------------------------------------------------------
     def _admit(self, now: float) -> int:
-        """Fill free slots from the FIFO queue, prefilling each prompt;
-        returns the number of requests assigned."""
+        """Fill free slots from the queue; returns the number of requests
+        assigned.  With chunked prefill a slot is only assigned here (its
+        chunks run in ``_prefill_step``); otherwise the whole prompt
+        prefills here."""
         admitted = 0
         for slot_id, slot in enumerate(self.slots):
-            if not slot.done or not self.queue:
+            if not slot.done or not len(self.queue):
                 continue
-            # requeued requests wait out their retry time
-            j = next((k for k, r in enumerate(self.queue)
-                      if r.retry_at <= now), None)
-            if j is None:
-                break
-            if self.ecfg.paged and not self.allocator.can_alloc(
-                    self._block_need(self.queue[j])):
-                break                  # wait for completions to free blocks
-            req = self.queue.pop(j)
+            if self.admission is not None:
+                fits = ((lambda r: self.allocator.can_alloc(
+                    self._block_need(r))) if self.ecfg.paged else None)
+                req = self.admission.pop_admissible(now, self.kv_used_frac(),
+                                                    fits=fits)
+                if req is None:
+                    break
+                # brownout: shrink the token budget by priority class
+                f = self.admission.budget_factor(req.priority)
+                if f < 1.0:
+                    req.max_new_tokens = max(int(req.max_new_tokens * f), 1)
+                    req.degraded = True
+                    self.stats.bump("brownout_degraded")
+            else:
+                # requeued requests wait out their retry time
+                j = next((k for k, r in enumerate(self.queue)
+                          if r.retry_at <= now), None)
+                if j is None:
+                    break
+                if self.ecfg.paged and not self.allocator.can_alloc(
+                        self._block_need(self.queue[j])):
+                    break              # wait for completions to free blocks
+                req = self.queue.pop(j)
             req.start = now
+            # per-attempt queue wait, from THIS attempt's enqueue time
             since = req.enqueued_at if req.enqueued_at >= 0 else req.arrival
             req.queue_wait = max(now - since, 0.0)
-            self._prefill_into_slot(slot_id, req, now)
-            admitted += 1
+            if self._chunk:
+                if self._assign_slot(slot_id, req, now):
+                    admitted += 1
+            else:
+                self._prefill_into_slot(slot_id, req, now)
+                admitted += 1
         return admitted
 
     def _truncate_prompt(self, req: Request) -> tuple[np.ndarray, int]:
@@ -527,10 +927,100 @@ class FlexPipeEngine:
         req.finish = now
         req.output = list(s.generated)
         self.stats.record(now, req.latency, req.met_slo,
+                          queue_s=req.queue_wait,
                           ttft_s=req.first_token - req.arrival)
         s.done = True
         s.request = None
         self._free_slot_blocks(i)
+
+    def _assign_slot(self, slot_id: int, req: Request, now: float) -> bool:
+        """Chunked admission: bind the request to the slot with its prefill
+        cursor at 0; no model work happens here.  ``slot.pos`` is the cursor
+        (it always counts committed rows), and ``generated == []`` marks the
+        slot as mid-prefill."""
+        prompt, budget = self._truncate_prompt(req)
+        S = int(prompt.shape[0])
+        if self.ecfg.paged:
+            # every block of the prompt and the first decode write up
+            # front: chunk writes and parked decode writes stay in the
+            # slot's own blocks
+            if not self._alloc_for_slot(
+                    slot_id, blocks_for(S + 1, self.ecfg.block_size)):
+                req.enqueued_at = now       # pool raced empty: requeue
+                req.retry_at = now
+                self.queue.append(req)
+                return False
+        slot = self.slots[slot_id]
+        slot.request = req
+        slot.prompt = prompt.astype(np.int64)
+        slot.pos = 0
+        slot.generated = []
+        slot.budget = budget
+        slot.done = False
+        return True
+
+    def _prefill_step(self, now: float) -> int:
+        """Run pending prefill chunks round-robin across mid-prefill slots,
+        spending at most ``prefill.budget`` bucketed prompt tokens (default
+        one chunk); the decode tick after it runs every slot that has a
+        token.  Returns the bucketed tokens spent."""
+        if not self._chunk:
+            return 0
+        pending = [i for i, s in enumerate(self.slots)
+                   if not s.done and not s.generated]
+        if not pending:
+            return 0
+        budget = self.ecfg.prefill.budget or self._chunk
+        # rotate the first slot so equal prompts share the budget fairly
+        start = self._prefill_rr % len(pending)
+        ring = pending[start:] + pending[:start]
+        self._prefill_rr += 1
+        spent = 0
+        while ring and spent < budget:
+            i = ring.pop(0)
+            spent += self._prefill_chunk_into(i, now)
+            s = self.slots[i]
+            if not s.done and not s.generated:
+                ring.append(i)         # more chunks pending: back of line
+        return spent
+
+    def _prefill_chunk_into(self, slot_id: int, now: float) -> int:
+        """Run ONE chunk for the slot: commit prompt rows [pos, pos + L)
+        through every stage's chunk program.  The final chunk samples the
+        first token (TTFT is stamped here) and turns the slot to decode; a
+        request whose budget is already spent finishes at once, as with
+        whole-prompt prefill.  Returns the chunk's bucketed length."""
+        s = self.slots[slot_id]
+        req = s.request
+        S = len(s.prompt)
+        c0 = s.pos
+        L = min(self._chunk, S - c0)
+        Lb = self.executors.chunk_bucket(L, self._chunk)
+        Sp = self.executors.prefill_bucket(S)
+        final = c0 + L >= S
+        toks = np.zeros((1, Lb), np.int64)
+        toks[0, :L] = s.prompt[c0:c0 + L]
+        out = self._upload(toks)
+        slot_ix = (self._upload(self.block_tables[slot_id:slot_id + 1])
+                   if self.ecfg.paged else slot_id)
+        ranges = self._stage_ranges()
+        for si, (lo, hi) in enumerate(ranges):
+            fn, _ = self.executors.chunk_prefill(
+                lo, hi, first=(si == 0), last=(si == len(ranges) - 1),
+                sample=final, chunk_len=Lb, kv_extent=Sp)
+            out, _ = fn(self.params["blocks"][lo:hi],
+                        self.executors.head_params, out, self.caches[lo:hi],
+                        slot_ix, c0, S - 1 - c0)
+        s.pos = c0 + L
+        self.stats.bump("prefill_chunks")
+        if final:
+            first = int(out.cpu()[0])      # the final chunk's one-token sync
+            req.first_token = now          # TTFT: this chunk
+            s.generated = [first]
+            eos = self.ecfg.eos_token
+            if s.budget <= 1 or (eos >= 0 and first == eos):
+                self._finish(slot_id, now)
+        return Lb
 
     def _prefill_into_slot(self, slot_id: int, req: Request,
                            now: float = 0.0) -> None:
@@ -586,6 +1076,13 @@ class FlexPipeEngine:
             return 0
         tok = np.zeros((B, 1), np.int64)
         pos = np.zeros((B,), np.int64)
+        if self._chunk:
+            # the tick writes a row for EVERY slot: park a mid-prefill
+            # slot's write on its next chunk's first row, which that chunk
+            # overwrites (row 0 would clobber a committed chunk 0)
+            for i, s in enumerate(self.slots):
+                if not s.done and not s.generated:
+                    pos[i] = s.pos
         for i in np.nonzero(active)[0]:
             s = self.slots[i]
             tok[i, 0] = s.generated[-1]
@@ -614,6 +1111,7 @@ class FlexPipeEngine:
             self.stats.record_blocks(now, bsst["used_blocks"],
                                      bsst["free_blocks"],
                                      bsst["fragmentation"])
+        self._maybe_snapshot()
         return n_active
 
     def _decode_unfused(self, tok: torch.Tensor,
@@ -630,16 +1128,27 @@ class FlexPipeEngine:
 
     # ------------------------------------------------------------------
     def step(self, now: float) -> TickReport:
-        """One engine tick: fill free slots (prefill), then decode."""
+        """One engine tick: fault policy, admission maintenance, slot fill,
+        fault detection and recovery, prefill chunks, then decode."""
         completed0 = self.stats.completed
+        self._apply_fault_policy(now)
+        if self.admission is not None:
+            # shed dead queued work even while slots are full, then advance
+            # the brownout controller on saturation
+            self.admission.expire(now)
+            self.admission.update(now)
         admitted = self._admit(now)
-        decoded = self.decode_step(now)
+        recs = self.fault_step(now)
+        prefill_tokens = self._prefill_step(now)
+        t_tick = time.perf_counter()
+        decoded = self.decode_step(now)   # ends in the tick's host sync
+        self.health_step(now, time.perf_counter() - t_tick)
         return TickReport(
-            now=now, decoded=decoded, prefill_tokens=0,
+            now=now, decoded=decoded, prefill_tokens=prefill_tokens,
             prefilling=sum(1 for s in self.slots
                            if not s.done and not s.generated),
             admitted=admitted, completed=self.stats.completed - completed0,
-            queue_depth=len(self.queue), recoveries=0)
+            queue_depth=len(self.queue), recoveries=len(recs))
 
     def run(self, requests: list[Request], controller=None,
             time_per_tick: float = 0.05) -> ServingStats:
@@ -648,15 +1157,26 @@ class FlexPipeEngine:
             raise _todo("controller-driven refactoring (run(controller=))",
                         "Controller and CLI")
         pending = sorted(requests, key=lambda r: r.arrival)
+        if self.admission is not None and self.admission.cost.auto:
+            # simulated time: a prefill costs one tick (chunked: one tick
+            # per budget of prompt tokens) and decode one tick per token
+            self.admission.cost.seed_from_tick(
+                time_per_tick,
+                prefill_tokens_per_tick=(
+                    (self.ecfg.prefill.budget or self._chunk)
+                    if self._chunk else 0))
         now = 0.0
         i = 0
-        while i < len(pending) or self.queue or \
+        while i < len(pending) or len(self.queue) or \
                 any(not s.done for s in self.slots):
             while i < len(pending) and pending[i].arrival <= now:
                 self.submit(pending[i], now=pending[i].arrival)
                 i += 1
             self.step(now)
             self.stats.queue_samples.append((now, len(self.queue)))
+            if self.admission is not None:
+                self.stats.record_saturation(now,
+                                             self.admission.saturation())
             now += time_per_tick
         return self.stats
 

@@ -23,6 +23,12 @@ state survive it.
   recurrent (RWKV) layer reads its cache as the initial state, so its slot
   row is zeroed first: a reused slot holds the last request's state, and
   idle-slot decode ticks write garbage there.
+* ``chunk_prefill(lo, hi, ...)``: one prefill chunk over layers [lo, hi):
+  ``chunk_len`` tokens written at a run-time offset ``pos0`` that attend
+  over cache rows [0, ``kv_extent``), the whole prompt's pow2 bucket, so
+  every chunk reduces over the extent a whole-prompt prefill would.  One
+  program per ``(lo, hi, first, last, sample, chunk_len, kv_extent)``, as
+  the reference keys its jitted chunk programs.
 * ``stage_decode(lo, hi)``: the per-stage decode tick (unfused fallback).
 
 JAX donates cache buffers and returns new ones; here programs write into
@@ -117,6 +123,44 @@ class StagePrefillProgram:
         return x, caches
 
 
+class ChunkPrefillProgram:
+    """One prefill chunk over layers [lo, hi), written in place into the
+    slot's rows (a view of them, dense) or through its table (paged)."""
+
+    def __init__(self, cfg: ModelConfig, lo: int, hi: int, first: bool,
+                 sample: bool, kv_extent: int, paged: bool):
+        self.cfg, self.lo, self.hi = cfg, lo, hi
+        self.first, self.sample = first, sample
+        self.kv_extent, self.paged = kv_extent, paged
+
+    def __call__(self, blocks, head_params, inp, caches, slot, pos0: int,
+                 last_ix: int):
+        """inp: (1, chunk_len) tokens (first stage) or activations; ``slot``:
+        the batch row (dense) or the slot's (1, max_blocks) table row
+        (paged); ``pos0``: the chunk's first position; ``last_ix``: the
+        prompt's final row within the chunk.  Returns (the first sampled id
+        (1,) when ``sample``, else activations, caches)."""
+        cfg = self.cfg
+        x = embed_tokens(cfg, head_params, inp, pos0=pos0) \
+            if self.first else inp
+        for i, bp in enumerate(blocks):
+            li = self.lo + i
+            if self.paged:
+                cache, bt = caches[i], slot
+            else:
+                cache = {"mixer": {n: t[slot:slot + 1] for n, t
+                                   in caches[i]["mixer"].items()}}
+                bt = None
+            ctx = BlockCtx(pos0=pos0, cache=cache,
+                           is_global=cfg.is_global_layer(li), block_table=bt,
+                           kv_extent=self.kv_extent)
+            x, _, _ = apply_block(cfg, cfg.layer_kind(li), bp, x, ctx)
+        if self.sample:
+            return _argmax_ids(cfg, head_params,
+                               x[:, last_ix:last_ix + 1]), caches
+        return x, caches
+
+
 class StageDecodeProgram:
     """Per-stage decode over layers [lo, hi) (the unfused fallback)."""
 
@@ -137,8 +181,8 @@ class ExecutorCache:
     """Per-engine table of programs with hit/miss/build accounting."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *, max_seq: int,
-                 prefill_buckets: bool = True, paged: bool = False,
-                 paged_kernel: bool = False):
+                 cache_dtype=torch.float32, prefill_buckets: bool = True,
+                 paged: bool = False, paged_kernel: bool = False):
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
@@ -155,6 +199,14 @@ class ExecutorCache:
         # masked downstream: position-masked attention caches
         self.can_bucket = (prefill_buckets and not cfg.sliding_window
                            and mixers <= {MIXER_ATTN})
+        # a chunk attends over the cache rows of the chunks before it, so
+        # those rows must hold exact copies of the fresh activations: f32
+        # caches and plain attention only (recurrent state has no chunk
+        # resume path)
+        self.can_chunk = (self.can_bucket and mixers == {MIXER_ATTN}
+                          and cache_dtype == torch.float32
+                          and not any(cfg.layer_kind(i).extra_cross
+                                      for i in range(cfg.n_layers)))
 
     def prefill_bucket(self, n: int) -> int:
         """Pad a prompt length to a power-of-two bucket (>= 16)."""
@@ -164,6 +216,14 @@ class ExecutorCache:
         while b < n:
             b *= 2
         return min(b, self.max_seq)
+
+    def chunk_bucket(self, n: int, chunk: int) -> int:
+        """Pow2 bucket (>= 16) for a chunk's token count, capped at the chunk
+        size (a prompt's final, partial chunk pads to the next pow2)."""
+        b = 16
+        while b < n:
+            b *= 2
+        return min(b, chunk)
 
     def _lookup(self, key, make):
         hit = key in self._local
@@ -186,6 +246,15 @@ class ExecutorCache:
                             lambda: StagePrefillProgram(self.cfg, lo, hi,
                                                         first, last,
                                                         self.paged))
+
+    def chunk_prefill(self, lo: int, hi: int, *, first: bool, last: bool,
+                      sample: bool, chunk_len: int, kv_extent: int):
+        """``sample`` only matters on the last stage, so it is masked off
+        elsewhere and earlier stages share programs across chunks."""
+        sample = bool(sample and last)
+        key = ("chunk", lo, hi, first, last, sample, chunk_len, kv_extent)
+        return self._lookup(key, lambda: ChunkPrefillProgram(
+            self.cfg, lo, hi, first, sample, kv_extent, self.paged))
 
     def stage_decode(self, lo: int, hi: int):
         return self._lookup(("decode", lo, hi),

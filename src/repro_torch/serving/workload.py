@@ -1,8 +1,9 @@
 """Requests and synthetic arrival processes (the port's own copy).
 
-Mirrors ``repro/serving/workload.py``'s ``Request`` and ``synth_requests``
-and ``repro/core/cv_monitor.py``'s ``gamma_interarrivals``, so the same
-seed gives the same requests in both packages.
+Mirrors ``repro/serving/workload.py``'s ``Request`` (with its admission and
+fault lifecycle fields), ``audit_requests`` and ``synth_requests``, and
+``repro/core/cv_monitor.py``'s ``gamma_interarrivals``, so the same seed
+gives the same requests in both packages.
 """
 from __future__ import annotations
 
@@ -26,9 +27,18 @@ class Request:
     start: float = -1.0
     first_token: float = -1.0
     finish: float = -1.0
+    # admission-control lifecycle (serving/admission.py)
     enqueued_at: float = -1.0           # when THIS attempt entered the queue
-    queue_wait: float = 0.0
-    retry_at: float = 0.0               # earliest re-admission time
+    queue_wait: float = 0.0             # per-attempt queue wait (last attempt)
+    rejected: bool = False              # bounded queue full at submit (503)
+    shed: bool = False                  # dropped by load shedding
+    shed_reason: str = ""
+    # fault-tolerance lifecycle (serving/faults.py's FaultPolicy)
+    attempts: int = 0                   # aborted attempts so far
+    retry_at: float = 0.0               # earliest re-admission time (backoff)
+    degraded: bool = False              # served with a reduced token budget
+    failed: bool = False                # gave up after max_attempts
+    fail_reason: str = ""
     # greedy tokens of the completed request (set by the engine)
     output: Optional[list] = None
 
@@ -39,6 +49,35 @@ class Request:
     @property
     def met_slo(self) -> bool:
         return self.latency <= self.deadline_s
+
+    @property
+    def terminal_state(self) -> str:
+        """Exactly one of TERMINAL_STATES, "pending" when no terminal flag
+        is set, or "ambiguous" (an accounting fault) when two are."""
+        flags = [("rejected", self.rejected), ("shed", self.shed),
+                 ("failed", self.failed), ("completed", self.finish >= 0)]
+        hits = [name for name, on in flags if on]
+        if not hits:
+            return "pending"
+        return hits[0] if len(hits) == 1 else "ambiguous"
+
+
+TERMINAL_STATES = ("completed", "rejected", "shed", "failed")
+
+
+def audit_requests(requests: list) -> tuple[dict, list]:
+    """Every submitted request must end in exactly one of TERMINAL_STATES.
+    Returns (state counts, [(rid, state)] of each pending or ambiguous
+    request)."""
+    counts = {s: 0 for s in TERMINAL_STATES}
+    violations = []
+    for r in requests:
+        s = r.terminal_state
+        if s in counts:
+            counts[s] += 1
+        else:
+            violations.append((r.rid, s))
+    return counts, violations
 
 
 def gamma_interarrivals(rng, rate: float, cv: float, n: int) -> list[float]:
@@ -56,7 +95,11 @@ def synth_requests(rng: np.random.Generator, *, rate: float, cv: float,
                    decode_mean: int = 64, model: str = "default",
                    t0: float = 0.0, deadline_s: float = 10.0,
                    priority_mix: tuple | None = None) -> list[Request]:
-    """Gamma-process arrivals with target CV; Splitwise-like length mix."""
+    """Gamma-process arrivals with target CV; Splitwise-like length mix.
+
+    ``priority_mix`` draws each request's priority class from the given
+    probabilities (index = class); None keeps every request standard and
+    draws nothing for it, as the reference does."""
     n = int(rate * duration * 1.5) + 16
     ivs = gamma_interarrivals(rng, rate, cv, n)
     out = []

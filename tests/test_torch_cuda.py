@@ -19,7 +19,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.rwkv6_wkv import _geometry, wkv6, wkv6_plain
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
-                                        KVCacheConfig)
+                                        KVCacheConfig, PrefillConfig)
+from repro_torch.serving.faults import (PREEMPT_STAGE, FaultEvent,
+                                        FaultInjector, StageHealthMonitor)
 from repro_torch.serving.workload import Request
 
 torch.set_num_threads(2)
@@ -233,6 +235,78 @@ def test_cuda_engine_paths_agree(cuda_dev):
         assert build.launches[want] > 0 and build.launches["flash_attention"]
         streams.append([r.output for r in reqs])
     assert streams[0] == streams[1] == streams[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sp", [128, 512])
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_cuda_flash_chunk_composition_exact(cuda_dev, dt, Sp, chunk):
+    """Chunked prefill's invariant: a prompt's rows computed chunk by chunk
+    (Sq = chunk, q_offset = c0, Skv = Sp) equal one whole call bit for bit;
+    chunk 16 sits off the kernel's 64-row tile."""
+    rng = np.random.default_rng(Sp + chunk)
+    q = _rand(rng, (1, Sp, 16, 64), dt, cuda_dev)
+    k = _rand(rng, (1, Sp, 16, 64), dt, cuda_dev)
+    v = _rand(rng, (1, Sp, 16, 64), dt, cuda_dev)
+    whole = flash_attention(q, k, v, causal=True, q_offset=0)
+    parts = [flash_attention(q[:, c0:c0 + chunk].contiguous(), k, v,
+                             causal=True, q_offset=c0)
+             for c0 in range(0, Sp, chunk)]
+    assert torch.equal(torch.cat(parts, 1), whole)
+
+
+def _smoke_engine(dev, **kw):
+    cfg = get_arch("qwen1.5-0.5b").smoke_config
+    params = init_model(cfg, torch.Generator().manual_seed(0), device=dev)
+    return FlexPipeEngine(cfg, params, [0, 2], EngineConfig(
+        max_batch=4, max_seq=64, **kw), device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_engine_dense_equals_paged_kernel(cuda_dev):
+    """Chunked prefill on the card: dense and paged-kernel engines give the
+    same streams, every chunk through the flash kernel (24 x chunks)."""
+    streams = []
+    for kv in (KVCacheConfig(),
+               KVCacheConfig(paged=True, block_size=8, paged_kernel=True)):
+        eng = _smoke_engine(cuda_dev, kv=kv, prefill=PrefillConfig(chunk=16))
+        reqs = [Request(rid=i, arrival=0.0, prompt_len=(48, 9, 33)[i % 3],
+                        max_new_tokens=10) for i in range(4)]
+        build.reset_launches()
+        eng.run(reqs)
+        n = eng.stats.counters["prefill_chunks"]
+        assert n >= 6
+        assert build.launches["flash_attention"] == eng.cfg.n_layers * n
+        streams.append([r.output for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_cuda_emergency_recovery_covered_slots_exact(cuda_dev):
+    """A stage preempted three ticks after a snapshot: the snapshot restores
+    the committed rows and the replay rebuilds the rest by decode, as they
+    were made, so the streams equal a fault-free run's; the refactor onto
+    the surviving stage is warm."""
+    def run(fault):
+        eng = _smoke_engine(cuda_dev, warm_profiles=(1, 2),
+                            snapshot_interval=4)
+        reqs = [Request(rid=i, arrival=0.0, prompt_len=12 + i,
+                        max_new_tokens=20) for i in range(3)]
+        if fault:
+            eng.attach_faults(injector=FaultInjector.scripted(
+                [FaultEvent(t=0.525, kind=PREEMPT_STAGE, stage=1)]),
+                monitor=StageHealthMonitor())
+        eng.run(reqs, time_per_tick=0.05)
+        return [r.output for r in reqs], eng
+
+    clean, _ = run(False)
+    got, eng = run(True)
+    rec = eng.recovery_events[0]
+    assert rec["compile_cache_hit"] and rec["new_traces"] == 0
+    assert 0 < rec["replayed_ticks"] <= 4
+    assert all(v >= plen for v, _, plen in rec["replay_spans"].values())
+    assert got == clean
 
 
 def _wkv_inputs(rng, B, S, H, hd, dt, dev, with_state=True):

@@ -210,14 +210,13 @@ def test_boundaries_and_config():
     assert balanced_boundaries(26, 4) == [0, 7, 14, 20]
     e1, e2 = _engine([0, 2]), _engine([0, 2])
     assert e1.ecfg is not e2.ecfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(prefill=PrefillConfig(chunk=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(snapshot_interval=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(admission=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        e1.attach_faults()
+    ecfg = EngineConfig(max_seq=64, prefill=PrefillConfig(chunk=16),
+                        snapshot_interval=4)
+    assert ecfg.prefill.chunk == 16 and ecfg.snapshot_interval == 4
+    with pytest.raises(ValueError, match="power of two"):
+        EngineConfig(prefill=PrefillConfig(chunk=24))
+    e1.attach_faults()                  # nothing armed: a no-op
+    assert e1.faults is None and e1.health is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         e1.run([], controller=object())
     with pytest.raises(ValueError, match="params live on"):

@@ -39,6 +39,25 @@ for kv in (KVCacheConfig(), KVCacheConfig(paged=True, block_size=8)):
             for i in range(3)]
     assert eng.run(reqs).completed == 3
     assert all(len(r.output) == 3 for r in reqs)
+from repro_torch.serving.admission import AdmissionConfig
+from repro_torch.serving.engine import PrefillConfig
+from repro_torch.serving.faults import (PREEMPT_STAGE, FaultEvent,
+                                        FaultInjector, FaultPolicy,
+                                        StageHealthMonitor)
+from repro_torch.serving.workload import audit_requests
+eng = FlexPipeEngine(cfg, params, [0, 2], EngineConfig(
+    max_batch=2, max_seq=64, warm_profiles=(1, 2), snapshot_interval=2,
+    prefill=PrefillConfig(chunk=16), admission=AdmissionConfig(
+        max_queue_depth=8)), device="cpu")
+eng.attach_faults(injector=FaultInjector.scripted(
+    [FaultEvent(t=0.3, kind=PREEMPT_STAGE, stage=1)]),
+    policy=FaultPolicy(timeout_s=60.0), monitor=StageHealthMonitor())
+reqs = [Request(rid=i, arrival=0.0, prompt_len=20 + 7 * i, max_new_tokens=4,
+                deadline_s=60.0) for i in range(3)]
+assert eng.run(reqs).completed == 3
+assert eng.stats.counters["prefill_chunks"] >= 4
+assert eng.recovery_events[0]["new_traces"] == 0
+assert audit_requests(reqs)[1] == []
 cfg = get_arch("rwkv6-1.6b").smoke_config
 params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
 eng = FlexPipeEngine(cfg, params, [0, 2], EngineConfig(max_batch=2, max_seq=32),
@@ -59,7 +78,7 @@ def test_package_imports_and_serves_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("MODULES")[1])
-    assert n >= 18
+    assert n >= 22
 
 
 def _imported_modules(path: Path) -> set[str]:

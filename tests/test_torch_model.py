@@ -220,10 +220,13 @@ def test_paged_attention_matches_jax(paged_kernel):
 def test_unported_branches_raise():
     x, _ = _x(7, (1, 4, 64))
     p = PARAMS["blocks"][0]["mixer"]
-    for kw in (dict(kv_extent=16), dict(tp_axis="model"),
-               dict(sp_axis="data")):
+    for kw in (dict(tp_axis="model"), dict(sp_axis="data")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             L.apply_attention(CFG, p, x, pos0=0, **kw)
+    # kv_extent is ported: without a cache to read it is a plain prefill,
+    # as in the reference
+    y, _, _ = L.apply_attention(CFG, p, x, pos0=0, kv_extent=16)
+    torch.testing.assert_close(y, L.apply_attention(CFG, p, x, pos0=0)[0])
 
 
 # ---------------------------------------------------------------------------
