@@ -30,7 +30,17 @@ Phases, each fatal on failure:
      bit-identical, every WKV step of the path in the wkv6 kernel, and each
      generated token of two requests equal to a whole-sequence forward's;
   8. phase 6 for the rwkv6-1.6b engine, and one 512-token stage prefill's
-     wall time and device time by kernel.
+     wall time and device time by kernel;
+  9. full-width qwen1.5-0.5b again: chunked prefill, an emergency refactor
+     after a preempted stage, a graceful migration and an admission burst;
+ 10. the controller plane: full-width qwen1.5-0.5b (dense, and paged
+     through the paged kernel) and rwkv6-1.6b (dense, its state regrouped)
+     served through FlexPipeEngine.run(controller=FlexPipeController(...))
+     on the quickstart's trace; every refactor warm, the control steps
+     equal to the smoke config's run of the same trace on the CPU, the
+     streams equal to a run with no controller; the launchers (python -m
+     repro_torch.launch.serve and .quickstart) run as subprocesses on the
+     card beside the CPU runs and the runs with no controller.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -1204,6 +1214,276 @@ def admission_phase(torch, card, cfg, params, base, base_reqs):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the controller plane driving full-width qwen1.5-0.5b and rwkv6
+# ---------------------------------------------------------------------------
+
+class Recorder:
+    """Passes the engine's calls to a FlexPipeController and logs every
+    control step, with its decision latency."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.steps, self.score_s = [], []
+
+    def on_request(self, t):
+        self.inner.on_request(t)
+
+    def control_step(self, now, queue_len, saturation=0.0):
+        d, mig = self.inner.control_step(now, queue_len,
+                                         saturation=saturation)
+        self.steps.append((now, queue_len, saturation, d.target.stages,
+                           d.changed, d.reason))
+        self.score_s.append(d.score_s)
+        return d, mig
+
+
+def controller_run(torch, label, cfg, params, device, boundaries, kv=None,
+                   controller=True):
+    """The quickstart's trace through FlexPipeEngine.run at max_batch 8 and
+    max_seq 1024, under a FlexPipeController with the quickstart's two
+    profiles (both warmed) or with none."""
+    from repro_torch.core.controller import FlexPipeController
+    from repro_torch.kernels import build
+    from repro_torch.launch import quickstart
+    from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
+                                            KVCacheConfig)
+    from repro_torch.serving.workload import audit_requests
+
+    eng = FlexPipeEngine(cfg, params, list(boundaries), EngineConfig(
+        max_batch=8, max_seq=1024, control_interval=0.5,
+        warm_profiles=tuple(p.stages for p in quickstart.PROFILES),
+        kv=KVCacheConfig(**(kv or {}))), device=device)
+    rec = Recorder(FlexPipeController(cfg, list(quickstart.PROFILES))) \
+        if controller else None
+    reqs = quickstart.requests()
+    builds = eng.executors.builds
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    stats = eng.run(reqs, controller=rec, time_per_tick=TICK)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    counts, violations = audit_requests(reqs)
+    check(stats.completed == len(reqs) == 81 and not violations,
+          f"{label}: {stats.completed} of {len(reqs)} completed, "
+          f"violations {violations}")
+    # an unbucketed (recurrent) model's stage prefills are not warmed, as
+    # in the reference: they are built at first use, and its refactors
+    # must still be warm
+    built = eng.executors.builds - builds
+    check(built == 0 or not eng.executors.can_bucket,
+          f"{label}: {built} programs built after warm-up")
+    events = eng.refactor_events
+    check(all(ev["compile_cache_hit"] and ev["new_traces"] == 0
+              for ev in events), f"{label}: a refactor was not warm: {events}")
+    if eng.ecfg.paged:
+        check(eng.block_stats()["used_blocks"] == 0, f"{label}: blocks leaked")
+    changed = [st for st in rec.steps if st[4]] if rec else []
+    info = {"wall_s": wall, "ticks": len(stats.queue_samples),
+            "completed": stats.completed, "launches": launches,
+            "refactors": len(events),
+            # (tick, from-stages, to-stages, in-flight) of each refactor
+            "decisions": [(round(st[0] / TICK), len(ev["from"]),
+                           len(ev["to"]), ev["inflight"])
+                          for st, ev in zip(changed, events)],
+            "refactor_ms": [ev["t"] * 1e3 for ev in events],
+            "control_steps": len(rec.steps) if rec else 0,
+            "prefill_builds": built}
+    if cuda:
+        log(f"  {label:26s} " + json.dumps(info))
+    out = {"info": info, "streams": {r.rid: list(r.output) for r in reqs},
+           "steps": rec.steps if rec else None,
+           "score_s": rec.score_s if rec else [],
+           "events": [(len(ev["from"]), len(ev["to"]), ev["inflight"])
+                      for ev in events]}
+    del eng
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+LAUNCHERS = {
+    "serve qwen dense": (["-m", "repro_torch.launch.serve", "--arch",
+                          "qwen1.5-0.5b", "--rate", "10", "--cv", "4",
+                          "--duration", "3"],
+                         ("flash_attention", "decode_attention")),
+    "serve qwen paged kernel": (["-m", "repro_torch.launch.serve", "--arch",
+                                 "qwen1.5-0.5b", "--rate", "10", "--cv", "4",
+                                 "--duration", "3", "--paged",
+                                 "--paged-kernel"],
+                                ("flash_attention", "paged_decode_attention")),
+    "serve rwkv6": (["-m", "repro_torch.launch.serve", "--arch",
+                     "rwkv6-1.6b", "--rate", "10", "--cv", "4",
+                     "--duration", "3"], ("wkv6",)),
+    "quickstart": (["-m", "repro_torch.launch.quickstart"],
+                   ("flash_attention", "decode_attention")),
+}
+
+
+def start_launchers():
+    """Each launcher as a subprocess on the card, all at once."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return {label: subprocess.Popen([sys.executable, *argv], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            for label, (argv, _) in LAUNCHERS.items()}, time.perf_counter()
+
+
+def finish_launchers(card, started, timeout=600):
+    """Wait for the launchers: each must exit 0, report at least one
+    refactor (serve) or OK (quickstart), and launch its path's kernels."""
+    procs, t0 = started
+    out = {}
+    try:
+        for label, proc in procs.items():
+            left = max(timeout - (time.perf_counter() - t0), 1.0)
+            text, _ = proc.communicate(timeout=left)
+            out[label] = (proc.returncode, text)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res = {}
+    for label, (rc, text) in out.items():
+        lines = text.strip().splitlines()
+        check(rc == 0, f"{label}: exit {rc}\n" + "\n".join(lines[-20:]))
+        launched = json.loads(next(x for x in lines
+                                   if x.startswith("launches="))[9:])
+        done = next(x for x in lines if x.startswith("completed="))
+        if label == "quickstart":
+            check(lines[-1] == "OK", f"{label}: no OK")
+        else:
+            n = int(done.split("refactors=")[1].split()[0])
+            check(n >= 1, f"{label}: no refactor")
+        for k in LAUNCHERS[label][1]:
+            check(launched.get(k, 0) > 0, f"{label}: {k} not launched")
+        res[label] = {"result": done, "launches": launched}
+        log(f"  {label:24s} exit 0, {done}, launches {json.dumps(launched)} "
+            f"on {card}")
+    log(f"  launchers: {time.perf_counter() - t0:.1f} s wall from their "
+        "start, in parallel with each other and with the CPU runs and the "
+        "runs with no controller")
+    return res
+
+
+CONTROLLER_RUNS = {
+    # label: (model, KVCacheConfig fields, decode kernel)
+    "controller dense": ("qwen", None, "decode_attention"),
+    "controller paged kernel": ("qwen", dict(paged=True, block_size=16,
+                                             paged_kernel=True),
+                                "paged_decode_attention"),
+    "controller rwkv6 dense": ("rwkv6", None, "wkv6"),
+}
+
+
+def controller_phase(torch, card, models, decode_ms_per_tick):
+    """Full-width qwen1.5-0.5b (dense and paged kernel) and rwkv6-1.6b
+    (dense) under the controller: all 81 requests complete, at least one
+    warm refactor, control steps equal to the smoke config's run on the
+    CPU, streams equal to a run with no controller.  The launchers run as
+    subprocesses meanwhile, until the runs under the controller, which are
+    timed alone on the card."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving.admission import CostModel
+
+    started = start_launchers()
+    cpu, base = {}, {}
+    for name, (cfg, params) in models.items():
+        smoke = get_arch(cfg.name).smoke_config
+        t0 = time.perf_counter()
+        cpu[name] = controller_run(
+            torch, f"{name} smoke config on the CPU", smoke,
+            init_model(smoke, torch.Generator().manual_seed(0),
+                       device="cpu"),
+            "cpu", [0, smoke.n_layers // 2])
+        log(f"  {name} smoke config on the CPU: "
+            f"{cpu[name]['info']['ticks']} ticks, decisions "
+            f"{cpu[name]['info']['decisions']} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        check(cpu[name]["info"]["refactors"] >= 1,
+              f"{name} CPU run: no controller refactor")
+    for name, (cfg, params) in models.items():
+        base[name] = controller_run(torch, f"{name} no controller", cfg,
+                                    params, "cuda", [0, 12],
+                                    controller=False)
+        check(base[name]["info"]["refactors"] == 0,
+              f"{name}: refactor without a controller")
+    launchers = finish_launchers(card, started)
+    runs = {}
+    for label, (name, kv, decode) in CONTROLLER_RUNS.items():
+        cfg, params = models[name]
+        run = controller_run(torch, label, cfg, params, "cuda", [0, 12], kv)
+        runs[label] = run
+        ref = cpu[name]
+        check(run["info"]["refactors"] >= 1, f"{label}: no refactor")
+        check(run["steps"] == ref["steps"] and run["events"] == ref["events"],
+              f"{label}: control steps or refactors differ from the CPU "
+              f"run's: {run['info']['decisions']} vs "
+              f"{ref['info']['decisions']}")
+        check(run["streams"] == base[name]["streams"],
+              f"{label}: streams differ from the run with no controller")
+        kernels = ("wkv6",) if name == "rwkv6" else ("flash_attention",
+                                                     decode)
+        for k in kernels:
+            check(run["info"]["launches"].get(k, 0) > 0,
+                  f"{label}: {k} not launched")
+        log(f"  {label}: 81 streams bit-identical to the run with no "
+            "controller; control steps equal the CPU run's")
+    scores = sorted(x for r in runs.values() for x in r["score_s"])
+    dense = runs["controller dense"]["info"]
+    rwkv = runs["controller rwkv6 dense"]["info"]
+    summary = {
+        "card": card,
+        "score_ms_median": scores[len(scores) // 2] * 1e3,
+        "score_ms_max": scores[-1] * 1e3, "control_steps": len(scores),
+        "decisions": {k: r["info"]["decisions"] for k, r in runs.items()},
+        "refactor_ms": {k: r["info"]["refactor_ms"] for k, r in runs.items()},
+        "ticks": {k: r["info"]["ticks"] for k, r in runs.items()},
+        "wall_s": {k: r["info"]["wall_s"] for k, r in runs.items()},
+        "no_controller": {k: {kk: b["info"][kk] for kk in ("ticks", "wall_s")}
+                          for k, b in base.items()},
+        "rwkv6_prefill_builds": rwkv["prefill_builds"],
+    }
+    for name, (cfg, _) in models.items():
+        info = rwkv if name == "rwkv6" else dense
+        summary[f"{name}_prior_ms_per_decode_token"] = \
+            CostModel.from_roofline(cfg, batch=8, ctx=256) \
+            .decode_s_per_token * 1e3
+        summary[f"{name}_measured_ms_per_decode_token"] = \
+            decode_ms_per_tick[name] / 8
+        summary[f"{name}_run_ms_per_tick_per_8"] = \
+            info["wall_s"] / info["ticks"] * 1e3 / 8
+    log(f"  decision latency (score_s) on {card}: median "
+        f"{summary['score_ms_median']:.4f} ms, max "
+        f"{summary['score_ms_max']:.4f} ms over {len(scores)} steps")
+    log(f"  controller refactors on {card}: " + ", ".join(
+        f"{k} {[round(x, 4) for x in v]} ms"
+        for k, v in summary["refactor_ms"].items()))
+    log(f"  runs on {card}: " + ", ".join(
+        f"{k} {summary['ticks'][k]} ticks {summary['wall_s'][k]:.2f} s"
+        for k in runs) + "; with no controller (beside the launchers): "
+        + ", ".join(f"{k} {b['info']['ticks']} ticks "
+                    f"{b['info']['wall_s']:.2f} s" for k, b in base.items()))
+    for name in models:
+        log(f"  {name} roofline prior "
+            f"{summary[f'{name}_prior_ms_per_decode_token']:.4f} ms per "
+            f"decode token (batch 8, ctx 256, f32) beside "
+            f"{summary[f'{name}_measured_ms_per_decode_token']:.4f} ms "
+            f"measured (serving phase's decode tick / 8) and "
+            f"{summary[f'{name}_run_ms_per_tick_per_8']:.4f} ms (controller "
+            f"run's wall per tick / 8) on {card}")
+    summary["launchers"] = launchers
+    log("  phase 10 summary: " + json.dumps(summary))
+    return runs, summary
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1269,8 +1549,7 @@ def main() -> int:
     log("== 8. where an rwkv6 decode tick's and prefill's time goes")
     profile_decode(torch, card, cfg, params, 10)
     profile_prefill(torch, card, cfg, params)
-    del cfg, params
-    torch.cuda.empty_cache()
+    rwkv = (cfg, params)                      # phase 10 serves it again
     log("== 9. qwen1.5-0.5b: chunked prefill, the fault path, admission")
     cfg, params, base_reqs = qwen
     base = {r.rid: list(r.output) for r in base_reqs}
@@ -1286,6 +1565,12 @@ def main() -> int:
         "faults": {k: {kk: vv for kk, vv in v.items() if kk != "replay_spans"}
                    for k, v in fault_runs.items()},
         "admission": admission}))
+    log("== 10. the controller plane on full-width qwen1.5-0.5b and "
+        "rwkv6-1.6b")
+    ctl_runs, ctl = controller_phase(
+        torch, card, {"qwen": (cfg, params), "rwkv6": rwkv},
+        {"qwen": runs["dense refactored"]["decode_ms_per_tick"],
+         "rwkv6": runs["rwkv6 dense refactored"]["decode_ms_per_tick"]})
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -1332,6 +1617,14 @@ def main() -> int:
             kernels[-1]["launches_chunked"] = \
                 info["launches"]["flash_attention"]
             kernels[-1]["chunked_launched_in"] = "chunk128 dense"
+        ctl_path = {"paged_decode_attention": "controller paged kernel",
+                    "wkv6": "controller rwkv6 dense"}.get(
+                        name, "controller dense")
+        kernels[-1]["launches_controller"] = \
+            ctl_runs[ctl_path]["info"]["launches"].get(name, 0)
+        kernels[-1]["controller_launched_in"] = ctl_path
+        check(kernels[-1]["launches_controller"] > 0,
+              f"{name} was not launched on the controller path")
         if "prefill" in r:
             kernels[-1]["prefill"] = r["prefill"]
             kernels[-1]["prefill_lengths"] = r["prefill_lengths"]

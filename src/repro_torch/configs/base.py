@@ -1,7 +1,8 @@
 """Model configuration and architecture registry (the port's own copy).
 
 Mirrors ``repro/configs/base.py`` field for field for the parts the serving
-path reads, so a test can build the same config in both packages.  Pipeline
+path and the controller read, so a test can build the same config in both
+packages.  Pipeline
 plans and input shapes of the JAX package are not part of the port yet.
 """
 from __future__ import annotations
@@ -67,6 +68,15 @@ class ModelConfig:
     @property
     def pattern_size(self) -> int:
         return len(self.pattern)
+
+    @property
+    def n_patterns(self) -> int:
+        """Repeats of the layer pattern (the controller's stage unit)."""
+        if self.n_layers % self.pattern_size:
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"pattern_size={self.pattern_size}")
+        return self.n_layers // self.pattern_size
 
     def layer_kind(self, layer_idx: int) -> LayerKind:
         return self.pattern[layer_idx % self.pattern_size]

@@ -1,8 +1,10 @@
-"""Eq. 10 of the paper: token-validity-masked cache snapshots and merges.
+"""Inflight refactoring: the Eq. 10 snapshot and merges, the migration cost
+model, and Algorithm 1's granularity controller.
 
-Ports ``CacheSnapshot``, ``snapshot``, ``merge_with_mask``,
-``block_validity`` and ``merge_paged_with_mask`` of
-``repro/core/refactoring.py``.
+Ports all of ``repro/core/refactoring.py``: ``CacheSnapshot``,
+``snapshot``, ``merge_with_mask``, ``block_validity``,
+``merge_paged_with_mask``, ``MigrationCost``, ``plan_migration``,
+``RefactorDecision`` and ``RefactoringController``.
 
     C(t) = KV_snapshot ⊗ M_valid  ∪  KV_live ⊗ (¬M_valid)
 
@@ -20,9 +22,17 @@ to mask, so it keeps its live value, as in the reference.
 """
 from __future__ import annotations
 
+import math
+import time
 from dataclasses import dataclass
+
 import numpy as np
 import torch
+
+from repro_torch.core.cv_monitor import CVMonitor
+from repro_torch.core.granularity import GranularityProfile, score, select
+from repro_torch.launch.roofline import H100_SXM
+from repro_torch.models.kvcache import migration_plan
 
 # leaf name -> its token axis; every other leaf is O(1) recurrent state
 _POSITIONAL_AXES = {"k": 2, "v": 2, "latent": 1, "k_rope": 1}
@@ -128,3 +138,116 @@ def merge_paged_with_mask(snap: CacheSnapshot, live: list,
             m = (off[None, :] < cnt[:, None])[:, None, :, None]
         l_leaf[idx] = torch.where(m, s_leaf[idx], l_leaf[idx])
     return live
+
+
+# ---------------------------------------------------------------------------
+# Migration cost model
+# ---------------------------------------------------------------------------
+
+@dataclass
+class MigrationCost:
+    moved_layers: list                    # (layer, old_stage, new_stage)
+    cache_bytes_moved: float
+    param_bytes_moved: float
+    transfer_s: float
+    delta_sync_s: float
+
+
+def plan_migration(old_bounds: list[int], new_bounds: list[int],
+                   n_layers: int, *, cache_bytes_per_layer: float,
+                   param_bytes_per_layer: float,
+                   link_bw: float = H100_SXM.link_bw,
+                   decode_rate: float = 50.0,
+                   inflight_tokens: int = 1) -> MigrationCost:
+    """Bytes and time to move ownership between stage groupings over a
+    card-to-card link (NVLink by default)."""
+    moves = migration_plan(old_bounds, new_bounds, n_layers)
+    cb = len(moves) * cache_bytes_per_layer
+    pb = len(moves) * param_bytes_per_layer
+    t = (cb + pb) / link_bw
+    # delta pass: tokens decoded during transfer need re-sync (Eq. 10 mask)
+    delta_tokens = max(int(t * decode_rate), inflight_tokens)
+    delta = delta_tokens * cache_bytes_per_layer / max(link_bw, 1.0) \
+        * len(moves) / max(n_layers, 1)
+    return MigrationCost(moved_layers=moves, cache_bytes_moved=cb,
+                         param_bytes_moved=pb, transfer_s=t,
+                         delta_sync_s=delta)
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 1 — the controller loop
+# ---------------------------------------------------------------------------
+
+@dataclass
+class RefactorDecision:
+    target: GranularityProfile
+    changed: bool
+    score_s: float                        # decision latency (paper: <5 ms)
+    reason: str
+
+
+class RefactoringController:
+    """Algorithm 1: continuous monitoring + proactive granularity selection.
+
+    hysteresis: a switch must win by `switch_margin` and survive
+    `cooldown_s` since the last switch (avoids oscillation — the sigmoid
+    of Eq. 11 plays the same role for scaling)."""
+
+    def __init__(self, profiles: list[GranularityProfile], *,
+                 alpha: float = 0.5, sigma: float = 1.0,
+                 switch_margin: float = 0.05, cooldown_s: float = 10.0,
+                 saturation_gain: float = 1.0):
+        if not profiles:
+            raise ValueError("need at least one granularity profile")
+        self.profiles = profiles
+        self.alpha = alpha
+        self.sigma = sigma
+        self.switch_margin = switch_margin
+        self.cooldown_s = cooldown_s
+        self.saturation_gain = saturation_gain
+        self.monitor = CVMonitor()
+        self.current = profiles[0]
+        self._last_switch = -math.inf
+        self.history: list[tuple[float, int]] = []
+
+    def record_arrival(self, t: float) -> None:
+        self.monitor.record(t)
+
+    def step(self, now: float, queue_len: float = 0.0,
+             saturation: float = 0.0) -> RefactorDecision:
+        t0 = time.perf_counter()
+        est = self.monitor.estimate(now)
+        vel = self.monitor.velocity(now)
+        # proactive: extrapolate CV half a window ahead using the intensity
+        # gradient sign (paper: "anticipate traffic shifts")
+        cv_eff = est.cv * (1.15 if vel > 0 else 1.0)
+        # overload composition: the admission queue's saturation signal
+        # blends cv_eff toward the most burst-tuned profile's cv_opt, so
+        # sustained pressure (which can be LOW-CV — a steady flood) still
+        # steers selection toward deeper, higher-throughput pipelines and
+        # refactoring composes with load shedding instead of fighting it
+        sat = min(max(saturation * self.saturation_gain, 0.0), 1.0)
+        if sat > 0.0:
+            cv_hi = max(p.cv_opt for p in self.profiles)
+            cv_eff += sat * max(cv_hi - cv_eff, 0.0)
+        best = select(self.profiles, cv_eff, alpha=self.alpha,
+                      sigma=self.sigma)
+        changed = False
+        if best.stages != self.current.stages:
+            t_max = max(p.throughput for p in self.profiles)
+            l_min = min(p.latency for p in self.profiles)
+            s_new = score(best, cv_eff, t_max=t_max, l_min=l_min,
+                          alpha=self.alpha, sigma=self.sigma)
+            s_cur = score(self.current, cv_eff, t_max=t_max, l_min=l_min,
+                          alpha=self.alpha, sigma=self.sigma)
+            if (s_new > s_cur * (1 + self.switch_margin)
+                    and now - self._last_switch >= self.cooldown_s):
+                changed = True
+                self.current = best
+                self._last_switch = now
+                self.history.append((now, best.stages))
+        dt = time.perf_counter() - t0
+        return RefactorDecision(
+            target=self.current, changed=changed, score_s=dt,
+            reason=f"cv={est.cv:.2f} vel={vel:+.2f} q={queue_len:.0f} "
+                   f"sat={sat:.2f} -> S={self.current.stages}")

@@ -1,4 +1,5 @@
-"""KV cache construction, the paged block allocator and stage regrouping.
+"""KV cache construction and sizing, the paged block allocator and stage
+regrouping.
 
 Ports the attention- and RWKV-layer parts of ``repro/models/kvcache.py``.
 Two layouts:
@@ -16,6 +17,7 @@ it, so bucket padding and idle slots write into a block no masked read sees.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -34,6 +36,19 @@ def _check_ported(cfg: ModelConfig, layers, mixers) -> None:
                 "not ported to repro_torch yet; see ROADMAP.md, section 1")
 
 
+def _layer_shapes(cfg: ModelConfig, i: int, batch: int, max_seq: int,
+                  tensor_shards: int = 1) -> dict:
+    """Leaf shapes of layer ``i``'s dense cache (local shapes under
+    ``tensor_shards``-way tensor parallelism)."""
+    if cfg.layer_kind(i).mixer == MIXER_RWKV:
+        H, hd = rwkv_dims(cfg)
+        return {"sx_tm": (batch, cfg.d_model), "sx_cm": (batch, cfg.d_model),
+                "wkv": (batch, H // tensor_shards, hd, hd)}
+    shape = (batch, max(cfg.n_kv_heads // tensor_shards, 1), max_seq,
+             cfg.resolved_head_dim)
+    return {"k": shape, "v": shape}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None,
                layers: Optional[range] = None) -> list:
@@ -41,21 +56,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     device = resolve_device(device)
     layers = layers if layers is not None else range(cfg.n_layers)
     _check_ported(cfg, layers, (MIXER_ATTN, MIXER_RWKV))
+    return [{"mixer": {name: torch.zeros(shape, dtype=dtype, device=device)
+                       for name, shape in
+                       _layer_shapes(cfg, i, batch, max_seq).items()}}
+            for i in layers]
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
 
-    out = []
-    for i in layers:
-        if cfg.layer_kind(i).mixer == MIXER_RWKV:
-            H, hd = rwkv_dims(cfg)
-            out.append({"mixer": {"sx_tm": zeros(batch, cfg.d_model),
-                                  "sx_cm": zeros(batch, cfg.d_model),
-                                  "wkv": zeros(batch, H, hd, hd)}})
-        else:
-            shape = (batch, cfg.n_kv_heads, max_seq, cfg.resolved_head_dim)
-            out.append({"mixer": {"k": zeros(*shape), "v": zeros(*shape)}})
-    return out
+def cache_bytes(tree) -> int:
+    """Bytes of every tensor in nested dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(cache_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(cache_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
 
 
 NULL_BLOCK = 0          # physical block 0: trash target for masked writes
@@ -81,6 +94,26 @@ def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
     return [{"mixer": {"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)}}
             for _ in layers]
+
+
+def block_bytes(cfg: ModelConfig, block_size: int, dtype=torch.bfloat16,
+                tensor_shards: int = 1) -> int:
+    """Bytes one physical block costs across ALL layers (the sizing unit of
+    a pool)."""
+    kh = max(cfg.n_kv_heads // tensor_shards, 1)
+    return (cfg.n_layers * 2 * kh * block_size * cfg.resolved_head_dim
+            * dtype.itemsize)
+
+
+def dense_slot_bytes(cfg: ModelConfig, max_seq: int, dtype=torch.bfloat16,
+                     tensor_shards: int = 1) -> int:
+    """Bytes one dense batch slot reserves across all layers (the
+    ``max_seq``-proportional cost paging removes)."""
+    _check_ported(cfg, range(cfg.n_layers), (MIXER_ATTN, MIXER_RWKV))
+    return sum(math.prod(shape) * dtype.itemsize
+               for i in range(cfg.n_layers)
+               for shape in _layer_shapes(cfg, i, 1, max_seq,
+                                          tensor_shards).values())
 
 
 def blocks_for(n_tokens: int, block_size: int) -> int:
@@ -155,3 +188,28 @@ def group_by_stage(per_layer: list, boundaries: list[int]) -> list[list]:
     start indices).  Zero-copy: only the Python list is re-sliced."""
     ends = list(boundaries[1:]) + [len(per_layer)]
     return [per_layer[b:e] for b, e in zip(boundaries, ends)]
+
+
+def regroup(per_stage: list[list], new_boundaries: list[int]) -> list[list]:
+    """Re-split stage-grouped caches at new boundaries.  Zero-copy: the new
+    per-stage lists hold the same per-layer tensors."""
+    return group_by_stage([c for stage in per_stage for c in stage],
+                          new_boundaries)
+
+
+def migration_plan(old_boundaries: list[int], new_boundaries: list[int],
+                   n_layers: int) -> list[tuple[int, int, int]]:
+    """Layers whose owning stage changes, as (layer, old_stage, new_stage):
+    the layers a refactor between stage groupings must transfer."""
+    def owner(boundaries, layer):
+        s = 0
+        for i, b in enumerate(boundaries):
+            if layer >= b:
+                s = i
+        return s
+    moves = []
+    for layer in range(n_layers):
+        o, n = owner(old_boundaries, layer), owner(new_boundaries, layer)
+        if o != n:
+            moves.append((layer, o, n))
+    return moves

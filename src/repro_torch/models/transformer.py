@@ -126,15 +126,18 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                         resolve_device(device))
 
 
+def spec_numel(spec) -> int:
+    """Elements of a (shape, init) param tree (no allocation)."""
+    if isinstance(spec, dict):
+        return sum(spec_numel(v) for v in spec.values())
+    if isinstance(spec, list):
+        return sum(spec_numel(v) for v in spec)
+    return math.prod(spec[0])
+
+
 def count_params(cfg: ModelConfig) -> int:
     """Exact parameter count from the param shapes (no allocation)."""
-    def walk(spec):
-        if isinstance(spec, dict):
-            return sum(walk(v) for v in spec.values())
-        if isinstance(spec, list):
-            return sum(walk(v) for v in spec)
-        return math.prod(spec[0])
-    return walk(model_spec(cfg))
+    return spec_numel(model_spec(cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,9 @@ brownout degradation (the port's own copy of ``repro/serving/admission.py``).
   absolute deadline (EDF), and sheds at pop time a request whose remaining
   SLO budget cannot cover its estimated prefill + decode time.
 * ``CostModel``: the service-time estimate behind shedding, seeded from the
-  engine's tick (``seed_from_tick``) and refined by EMA observations.  Its
-  roofline prior is not ported: the reference's peaks are a TPU's.
+  engine's tick (``seed_from_tick``) or the card's roofline
+  (``from_roofline``, H100 peaks by default) and refined by EMA
+  observations.
 * KV-watermark backpressure: a hysteresis gate over KV occupancy.
 * ``BrownoutController``: sustained saturation raises a discrete level that
   shrinks ``max_new_tokens`` budgets by priority class, and at the top
@@ -21,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+from repro_torch.launch.roofline import H100_SXM, Chip, layer_fwd
 from repro_torch.serving.metrics import ServingStats
 from repro_torch.serving.workload import Request
 
@@ -44,8 +46,8 @@ _PRIO_WEIGHT = (0.5, 1.0, 1.5)
 class CostModel:
     """Estimated service time of a request: fixed overhead + per-token
     prefill + per-token decode.  ``observe_*`` refines the terms with an
-    EMA so the estimate tracks the live system; ``seed_from_tick``
-    provides the prior."""
+    EMA so the estimate tracks the live system; ``seed_from_tick`` /
+    ``from_roofline`` provide the priors."""
     overhead_s: float = 0.0
     prefill_s_per_token: float = 0.0
     decode_s_per_token: float = 0.05
@@ -88,12 +90,27 @@ class CostModel:
 
     @classmethod
     def from_roofline(cls, cfg, *, batch: int = 1, ctx: int = 256,
-                      tensor: int = 1) -> "CostModel":
-        """The analytic prior needs the card's roofline, which is not
-        ported yet (the reference's constants are a TPU's)."""
-        raise NotImplementedError(
-            "CostModel.from_roofline is not ported to repro_torch yet; see "
-            "ROADMAP.md, section 1, item 'Controller and CLI'")
+                      tensor: int = 1, chip: Chip = H100_SXM,
+                      bytes_per_el: int = 4) -> "CostModel":
+        """Analytic prior from the card's roofline (launch/roofline.py):
+        per-token time = max(flops/peak, hbm/bw) summed over layers, plus
+        the lm_head.  For serving on a card, where the decode cadence is not
+        a fixed sim-time tick."""
+        peak = chip.peak_flops(bytes_per_el)
+        dec = pre = 0.0
+        for j in range(cfg.n_layers):
+            c = layer_fwd(cfg, j, batch, ctx, tensor, True,
+                          bytes_per_el=bytes_per_el)
+            dec += max(c.flops / peak, c.hbm_bytes / chip.hbm_bw)
+            c = layer_fwd(cfg, j, batch, ctx, tensor, False,
+                          bytes_per_el=bytes_per_el)
+            pre += max(c.flops / peak, c.hbm_bytes / chip.hbm_bw)
+        # head: 2*B*d*V flops per sampled token
+        head = 2 * batch * cfg.d_model * cfg.vocab_size / peak
+        return cls(overhead_s=0.0,
+                   prefill_s_per_token=(pre + head) / max(batch, 1),
+                   decode_s_per_token=(dec + head) / max(batch, 1),
+                   auto=False)
 
 
 # ---------------------------------------------------------------------------

@@ -35,9 +35,15 @@ tokens decoded since.  Admission control (``EngineConfig(admission=...)``)
 bounds the queue, orders it by priority and deadline, sheds infeasible
 work and browns out budgets under sustained saturation.
 
-Not ported yet (see ROADMAP.md) and raising ``NotImplementedError``: a
-controller in ``run``, and the fault path for recurrent (RWKV) models,
-whose reference results are wrong (ROADMAP.md, section 3).
+``run(controller=FlexPipeController(...))`` hands every arrival to the
+controller and runs one Algorithm 1 step every ``control_interval`` of
+simulated time; a changed granularity refactors to balanced boundaries for
+its stage count, as the reference does (the controller's partitions are
+not used; ROADMAP.md, section 3, known quirks of the reference).
+
+Not ported and raising ``NotImplementedError``: the fault path for
+recurrent (RWKV) models, whose reference results are wrong (ROADMAP.md,
+section 3).
 """
 from __future__ import annotations
 
@@ -68,12 +74,6 @@ from repro_torch.serving.faults import (COMM_TRANSIENT, OOM, PREEMPT_STAGE,
                                         SLOWDOWN)
 from repro_torch.serving.metrics import ServingStats
 from repro_torch.serving.workload import Request
-
-
-def _todo(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md, "
-        f"section 1, item '{item}'")
 
 
 def _recurrent_faults():
@@ -135,7 +135,7 @@ class EngineConfig:
 
     def __init__(self, max_batch: int = 8, max_seq: int = 256,
                  cache_dtype: str = "float32", eos_token: int = -1,
-                 fused_decode: bool = True,
+                 control_interval: float = 1.0, fused_decode: bool = True,
                  warm_profiles: tuple[int, ...] = (),
                  snapshot_interval: int = 0,
                  admission: Optional[AdmissionConfig] = None,
@@ -145,6 +145,7 @@ class EngineConfig:
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
         self.eos_token = eos_token               # -1: run to max_new_tokens
+        self.control_interval = control_interval  # controller cadence (sim s)
         self.fused_decode = fused_decode         # single-program decode tick
         # stage counts whose programs are built and run once at start, so
         # refactoring between them is a cache hit
@@ -1152,10 +1153,8 @@ class FlexPipeEngine:
 
     def run(self, requests: list[Request], controller=None,
             time_per_tick: float = 0.05) -> ServingStats:
-        """Trace-driven loop in simulated time until every request ends."""
-        if controller is not None:
-            raise _todo("controller-driven refactoring (run(controller=))",
-                        "Controller and CLI")
+        """Trace-driven loop in simulated time until every request ends;
+        ``controller`` (a ``FlexPipeController``) may refactor."""
         pending = sorted(requests, key=lambda r: r.arrival)
         if self.admission is not None and self.admission.cost.auto:
             # simulated time: a prefill costs one tick (chunked: one tick
@@ -1166,13 +1165,29 @@ class FlexPipeEngine:
                     (self.ecfg.prefill.budget or self._chunk)
                     if self._chunk else 0))
         now = 0.0
+        last_ctl = 0.0
         i = 0
         while i < len(pending) or len(self.queue) or \
                 any(not s.done for s in self.slots):
             while i < len(pending) and pending[i].arrival <= now:
                 self.submit(pending[i], now=pending[i].arrival)
+                if controller is not None:
+                    controller.on_request(pending[i].arrival)
                 i += 1
             self.step(now)
+            if controller is not None and \
+                    now - last_ctl >= self.ecfg.control_interval:
+                last_ctl = now
+                sat = self.admission.saturation() \
+                    if self.admission is not None else 0.0
+                # the partition and migration estimate are not used: the
+                # engine refactors to balanced boundaries, as the reference
+                d, _ = controller.control_step(now, len(self.queue),
+                                               saturation=sat)
+                if d.changed and d.target.stages <= self.cfg.n_layers:
+                    nb = self._boundaries_for(d.target.stages)
+                    if nb != self.boundaries:
+                        self.refactor(nb)
             self.stats.queue_samples.append((now, len(self.queue)))
             if self.admission is not None:
                 self.stats.record_saturation(now,

@@ -1,9 +1,9 @@
 """Requests and synthetic arrival processes (the port's own copy).
 
 Mirrors ``repro/serving/workload.py``'s ``Request`` (with its admission and
-fault lifecycle fields), ``audit_requests`` and ``synth_requests``, and
-``repro/core/cv_monitor.py``'s ``gamma_interarrivals``, so the same seed
-gives the same requests in both packages.
+fault lifecycle fields), ``audit_requests`` and ``synth_requests``, drawing
+arrivals from ``core/cv_monitor.py``'s ``gamma_interarrivals``, so the same
+seed gives the same requests in both packages.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+from repro_torch.core.cv_monitor import gamma_interarrivals
 
 
 @dataclass
@@ -78,16 +80,6 @@ def audit_requests(requests: list) -> tuple[dict, list]:
         else:
             violations.append((r.rid, s))
     return counts, violations
-
-
-def gamma_interarrivals(rng, rate: float, cv: float, n: int) -> list[float]:
-    """Gamma-distributed intervals with exact target CV: shape k = 1/cv²,
-    scale = 1/(rate·k).  cv=1 is Poisson."""
-    if cv <= 0:
-        return [1.0 / rate] * n
-    k = 1.0 / (cv * cv)
-    theta = 1.0 / (rate * k)
-    return list(rng.gamma(k, theta, size=n))
 
 
 def synth_requests(rng: np.random.Generator, *, rate: float, cv: float,

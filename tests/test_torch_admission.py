@@ -1,7 +1,7 @@
 """repro_torch's overload protection against the JAX package (mirrors
-tests/test_admission.py): the cost model (its roofline prior waits for the
-card's roofline), the bounded EDF admission queue, brownout, and the engine
-under overload, whose per-request terminal states, queue waits, degraded
+tests/test_admission.py): the cost model (its roofline prior is held in
+test_torch_roofline.py), the bounded EDF admission queue, brownout, and the
+engine under overload, whose per-request terminal states, queue waits, degraded
 budgets and streams equal the reference engine's on the same trace."""
 import numpy as np
 import pytest
@@ -56,10 +56,6 @@ class TestCostModel:
         assert cm.decode_s_per_token == pytest.approx(0.15)
         cm.observe_prefill(10, 1.0)
         assert cm.prefill_s_per_token > 0
-
-    def test_from_roofline_waits_for_the_card_roofline(self):
-        with pytest.raises(NotImplementedError, match="Controller and CLI"):
-            CostModel.from_roofline(CFG)
 
 
 class TestAdmissionQueue:

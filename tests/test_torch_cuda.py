@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from controller_parity import CASES, run_port
 from repro_torch.configs.base import get_arch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
@@ -408,3 +409,34 @@ def test_cuda_rwkv_engine_paths_agree(cuda_dev):
         assert build.launches["wkv6"] > 0
         streams.append([r.output for r in reqs])
     assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["qwen dense", "qwen paged kernel",
+                                  "rwkv6 dense"],
+                         ids=["dense", "paged-kernel", "rwkv6"])
+def test_cuda_controller_run(cuda_dev, case):
+    """Smoke-size models under FlexPipeController on the quickstart's
+    setup, on the card: the control steps and refactors equal the CPU
+    run's, every refactor is warm, and the streams equal a run on the card
+    with no controller."""
+    cfg = get_arch(CASES[case][0]).smoke_config
+    cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = init_model(cfg, torch.Generator().manual_seed(0), device=cuda_dev)
+    want, _ = run_port(case, cpu, "cpu")
+    got, _ = run_port(case, card, cuda_dev)
+    base, _ = run_port(case, card, cuda_dev, controller=False)
+    assert got["steps"] == want["steps"] and got["events"] == want["events"]
+    assert len(got["events"]) >= 1 and base["events"] == []
+    assert all(ev["compile_cache_hit"] and ev["new_traces"] == 0
+               for ev in got["events"])
+    assert got["bucketed"] == (case != "rwkv6 dense")
+    if got["bucketed"]:
+        assert got["builds_after_warmup"] == 0
+    assert got["completed"] == got["n"] == 81
+    assert got["streams"] == base["streams"]
+    kernels = {"qwen dense": ("flash_attention", "decode_attention"),
+               "qwen paged kernel": ("flash_attention",
+                                     "paged_decode_attention"),
+               "rwkv6 dense": ("wkv6",)}[case]
+    assert all(got["launches"].get(k, 0) > 0 for k in kernels)

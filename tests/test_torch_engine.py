@@ -217,8 +217,6 @@ def test_boundaries_and_config():
         EngineConfig(prefill=PrefillConfig(chunk=24))
     e1.attach_faults()                  # nothing armed: a no-op
     assert e1.faults is None and e1.health is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        e1.run([], controller=object())
     with pytest.raises(ValueError, match="params live on"):
         FlexPipeEngine(CFG, PARAMS, [0, 2], device="meta")
 

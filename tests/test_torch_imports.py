@@ -65,6 +65,25 @@ eng = FlexPipeEngine(cfg, params, [0, 2], EngineConfig(max_batch=2, max_seq=32),
 reqs = [Request(rid=i, arrival=0.0, prompt_len=5 + i, max_new_tokens=3)
         for i in range(3)]
 assert eng.run(reqs).completed == 3
+from repro_torch.core.controller import FlexPipeController
+from repro_torch.core.granularity import GranularityProfile
+from repro_torch.serving.workload import synth_requests
+import numpy as np
+cfg = get_arch("qwen1.5-0.5b").smoke_config
+params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+profiles = [GranularityProfile(2, 8, 90, 0.4, 0.5),
+            GranularityProfile(4, 16, 110, 0.6, 2.5)]
+eng = FlexPipeEngine(cfg, params, [0, 2], EngineConfig(
+    max_batch=4, max_seq=64, control_interval=0.5, warm_profiles=(2, 4)),
+    device="cpu")
+rng = np.random.default_rng(0)
+reqs = synth_requests(rng, rate=4.0, cv=0.4, duration=2.0, prompt_mean=12,
+                      decode_mean=4)
+reqs += synth_requests(rng, rate=40.0, cv=5.0, duration=1.0, t0=2.0,
+                       prompt_mean=12, decode_mean=4)
+assert eng.run(reqs, controller=FlexPipeController(cfg, profiles)).completed \
+    == len(reqs)
+assert [len(ev["to"]) for ev in eng.refactor_events] == [4]
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -78,7 +97,7 @@ def test_package_imports_and_serves_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("MODULES")[1])
-    assert n >= 22
+    assert n >= 38
 
 
 def _imported_modules(path: Path) -> set[str]:
