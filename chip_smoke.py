@@ -14,9 +14,11 @@ Phases, each fatal on failure:
      dense kernel must agree bit for bit on equal live rows; wkv6 calls
      chained through their state must give one whole call's bits; time
      kernel, plain version and one PyTorch library call computing the same
-     function, beside the bound;
+     function, beside the bound; the same for gemma3-1b's attention shapes
+     (head_dim 256, one kv head, a 512-token window) and MLA prefill's
+     (hd 192, hdv 128);
   4. check the port's logits on the card against its CPU path (smoke size,
-     qwen1.5-0.5b and rwkv6-1.6b);
+     qwen1.5-0.5b, rwkv6-1.6b and gemma3-1b);
   5. serve full-width qwen1.5-0.5b (random weights from seed 0): a dense
      run through FlexPipeEngine.run, then dense, paged-gather and
      paged-kernel runs refactored [0,12] -> [0,6,12,18] -> [0,12] mid-stream;
@@ -40,7 +42,12 @@ Phases, each fatal on failure:
      equal to the smoke config's run of the same trace on the CPU, the
      streams equal to a run with no controller; the launchers (python -m
      repro_torch.launch.serve and .quickstart) run as subprocesses on the
-     card beside the CPU runs and the runs with no controller.
+     card beside the CPU runs and the runs with no controller;
+ 11. serve full-width gemma3-1b (sliding-window ring caches, GeGLU,
+     head_dim 256) as phase 5 serves qwen: run(), then a run refactored
+     [0,13] -> [0,7,14,20] -> [0,13], streams bit-identical, every prefill
+     and decode step through the flash and decode kernels, decode ==
+     forward for two requests, and three profiled decode ticks.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -182,6 +189,7 @@ def kernel_checks(torch):
         check(not bool(over.any()), f"{name} {dt} {case}: error {err} > "
               f"{TOL[dt]}" + (" beyond a one-ulp rounding flip"
                               if dt == "bfloat16" else ""))
+        return err
 
     # --- dense and paged decode: B=8, H=Kh=16, hd=64, Smax=1024 ---------
     B, H, Kh, hd, Smax, bs = 8, 16, 16, 64, 1024, 16
@@ -192,10 +200,14 @@ def kernel_checks(torch):
     edges = np.array([0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1,
                       Smax, 600], np.int32)
 
-    def decode_case(dt, lens, label):
+    def decode_case(dt, lens, label, geo=None):
         """Dense and paged kernels against their plain versions, then the
         paged kernel, the gather path and the dense kernel on the same live
-        rows: the same bits, and the same bits again on a second call."""
+        rows: the same bits, and the same bits again on a second call.
+        ``geo``: (H, Kh, hd, Smax) other than qwen's."""
+        H, Kh, hd, Smax = geo or (16, 16, 64, 1024)
+        M = Smax // bs
+        n_blocks = 1 + B * M
         q = rnd((B, H, hd), dt)
         kc, vc = rnd((B, Kh, Smax, hd), dt), rnd((B, Kh, Smax, hd), dt)
         cl = torch.from_numpy(lens).to(dev)
@@ -344,6 +356,7 @@ def kernel_checks(torch):
     log(f"  {'flash_attention chunk':24s} {c['ms']:.4f} ms  plain "
         f"{c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  bound "
         f"{c['bound_ms']:.4f} ms ({by})  [{c['shape']}]")
+    wide_head_checks(torch, rnd, compare, decode_case, results)
     wkv_checks(torch, rnd, results)
     for name, r in results.items():
         lib = r["library_ms"]
@@ -354,6 +367,129 @@ def kernel_checks(torch):
     return results
 
 
+def wide_head_checks(torch, rnd, compare, decode_case, results):
+    """gemma3-1b's attention shapes (hd 256, 4 query heads on one kv head)
+    and MLA prefill's (hd 192, hdv 128), f32 and bf16, against the plain
+    versions: flash at a 571-token prompt, local (window 512) and global,
+    and at (192, 128); dense decode on a 512-row ring and a 1024-row global
+    cache; paged == gather == dense bit for bit.  Each f32 case is timed
+    beside its bound and one SDPA call."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, paged_decode_attention,
+        paged_decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        attention_mask, flash_attention, flash_attention_plain)
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+
+    def sdpa_ms(label, fn):
+        try:
+            return time_ms(torch, fn)
+        except RuntimeError as e:          # a yardstick only: none there
+            log(f"  {label}: no SDPA call for this shape ({e})"[:200])
+            return None
+
+    flash = [  # (key, Sq=Skv, H, Kh, hd, hdv, window)
+        ("hd256_window", 571, 4, 1, 256, 256, 512),
+        ("hd256_causal", 571, 4, 1, 256, 256, 0),
+        ("hd192_128", 512, 16, 16, 192, 128, 0),
+    ]
+    for key, S, H, Kh, hd, hdv, win in flash:
+        shape = (f"B=1 Sq=Skv={S} H={H} Kh={Kh} hd={hd} hdv={hdv} "
+                 + (f"window={win}" if win else "causal"))
+        for dt in ("float32", "bfloat16"):
+            q = rnd((1, S, H, hd), dt)
+            k, v = rnd((1, S, Kh, hd), dt), rnd((1, S, Kh, hdv), dt)
+            kw = dict(causal=True, window=win, q_offset=0)
+            err = compare("flash_attention", dt,
+                          flash_attention(q, k, v, **kw),
+                          flash_attention_plain(q, k, v, **kw), shape)
+            if dt != "float32":
+                continue
+            mask = attention_mask(S, S, causal=True, window=win, q_offset=0,
+                                  device=dev)
+            pairs = int(mask.sum())
+            # q read and out written, k and v read, once each
+            nbytes = S * (H + Kh) * (hd + hdv) * 4
+            t_bound, by = bound(nbytes, 2 * H * pairs * (hd + hdv), "tf32x3")
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib = (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)) if win else \
+                (lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            r = dict(ms=time_ms(torch, lambda: flash_attention(q, k, v, **kw)),
+                     plain_ms=time_ms(torch, lambda: flash_attention_plain(
+                         q, k, v, **kw), iters=5),
+                     library_ms=sdpa_ms(shape, lib), bound_ms=t_bound,
+                     bound_by=by, max_abs_err=err, shape=shape + " f32")
+            results["flash_attention"][key] = r
+            log(f"  {'flash_attention ' + key:24s} {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
+                f"bound {t_bound:.4f} ms ({by})  [{r['shape']}]")
+    # gemma3 decode: one kv head, G = 4; a local layer's 512-row ring and a
+    # global layer's 1024 rows; lengths at the split kernel's chunk edges
+    B, H, Kh, hd = 8, 4, 1, 256
+    decode = [  # (key, Smax, cache_len)
+        ("hd256_ring", 512, [1, 127, 128, 129, 512, 255, 384, 511]),
+        ("hd256_global", 1024, [1024, 1, 17, 512, 600, 333, 1000, 64]),
+    ]
+    for key, Smax, lens in decode:
+        lens = np.array(lens, np.int32)
+        label = f"hd=256 G=4 Smax={Smax}"
+        for dt in ("float32", "bfloat16"):
+            q, kc, vc, cl, kp, vp, bt, pcl, plens = decode_case(
+                dt, lens, label, (H, Kh, hd, Smax))
+            if dt != "float32":
+                continue
+            err = float((decode_attention(q, kc, vc, cl)
+                         - decode_attention_plain(q, kc, vc, cl)).abs().max())
+            live = int(lens.sum())
+            nbytes = (B * H * hd * 2 + live * Kh * 2 * hd) * 4 + B * 4
+            t_bound, by = bound(nbytes, 2 * H * live * 2 * hd, dt)
+            mask = (torch.arange(Smax, device=dev)[None, :]
+                    < cl[:, None])[:, None, None, :]
+            q4 = q[:, :, None, :]
+            shape = (f"B={B} H={H} Kh={Kh} hd={hd} Smax={Smax} f32, "
+                     f"sum(cache_len)={live}")
+            r = dict(ms=time_ms(torch, lambda: decode_attention(q, kc, vc,
+                                                                cl)),
+                     plain_ms=time_ms(torch, lambda: decode_attention_plain(
+                         q, kc, vc, cl), iters=5),
+                     library_ms=sdpa_ms(shape, lambda: (
+                         F.scaled_dot_product_attention(
+                             q4, kc, vc, attn_mask=mask, enable_gqa=True))),
+                     bound_ms=t_bound, bound_by=by, max_abs_err=err,
+                     shape=shape)
+            results["decode_attention"][key] = r
+            log(f"  {'decode_attention ' + key:24s} {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
+                f"bound {t_bound:.4f} ms ({by})  [{shape}]")
+            # the paged kernel shares the core: off gemma3's path (windowed
+            # configs do not page), timed at the same shape for its row
+            plive = int(plens.sum())
+            pbytes = (B * H * hd * 2 + plive * Kh * 2 * hd) * 4 + B * 4 \
+                + sum(-(-int(x) // 16) for x in plens) * 4
+            t_bound, by = bound(pbytes, 2 * H * plive * 2 * hd, dt)
+            err = float((paged_decode_attention(q, kp, vp, bt, pcl)
+                         - paged_decode_attention_plain(
+                             q, kp, vp, bt, pcl)).abs().max())
+            pshape = (f"B={B} H={H} Kh={Kh} hd={hd} bs=16, "
+                      f"{bt.shape[1]} blocks a slot, f32, "
+                      f"sum(cache_len)={plive}")
+            r = dict(ms=time_ms(torch, lambda: paged_decode_attention(
+                         q, kp, vp, bt, pcl)),
+                     plain_ms=time_ms(torch, lambda: (
+                         paged_decode_attention_plain(q, kp, vp, bt, pcl)),
+                         iters=5),
+                     library_ms=None, bound_ms=t_bound, bound_by=by,
+                     max_abs_err=err, shape=pshape)
+            results["paged_decode_attention"][key] = r
+            log(f"  {'paged_decode ' + key:24s} {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  bound {t_bound:.4f} ms ({by})  "
+                f"[{pshape}]")
+
+
 def flash_composition(torch, rnd):
     """Chunked prefill's invariant on the kernel: a prompt's rows computed
     chunk by chunk (Sq = chunk, q_offset = c0, Skv = Sp, the bucket) equal
@@ -362,25 +498,29 @@ def flash_composition(torch, rnd):
     scales of 1 to a row.  Chunks of 16 (like a prompt's last 16- or
     32-token piece) sit off the kernel's 64-row tile."""
     from repro_torch.kernels.flash_attention import flash_attention
-    H, hd = 16, 64                         # qwen1.5-0.5b's attention
+    # qwen1.5-0.5b's attention, then gemma3-1b's (hd 256, a window)
+    shapes = [(16, 16, 64, Sp, 0) for Sp in (128, 512)] + [(4, 1, 256, 512,
+                                                            128)]
     for dt in ("float32", "bfloat16"):
-        for Sp in (128, 512):
+        for H, Kh, hd, Sp, win in shapes:
             q = rnd((1, Sp, H, hd), dt)
-            k, v = rnd((1, Sp, H, hd), dt), rnd((1, Sp, H, hd), dt)
-            whole = flash_attention(q, k, v, causal=True, q_offset=0)
+            k, v = rnd((1, Sp, Kh, hd), dt), rnd((1, Sp, Kh, hd), dt)
+            kw = dict(causal=True, window=win)
+            whole = flash_attention(q, k, v, q_offset=0, **kw)
             for chunk in (16, 64, 128):
                 parts = [flash_attention(q[:, c0:c0 + chunk].contiguous(), k,
-                                         v, causal=True, q_offset=c0)
+                                         v, q_offset=c0, **kw)
                          for c0 in range(0, Sp, chunk)]
                 got = torch.cat(parts, 1)
                 torch.cuda.synchronize()
+                case = (f"hd={hd} Sp={Sp}" + (f" window={win}" if win else "")
+                        + f" chunk={chunk}")
                 check(torch.equal(got, whole),
-                      f"flash {dt} Sp={Sp} chunk={chunk}: chunked calls "
-                      f"differ from one call (max |d| "
+                      f"flash {dt} {case}: chunked calls differ from one "
+                      f"call (max |d| "
                       f"{float((got.float() - whole.float()).abs().max())})")
-                log(f"  {'flash composition':24s} {dt:8s} "
-                    f"{'Sp=%d, %d chunks of %d' % (Sp, Sp // chunk, chunk):34s}"
-                    f" bit-identical to one call")
+                log(f"  {'flash composition':24s} {dt:8s} {case:34s} "
+                    f"bit-identical to one call")
 
 
 def wkv_checks(torch, rnd, results):
@@ -562,16 +702,16 @@ def top2_margin(torch, cfg, params, req, upto):
     return float(top[0] - top[1])
 
 
-def serve(torch, label, cfg, params, kv, refactors):
+def serve(torch, label, cfg, params, kv, refactors, boundaries=(0, 12)):
     from repro_torch.kernels import build
     from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
                                             KVCacheConfig)
     from repro_torch.serving.workload import Request
 
-    eng = FlexPipeEngine(cfg, params, [0, 12],
+    eng = FlexPipeEngine(cfg, params, list(boundaries),
                          EngineConfig(max_batch=8, max_seq=1024,
                                       kv=KVCacheConfig(**kv)))
-    eng.warmup((4,))                          # [0,12] and [0,6,12,18]
+    eng.warmup((4,))                # two balanced stages and four
     reqs = make_requests(cfg, Request)
     torch.cuda.synchronize()
     build.reset_launches()
@@ -643,14 +783,13 @@ def kernel_profile(torch, fn, reps):
     return rows, wall_us
 
 
-def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
-    """Device time by kernel over a few steady dense decode ticks at batch 8,
-    and the device's idle share of their wall time.  A cold refactor may
-    allocate at most 1/``extra_limit`` of the live cache."""
+def loaded_engine(torch, cfg, params, boundaries=(0, 12)):
+    """A dense engine at batch 8 with phase 5's first 8 requests admitted
+    and 3 decode ticks run."""
     from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
     from repro_torch.serving.workload import Request
 
-    eng = FlexPipeEngine(cfg, params, [0, 12],
+    eng = FlexPipeEngine(cfg, params, list(boundaries),
                          EngineConfig(max_batch=8, max_seq=1024))
     for r in make_requests(cfg, Request)[:8]:
         eng.submit(r, now=0.0)
@@ -658,6 +797,37 @@ def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     for t in range(3):
         eng.decode_step(0.0)
     torch.cuda.synchronize()
+    return eng
+
+
+def profile_ticks(torch, eng, ticks):
+    """Device time by kernel over ``ticks`` decode ticks under the profiler,
+    and the device's idle share of their wall time."""
+    rows, wall_us = kernel_profile(torch, lambda: eng.decode_step(0.0), ticks)
+    busy_us = sum(r[1] for r in rows)
+    if not rows:
+        log("  profiler saw no device time: not measured")
+        return {}
+    out = dict(profiled_ms_per_tick=wall_us / ticks / 1e3,
+               busy_ms_per_tick=busy_us / ticks / 1e3,
+               idle_share=1 - busy_us / wall_us)
+    log(f"  {ticks} decode ticks: wall {out['profiled_ms_per_tick']:.3f} "
+        f"ms/tick, device busy {out['busy_ms_per_tick']:.3f} ms/tick, "
+        f"idle share {out['idle_share']:.3f} (profiler on)")
+    ours = ("decode_split_kernel", "decode_combine_kernel", "flash_kernel",
+            "wkv6_kernel")
+    for i, (key, us, n) in enumerate(rows):
+        if i < 10 or any(k in key for k in ours):
+            log(f"    {us / ticks:10.1f} us/tick {n / ticks:6.1f}/tick  "
+                f"{key[:80]}")
+    return out
+
+
+def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
+    """Device time by kernel over a few steady dense decode ticks at batch 8,
+    and the device's idle share of their wall time.  A cold refactor may
+    allocate at most 1/``extra_limit`` of the live cache."""
+    eng = loaded_engine(torch, cfg, params)
     # a cold refactor warms its new program on small scratch caches: it must
     # not allocate anything on the scale of the live cache
     live = sum(t.numel() * t.element_size() for c in eng.caches
@@ -690,26 +860,10 @@ def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     log(f"  synchronizing calls in one decode tick: {len(syncs)}")
     for m in syncs[:6]:
         log(f"    {m[:100]}")
-    rows, wall_us = kernel_profile(torch, lambda: eng.decode_step(0.0), ticks)
-    busy_us = sum(r[1] for r in rows)
     out = {"cold_refactor_ms": cold["t"] * 1e3, "cold_extra_bytes": extra,
            "live_cache_bytes": live, "warm_refactor_ms": warm["t"] * 1e3,
            "syncs_per_tick": len(syncs)}
-    if rows:
-        out.update(profiled_ms_per_tick=wall_us / ticks / 1e3,
-                   busy_ms_per_tick=busy_us / ticks / 1e3,
-                   idle_share=1 - busy_us / wall_us)
-        log(f"  {ticks} decode ticks: wall {out['profiled_ms_per_tick']:.3f} "
-            f"ms/tick, device busy {out['busy_ms_per_tick']:.3f} ms/tick, "
-            f"idle share {out['idle_share']:.3f} (profiler on)")
-        ours = ("decode_split_kernel", "decode_combine_kernel",
-                "flash_kernel", "wkv6_kernel")
-        for i, (key, us, n) in enumerate(rows):
-            if i < 10 or any(k in key for k in ours):
-                log(f"    {us / ticks:10.1f} us/tick {n / ticks:6.1f}/tick  "
-                    f"{key[:80]}")
-    else:
-        log("  profiler saw no device time: not measured")
+    out.update(profile_ticks(torch, eng, ticks))
     log(f"  {cfg.name} profile summary on {card}: {json.dumps(out)}")
     return out
 
@@ -799,10 +953,12 @@ def decode_equals_forward(torch, cfg, params, reqs):
         f"{MARGIN_TOL:g}), smallest margin checked {low:.3e}")
 
 
-def serving(torch, card, arch, generator, refactored, prefix=""):
+def serving(torch, card, arch, generator, refactored, prefix="",
+            boundaries=(0, 12), moves=None):
     """Serve full-width ``arch``: a dense run through run(), then one run
-    per ``refactored`` entry (label -> KV config) refactored mid-stream;
-    every stream must equal the run() streams."""
+    per ``refactored`` entry (label -> KV config) refactored mid-stream
+    (``moves``: tick -> boundaries); every stream must equal the run()
+    streams."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models.transformer import init_model
 
@@ -814,13 +970,14 @@ def serving(torch, card, arch, generator, refactored, prefix=""):
         f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {n} params f32 "
         f"({time.perf_counter() - t0:.1f} s to init)")
     check(n == cfg.param_count(), "param count mismatch")
-    moves = {10: [0, 6, 12, 18], 30: [0, 12]}
+    moves = moves or {10: [0, 6, 12, 18], 30: [0, 12]}
     base, base_reqs, info_a = serve(torch, prefix + "dense run()", cfg,
-                                    params, {}, None)
+                                    params, {}, None, boundaries)
     runs = {prefix + "dense run()": info_a}
     for label, kv in refactored.items():
         label = prefix + label
-        streams, reqs, info = serve(torch, label, cfg, params, kv, moves)
+        streams, reqs, info = serve(torch, label, cfg, params, kv, moves,
+                                    boundaries)
         runs[label] = info
         check(info["refactors"] == 2, f"{label}: refactors did not happen")
         if streams != base:
@@ -1484,6 +1641,43 @@ def controller_phase(torch, card, models, decode_ms_per_tick):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: serve full-width gemma3-1b (ring caches, GeGLU, head_dim 256)
+# ---------------------------------------------------------------------------
+
+def gemma3_phase(torch, card):
+    """Full-width gemma3-1b on phase 5's 16 requests (prompts of 74-571
+    tokens: five roll into the 512-row rings, and the 494-token one wraps
+    them while it decodes): run(), then a run refactored [0, 13] ->
+    [0, 7, 14, 20] at tick 10 and back at tick 30, streams bit-identical and
+    the refactors warm; every prefill through flash (26 per prompt) and
+    every decode step through the decode kernel (26 per tick); decode ==
+    forward for requests 8 and 13 under the margin rule; three steady
+    decode ticks profiled."""
+    t0 = time.perf_counter()
+    cfg, params, reqs, runs = serving(
+        torch, card, "gemma3-1b",
+        torch.Generator(device="cuda").manual_seed(0),
+        {"dense refactored": {}}, prefix="gemma3 ", boundaries=(0, 13),
+        moves={10: [0, 7, 14, 20], 30: [0, 13]})
+    run = runs["gemma3 dense refactored"]
+    want = {"flash_attention": cfg.n_layers * len(reqs),
+            "decode_attention": cfg.n_layers * run["ticks_decoding"]}
+    for name, n in want.items():
+        got = run["launches"].get(name, 0)
+        log(f"  {name} launches in the refactored run: {got} (want {n})")
+        check(got == n, f"gemma3: {name} launched {got} times, not {n}")
+    decode_equals_forward(torch, cfg, params,
+                          [r for r in reqs if r.rid in (8, 13)])
+    eng = loaded_engine(torch, cfg, params, (0, 13))
+    prof = profile_ticks(torch, eng, 3)
+    del eng
+    torch.cuda.empty_cache()
+    log(f"  gemma3-1b phase on {card}: {json.dumps(prof)}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1515,7 +1709,7 @@ def main() -> int:
     log("== 3. kernels vs plain versions")
     kres = kernel_checks(torch)
     log("== 4. small-input model check")
-    for arch in ("qwen1.5-0.5b", "rwkv6-1.6b"):
+    for arch in ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b"):
         small_model_check(torch, arch)
     log("== 5. serving qwen1.5-0.5b")
     cfg, params, base_reqs, runs = serving(
@@ -1571,6 +1765,11 @@ def main() -> int:
         torch, card, {"qwen": (cfg, params), "rwkv6": rwkv},
         {"qwen": runs["dense refactored"]["decode_ms_per_tick"],
          "rwkv6": runs["rwkv6 dense refactored"]["decode_ms_per_tick"]})
+
+    log("== 11. serving gemma3-1b")
+    del params, rwkv, qwen
+    torch.cuda.empty_cache()
+    g_runs = gemma3_phase(torch, card)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -1628,6 +1827,16 @@ def main() -> int:
         if "prefill" in r:
             kernels[-1]["prefill"] = r["prefill"]
             kernels[-1]["prefill_lengths"] = r["prefill_lengths"]
+        if name in ("flash_attention", "decode_attention"):
+            g = g_runs["gemma3 dense refactored"]
+            kernels[-1]["launches_gemma3"] = g["launches"].get(name, 0)
+            kernels[-1]["gemma3_launched_in"] = "gemma3 dense refactored"
+            check(kernels[-1]["launches_gemma3"] > 0,
+                  f"{name} was not launched on the gemma3 path")
+        for key in ("hd256_window", "hd256_causal", "hd192_128",
+                    "hd256_ring", "hd256_global"):
+            if key in r:
+                kernels[-1][key] = r[key]
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

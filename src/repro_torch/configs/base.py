@@ -82,7 +82,8 @@ class ModelConfig:
         return self.pattern[layer_idx % self.pattern_size]
 
     def is_global_layer(self, layer_idx: int) -> bool:
-        """Every ``global_every``-th layer is global (gemma3-style)."""
+        """Every ``global_every``-th layer is global (gemma3-style), counted
+        by the layer's position within the repeating pattern."""
         if not self.global_every:
             return True
         j = layer_idx % self.pattern_size if self.pattern_size > 1 else layer_idx
@@ -119,7 +120,9 @@ def get_arch(name: str) -> ArchSpec:
 
 
 def _load_all() -> None:
-    from repro_torch.configs import qwen1_5_0_5b  # noqa: F401  (registers)
+    from repro_torch.configs import gemma3_1b  # noqa: F401  (registers)
+    from repro_torch.configs import gemma3_12b  # noqa: F401
+    from repro_torch.configs import qwen1_5_0_5b  # noqa: F401
     from repro_torch.configs import rwkv6_1_6b  # noqa: F401
 
 

@@ -17,7 +17,11 @@
 //     is read as 16-byte vectors (float4 or 8 bf16) by the lanes of one row
 //     group, so one load instruction of the warp covers 32 / (lanes per
 //     row) whole rows (2 at hd=64 f32), and up to four of them are issued
-//     before any is used;
+//     before any is used.  A row wider than a warp's 32 vectors (hd=256 in
+//     f32, 64 vectors) spans all 32 lanes with NV = 2 vectors per lane: lane
+//     c holds vectors c and c + 32, so each of the warp's loads still reads
+//     512 contiguous bytes, and half as many rows are in flight, to keep the
+//     loads per lane at four;
 //   * a row's q.k is reduced by a fixed-order xor-shuffle across its lanes;
 //     each row group keeps an online-softmax state per query row (the G =
 //     H/Kh rows of a kv head share every K/V row read), the groups merge by
@@ -50,14 +54,19 @@ constexpr int kChunk = 128;                 // positions per split CTA
 constexpr int kPerWarp = kChunk / kWarps;   // positions per warp
 constexpr int kMaxG = 8;                    // query rows per kv head
 
-// a 16-byte vector of T, widened to f32
-__device__ __forceinline__ void widen(const uint4& u, float (&f)[4]) {
+// a 16-byte vector of T, widened to f32 into f[0, 16 / sizeof(T))
+template <typename T>
+__device__ __forceinline__ void widen(const uint4& u, float* f);
+template <>
+__device__ __forceinline__ void widen<float>(const uint4& u, float* f) {
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
 }
-__device__ __forceinline__ void widen(const uint4& u, float (&f)[8]) {
+template <>
+__device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& u,
+                                                     float* f) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -74,11 +83,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int H, int Kh, int rows, int M, int nch, float scale) {
   // rows: Smax (dense) or block_size (paged); M: table width (paged)
   constexpr int VEC = 16 / sizeof(T);         // elements per 16-byte load
-  constexpr int LPR = HD / VEC;               // lanes per cache row
+  constexpr int LPR = HD / VEC < 32 ? HD / VEC : 32;  // lanes per cache row
+  constexpr int NV = HD / (VEC * LPR);        // 16-byte vectors per lane
+  constexpr int EL = NV * VEC;                // row elements per lane
   constexpr int RPI = 32 / LPR;               // rows per warp-wide load
   constexpr int STEPS = kPerWarp / RPI;
-  constexpr int U = STEPS < 4 ? STEPS : 4;    // loads issued before use
-  static_assert(HD % VEC == 0 && 32 % LPR == 0 && kPerWarp % RPI == 0, "");
+  constexpr int U = STEPS < 4 / NV ? STEPS : 4 / NV;  // rows before use
+  static_assert(HD % (VEC * LPR) == 0 && 32 % LPR == 0 &&
+                    kPerWarp % RPI == 0 && 4 % NV == 0, "");
   __shared__ float wm[kWarps][KG];
   __shared__ float wl[kWarps][KG];
   __shared__ float wacc[kWarps][KG][HD];
@@ -98,36 +110,43 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = lane / LPR;                   // row within a warp-wide load
   const int c = lane % LPR;                   // 16-byte column of the row
 
-  float qv[KG][VEC];
+  // element j * VEC + e of a lane is column (j * LPR + c) * VEC + e
+  float qv[KG][EL];
 #pragma unroll
   for (int g = 0; g < KG; ++g) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      qv[g][e] = g < G
-          ? rt::to_f32(q[((int64_t)b * H + kh * G + g) * HD + c * VEC + e]) *
-                scale
-          : 0.f;
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        qv[g][j * VEC + e] =
+            g < G ? rt::to_f32(q[((int64_t)b * H + kh * G + g) * HD +
+                                 (j * LPR + c) * VEC + e]) *
+                        scale
+                  : 0.f;
   }
-  float m[KG], l[KG], acc[KG][VEC];
+  float m[KG], l[KG], acc[KG][EL];
 #pragma unroll
   for (int g = 0; g < KG; ++g) {
     m[g] = rt::kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < EL; ++e) acc[g][e] = 0.f;
   }
 
   const int w0 = c0 + warp * kPerWarp;
 #pragma unroll 1
   for (int i0 = 0; i0 < STEPS && w0 + i0 * RPI < len; i0 += U) {
-    uint4 kr[U], vr[U];
+    uint4 kr[U][NV], vr[U][NV];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = w0 + (i0 + u) * RPI + r;
       ok[u] = p < len;
-      kr[u] = make_uint4(0u, 0u, 0u, 0u);
-      vr[u] = kr[u];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        kr[u][j] = make_uint4(0u, 0u, 0u, 0u);
+        vr[u][j] = kr[u][j];
+      }
       if (ok[u]) {
         int64_t row;
         if (PAGED) {
@@ -136,20 +155,28 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         } else {
           row = ((int64_t)b * Kh + kh) * rows + p;
         }
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(k + row * HD) + c);
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(v + row * HD) + c);
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          kr[u][j] = __ldg(reinterpret_cast<const uint4*>(k + row * HD) +
+                           j * LPR + c);
+          vr[u][j] = __ldg(reinterpret_cast<const uint4*>(v + row * HD) +
+                           j * LPR + c);
+        }
       }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[VEC], vf[VEC];
-      widen(kr[u], kf);
-      widen(vr[u], vf);
+      float kf[EL], vf[EL];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        widen<T>(kr[u][j], kf + j * VEC);
+        widen<T>(vr[u][j], vf + j * VEC);
+      }
 #pragma unroll
       for (int g = 0; g < KG; ++g) {
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) s += qv[g][e] * kf[e];
+        for (int e = 0; e < EL; ++e) s += qv[g][e] * kf[e];
 #pragma unroll
         for (int o = LPR / 2; o > 0; o >>= 1)
           s += __shfl_xor_sync(rt::kFull, s, o);
@@ -159,7 +186,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float p = expf(s - mn);
           l[g] = l[g] * corr + p;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e)
+          for (int e = 0; e < EL; ++e)
             acc[g][e] = acc[g][e] * corr + p * vf[e];
           m[g] = mn;
         }
@@ -179,7 +206,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float cb = expf(mo - mn);
       l[g] = l[g] * ca + lo * cb;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < EL; ++e) {
         const float ao = __shfl_xor_sync(rt::kFull, acc[g][e], o);
         acc[g][e] = acc[g][e] * ca + ao * cb;
       }
@@ -196,7 +223,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         wl[warp][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) wacc[warp][g][c * VEC + e] = acc[g][e];
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          wacc[warp][g][(j * LPR + c) * VEC + e] = acc[g][j * VEC + e];
     }
   }
   __syncthreads();
@@ -294,10 +324,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
   }
   if (dtype == rt::kDtypeF32) {
     RT_CASE(float, 16) RT_CASE(float, 32) RT_CASE(float, 64)
-    RT_CASE(float, 128)
+    RT_CASE(float, 128) RT_CASE(float, 256)
   } else if (dtype == rt::kDtypeBF16) {
     RT_CASE(__nv_bfloat16, 16) RT_CASE(__nv_bfloat16, 32)
     RT_CASE(__nv_bfloat16, 64) RT_CASE(__nv_bfloat16, 128)
+    RT_CASE(__nv_bfloat16, 256)
   }
 #undef RT_CASE
 #undef RT_G

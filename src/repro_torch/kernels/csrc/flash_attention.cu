@@ -44,6 +44,26 @@
 //     here (cp.async zero-fills rows past Skv), with no padded copies;
 //   * every sum has a fixed order and there are no atomics: the same inputs
 //     give the same bits.
+// The geometry depends on the head sizes (tile_keys, kSplitCols below).
+// Up to HDV = 128 (HD = HDV in {16..128}, and HD = 192 with HDV = 128,
+// MLA prefill's shape: 218,112 B of shared memory in f32) a tile holds 64
+// keys and the two warps of a row tile split them, as above.  At HD = HDV
+// = 256 (gemma3) that layout breaks twice:
+//   * f32 K and V tiles of 64 in a 2-stage ring need 332,800 B of shared
+//     memory beside Q, over the 232,448 B a CTA may have.  f32 tiles hold 32
+//     keys there (199,680 B); bf16 keeps 64 (168,960 B);
+//   * a warp's O accumulator, HDV / 8 x 4 floats, would be 128 registers a
+//     lane beside the S fragments.  So for HDV > 128 the two warps of a row
+//     tile split the output COLUMNS instead of the keys: both compute the
+//     same S over all of a tile's keys (the same instructions on the same
+//     data, so the same bits, the same softmax state and no merge), and
+//     each accumulates its half of HDV, 64 registers.  Q.K^T is computed
+//     twice per row tile: a warp's products per tile go from 16 x 32 x (HD
+//     + HDV) to 16 x BK x (HD + HDV / 2) multiply-adds.
+// Both layouts keep every invariant above: tiles start at multiples of
+// their size in absolute key positions, fully masked tiles add exact zeros
+// and scales of 1, and each sum has one fixed order, so a prompt computed
+// chunk by chunk gives one call's bits.
 // wgmma is left for later: with tf32 it needs both operands K-major, and V
 // in P.V is MN-major, so it needs a transpose in shared memory.  TMA is too:
 // its descriptors come from cuTensorMapEncodeTiled in libcuda.
@@ -54,12 +74,10 @@
 namespace {
 
 constexpr int kRowWarps = 4;       // m16 row tiles per CTA
-constexpr int kKeyHalves = 2;      // warps per row tile, one per key half
-constexpr int kThreads = 32 * kRowWarps * kKeyHalves;
+constexpr int kPairs = 2;          // warps per row tile (key or column halves)
+constexpr int kThreads = 32 * kRowWarps * kPairs;
 constexpr int kBQ = 16 * kRowWarps;   // query rows per CTA
-constexpr int kBK = 64;               // kv positions per tile
-constexpr int kWK = kBK / kKeyHalves; // keys of a tile per warp
-constexpr int kNT = kWK / 8;          // n8 tiles of S per warp and tile
+constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory per CTA
 constexpr float kLog2e = 1.4426950408889634f;
 
 // shared-memory row stride in elements of a D-wide Q, K or V row.  f32:
@@ -72,10 +90,22 @@ __host__ __device__ constexpr int stride() {
   return D + (sizeof(T) == 4 ? 4 : 8);
 }
 
+// Q tile plus a 2-stage ring of K and V tiles of bk keys
 template <typename T, int HD, int HDV>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * (kBQ * stride<T, HD>() + 2 * kBK * stride<T, HD>() +
-                      2 * kBK * stride<T, HDV>());
+__host__ __device__ constexpr size_t smem_bytes(int bk) {
+  return sizeof(T) * (kBQ * stride<T, HD>() +
+                      2 * bk * (stride<T, HD>() + stride<T, HDV>()));
+}
+// kv positions per tile: 64, or 32 where a ring of 64 does not fit
+template <typename T, int HD, int HDV>
+__host__ __device__ constexpr int tile_keys() {
+  return smem_bytes<T, HD, HDV>(64) <= kMaxSmem ? 64 : 32;
+}
+// the two warps of a row tile split the output columns (HDV > 128) or the
+// keys of each tile
+template <int HDV>
+__host__ __device__ constexpr bool split_cols() {
+  return HDV > 128;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -148,9 +178,9 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = pack_bf16(x - __low2float(h), y - __high2float(h));
 }
 
-// S (16 x kWK per warp) = Q_warp . K_half^T, raw (unscaled) scores
-template <int HD>
-__device__ __forceinline__ void scores(float (&s)[kNT][4], const float* qs,
+// S (16 x 8 NT per warp) = Q_warp . K_warp^T, raw (unscaled) scores
+template <int HD, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const float* qs,
                                        const float* ks, int g, int t) {
   constexpr int QS = stride<float, HD>(), KS = QS;
 #pragma unroll
@@ -162,14 +192,14 @@ __device__ __forceinline__ void scores(float (&s)[kNT][4], const float* qs,
     split(qs[g * QS + c + 4], ab[2], as[2]);
     split(qs[(g + 8) * QS + c + 4], ab[3], as[3]);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const float* kr = ks + (8 * j + g) * KS + c;
       mma_3xtf32(s[j], ab, as, kr[0], kr[4]);
     }
   }
 }
-template <int HD>
-__device__ __forceinline__ void scores(float (&s)[kNT][4],
+template <int HD, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4],
                                        const __nv_bfloat16* qs,
                                        const __nv_bfloat16* ks, int g, int t) {
   constexpr int QS = stride<__nv_bfloat16, HD>(), KS = QS;
@@ -182,7 +212,7 @@ __device__ __forceinline__ void scores(float (&s)[kNT][4],
     a[2] = *reinterpret_cast<const uint32_t*>(qs + g * QS + c + 8);
     a[3] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * QS + c + 8);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const __nv_bfloat16* kr = ks + (8 * j + g) * KS + c;
       mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(kr),
                *reinterpret_cast<const uint32_t*>(kr + 8));
@@ -190,16 +220,17 @@ __device__ __forceinline__ void scores(float (&s)[kNT][4],
   }
 }
 
-// O (16 x HDV per warp) += P . V_tile.  f32: the k-step over keys 8j..8j+7
-// takes them in the order 0,2,4,6,1,3,5,7, so P's accumulator registers
-// (columns 2t, 2t+1) are the A operand's (k = t, t+4) as they stand.
-template <int HDV>
-__device__ __forceinline__ void accumulate(float (&o)[HDV / 8][4],
-                                           const float (&p)[kNT][4],
+// O (16 x 8 NO per warp) += P . V_tile, vs pointing at the warp's first
+// key and column.  f32: the k-step over keys 8j..8j+7 takes them in the
+// order 0,2,4,6,1,3,5,7, so P's accumulator registers (columns 2t, 2t+1)
+// are the A operand's (k = t, t+4) as they stand.
+template <int HDV, int NT, int NO>
+__device__ __forceinline__ void accumulate(float (&o)[NO][4],
+                                           const float (&p)[NT][4],
                                            const float* vs, int g, int t) {
   constexpr int VS = stride<float, HDV>();
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
+  for (int j = 0; j < NT; ++j) {
     uint32_t ab[4], as[4];
     split(p[j][0], ab[0], as[0]);   // (g,   key 2t)
     split(p[j][2], ab[1], as[1]);   // (g+8, key 2t)
@@ -207,19 +238,19 @@ __device__ __forceinline__ void accumulate(float (&o)[HDV / 8][4],
     split(p[j][3], ab[3], as[3]);   // (g+8, key 2t+1)
     const float* v0 = vs + (8 * j + 2 * t) * VS + g;
 #pragma unroll
-    for (int n = 0; n < HDV / 8; ++n)
+    for (int n = 0; n < NO; ++n)
       mma_3xtf32(o[n], ab, as, v0[8 * n], v0[VS + 8 * n]);
   }
 }
-template <int HDV>
-__device__ __forceinline__ void accumulate(float (&o)[HDV / 8][4],
-                                           const float (&p)[kNT][4],
+template <int HDV, int NT, int NO>
+__device__ __forceinline__ void accumulate(float (&o)[NO][4],
+                                           const float (&p)[NT][4],
                                            const __nv_bfloat16* vs, int g,
                                            int t) {
   constexpr int VS = stride<__nv_bfloat16, HDV>();
   const int lane = 4 * g + t;
 #pragma unroll
-  for (int k16 = 0; k16 < kWK / 16; ++k16) {
+  for (int k16 = 0; k16 < NT / 2; ++k16) {
     uint32_t ah[4], al[4];
     split_bf16(p[2 * k16][0], p[2 * k16][1], ah[0], al[0]);
     split_bf16(p[2 * k16][2], p[2 * k16][3], ah[1], al[1]);
@@ -229,7 +260,7 @@ __device__ __forceinline__ void accumulate(float (&o)[HDV / 8][4],
     // pair (keys 2t, 2t+1; column g) of both 8x8 matrices
     const __nv_bfloat16* row = vs + (16 * k16 + (lane & 15)) * VS;
 #pragma unroll
-    for (int n = 0; n < HDV / 8; ++n) {
+    for (int n = 0; n < NO; ++n) {
       uint32_t b0, b1;
       asm volatile(
           "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
@@ -259,13 +290,18 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
              int H, int Kh, int q_offset, int causal, int window,
              float scale) {
+  constexpr int BK = tile_keys<T, HD, HDV>();     // kv positions per tile
+  constexpr bool SPLIT_COLS = split_cols<HDV>();
+  constexpr int WK = SPLIT_COLS ? BK : BK / kPairs;   // keys per warp
+  constexpr int NT = WK / 8;                  // n8 tiles of S per warp
+  constexpr int NO = (SPLIT_COLS ? HDV / kPairs : HDV) / 8;  // of O
   constexpr int QS = stride<T, HD>(), KS = QS, VS = stride<T, HDV>();
   constexpr int KCH = HD * sizeof(T) / 16;    // 16-byte pieces per K row
   constexpr int VCH = HDV * sizeof(T) / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);     // kBQ x QS
-  T* kring = qs + kBQ * QS;                   // 2 x kBK x KS
-  T* vring = kring + 2 * kBK * KS;            // 2 x kBK x VS
+  T* kring = qs + kBQ * QS;                   // 2 x BK x KS
+  T* vring = kring + 2 * BK * KS;             // 2 x BK x VS
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -273,7 +309,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
   const int warp = threadIdx.x / 32;
   const int rw = warp % kRowWarps;            // row tile of this warp
-  const int kg = warp / kRowWarps;            // key half of this warp
+  const int kg = warp / kRowWarps;            // its key or column half
+  const int key0 = SPLIT_COLS ? 0 : kg * WK;  // its first key of a tile
+  const int col0 = SPLIT_COLS ? kg * NO * 8 : 0;   // its first O column
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;                     // fragment row group
   const int t = lane % 4;                     // thread in the group
@@ -286,22 +324,22 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     kv_hi = min(Skv, q_offset + last_q + 1);
     if (window) kv_lo = max(0, q_offset + q0 - window + 1);
   }
-  const int tile0 = (kv_lo / kBK) * kBK;
-  const int n_tiles = kv_hi > tile0 ? (kv_hi - tile0 + kBK - 1) / kBK : 0;
+  const int tile0 = (kv_lo / BK) * BK;
+  const int n_tiles = kv_hi > tile0 ? (kv_hi - tile0 + BK - 1) / BK : 0;
 
   const int64_t krow0 = (int64_t)b * Skv * Kh + kh;   // row p at + p * Kh
   auto load_tile = [&](int it) {
-    const int base = tile0 + it * kBK;
-    T* kd = kring + (it & 1) * kBK * KS;
-    T* vd = vring + (it & 1) * kBK * VS;
-    for (int i = threadIdx.x; i < kBK * KCH; i += blockDim.x) {
+    const int base = tile0 + it * BK;
+    T* kd = kring + (it & 1) * BK * KS;
+    T* vd = vring + (it & 1) * BK * VS;
+    for (int i = threadIdx.x; i < BK * KCH; i += blockDim.x) {
       const int r = i / KCH, c = i % KCH, p = base + r;
       const bool ok = p < Skv;
       const T* src = k + ((krow0 + (int64_t)(ok ? p : 0) * Kh) * HD) +
                      c * (16 / sizeof(T));
       cp_async16(kd + r * KS + c * (16 / sizeof(T)), src, ok);
     }
-    for (int i = threadIdx.x; i < kBK * VCH; i += blockDim.x) {
+    for (int i = threadIdx.x; i < BK * VCH; i += blockDim.x) {
       const int r = i / VCH, c = i % VCH, p = base + r;
       const bool ok = p < Skv;
       const T* src = v + ((krow0 + (int64_t)(ok ? p : 0) * Kh) * HDV) +
@@ -324,9 +362,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qp0 = q_offset + row0, qp1 = qp0 + 8;   // absolute positions
   const T* qw = qs + 16 * rw * QS;
 
-  float o[HDV / 8][4];
+  float o[NO][4];
 #pragma unroll
-  for (int n = 0; n < HDV / 8; ++n)
+  for (int n = 0; n < NO; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = rt::kNegInf, m1 = rt::kNegInf;   // running max, log2 domain
   float l0 = 0.f, l1 = 0.f;                   // this lane's partial sums
@@ -339,25 +377,25 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();   // tile it (and q) visible to every warp
-    const T* kt = kring + ((it & 1) * kBK + kg * kWK) * KS;
-    const T* vt = vring + ((it & 1) * kBK + kg * kWK) * VS;
-    const int t0 = tile0 + it * kBK;            // the CTA's tile
-    const int w0 = t0 + kg * kWK;               // this warp's keys
+    const T* kt = kring + ((it & 1) * BK + key0) * KS;
+    const T* vt = vring + ((it & 1) * BK + key0) * VS + col0;
+    const int t0 = tile0 + it * BK;             // the CTA's tile
+    const int w0 = t0 + key0;                   // this warp's keys
 
-    float s[kNT][4];
+    float s[NT][4];
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    scores<HD>(s, qw, kt, g, t);
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    scores<HD, NT>(s, qw, kt, g, t);
 
     // the mask matters only where the causal bound, the window or the
     // ragged kv edge cuts this tile for some row of the CTA
     const bool full =
-        t0 + kBK <= Skv &&
-        (!causal || (t0 + kBK - 1 <= q_offset + q0 &&
+        t0 + BK <= Skv &&
+        (!causal || (t0 + BK - 1 <= q_offset + q0 &&
                      (!window || t0 > q_offset + q0 + kBQ - 1 - window)));
     float mx0 = rt::kNegInf, mx1 = rt::kNegInf;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * qk_scale;
@@ -386,7 +424,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m1 = mn1;
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float mn = e < 2 ? mn0 : mn1;
@@ -398,13 +436,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l0 = l0 * c0 + sum0;
     l1 = l1 * c1 + sum1;
 #pragma unroll
-    for (int n = 0; n < HDV / 8; ++n) {
+    for (int n = 0; n < NO; ++n) {
       o[n][0] *= c0;
       o[n][1] *= c0;
       o[n][2] *= c1;
       o[n][3] *= c1;
     }
-    accumulate<HDV>(o, s, vt, g, t);
+    accumulate<HDV, NT, NO>(o, s, vt, g, t);
     __syncthreads();   // every warp is done with this stage before refill
   }
 
@@ -414,46 +452,48 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   l1 += __shfl_xor_sync(rt::kFull, l1, 1);
   l1 += __shfl_xor_sync(rt::kFull, l1, 2);
 
-  // the second key half hands its state to the first through the (now
-  // idle) ring, lane-major so neither side conflicts on banks; the first
-  // merges them in that order
-  constexpr int NV = HDV / 2 + 4;             // o fragment, m0, m1, l0, l1
-  static_assert(kRowWarps * NV * 32 * sizeof(float) <=
-                    sizeof(T) * 2 * kBK * (KS + VS), "merge buffer");
-  float* xb = reinterpret_cast<float*>(kring) + rw * NV * 32 + lane;
-  __syncthreads();                            // the ring is free
-  if (kg == 1) {
+  if constexpr (!SPLIT_COLS) {
+    // the second key half hands its state to the first through the (now
+    // idle) ring, lane-major so neither side conflicts on banks; the first
+    // merges them in that order
+    constexpr int NV = 4 * NO + 4;            // o fragment, m0, m1, l0, l1
+    static_assert(kRowWarps * NV * 32 * sizeof(float) <=
+                      sizeof(T) * 2 * BK * (KS + VS), "merge buffer");
+    float* xb = reinterpret_cast<float*>(kring) + rw * NV * 32 + lane;
+    __syncthreads();                          // the ring is free
+    if (kg == 1) {
 #pragma unroll
-    for (int n = 0; n < HDV / 8; ++n)
+      for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) xb[(4 * n + e) * 32] = o[n][e];
-    xb[(HDV / 2) * 32] = m0;
-    xb[(HDV / 2 + 1) * 32] = m1;
-    xb[(HDV / 2 + 2) * 32] = l0;
-    xb[(HDV / 2 + 3) * 32] = l1;
-  }
-  __syncthreads();
-  if (kg == 1) return;
-  {
-    const float pm0 = xb[(HDV / 2) * 32], pm1 = xb[(HDV / 2 + 1) * 32];
+        for (int e = 0; e < 4; ++e) xb[(4 * n + e) * 32] = o[n][e];
+      xb[(4 * NO) * 32] = m0;
+      xb[(4 * NO + 1) * 32] = m1;
+      xb[(4 * NO + 2) * 32] = l0;
+      xb[(4 * NO + 3) * 32] = l1;
+    }
+    __syncthreads();
+    if (kg == 1) return;
+    const float pm0 = xb[(4 * NO) * 32], pm1 = xb[(4 * NO + 1) * 32];
     const float mn0 = fmaxf(m0, pm0), mn1 = fmaxf(m1, pm1);
     const float a0 = exp2f(m0 - mn0), b0 = exp2f(pm0 - mn0);
     const float a1 = exp2f(m1 - mn1), b1 = exp2f(pm1 - mn1);
-    l0 = l0 * a0 + xb[(HDV / 2 + 2) * 32] * b0;
-    l1 = l1 * a1 + xb[(HDV / 2 + 3) * 32] * b1;
+    l0 = l0 * a0 + xb[(4 * NO + 2) * 32] * b0;
+    l1 = l1 * a1 + xb[(4 * NO + 3) * 32] * b1;
 #pragma unroll
-    for (int n = 0; n < HDV / 8; ++n) {
+    for (int n = 0; n < NO; ++n) {
       o[n][0] = o[n][0] * a0 + xb[(4 * n) * 32] * b0;
       o[n][1] = o[n][1] * a0 + xb[(4 * n + 1) * 32] * b0;
       o[n][2] = o[n][2] * a1 + xb[(4 * n + 2) * 32] * b1;
       o[n][3] = o[n][3] * a1 + xb[(4 * n + 3) * 32] * b1;
     }
   }
+  // (column halves: both warps of the pair hold the same l0, l1 and write
+  // their own columns)
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int n = 0; n < HDV / 8; ++n) {
-    const int d = 8 * n + 2 * t;
+  for (int n = 0; n < NO; ++n) {
+    const int d = col0 + 8 * n + 2 * t;
     if (row0 < Sq)
       store2<T>(out + (((int64_t)b * Sq + row0) * H + h) * HDV + d,
                 o[n][0] * inv0, o[n][1] * inv0);
@@ -467,8 +507,8 @@ template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int H, int Kh, int q_offset, int causal,
            int window, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<T, HD, HDV>();
-  static_assert(bytes <= 227 * 1024, "tile does not fit in shared memory");
+  constexpr size_t bytes = smem_bytes<T, HD, HDV>(tile_keys<T, HD, HDV>());
+  static_assert(bytes <= kMaxSmem, "tile does not fit in shared memory");
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_kernel<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -485,6 +525,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
+// (hd, hdv) pairs built: hd == hdv in {16, 32, 64, 128, 256}, and (192,
+// 128); kernels/flash_attention.py's HEAD_DIM_PAIRS lists the same
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Skv, int H, int Kh, int hd, int hdv,
@@ -493,17 +535,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (B <= 0 || Sq <= 0 || Kh <= 0 || H % Kh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RT_CASE(T, D)                                                      \
-  if (hd == D && hdv == D)                                                 \
-    return launch<T, D, D>(q, k, v, out, B, Sq, Skv, H, Kh, q_offset,      \
-                           causal, window, scale, s);
+#define RT_CASE(T, D, DV)                                                  \
+  if (hd == D && hdv == DV)                                                \
+    return launch<T, D, DV>(q, k, v, out, B, Sq, Skv, H, Kh, q_offset,     \
+                            causal, window, scale, s);
+#define RT_ALL(T)                                                          \
+  RT_CASE(T, 16, 16) RT_CASE(T, 32, 32) RT_CASE(T, 64, 64)                 \
+  RT_CASE(T, 128, 128) RT_CASE(T, 192, 128) RT_CASE(T, 256, 256)
   if (dtype == rt::kDtypeF32) {
-    RT_CASE(float, 16) RT_CASE(float, 32) RT_CASE(float, 64)
-    RT_CASE(float, 128)
+    RT_ALL(float)
   } else if (dtype == rt::kDtypeBF16) {
-    RT_CASE(__nv_bfloat16, 16) RT_CASE(__nv_bfloat16, 32)
-    RT_CASE(__nv_bfloat16, 64) RT_CASE(__nv_bfloat16, 128)
+    RT_ALL(__nv_bfloat16)
   }
+#undef RT_ALL
 #undef RT_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

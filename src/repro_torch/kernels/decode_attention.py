@@ -29,7 +29,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)      # instantiated (hd == hdv) in the .cu
+HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated (hd == hdv) in the .cu
 MAX_GROUP = 8                      # H / Kh held in registers by the kernel
 CHUNK = 128                        # positions per split CTA (kChunk, .cu)
 

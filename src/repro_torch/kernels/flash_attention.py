@@ -21,7 +21,10 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)      # instantiated (hd == hdv) in the .cu
+# (hd, hdv) pairs instantiated in the .cu: every shape a caller in the JAX
+# package passes (hd 256 is gemma3's; (192, 128) is MLA prefill's)
+HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
+                  (256, 256))
 
 
 def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int,
@@ -88,9 +91,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
-    if hd != hdv or hd not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel is built for hd == hdv in "
-                         f"{HEAD_DIMS}, got hd={hd}, hdv={hdv}")
+    if (hd, hdv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash attention kernel is built for (hd, hdv) in "
+                         f"{HEAD_DIM_PAIRS}, got hd={hd}, hdv={hdv}")
     if H % Kh:
         raise ValueError(f"flash attention: H={H} not a multiple of Kh={Kh}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)

@@ -4,7 +4,9 @@ regrouping.
 Ports the attention- and RWKV-layer parts of ``repro/models/kvcache.py``.
 Two layouts:
 
-* **dense**: per-layer ``(batch, Kh, max_seq, hd)`` rows; an RWKV layer
+* **dense**: per-layer ``(batch, Kh, max_seq, hd)`` rows, or ``min(max_seq,
+  sliding_window)`` rows for a windowed (local) layer, a ring addressed by
+  position modulo its length; an RWKV layer
   holds its recurrent state instead, ``{"sx_tm": (batch, d), "sx_cm":
   (batch, d), "wkv": (batch, H, hd, hd)}``, whatever ``max_seq`` is;
 * **paged** (attention only): per-layer block pools
@@ -29,8 +31,7 @@ from repro_torch.models.ssm import rwkv_dims
 
 def _check_ported(cfg: ModelConfig, layers, mixers) -> None:
     for i in layers:
-        if cfg.layer_kind(i).mixer not in mixers or (
-                cfg.sliding_window and not cfg.is_global_layer(i)):
+        if cfg.layer_kind(i).mixer not in mixers:
             raise NotImplementedError(
                 f"{cfg.name}: caches for layer {i} ({cfg.layer_kind(i)}) are "
                 "not ported to repro_torch yet; see ROADMAP.md, section 1")
@@ -44,7 +45,10 @@ def _layer_shapes(cfg: ModelConfig, i: int, batch: int, max_seq: int,
         H, hd = rwkv_dims(cfg)
         return {"sx_tm": (batch, cfg.d_model), "sx_cm": (batch, cfg.d_model),
                 "wkv": (batch, H // tensor_shards, hd, hd)}
-    shape = (batch, max(cfg.n_kv_heads // tensor_shards, 1), max_seq,
+    seq = max_seq
+    if cfg.sliding_window and not cfg.is_global_layer(i):
+        seq = min(max_seq, cfg.sliding_window)        # the ring
+    shape = (batch, max(cfg.n_kv_heads // tensor_shards, 1), seq,
              cfg.resolved_head_dim)
     return {"k": shape, "v": shape}
 

@@ -1,4 +1,5 @@
-"""Core layers of the serving path: RMSNorm, RoPE, GQA attention, SwiGLU.
+"""Core layers of the serving path: RMSNorm, RoPE, GQA attention (global
+and sliding-window), SwiGLU and GeGLU.
 
 Ports the main-path subset of ``repro/models/layers.py`` with the same
 param layout (``wq (d, H, hd)``, ``wk/wv (d, Kh, hd)``, ``wo (H, hd, d)``,
@@ -17,8 +18,18 @@ attends over cache rows ``[0, kv_extent)`` through the flash kernel with
 kernel takes ``(B, Skv, Kh, hd)``, so each chunk makes one transposing copy
 of ``kv_extent`` rows per layer (a gather through the table when paged).
 
-Sliding windows and the sequence- and tensor-parallel branches are not
-ported yet (see ROADMAP.md) and raise.
+A sliding-window (local) layer keeps a ring of ``Smax = min(max_seq,
+window)`` rows: position p lives at row ``p % Smax``.  Decode writes there
+and attends over ``min(pos0 + 1, Smax)`` rows (every row once the ring has
+wrapped, which is exactly the window when ``Smax == window``); a prefill of
+``S >= Smax`` tokens keeps the last ``Smax`` rows, rolled into place; the
+prefill itself attends over the fresh k/v through the windowed flash
+kernel.  Rows past ``pos0 + 1`` in an unwrapped ring are never read, so a
+reused slot's stale rows do no harm.  Paged and chunked paths are global
+only, as in the reference.
+
+The sequence- and tensor-parallel branches and the plain gelu MLP
+(whisper's ``w1/w2``) are not ported yet (see ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -179,8 +190,6 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     the gather path.  Returns (y, cache, aux)."""
     B, S, _ = x.shape
     window = 0 if is_global else cfg.sliding_window
-    if window:
-        raise _todo("sliding-window attention")
     if tp_axis is not None or sp_axis is not None:
         raise _todo("tensor/sequence-parallel attention")
     q, k, v = _qkv(params, x)
@@ -206,35 +215,43 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         if S == 1 and pos_vec:
             # ragged decode: one write row per slot (continuous batching)
             bi = torch.arange(B, device=x.device)
-            slots = pos0.long()
+            slots = (pos0 % Smax if window else pos0).long()
             kc[bi, :, slots, :] = km[:, :, 0, :]         # (B, Kh, hd)
             vc[bi, :, slots, :] = vm[:, :, 0, :]
         elif S == 1:
-            p = int(pos0)
+            p = int(pos0) % Smax if window else int(pos0)
             kc[:, :, p:p + 1] = km
             vc[:, :, p:p + 1] = vm
         elif kv_extent:
             p = int(pos0)                  # a chunk: rows [p, p + S)
             kc[:, :, p:p + S] = km
             vc[:, :, p:p + S] = vm
-        elif S <= Smax:
+        elif S >= Smax:
+            # a prompt at least as long as the ring: keep its last Smax
+            # rows, rolled so that position p sits at row p % Smax
+            kc.copy_(torch.roll(km[:, :, -Smax:], S % Smax, dims=2))
+            vc.copy_(torch.roll(vm[:, :, -Smax:], S % Smax, dims=2))
+        else:
             kc[:, :, :S] = km
             vc[:, :, :S] = vm
-        else:
-            raise _todo("prefill longer than the cache (ring layout)")
 
     if S == 1 and cache is not None:
-        cl = (pos0 + 1) if torch.is_tensor(pos0) else int(pos0) + 1
+        # the rows to read: [0, pos0] until a ring wraps, then all of it
+        if torch.is_tensor(pos0):
+            cl = torch.clamp(pos0 + 1, max=Smax) if window else pos0 + 1
+        else:
+            cl = min(int(pos0) + 1, Smax) if window else int(pos0) + 1
         out = decode_attention(q[:, 0].contiguous(), cache["k"], cache["v"],
                                cl)[:, None]
     elif kv_extent and cache is not None:
         out = flash_attention(q.contiguous(),
                               _dense_rows(cache["k"], kv_extent, q.dtype),
                               _dense_rows(cache["v"], kv_extent, q.dtype),
-                              causal=causal, q_offset=int(pos0))
+                              causal=causal, window=window,
+                              q_offset=int(pos0))
     else:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, q_offset=0)
+                              causal=causal, window=window, q_offset=0)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return y, cache, aux
 
@@ -245,11 +262,15 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
 
 def apply_mlp(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
               tp_axis=None):
+    """Gated MLP: SwiGLU, or GeGLU (tanh gelu) where ``mlp_act`` is
+    "geglu"."""
     if tp_axis is not None:
         raise _todo("tensor-parallel MLP")
-    if "w1" in params or cfg.mlp_act != "swiglu":
+    if "w1" in params or cfg.mlp_act not in ("swiglu", "geglu"):
         raise _todo(f"the {cfg.mlp_act} MLP")
     g = torch.matmul(x, params["w_gate"])
     u = torch.matmul(x, params["w_up"])
-    y = torch.matmul(F.silu(g) * u, params["w_down"])
+    act = (F.gelu(g, approximate="tanh") if cfg.mlp_act == "geglu"
+           else F.silu(g))
+    y = torch.matmul(act * u, params["w_down"])
     return y, None, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -41,9 +41,14 @@ simulated time; a changed granularity refactors to balanced boundaries for
 its stage count, as the reference does (the controller's partitions are
 not used; ROADMAP.md, section 3, known quirks of the reference).
 
+Sliding-window models (gemma3) are served dense: local layers keep ring
+caches of ``min(max_seq, window)`` rows, prompts prefill at their exact
+length (a bucket's padding would land in the ring), and the paged and
+chunked paths fall back as the reference's do.
+
 Not ported and raising ``NotImplementedError``: the fault path for
-recurrent (RWKV) models, whose reference results are wrong (ROADMAP.md,
-section 3).
+recurrent (RWKV) and sliding-window models, whose reference results are
+wrong (ROADMAP.md, section 3).
 """
 from __future__ import annotations
 
@@ -76,11 +81,24 @@ from repro_torch.serving.metrics import ServingStats
 from repro_torch.serving.workload import Request
 
 
-def _recurrent_faults():
+def _fault_path_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why the fault path is not served for ``cfg``, or None.  Both cases
+    are the reference's: its streams differ after a lost stage."""
+    if any(cfg.layer_kind(i).mixer == MIXER_RWKV
+           for i in range(cfg.n_layers)):
+        return ("recurrent (RWKV) models: a delta replay cannot rebuild a "
+                "lost stage's state")
+    if cfg.sliding_window:
+        return ("sliding-window models: the Eq. 10 merge restores rows by "
+                "position, and a ring that has wrapped holds positions at "
+                "other rows")
+    return None
+
+
+def _faults_refused(why: str):
     return NotImplementedError(
-        "the fault path (emergency refactor and replay) is not served for "
-        "recurrent (RWKV) models: a delta replay cannot rebuild a lost "
-        "stage's state, and the reference's streams differ after one; see "
+        f"the fault path (emergency refactor and replay) is not served for "
+        f"{why}, and the reference's streams differ after one; see "
         "ROADMAP.md, section 3, known quirks of the reference")
 
 
@@ -301,8 +319,7 @@ class FlexPipeEngine:
         self.health = None               # StageHealthMonitor
         self.recovery_events: list[dict] = []
         self.failed_requests: list[Request] = []
-        self._recurrent = any(cfg.layer_kind(i).mixer == MIXER_RWKV
-                              for i in range(cfg.n_layers))
+        self._no_fault_path = _fault_path_refusal(cfg)
         # the Eq. 10 snapshot: a zeroed twin of the live caches, allocated
         # once here and refilled in place every snapshot_interval ticks
         self._snap_caches = (self._init_caches()
@@ -486,11 +503,13 @@ class FlexPipeEngine:
         for request timeout, retry and degradation, and a
         StageHealthMonitor whose heartbeats and tick watchdog detect them.
 
-        Recurrent (RWKV) models take the request policy only: a lost stage's
-        state cannot be rebuilt by a delta replay, and the reference's
-        streams differ after one (ROADMAP.md, section 3)."""
-        if self._recurrent and (injector is not None or monitor is not None):
-            raise _recurrent_faults()
+        Recurrent (RWKV) and sliding-window models take the request policy
+        only: a delta replay rebuilds neither a lost stage's state nor a
+        wrapped ring, and the reference's streams differ after one
+        (ROADMAP.md, section 3)."""
+        if self._no_fault_path and (injector is not None
+                                    or monitor is not None):
+            raise _faults_refused(self._no_fault_path)
         self.faults = injector
         self.fault_policy = policy
         self.health = monitor
@@ -609,8 +628,8 @@ class FlexPipeEngine:
         A slot the snapshot does not cover replays its whole history.  No
         committed token is lost: the text lives on the host, in the
         slots."""
-        if self._recurrent:
-            raise _recurrent_faults()
+        if self._no_fault_path:
+            raise _faults_refused(self._no_fault_path)
         t0 = time.perf_counter()
         B = self.ecfg.max_batch
         ranges = self._stage_ranges()

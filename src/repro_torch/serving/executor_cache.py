@@ -22,7 +22,10 @@ state survive it.
   the live cache (a view of it), or through the slot's block table.  A
   recurrent (RWKV) layer reads its cache as the initial state, so its slot
   row is zeroed first: a reused slot holds the last request's state, and
-  idle-slot decode ticks write garbage there.
+  idle-slot decode ticks write garbage there.  Attention rows past the
+  prompt are left as the last request left them (the reference prefills
+  into a zeroed cache): decode reads ``min(pos + 1, Smax)`` rows, so no
+  stale row is read before decode has overwritten it, in a ring or not.
 * ``chunk_prefill(lo, hi, ...)``: one prefill chunk over layers [lo, hi):
   ``chunk_len`` tokens written at a run-time offset ``pos0`` that attend
   over cache rows [0, ``kv_extent``), the whole prompt's pow2 bucket, so

@@ -125,7 +125,7 @@ BOUNDARY_LENS = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1, 320]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_cuda_decode_chunk_boundaries(cuda_dev, dt, hd):
     """Lengths {0, 1, C-1, C, C+1, 2C+1, Smax}, dense and paged, against the
     plain versions."""
@@ -190,7 +190,7 @@ FLASH_EDGE_CASES = [  # (Sq, Skv, H, Kh, window, q_offset)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_cuda_flash_tile_edges(cuda_dev, dt, hd):
     rng = np.random.default_rng(hd + 1)
     for Sq, Skv, H, Kh, window, q_offset in FLASH_EDGE_CASES:
@@ -205,6 +205,109 @@ def test_cuda_flash_tile_edges(cuda_dev, dt, hd):
                                      f"window={window} q_offset={q_offset}: "
                                      f"{m}")
         assert torch.equal(flash_attention(q, k, v, **kw), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,hdv,Sq,Skv,H,Kh,window,q_offset", [
+    (256, 256, 571, 571, 4, 1, 512, None),    # gemma3-1b, a local layer
+    (256, 256, 571, 571, 4, 1, 0, None),      # a global layer
+    (256, 256, 65, 300, 8, 2, 40, 200),       # off the tile, GQA 4
+    (256, 256, 100, 100, 4, 1, 8, None),      # a window inside a tile
+    (192, 128, 512, 512, 16, 16, 0, None),    # MLA prefill
+    (192, 128, 63, 200, 4, 2, 0, 137),
+])
+def test_cuda_flash_wide_heads(cuda_dev, dt, hd, hdv, Sq, Skv, H, Kh, window,
+                               q_offset):
+    """The head sizes whose tiles differ: hd = hdv = 256 (key tiles of 32 in
+    f32, the warp pair splitting the output columns) and (192, 128)."""
+    rng = np.random.default_rng(hd + Sq)
+    q = _rand(rng, (1, Sq, H, hd), dt, cuda_dev)
+    k = _rand(rng, (1, Skv, Kh, hd), dt, cuda_dev)
+    v = _rand(rng, (1, Skv, Kh, hdv), dt, cuda_dev)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out = flash_attention(q, k, v, **kw)
+    assert out.shape == (1, Sq, H, hdv)
+    torch.testing.assert_close(out.float(),
+                               flash_attention_plain(q, k, v, **kw).float(),
+                               **TOL[dt])
+    assert torch.equal(flash_attention(q, k, v, **kw), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 128])
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_cuda_flash_chunk_composition_hd256(cuda_dev, dt, window, chunk):
+    """Chunk-by-chunk calls give one call's bits at hd 256 too, with and
+    without a window."""
+    rng = np.random.default_rng(window + chunk)
+    Sp = 512
+    q = _rand(rng, (1, Sp, 4, 256), dt, cuda_dev)
+    k = _rand(rng, (1, Sp, 1, 256), dt, cuda_dev)
+    v = _rand(rng, (1, Sp, 1, 256), dt, cuda_dev)
+    whole = flash_attention(q, k, v, causal=True, window=window, q_offset=0)
+    parts = [flash_attention(q[:, c0:c0 + chunk].contiguous(), k, v,
+                             causal=True, window=window, q_offset=c0)
+             for c0 in range(0, Sp, chunk)]
+    assert torch.equal(torch.cat(parts, 1), whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_decode_paths_bit_identical_hd256(cuda_dev, dt):
+    """gemma3's decode shape (hd 256, G = 4, one kv head): paged kernel ==
+    gather path == dense kernel bit for bit, and each against the plain
+    version, at ring and global lengths."""
+    rng = np.random.default_rng(256)
+    lens = [1, 127, 128, 129, 512, 300, 1024, 0]
+    B, Kh, G, hd, bs, M = len(lens), 1, 4, 256, 16, 64
+    q = _rand(rng, (B, Kh * G, hd), dt, cuda_dev)
+    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, M, dt, cuda_dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda_dev)
+    paged = paged_decode_attention(q, kp, vp, bt, cl)
+    gather = decode_attention(q, gather_pages(kp, bt), gather_pages(vp, bt),
+                              cl)
+    assert torch.equal(paged, gather)
+    assert torch.equal(paged_decode_attention(q, kp, vp, bt, cl), paged)
+    torch.testing.assert_close(
+        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
+        **TOL[dt])
+    ring = _rand(rng, (B, Kh, 512, hd), dt, cuda_dev)
+    ring_cl = torch.clamp(cl, max=512)          # a wrapped ring reads it all
+    torch.testing.assert_close(
+        decode_attention(q, ring, ring, ring_cl).float(),
+        decode_attention_plain(q, ring, ring, ring_cl).float(), **TOL[dt])
+
+
+@pytest.mark.cuda
+def test_cuda_gemma3_engine(cuda_dev):
+    """gemma3's smoke config on the card: ring caches wrap and roll, slots
+    are reused, and a refactored run gives the unrefactored run's streams,
+    through the flash and decode kernels."""
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = init_model(cfg, torch.Generator().manual_seed(0),
+                        device=cuda_dev)
+    streams = []
+    for moves in ({}, {3: [0, 4, 7, 10], 12: [0, 7]}):
+        eng = FlexPipeEngine(cfg, params, [0, 7],
+                             EngineConfig(max_batch=2, max_seq=32,
+                                          warm_profiles=(2, 4)))
+        reqs = [Request(rid=i, arrival=0.0, prompt_len=n, max_new_tokens=9)
+                for i, n in enumerate((20, 11, 5, 8, 11, 5))]
+        for r in reqs:
+            eng.submit(r, now=0.0)
+        build.reset_launches()
+        for t in range(40):
+            if t in moves:
+                ev = eng.refactor(moves[t])
+                assert ev["compile_cache_hit"] and ev["new_traces"] == 0
+            eng.step(t * 0.05)
+        assert all(r.output is not None and len(r.output) == 9 for r in reqs)
+        assert build.launches["decode_attention"] > 0
+        assert build.launches["flash_attention"] == 13 * len(reqs)
+        streams.append([r.output for r in reqs])
+    assert streams[0] == streams[1]
 
 
 @pytest.mark.cuda

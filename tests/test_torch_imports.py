@@ -65,6 +65,14 @@ eng = FlexPipeEngine(cfg, params, [0, 2], EngineConfig(max_batch=2, max_seq=32),
 reqs = [Request(rid=i, arrival=0.0, prompt_len=5 + i, max_new_tokens=3)
         for i in range(3)]
 assert eng.run(reqs).completed == 3
+cfg = get_arch("gemma3-1b").smoke_config
+params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+eng = FlexPipeEngine(cfg, params, [0, 7], EngineConfig(
+    max_batch=2, max_seq=16, warm_profiles=(2, 4)), device="cpu")
+reqs = [Request(rid=i, arrival=0.0, prompt_len=5 + 6 * i, max_new_tokens=6)
+        for i in range(3)]
+assert eng.run(reqs).completed == 3
+assert eng.refactor([0, 4, 7, 10])["new_traces"] == 0
 from repro_torch.core.controller import FlexPipeController
 from repro_torch.core.granularity import GranularityProfile
 from repro_torch.serving.workload import synth_requests
@@ -97,7 +105,7 @@ def test_package_imports_and_serves_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("MODULES")[1])
-    assert n >= 38
+    assert n >= 40
 
 
 def _imported_modules(path: Path) -> set[str]:

@@ -47,6 +47,10 @@ def _close(a, b, **tol):
     pytest.param("qwen1.5-0.5b", "smoke_config", id="smoke_config"),
     pytest.param("rwkv6-1.6b", "config", id="rwkv6-config"),
     pytest.param("rwkv6-1.6b", "smoke_config", id="rwkv6-smoke_config"),
+    pytest.param("gemma3-1b", "config", id="gemma3-1b-config"),
+    pytest.param("gemma3-1b", "smoke_config", id="gemma3-1b-smoke_config"),
+    pytest.param("gemma3-12b", "config", id="gemma3-12b-config"),
+    pytest.param("gemma3-12b", "smoke_config", id="gemma3-12b-smoke_config"),
 ])
 def test_configs_match_the_reference(arch, which):
     mine = getattr(get_arch(arch), which)
@@ -54,10 +58,12 @@ def test_configs_match_the_reference(arch, which):
     for f in ("name", "family", "n_layers", "d_model", "n_heads",
               "n_kv_heads", "d_ff", "vocab_size", "resolved_head_dim",
               "qkv_bias", "rope_theta", "rms_eps", "tie_embeddings",
-              "sliding_window", "mlp_act", "source"):
+              "sliding_window", "global_every", "mlp_act", "source"):
         assert getattr(mine, f) == getattr(theirs, f), f
     assert [(k.mixer, k.mlp, k.extra_cross) for k in mine.pattern] == \
         [(k.mixer, k.mlp, k.extra_cross) for k in theirs.pattern]
+    assert [mine.is_global_layer(i) for i in range(mine.n_layers)] == \
+        [theirs.is_global_layer(i) for i in range(theirs.n_layers)]
     if theirs.ssm is not None:
         for f in ("head_size", "decay_lora", "mix_lora"):
             assert getattr(mine.ssm, f) == getattr(theirs.ssm, f), f

@@ -28,7 +28,7 @@ from repro_torch.serving.admission import CostModel
 
 torch.set_num_threads(2)
 
-ARCHS = ("qwen1.5-0.5b", "rwkv6-1.6b")
+ARCHS = ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b")
 SIZES = ("config", "smoke_config")
 # the reference's constants as a Chip: its one peak serves both dtypes
 REF_CHIP = Chip(hbm_bw=R.HBM_BW, flops_f32=R.PEAK_FLOPS,
