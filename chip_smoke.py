@@ -16,7 +16,9 @@ Phases, each fatal on failure:
      kernel, plain version and one PyTorch library call computing the same
      function, beside the bound; the same for gemma3-1b's attention shapes
      (head_dim 256, one kv head, a 512-token window) and MLA prefill's
-     (hd 192, hdv 128);
+     (hd 192, hdv 128), with each hd-256 kernel's launch geometry (CTAs,
+     cluster size, dynamic shared memory, registers and spills from the
+     build's -Xptxas -v) and its combine's share of the device time;
   4. check the port's logits on the card against its CPU path (smoke size,
      qwen1.5-0.5b, rwkv6-1.6b and gemma3-1b);
   5. serve full-width qwen1.5-0.5b (random weights from seed 0): a dense
@@ -47,7 +49,8 @@ Phases, each fatal on failure:
      head_dim 256) as phase 5 serves qwen: run(), then a run refactored
      [0,13] -> [0,7,14,20] -> [0,13], streams bit-identical, every prefill
      and decode step through the flash and decode kernels, decode ==
-     forward for two requests, and three profiled decode ticks.
+     forward for two requests, and three profiled decode ticks, their
+     device time by kernel beside the one-CTA-per-chunk decode kernel's.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -427,6 +430,12 @@ def wide_head_checks(torch, rnd, compare, decode_case, results):
             log(f"  {'flash_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                 f"bound {t_bound:.4f} ms ({by})  [{r['shape']}]")
+            if hd == 256:
+                r.update(flash_geometry(torch, S, H, Kh, win))
+                r.update(split_share(torch, "flash_combine_kernel",
+                                     lambda: flash_attention(q, k, v, **kw)))
+                log(f"  {'  geometry, shares':24s} "
+                    + json.dumps({x: r[x] for x in WIDE_KEYS if x in r}))
     # gemma3 decode: one kv head, G = 4; a local layer's 512-row ring and a
     # global layer's 1024 rows; lengths at the split kernel's chunk edges
     B, H, Kh, hd = 8, 4, 1, 256
@@ -465,6 +474,11 @@ def wide_head_checks(torch, rnd, compare, decode_case, results):
             log(f"  {'decode_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                 f"bound {t_bound:.4f} ms ({by})  [{shape}]")
+            r.update(decode_geometry(torch, lens, Smax, B, H, Kh))
+            r.update(split_share(torch, "decode_combine",
+                                 lambda: decode_attention(q, kc, vc, cl)))
+            log(f"  {'  geometry, shares':24s} "
+                + json.dumps({x: r[x] for x in WIDE_KEYS if x in r}))
             # the paged kernel shares the core: off gemma3's path (windowed
             # configs do not page), timed at the same shape for its row
             plive = int(plens.sum())
@@ -490,6 +504,66 @@ def wide_head_checks(torch, rnd, compare, decode_case, results):
                 f"[{pshape}]")
 
 
+# what phase 3 reports beside each hd-256 kernel's time
+WIDE_KEYS = ("ctas", "live_ctas", "cluster", "dynamic_smem", "registers",
+             "spill_stores", "spill_loads", "kernels_us", "combine_share")
+
+
+def ptxas(lib, pattern):
+    """Registers and spill bytes of the kernel whose mangled name holds
+    ``pattern``, from the build's -Xptxas -v log."""
+    from repro_torch.kernels import build
+    for fn, r in build.ptxas_report(lib).items():
+        if pattern in fn:
+            return {k: r.get(k) for k in ("registers", "spill_stores",
+                                          "spill_loads")}
+    return {"registers": "not in the build log"}
+
+
+def flash_geometry(torch, S, H, Kh, window):
+    """The hd-256 flash launch at Sq = Skv = S, B = 1, f32: the span
+    kernel's CTAs (launched and live), its dynamic shared memory and
+    registers; the combine's CTAs."""
+    from repro_torch.kernels import flash_attention as fk
+    geo = fk._geometry(256, 256, torch.float32)
+    ns, _, ctas = fk.span_plan(S, S, causal=True, window=window, q_offset=0)
+    n_q = -(-S // fk.TILE_Q)
+    out = dict(ctas=ns * n_q * H, live_ctas=len(ctas) * H, cluster=1,
+               dynamic_smem=geo.smem, combine_ctas=S * H, span=geo.span)
+    out.update(ptxas("flash_attention", "flash_span_kernelIfE"))
+    return out
+
+
+def decode_geometry(torch, lens, Smax, B, H, Kh):
+    """The hd-256 decode launch, f32, dense: CTAs (launched, in live
+    clusters), cluster size, dynamic shared memory and registers."""
+    from repro_torch.kernels import decode_attention as dk
+    geo = dk._geometry(256, torch.float32, H // Kh)
+    plan = dk.cluster_plan(torch.as_tensor(lens), Smax)
+    out = dict(ctas=geo.cluster * dk.n_chunks(Smax) * B * Kh,
+               live_ctas=geo.cluster * sum(len(c) for c in plan) * Kh,
+               loading_ctas=sum(len(sl) for c in plan for sl in c) * Kh,
+               cluster=geo.cluster, dynamic_smem=geo.smem)
+    kg = dk._group_slots(H // Kh)
+    out.update(ptxas("decode_attention",
+                     f"decode_cluster_kernelIfLi{kg}ELb0E"))
+    return out
+
+
+def split_share(torch, combine, fn, reps=20):
+    """Device time of ``fn``'s kernels under the profiler (us per call) and
+    the share of those whose name holds ``combine``; a combine folded into
+    its split kernel has no launch of its own (share 0)."""
+    rows, _ = kernel_profile(torch, fn, reps)
+    us = {}
+    for key, t, _ in rows:
+        us[key[:60]] = us.get(key[:60], 0.0) + t / reps
+    total = sum(us.values())
+    comb = sum(t for key, t in us.items() if combine in key)
+    return dict(kernels_us=us,
+                combine_share=comb / total if total else "not measured")
+
+
 def flash_composition(torch, rnd):
     """Chunked prefill's invariant on the kernel: a prompt's rows computed
     chunk by chunk (Sq = chunk, q_offset = c0, Skv = Sp, the bucket) equal
@@ -499,8 +573,8 @@ def flash_composition(torch, rnd):
     32-token piece) sit off the kernel's 64-row tile."""
     from repro_torch.kernels.flash_attention import flash_attention
     # qwen1.5-0.5b's attention, then gemma3-1b's (hd 256, a window)
-    shapes = [(16, 16, 64, Sp, 0) for Sp in (128, 512)] + [(4, 1, 256, 512,
-                                                            128)]
+    shapes = [(16, 16, 64, Sp, 0) for Sp in (128, 512)] + [
+        (4, 1, 256, 512, 128), (4, 1, 256, 571, 512)]
     for dt in ("float32", "bfloat16"):
         for H, Kh, hd, Sp, win in shapes:
             q = rnd((1, Sp, H, hd), dt)
@@ -815,11 +889,13 @@ def profile_ticks(torch, eng, ticks):
         f"ms/tick, device busy {out['busy_ms_per_tick']:.3f} ms/tick, "
         f"idle share {out['idle_share']:.3f} (profiler on)")
     ours = ("decode_split_kernel", "decode_combine_kernel", "flash_kernel",
-            "wkv6_kernel")
+            "wkv6_kernel", "decode_cluster_kernel", "flash_span_kernel",
+            "flash_combine_kernel")
     for i, (key, us, n) in enumerate(rows):
         if i < 10 or any(k in key for k in ours):
             log(f"    {us / ticks:10.1f} us/tick {n / ticks:6.1f}/tick  "
                 f"{key[:80]}")
+    out["by_kernel"] = [(key, us / ticks, n / ticks) for key, us, n in rows]
     return out
 
 
@@ -864,6 +940,7 @@ def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
            "live_cache_bytes": live, "warm_refactor_ms": warm["t"] * 1e3,
            "syncs_per_tick": len(syncs)}
     out.update(profile_ticks(torch, eng, ticks))
+    out.pop("by_kernel", None)
     log(f"  {cfg.name} profile summary on {card}: {json.dumps(out)}")
     return out
 
@@ -1672,9 +1749,38 @@ def gemma3_phase(torch, card):
     prof = profile_ticks(torch, eng, 3)
     del eng
     torch.cuda.empty_cache()
+    by_kernel = prof.pop("by_kernel", [])
+    log("  device time per tick by kernel, this run beside the one-CTA-per-"
+        "chunk decode kernels' run (NVIDIA H100 80GB HBM3, 700 W):")
+    for label, pattern, earlier in GEMMA3_TICK_EARLIER:
+        got = [(us, n) for key, us, n in by_kernel if pattern in key]
+        us = sum(u for u, _ in got)
+        n = sum(c for _, c in got)
+        log(f"    {label:44s} {us:8.1f} us/tick ({n:5.1f} launches)   "
+            f"earlier {earlier}")
+    if prof:
+        log(f"    {'device busy per tick':44s} "
+            f"{prof['busy_ms_per_tick'] * 1e3:8.1f} us            earlier "
+            f"7590.0 us")
     log(f"  gemma3-1b phase on {card}: {json.dumps(prof)}, "
         f"{time.perf_counter() - t0:.1f} s")
     return runs
+
+
+# gemma3-1b's decode tick by kernel before the hd-256 decode kernel took a
+# cluster per chunk (PERF.md section 5): (label, name pattern, earlier
+# time per tick)
+GEMMA3_TICK_EARLIER = [
+    ("ours: decode at hd 256 (cluster, combine in)", "decode_cluster_kernel",
+     "n/a"),
+    ("ours: decode_split_kernel<float, 256, 4>", "decode_split_kernel",
+     "730.2 us (26)"),
+    ("ours: decode_combine_kernel", "decode_combine_kernel", "189.5 us (26)"),
+    ("SIMT sgemm 128x32", "128x32", "1938.5 us (129)"),
+    ("gemmSN", "gemmSN", "1356.2 us (52)"),
+    ("lm_head sgemm_largek", "largek", "655.3 us (1)"),
+    ("splitK", "splitK", "261.4 us"),
+]
 
 
 # ---------------------------------------------------------------------------

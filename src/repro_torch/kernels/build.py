@@ -19,6 +19,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,29 +27,33 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 CUDA_HOME_DEFAULT = "/usr/local/cuda"
+# -Xptxas -v: each kernel's registers, spills and shared memory, kept in
+# the build's log beside its library (``ptxas_report``)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 # name -> (C function, argtypes) for every entry point of a library
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: dict[str, dict[str, list]] = {
     "decode_attention": {
-        # q, k, v, cache_len, scratch, out,
-        # B, H, Kh, Smax, hd, hdv, scale, dtype, stream
+        # q, k, v, cache_len, scratch, tickets, out,
+        # B, H, Kh, Smax, hd, hdv, scale, dtype, cluster, smem, stream
         "decode_attention_launch":
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-        # q, k_pool, v_pool, tables, cache_len, scratch, out,
-        # B, H, Kh, block_size, M, hd, hdv, scale, dtype, stream
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+             _I, _P],
+        # q, k_pool, v_pool, tables, cache_len, scratch, tickets, out,
+        # B, H, Kh, block_size, M, hd, hdv, scale, dtype, cluster, smem,
+        # stream
         "paged_decode_attention_launch":
-            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-             _P],
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+             _I, _I, _I, _P],
     },
     "flash_attention": {
-        # q, k, v, out, B, Sq, Skv, H, Kh, hd, hdv,
-        # q_offset, causal, window, scale, dtype, stream
+        # q, k, v, out, scratch, B, Sq, Skv, H, Kh, hd, hdv,
+        # q_offset, causal, window, scale, dtype, span, smem, stream
         "flash_attention_launch":
-            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-             _P],
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+             _I, _I, _I, _P],
     },
     "rwkv6_wkv": {
         # r, k, v, w, u, state (in and out), y,
@@ -112,6 +117,7 @@ def _build(nvcc: str, outs: dict[str, Path]) -> None:
             errors.append(f"nvcc failed ({proc.returncode}) building "
                           f"{out.name}:\n{' '.join(cmd)}\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)         # atomic: readers never see half
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -145,6 +151,34 @@ def load_all(names=None) -> dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built on first use."""
     return load_all([name])[name]
+
+
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """Registers, spill bytes and static shared memory of each kernel of
+    library ``name``, by mangled function name, from the ``-Xptxas -v``
+    output of its build (empty if the library was built elsewhere)."""
+    log = _lib_path(name).with_suffix(".log")
+    if not log.exists():
+        return {}
+    out: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line) or \
+            re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        for key, pat in (("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("static_smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                out[fn][key] = int(m.group(1))
+    return out
 
 
 def check(err: int, what: str) -> None:

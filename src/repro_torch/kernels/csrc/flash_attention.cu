@@ -44,29 +44,69 @@
 //     here (cp.async zero-fills rows past Skv), with no padded copies;
 //   * every sum has a fixed order and there are no atomics: the same inputs
 //     give the same bits.
-// The geometry depends on the head sizes (tile_keys, kSplitCols below).
 // Up to HDV = 128 (HD = HDV in {16..128}, and HD = 192 with HDV = 128,
-// MLA prefill's shape: 218,112 B of shared memory in f32) a tile holds 64
-// keys and the two warps of a row tile split them, as above.  At HD = HDV
-// = 256 (gemma3) that layout breaks twice:
-//   * f32 K and V tiles of 64 in a 2-stage ring need 332,800 B of shared
-//     memory beside Q, over the 232,448 B a CTA may have.  f32 tiles hold 32
-//     keys there (199,680 B); bf16 keeps 64 (168,960 B);
-//   * a warp's O accumulator, HDV / 8 x 4 floats, would be 128 registers a
-//     lane beside the S fragments.  So for HDV > 128 the two warps of a row
-//     tile split the output COLUMNS instead of the keys: both compute the
-//     same S over all of a tile's keys (the same instructions on the same
-//     data, so the same bits, the same softmax state and no merge), and
-//     each accumulates its half of HDV, 64 registers.  Q.K^T is computed
-//     twice per row tile: a warp's products per tile go from 16 x 32 x (HD
-//     + HDV) to 16 x BK x (HD + HDV / 2) multiply-adds.
-// Both layouts keep every invariant above: tiles start at multiples of
-// their size in absolute key positions, fully masked tiles add exact zeros
-// and scales of 1, and each sum has one fixed order, so a prompt computed
-// chunk by chunk gives one call's bits.
-// wgmma is left for later: with tf32 it needs both operands K-major, and V
-// in P.V is MN-major, so it needs a transpose in shared memory.  TMA is too:
-// its descriptors come from cuTensorMapEncodeTiled in libcuda.
+// MLA prefill's shape: 218,112 B of shared memory in f32) flash_kernel
+// runs as above: tiles of 64 keys, the two warps of a row tile splitting
+// them.
+//
+// HD = HDV = 256 (gemma3) has its own design, flash_span_kernel and
+// flash_combine_kernel.  There the layout above broke twice (f32 tiles of
+// 64 keys do not fit in 227 KB, and a warp's O would be 128 registers), and
+// the earlier stand-in (32-key f32 tiles, the warp pair splitting the output
+// columns and so computing S twice, one CTA per 64 query rows: 36 CTAs at
+// gemma3-1b's 571-token prefill) ran 53x its bound, behind SDPA.  Now:
+//   * the key range is cut into fixed spans of kSpan = 128 ABSOLUTE key
+//     positions, and one CTA runs per (span, tile of 64 query rows, b*h):
+//     100 live CTAs at that prefill instead of 36, each over at most 128
+//     keys.  A CTA whose rows see no key of its span exits at once.  Each
+//     CTA writes every row's partial (m, l, acc[256]), log2 domain, into an
+//     f32 scratch tensor the wrapper allocates (B x H x Sq x n_spans x 258
+//     floats: 11.8 MB at Sq = 571, H = 4, which the 50 MB L2 holds);
+//   * flash_combine_kernel merges each row's spans in span order.  Which
+//     spans a row reads depends only on its absolute position, Skv and the
+//     window, and span boundaries depend neither on Sq nor on q_offset, so
+//     a row's partials, and its output, are the same bits in one call and
+//     chunk by chunk.  Split and combine are two launches that count as one
+//     in build.launches;
+//   * S is computed once per row tile: the pair's two warps each take half
+//     of a tile's keys for S = Q.K^T and the row maxima, exchange the
+//     maxima through shared memory (both take max(half 0, half 1), so they
+//     keep one softmax state), write their halves of P to shared memory,
+//     and each then accumulates its half of the 256 output columns of P.V
+//     over all of the tile's keys (64 accumulator registers).  The row sums
+//     stay per lane and meet once, at the end, half 0 + half 1.  A warp's
+//     products per tile are 16 x BK/2 x HD for S plus 16 x BK x HDV/2 for
+//     P.V, two thirds of the column split's;
+//   * S accumulates its k-steps round-robin in 4 independent chains, added
+//     in order at the end (a warp's 2 n8 tiles of S would otherwise chain
+//     96 dependent mma.sync each), and Q is copied by cp.async with the
+//     first K/V tile (a scalar copy left each thread waiting on its 64
+//     loads in turn);
+//   * K and V tiles pass through a 2-stage cp.async ring as above: tile t+1
+//     loads while tile t computes.  Shared memory, f32 (BK = 32): Q 64 x
+//     260 x 4 = 66,560 B; ring 2 x 32 x (260 + 260) x 4 = 133,120 B; P 4 x
+//     16 x 40 x 4 = 10,240 B; maxima and sums 4 x 2 x 2 x 16 x 4 = 1,024
+//     B: 210,944 B of the 232,448 a CTA may have, so no third stage.  bf16
+//     (BK = 64): 33,792 + 135,168 + 18,432 + 1,024 = 188,416 B;
+//   * the products stay on mma.sync (3xTF32 in f32, m16n8k16 bf16 with P as
+//     a hi + lo pair), with the same fragment code as flash_kernel.
+//     wgmma is left out: in f32 it needs both operands K-major, so V
+//     transposed in shared memory, and each operand as big and small TF32
+//     copies, twice Q's and the ring's 200 KB, which do not fit; in bf16 it
+//     would need a second code path for one dtype;
+//   * fully masked tiles still add exact zeros and exact scales of 1, and
+//     every sum has a fixed order, with no atomics: the same inputs give the
+//     same bits.
+// Bound at gemma3-1b's prefill (Sq = Skv = 571, H = 4, Kh = 1, f32, as
+// chip_smoke.py phase 3 counts it): operations, 2 x 4 x (256 + 256) x the
+// unmasked pairs, about 0.004 ms as 3xTF32 products at 495 TFLOP/s.  On an
+// H100 (tools/hd256_stages.py) S takes a warp more cycles per tile than
+// P.V at the same count of products: the 3xTF32 splits and shared-memory
+// loads, not the tensor cores, set the pace (S re-splits Q for only 2 n8
+// tiles per warp); writing the span partials and the combine's reading
+// them back are the rest.
+// TMA is not used: its descriptors would come from cuTensorMapEncodeTiled
+// in libcuda, and cp.async keeps the ring full at these tile sizes.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -79,6 +119,7 @@ constexpr int kThreads = 32 * kRowWarps * kPairs;
 constexpr int kBQ = 16 * kRowWarps;   // query rows per CTA
 constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory per CTA
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTileKeys = 64;      // kv positions per tile of flash_kernel
 
 // shared-memory row stride in elements of a D-wide Q, K or V row.  f32:
 // padded by 4, so lane (g, t) reading row g, column t of Q or K hits bank
@@ -95,17 +136,6 @@ template <typename T, int HD, int HDV>
 __host__ __device__ constexpr size_t smem_bytes(int bk) {
   return sizeof(T) * (kBQ * stride<T, HD>() +
                       2 * bk * (stride<T, HD>() + stride<T, HDV>()));
-}
-// kv positions per tile: 64, or 32 where a ring of 64 does not fit
-template <typename T, int HD, int HDV>
-__host__ __device__ constexpr int tile_keys() {
-  return smem_bytes<T, HD, HDV>(64) <= kMaxSmem ? 64 : 32;
-}
-// the two warps of a row tile split the output columns (HDV > 128) or the
-// keys of each tile
-template <int HDV>
-__host__ __device__ constexpr bool split_cols() {
-  return HDV > 128;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -178,46 +208,83 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = pack_bf16(x - __low2float(h), y - __high2float(h));
 }
 
-// S (16 x 8 NT per warp) = Q_warp . K_warp^T, raw (unscaled) scores
-template <int HD, int NT>
-__device__ __forceinline__ void scores(float (&s)[NT][4], const float* qs,
-                                       const float* ks, int g, int t) {
+// S (16 x 8 NT per warp) = Q_warp . K_warp^T, raw (unscaled) scores, with
+// k-step ks accumulated into chain ks % CH and the CH chains added in order
+// at the end.  CH = 1 is one chain, as the tiles of 64 keys have; at hd 256
+// a warp's two n8 tiles would otherwise each chain HD / 8 dependent
+// mma.sync groups (96 products in 3xTF32), and the warp would wait on
+// their latency
+template <int HD, int NT, int CH>
+__device__ __forceinline__ void scores(float (&s)[NT][4],
+                                              const float* qs,
+                                              const float* ks, int g, int t) {
   constexpr int QS = stride<float, HD>(), KS = QS;
+  float c[CH][NT][4];
+#pragma unroll
+  for (int h = 0; h < CH; ++h)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      c[h][j][0] = c[h][j][1] = c[h][j][2] = c[h][j][3] = 0.f;
 #pragma unroll
   for (int ks8 = 0; ks8 < HD / 8; ++ks8) {
-    const int c = ks8 * 8 + t;
+    const int col = ks8 * 8 + t;
     uint32_t ab[4], as[4];
-    split(qs[g * QS + c], ab[0], as[0]);
-    split(qs[(g + 8) * QS + c], ab[1], as[1]);
-    split(qs[g * QS + c + 4], ab[2], as[2]);
-    split(qs[(g + 8) * QS + c + 4], ab[3], as[3]);
+    split(qs[g * QS + col], ab[0], as[0]);
+    split(qs[(g + 8) * QS + col], ab[1], as[1]);
+    split(qs[g * QS + col + 4], ab[2], as[2]);
+    split(qs[(g + 8) * QS + col + 4], ab[3], as[3]);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const float* kr = ks + (8 * j + g) * KS + c;
-      mma_3xtf32(s[j], ab, as, kr[0], kr[4]);
+      const float* kr = ks + (8 * j + g) * KS + col;
+      mma_3xtf32(c[ks8 % CH][j], ab, as, kr[0], kr[4]);
     }
   }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = c[0][j][e];
+#pragma unroll
+      for (int h = 1; h < CH; ++h) x += c[h][j][e];
+      s[j][e] = x;
+    }
 }
-template <int HD, int NT>
+template <int HD, int NT, int CH>
 __device__ __forceinline__ void scores(float (&s)[NT][4],
-                                       const __nv_bfloat16* qs,
-                                       const __nv_bfloat16* ks, int g, int t) {
+                                              const __nv_bfloat16* qs,
+                                              const __nv_bfloat16* ks, int g,
+                                              int t) {
   constexpr int QS = stride<__nv_bfloat16, HD>(), KS = QS;
+  float c[CH][NT][4];
+#pragma unroll
+  for (int h = 0; h < CH; ++h)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      c[h][j][0] = c[h][j][1] = c[h][j][2] = c[h][j][3] = 0.f;
 #pragma unroll
   for (int k16 = 0; k16 < HD / 16; ++k16) {
-    const int c = k16 * 16 + 2 * t;
+    const int col = k16 * 16 + 2 * t;
     uint32_t a[4];
-    a[0] = *reinterpret_cast<const uint32_t*>(qs + g * QS + c);
-    a[1] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * QS + c);
-    a[2] = *reinterpret_cast<const uint32_t*>(qs + g * QS + c + 8);
-    a[3] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * QS + c + 8);
+    a[0] = *reinterpret_cast<const uint32_t*>(qs + g * QS + col);
+    a[1] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * QS + col);
+    a[2] = *reinterpret_cast<const uint32_t*>(qs + g * QS + col + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(qs + (g + 8) * QS + col + 8);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const __nv_bfloat16* kr = ks + (8 * j + g) * KS + c;
-      mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(kr),
+      const __nv_bfloat16* kr = ks + (8 * j + g) * KS + col;
+      mma_bf16(c[k16 % CH][j], a, *reinterpret_cast<const uint32_t*>(kr),
                *reinterpret_cast<const uint32_t*>(kr + 8));
     }
   }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = c[0][j][e];
+#pragma unroll
+      for (int h = 1; h < CH; ++h) x += c[h][j][e];
+      s[j][e] = x;
+    }
 }
 
 // O (16 x 8 NO per warp) += P . V_tile, vs pointing at the warp's first
@@ -290,11 +357,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
              int H, int Kh, int q_offset, int causal, int window,
              float scale) {
-  constexpr int BK = tile_keys<T, HD, HDV>();     // kv positions per tile
-  constexpr bool SPLIT_COLS = split_cols<HDV>();
-  constexpr int WK = SPLIT_COLS ? BK : BK / kPairs;   // keys per warp
+  constexpr int BK = kTileKeys;               // kv positions per tile
+  constexpr int WK = BK / kPairs;             // keys per warp
   constexpr int NT = WK / 8;                  // n8 tiles of S per warp
-  constexpr int NO = (SPLIT_COLS ? HDV / kPairs : HDV) / 8;  // of O
+  constexpr int NO = HDV / 8;                 // n8 tiles of O per warp
   constexpr int QS = stride<T, HD>(), KS = QS, VS = stride<T, HDV>();
   constexpr int KCH = HD * sizeof(T) / 16;    // 16-byte pieces per K row
   constexpr int VCH = HDV * sizeof(T) / 16;
@@ -309,9 +375,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
   const int warp = threadIdx.x / 32;
   const int rw = warp % kRowWarps;            // row tile of this warp
-  const int kg = warp / kRowWarps;            // its key or column half
-  const int key0 = SPLIT_COLS ? 0 : kg * WK;  // its first key of a tile
-  const int col0 = SPLIT_COLS ? kg * NO * 8 : 0;   // its first O column
+  const int kg = warp / kRowWarps;            // its key half
+  const int key0 = kg * WK;                   // its first key of a tile
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;                     // fragment row group
   const int t = lane % 4;                     // thread in the group
@@ -378,14 +443,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();   // tile it (and q) visible to every warp
     const T* kt = kring + ((it & 1) * BK + key0) * KS;
-    const T* vt = vring + ((it & 1) * BK + key0) * VS + col0;
+    const T* vt = vring + ((it & 1) * BK + key0) * VS;
     const int t0 = tile0 + it * BK;             // the CTA's tile
     const int w0 = t0 + key0;                   // this warp's keys
 
     float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    scores<HD, NT>(s, qw, kt, g, t);
+    scores<HD, NT, 1>(s, qw, kt, g, t);
 
     // the mask matters only where the causal bound, the window or the
     // ragged kv edge cuts this tile for some row of the CTA
@@ -452,7 +515,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   l1 += __shfl_xor_sync(rt::kFull, l1, 1);
   l1 += __shfl_xor_sync(rt::kFull, l1, 2);
 
-  if constexpr (!SPLIT_COLS) {
+  {
     // the second key half hands its state to the first through the (now
     // idle) ring, lane-major so neither side conflicts on banks; the first
     // merges them in that order
@@ -487,13 +550,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o[n][3] = o[n][3] * a1 + xb[(4 * n + 3) * 32] * b1;
     }
   }
-  // (column halves: both warps of the pair hold the same l0, l1 and write
-  // their own columns)
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    const int d = col0 + 8 * n + 2 * t;
+    const int d = 8 * n + 2 * t;
     if (row0 < Sq)
       store2<T>(out + (((int64_t)b * Sq + row0) * H + h) * HDV + d,
                 o[n][0] * inv0, o[n][1] * inv0);
@@ -503,12 +564,341 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// hd = hdv = 256: the key range split into spans across CTAs
+// ---------------------------------------------------------------------------
+
+constexpr int kWide = 256;         // hd = hdv of the span kernel
+constexpr int kSpan = 128;         // absolute key positions per span
+constexpr int kChains = 4;         // independent accumulators of S
+
+// kv positions per ring tile of the span kernel
+template <typename T>
+__host__ __device__ constexpr int span_tile() {
+  return sizeof(T) == 4 ? 32 : 64;
+}
+// P's row stride in floats: lanes (g, t) storing or loading the float2 at
+// row g, column 2t hit banks 8g + 2t, distinct within each half warp
+template <typename T>
+__host__ __device__ constexpr int p_stride() {
+  return span_tile<T>() + 8;
+}
+// Q tile and the K/V ring, then P (16 rows x p_stride per row tile), then
+// each warp's row maxima and sums (2 x 16 floats per warp)
+template <typename T>
+__host__ __device__ constexpr size_t span_smem() {
+  return smem_bytes<T, kWide, kWide>(span_tile<T>()) +
+         sizeof(float) * (kRowWarps * 16 * p_stride<T>() +
+                          kRowWarps * kPairs * 2 * 16);
+}
+
+// the two warps (64 threads) of row tile rw; named barrier 0 is
+// __syncthreads
+__device__ __forceinline__ void pair_sync(int rw) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(rw + 1), "r"(kPairs * 32)
+               : "memory");
+}
+
+// One CTA per (span, tile of 64 query rows, b*h): the partial softmax
+// state (m, l, acc[256]) of every query row of the tile over the keys of
+// the span it may see, in the log2 domain, into part[b*h][row][span].
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, float* __restrict__ part, int Sq,
+                  int Skv, int H, int Kh, int q_offset, int causal,
+                  int window, float scale, int n_spans) {
+  constexpr int HD = kWide, HDV = kWide;
+  constexpr int BK = span_tile<T>();          // kv positions per tile
+  constexpr int WK = BK / kPairs;             // keys of S per warp
+  constexpr int NT = WK / 8;                  // n8 tiles of S per warp
+  constexpr int NP = BK / 8;                  // n8 tiles of P per row tile
+  constexpr int CV = HDV / kPairs;            // O columns per warp
+  constexpr int NO = CV / 8;                  // n8 tiles of O per warp
+  constexpr int QS = stride<T, HD>(), KS = QS, VS = QS;
+  constexpr int PS = p_stride<T>();
+  constexpr int KCH = HD * sizeof(T) / 16;    // 16-byte pieces per row
+  static_assert(kSpan % BK == 0 && NP % 2 == 0, "tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);     // kBQ x QS
+  T* kring = qs + kBQ * QS;                   // 2 x BK x KS
+  T* vring = kring + 2 * BK * KS;             // 2 x BK x VS
+  float* pbuf = reinterpret_cast<float*>(vring + 2 * BK * VS);
+  float* xbuf = pbuf + kRowWarps * 16 * PS;   // [rw][kg][max, sum][16]
+
+  const int span = blockIdx.x;
+  const int q0 = blockIdx.y * kBQ;
+  const int b = blockIdx.z / H;
+  const int h = blockIdx.z % H;
+  const int kh = h / (H / Kh);
+  const int warp = threadIdx.x / 32;
+  const int rw = warp % kRowWarps;            // row tile of this warp
+  const int kg = warp / kRowWarps;            // its key half of S, and its
+                                              // column half of O
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  // keys any row of this tile can see, cut to the span
+  const int last_q = min(q0 + kBQ, Sq) - 1;
+  int kv_hi = Skv;
+  int kv_lo = 0;
+  if (causal) {
+    kv_hi = min(Skv, q_offset + last_q + 1);
+    if (window) kv_lo = max(0, q_offset + q0 - window + 1);
+  }
+  const int lo = max(kv_lo, span * kSpan);
+  const int hi = min(kv_hi, span * kSpan + kSpan);
+  if (lo >= hi) return;                       // no row sees this span
+  const int tile0 = (lo / BK) * BK;
+  const int n_tiles = (hi - tile0 + BK - 1) / BK;
+
+  const int64_t krow0 = (int64_t)b * Skv * Kh + kh;   // row p at + p * Kh
+  auto load_tile = [&](int it) {
+    const int base = tile0 + it * BK;
+    T* kd = kring + (it & 1) * BK * KS;
+    T* vd = vring + (it & 1) * BK * VS;
+    for (int i = threadIdx.x; i < BK * KCH; i += blockDim.x) {
+      const int r = i / KCH, c = i % KCH, p = base + r;
+      const bool ok = p < Skv;
+      const int64_t off = (krow0 + (int64_t)(ok ? p : 0) * Kh) * HD +
+                          c * (16 / sizeof(T));
+      cp_async16(kd + r * KS + c * (16 / sizeof(T)), k + off, ok);
+      cp_async16(vd + r * VS + c * (16 / sizeof(T)), v + off, ok);
+    }
+    cp_async_commit();
+  };
+  // q (B, Sq, H, HD): raw rows, zeros past Sq, copied with tile 0 (the
+  // scale goes on S)
+  for (int i = threadIdx.x; i < kBQ * KCH; i += blockDim.x) {
+    const int r = i / KCH, c = i % KCH, qi = q0 + r;
+    const bool ok = qi < Sq;
+    const int64_t off =
+        ok ? (((int64_t)b * Sq + qi) * H + h) * HD + c * (16 / sizeof(T)) : 0;
+    cp_async16(qs + r * QS + c * (16 / sizeof(T)), q + off, ok);
+  }
+  load_tile(0);
+
+  const float qk_scale = scale * kLog2e;
+  const int row0 = q0 + 16 * rw + g;          // query rows g and g + 8
+  const int qp0 = q_offset + row0, qp1 = qp0 + 8;   // absolute positions
+  const T* qw = qs + 16 * rw * QS;
+  float* pw = pbuf + rw * 16 * PS;            // this row tile's P
+  float* xw = xbuf + rw * kPairs * 2 * 16;    // its pair's maxima and sums
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = rt::kNegInf, m1 = rt::kNegInf;   // running max, log2 domain
+  float l0 = 0.f, l1 = 0.f;                   // this lane's partial sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      load_tile(it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile it (and q) visible to every warp
+    const T* kt = kring + ((it & 1) * BK + kg * WK) * KS;
+    const T* vt = vring + (it & 1) * BK * VS + kg * CV;
+    const int t0 = tile0 + it * BK;             // the CTA's tile
+    const int w0 = t0 + kg * WK;                // this warp's keys of S
+
+    // S for this warp's half of the tile's keys, computed once
+    float s[NT][4];
+    scores<HD, NT, kChains>(s, qw, kt, g, t);
+
+    const bool full =
+        t0 + BK <= Skv &&
+        (!causal || (t0 + BK - 1 <= q_offset + q0 &&
+                     (!window || t0 > q_offset + q0 + kBQ - 1 - window)));
+    float mx0 = rt::kNegInf, mx1 = rt::kNegInf;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * qk_scale;
+        if (!full) {
+          const int key = w0 + 8 * j + 2 * t + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          bool ok = key < Skv;
+          if (causal) {
+            ok = ok && key <= qp;
+            if (window) ok = ok && key > qp - window;
+          }
+          x = ok ? x : rt::kNegInf;
+        }
+        s[j][e] = x;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 2));
+    if (t == 0) {
+      xw[kg * 32 + g] = mx0;
+      xw[kg * 32 + g + 8] = mx1;
+    }
+    pair_sync(rw);
+    // the tile's row maxima, key halves in order: the pair's two warps
+    // take the same values, so they keep one softmax state
+    const float mn0 = fmaxf(m0, fmaxf(xw[g], xw[32 + g]));
+    const float mn1 = fmaxf(m1, fmaxf(xw[g + 8], xw[32 + g + 8]));
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mn = e < 2 ? mn0 : mn1;
+        s[j][e] = s[j][e] > rt::kNegInf ? exp2f(s[j][e] - mn) : 0.f;
+      }
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+      const int col = kg * WK + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(pw + g * PS + col) =
+          make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(pw + (g + 8) * PS + col) =
+          make_float2(s[j][2], s[j][3]);
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= c0;
+      o[n][1] *= c0;
+      o[n][2] *= c1;
+      o[n][3] *= c1;
+    }
+    pair_sync(rw);     // the tile's whole P is in shared memory
+    float p[NP][4];    // P (16 x BK) in the accumulator layout of S
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const float2 x =
+          *reinterpret_cast<const float2*>(pw + g * PS + 8 * j + 2 * t);
+      const float2 y = *reinterpret_cast<const float2*>(
+          pw + (g + 8) * PS + 8 * j + 2 * t);
+      p[j][0] = x.x;
+      p[j][1] = x.y;
+      p[j][2] = y.x;
+      p[j][3] = y.y;
+    }
+    // this warp's half of the columns, over all of the tile's keys
+    accumulate<HDV, NP, NO>(o, p, vt, g, t);
+    __syncthreads();   // every warp is done with this stage before refill
+  }
+
+  // row sums: across the quad, then the pair's key halves in order
+  l0 += __shfl_xor_sync(rt::kFull, l0, 1);
+  l0 += __shfl_xor_sync(rt::kFull, l0, 2);
+  l1 += __shfl_xor_sync(rt::kFull, l1, 1);
+  l1 += __shfl_xor_sync(rt::kFull, l1, 2);
+  if (t == 0) {
+    xw[kg * 32 + 16 + g] = l0;
+    xw[kg * 32 + 16 + g + 8] = l1;
+  }
+  pair_sync(rw);
+  const float L0 = xw[16 + g] + xw[48 + g];
+  const float L1 = xw[16 + g + 8] + xw[48 + g + 8];
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    float* pp = part + (((int64_t)blockIdx.z * Sq + row) * n_spans + span) *
+                           (HDV + 2);
+    if (kg == 0 && t == 0) {
+      pp[0] = r ? m1 : m0;
+      pp[1] = r ? L1 : L0;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<float2*>(pp + 2 + kg * CV + 8 * n + 2 * t) =
+          make_float2(o[n][2 * r], o[n][2 * r + 1]);
+  }
+}
+
+// One CTA per (query row, b*h), two output columns per thread: the spans
+// the row can see, merged in span order (a span it cannot see is never
+// read, and which spans those are depends only on the row's absolute
+// position, Skv and the window)
+template <typename T>
+__global__ void __launch_bounds__(kWide / 2)
+flash_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
+                     int Sq, int Skv, int H, int q_offset, int causal,
+                     int window, int n_spans) {
+  constexpr int HDV = kWide;
+  const int row = blockIdx.x;
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int qp = q_offset + row;
+  int klo = 0, khi = Skv - 1;
+  if (causal) {
+    khi = min(khi, qp);
+    if (window) klo = max(0, qp - window + 1);
+  }
+  const int s_lo = klo / kSpan;
+  const int s_hi = khi >= klo ? khi / kSpan : s_lo - 1;
+  const float* pr =
+      part + ((int64_t)blockIdx.y * Sq + row) * n_spans * (HDV + 2);
+  const int d = 2 * threadIdx.x;
+  float mx = rt::kNegInf;
+  for (int s = s_lo; s <= s_hi; ++s) mx = fmaxf(mx, pr[s * (HDV + 2)]);
+  float L = 0.f, O0 = 0.f, O1 = 0.f;
+  for (int s = s_lo; s <= s_hi; ++s) {
+    const float* ps = pr + s * (HDV + 2);
+    const float c = exp2f(ps[0] - mx);
+    const float2 a = *reinterpret_cast<const float2*>(ps + 2 + d);
+    L += ps[1] * c;
+    O0 += a.x * c;
+    O1 += a.y * c;
+  }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  store2<T>(out + (((int64_t)b * Sq + row) * H + h) * HDV + d, O0 * inv,
+            O1 * inv);
+}
+
+template <typename T>
+int launch_span(const void* q, const void* k, const void* v, void* out,
+                void* scratch, int B, int Sq, int Skv, int H, int Kh,
+                int q_offset, int causal, int window, float scale, int span,
+                int smem, cudaStream_t stream) {
+  constexpr size_t bytes = span_smem<T>();
+  static_assert(bytes <= kMaxSmem, "tiles do not fit in shared memory");
+  if (span != kSpan || smem != static_cast<int>(bytes) || !scratch)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_span_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_spans = Skv > kSpan ? (Skv + kSpan - 1) / kSpan : 1;
+  const dim3 grid(n_spans, (Sq + kBQ - 1) / kBQ, B * H);
+  flash_span_kernel<T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<float*>(scratch), Sq, Skv, H, Kh,
+      q_offset, causal, window, scale, n_spans);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_combine_kernel<T><<<dim3(Sq, B * H), kWide / 2, 0, stream>>>(
+      static_cast<const float*>(scratch), static_cast<T*>(out), Sq, Skv, H,
+      q_offset, causal, window, n_spans);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int H, int Kh, int q_offset, int causal,
-           int window, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<T, HD, HDV>(tile_keys<T, HD, HDV>());
+           int window, float scale, int smem, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<T, HD, HDV>(kTileKeys);
   static_assert(bytes <= kMaxSmem, "tile does not fit in shared memory");
+  if (smem != static_cast<int>(bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_kernel<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -526,22 +916,40 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // (hd, hdv) pairs built: hd == hdv in {16, 32, 64, 128, 256}, and (192,
-// 128); kernels/flash_attention.py's HEAD_DIM_PAIRS lists the same
+// 128); kernels/flash_attention.py's HEAD_DIM_PAIRS lists the same.  span
+// and smem are the geometry the wrapper computed (kernels/
+// flash_attention.py::_geometry): span 0 and smem_bytes below hd 256,
+// kSpan and span_smem at hd 256 (which also takes the f32 scratch of
+// B x H x Sq x n_spans partials); any other is refused.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Skv, int H, int Kh, int hd, int hdv,
-                                      int q_offset, int causal, int window,
-                                      float scale, int dtype, void* stream) {
+                                      const void* v, void* out, void* scratch,
+                                      int B, int Sq, int Skv, int H, int Kh,
+                                      int hd, int hdv, int q_offset,
+                                      int causal, int window, float scale,
+                                      int dtype, int span, int smem,
+                                      void* stream) {
   if (B <= 0 || Sq <= 0 || Kh <= 0 || H % Kh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == kWide && hdv == kWide) {
+    if (dtype == rt::kDtypeF32)
+      return launch_span<float>(q, k, v, out, scratch, B, Sq, Skv, H, Kh,
+                                q_offset, causal, window, scale, span, smem,
+                                s);
+    if (dtype == rt::kDtypeBF16)
+      return launch_span<__nv_bfloat16>(q, k, v, out, scratch, B, Sq, Skv, H,
+                                        Kh, q_offset, causal, window, scale,
+                                        span, smem, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (span != 0) return static_cast<int>(cudaErrorInvalidValue);
 #define RT_CASE(T, D, DV)                                                  \
   if (hd == D && hdv == DV)                                                \
     return launch<T, D, DV>(q, k, v, out, B, Sq, Skv, H, Kh, q_offset,     \
-                            causal, window, scale, s);
+                            causal, window, scale, smem, s);
 #define RT_ALL(T)                                                          \
   RT_CASE(T, 16, 16) RT_CASE(T, 32, 32) RT_CASE(T, 64, 64)                 \
-  RT_CASE(T, 128, 128) RT_CASE(T, 192, 128) RT_CASE(T, 256, 256)
+  RT_CASE(T, 128, 128) RT_CASE(T, 192, 128)
   if (dtype == rt::kDtypeF32) {
     RT_ALL(float)
   } else if (dtype == rt::kDtypeBF16) {

@@ -15,13 +15,20 @@ hd/hdv)`` with ``block_tables (B, M)`` int32 (0 = the null block);
 The kernel splits the logical positions into fixed chunks of ``CHUNK``
 (split-KV), writes one partial softmax state per live chunk into an f32
 scratch tensor that the wrapper allocates, and merges the live chunks in
-chunk order.  ``chunk_plan``, ``decode_partials_plain`` and
+chunk order (at hd 256 the CTAs that finish last merge them, in the same
+kernel).  ``chunk_plan``, ``decode_partials_plain`` and
 ``decode_combine_plain`` are the plain versions of that plan, of the chunk
-pass and of the combine pass.
+pass and of the combine pass.  At hd 256 each chunk is split further across
+a cluster of ``CLUSTER`` CTAs, one fixed slice of ``SLICE`` positions each,
+merged in slice order into the chunk's partial: ``cluster_plan``,
+``decode_partials_plain(..., width=SLICE)`` and ``decode_cluster_merge_plain``
+are its plain versions, and ``_geometry`` the launch geometry that the C
+launcher checks.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,7 +38,38 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated (hd == hdv) in the .cu
 MAX_GROUP = 8                      # H / Kh held in registers by the kernel
-CHUNK = 128                        # positions per split CTA (kChunk, .cu)
+CHUNK = 128                        # positions per chunk (kChunk, .cu)
+WIDE_HD = 256                      # head size split across a cluster
+CLUSTER = 4                        # CTAs per chunk at WIDE_HD (kCluster)
+SLICE = CHUNK // CLUSTER           # positions per CTA at WIDE_HD (kSlice)
+_WARPS = 4                         # kWarps
+
+
+class Geometry(NamedTuple):
+    cluster: int         # CTAs per chunk
+    slice: int           # positions per CTA
+    smem: int            # dynamic shared memory per CTA, bytes
+    max_chunks: int      # chunks per slot the kernel takes (0: any)
+
+
+def _group_slots(G: int) -> int:
+    """Query rows per kv head the kernel is instantiated for (KG)."""
+    return next(kg for kg in (1, 2, 4, MAX_GROUP) if G <= kg)
+
+
+def _geometry(hd: int, dtype: torch.dtype, G: int) -> Geometry:
+    """The kernels' launch geometry: one CTA per chunk below WIDE_HD; at
+    WIDE_HD a cluster of CLUSTER CTAs per chunk with ``wide_smem`` bytes of
+    dynamic shared memory (csrc/decode_attention.cu), which the launcher
+    refuses to differ."""
+    if hd != WIDE_HD:
+        return Geometry(1, CHUNK, 0, 0)
+    es, kg = dtype.itemsize, _group_slots(G)
+    staging = 2 * SLICE * hd * es                          # K, then V rows
+    smem = 16 + staging + 4 * (kg * hd + _WARPS * kg * SLICE + kg * SLICE
+                               + kg * hd + 2 * kg)
+    # the folded combine keeps each chunk's m and l in the staging memory
+    return Geometry(CLUSTER, SLICE, smem, staging // (2 * 4 * kg))
 
 
 def _lengths(cache_len, B: int, device) -> torch.Tensor:
@@ -84,11 +122,24 @@ def chunk_plan(cache_len, cap: int):
     return n_chunks(cap), live
 
 
-def decode_partials_plain(q, k_cache, v_cache, cache_len, *, scale=None):
+def cluster_plan(cache_len, cap: int):
+    """The hd-256 kernel's split of each live chunk across its cluster:
+    per slot, per live chunk, the live slices as logical ``(start, end)``
+    positions, CTA rank r taking ``[c0 + r * SLICE, c0 + (r + 1) * SLICE)``.
+    A slice at or past cache_len is dead (its CTA only merges)."""
+    _, live = chunk_plan(cache_len, cap)
+    return [[[(s, min(s + SLICE, e)) for s in range(c0, e, SLICE)]
+             for c0, e in chunks] for chunks in live]
+
+
+def decode_partials_plain(q, k_cache, v_cache, cache_len, *, scale=None,
+                          width=CHUNK):
     """The chunk pass: per (slot, kv head, chunk, query row) the softmax
     state ``m`` (max score), ``l`` (sum of exp) and ``acc`` (exp-weighted V
     sum) over that chunk's live rows, in f32.  Dead chunks hold
-    (-1e30, 0, 0).  Shapes (B, Kh, n_chunks, G) and (..., hdv)."""
+    (-1e30, 0, 0).  Shapes (B, Kh, n_chunks, G) and (..., hdv).  With
+    ``width=SLICE`` the same over the cluster's slices: (B, Kh, n_chunks *
+    CLUSTER, G), slice r of chunk c at index c * CLUSTER + r."""
     B, H, hd = q.shape
     Kh, Smax = k_cache.shape[1], k_cache.shape[2]
     hdv = v_cache.shape[-1]
@@ -107,14 +158,51 @@ def decode_partials_plain(q, k_cache, v_cache, cache_len, *, scale=None):
                      torch.zeros((), device=q.device))
     s = torch.einsum("bhgk,bhjk->bhgj", qf, kf)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    s = s.reshape(B, Kh, G, C, CHUNK)
-    m = s.amax(dim=-1)                                      # (B, Kh, G, C)
-    p = torch.where(mask.reshape(B, 1, 1, C, CHUNK),
+    n = C * CHUNK // width
+    s = s.reshape(B, Kh, G, n, width)
+    m = s.amax(dim=-1)                                      # (B, Kh, G, n)
+    p = torch.where(mask.reshape(B, 1, 1, n, width),
                     torch.exp(s - m[..., None]), torch.zeros_like(s))
     l = p.sum(dim=-1)
     acc = torch.einsum("bhgcj,bhcjk->bhgck", p,
-                       vf.reshape(B, Kh, C, CHUNK, hdv))
+                       vf.reshape(B, Kh, n, width, hdv))
     return m.transpose(2, 3), l.transpose(2, 3), acc.transpose(2, 3)
+
+
+def _merge_plain(m, l, acc, live):
+    """Merge states along dim 2 where ``live`` (B, n) holds, in index
+    order: the max over live states, then the rescaled sums.  States not
+    live may hold anything: they are selected out, never multiplied."""
+    B, Kh, n, G = m.shape
+    mx = torch.full((B, Kh, G), NEG_INF, device=m.device)
+    for s in range(n):
+        on = live[:, s, None, None]
+        mx = torch.where(on, torch.maximum(mx, m[:, :, s]), mx)
+    L = torch.zeros((B, Kh, G), device=m.device)
+    O = torch.zeros((B, Kh, G, acc.shape[-1]), device=m.device)
+    for s in range(n):
+        on = live[:, s, None, None]
+        c = torch.exp(m[:, :, s] - mx)
+        L = torch.where(on, L + l[:, :, s] * c, L)
+        O = torch.where(on[..., None], O + acc[:, :, s] * c[..., None], O)
+    return mx, L, O
+
+
+def decode_cluster_merge_plain(m, l, acc, cache_len, *, cap: int):
+    """The cluster's merge at hd 256: each chunk's live slices (those
+    starting below min(cache_len, cap)) in rank order, into the chunk's
+    partial (m, l, acc), as ``decode_partials_plain`` gives it; a dead chunk
+    holds (-1e30, 0, 0).  Takes the (B, Kh, n_chunks * CLUSTER, G) slice
+    states."""
+    B, Kh, n, G = m.shape
+    C = n // CLUSTER
+    cl = torch.clamp(_lengths(cache_len, B, m.device), max=cap)
+    starts = torch.arange(n, device=m.device) * SLICE
+    live = (starts[None, :] < cl[:, None]).reshape(B, C, CLUSTER)
+    parts = [_merge_plain(*(x[:, :, c * CLUSTER:(c + 1) * CLUSTER]
+                            for x in (m, l, acc)), live[:, c])
+             for c in range(C)]
+    return tuple(torch.stack([p[i] for p in parts], dim=2) for i in range(3))
 
 
 def decode_combine_plain(m, l, acc, cache_len, *, cap: int, dtype):
@@ -125,18 +213,8 @@ def decode_combine_plain(m, l, acc, cache_len, *, cap: int, dtype):
     hdv = acc.shape[-1]
     cl = torch.clamp(_lengths(cache_len, B, m.device), max=cap)
     n_live = torch.div(cl + CHUNK - 1, CHUNK, rounding_mode="floor")
-    # a dead chunk may hold anything: it is selected out, never multiplied
-    mx = torch.full((B, Kh, G), NEG_INF, device=m.device)
-    for s in range(C):
-        live = (s < n_live)[:, None, None]
-        mx = torch.where(live, torch.maximum(mx, m[:, :, s]), mx)
-    L = torch.zeros((B, Kh, G), device=m.device)
-    O = torch.zeros((B, Kh, G, hdv), device=m.device)
-    for s in range(C):                         # chunk order, as the kernel
-        live = (s < n_live)[:, None, None]
-        c = torch.exp(m[:, :, s] - mx)
-        L = torch.where(live, L + l[:, :, s] * c, L)
-        O = torch.where(live[..., None], O + acc[:, :, s] * c[..., None], O)
+    live = torch.arange(C, device=m.device)[None, :] < n_live[:, None]
+    _, L, O = _merge_plain(m, l, acc, live)    # chunk order, as the kernel
     o = O / torch.clamp(L, min=1e-30)[..., None]
     return o.reshape(B, Kh * G, hdv).to(dtype)
 
@@ -186,11 +264,38 @@ def _check_cuda(q, caches, hd, hdv, H, Kh):
                          f"H / Kh <= {MAX_GROUP}, got H={H}, Kh={Kh}")
 
 
+def _check_chunks(geo: Geometry, cap: int):
+    if geo.max_chunks and n_chunks(cap) > geo.max_chunks:
+        raise ValueError(f"decode attention kernel at hd {WIDE_HD} takes at "
+                         f"most {geo.max_chunks * CHUNK} positions per slot "
+                         f"here, got {cap}")
+
+
 def _scratch(B, H, Kh, cap, hdv, device):
     """The chunk pass's partials: (m, l, acc[hdv]) in f32 per (slot, kv
     head, chunk, query row)."""
     return torch.empty(B * H * n_chunks(cap) * (hdv + 2), dtype=torch.float32,
                        device=device)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(geo: Geometry, n: int, device):
+    """The hd-256 kernel's counters, one per (slot, kv head, cluster rank),
+    zeroed once per device and left at zero by every launch (None below
+    hd 256)."""
+    if geo.cluster == 1:
+        return None
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                           device=device)
+    return t
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
@@ -213,11 +318,15 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
     cl = _lengths(cache_len, B, q.device)
     out = torch.empty((B, H, hdv), dtype=q.dtype, device=q.device)
     scratch = _scratch(B, H, Kh, Smax, hdv, q.device)
+    geo = _geometry(hd, q.dtype, H // Kh)
+    _check_chunks(geo, Smax)
+    tickets = _tickets(geo, B * Kh * geo.cluster, q.device)
     lib = build.library("decode_attention")
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cl.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B, H, Kh, Smax, hd, hdv, scale,
-        _DTYPES[q.dtype],
+        scratch.data_ptr(), _ptr(tickets), out.data_ptr(), B, H, Kh, Smax,
+        hd, hdv, scale,
+        _DTYPES[q.dtype], geo.cluster, geo.smem,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attention")
     build.launches["decode_attention"] += 1
@@ -255,11 +364,16 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
     cl = _lengths(cache_len, B, q.device)
     out = torch.empty((B, H, hdv), dtype=q.dtype, device=q.device)
     scratch = _scratch(B, H, Kh, M * bs, hdv, q.device)
+    geo = _geometry(hd, q.dtype, H // Kh)
+    _check_chunks(geo, M * bs)
+    tickets = _tickets(geo, B * Kh * geo.cluster, q.device)
     lib = build.library("decode_attention")
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), cl.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), B, H, Kh, bs, M, hd, hdv, scale, _DTYPES[q.dtype],
+        _ptr(tickets), out.data_ptr(), B, H, Kh, bs, M, hd, hdv, scale,
+        _DTYPES[q.dtype],
+        geo.cluster, geo.smem,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_attention")
     build.launches["paged_decode_attention"] += 1

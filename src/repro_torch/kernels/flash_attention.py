@@ -10,10 +10,19 @@ position of q row 0 within the kv span; ``None`` means END-aligned,
 ``Skv - Sq``.  Keys at or past ``Skv`` are masked; ``window`` applies only
 when ``causal``.  Unlike the Pallas kernel, the CUDA kernel takes
 ``q_offset``, ``Sq`` and ``Skv`` at run time.
+
+At hd = hdv = 256 the kernel splits the key range into fixed spans of
+``SPAN`` absolute key positions, one CTA per (span, tile of ``TILE_Q`` query
+rows, b*h), each writing its rows' partial softmax states (log2 domain) into
+an f32 scratch tensor the wrapper allocates; a second kernel merges each
+row's spans in span order.  ``span_plan``, ``flash_partials_plain`` and
+``flash_combine_plain`` are the plain versions of that plan and of both
+passes, and ``_geometry`` the launch geometry that the C launcher checks.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +34,75 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # package passes (hd 256 is gemma3's; (192, 128) is MLA prefill's)
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
                   (256, 256))
+WIDE = (256, 256)                  # the (hd, hdv) the span kernel takes
+SPAN = 128                         # absolute key positions per span (kSpan)
+TILE_Q = 64                        # query rows per CTA (kBQ)
+LOG2E = 1.4426950408889634
+
+
+class Geometry(NamedTuple):
+    tile: int            # kv positions per ring tile
+    span: int            # key positions per span (0: one pass, no spans)
+    smem: int            # dynamic shared memory per CTA, bytes
+
+
+def _geometry(hd: int, hdv: int, dtype: torch.dtype) -> Geometry:
+    """The kernels' launch geometry (csrc/flash_attention.cu: kTileKeys and
+    smem_bytes, or span_tile and span_smem at hd 256), which the launcher
+    refuses to differ: Q's tile and a 2-stage K/V ring, rows padded by 16
+    bytes (f32) or 8 elements (bf16), and at hd 256 P and the pair's row
+    maxima and sums in f32."""
+    es = dtype.itemsize
+    pad = 4 if es == 4 else 8
+
+    def ring(bk):
+        return es * (TILE_Q * (hd + pad) + 2 * bk * (hd + pad + hdv + pad))
+    if (hd, hdv) != WIDE:
+        return Geometry(64, 0, ring(64))
+    bk = 32 if es == 4 else 64
+    return Geometry(bk, SPAN, ring(bk) + 4 * (4 * 16 * (bk + 8) + 4 * 2 * 2
+                                              * 16))
+
+
+def n_spans(Skv: int) -> int:
+    """The span kernel's grid width for ``Skv`` keys."""
+    return max(1, -(-int(Skv) // SPAN))
+
+
+def _visible(qp: int, Skv: int, causal: bool, window: int):
+    """The first and last key a query at absolute position qp may see."""
+    lo, hi = 0, Skv - 1
+    if causal:
+        hi = min(hi, qp)
+        if window:
+            lo = max(0, qp - window + 1)
+    return lo, hi
+
+
+def span_plan(Sq: int, Skv: int, *, causal=True, window=0, q_offset=None):
+    """The hd-256 kernel's split of the key range: the span count; per
+    query row the spans it reads, as ``range(first, end)`` (they depend only
+    on the row's absolute position, Skv and the window); and the live CTAs
+    as (query tile, span) pairs: those where some row of the tile sees a
+    key of the span."""
+    q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
+    ns = n_spans(Skv)
+    rows = []
+    for i in range(Sq):
+        lo, hi = _visible(q_offset + i, Skv, causal, window)
+        rows.append(range(lo // SPAN, hi // SPAN + 1) if hi >= lo
+                    else range(0))
+    ctas = []
+    for qt in range(-(-Sq // TILE_Q)):
+        q0, last = qt * TILE_Q, min((qt + 1) * TILE_Q, Sq) - 1
+        kv_lo, kv_hi = 0, Skv
+        if causal:
+            kv_hi = min(Skv, q_offset + last + 1)
+            if window:
+                kv_lo = max(0, q_offset + q0 - window + 1)
+        ctas += [(qt, s) for s in range(ns)
+                 if max(kv_lo, s * SPAN) < min(kv_hi, (s + 1) * SPAN)]
+    return ns, rows, ctas
 
 
 def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int,
@@ -62,6 +140,64 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hdv).to(q.dtype)
 
 
+def flash_partials_plain(q, k, v, *, causal=True, window=0, scale=None,
+                         q_offset=None):
+    """The span pass: per (b, h, query row, span) the softmax state over the
+    keys of that span the row may see, in the kernel's log2 domain: ``m``
+    the max of q.k * scale * log2(e), ``l`` the sum of 2^(x - m), ``acc``
+    the 2^(x - m)-weighted V sum, in f32.  A span the row cannot see holds
+    (-1e30, 0, 0).  Shapes (B, H, Sq, n_spans) and (..., hdv)."""
+    B, Sq, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    hdv = v.shape[-1]
+    G = H // Kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
+    ns = n_spans(Skv)
+    pad = ns * SPAN - Skv
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    x = torch.einsum("bqhgk,bjhk->bhgqj", q.float().reshape(B, Sq, Kh, G, hd),
+                     kf) * (scale * LOG2E)
+    mask = attention_mask(Sq, ns * SPAN, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    mask &= (torch.arange(ns * SPAN, device=q.device) < Skv)[None, :]
+    x = torch.where(mask, x, torch.full_like(x, NEG_INF))
+    x = x.reshape(B, Kh, G, Sq, ns, SPAN)
+    m = x.amax(dim=-1)
+    p = torch.where(mask.reshape(Sq, ns, SPAN),
+                    torch.exp2(x - m[..., None]), torch.zeros_like(x))
+    acc = torch.einsum("bhgqsj,bsjhk->bhgqsk", p,
+                       vf.reshape(B, ns, SPAN, Kh, hdv))
+    return (m.reshape(B, H, Sq, ns), p.sum(dim=-1).reshape(B, H, Sq, ns),
+            acc.reshape(B, H, Sq, ns, hdv))
+
+
+def flash_combine_plain(m, l, acc, *, Skv: int, causal=True, window=0,
+                        q_offset=None, dtype=torch.float32):
+    """The combine pass: each row's spans (``span_plan``) merged in span
+    order; spans the row does not read may hold anything.  Returns (B, Sq,
+    H, hdv) in ``dtype``."""
+    B, H, Sq, ns = m.shape
+    _, rows, _ = span_plan(Sq, Skv, causal=causal, window=window,
+                           q_offset=q_offset)
+    live = torch.zeros((Sq, ns), dtype=torch.bool, device=m.device)
+    for i, r in enumerate(rows):
+        live[i, r.start:r.stop] = True
+    mx = torch.full((B, H, Sq), NEG_INF, device=m.device)
+    for s in range(ns):
+        mx = torch.where(live[:, s], torch.maximum(mx, m[..., s]), mx)
+    L = torch.zeros((B, H, Sq), device=m.device)
+    O = torch.zeros(acc.shape[:3] + acc.shape[4:], device=m.device)
+    for s in range(ns):                        # span order, as the kernel
+        c = torch.exp2(m[..., s] - mx)
+        L = torch.where(live[:, s], L + l[..., s] * c, L)
+        O = torch.where(live[:, s, None], O + acc[..., s, :] * c[..., None],
+                        O)
+    o = O * (1.0 / torch.clamp(L, min=1e-30))[..., None]
+    return o.permute(0, 2, 1, 3).to(dtype)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, q_offset: int | None = None):
     """q: (B, Sq, H, hd); k/v: (B, Skv, Kh, hd/hdv). Returns (B, Sq, H, hdv).
@@ -88,6 +224,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash attention: the kernel copies k and v rows in "
                          "16-byte pieces; both must start on a 16-byte "
                          "boundary")
+    if (hd, hdv) == WIDE and q.data_ptr() % 16:
+        raise ValueError("flash attention: at hd 256 the kernel copies q "
+                         "rows in 16-byte pieces too; q must start on a "
+                         "16-byte boundary")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -101,11 +241,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty((B, Sq, H, hdv), dtype=q.dtype, device=q.device)
     if Sq == 0:
         return out
+    geo = _geometry(hd, hdv, q.dtype)
+    # the span pass's partials: (m, l, acc[hdv]) per (b, h, row, span)
+    scratch = (torch.empty(B * H * Sq * n_spans(Skv) * (hdv + 2),
+                           dtype=torch.float32, device=q.device)
+               if geo.span else None)
     lib = build.library("flash_attention")
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        H, Kh, hd, hdv, q_offset, int(causal), int(window), scale,
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, B, Sq, Skv, H,
+        Kh, hd, hdv, q_offset, int(causal), int(window), scale,
+        _DTYPES[q.dtype], geo.span, geo.smem,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     build.launches["flash_attention"] += 1
     return out

@@ -238,11 +238,12 @@ def test_cuda_flash_wide_heads(cuda_dev, dt, hd, hdv, Sq, Skv, H, Kh, window,
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [0, 128])
 @pytest.mark.parametrize("chunk", [16, 64, 128])
-def test_cuda_flash_chunk_composition_hd256(cuda_dev, dt, window, chunk):
+@pytest.mark.parametrize("Sp", [512, 571])
+def test_cuda_flash_chunk_composition_hd256(cuda_dev, dt, window, chunk, Sp):
     """Chunk-by-chunk calls give one call's bits at hd 256 too, with and
-    without a window."""
-    rng = np.random.default_rng(window + chunk)
-    Sp = 512
+    without a window, at a bucket and at gemma3-1b's longest prompt (571,
+    off the 128-key spans and the 64-row tiles)."""
+    rng = np.random.default_rng(window + chunk + Sp)
     q = _rand(rng, (1, Sp, 4, 256), dt, cuda_dev)
     k = _rand(rng, (1, Sp, 1, 256), dt, cuda_dev)
     v = _rand(rng, (1, Sp, 1, 256), dt, cuda_dev)
@@ -251,6 +252,101 @@ def test_cuda_flash_chunk_composition_hd256(cuda_dev, dt, window, chunk):
                              causal=True, window=window, q_offset=c0)
              for c0 in range(0, Sp, chunk)]
     assert torch.equal(torch.cat(parts, 1), whole)
+
+
+# (Sq, Skv, H, Kh, window, q_offset) across the 128-key spans' edges and
+# off the 64-row query tiles
+FLASH_SPAN_CASES = [
+    (127, 127, 4, 1, 0, None), (128, 128, 4, 1, 0, None),
+    (129, 129, 4, 1, 0, None), (65, 257, 4, 1, 0, 192),
+    (63, 256, 4, 1, 0, 193), (129, 384, 8, 2, 100, 255),
+    (1, 129, 4, 1, 0, None), (200, 200, 4, 1, 128, None),
+    (300, 300, 4, 1, 129, None), (64, 640, 4, 4, 0, 300),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_flash_span_edges_hd256(cuda_dev, dt):
+    """The hd-256 span kernel across span edges (a window one key past a
+    span, rows whose spans start mid-span), off the query tile, and with
+    GQA 1, 4 and 8: against the plain version, and the same bits again."""
+    rng = np.random.default_rng(128)
+    for Sq, Skv, H, Kh, window, q_offset in FLASH_SPAN_CASES:
+        q = _rand(rng, (1, Sq, H, 256), dt, cuda_dev)
+        k = _rand(rng, (1, Skv, Kh, 256), dt, cuda_dev)
+        v = _rand(rng, (1, Skv, Kh, 256), dt, cuda_dev)
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        out = flash_attention(q, k, v, **kw)
+        torch.testing.assert_close(
+            out.float(), flash_attention_plain(q, k, v, **kw).float(),
+            **TOL[dt], msg=lambda m: f"Sq={Sq} Skv={Skv} H={H} Kh={Kh} "
+                                     f"window={window} q_offset={q_offset}: "
+                                     f"{m}")
+        assert torch.equal(flash_attention(q, k, v, **kw), out)
+
+
+# cache lengths at the hd-256 cluster's slice edges and the chunks' edges
+SLICE_EDGE_LENS = [1, 31, 32, 33, 127, 128, 129, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_cuda_decode_slice_edges_hd256(cuda_dev, dt, G):
+    """hd 256 with cache_len at the cluster slices' edges (1, 31, 32, 33,
+    127, 128, 129, Smax): dense and paged against the plain versions, paged
+    == gather == dense bit for bit, and the same bits again on a second
+    call (the folded combine's counters start each call at zero)."""
+    rng = np.random.default_rng(31 + G)
+    lens, bs, Smax = SLICE_EDGE_LENS, 16, 512
+    B, Kh = len(lens), 1
+    q = _rand(rng, (B, Kh * G, 256), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, Smax, 256), dt, cuda_dev)
+    vc = _rand(rng, (B, Kh, Smax, 256), dt, cuda_dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda_dev)
+    dense = decode_attention(q, kc, vc, cl)
+    torch.testing.assert_close(dense.float(), decode_attention_plain(
+        q, kc, vc, cl).float(), **TOL[dt])
+    kp, vp, bt = _pools(rng, lens, Kh, 256, bs, Smax // bs + 1, dt, cuda_dev)
+    paged = paged_decode_attention(q, kp, vp, bt, cl)
+    torch.testing.assert_close(paged.float(), paged_decode_attention_plain(
+        q, kp, vp, bt, cl).float(), **TOL[dt])
+    kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
+    for b, n in enumerate(lens):
+        kc[b, :, :n] = kg[b, :, :n]
+        vc[b, :, :n] = vg[b, :, :n]
+    assert torch.equal(decode_attention(q, kg, vg, cl), paged)
+    assert torch.equal(decode_attention(q, kc, vc, cl), paged)
+    for _ in range(2):
+        assert torch.equal(paged_decode_attention(q, kp, vp, bt, cl), paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_decode_hd256_calls_in_turn(cuda_dev, dt):
+    """Calls of other shapes and lengths in between (empty slots, one slot,
+    a cache of 40 chunks) leave a call's bits as they were, and an empty
+    slot's output is zero."""
+    rng = np.random.default_rng(5)
+    q = _rand(rng, (8, 4, 256), dt, cuda_dev)
+    kc = _rand(rng, (8, 1, 1024, 256), dt, cuda_dev)
+    vc = _rand(rng, (8, 1, 1024, 256), dt, cuda_dev)
+    cl = torch.tensor([1024, 0, 17, 512, 600, 0, 1000, 64], dtype=torch.int32,
+                      device=cuda_dev)
+    first = decode_attention(q, kc, vc, cl)
+    assert not bool(first[cl == 0].any())
+    long_k = _rand(rng, (2, 2, 40 * CHUNK, 256), dt, cuda_dev)
+    long_q = _rand(rng, (2, 8, 256), dt, cuda_dev)
+    long_cl = torch.tensor([40 * CHUNK, 39 * CHUNK + 5], dtype=torch.int32,
+                           device=cuda_dev)
+    for _ in range(3):
+        decode_attention(q[:1], kc[:1], vc[:1], cl[:1])
+        decode_attention(q, kc, vc, torch.zeros_like(cl))
+        out = decode_attention(long_q, long_k, long_k, long_cl)
+        assert torch.equal(decode_attention(q, kc, vc, cl), first)
+    torch.testing.assert_close(out.float(), decode_attention_plain(
+        long_q, long_k, long_k, long_cl).float(), **TOL[dt])
 
 
 @pytest.mark.cuda

@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Hold the hd <= 128 and (192, 128) attention kernels of two trees to the
+same bits, on one NVIDIA GPU.
+
+    python3 tools/kernel_bits.py save TREE OUT.pt    # TREE: a checkout's root
+    python3 tools/kernel_bits.py compare A.pt B.pt
+
+``save`` builds TREE's kernels (into build/kernels_<tree>/ beside the usual
+build directory, so two trees never share a library) and stores their
+outputs on fixed inputs made from seed 0: dense and paged decode at hd 16,
+32, 64 and 128 with G = 1, 4 and 8 and cache lengths at chunk edges, and
+flash at (hd, hdv) = (16, 16) ... (128, 128) and (192, 128), causal, with a
+window and a q_offset, in f32 and bf16.  ``compare`` exits non-zero unless
+every output is equal bit for bit.  To compare a commit with its parent,
+unpack the parent into a git-ignored directory (``git archive``) and run
+save for parent, change, change, parent, then compare each pair.
+"""
+import sys
+from pathlib import Path
+
+
+def save(tree: str, out: str) -> int:
+    root = Path(tree).resolve()
+    sys.path.insert(0, str(root / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    build.BUILD_DIR = (build.BUILD_DIR.parent /
+                       ("kernels_" + "_".join(root.parts[1:])))
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = "cuda"
+    outs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(0)
+
+        def rnd(*shape):
+            x = rng.standard_normal(shape).astype(np.float32)
+            return torch.from_numpy(x).to(dev, dt)
+        cl = torch.tensor([300, 1, 129, 0, 257], dtype=torch.int32,
+                          device=dev)
+        for hd in (16, 32, 64, 128):
+            for H, Kh in ((16, 16), (8, 2), (8, 1)):
+                q = rnd(5, H, hd)
+                kc, vc = rnd(5, Kh, 300, hd), rnd(5, Kh, 300, hd)
+                outs[f"decode {dt} hd={hd} H={H} Kh={Kh}"] = \
+                    decode_attention(q, kc, vc, cl).cpu()
+                kp, vp = rnd(40, Kh, 16, hd), rnd(40, Kh, 16, hd)
+                bt = torch.from_numpy(
+                    rng.integers(1, 40, (5, 19)).astype(np.int32)).to(dev)
+                outs[f"paged {dt} hd={hd} H={H} Kh={Kh}"] = \
+                    paged_decode_attention(q, kp, vp, bt, cl).cpu()
+        for hd, hdv in ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128)):
+            for Sq, Skv, win, qo in ((512, 512, 0, None), (200, 330, 64, 130),
+                                     (65, 65, 0, None)):
+                q, k, v = rnd(1, Sq, 8, hd), rnd(1, Skv, 4, hd), \
+                    rnd(1, Skv, 4, hdv)
+                outs[f"flash {dt} ({hd}, {hdv}) Sq={Sq} Skv={Skv} "
+                     f"window={win}"] = flash_attention(
+                         q, k, v, causal=True, window=win,
+                         q_offset=qo).cpu()
+    torch.save(outs, out)
+    print(f"{root}: {len(outs)} outputs saved to {out}")
+    return 0
+
+
+def compare(a: str, b: str) -> int:
+    import torch
+    x, y = torch.load(a), torch.load(b)
+    bad = [k for k in x if k not in y or not torch.equal(x[k], y[k])]
+    print(f"{a} vs {b}: {len(x)} outputs, {len(bad)} differ"
+          + (": " + ", ".join(bad[:10]) if bad else ""))
+    return 1 if bad or set(x) != set(y) else 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] in ("save", "compare"):
+        sys.exit((save if sys.argv[1] == "save" else compare)(*sys.argv[2:]))
+    print(__doc__, file=sys.stderr)
+    sys.exit(2)
