@@ -18,9 +18,12 @@ Phases, each fatal on failure:
      (head_dim 256, one kv head, a 512-token window) and MLA prefill's
      (hd 192, hdv 128), with each hd-256 kernel's launch geometry (CTAs,
      cluster size, dynamic shared memory, registers and spills from the
-     build's -Xptxas -v) and its combine's share of the device time;
+     build's -Xptxas -v) and its combine's share of the device time; and
+     at head_dim 128, deepseek-moe-16b's (16 heads) and jamba-v0.1-52b's
+     (32 on 8 kv heads) decode, paged decode and flash shapes;
   4. check the port's logits on the card against its CPU path (smoke size,
-     qwen1.5-0.5b, rwkv6-1.6b and gemma3-1b);
+     qwen1.5-0.5b, rwkv6-1.6b, gemma3-1b, deepseek-moe-16b and
+     jamba-v0.1-52b);
   5. serve full-width qwen1.5-0.5b (random weights from seed 0): a dense
      run through FlexPipeEngine.run, then dense, paged-gather and
      paged-kernel runs refactored [0,12] -> [0,6,12,18] -> [0,12] mid-stream;
@@ -50,7 +53,20 @@ Phases, each fatal on failure:
      [0,13] -> [0,7,14,20] -> [0,13], streams bit-identical, every prefill
      and decode step through the flash and decode kernels, decode ==
      forward for two requests, and three profiled decode ticks, their
-     device time by kernel beside the one-CTA-per-chunk decode kernel's.
+     device time by kernel beside the one-CTA-per-chunk decode kernel's;
+ 12. serve full-width deepseek-moe-16b (28 layers, 64 routed experts top-6
+     and 2 shared, head_dim 128): run(), dense and paged-kernel runs
+     refactored [0,14] -> [0,7,14,21] -> [0,14] with streams bit-identical
+     and paged == dense, a chunk-128 run whose streams are counted where
+     they differ from whole-prompt prefill (capacity drops: the
+     reference's behaviour), decode == forward for two requests at the
+     capacity factor E/K (nothing dropped), three profiled decode ticks
+     and the peak device memory;
+ 13. serve full-width jamba-v0.1-52b cut to one 8-layer Jamba block (7
+     Mamba layers, 1 attention layer, 4 MoE MLPs of 16 experts):
+     run() and a run refactored [0,4] -> [0,2,4,6] -> [0,4] with streams
+     bit-identical, decode == forward at capacity factor E/K on requests
+     in reused slots, three profiled decode ticks and the peak memory.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -60,6 +76,8 @@ import os
 # deterministic cuBLAS: bit-identical streams across runs need it
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import dataclasses  # noqa: E402
+import gc  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -70,6 +88,7 @@ from pathlib import Path  # noqa: E402
 import numpy as np  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # H100 SXM data sheet peaks (NVIDIA), dense, at the 700 W limit
 PEAK_BYTES = 3.35e12
@@ -359,7 +378,7 @@ def kernel_checks(torch):
     log(f"  {'flash_attention chunk':24s} {c['ms']:.4f} ms  plain "
         f"{c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  bound "
         f"{c['bound_ms']:.4f} ms ({by})  [{c['shape']}]")
-    wide_head_checks(torch, rnd, compare, decode_case, results)
+    head_shape_checks(torch, rnd, compare, decode_case, results)
     wkv_checks(torch, rnd, results)
     for name, r in results.items():
         lib = r["library_ms"]
@@ -370,13 +389,16 @@ def kernel_checks(torch):
     return results
 
 
-def wide_head_checks(torch, rnd, compare, decode_case, results):
-    """gemma3-1b's attention shapes (hd 256, 4 query heads on one kv head)
-    and MLA prefill's (hd 192, hdv 128), f32 and bf16, against the plain
-    versions: flash at a 571-token prompt, local (window 512) and global,
-    and at (192, 128); dense decode on a 512-row ring and a 1024-row global
-    cache; paged == gather == dense bit for bit.  Each f32 case is timed
-    beside its bound and one SDPA call."""
+def head_shape_checks(torch, rnd, compare, decode_case, results):
+    """gemma3-1b's attention shapes (hd 256, 4 query heads on one kv head),
+    MLA prefill's (hd 192, hdv 128), and deepseek-moe-16b's (hd 128, 16
+    heads) and jamba-v0.1-52b's (hd 128, 32 heads on 8 kv heads), f32 and
+    bf16, against the plain versions: flash at a 571-token prompt, local
+    (window 512) and global, at (192, 128) and at hd 128 (Sq = Skv = 512,
+    causal); dense and paged decode on a 512-row ring and 1024-row caches;
+    paged == gather == dense bit for bit.  Each f32 case is timed beside its
+    bound and one SDPA call; each hd-256 one also reports its launch
+    geometry and its combine's share."""
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain, paged_decode_attention,
         paged_decode_attention_plain)
@@ -397,6 +419,8 @@ def wide_head_checks(torch, rnd, compare, decode_case, results):
         ("hd256_window", 571, 4, 1, 256, 256, 512),
         ("hd256_causal", 571, 4, 1, 256, 256, 0),
         ("hd192_128", 512, 16, 16, 192, 128, 0),
+        ("hd128", 512, 16, 16, 128, 128, 0),
+        ("hd128_gqa", 512, 32, 8, 128, 128, 0),
     ]
     for key, S, H, Kh, hd, hdv, win in flash:
         shape = (f"B=1 Sq=Skv={S} H={H} Kh={Kh} hd={hd} hdv={hdv} "
@@ -437,15 +461,20 @@ def wide_head_checks(torch, rnd, compare, decode_case, results):
                 log(f"  {'  geometry, shares':24s} "
                     + json.dumps({x: r[x] for x in WIDE_KEYS if x in r}))
     # gemma3 decode: one kv head, G = 4; a local layer's 512-row ring and a
-    # global layer's 1024 rows; lengths at the split kernel's chunk edges
-    B, H, Kh, hd = 8, 4, 1, 256
-    decode = [  # (key, Smax, cache_len)
-        ("hd256_ring", 512, [1, 127, 128, 129, 512, 255, 384, 511]),
-        ("hd256_global", 1024, [1024, 1, 17, 512, 600, 333, 1000, 64]),
+    # global layer's 1024 rows; lengths at the split kernel's chunk edges.
+    # Then deepseek-moe-16b's and jamba-v0.1-52b's 1024-row caches at hd 128
+    B = 8
+    ragged = [1024, 1, 17, 512, 600, 333, 1000, 64]
+    decode = [  # (key, H, Kh, hd, Smax, cache_len)
+        ("hd256_ring", 4, 1, 256, 512, [1, 127, 128, 129, 512, 255, 384,
+                                        511]),
+        ("hd256_global", 4, 1, 256, 1024, ragged),
+        ("hd128_mha", 16, 16, 128, 1024, ragged),
+        ("hd128_gqa", 32, 8, 128, 1024, ragged),
     ]
-    for key, Smax, lens in decode:
+    for key, H, Kh, hd, Smax, lens in decode:
         lens = np.array(lens, np.int32)
-        label = f"hd=256 G=4 Smax={Smax}"
+        label = f"hd={hd} H={H} Kh={Kh} Smax={Smax}"
         for dt in ("float32", "bfloat16"):
             q, kc, vc, cl, kp, vp, bt, pcl, plens = decode_case(
                 dt, lens, label, (H, Kh, hd, Smax))
@@ -474,13 +503,14 @@ def wide_head_checks(torch, rnd, compare, decode_case, results):
             log(f"  {'decode_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                 f"bound {t_bound:.4f} ms ({by})  [{shape}]")
-            r.update(decode_geometry(torch, lens, Smax, B, H, Kh))
-            r.update(split_share(torch, "decode_combine",
-                                 lambda: decode_attention(q, kc, vc, cl)))
-            log(f"  {'  geometry, shares':24s} "
-                + json.dumps({x: r[x] for x in WIDE_KEYS if x in r}))
+            if hd == 256:
+                r.update(decode_geometry(torch, lens, Smax, B, H, Kh))
+                r.update(split_share(torch, "decode_combine",
+                                     lambda: decode_attention(q, kc, vc, cl)))
+                log(f"  {'  geometry, shares':24s} "
+                    + json.dumps({x: r[x] for x in WIDE_KEYS if x in r}))
             # the paged kernel shares the core: off gemma3's path (windowed
-            # configs do not page), timed at the same shape for its row
+            # configs do not page), timed at each shape for its row
             plive = int(plens.sum())
             pbytes = (B * H * hd * 2 + plive * Kh * 2 * hd) * 4 + B * 4 \
                 + sum(-(-int(x) // 16) for x in plens) * 4
@@ -899,6 +929,20 @@ def profile_ticks(torch, eng, ticks):
     return out
 
 
+def count_syncs(torch, eng):
+    """The calls of one decode tick that wait for the device (the B-id copy
+    must), one line each."""
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng.decode_step(0.0)
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    log(f"  synchronizing calls in one decode tick: {len(syncs)}")
+    return syncs
+
+
 def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     """Device time by kernel over a few steady dense decode ticks at batch 8,
     and the device's idle share of their wall time.  A cold refactor may
@@ -925,15 +969,7 @@ def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     check(extra * extra_limit <= live,
           f"cold refactor allocated {extra} B beside a {live} B live cache "
           f"(limit 1/{extra_limit})")
-    # which calls of one tick wait for the device (the B-id copy must)
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        eng.decode_step(0.0)
-    torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message).splitlines()[0] for w in caught
-             if "synchroniz" in str(w.message)]
-    log(f"  synchronizing calls in one decode tick: {len(syncs)}")
+    syncs = count_syncs(torch, eng)
     for m in syncs[:6]:
         log(f"    {m[:100]}")
     out = {"cold_refactor_ms": cold["t"] * 1e3, "cold_extra_bytes": extra,
@@ -1031,15 +1067,15 @@ def decode_equals_forward(torch, cfg, params, reqs):
 
 
 def serving(torch, card, arch, generator, refactored, prefix="",
-            boundaries=(0, 12), moves=None):
-    """Serve full-width ``arch``: a dense run through run(), then one run
-    per ``refactored`` entry (label -> KV config) refactored mid-stream
-    (``moves``: tick -> boundaries); every stream must equal the run()
-    streams."""
+            boundaries=(0, 12), moves=None, cfg=None):
+    """Serve full-width ``arch`` (or ``cfg``, a depth cut of it): a dense
+    run through run(), then one run per ``refactored`` entry (label -> KV
+    config) refactored mid-stream (``moves``: tick -> boundaries); every
+    stream must equal the run() streams."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models.transformer import init_model
 
-    cfg = get_arch(arch).config
+    cfg = cfg or get_arch(arch).config
     t0 = time.perf_counter()
     params = init_model(cfg, generator, device="cuda")
     n = sum(t.numel() for t in tree_leaves(params))
@@ -1784,6 +1820,193 @@ GEMMA3_TICK_EARLIER = [
 
 
 # ---------------------------------------------------------------------------
+# phases 12 and 13: full-width deepseek-moe-16b and jamba-v0.1-52b
+# ---------------------------------------------------------------------------
+
+GiB = 1024 ** 3
+# deepseek-moe-16b runs at full depth: 67.5 GB of f32 weights and 3.76 GB of
+# dense caches at batch 8 x 1024 rows must leave at least 4 GiB of the card
+# jamba-v0.1-52b (51.6 B params, 206 GB f32) cut to one 8-layer Jamba block
+# (13.3 B params, 53.2 GB): the depth is cut, no width
+JAMBA_LAYERS = 8
+
+
+def free_weights(torch):
+    """Drop what earlier phases left on the card; the bytes still held."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_memory(torch, label):
+    """The peak device memory since the last reset, and what it left free
+    of the card's total."""
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    out = {"peak_allocated_bytes": peak, "card_total_bytes": total,
+           "headroom_bytes": total - peak}
+    log(f"  {label} peak device memory: {peak / GiB:.2f} GiB allocated of "
+        f"{total / GiB:.2f} GiB ({(total - peak) / GiB:.2f} GiB left)")
+    return out
+
+
+def no_drop(cfg):
+    """``cfg`` at capacity factor E/K: every expert takes every row of a
+    call (cap >= T), so a decode tick and a whole-sequence forward keep
+    the same assignments."""
+    mo = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+
+
+def decode_equals_forward_no_drop(torch, cfg, params, rids, boundaries):
+    """Phase 5's 16 requests served at capacity factor E/K with the same
+    weights, then decode == forward for ``rids`` (admitted into reused
+    slots)."""
+    from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
+    from repro_torch.serving.workload import Request
+
+    cfg = no_drop(cfg)
+    eng = FlexPipeEngine(cfg, params, list(boundaries),
+                         EngineConfig(max_batch=8, max_seq=1024))
+    reqs = make_requests(cfg, Request)
+    eng.run(reqs)
+    check(all(len(r.output) == 32 for r in reqs),
+          f"{cfg.name} at capacity factor E/K: not every request completed")
+    del eng
+    torch.cuda.empty_cache()
+    decode_equals_forward(torch, cfg, params,
+                          [r for r in reqs if r.rid in rids])
+
+
+def profile_moe_ticks(torch, cfg, params, boundaries):
+    """The host syncs of one decode tick, then three steady decode ticks
+    under the profiler: device busy, idle share and the kernels that take
+    the time."""
+    eng = loaded_engine(torch, cfg, params, boundaries)
+    syncs = count_syncs(torch, eng)
+    prof = profile_ticks(torch, eng, 3)
+    prof["syncs_per_tick"] = len(syncs)
+    del eng
+    torch.cuda.empty_cache()
+    by_kernel = prof.pop("by_kernel", [])
+    prof["top_kernels"] = [(k[:80], round(us, 1), round(n, 1))
+                           for k, us, n in by_kernel[:12]]
+    return prof
+
+
+def want_launches(label, run, want):
+    for name, n in want.items():
+        got = run["launches"].get(name, 0)
+        log(f"  {name} launches in {label}: {got} (want {n})")
+        check(got == n, f"{label}: {name} launched {got} times, not {n}")
+
+
+def deepseek_phase(torch, card):
+    """Full-width deepseek-moe-16b on phase 5's 16 requests: run(), then
+    dense and paged-kernel runs refactored [0, 14] -> [0, 7, 14, 21] at
+    tick 10 and back at tick 30; streams bit-identical, paged == dense
+    (each tick routes the same batch, so capacity drops agree); flash 28
+    per prefill, decode (paged decode in the paged run) 28 per decoding
+    tick.  A chunk-128 run counts the streams that differ from whole-prompt
+    prefill (the capacity depends on the tokens in a call, as in the
+    reference).  Decode == forward at capacity factor E/K for requests 8
+    and 13; three profiled decode ticks; the peak device memory."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.serving.engine import EngineConfig, PrefillConfig
+
+    t0 = time.perf_counter()
+    held = free_weights(torch)
+    log(f"  device memory held from earlier phases: {held} B")
+    cfg = get_arch("deepseek-moe-16b").config
+    half = cfg.n_layers // 2
+    quarter = [0, half // 2, half, half + half // 2]
+    cfg, params, reqs, runs = serving(
+        torch, card, "deepseek-moe-16b",
+        torch.Generator(device="cuda").manual_seed(0),
+        {"dense refactored": {},
+         "paged kernel refact.": dict(paged=True, block_size=16,
+                                      paged_kernel=True)},
+        prefix="deepseek-moe ", boundaries=(0, half),
+        moves={10: quarter, 30: [0, half]}, cfg=cfg)
+    L = cfg.n_layers
+    dense = runs["deepseek-moe dense refactored"]
+    want_launches("the dense refactored run", dense, {
+        "flash_attention": L * len(reqs),
+        "decode_attention": L * dense["ticks_decoding"]})
+    paged = runs["deepseek-moe paged kernel refact."]
+    want_launches("the paged kernel run", paged, {
+        "flash_attention": L * len(reqs),
+        "paged_decode_attention": L * paged["ticks_decoding"],
+        "decode_attention": 0})
+    base = {r.rid: list(r.output) for r in reqs}
+    streams, _, info, eng = serve_loop(
+        torch, "deepseek-moe chunk128 dense", cfg, params,
+        EngineConfig(max_batch=8, max_seq=1024,
+                     prefill=PrefillConfig(chunk=128)), boundaries=(0, half))
+    del eng
+    torch.cuda.empty_cache()
+    n_chunks = info["counters"]["prefill_chunks"]
+    want_launches("the chunk-128 run", info,
+                  {"flash_attention": L * n_chunks})
+    differ = sorted(r for r in base if streams[r] != base[r])
+    first = {r: next(j for j, (a, b) in enumerate(zip(base[r], streams[r]))
+                     if a != b) for r in differ}
+    log(f"  chunk-128 streams that differ from whole-prompt prefill: "
+        f"{len(differ)} of 16 (first differing token by request: {first}); "
+        "capacity drops depend on the tokens in a call, as in the "
+        "reference (ROADMAP.md, section 3): counted, not failed")
+    runs["deepseek-moe chunk128 dense"] = info
+    decode_equals_forward_no_drop(torch, cfg, params, (8, 13), (0, half))
+    prof = profile_moe_ticks(torch, cfg, params, (0, half))
+    mem = peak_memory(torch, "deepseek-moe-16b")
+    out = {"layers": L, "chunk128_streams_differing": len(differ),
+           "chunk128_first_differing_token": first, **prof, **mem,
+           "s": time.perf_counter() - t0}
+    check(mem["headroom_bytes"] >= 4 * GiB,
+          f"deepseek-moe-16b at full depth left {mem['headroom_bytes']} B "
+          "free at its peak, under 4 GiB")
+    log(f"  deepseek-moe-16b phase on {card}: {json.dumps(out)}")
+    return runs, out
+
+
+def jamba_phase(torch, card):
+    """jamba-v0.1-52b cut to one Jamba block (8 layers) at full width, on
+    phase 5's 16 requests: run(), then a run refactored [0, 4] ->
+    [0, 2, 4, 6] at tick 10 and back at 30, exact-length prefill; streams
+    bit-identical; flash once per prefill and decode once per decoding tick
+    (the one attention layer); decode == forward at capacity factor E/K for
+    requests 8 and 13, whose slots were used before (Mamba state carried
+    across prefill, ticks and slot reuse); three profiled decode ticks; the
+    peak device memory."""
+    from repro_torch.configs.base import get_arch, shrink
+
+    t0 = time.perf_counter()
+    held = free_weights(torch)
+    log(f"  device memory held from earlier phases: {held} B")
+    cfg = shrink(get_arch("jamba-v0.1-52b").config, n_layers=JAMBA_LAYERS)
+    cfg, params, reqs, runs = serving(
+        torch, card, "jamba-v0.1-52b",
+        torch.Generator(device="cuda").manual_seed(0),
+        {"dense refactored": {}}, prefix="jamba ", boundaries=(0, 4),
+        moves={10: [0, 2, 4, 6], 30: [0, 4]}, cfg=cfg)
+    n_attn = sum(1 for i in range(cfg.n_layers)
+                 if cfg.layer_kind(i).mixer == "attn")
+    run = runs["jamba dense refactored"]
+    want_launches("the refactored run", run, {
+        "flash_attention": n_attn * len(reqs),
+        "decode_attention": n_attn * run["ticks_decoding"]})
+    decode_equals_forward_no_drop(torch, cfg, params, (8, 13), (0, 4))
+    prof = profile_moe_ticks(torch, cfg, params, (0, 4))
+    mem = peak_memory(torch, "jamba-v0.1-52b (8 layers)")
+    out = {"layers": cfg.n_layers, "attention_layers": n_attn, **prof,
+           **mem, "s": time.perf_counter() - t0}
+    log(f"  jamba-v0.1-52b phase on {card}: {json.dumps(out)}")
+    return runs, out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1815,7 +2038,8 @@ def main() -> int:
     log("== 3. kernels vs plain versions")
     kres = kernel_checks(torch)
     log("== 4. small-input model check")
-    for arch in ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b"):
+    for arch in ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b",
+                 "deepseek-moe-16b", "jamba-v0.1-52b"):
         small_model_check(torch, arch)
     log("== 5. serving qwen1.5-0.5b")
     cfg, params, base_reqs, runs = serving(
@@ -1876,6 +2100,10 @@ def main() -> int:
     del params, rwkv, qwen
     torch.cuda.empty_cache()
     g_runs = gemma3_phase(torch, card)
+    log("== 12. serving deepseek-moe-16b")
+    d_runs, d_out = deepseek_phase(torch, card)
+    log("== 13. serving jamba-v0.1-52b (one 8-layer Jamba block)")
+    j_runs, j_out = jamba_phase(torch, card)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -1939,10 +2167,31 @@ def main() -> int:
             kernels[-1]["gemma3_launched_in"] = "gemma3 dense refactored"
             check(kernels[-1]["launches_gemma3"] > 0,
                   f"{name} was not launched on the gemma3 path")
+        if name != "wkv6":
+            dpath = ("deepseek-moe paged kernel refact."
+                     if name == "paged_decode_attention"
+                     else "deepseek-moe dense refactored")
+            kernels[-1]["launches_deepseek_moe"] = \
+                d_runs[dpath]["launches"].get(name, 0)
+            kernels[-1]["deepseek_moe_launched_in"] = dpath
+            check(kernels[-1]["launches_deepseek_moe"] > 0,
+                  f"{name} was not launched on the deepseek-moe path")
+            kernels[-1]["launches_jamba"] = \
+                j_runs["jamba dense refactored"]["launches"].get(name, 0)
+            kernels[-1]["jamba_launched_in"] = "jamba dense refactored"
+            # Mamba state does not page: jamba serves on dense caches only
+            paged_only = name == "paged_decode_attention"
+            check((kernels[-1]["launches_jamba"] == 0) == paged_only,
+                  f"{name} launched {kernels[-1]['launches_jamba']} times "
+                  "on the jamba path")
         for key in ("hd256_window", "hd256_causal", "hd192_128",
-                    "hd256_ring", "hd256_global"):
+                    "hd256_ring", "hd256_global", "hd128", "hd128_mha",
+                    "hd128_gqa"):
             if key in r:
                 kernels[-1][key] = r[key]
+    log(f"  phases 12-13: deepseek-moe-16b {d_out['s']:.1f} s, "
+        f"jamba-v0.1-52b {j_out['s']:.1f} s; chip_smoke.py "
+        f"{time.perf_counter() - T_START:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,27 @@ class LayerKind:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Top-k routed experts (GShard-style capacity), plus always-on shared
+    experts.  ``router_jitter`` is carried as the reference carries it: its
+    ``apply_moe`` does not read it."""
+    n_experts: int
+    top_k: int
+    d_expert: int                 # per-expert hidden dim
+    n_shared: int = 0             # shared (always-on) experts
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
 class SSMConfig:
-    """RWKV-6 sizes (the JAX package's Mamba fields are not ported yet)."""
+    """Mamba-1 and RWKV-6 sizes."""
+    # mamba
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0              # 0 => ceil(d_model/16)
+    # rwkv6
     head_size: int = 64
     decay_lora: int = 64
     mix_lora: int = 32
@@ -55,6 +74,7 @@ class ModelConfig:
     sliding_window: int = 0
     global_every: int = 0
     pattern: tuple[LayerKind, ...] = (LayerKind(),)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     encoder_layers: int = 0
     n_memory_tokens: int = 0
@@ -120,8 +140,10 @@ def get_arch(name: str) -> ArchSpec:
 
 
 def _load_all() -> None:
-    from repro_torch.configs import gemma3_1b  # noqa: F401  (registers)
+    from repro_torch.configs import deepseek_moe_16b  # noqa: F401 (registers)
+    from repro_torch.configs import gemma3_1b  # noqa: F401
     from repro_torch.configs import gemma3_12b  # noqa: F401
+    from repro_torch.configs import jamba_v0_1_52b  # noqa: F401
     from repro_torch.configs import qwen1_5_0_5b  # noqa: F401
     from repro_torch.configs import rwkv6_1_6b  # noqa: F401
 

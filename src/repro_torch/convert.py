@@ -5,11 +5,17 @@ The JAX package keeps params and caches as nested dicts and lists of arrays
 when the head is untied, ``final_norm.scale``, and per block
 ``ln1/ln2.scale`` plus, for attention, ``mixer.wq (d, H, hd)``,
 ``mixer.wk/wv (d, Kh, hd)``, ``mixer.wo (H, hd, d)``, ``mixer.bq/bk/bv`` and
-``mlp.w_gate/w_up (d, ff)``, ``mlp.w_down (ff, d)``, or, for RWKV-6, the
-``mixer`` tree of ``repro.models.ssm.init_rwkv`` (nested ``tm.{w,k,v,r,g}``).
-Caches are per-layer lists of ``{"mixer": {"k", "v"}}`` with dense
-``(B, Kh, Smax, hd)`` rows or paged ``(n_blocks, Kh, block_size, hd)`` pools,
-or RWKV state ``{"mixer": {"sx_tm", "sx_cm", "wkv"}}``.  This module keeps
+``mlp.w_gate/w_up (d, ff)``, ``mlp.w_down (ff, d)`` or, for an MoE MLP,
+``mlp.router (d, E)``, stacked experts ``mlp.w_gate/w_up (E, d, fe)``,
+``mlp.w_down (E, fe, d)`` and the ``mlp.shared`` gated MLP; a Mamba-1
+``mixer`` (``repro.models.ssm.init_mamba``: ``w_x``, ``w_z``, ``conv_w``,
+``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``,
+``out_proj``); or, for RWKV-6, the ``mixer`` tree of
+``repro.models.ssm.init_rwkv`` (nested ``tm.{w,k,v,r,g}``).  Caches are
+per-layer lists of ``{"mixer": {"k", "v"}}`` with dense ``(B, Kh, Smax,
+hd)`` rows or paged ``(n_blocks, Kh, block_size, hd)`` pools, Mamba state
+``{"mixer": {"conv", "ssm"}}`` or RWKV state ``{"mixer": {"sx_tm", "sx_cm",
+"wkv"}}``.  This module keeps
 that layout unchanged and only swaps the leaf type, so it takes numpy
 (after ``np.asarray`` on the JAX side) and never imports JAX.
 """
@@ -79,8 +85,8 @@ def params_from_numpy(tree: dict, device, dtype=torch.float32) -> dict:
 
 
 def cache_from_numpy(caches: list, device, dtype=None) -> list:
-    """Dense, paged or recurrent per-layer caches (numpy leaves) -> torch
-    tensors."""
+    """Dense, paged or recurrent (Mamba, RWKV) per-layer caches (numpy
+    leaves) -> torch tensors."""
     return tree_from_numpy(caches, device, dtype)
 
 

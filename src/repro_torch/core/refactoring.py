@@ -17,8 +17,9 @@ PyTorch idiom, where JAX builds new trees: the engine allocates the
 snapshot once, as a zeroed twin of its live cache tensors, and
 ``snapshot(..., out=twin)`` fills it with ``copy_``; the merges write the
 snapshot's rows into the live tensors in place and return the same list.
-O(1) recurrent state (rwkv ``sx_tm``, ``sx_cm``, ``wkv``) has no token axis
-to mask, so it keeps its live value, as in the reference.
+O(1) recurrent state (rwkv ``sx_tm``, ``sx_cm``, ``wkv``; mamba ``conv``,
+``ssm``) has no token axis to mask, so it keeps its live value, as in the
+reference.
 """
 from __future__ import annotations
 

@@ -1,11 +1,13 @@
 """Quickstart: serve a small model with batched requests through the
 FlexPipe engine, including one live, controller-driven refactoring.
 
-    PYTHONPATH=src python -m repro_torch.launch.quickstart [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.quickstart [--device cpu] \
+        [--arch qwen1.5-0.5b]
 
 The twin of ``examples/quickstart.py``, with random weights from the
 port's own init (seed 0).  ``--device`` defaults to CUDA and raises without
-it.
+it; ``--arch`` serves another registered arch's smoke config (the
+reference serves qwen1.5-0.5b only), starting from two balanced stages.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from repro_torch.core.controller import FlexPipeController
 from repro_torch.core.granularity import GranularityProfile
 from repro_torch.kernels import build
 from repro_torch.models.transformer import init_model
-from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
+from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
+                                        balanced_boundaries)
 from repro_torch.serving.workload import synth_requests
 
 PROFILES = (
@@ -49,14 +52,16 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must exist; "
                          "'cpu' runs the kernels' plain versions)")
-    device = resolve_device(ap.parse_args(argv).device)
-    cfg = get_arch("qwen1.5-0.5b").smoke_config      # reduced config
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch).smoke_config           # reduced config
     print(f"model: {cfg.name} ({cfg.n_layers}L, d={cfg.d_model}) on {device}")
     params = init_model(cfg, torch.Generator().manual_seed(0), device=device)
 
     controller = FlexPipeController(cfg, list(PROFILES))
     engine = FlexPipeEngine(
-        cfg, params, boundaries=[0, 2],
+        cfg, params, boundaries=balanced_boundaries(cfg.n_layers, 2),
         ecfg=EngineConfig(max_batch=4, max_seq=96, control_interval=0.5,
                           # build both granularity profiles up front so the
                           # live refactor below is a pure cache hit

@@ -12,17 +12,18 @@ Two things the reference fixes are explicit here: the hardware, a frozen
 from the serving dtype (4 for the port's f32 serving path).  Passing another
 ``Chip`` and ``bytes_per_el`` reproduces any other set of constants.
 
-Mixers whose configs the port lacks (MLA, Mamba) and MoE MLPs raise
-``NotImplementedError``.  The whole-step model (``step_costs``,
+MLA mixers, whose config the port lacks, raise ``NotImplementedError``.
+The whole-step model (``step_costs``,
 ``hbm_footprint``) waits for the multi-device work (ROADMAP.md, section 1).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_RWKV,
-                                      MLP_DENSE, ModelConfig)
-from repro_torch.models.ssm import rwkv_dims
+from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA,
+                                      MIXER_RWKV, MLP_MOE, ModelConfig)
+from repro_torch.models.layers import moe_capacity
+from repro_torch.models.ssm import mamba_dims, rwkv_dims
 from repro_torch.models.transformer import block_spec, spec_numel
 
 
@@ -89,6 +90,15 @@ def layer_fwd(cfg: ModelConfig, j: int, tok: int, ctx: int, T: int,
         if decode:
             # per decode step each of `tok` requests reads its full k+v cache
             c.hbm_bytes += 2 * Khl * attn_ctx * hd * bytes_per_el * tok
+    elif kind.mixer == MIXER_MAMBA:
+        di, dtr, N, dc = mamba_dims(cfg)
+        dil = di // T
+        c.flops += 2 * tok * d * 2 * dil                           # w_x, w_z
+        c.flops += 2 * tok * dil * dc                              # conv
+        c.flops += 2 * tok * dil * (dtr + 2 * N)                   # x_proj
+        c.flops += 2 * tok * dtr * dil                             # dt_proj
+        c.flops += tok * dil * N * 6                               # scan math
+        c.flops += 2 * tok * dil * d                               # out proj
     elif kind.mixer == MIXER_RWKV:
         H, hs = rwkv_dims(cfg)
         dl = d // T
@@ -111,11 +121,23 @@ def layer_fwd(cfg: ModelConfig, j: int, tok: int, ctx: int, T: int,
 
     # MLP
     if kind.mixer != MIXER_RWKV:
-        if kind.mlp != MLP_DENSE:
-            raise _todo(cfg, f"the {kind.mlp!r} MLP")
-        ffl = cfg.d_ff // T if cfg.d_ff % T == 0 else cfg.d_ff
-        n_mat = 2 if cfg.mlp_act == "gelu" else 3
-        c.flops += n_mat * 2 * tok * cfg.d_model * ffl
+        if kind.mlp == MLP_MOE:
+            mo = cfg.moe
+            E_loc = max(mo.n_experts // T, 1)
+            cap_tok = tok * mo.top_k / (1 if T == 1 else T) \
+                * mo.capacity_factor
+            # dispatch/combine einsums + expert FFN on capacity tokens
+            c.flops += 2 * tok * E_loc * moe_capacity(cfg, tok) * 2
+            c.flops += 3 * 2 * cap_tok * cfg.d_model * mo.d_expert
+            if mo.n_shared:
+                fs = mo.n_shared * mo.d_expert // (
+                    T if (mo.n_shared * mo.d_expert) % T == 0 else 1)
+                c.flops += 3 * 2 * tok * cfg.d_model * fs
+            c.flops += 2 * tok * cfg.d_model * mo.n_experts       # router
+        else:
+            ffl = cfg.d_ff // T if cfg.d_ff % T == 0 else cfg.d_ff
+            n_mat = 2 if cfg.mlp_act == "gelu" else 3
+            c.flops += n_mat * 2 * tok * cfg.d_model * ffl
     return c
 
 

@@ -1,14 +1,15 @@
 """KV cache construction and sizing, the paged block allocator and stage
 regrouping.
 
-Ports the attention- and RWKV-layer parts of ``repro/models/kvcache.py``.
-Two layouts:
+Ports the attention-, Mamba- and RWKV-layer parts of
+``repro/models/kvcache.py``.  Two layouts:
 
 * **dense**: per-layer ``(batch, Kh, max_seq, hd)`` rows, or ``min(max_seq,
   sliding_window)`` rows for a windowed (local) layer, a ring addressed by
-  position modulo its length; an RWKV layer
-  holds its recurrent state instead, ``{"sx_tm": (batch, d), "sx_cm":
-  (batch, d), "wkv": (batch, H, hd, hd)}``, whatever ``max_seq`` is;
+  position modulo its length; a recurrent layer holds its state instead,
+  whatever ``max_seq`` is: Mamba ``{"conv": (batch, d_conv - 1, d_inner),
+  "ssm": (batch, d_inner, d_state)}``, RWKV ``{"sx_tm": (batch, d),
+  "sx_cm": (batch, d), "wkv": (batch, H, hd, hd)}``;
 * **paged** (attention only): per-layer block pools
   ``(n_blocks, Kh, block_size, hd)`` plus per-slot block tables (host
   side) mapping logical token blocks to physical ones.  Tables are shared across layers, so refactoring stays a
@@ -25,8 +26,11 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import MIXER_ATTN, MIXER_RWKV, ModelConfig
-from repro_torch.models.ssm import rwkv_dims
+from repro_torch.configs.base import (MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV,
+                                      ModelConfig)
+from repro_torch.models.ssm import mamba_dims, rwkv_dims
+
+_DENSE_MIXERS = (MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV)
 
 
 def _check_ported(cfg: ModelConfig, layers, mixers) -> None:
@@ -37,10 +41,14 @@ def _check_ported(cfg: ModelConfig, layers, mixers) -> None:
                 "not ported to repro_torch yet; see ROADMAP.md, section 1")
 
 
-def _layer_shapes(cfg: ModelConfig, i: int, batch: int, max_seq: int,
-                  tensor_shards: int = 1) -> dict:
+def layer_shapes(cfg: ModelConfig, i: int, batch: int, max_seq: int,
+                 tensor_shards: int = 1) -> dict:
     """Leaf shapes of layer ``i``'s dense cache (local shapes under
     ``tensor_shards``-way tensor parallelism)."""
+    if cfg.layer_kind(i).mixer == MIXER_MAMBA:
+        di, _, N, dc = mamba_dims(cfg)
+        di //= tensor_shards
+        return {"conv": (batch, dc - 1, di), "ssm": (batch, di, N)}
     if cfg.layer_kind(i).mixer == MIXER_RWKV:
         H, hd = rwkv_dims(cfg)
         return {"sx_tm": (batch, cfg.d_model), "sx_cm": (batch, cfg.d_model),
@@ -59,10 +67,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """Zero dense caches for ``layers`` (default: all)."""
     device = resolve_device(device)
     layers = layers if layers is not None else range(cfg.n_layers)
-    _check_ported(cfg, layers, (MIXER_ATTN, MIXER_RWKV))
+    _check_ported(cfg, layers, _DENSE_MIXERS)
     return [{"mixer": {name: torch.zeros(shape, dtype=dtype, device=device)
                        for name, shape in
-                       _layer_shapes(cfg, i, batch, max_seq).items()}}
+                       layer_shapes(cfg, i, batch, max_seq).items()}}
             for i in layers]
 
 
@@ -79,7 +87,8 @@ NULL_BLOCK = 0          # physical block 0: trash target for masked writes
 
 
 def can_page(cfg: ModelConfig) -> bool:
-    """Paging covers unwindowed full self-attention only."""
+    """Paging covers unwindowed full self-attention only: a recurrent
+    (Mamba, RWKV) layer's state has no token axis to page."""
     mixers = {k.mixer for k in cfg.pattern}
     return (mixers == {MIXER_ATTN}
             and not any(k.extra_cross for k in cfg.pattern)
@@ -113,11 +122,11 @@ def dense_slot_bytes(cfg: ModelConfig, max_seq: int, dtype=torch.bfloat16,
                      tensor_shards: int = 1) -> int:
     """Bytes one dense batch slot reserves across all layers (the
     ``max_seq``-proportional cost paging removes)."""
-    _check_ported(cfg, range(cfg.n_layers), (MIXER_ATTN, MIXER_RWKV))
+    _check_ported(cfg, range(cfg.n_layers), _DENSE_MIXERS)
     return sum(math.prod(shape) * dtype.itemsize
                for i in range(cfg.n_layers)
-               for shape in _layer_shapes(cfg, i, 1, max_seq,
-                                          tensor_shards).values())
+               for shape in layer_shapes(cfg, i, 1, max_seq,
+                                         tensor_shards).values())
 
 
 def blocks_for(n_tokens: int, block_size: int) -> int:

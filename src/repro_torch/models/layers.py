@@ -1,5 +1,5 @@
 """Core layers of the serving path: RMSNorm, RoPE, GQA attention (global
-and sliding-window), SwiGLU and GeGLU.
+and sliding-window), SwiGLU and GeGLU, and top-k mixture of experts.
 
 Ports the main-path subset of ``repro/models/layers.py`` with the same
 param layout (``wq (d, H, hd)``, ``wk/wv (d, Kh, hd)``, ``wo (H, hd, d)``,
@@ -28,10 +28,23 @@ kernel.  Rows past ``pos0 + 1`` in an unwrapped ring are never read, so a
 reused slot's stale rows do no harm.  Paged and chunked paths are global
 only, as in the reference.
 
-The sequence- and tensor-parallel branches and the plain gelu MLP
-(whisper's ``w1/w2``) are not ported yet (see ROADMAP.md) and raise.
+The MoE layer routes as the reference's ``apply_moe`` does (f32 router
+logits, softmax, top-k renormalised, a Switch aux loss, each (token, k)
+assignment queued in (token, k) order and kept while its queue position is
+below ``cap = max(ceil(T k / E cf), 4)``, T counting every row of the
+call), but dispatches and combines through indices instead of the
+reference's ``(T, E, cap)`` one-hot einsums: the kept rows are copied into
+an ``(E, cap, d)`` buffer, the experts run as three ``torch.bmm`` calls,
+and each token gathers its kept rows back and sums them in k order.  The
+shared experts are added after the combine.
+
+The sequence- and tensor-parallel branches (expert parallelism included)
+and the plain gelu MLP (whisper's ``w1/w2``) are not ported yet (see
+ROADMAP.md) and raise.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -270,7 +283,95 @@ def apply_mlp(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         raise _todo(f"the {cfg.mlp_act} MLP")
     g = torch.matmul(x, params["w_gate"])
     u = torch.matmul(x, params["w_up"])
-    act = (F.gelu(g, approximate="tanh") if cfg.mlp_act == "geglu"
-           else F.silu(g))
-    y = torch.matmul(act * u, params["w_down"])
+    y = torch.matmul(_act(cfg, g) * u, params["w_down"])
     return y, None, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _act(cfg: ModelConfig, g: torch.Tensor) -> torch.Tensor:
+    return (F.gelu(g, approximate="tanh") if cfg.mlp_act == "geglu"
+            else F.silu(g))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts
+# ---------------------------------------------------------------------------
+
+def moe_spec(cfg: ModelConfig) -> dict:
+    """Param tree of one MoE MLP as (shape, init) leaves, with the scales
+    of ``repro.models.layers.init_moe``: a ``(d, E)`` router, experts
+    stacked on a leading ``E`` axis, and the shared experts as one gated
+    MLP of width ``n_shared * d_expert``."""
+    mo = cfg.moe
+    d, fe, E = cfg.d_model, mo.d_expert, mo.n_experts
+    s = 1.0 / math.sqrt(d)
+    sf = 1.0 / math.sqrt(fe) / math.sqrt(2 * cfg.n_layers)
+    spec = {"router": ((d, E), s), "w_gate": ((E, d, fe), s),
+            "w_up": ((E, d, fe), s), "w_down": ((E, fe, d), sf)}
+    if mo.n_shared:
+        fs = fe * mo.n_shared
+        spec["shared"] = {"w_gate": ((d, fs), s), "w_up": ((d, fs), s),
+                          "w_down": ((fs, d), sf)}
+    return spec
+
+
+def moe_capacity(cfg: ModelConfig, T: int) -> int:
+    """Rows each expert takes in a call of T tokens (the reference's
+    formula, in the same float arithmetic)."""
+    mo = cfg.moe
+    return max(int(math.ceil(T * mo.top_k / mo.n_experts
+                             * mo.capacity_factor)), 4)
+
+
+def moe_route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
+    """Routing of ``xt`` (T, d): the renormalised top-k weights and expert
+    ids (T, K), each assignment's queue position in its expert (T, K), the
+    kept mask (position < cap), the capacity, and the Switch aux loss.  No
+    host sync: every shape is known from T."""
+    mo = cfg.moe
+    T, E, K = xt.shape[0], mo.n_experts, mo.top_k
+    logits = torch.matmul(xt.float(), router.float())
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, K, dim=-1)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    flat = topi.reshape(-1)                                   # (t, k) order
+    onehot = F.one_hot(flat, E)                               # (T K, E)
+    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat[:, None])
+    pos = pos.reshape(T, K)
+    cap = moe_capacity(cfg, T)
+    # load balancing (Switch): E * sum(mean prob * assignment share)
+    ce = onehot.sum(0).float() / (T * K)
+    aux = E * torch.sum(probs.mean(0) * ce)
+    return topw, topi, pos, pos < cap, cap, aux
+
+
+def apply_moe(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+              tp_axis=None):
+    """Top-k MoE with capacity-bounded dispatch (GShard style).  Returns
+    (y, None, aux)."""
+    if tp_axis is not None:
+        raise _todo("expert-parallel MoE")
+    mo = cfg.moe
+    B, S, d = x.shape
+    T, E, K = B * S, mo.n_experts, mo.top_k
+    xt = x.reshape(T, d)
+    topw, topi, pos, keep, cap, aux = moe_route(cfg, params["router"], xt)
+    # each kept assignment owns row (expert, position) of the dispatch
+    # buffer; dropped ones all point at one spare row past the experts'
+    # rows, which no expert reads and which combines with weight 0
+    row = torch.where(keep, topi * cap + pos,
+                      torch.full_like(pos, E * cap)).reshape(-1)
+    xe = x.new_zeros((E * cap + 1, d))
+    xe[row] = xt[:, None, :].expand(T, K, d).reshape(T * K, d)
+    xe = xe[:E * cap].reshape(E, cap, d)
+    g = torch.bmm(xe, params["w_gate"])
+    u = torch.bmm(xe, params["w_up"])
+    ye = torch.bmm(_act(cfg, g) * u, params["w_down"]).reshape(E * cap, d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])
+    w = (topw * keep).to(x.dtype).reshape(T, K, 1)
+    y = (ye[row].reshape(T, K, d) * w).sum(dim=1).reshape(B, S, d)
+    if mo.n_shared:
+        sh = params["shared"]
+        g = torch.matmul(x, sh["w_gate"])
+        u = torch.matmul(x, sh["w_up"])
+        y = y + torch.matmul(_act(cfg, g) * u, sh["w_down"])
+    return y, None, aux

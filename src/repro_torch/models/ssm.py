@@ -1,12 +1,24 @@
-"""Recurrent mixer: RWKV-6 (Finch) time mix and channel mix.
+"""Recurrent mixers: Mamba-1 (Jamba's) and RWKV-6 (Finch) time mix and
+channel mix.
 
-Ports the RWKV half of ``repro/models/ssm.py`` with the same param layout
-(``maa_x``, ``tm.{w,k,v,r,g}.{maa,A,B}``, ``w0``, ``wA``, ``wB``, ``u``,
-``Wr/Wk/Wv/Wg/Wo``, ``ln_x``, ``maa_k``, ``maa_r``, ``Wk_cm``, ``Wv_cm``,
-``Wr_cm``) and cache layout ``{"sx_tm": (B, d), "sx_cm": (B, d), "wkv":
-(B, H, hd, hd)}``.  One function serves sequence mode (prefill, forward)
-and step mode (decode, S == 1): both read the cache, when given, as the
-initial state.
+Mamba-1 ports ``mamba_dims``, the param layout (``w_x``, ``w_z``,
+``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``A_log``,
+``D``, ``out_proj``), ``_mamba_core`` and ``apply_mamba`` of
+``repro/models/ssm.py``, with the cache ``{"conv": (B, d_conv - 1,
+d_inner), "ssm": (B, d_inner, d_state)}``.  The causal depthwise conv reads
+the cached history first; the selective scan runs step by step in f32 in
+torch ops (the JAX package scans it in jnp; no Pallas kernel exists for
+it), from the cached state when one is given.  Like RWKV, one function
+serves prefill and decode, and the cache is overwritten in place with the
+final conv history and state.
+
+RWKV-6 ports the RWKV half of ``repro/models/ssm.py`` with the same param
+layout (``maa_x``, ``tm.{w,k,v,r,g}.{maa,A,B}``, ``w0``, ``wA``, ``wB``,
+``u``, ``Wr/Wk/Wv/Wg/Wo``, ``ln_x``, ``maa_k``, ``maa_r``, ``Wk_cm``,
+``Wv_cm``, ``Wr_cm``) and cache layout ``{"sx_tm": (B, d), "sx_cm": (B,
+d), "wkv": (B, H, hd, hd)}``.  One function serves sequence mode
+(prefill, forward) and step mode (decode, S == 1): both read the cache,
+when given, as the initial state.
 
 Where the JAX package scans the recurrence in jnp (``_wkv_scan``), the port
 runs every WKV step through ``kernels.rwkv6_wkv.wkv6``: its plain version on
@@ -16,7 +28,7 @@ cache with f32 activations is updated with no copy; otherwise the new
 state, like the token-shift rows, is copied in after the layer, cast as the
 JAX code casts it (to the activations' dtype, then to the cache's).
 
-Mamba-1 and the tensor-parallel branch are not ported yet (see ROADMAP.md).
+The tensor-parallel branches are not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,6 +44,100 @@ from repro_torch.models.layers import rms_norm
 
 _MIX_NAMES = ("w", "k", "v", "r", "g")
 
+
+# ---------------------------------------------------------------------------
+# Mamba-1
+# ---------------------------------------------------------------------------
+
+def mamba_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
+    """(d_inner, dt_rank, d_state, d_conv)."""
+    s = cfg.ssm
+    return (s.expand * cfg.d_model, s.dt_rank or math.ceil(cfg.d_model / 16),
+            s.d_state, s.d_conv)
+
+
+def mamba_spec(cfg: ModelConfig) -> dict:
+    """Param tree of one Mamba-1 mixer as (shape, init) leaves, with the
+    scales of ``repro.models.ssm.init_mamba`` (see transformer.block_spec):
+    ``A_log`` is log(1..d_state) on every channel, ``dt_bias`` the inverse
+    softplus of 0.01."""
+    d = cfg.d_model
+    di, dtr, N, dc = mamba_dims(cfg)
+    s = 1.0 / math.sqrt(d)
+    return {
+        "w_x": ((d, di), s), "w_z": ((d, di), s),
+        "conv_w": ((dc, di), 1.0 / math.sqrt(dc)),
+        "conv_b": ((di,), "zeros"),
+        "x_proj": ((di, dtr + 2 * N), 1.0 / math.sqrt(di)),
+        "dt_proj": ((dtr, di), 1.0 / math.sqrt(dtr)),
+        "dt_bias": ((di,), ("full", math.log(math.expm1(0.01)))),
+        "A_log": ((di, N), "log_arange"),
+        "D": ((di,), "ones"),
+        "out_proj": ((di, d), s / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _mamba_core(params: dict, xc: torch.Tensor, z: torch.Tensor,
+                h0: Optional[torch.Tensor]):
+    """Selective scan over xc (B, S, di), the conv'd input, from state
+    ``h0`` (B, di, N) or zeros.  Returns (y (B, S, di), final state)."""
+    B, S, di = xc.shape
+    N = params["A_log"].shape[1]
+    dtr = params["dt_proj"].shape[0]
+    xdbl = torch.matmul(xc, params["x_proj"])
+    dt, Bc, Cc = torch.split(xdbl, [dtr, N, N], dim=-1)
+    dt = F.softplus(torch.matmul(dt, params["dt_proj"])
+                    + params["dt_bias"]).float()                 # (B, S, di)
+    A = -torch.exp(params["A_log"].float())                      # (di, N)
+    dA = torch.exp(dt[..., None] * A)                            # (B,S,di,N)
+    dBx = (dt * xc.float())[..., None] * Bc.float()[:, :, None, :]
+    Cc = Cc.float()[..., None]                                   # (B,S,N,1)
+    h = (h0.float() if h0 is not None
+         else torch.zeros((B, di, N), dtype=torch.float32, device=xc.device))
+    ys = []
+    for t in range(S):
+        h = torch.addcmul(dBx[:, t], dA[:, t], h)               # dA h + dBx
+        ys.append(torch.bmm(h, Cc[:, t]))                        # (B, di, 1)
+    y = torch.cat(ys, dim=2).transpose(1, 2)                     # (B, S, di)
+    y = y + params["D"].float() * xc.float()
+    y = y * F.silu(z.float())
+    return y.to(xc.dtype), h.to(xc.dtype)
+
+
+def apply_mamba(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
+                cache: Optional[dict] = None, tp_axis=None):
+    """Mamba-1 mixer (the block owns the norm and residual).  ``cache``:
+    None, or the layer's ``{"conv", "ssm"}``, read as the history and
+    initial state and overwritten with the final ones.  Returns
+    (y, cache, aux)."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "tensor-parallel Mamba is not ported to repro_torch yet; see "
+            "ROADMAP.md, section 1")
+    S = x.shape[1]
+    dc = params["conv_w"].shape[0]
+    x_in = torch.matmul(x, params["w_x"])
+    z = torch.matmul(x, params["w_z"])
+    # causal depthwise conv over time: xc[t] = sum_k w[k] * xin_ext[t + k]
+    if cache is not None:
+        xin_ext = torch.cat([cache["conv"].to(x_in.dtype), x_in], dim=1)
+    else:
+        xin_ext = F.pad(x_in, (0, 0, dc - 1, 0))
+    xc = sum(xin_ext[:, k:k + S, :] * params["conv_w"][k] for k in range(dc))
+    xc = F.silu(xc + params["conv_b"])
+    y, hT = _mamba_core(params, xc, z,
+                        cache["ssm"] if cache is not None else None)
+    out = torch.matmul(y, params["out_proj"])
+    if cache is not None:
+        if dc > 1:
+            cache["conv"].copy_(xin_ext[:, -(dc - 1):, :])
+        cache["ssm"].copy_(hT)
+    return out, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6
+# ---------------------------------------------------------------------------
 
 def rwkv_dims(cfg: ModelConfig) -> tuple[int, int]:
     """(heads, head size) of the WKV state."""

@@ -1,8 +1,10 @@
-"""Block composition for the serving path: pre-norm attention + dense MLP,
-and RWKV-6 blocks, which own their two residuals and have no separate MLP.
+"""Block composition for the serving path: pre-norm attention or Mamba-1
+mixers followed by a dense or MoE MLP, and RWKV-6 blocks, which own their
+two residuals and have no separate MLP.
 
-Ports the attention/dense-MLP and RWKV parts of
-``repro/models/transformer.py``.  The
+Ports the attention, Mamba, dense/MoE MLP and RWKV parts of
+``repro/models/transformer.py`` (MLA and cross attention are not ported
+yet).  The
 JAX package stacks same-kind blocks and runs them with ``lax.scan``
 (``stack_blocks``, ``scan_threshold``); PyTorch runs eagerly, so the port
 loops over layers in Python and keeps one param dict per block.
@@ -17,8 +19,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (MIXER_ATTN, MIXER_RWKV, MLP_DENSE,
-                                      LayerKind, ModelConfig)
+from repro_torch.configs.base import (MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV,
+                                      MLP_DENSE, MLP_MOE, LayerKind,
+                                      ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 
@@ -37,15 +40,17 @@ class BlockCtx:
                                        # rows [0, kv_extent) (0 = off)
 
 
-_PORTED_KINDS = ((MIXER_ATTN, MLP_DENSE), (MIXER_RWKV, "rwkv_cm"))
+_PORTED_KINDS = ((MIXER_ATTN, MLP_DENSE), (MIXER_ATTN, MLP_MOE),
+                 (MIXER_MAMBA, MLP_DENSE), (MIXER_MAMBA, MLP_MOE),
+                 (MIXER_RWKV, "rwkv_cm"))
 
 
 def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
     if (kind.mixer, kind.mlp) not in _PORTED_KINDS or kind.extra_cross:
         raise NotImplementedError(
             f"{cfg.name}: layer kind {kind} is not ported to repro_torch "
-            "yet (attention + dense MLP, and RWKV-6, only); see ROADMAP.md, "
-            "section 1")
+            "yet (attention or Mamba with a dense or MoE MLP, and RWKV-6, "
+            "only); see ROADMAP.md, section 1")
 
 
 # ---------------------------------------------------------------------------
@@ -54,28 +59,35 @@ def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
 
 def block_spec(cfg: ModelConfig, kind: LayerKind) -> dict:
     """Param tree of one block as (shape, init) leaves; init is a normal
-    std, "ones"/"zeros", or ("full", value).  Scales follow
-    repro/models/layers.py and repro/models/ssm.py."""
+    std, "ones"/"zeros", ("full", value), or "log_arange" (log(1..n) along
+    the last axis).  Scales follow repro/models/layers.py and
+    repro/models/ssm.py."""
     _check_kind(cfg, kind)
+    d = cfg.d_model
     if kind.mixer == MIXER_RWKV:
-        d = cfg.d_model
         return {"ln1": {"scale": ((d,), "ones")}, "mixer": ssm.rwkv_spec(cfg),
                 "ln2": {"scale": ((d,), "ones")}}
-    d, H, Kh, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                    cfg.resolved_head_dim)
-    ff = cfg.d_ff
-    s = 1.0 / math.sqrt(d)
-    mixer = {"wq": ((d, H, hd), s), "wk": ((d, Kh, hd), s),
-             "wv": ((d, Kh, hd), s),
-             "wo": ((H, hd, d), s / math.sqrt(2 * cfg.n_layers))}
-    if cfg.qkv_bias:
-        mixer.update(bq=((H, hd), "zeros"), bk=((Kh, hd), "zeros"),
-                     bv=((Kh, hd), "zeros"))
-    sf = 1.0 / math.sqrt(ff) / math.sqrt(2 * cfg.n_layers)
+    if kind.mixer == MIXER_MAMBA:
+        mixer = ssm.mamba_spec(cfg)
+    else:
+        H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        s = 1.0 / math.sqrt(d)
+        mixer = {"wq": ((d, H, hd), s), "wk": ((d, Kh, hd), s),
+                 "wv": ((d, Kh, hd), s),
+                 "wo": ((H, hd, d), s / math.sqrt(2 * cfg.n_layers))}
+        if cfg.qkv_bias:
+            mixer.update(bq=((H, hd), "zeros"), bk=((Kh, hd), "zeros"),
+                         bv=((Kh, hd), "zeros"))
+    if kind.mlp == MLP_MOE:
+        mlp = L.moe_spec(cfg)
+    else:
+        ff = cfg.d_ff
+        s = 1.0 / math.sqrt(d)
+        sf = 1.0 / math.sqrt(ff) / math.sqrt(2 * cfg.n_layers)
+        mlp = {"w_gate": ((d, ff), s), "w_up": ((d, ff), s),
+               "w_down": ((ff, d), sf)}
     return {"ln1": {"scale": ((d,), "ones")}, "mixer": mixer,
-            "ln2": {"scale": ((d,), "ones")},
-            "mlp": {"w_gate": ((d, ff), s), "w_up": ((d, ff), s),
-                    "w_down": ((ff, d), sf)}}
+            "ln2": {"scale": ((d,), "ones")}, "mlp": mlp}
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -106,6 +118,9 @@ def _materialize(spec, generator, dtype, device):
         return torch.zeros(shape, dtype=dtype, device=device)
     if isinstance(init, tuple):                        # ("full", value)
         return torch.full(shape, init[1], dtype=dtype, device=device)
+    if init == "log_arange":
+        a = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(shape).to(dtype).contiguous()
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
     return (w * init).to(device=device, dtype=dtype)
@@ -135,9 +150,17 @@ def spec_numel(spec) -> int:
     return math.prod(spec[0])
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count from the param shapes (no allocation)."""
-    return spec_numel(model_spec(cfg))
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the param shapes (no allocation);
+    ``active_only`` counts each MoE layer's top-k routed experts instead of
+    all of them, as the reference does."""
+    total = spec_numel(model_spec(cfg))
+    if active_only and cfg.moe is not None:
+        n_moe = sum(1 for i in range(cfg.n_layers)
+                    if cfg.layer_kind(i).mlp == MLP_MOE)
+        per_expert = 3 * cfg.d_model * cfg.moe.d_expert
+        total -= n_moe * (cfg.moe.n_experts - cfg.moe.top_k) * per_expert
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -156,15 +179,21 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, params: dict,
                                     ln2=params["ln2"])
         return x, ({"mixer": mc} if mc is not None else None), aux
     h = L.rms_norm(params["ln1"], x, cfg.rms_eps)
-    y, mc, aux = L.apply_attention(
-        cfg, params["mixer"], h, pos0=ctx.pos0, cache=cache.get("mixer"),
-        is_global=ctx.is_global, causal=ctx.causal, tp_axis=ctx.tp_axis,
-        sp_axis=ctx.sp_axis if ctx.is_global else None,
-        block_table=ctx.block_table, paged_kernel=ctx.paged_kernel,
-        kv_extent=ctx.kv_extent)
+    if kind.mixer == MIXER_MAMBA:
+        y, mc, aux = ssm.apply_mamba(cfg, params["mixer"], h,
+                                     cache=cache.get("mixer"),
+                                     tp_axis=ctx.tp_axis)
+    else:
+        y, mc, aux = L.apply_attention(
+            cfg, params["mixer"], h, pos0=ctx.pos0, cache=cache.get("mixer"),
+            is_global=ctx.is_global, causal=ctx.causal, tp_axis=ctx.tp_axis,
+            sp_axis=ctx.sp_axis if ctx.is_global else None,
+            block_table=ctx.block_table, paged_kernel=ctx.paged_kernel,
+            kv_extent=ctx.kv_extent)
     x = x + y
     h = L.rms_norm(params["ln2"], x, cfg.rms_eps)
-    y, _, a = L.apply_mlp(cfg, params["mlp"], h, tp_axis=ctx.tp_axis)
+    mlp = L.apply_moe if kind.mlp == MLP_MOE else L.apply_mlp
+    y, _, a = mlp(cfg, params["mlp"], h, tp_axis=ctx.tp_axis)
     x = x + y
     return x, ({"mixer": mc} if mc is not None else None), aux + a
 

@@ -1,18 +1,20 @@
 """FlexPipe serving engine on PyTorch: the data plane with live refactoring.
 
 Ports the dense and paged serving path of ``repro/serving/engine.py``, for
-attention models and, dense only, RWKV-6.  The model is cut into pipeline
-stages at ``boundaries``; a ``refactor()`` re-groups the stage boundaries
-between decode ticks without dropping a request, and greedy streams across
-it are bit-identical to an uninterrupted run.
+attention models (with dense or MoE MLPs) and, dense only, models with
+recurrent layers: RWKV-6, and Jamba's Mamba-1 and attention hybrid.  The
+model is cut into pipeline stages at ``boundaries``; a ``refactor()``
+re-groups the stage boundaries between decode ticks without dropping a
+request, and greedy streams across it are bit-identical to an
+uninterrupted run.
 
 Hot path: admission prefills a whole prompt stage by stage, writing its KV
 rows in place into the slot (dense rows, or blocks through the slot's
-table).  Attention prompts are padded to a pow2 bucket; recurrent (RWKV)
-prompts run at their exact length, from a zeroed slot state.  A decode
-tick is one fused program: embed, every stage, lm_head and an argmax on
-the device; the only per-tick sync is the copy of B int32 ids to the host
-(plus the first token of each prefill).
+table).  Attention prompts are padded to a pow2 bucket; prompts of models
+with recurrent (Mamba, RWKV) layers run at their exact length, from a
+zeroed slot state.  A decode tick is one fused program: embed, every
+stage, lm_head and an argmax on the device; the only per-tick sync is the
+copy of B int32 ids to the host (plus the first token of each prefill).
 Caches are preallocated tensors written in place (JAX donates them).
 
 A refactor only re-views the per-layer cache list under new stage
@@ -47,8 +49,10 @@ length (a bucket's padding would land in the ring), and the paged and
 chunked paths fall back as the reference's do.
 
 Not ported and raising ``NotImplementedError``: the fault path for
-recurrent (RWKV) and sliding-window models, whose reference results are
-wrong (ROADMAP.md, section 3).
+recurrent (Mamba, RWKV) and sliding-window models, whose reference results
+are wrong (ROADMAP.md, section 3).  MoE models keep it, and replay as the
+reference does: a tick's rows compete for expert capacity, so a stream can
+depend on the batch it shares (ROADMAP.md, section 3).
 """
 from __future__ import annotations
 
@@ -61,16 +65,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import MIXER_RWKV, ModelConfig
+from repro_torch.configs.base import MIXER_MAMBA, MIXER_RWKV, ModelConfig
 from repro_torch.convert import torch_dtype
 from repro_torch.core.refactoring import (CacheSnapshot, block_validity,
                                           merge_paged_with_mask,
                                           merge_with_mask, snapshot)
 from repro_torch.kernels import build
 from repro_torch.models.kvcache import (NULL_BLOCK, BlockAllocator,
-                                        blocks_for, can_page,
-                                        fragmentation, group_by_stage,
-                                        init_cache, init_paged_cache)
+                                        blocks_for, can_page, fragmentation,
+                                        group_by_stage, init_cache,
+                                        init_paged_cache, layer_shapes)
 from repro_torch.models.model import embed_tokens, lm_head
 from repro_torch.serving.admission import (ADMITTED, PRIO_STANDARD, REJECTED,
                                            AdmissionConfig, AdmissionQueue)
@@ -84,10 +88,10 @@ from repro_torch.serving.workload import Request
 def _fault_path_refusal(cfg: ModelConfig) -> Optional[str]:
     """Why the fault path is not served for ``cfg``, or None.  Both cases
     are the reference's: its streams differ after a lost stage."""
-    if any(cfg.layer_kind(i).mixer == MIXER_RWKV
-           for i in range(cfg.n_layers)):
-        return ("recurrent (RWKV) models: a delta replay cannot rebuild a "
-                "lost stage's state")
+    mixers = {cfg.layer_kind(i).mixer for i in range(cfg.n_layers)}
+    if mixers & {MIXER_MAMBA, MIXER_RWKV}:
+        return ("recurrent (Mamba, RWKV) models: a delta replay cannot "
+                "rebuild a lost stage's state")
     if cfg.sliding_window:
         return ("sliding-window models: the Eq. 10 merge restores rows by "
                 "position, and a ring that has wrapped holds positions at "
@@ -341,21 +345,28 @@ class FlexPipeEngine:
         return init_cache(self.cfg, self.ecfg.max_batch, self.ecfg.max_seq,
                           self.cache_dtype, device=self.device, layers=layers)
 
-    def _scratch_caches(self, n_layers: int, batch: int, seq: int) -> list:
-        """Dummy caches for warm-up runs: one ``(batch, Kh, seq, hd)`` pair
-        (one ``batch``-row recurrent state for RWKV), or a pool of the null
-        block alone when paged, shared by all ``n_layers`` layers (every
-        ported pattern has one layer kind).  Warming a configuration (also
-        inside a cold ``refactor()``) so never allocates on the scale of the
-        live cache."""
+    def _scratch_caches(self, layers: range, batch: int, seq: int) -> list:
+        """Dummy caches for warm-up runs of ``layers``: one ``(batch, Kh,
+        seq, hd)`` pair (one ``batch``-row recurrent state for a Mamba or
+        RWKV layer), or a pool of the null block alone when paged, shared
+        by every layer of the same cache shape.  Warming a configuration
+        (also inside a cold ``refactor()``) so never allocates on the scale
+        of the live cache."""
         if self.ecfg.paged:
             one = init_paged_cache(self.cfg, 1, self.ecfg.block_size,
                                    self.cache_dtype, device=self.device,
                                    layers=range(1))
-        else:
-            one = init_cache(self.cfg, batch, seq, self.cache_dtype,
-                             device=self.device, layers=range(1))
-        return one * n_layers
+            return one * len(layers)
+        shared: dict = {}
+        out = []
+        for i in layers:
+            key = tuple(layer_shapes(self.cfg, i, batch, seq).items())
+            if key not in shared:
+                shared[key] = init_cache(self.cfg, batch, seq,
+                                         self.cache_dtype, device=self.device,
+                                         layers=range(i, i + 1))[0]
+            out.append(shared[key])
+        return out
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor without a host wait: CUDA copies go
@@ -424,7 +435,7 @@ class FlexPipeEngine:
         """Run one throwaway tick on scratch caches, so the first live tick
         after a refactor pays no build or first-launch cost."""
         tok, pos, wt = self._dummy_tick_inputs()
-        scratch = self._scratch_caches(self.cfg.n_layers,
+        scratch = self._scratch_caches(range(self.cfg.n_layers),
                                        self.ecfg.max_batch, 1)
         nxt, _ = prog.step(scratch, tok, pos, wt)
         nxt.cpu()
@@ -438,7 +449,7 @@ class FlexPipeEngine:
         for lo, hi in ranges:
             fn, _ = self.executors.stage_decode(lo, hi)
             fn(self.params["blocks"][lo:hi], x,
-               self._scratch_caches(hi - lo, B, 1), pos)
+               self._scratch_caches(range(lo, hi), B, 1), pos)
 
     def _warm_prefill(self, boundaries: list[int]) -> None:
         """Run a configuration's stage-prefill programs once at the smallest
@@ -456,7 +467,8 @@ class FlexPipeEngine:
                 lo, hi, first=(si == 0), last=(si == len(ranges) - 1))
             out, _ = fn(self.params["blocks"][lo:hi],
                         self.executors.head_params, out,
-                        self._scratch_caches(hi - lo, 1, S0), slot_ix, 1)
+                        self._scratch_caches(range(lo, hi), 1, S0), slot_ix,
+                        1)
 
     def refactor(self, new_boundaries: list[int]) -> dict:
         """Inflight refactoring: re-group stage boundaries (Eq. 10).
@@ -503,8 +515,8 @@ class FlexPipeEngine:
         for request timeout, retry and degradation, and a
         StageHealthMonitor whose heartbeats and tick watchdog detect them.
 
-        Recurrent (RWKV) and sliding-window models take the request policy
-        only: a delta replay rebuilds neither a lost stage's state nor a
+        Recurrent (Mamba, RWKV) and sliding-window models take the request
+        policy only: a delta replay rebuilds neither a lost stage's state nor a
         wrapped ring, and the reference's streams differ after one
         (ROADMAP.md, section 3)."""
         if self._no_fault_path and (injector is not None

@@ -20,9 +20,10 @@ state survive it.
   keyed by range so configurations that cut the model at the same points
   share it.  It writes the prompt's rows in place into the slot's row of
   the live cache (a view of it), or through the slot's block table.  A
-  recurrent (RWKV) layer reads its cache as the initial state, so its slot
-  row is zeroed first: a reused slot holds the last request's state, and
-  idle-slot decode ticks write garbage there.  Attention rows past the
+  recurrent (Mamba, RWKV) layer reads its cache as the initial state (and
+  Mamba's conv as its history), so its slot row is zeroed first: a reused
+  slot holds the last request's state, and idle-slot decode ticks write
+  garbage there.  Attention rows past the
   prompt are left as the last request left them (the reference prefills
   into a zeroed cache): decode reads ``min(pos + 1, Smax)`` rows, so no
   stale row is read before decode has overwritten it, in a ring or not.
@@ -44,7 +45,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import MIXER_ATTN, MIXER_RWKV, ModelConfig
+from repro_torch.configs.base import (MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV,
+                                      ModelConfig)
 from repro_torch.models.model import embed_tokens, lm_head
 from repro_torch.models.transformer import BlockCtx, apply_block
 
@@ -114,7 +116,7 @@ class StagePrefillProgram:
                 cache = {"mixer": {n: t[slot:slot + 1] for n, t
                                    in caches[i]["mixer"].items()}}
                 bt = None
-                if cfg.layer_kind(li).mixer == MIXER_RWKV:
+                if cfg.layer_kind(li).mixer in (MIXER_MAMBA, MIXER_RWKV):
                     for t in cache["mixer"].values():
                         t.zero_()
             ctx = BlockCtx(pos0=0, cache=cache,

@@ -5,12 +5,15 @@ runs on a GPU machine without one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from controller_parity import CASES, run_port
 from repro_torch.configs.base import get_arch
+from repro_torch.convert import tree_from_numpy, tree_to_numpy
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
     CHUNK, decode_attention, decode_attention_plain, gather_pages,
@@ -639,3 +642,107 @@ def test_cuda_controller_run(cuda_dev, case):
                                      "paged_decode_attention"),
                "rwkv6 dense": ("wkv6",)}[case]
     assert all(got["launches"].get(k, 0) > 0 for k in kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Kh", [(16, 16), (32, 8)],
+                         ids=["deepseek-moe", "jamba"])
+def test_cuda_hd128_decode_at_model_heads(cuda_dev, dt, H, Kh):
+    """Decode at hd 128 with deepseek-moe-16b's 16 heads and
+    jamba-v0.1-52b's 32 on 8 kv heads, at batch 8 and 1024 rows (8
+    chunks), block 16: dense and paged kernels against their plain
+    versions, and the paged kernel == gather path == dense kernel bit for
+    bit on equal live rows."""
+    rng = np.random.default_rng(H)
+    B, hd, Smax, bs = 8, 128, 1024, 16
+    lens = np.array([1024, 1, 17, 512, 600, 333, 1000, 64], np.int32)
+    lens = np.minimum(lens, Smax - bs)
+    q = _rand(rng, (B, H, hd), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    vc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    cl = torch.from_numpy(lens).to(cuda_dev)
+    torch.testing.assert_close(decode_attention(q, kc, vc, cl).float(),
+                               decode_attention_plain(q, kc, vc, cl).float(),
+                               **TOL[dt])
+    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, Smax // bs, dt, cuda_dev)
+    paged = paged_decode_attention(q, kp, vp, bt, cl)
+    torch.testing.assert_close(
+        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
+        **TOL[dt])
+    kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
+    kd, vd = kc.clone(), vc.clone()
+    for b, n in enumerate(lens.tolist()):
+        kd[b, :, :n] = kg[b, :, :n]
+        vd[b, :, :n] = vg[b, :, :n]
+    assert torch.equal(decode_attention(q, kg, vg, cl), paged)
+    assert torch.equal(decode_attention(q, kd, vd, cl), paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Kh", [(512, 16, 16), (571, 32, 8)],
+                         ids=["deepseek-moe", "jamba"])
+def test_cuda_hd128_flash_at_model_heads(cuda_dev, dt, S, H, Kh):
+    """Causal flash at hd 128 with each model's heads: a bucketed
+    deepseek-moe-16b prompt and an exact-length jamba-v0.1-52b one (off the
+    64-row tile), against the plain version."""
+    rng = np.random.default_rng(S)
+    q = _rand(rng, (1, S, H, 128), dt, cuda_dev)
+    k = _rand(rng, (1, S, Kh, 128), dt, cuda_dev)
+    v = _rand(rng, (1, S, Kh, 128), dt, cuda_dev)
+    kw = dict(causal=True, window=0, q_offset=0)
+    torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
+                               flash_attention_plain(q, k, v, **kw).float(),
+                               **TOL[dt])
+
+
+def _moe_streams(arch, cf, kv, device, params):
+    cfg = get_arch(arch).smoke_config
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    half = cfg.n_layers // 2
+    eng = FlexPipeEngine(cfg, params, [0, half],
+                         EngineConfig(max_batch=4, max_seq=128, kv=kv,
+                                      warm_profiles=(4,)), device=device)
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i in range(6):
+        r = Request(rid=i, arrival=0.0, prompt_len=int(rng.integers(40, 62)),
+                    max_new_tokens=8)
+        r.prompt_tokens = rng.integers(0, cfg.vocab_size, r.prompt_len)
+        reqs.append(r)
+    for r in reqs:
+        eng.submit(r, now=0.0)
+    build.reset_launches()
+    for t in range(200):
+        if t == 5:
+            q = [0] + [half * j // 2 for j in (1, 2, 3)]
+            assert eng.refactor(q)["compile_cache_hit"]
+        eng.step(t * 0.05)
+        if not eng.queue and all(s.done for s in eng.slots):
+            break
+    assert all(r.output is not None and len(r.output) == 8 for r in reqs)
+    return [r.output for r in reqs], dict(build.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,cf,paged", [
+    ("deepseek-moe-16b", 4.0, False), ("deepseek-moe-16b", 4.0, True),
+    ("deepseek-moe-16b", 0.5, False), ("deepseek-moe-16b", 0.5, True),
+    ("jamba-v0.1-52b", 4.0, False), ("jamba-v0.1-52b", 0.5, False)])
+def test_cuda_moe_and_mamba_engines_equal_cpu(cuda_dev, arch, cf, paged):
+    """The two models' smoke configs on the card, refactored mid-stream
+    (dense, or paged through the paged kernel) give the CPU run's streams,
+    at the smoke's capacity factor and at 0.5, where drops and the idle
+    slots' rows decide routing."""
+    cfg = get_arch(arch).smoke_config
+    cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_from_numpy(tree_to_numpy(cpu), cuda_dev)
+    kv = (KVCacheConfig(paged=True, block_size=8, paged_kernel=True)
+          if paged else KVCacheConfig())
+    want, _ = _moe_streams(arch, cf, kv, "cpu", cpu)
+    got, launches = _moe_streams(arch, cf, kv, cuda_dev, card)
+    assert got == want
+    dec = "paged_decode_attention" if paged else "decode_attention"
+    assert launches.get(dec, 0) > 0 and launches.get("flash_attention", 0) > 0

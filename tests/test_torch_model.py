@@ -51,6 +51,12 @@ def _close(a, b, **tol):
     pytest.param("gemma3-1b", "smoke_config", id="gemma3-1b-smoke_config"),
     pytest.param("gemma3-12b", "config", id="gemma3-12b-config"),
     pytest.param("gemma3-12b", "smoke_config", id="gemma3-12b-smoke_config"),
+    pytest.param("deepseek-moe-16b", "config", id="deepseek-moe-16b-config"),
+    pytest.param("deepseek-moe-16b", "smoke_config",
+                 id="deepseek-moe-16b-smoke_config"),
+    pytest.param("jamba-v0.1-52b", "config", id="jamba-v0.1-52b-config"),
+    pytest.param("jamba-v0.1-52b", "smoke_config",
+                 id="jamba-v0.1-52b-smoke_config"),
 ])
 def test_configs_match_the_reference(arch, which):
     mine = getattr(get_arch(arch), which)
@@ -65,11 +71,20 @@ def test_configs_match_the_reference(arch, which):
     assert [mine.is_global_layer(i) for i in range(mine.n_layers)] == \
         [theirs.is_global_layer(i) for i in range(theirs.n_layers)]
     if theirs.ssm is not None:
-        for f in ("head_size", "decay_lora", "mix_lora"):
+        for f in ("head_size", "decay_lora", "mix_lora", "d_state", "d_conv",
+                  "expand", "dt_rank"):
             assert getattr(mine.ssm, f) == getattr(theirs.ssm, f), f
     else:
         assert mine.ssm is None
+    if theirs.moe is not None:
+        for f in ("n_experts", "top_k", "d_expert", "n_shared",
+                  "capacity_factor", "router_jitter"):
+            assert getattr(mine.moe, f) == getattr(theirs.moe, f), f
+    else:
+        assert mine.moe is None
     assert count_params(mine) == jax_count_params(theirs)
+    assert count_params(mine, active_only=True) == \
+        jax_count_params(theirs, active_only=True)
     assert mine.param_count() == count_params(mine)
 
 

@@ -16,8 +16,8 @@ from repro.core.graph import build_graph as jax_build_graph
 from repro.launch import roofline as R
 from repro.models import kvcache as JK
 from repro.serving.admission import CostModel as JaxCostModel
-from repro_torch.configs.base import (MIXER_MAMBA, MIXER_MLA, MLP_MOE,
-                                      LayerKind, get_arch, shrink)
+from repro_torch.configs.base import (MIXER_MLA, LayerKind, get_arch,
+                                      shrink)
 from repro_torch.core.graph import build_graph
 from repro_torch.core.partitioner import partition
 from repro_torch.launch.roofline import (H100_SXM, Chip, layer_fwd,
@@ -155,8 +155,6 @@ def test_partition_defaults_are_the_h100s():
 
 @pytest.mark.parametrize("kind,what", [
     (LayerKind(mixer=MIXER_MLA), "'mla' mixer"),
-    (LayerKind(mixer=MIXER_MAMBA), "'mamba' mixer"),
-    (LayerKind(mlp=MLP_MOE), "'moe' MLP"),
 ])
 def test_unported_mixers_raise(kind, what):
     cfg = shrink(get_arch("qwen1.5-0.5b").smoke_config, pattern=(kind,))
