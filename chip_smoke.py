@@ -16,11 +16,15 @@ Phases, each fatal on failure:
      kernel, plain version and one PyTorch library call computing the same
      function, beside the bound; the same for gemma3-1b's attention shapes
      (head_dim 256, one kv head, a 512-token window) and MLA prefill's
-     (hd 192, hdv 128), with each hd-256 kernel's launch geometry (CTAs,
-     cluster size, dynamic shared memory, registers and spills from the
-     build's -Xptxas -v) and its combine's share of the device time; and
-     at head_dim 128, deepseek-moe-16b's (16 heads) and jamba-v0.1-52b's
-     (32 on 8 kv heads) decode, paged decode and flash shapes;
+     (hd 192, hdv 128), and at head_dim 128, deepseek-moe-16b's (16
+     heads: prompt buckets of 512 and 1024, and a 128-row chunk at the
+     end of a 512-token bucket) and jamba-v0.1-52b's (32 on 8 kv heads)
+     decode, paged decode and flash shapes; each span or cluster kernel
+     (flash at hd >= 128, decode at hd 256) with its registers and spills
+     (from this run's build log, -Xptxas -v), its device time by kernel
+     and its combine's share of it (the profiler), and in the log only its
+     planned launch geometry (CTAs, cluster size, dynamic shared memory,
+     computed from the wrapper's plan);
   4. check the port's logits on the card against its CPU path (smoke size,
      qwen1.5-0.5b, rwkv6-1.6b, gemma3-1b, deepseek-moe-16b and
      jamba-v0.1-52b);
@@ -45,7 +49,8 @@ Phases, each fatal on failure:
      served through FlexPipeEngine.run(controller=FlexPipeController(...))
      on the quickstart's trace; every refactor warm, the control steps
      equal to the smoke config's run of the same trace on the CPU, the
-     streams equal to a run with no controller; the launchers (python -m
+     streams equal to a run with no controller, the median decision
+     latency (score_s) under the paper's 5 ms; the launchers (python -m
      repro_torch.launch.serve and .quickstart) run as subprocesses on the
      card beside the CPU runs and the runs with no controller;
  11. serve full-width gemma3-1b (sliding-window ring caches, GeGLU,
@@ -60,8 +65,9 @@ Phases, each fatal on failure:
      and paged == dense, a chunk-128 run whose streams are counted where
      they differ from whole-prompt prefill (capacity drops: the
      reference's behaviour), decode == forward for two requests at the
-     capacity factor E/K (nothing dropped), three profiled decode ticks
-     and the peak device memory;
+     capacity factor E/K (nothing dropped), three profiled decode ticks,
+     one 512-token prefill through all 28 layers (wall time, device time
+     and the flash kernels' share) and the peak device memory;
  13. serve full-width jamba-v0.1-52b cut to one 8-layer Jamba block (7
      Mamba layers, 1 attention layer, 4 MoE MLPs of 16 experts):
      run() and a run refactored [0,4] -> [0,2,4,6] -> [0,4] with streams
@@ -397,11 +403,12 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
     (window 512) and global, at (192, 128) and at hd 128 (Sq = Skv = 512,
     causal); dense and paged decode on a 512-row ring and 1024-row caches;
     paged == gather == dense bit for bit.  Each f32 case is timed beside its
-    bound and one SDPA call; each hd-256 one also reports its launch
-    geometry and its combine's share."""
+    bound and one SDPA call; each span or cluster kernel also reports its
+    registers, spills and device time by kernel, and logs its planned
+    launch geometry."""
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_plain, paged_decode_attention,
-        paged_decode_attention_plain)
+        _group_slots, decode_attention, decode_attention_plain,
+        paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
         attention_mask, flash_attention, flash_attention_plain)
     import torch.nn.functional as F
@@ -415,34 +422,40 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
             log(f"  {label}: no SDPA call for this shape ({e})"[:200])
             return None
 
-    flash = [  # (key, Sq=Skv, H, Kh, hd, hdv, window)
-        ("hd256_window", 571, 4, 1, 256, 256, 512),
-        ("hd256_causal", 571, 4, 1, 256, 256, 0),
-        ("hd192_128", 512, 16, 16, 192, 128, 0),
-        ("hd128", 512, 16, 16, 128, 128, 0),
-        ("hd128_gqa", 512, 32, 8, 128, 128, 0),
+    flash = [  # (key, Sq, Skv, q_offset, H, Kh, hd, hdv, window)
+        ("hd256_window", 571, 571, 0, 4, 1, 256, 256, 512),
+        ("hd256_causal", 571, 571, 0, 4, 1, 256, 256, 0),
+        ("hd192_128", 512, 512, 0, 16, 16, 192, 128, 0),
+        ("hd128", 512, 512, 0, 16, 16, 128, 128, 0),
+        ("hd128_gqa", 512, 512, 0, 32, 8, 128, 128, 0),
+        # deepseek-moe-16b's chunk-128 step at the end of a 512-token
+        # bucket (phase 12's chunked run), and its largest bucket
+        ("hd128_chunk", 128, 512, 384, 16, 16, 128, 128, 0),
+        ("hd128_1024", 1024, 1024, 0, 16, 16, 128, 128, 0),
     ]
-    for key, S, H, Kh, hd, hdv, win in flash:
-        shape = (f"B=1 Sq=Skv={S} H={H} Kh={Kh} hd={hd} hdv={hdv} "
+    for key, Sq, Skv, qo, H, Kh, hd, hdv, win in flash:
+        shape = (f"B=1 Sq={Sq} Skv={Skv} q_offset={qo} H={H} Kh={Kh} "
+                 f"hd={hd} hdv={hdv} "
                  + (f"window={win}" if win else "causal"))
         for dt in ("float32", "bfloat16"):
-            q = rnd((1, S, H, hd), dt)
-            k, v = rnd((1, S, Kh, hd), dt), rnd((1, S, Kh, hdv), dt)
-            kw = dict(causal=True, window=win, q_offset=0)
+            q = rnd((1, Sq, H, hd), dt)
+            k, v = rnd((1, Skv, Kh, hd), dt), rnd((1, Skv, Kh, hdv), dt)
+            kw = dict(causal=True, window=win, q_offset=qo)
             err = compare("flash_attention", dt,
                           flash_attention(q, k, v, **kw),
                           flash_attention_plain(q, k, v, **kw), shape)
             if dt != "float32":
                 continue
-            mask = attention_mask(S, S, causal=True, window=win, q_offset=0,
-                                  device=dev)
+            mask = attention_mask(Sq, Skv, causal=True, window=win,
+                                  q_offset=qo, device=dev)
             pairs = int(mask.sum())
             # q read and out written, k and v read, once each
-            nbytes = S * (H + Kh) * (hd + hdv) * 4
+            nbytes = (Sq * H + Skv * Kh) * (hd + hdv) * 4
             t_bound, by = bound(nbytes, 2 * H * pairs * (hd + hdv), "tf32x3")
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)) if win else \
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)) \
+                if win or qo else \
                 (lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True))
             r = dict(ms=time_ms(torch, lambda: flash_attention(q, k, v, **kw)),
@@ -454,11 +467,14 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
             log(f"  {'flash_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                 f"bound {t_bound:.4f} ms ({by})  [{r['shape']}]")
-            if hd == 256:
-                r.update(flash_geometry(torch, S, H, Kh, win))
+            if hd >= 128:
+                log(f"  {'  planned launch':24s} " + json.dumps(
+                    flash_geometry(torch, hd, hdv, Sq, Skv, qo, H, win)))
+                r.update(ptxas("flash_attention",
+                               f"flash_span_kernelIfLi{hd}ELi{hdv}E"))
                 r.update(split_share(torch, "flash_combine_kernel",
                                      lambda: flash_attention(q, k, v, **kw)))
-                log(f"  {'  geometry, shares':24s} "
+                log(f"  {'  measured':24s} "
                     + json.dumps({x: r[x] for x in WIDE_KEYS if x in r}))
     # gemma3 decode: one kv head, G = 4; a local layer's 512-row ring and a
     # global layer's 1024 rows; lengths at the split kernel's chunk edges.
@@ -504,10 +520,14 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                 f"bound {t_bound:.4f} ms ({by})  [{shape}]")
             if hd == 256:
-                r.update(decode_geometry(torch, lens, Smax, B, H, Kh))
+                log(f"  {'  planned launch':24s} " + json.dumps(
+                    decode_geometry(torch, lens, Smax, B, H, Kh)))
+                r.update(ptxas("decode_attention",
+                               "decode_cluster_kernelIfLi"
+                               f"{_group_slots(H // Kh)}ELb0E"))
                 r.update(split_share(torch, "decode_combine",
                                      lambda: decode_attention(q, kc, vc, cl)))
-                log(f"  {'  geometry, shares':24s} "
+                log(f"  {'  measured':24s} "
                     + json.dumps({x: r[x] for x in WIDE_KEYS if x in r}))
             # the paged kernel shares the core: off gemma3's path (windowed
             # configs do not page), timed at each shape for its row
@@ -534,9 +554,10 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
                 f"[{pshape}]")
 
 
-# what phase 3 reports beside each hd-256 kernel's time
-WIDE_KEYS = ("ctas", "live_ctas", "cluster", "dynamic_smem", "registers",
-             "spill_stores", "spill_loads", "kernels_us", "combine_share")
+# what phase 3 measures beside each span or cluster kernel's time, and
+# puts in the kernels line (the planned geometry is logged, not put there)
+WIDE_KEYS = ("registers", "spill_stores", "spill_loads", "kernels_us",
+             "combine_share")
 
 
 def ptxas(lib, pattern):
@@ -550,34 +571,32 @@ def ptxas(lib, pattern):
     return {"registers": "not in the build log"}
 
 
-def flash_geometry(torch, S, H, Kh, window):
-    """The hd-256 flash launch at Sq = Skv = S, B = 1, f32: the span
-    kernel's CTAs (launched and live), its dynamic shared memory and
-    registers; the combine's CTAs."""
+def flash_geometry(torch, hd, hdv, Sq, Skv, q_offset, H, window):
+    """The span kernel's planned launch at (hd, hdv), B = 1, f32, from the
+    wrapper's plan (computed, not measured): its CTAs (one per item), the
+    rows it finishes itself (one span), the rows the combine merges, and
+    its dynamic shared memory."""
     from repro_torch.kernels import flash_attention as fk
-    geo = fk._geometry(256, 256, torch.float32)
-    ns, _, ctas = fk.span_plan(S, S, causal=True, window=window, q_offset=0)
-    n_q = -(-S // fk.TILE_Q)
-    out = dict(ctas=ns * n_q * H, live_ctas=len(ctas) * H, cluster=1,
-               dynamic_smem=geo.smem, combine_ctas=S * H, span=geo.span)
-    out.update(ptxas("flash_attention", "flash_span_kernelIfE"))
-    return out
+    geo = fk._geometry(hd, hdv, torch.float32)
+    _, rows, ctas = fk.span_plan(Sq, Skv, causal=True, window=window,
+                                 q_offset=q_offset)
+    return dict(ctas=len(ctas) * H,
+                rows_direct=sum(len(r) == 1 for r in rows) * H,
+                rows_merged=sum(len(r) > 1 for r in rows) * H,
+                dynamic_smem=geo.smem, span=geo.span)
 
 
 def decode_geometry(torch, lens, Smax, B, H, Kh):
-    """The hd-256 decode launch, f32, dense: CTAs (launched, in live
-    clusters), cluster size, dynamic shared memory and registers."""
+    """The hd-256 decode kernel's planned launch, f32, dense, from the
+    wrapper's plan (computed, not measured): CTAs launched and in live
+    clusters, cluster size, dynamic shared memory."""
     from repro_torch.kernels import decode_attention as dk
     geo = dk._geometry(256, torch.float32, H // Kh)
     plan = dk.cluster_plan(torch.as_tensor(lens), Smax)
-    out = dict(ctas=geo.cluster * dk.n_chunks(Smax) * B * Kh,
-               live_ctas=geo.cluster * sum(len(c) for c in plan) * Kh,
-               loading_ctas=sum(len(sl) for c in plan for sl in c) * Kh,
-               cluster=geo.cluster, dynamic_smem=geo.smem)
-    kg = dk._group_slots(H // Kh)
-    out.update(ptxas("decode_attention",
-                     f"decode_cluster_kernelIfLi{kg}ELb0E"))
-    return out
+    return dict(ctas=geo.cluster * dk.n_chunks(Smax) * B * Kh,
+                live_ctas=geo.cluster * sum(len(c) for c in plan) * Kh,
+                loading_ctas=sum(len(sl) for c in plan for sl in c) * Kh,
+                cluster=geo.cluster, dynamic_smem=geo.smem)
 
 
 def split_share(torch, combine, fn, reps=20):
@@ -599,11 +618,14 @@ def flash_composition(torch, rnd):
     chunk by chunk (Sq = chunk, q_offset = c0, Skv = Sp, the bucket) equal
     one whole call (Sq = Skv = Sp) bit for bit: the extra fully masked
     tiles and the other warp's key half add only exact zeros and exact
-    scales of 1 to a row.  Chunks of 16 (like a prompt's last 16- or
-    32-token piece) sit off the kernel's 64-row tile."""
+    scales of 1 to a row, and the span kernel's spans are absolute.
+    Chunks of 16 (like a prompt's last 16- or 32-token piece) sit off the
+    kernel's 64-row tile."""
     from repro_torch.kernels.flash_attention import flash_attention
-    # qwen1.5-0.5b's attention, then gemma3-1b's (hd 256, a window)
+    # qwen1.5-0.5b's attention, deepseek-moe-16b's and jamba-v0.1-52b's
+    # (hd 128), then gemma3-1b's (hd 256, a window)
     shapes = [(16, 16, 64, Sp, 0) for Sp in (128, 512)] + [
+        (16, 16, 128, 512, 0), (32, 8, 128, 571, 0),
         (4, 1, 256, 512, 128), (4, 1, 256, 571, 512)]
     for dt in ("float32", "bfloat16"):
         for H, Kh, hd, Sp, win in shapes:
@@ -981,16 +1003,18 @@ def profile_decode(torch, card, cfg, params, extra_limit, ticks=5):
     return out
 
 
-def profile_prefill(torch, card, cfg, params, S=512, reps=3):
-    """One full-width stage prefill of an S-token prompt (boundaries [0, 12],
-    a request into a free slot, as admission makes it): its wall time
-    unprofiled, which ends in the first token's copy to the host (the
-    engine's part of time to first token), and under the profiler its
-    device time by kernel and the wkv6 kernel's share of it."""
+def profile_prefill(torch, card, cfg, params, S=512, reps=3,
+                    boundaries=(0, 12), ours=("wkv6", ("wkv6_kernel",))):
+    """One full-width prefill of an S-token prompt through every stage
+    (``boundaries``, a request into a free slot, as admission makes it):
+    its wall time unprofiled, which ends in the first token's copy to the
+    host (the engine's part of time to first token), and under the
+    profiler its device time by kernel and the share of it of ``ours``
+    (a label and the kernel names it sums)."""
     from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
     from repro_torch.serving.workload import Request
 
-    eng = FlexPipeEngine(cfg, params, [0, 12],
+    eng = FlexPipeEngine(cfg, params, list(boundaries),
                          EngineConfig(max_batch=8, max_seq=1024))
     rng = np.random.default_rng(1)
     slots = iter(range(8))
@@ -1008,17 +1032,22 @@ def profile_prefill(torch, card, cfg, params, S=512, reps=3):
         walls.append((time.perf_counter() - t0) * 1e3)
     rows, wall_us = kernel_profile(torch, prefill, 1)
     busy_us = sum(r[1] for r in rows)
-    wkv_us = sum(r[1] for r in rows if "wkv6_kernel" in r[0])
+    label, names = ours
+    our_us = sum(r[1] for r in rows if any(n in r[0] for n in names))
     out = {"prompt_tokens": S, "wall_ms": sorted(walls)[len(walls) // 2],
            "wall_ms_all": walls}
     if rows:
-        out.update(profiled_wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
-                   idle_share=1 - busy_us / wall_us,
-                   wkv6_ms=wkv_us / 1e3, wkv6_share=wkv_us / busy_us)
-        log(f"  one {S}-token stage prefill: wall {out['wall_ms']:.3f} ms "
+        out.update({"profiled_wall_ms": wall_us / 1e3,
+                    "busy_ms": busy_us / 1e3,
+                    "idle_share": 1 - busy_us / wall_us,
+                    f"{label}_ms": our_us / 1e3,
+                    f"{label}_share": our_us / busy_us,
+                    f"{label}_launches": sum(r[2] for r in rows if any(
+                        n in r[0] for n in names))})
+        log(f"  one {S}-token prefill: wall {out['wall_ms']:.3f} ms "
             f"(median of {reps}, unprofiled), device busy "
-            f"{out['busy_ms']:.3f} ms, wkv6 {out['wkv6_ms']:.3f} ms "
-            f"({out['wkv6_share']:.3f} of busy), idle share "
+            f"{out['busy_ms']:.3f} ms, {label} {our_us / 1e3:.3f} ms "
+            f"({out[f'{label}_share']:.3f} of busy), idle share "
             f"{out['idle_share']:.3f} (profiler on)")
         for key, us, n in rows[:10]:
             log(f"    {us:10.1f} us {n:5d} calls  {key[:80]}")
@@ -1732,6 +1761,9 @@ def controller_phase(torch, card, models, decode_ms_per_tick):
     log(f"  decision latency (score_s) on {card}: median "
         f"{summary['score_ms_median']:.4f} ms, max "
         f"{summary['score_ms_max']:.4f} ms over {len(scores)} steps")
+    check(summary["score_ms_median"] < 5.0,
+          f"decision latency: median score_s "
+          f"{summary['score_ms_median']:.4f} ms, not under the paper's 5 ms")
     log(f"  controller refactors on {card}: " + ", ".join(
         f"{k} {[round(x, 4) for x in v]} ms"
         for k, v in summary["refactor_ms"].items()))
@@ -1960,9 +1992,19 @@ def deepseek_phase(torch, card):
     runs["deepseek-moe chunk128 dense"] = info
     decode_equals_forward_no_drop(torch, cfg, params, (8, 13), (0, half))
     prof = profile_moe_ticks(torch, cfg, params, (0, half))
+    # time to first token's device part through all 28 layers, and flash's
+    # share: a 512-token prompt (bucket 512) and the longest of the 16, 571
+    # tokens (bucket 1024, as 5 of them)
+    prefill = {S: profile_prefill(torch, card, cfg, params, S=S,
+                                  boundaries=(0, half),
+                                  ours=("flash", ("flash_span_kernel",
+                                                  "flash_combine_kernel",
+                                                  "flash_kernel")))
+               for S in (512, 571)}
     mem = peak_memory(torch, "deepseek-moe-16b")
     out = {"layers": L, "chunk128_streams_differing": len(differ),
-           "chunk128_first_differing_token": first, **prof, **mem,
+           "chunk128_first_differing_token": first, **prof,
+           "prefill": prefill[512], "prefill_1024": prefill[571], **mem,
            "s": time.perf_counter() - t0}
     check(mem["headroom_bytes"] >= 4 * GiB,
           f"deepseek-moe-16b at full depth left {mem['headroom_bytes']} B "
@@ -2186,7 +2228,7 @@ def main() -> int:
                   "on the jamba path")
         for key in ("hd256_window", "hd256_causal", "hd192_128",
                     "hd256_ring", "hd256_global", "hd128", "hd128_mha",
-                    "hd128_gqa"):
+                    "hd128_gqa", "hd128_chunk", "hd128_1024"):
             if key in r:
                 kernels[-1][key] = r[key]
     log(f"  phases 12-13: deepseek-moe-16b {d_out['s']:.1f} s, "

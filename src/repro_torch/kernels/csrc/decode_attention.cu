@@ -94,7 +94,7 @@
 // bf16: 43,568 B.  The bound stays bytes: gemma3-1b's phase-3 shapes read
 // 4.2 MB (ring) and 7.3 MB (global) of K and V, 1.3 and 2.2 us at 3.35
 // TB/s.  On an H100 the kernel's time is a chain of latencies, not
-// bandwidth (tools/hd256_stages.py times each stage): the copies are
+// bandwidth (tools/kernel_stages.py times each stage): the copies are
 // issued, the slice lands, then S and the softmax, P.V, the cluster
 // barrier and merge, and the ticket and folded combine each take
 // 500-2,500 cycles.

@@ -44,50 +44,56 @@
 //     here (cp.async zero-fills rows past Skv), with no padded copies;
 //   * every sum has a fixed order and there are no atomics: the same inputs
 //     give the same bits.
-// Up to HDV = 128 (HD = HDV in {16..128}, and HD = 192 with HDV = 128,
-// MLA prefill's shape: 218,112 B of shared memory in f32) flash_kernel
-// runs as above: tiles of 64 keys, the two warps of a row tile splitting
-// them.
+// Up to hd = hdv = 64 flash_kernel runs as above: tiles of 64 keys, the two
+// warps of a row tile splitting them.
 //
-// HD = HDV = 256 (gemma3) has its own design, flash_span_kernel and
-// flash_combine_kernel.  There the layout above broke twice (f32 tiles of
-// 64 keys do not fit in 227 KB, and a warp's O would be 128 registers), and
-// the earlier stand-in (32-key f32 tiles, the warp pair splitting the output
-// columns and so computing S twice, one CTA per 64 query rows: 36 CTAs at
-// gemma3-1b's 571-token prefill) ran 53x its bound, behind SDPA.  Now:
+// (128, 128), (192, 128) and (256, 256) run flash_span_kernel and
+// flash_combine_kernel.  The one-pass layout above lost there: at hd 256
+// f32 tiles of 64 keys do not fit and a warp's O would be 128 registers
+// (53x its bound, behind SDPA); at hd 128 and (192, 128) (168,960 and
+// 218,112 B, one CTA an SM) the grid was one wave of B x H x Sq/64 CTAs
+// (128 at deepseek-moe-16b's 512-token prefill, 32 at its 128-row chunk)
+// whose time was the causal triangle's longest CTA: 8 serial tiles of
+// about 14,700 cycles each behind a 19,000-cycle prologue
+// (tools/kernel_stages.py on an H100: 1.57x behind SDPA, 12x its bound).
+// The span design:
 //   * the key range is cut into fixed spans of kSpan = 128 ABSOLUTE key
-//     positions, and one CTA runs per (span, tile of 64 query rows, b*h):
-//     100 live CTAs at that prefill instead of 36, each over at most 128
-//     keys.  A CTA whose rows see no key of its span exits at once.  Each
-//     CTA writes every row's partial (m, l, acc[256]), log2 domain, into an
-//     f32 scratch tensor the wrapper allocates (B x H x Sq x n_spans x 258
-//     floats: 11.8 MB at Sq = 571, H = 4, which the 50 MB L2 holds);
-//   * flash_combine_kernel merges each row's spans in span order.  Which
-//     spans a row reads depends only on its absolute position, Skv and the
-//     window, and span boundaries depend neither on Sq nor on q_offset, so
-//     a row's partials, and its output, are the same bits in one call and
-//     chunk by chunk.  Split and combine are two launches that count as one
-//     in build.launches;
+//     positions, and one CTA runs per work item, a (span, tile of 64 query
+//     rows, b*h) that some row of the tile sees: 320 CTAs of at most 2
+//     tiles at that prefill instead of 128 of up to 8, and 128 instead of
+//     32 at the chunk.  The launcher counts the items; the grid has no
+//     other CTA.  CTAs start in blockIdx order as SMs free up, so items are
+//     numbered longest first (spans of kSpan / BK tiles, then the shorter
+//     first and last spans of a query tile: a greedy schedule's order).
+//     Each CTA finds its item by a block-wide scan over the query tiles'
+//     item counts (find_item), one step per 256 tiles;
+//   * each CTA writes every row's partial (m, l, acc[hdv]), log2 domain,
+//     into an f32 scratch tensor the wrapper allocates (B x H x Sq x
+//     n_spans x (hdv + 2) floats), except a row whose keys all lie in this
+//     one span: that row's output is written here, as the combine would
+//     write it (one span's merge scales by exactly 1);
+//   * flash_combine_kernel merges each other row's spans in span order.
+//     Which spans a row reads depends only on its absolute position, Skv
+//     and the window, and span boundaries depend neither on Sq nor on
+//     q_offset, so a row's partials, and its output, are the same bits in
+//     one call and chunk by chunk.  Split and combine are two launches that
+//     count as one in build.launches;
 //   * S is computed once per row tile: the pair's two warps each take half
 //     of a tile's keys for S = Q.K^T and the row maxima, exchange the
 //     maxima through shared memory (both take max(half 0, half 1), so they
 //     keep one softmax state), write their halves of P to shared memory,
-//     and each then accumulates its half of the 256 output columns of P.V
-//     over all of the tile's keys (64 accumulator registers).  The row sums
-//     stay per lane and meet once, at the end, half 0 + half 1.  A warp's
-//     products per tile are 16 x BK/2 x HD for S plus 16 x BK x HDV/2 for
-//     P.V, two thirds of the column split's;
-//   * S accumulates its k-steps round-robin in 4 independent chains, added
-//     in order at the end (a warp's 2 n8 tiles of S would otherwise chain
-//     96 dependent mma.sync each), and Q is copied by cp.async with the
-//     first K/V tile (a scalar copy left each thread waiting on its 64
-//     loads in turn);
-//   * K and V tiles pass through a 2-stage cp.async ring as above: tile t+1
-//     loads while tile t computes.  Shared memory, f32 (BK = 32): Q 64 x
-//     260 x 4 = 66,560 B; ring 2 x 32 x (260 + 260) x 4 = 133,120 B; P 4 x
-//     16 x 40 x 4 = 10,240 B; maxima and sums 4 x 2 x 2 x 16 x 4 = 1,024
-//     B: 210,944 B of the 232,448 a CTA may have, so no third stage.  bf16
-//     (BK = 64): 33,792 + 135,168 + 18,432 + 1,024 = 188,416 B;
+//     and each then accumulates its half of the output columns of P.V over
+//     all of the tile's keys (hdv / 4 accumulator registers).  The row sums
+//     stay per lane and meet once, at the end, half 0 + half 1;
+//   * S accumulates its k-steps round-robin in independent chains (8
+//     accumulators a warp), added in order at the end;
+//   * Q comes by cp.async with the first K/V tile, and K and V tiles pass
+//     through a 2-stage cp.async ring: tile t+1 loads while tile t
+//     computes.  Tiles of 64 keys, or 32 for f32 rows wider than 128.
+//     Shared memory, f32: (128, 128) Q 33,792 + ring 135,168 + P 18,432 +
+//     maxima and sums 1,024 = 188,416 B; (192, 128) 50,176 + 83,968 + 10,240
+//     + 1,024 = 145,408 B; (256, 256) 66,560 + 133,120 + 10,240 + 1,024 =
+//     210,944 B, of the 232,448 a CTA may have;
 //   * the products stay on mma.sync (3xTF32 in f32, m16n8k16 bf16 with P as
 //     a hi + lo pair), with the same fragment code as flash_kernel.
 //     wgmma is left out: in f32 it needs both operands K-major, so V
@@ -97,14 +103,19 @@
 //   * fully masked tiles still add exact zeros and exact scales of 1, and
 //     every sum has a fixed order, with no atomics: the same inputs give the
 //     same bits.
-// Bound at gemma3-1b's prefill (Sq = Skv = 571, H = 4, Kh = 1, f32, as
-// chip_smoke.py phase 3 counts it): operations, 2 x 4 x (256 + 256) x the
-// unmasked pairs, about 0.004 ms as 3xTF32 products at 495 TFLOP/s.  On an
-// H100 (tools/hd256_stages.py) S takes a warp more cycles per tile than
-// P.V at the same count of products: the 3xTF32 splits and shared-memory
-// loads, not the tensor cores, set the pace (S re-splits Q for only 2 n8
-// tiles per warp); writing the span partials and the combine's reading
-// them back are the rest.
+// On an H100 (tools/kernel_stages.py) a CTA of the 512-token prefill at
+// (128, 128) spends about 6,800 cycles on its prologue (Q and two K/V tiles
+// issued, the first awaited), 11,300 a tile (S 5,400, softmax and P 1,000,
+// P.V 4,900) and 3,000 writing its rows: the 3xTF32 splits and fragment
+// loads, not the tensor cores, set the tile's pace.  Tried on the card and
+// left out (PERF.md): persistent CTAs taking items from a queue, a ninth
+// warp issuing the copies on mbarriers, row-by-row bulk copies, Q split
+// into its TF32 halves once per CTA, 32-key tiles at two CTAs an SM, and
+// the combine folded into the span kernel (the CTA that takes its query
+// tile's last ticket merges the tile: the same bits, but 1.3x slower at
+// Sq 512, as one CTA's merge of 64 rows waits on L2 round trips that the
+// combine kernel spreads over the card), none faster; S loading Q and K
+// by float4, 1-4 % faster, for a second S path.
 // TMA is not used: its descriptors would come from cuTensorMapEncodeTiled
 // in libcuda, and cp.async keeps the ring full at these tile sizes.
 #include <stdint.h>
@@ -565,30 +576,36 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// hd = hdv = 256: the key range split into spans across CTAs
+// (128, 128), (192, 128) and (256, 256): the key range split into spans,
+// one CTA per (span, query tile, b*h) item, longest items first
 // ---------------------------------------------------------------------------
 
-constexpr int kWide = 256;         // hd = hdv of the span kernel
 constexpr int kSpan = 128;         // absolute key positions per span
-constexpr int kChains = 4;         // independent accumulators of S
 
-// kv positions per ring tile of the span kernel
-template <typename T>
+// kv positions per ring tile of the span kernel: 64, or 32 for f32 rows
+// wider than 128 (a 64-key f32 ring at hd 192 or 256 does not fit)
+template <typename T, int HD>
 __host__ __device__ constexpr int span_tile() {
-  return sizeof(T) == 4 ? 32 : 64;
+  return sizeof(T) == 4 && HD > 128 ? 32 : 64;
+}
+// independent accumulator chains of S: 8 accumulators per warp (a warp's
+// BK / 16 n8 tiles of S times the chains), 4 chains at hd 256 in both types
+template <typename T, int HD>
+__host__ __device__ constexpr int s_chains() {
+  return HD == 256 ? 4 : 8 / (span_tile<T, HD>() / kPairs / 8);
 }
 // P's row stride in floats: lanes (g, t) storing or loading the float2 at
 // row g, column 2t hit banks 8g + 2t, distinct within each half warp
-template <typename T>
+template <typename T, int HD>
 __host__ __device__ constexpr int p_stride() {
-  return span_tile<T>() + 8;
+  return span_tile<T, HD>() + 8;
 }
 // Q tile and the K/V ring, then P (16 rows x p_stride per row tile), then
 // each warp's row maxima and sums (2 x 16 floats per warp)
-template <typename T>
+template <typename T, int HD, int HDV>
 __host__ __device__ constexpr size_t span_smem() {
-  return smem_bytes<T, kWide, kWide>(span_tile<T>()) +
-         sizeof(float) * (kRowWarps * 16 * p_stride<T>() +
+  return smem_bytes<T, HD, HDV>(span_tile<T, HD>()) +
+         sizeof(float) * (kRowWarps * 16 * p_stride<T, HD>() +
                           kRowWarps * kPairs * 2 * 16);
 }
 
@@ -599,25 +616,150 @@ __device__ __forceinline__ void pair_sync(int rw) {
                : "memory");
 }
 
-// One CTA per (span, tile of 64 query rows, b*h): the partial softmax
-// state (m, l, acc[256]) of every query row of the tile over the keys of
-// the span it may see, in the log2 domain, into part[b*h][row][span].
-template <typename T>
+// The spans [first, last] holding a key that the query at absolute position
+// qp may see (last < first: none).  They depend only on qp, Skv and the
+// window, so a row reads the same spans in one call and chunk by chunk.
+__device__ __forceinline__ int2 row_spans(int qp, int Skv, int causal,
+                                          int window) {
+  int klo = 0, khi = Skv - 1;
+  if (causal) {
+    khi = min(khi, qp);
+    if (window) klo = max(0, qp - window + 1);
+  }
+  const int first = klo / kSpan;
+  return make_int2(first, khi >= klo ? khi / kSpan : first - 1);
+}
+
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// The keys [lo, hi) that some row of the query tile starting at q0 may see
+struct TileKeys {
+  int lo, hi;
+};
+__host__ __device__ inline TileKeys tile_keys(int q0, int Sq, int Skv,
+                                              int q_offset, int causal,
+                                              int window) {
+  const int last_q = imin(q0 + kBQ, Sq) - 1;
+  TileKeys r{0, Skv};
+  if (causal) {
+    r.hi = imin(Skv, q_offset + last_q + 1);
+    if (window) r.lo = imax(0, q_offset + q0 - window + 1);
+  }
+  return r;
+}
+// The tiles of BK keys that span s of a query tile with keys tk covers
+template <int BK>
+__host__ __device__ inline int span_tiles(TileKeys tk, int s) {
+  const int lo = imax(tk.lo, s * kSpan), hi = imin(tk.hi, s * kSpan + kSpan);
+  return (hi - (lo / BK) * BK + BK - 1) / BK;
+}
+// The spans of a query tile that some row of it sees, [first, first + n),
+// and the long ones among them, [lf, lf + nl): those of kSpan / BK tiles.
+// Only the first and the last span can be short.
+struct TileSpans {
+  int first, n, lf, nl;
+};
+template <int BK>
+__host__ __device__ TileSpans tile_spans(int q0, int Sq, int Skv,
+                                         int q_offset, int causal,
+                                         int window) {
+  const TileKeys tk = tile_keys(q0, Sq, Skv, q_offset, causal, window);
+  if (tk.hi <= tk.lo) return TileSpans{0, 0, 0, 0};
+  const int first = tk.lo / kSpan, last = (tk.hi - 1) / kSpan;
+  int lf = first, ll = last;
+  if (span_tiles<BK>(tk, first) < kSpan / BK) ++lf;
+  if (ll >= lf && span_tiles<BK>(tk, last) < kSpan / BK) --ll;
+  return TileSpans{first, last - first + 1, lf, imax(0, ll - lf + 1)};
+}
+
+// A work item: one (span, tile of 64 query rows, b*h) whose keys some row of
+// the tile sees; the grid has one CTA per item and no other.  CTAs start in
+// blockIdx order as SMs free up, so the items are numbered longest first:
+// the long ones (kSpan / BK tiles), then the short ones, each query tile by
+// query tile from the last, then b*h, then span.
+struct Item {
+  int span, q0, bh;
+};
+// The item of CTA idx, found by the CTA's threads together: each takes one
+// query tile, a block-wide scan of the tiles' item counts gives every tile
+// its first index, and the thread whose tile holds idx publishes the item
+// in sh (kThreads / 32 + 3 ints).  One step per kThreads query tiles.
+template <int BK>
+__device__ Item find_item(int idx, int Sq, int Skv, int q_offset,
+                          int causal, int window, int BH, int* sh) {
+  constexpr int NW = kThreads / 32;
+  const int n_q = (Sq + kBQ - 1) / kBQ;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int base = 0;                               // items of the earlier steps
+  for (int pass = 0; pass < 2; ++pass)
+    for (int r0 = 0; r0 < n_q; r0 += kThreads) {
+      const int r = r0 + threadIdx.x;
+      const int q0 = (n_q - 1 - r) * kBQ;
+      TileSpans ts{0, 0, 0, 0};
+      if (r < n_q) ts = tile_spans<BK>(q0, Sq, Skv, q_offset, causal, window);
+      const int n = pass == 0 ? ts.nl : ts.n - ts.nl;
+      int incl = n * BH;                      // inclusive scan in the warp
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) {
+        const int y = __shfl_up_sync(rt::kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) sh[warp] = incl;
+      __syncthreads();
+      int start = base + incl - n * BH, total = base;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        start += w < warp ? sh[w] : 0;
+        total += sh[w];
+      }
+      if (n > 0 && idx >= start && idx < start + n * BH) {
+        const int j = (idx - start) % n;
+        sh[NW] = pass == 0 ? ts.lf + j
+                 : j == 0 && ts.lf > ts.first ? ts.first
+                                              : ts.first + ts.n - 1;
+        sh[NW + 1] = q0;
+        sh[NW + 2] = (idx - start) / n;
+      }
+      __syncthreads();                        // sh[] read before rewritten
+      if (idx < total) return Item{sh[NW], sh[NW + 1], sh[NW + 2]};
+      base = total;
+    }
+  return Item{-1, 0, 0};
+}
+template <int BK>
+__host__ __device__ int count_items(int Sq, int Skv, int q_offset,
+                                    int causal, int window, int BH) {
+  const int n_q = (Sq + kBQ - 1) / kBQ;
+  int n = 0;
+  for (int r = 0; r < n_q; ++r)
+    n += tile_spans<BK>(r * kBQ, Sq, Skv, q_offset, causal, window).n * BH;
+  return n;
+}
+
+// One CTA per work item: the partial softmax state (m, l, acc[HDV]) of
+// every query row of the tile over the keys of the span it may see, in the
+// log2 domain, into part[b*h][row][span].  A row whose keys all lie in this
+// one span is finished here, its output written directly as the combine
+// would write it (one span's merge scales by exactly 1), and the combine
+// skips it.
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, float* __restrict__ part, int Sq,
-                  int Skv, int H, int Kh, int q_offset, int causal,
-                  int window, float scale, int n_spans) {
-  constexpr int HD = kWide, HDV = kWide;
-  constexpr int BK = span_tile<T>();          // kv positions per tile
+                  const T* __restrict__ v, float* __restrict__ part,
+                  T* __restrict__ out, int Sq, int Skv, int H, int Kh,
+                  int q_offset, int causal, int window, float scale,
+                  int n_spans, int BH) {
+  constexpr int BK = span_tile<T, HD>();      // kv positions per tile
   constexpr int WK = BK / kPairs;             // keys of S per warp
   constexpr int NT = WK / 8;                  // n8 tiles of S per warp
   constexpr int NP = BK / 8;                  // n8 tiles of P per row tile
   constexpr int CV = HDV / kPairs;            // O columns per warp
   constexpr int NO = CV / 8;                  // n8 tiles of O per warp
-  constexpr int QS = stride<T, HD>(), KS = QS, VS = QS;
-  constexpr int PS = p_stride<T>();
-  constexpr int KCH = HD * sizeof(T) / 16;    // 16-byte pieces per row
+  constexpr int QS = stride<T, HD>(), KS = QS, VS = stride<T, HDV>();
+  constexpr int PS = p_stride<T, HD>();
+  constexpr int KCH = HD * sizeof(T) / 16;    // 16-byte pieces per K row
+  constexpr int VCH = HDV * sizeof(T) / 16;
   static_assert(kSpan % BK == 0 && NP % 2 == 0, "tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);     // kBQ x QS
@@ -626,10 +768,11 @@ flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pbuf = reinterpret_cast<float*>(vring + 2 * BK * VS);
   float* xbuf = pbuf + kRowWarps * 16 * PS;   // [rw][kg][max, sum][16]
 
-  const int span = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
-  const int b = blockIdx.z / H;
-  const int h = blockIdx.z % H;
+  const Item item = find_item<BK>(blockIdx.x, Sq, Skv, q_offset, causal,
+                                  window, BH, reinterpret_cast<int*>(xbuf));
+  const int span = item.span, q0 = item.q0;
+  const int b = item.bh / H;
+  const int h = item.bh % H;
   const int kh = h / (H / Kh);
   const int warp = threadIdx.x / 32;
   const int rw = warp % kRowWarps;            // row tile of this warp
@@ -639,19 +782,9 @@ flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane / 4;
   const int t = lane % 4;
 
-  // keys any row of this tile can see, cut to the span
-  const int last_q = min(q0 + kBQ, Sq) - 1;
-  int kv_hi = Skv;
-  int kv_lo = 0;
-  if (causal) {
-    kv_hi = min(Skv, q_offset + last_q + 1);
-    if (window) kv_lo = max(0, q_offset + q0 - window + 1);
-  }
-  const int lo = max(kv_lo, span * kSpan);
-  const int hi = min(kv_hi, span * kSpan + kSpan);
-  if (lo >= hi) return;                       // no row sees this span
-  const int tile0 = (lo / BK) * BK;
-  const int n_tiles = (hi - tile0 + BK - 1) / BK;
+  const TileKeys tk = tile_keys(q0, Sq, Skv, q_offset, causal, window);
+  const int tile0 = (imax(tk.lo, span * kSpan) / BK) * BK;
+  const int n_tiles = span_tiles<BK>(tk, span);
 
   const int64_t krow0 = (int64_t)b * Skv * Kh + kh;   // row p at + p * Kh
   auto load_tile = [&](int it) {
@@ -664,8 +797,17 @@ flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int64_t off = (krow0 + (int64_t)(ok ? p : 0) * Kh) * HD +
                           c * (16 / sizeof(T));
       cp_async16(kd + r * KS + c * (16 / sizeof(T)), k + off, ok);
-      cp_async16(vd + r * VS + c * (16 / sizeof(T)), v + off, ok);
+      if (HD == HDV)
+        cp_async16(vd + r * VS + c * (16 / sizeof(T)), v + off, ok);
     }
+    if (HD != HDV)
+      for (int i = threadIdx.x; i < BK * VCH; i += blockDim.x) {
+        const int r = i / VCH, c = i % VCH, p = base + r;
+        const bool ok = p < Skv;
+        const int64_t off = (krow0 + (int64_t)(ok ? p : 0) * Kh) * HDV +
+                            c * (16 / sizeof(T));
+        cp_async16(vd + r * VS + c * (16 / sizeof(T)), v + off, ok);
+      }
     cp_async_commit();
   };
   // q (B, Sq, H, HD): raw rows, zeros past Sq, copied with tile 0 (the
@@ -703,12 +845,12 @@ flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();   // tile it (and q) visible to every warp
     const T* kt = kring + ((it & 1) * BK + kg * WK) * KS;
     const T* vt = vring + (it & 1) * BK * VS + kg * CV;
-    const int t0 = tile0 + it * BK;             // the CTA's tile
+    const int t0 = tile0 + it * BK;             // the item's tile
     const int w0 = t0 + kg * WK;                // this warp's keys of S
 
     // S for this warp's half of the tile's keys, computed once
     float s[NT][4];
-    scores<HD, NT, kChains>(s, qw, kt, g, t);
+    scores<HD, NT, s_chains<T, HD>()>(s, qw, kt, g, t);
 
     const bool full =
         t0 + BK <= Skv &&
@@ -811,7 +953,18 @@ flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
-    float* pp = part + (((int64_t)blockIdx.z * Sq + row) * n_spans + span) *
+    const int2 rs = row_spans(q_offset + row, Skv, causal, window);
+    if (span < rs.x || span > rs.y) continue;   // never read
+    if (rs.x == rs.y) {                         // the row's only span
+      const float inv = 1.f / fmaxf(r ? L1 : L0, 1e-30f);
+      T* po = out + (((int64_t)b * Sq + row) * H + h) * HDV + kg * CV;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        store2<T>(po + 8 * n + 2 * t, o[n][2 * r] * inv,
+                  o[n][2 * r + 1] * inv);
+      continue;
+    }
+    float* pp = part + (((int64_t)item.bh * Sq + row) * n_spans + span) *
                            (HDV + 2);
     if (kg == 0 && t == 0) {
       pp[0] = r ? m1 : m0;
@@ -824,34 +977,31 @@ flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// One CTA per (query row, b*h), two output columns per thread: the spans
+// kCombineThreads / (HDV / 2) query rows per CTA of the combine
+constexpr int kCombineThreads = 256;
+
+// Two output columns per thread, one row per HDV / 2 threads: the spans
 // the row can see, merged in span order (a span it cannot see is never
-// read, and which spans those are depends only on the row's absolute
-// position, Skv and the window)
-template <typename T>
-__global__ void __launch_bounds__(kWide / 2)
+// read).  A row with one span was written by the span kernel.
+template <typename T, int HDV>
+__global__ void __launch_bounds__(kCombineThreads)
 flash_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
                      int Sq, int Skv, int H, int q_offset, int causal,
                      int window, int n_spans) {
-  constexpr int HDV = kWide;
-  const int row = blockIdx.x;
+  constexpr int R = kCombineThreads / (HDV / 2);
+  const int row = blockIdx.x * R + threadIdx.x / (HDV / 2);
+  if (row >= Sq) return;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
-  const int qp = q_offset + row;
-  int klo = 0, khi = Skv - 1;
-  if (causal) {
-    khi = min(khi, qp);
-    if (window) klo = max(0, qp - window + 1);
-  }
-  const int s_lo = klo / kSpan;
-  const int s_hi = khi >= klo ? khi / kSpan : s_lo - 1;
+  const int2 rs = row_spans(q_offset + row, Skv, causal, window);
+  if (rs.x == rs.y) return;
   const float* pr =
       part + ((int64_t)blockIdx.y * Sq + row) * n_spans * (HDV + 2);
-  const int d = 2 * threadIdx.x;
+  const int d = 2 * (threadIdx.x % (HDV / 2));
   float mx = rt::kNegInf;
-  for (int s = s_lo; s <= s_hi; ++s) mx = fmaxf(mx, pr[s * (HDV + 2)]);
+  for (int s = rs.x; s <= rs.y; ++s) mx = fmaxf(mx, pr[s * (HDV + 2)]);
   float L = 0.f, O0 = 0.f, O1 = 0.f;
-  for (int s = s_lo; s <= s_hi; ++s) {
+  for (int s = rs.x; s <= rs.y; ++s) {
     const float* ps = pr + s * (HDV + 2);
     const float c = exp2f(ps[0] - mx);
     const float2 a = *reinterpret_cast<const float2*>(ps + 2 + d);
@@ -864,30 +1014,36 @@ flash_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
             O1 * inv);
 }
 
-template <typename T>
+template <typename T, int HD, int HDV>
 int launch_span(const void* q, const void* k, const void* v, void* out,
                 void* scratch, int B, int Sq, int Skv, int H, int Kh,
                 int q_offset, int causal, int window, float scale, int span,
                 int smem, cudaStream_t stream) {
-  constexpr size_t bytes = span_smem<T>();
+  constexpr size_t bytes = span_smem<T, HD, HDV>();
   static_assert(bytes <= kMaxSmem, "tiles do not fit in shared memory");
   if (span != kSpan || smem != static_cast<int>(bytes) || !scratch)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_span_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      flash_span_kernel<T, HD, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_spans = Skv > kSpan ? (Skv + kSpan - 1) / kSpan : 1;
-  const dim3 grid(n_spans, (Sq + kBQ - 1) / kBQ, B * H);
-  flash_span_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<float*>(scratch), Sq, Skv, H, Kh,
-      q_offset, causal, window, scale, n_spans);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_combine_kernel<T><<<dim3(Sq, B * H), kWide / 2, 0, stream>>>(
-      static_cast<const float*>(scratch), static_cast<T*>(out), Sq, Skv, H,
-      q_offset, causal, window, n_spans);
+  const int n_items = count_items<span_tile<T, HD>()>(
+      Sq, Skv, q_offset, causal, window, B * H);
+  if (n_items > 0) {
+    flash_span_kernel<T, HD, HDV><<<n_items, kThreads, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<float*>(scratch),
+        static_cast<T*>(out), Sq, Skv, H, Kh, q_offset, causal, window,
+        scale, n_spans, B * H);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  constexpr int R = kCombineThreads / (HDV / 2);
+  flash_combine_kernel<T, HDV>
+      <<<dim3((Sq + R - 1) / R, B * H), kCombineThreads, 0, stream>>>(
+          static_cast<const float*>(scratch), static_cast<T*>(out), Sq, Skv,
+          H, q_offset, causal, window, n_spans);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -918,9 +1074,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // (hd, hdv) pairs built: hd == hdv in {16, 32, 64, 128, 256}, and (192,
 // 128); kernels/flash_attention.py's HEAD_DIM_PAIRS lists the same.  span
 // and smem are the geometry the wrapper computed (kernels/
-// flash_attention.py::_geometry): span 0 and smem_bytes below hd 256,
-// kSpan and span_smem at hd 256 (which also takes the f32 scratch of
-// B x H x Sq x n_spans partials); any other is refused.
+// flash_attention.py::_geometry): span 0 and smem_bytes for flash_kernel
+// (hd <= 64), kSpan and span_smem for the span kernel ((128, 128), (192,
+// 128) and (256, 256), which also take the f32 scratch of B x H x Sq x
+// n_spans partials); any other is refused.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* scratch,
                                       int B, int Sq, int Skv, int H, int Kh,
@@ -931,25 +1088,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (B <= 0 || Sq <= 0 || Kh <= 0 || H % Kh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == kWide && hdv == kWide) {
-    if (dtype == rt::kDtypeF32)
-      return launch_span<float>(q, k, v, out, scratch, B, Sq, Skv, H, Kh,
-                                q_offset, causal, window, scale, span, smem,
-                                s);
-    if (dtype == rt::kDtypeBF16)
-      return launch_span<__nv_bfloat16>(q, k, v, out, scratch, B, Sq, Skv, H,
-                                        Kh, q_offset, causal, window, scale,
-                                        span, smem, s);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (span != 0) return static_cast<int>(cudaErrorInvalidValue);
+#define RT_SPAN(T, D, DV)                                                  \
+  if (hd == D && hdv == DV)                                                \
+    return launch_span<T, D, DV>(q, k, v, out, scratch, B, Sq, Skv, H, Kh, \
+                                 q_offset, causal, window, scale, span,    \
+                                 smem, s);
 #define RT_CASE(T, D, DV)                                                  \
   if (hd == D && hdv == DV)                                                \
-    return launch<T, D, DV>(q, k, v, out, B, Sq, Skv, H, Kh, q_offset,     \
-                            causal, window, scale, smem, s);
+    return span != 0 ? static_cast<int>(cudaErrorInvalidValue)            \
+                     : launch<T, D, DV>(q, k, v, out, B, Sq, Skv, H, Kh,   \
+                                        q_offset, causal, window, scale,   \
+                                        smem, s);
 #define RT_ALL(T)                                                          \
   RT_CASE(T, 16, 16) RT_CASE(T, 32, 32) RT_CASE(T, 64, 64)                 \
-  RT_CASE(T, 128, 128) RT_CASE(T, 192, 128)
+  RT_SPAN(T, 128, 128) RT_SPAN(T, 192, 128) RT_SPAN(T, 256, 256)
   if (dtype == rt::kDtypeF32) {
     RT_ALL(float)
   } else if (dtype == rt::kDtypeBF16) {
@@ -957,5 +1109,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
 #undef RT_ALL
 #undef RT_CASE
+#undef RT_SPAN
   return static_cast<int>(cudaErrorInvalidValue);
 }

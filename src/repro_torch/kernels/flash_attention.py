@@ -11,11 +11,13 @@ position of q row 0 within the kv span; ``None`` means END-aligned,
 when ``causal``.  Unlike the Pallas kernel, the CUDA kernel takes
 ``q_offset``, ``Sq`` and ``Skv`` at run time.
 
-At hd = hdv = 256 the kernel splits the key range into fixed spans of
-``SPAN`` absolute key positions, one CTA per (span, tile of ``TILE_Q`` query
-rows, b*h), each writing its rows' partial softmax states (log2 domain) into
-an f32 scratch tensor the wrapper allocates; a second kernel merges each
-row's spans in span order.  ``span_plan``, ``flash_partials_plain`` and
+At (hd, hdv) in ``SPAN_PAIRS`` the kernel splits the key range into fixed
+spans of ``SPAN`` absolute key positions.  One CTA per work item, a (span,
+tile of ``TILE_Q`` query rows, b*h) that some row of the tile sees, longest
+items first, writes its rows' partial softmax states (log2 domain) into an
+f32 scratch tensor the wrapper allocates, or, for a row whose keys all lie
+in one span, the row's output; a second kernel merges each other row's
+spans in span order.  ``span_plan``, ``flash_partials_plain`` and
 ``flash_combine_plain`` are the plain versions of that plan and of both
 passes, and ``_geometry`` the launch geometry that the C launcher checks.
 """
@@ -34,7 +36,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # package passes (hd 256 is gemma3's; (192, 128) is MLA prefill's)
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
                   (256, 256))
-WIDE = (256, 256)                  # the (hd, hdv) the span kernel takes
+# the (hd, hdv) the span kernel takes; the others run in one pass
+SPAN_PAIRS = ((128, 128), (192, 128), (256, 256))
 SPAN = 128                         # absolute key positions per span (kSpan)
 TILE_Q = 64                        # query rows per CTA (kBQ)
 LOG2E = 1.4426950408889634
@@ -48,20 +51,23 @@ class Geometry(NamedTuple):
 
 def _geometry(hd: int, hdv: int, dtype: torch.dtype) -> Geometry:
     """The kernels' launch geometry (csrc/flash_attention.cu: kTileKeys and
-    smem_bytes, or span_tile and span_smem at hd 256), which the launcher
-    refuses to differ: Q's tile and a 2-stage K/V ring, rows padded by 16
-    bytes (f32) or 8 elements (bf16), and at hd 256 P and the pair's row
-    maxima and sums in f32."""
+    smem_bytes, or span_tile and span_smem for the span kernel), which the
+    launcher refuses to differ: Q's tile and a 2-stage K/V ring, rows padded
+    by 16 bytes (f32) or 8 elements (bf16), and in the span kernel P and the
+    pair's row maxima and sums in f32; its ring tiles hold 64 keys, or 32
+    for f32 rows wider than 128."""
     es = dtype.itemsize
-    pad = 4 if es == 4 else 8
+    if (hd, hdv) not in SPAN_PAIRS:
+        return Geometry(64, 0, _ring_smem(hd, hdv, es, 64))
+    bk = 32 if es == 4 and hd > 128 else 64
+    return Geometry(bk, SPAN, _ring_smem(hd, hdv, es, bk)
+                    + 4 * (4 * 16 * (bk + 8) + 4 * 2 * 2 * 16))
 
-    def ring(bk):
-        return es * (TILE_Q * (hd + pad) + 2 * bk * (hd + pad + hdv + pad))
-    if (hd, hdv) != WIDE:
-        return Geometry(64, 0, ring(64))
-    bk = 32 if es == 4 else 64
-    return Geometry(bk, SPAN, ring(bk) + 4 * (4 * 16 * (bk + 8) + 4 * 2 * 2
-                                              * 16))
+
+def _ring_smem(hd, hdv, es, bk):
+    """Q's tile and a 2-stage ring of bk-key K and V tiles, in bytes."""
+    pad = 4 if es == 4 else 8
+    return es * (TILE_Q * (hd + pad) + 2 * bk * (hd + pad + hdv + pad))
 
 
 def n_spans(Skv: int) -> int:
@@ -80,7 +86,7 @@ def _visible(qp: int, Skv: int, causal: bool, window: int):
 
 
 def span_plan(Sq: int, Skv: int, *, causal=True, window=0, q_offset=None):
-    """The hd-256 kernel's split of the key range: the span count; per
+    """The span kernel's split of the key range: the span count; per
     query row the spans it reads, as ``range(first, end)`` (they depend only
     on the row's absolute position, Skv and the window); and the live CTAs
     as (query tile, span) pairs: those where some row of the tile sees a
@@ -224,10 +230,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash attention: the kernel copies k and v rows in "
                          "16-byte pieces; both must start on a 16-byte "
                          "boundary")
-    if (hd, hdv) == WIDE and q.data_ptr() % 16:
-        raise ValueError("flash attention: at hd 256 the kernel copies q "
-                         "rows in 16-byte pieces too; q must start on a "
-                         "16-byte boundary")
+    if (hd, hdv) in SPAN_PAIRS and q.data_ptr() % 16:
+        raise ValueError(f"flash attention: at (hd, hdv) = ({hd}, {hdv}) "
+                         "the kernel copies q rows in 16-byte pieces too; "
+                         "q must start on a 16-byte boundary")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -242,7 +248,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if Sq == 0:
         return out
     geo = _geometry(hd, hdv, q.dtype)
-    # the span pass's partials: (m, l, acc[hdv]) per (b, h, row, span)
+    # the span pass's partials: (m, l, acc[hdv]) per (b, h, row, span);
+    # rows with one span never touch theirs
     scratch = (torch.empty(B * H * Sq * n_spans(Skv) * (hdv + 2),
                            dtype=torch.float32, device=q.device)
                if geo.span else None)

@@ -289,6 +289,67 @@ def test_cuda_flash_span_edges_hd256(cuda_dev, dt):
         assert torch.equal(flash_attention(q, k, v, **kw), out)
 
 
+# (Sq, Skv, H, Kh, window, q_offset) for the span kernel at (128, 128) and
+# (192, 128): the model shapes, GQA 4, a window inside a span and one key
+# past it, chunks across span edges and off the 64-row tile; rows that see
+# no key (a window past the last key; q_offset < 0, END-aligned Sq > Skv),
+# whole tiles of them too; and more query tiles (257) than a CTA has
+# threads, which the item search takes in two steps
+FLASH_SPAN_NARROW_CASES = [
+    (512, 512, 16, 16, 0, None), (571, 571, 32, 8, 0, None),
+    (128, 512, 16, 16, 0, 384), (65, 257, 8, 2, 0, 192),
+    (129, 384, 8, 2, 100, 255), (200, 200, 4, 1, 129, None),
+    (1, 129, 4, 1, 0, None), (64, 640, 4, 4, 0, 300),
+    (130, 160, 4, 1, 32, 100), (300, 140, 4, 2, 0, None),
+    (16400, 200, 1, 1, 0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,hdv", [(128, 128), (192, 128)])
+def test_cuda_flash_span_kernel_narrow(cuda_dev, dt, hd, hdv):
+    """The span kernel at (128, 128) and (192, 128) across span edges, with
+    windows, q_offset, GQA and Sq off the query tile: against the plain
+    version, and the same bits again."""
+    rng = np.random.default_rng(hd + hdv)
+    for Sq, Skv, H, Kh, window, q_offset in FLASH_SPAN_NARROW_CASES:
+        q = _rand(rng, (1, Sq, H, hd), dt, cuda_dev)
+        k = _rand(rng, (1, Skv, Kh, hd), dt, cuda_dev)
+        v = _rand(rng, (1, Skv, Kh, hdv), dt, cuda_dev)
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        out = flash_attention(q, k, v, **kw)
+        torch.testing.assert_close(
+            out.float(), flash_attention_plain(q, k, v, **kw).float(),
+            **TOL[dt], msg=lambda m: f"Sq={Sq} Skv={Skv} H={H} Kh={Kh} "
+                                     f"window={window} q_offset={q_offset}: "
+                                     f"{m}")
+        assert torch.equal(flash_attention(q, k, v, **kw), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,hdv", [(128, 128), (192, 128)])
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+@pytest.mark.parametrize("Sp,H,Kh,window", [(512, 16, 16, 0),
+                                            (571, 32, 8, 0),
+                                            (300, 4, 1, 128)])
+def test_cuda_flash_chunk_composition_narrow(cuda_dev, dt, hd, hdv, chunk,
+                                             Sp, H, Kh, window):
+    """Chunk-by-chunk calls give one call's bits in the span kernel at
+    (128, 128) and (192, 128): deepseek-moe-16b's bucket, jamba-v0.1-52b's
+    heads at a prompt off the spans and tiles, and a window."""
+    rng = np.random.default_rng(hd + chunk + Sp)
+    q = _rand(rng, (1, Sp, H, hd), dt, cuda_dev)
+    k = _rand(rng, (1, Sp, Kh, hd), dt, cuda_dev)
+    v = _rand(rng, (1, Sp, Kh, hdv), dt, cuda_dev)
+    whole = flash_attention(q, k, v, causal=True, window=window, q_offset=0)
+    parts = [flash_attention(q[:, c0:c0 + chunk].contiguous(), k, v,
+                             causal=True, window=window, q_offset=c0)
+             for c0 in range(0, Sp, chunk)]
+    assert torch.equal(torch.cat(parts, 1), whole)
+
+
 # cache lengths at the hd-256 cluster's slice edges and the chunks' edges
 SLICE_EDGE_LENS = [1, 31, 32, 33, 127, 128, 129, 512]
 

@@ -1,8 +1,9 @@
-"""The hd-256 kernels' splits, on the CPU: flash's key spans and decode's
-cluster slices as pure-Python plans, and the plain mirrors of each split's
-partials and combine held against the plain versions and the Pallas
-kernels in interpret mode at 3e-5.  The CUDA kernels that run these plans
-are tested in test_torch_cuda.py."""
+"""The span and cluster kernels' splits, on the CPU: flash's key spans (at
+(128, 128), (192, 128) and (256, 256)) and decode's cluster slices (hd
+256) as pure-Python plans, and the plain mirrors of each split's partials
+and combine held against the plain versions and the Pallas kernels in
+interpret mode at 3e-5.  The CUDA kernels that run these plans are tested
+in test_torch_cuda.py."""
 import math
 
 import numpy as np
@@ -125,6 +126,62 @@ def test_flash_span_mirror_vs_plain_and_pallas(S, window, q_offset, Skv):
     _close(out, np.asarray(pallas))
 
 
+@pytest.mark.parametrize("hd,hdv", [(128, 128), (192, 128)])
+@pytest.mark.parametrize("S,window,q_offset,Skv,H,Kh", [
+    (130, 0, None, 130, 16, 16), (130, 8, None, 130, 32, 8),
+    (64, 0, 66, 130, 16, 16),                       # a chunk across a span
+    (17, 8, 113, 130, 32, 8),                       # off the tile, windowed
+])
+def test_flash_span_mirror_narrow_heads(hd, hdv, S, window, q_offset, Skv,
+                                        H, Kh):
+    """The span pass merged in span order at (128, 128) and (192, 128),
+    with deepseek-moe-16b's heads (16 on 16) and jamba-v0.1-52b's (32 on
+    8): equal to the one-pass plain version and the Pallas kernel
+    (interpret mode)."""
+    rng = np.random.default_rng(hd + S + window + H)
+    q, k, v = (_randn(rng, 1, S, H, hd), _randn(rng, 1, Skv, Kh, hd),
+               _randn(rng, 1, Skv, Kh, hdv))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    m, l, acc = flash_partials_plain(tq, tk, tv, **kw)
+    assert acc.shape == (1, H, S, math.ceil(Skv / SPAN), hdv)
+    out = flash_combine_plain(m, l, acc, Skv=Skv, **kw)
+    _close(out, flash_attention_plain(tq, tk, tv, **kw))
+    pallas = pl_flash(*map(jnp.asarray, (q, k, v)), window=window,
+                      q_offset=q_offset, block_q=64, block_k=64)
+    _close(out, np.asarray(pallas))
+
+
+@pytest.mark.parametrize("hd,hdv", [(128, 128), (192, 128), (256, 256)])
+@pytest.mark.parametrize("window", [0, 40])
+def test_flash_partials_chunked_equal_whole(hd, hdv, window):
+    """Each row's partials over the spans it reads are the same chunk by
+    chunk (Sq = chunk, q_offset = c0) as in one call, and so is a row read
+    from one span: the plan depends on absolute positions only."""
+    rng = np.random.default_rng(hd + window)
+    Sp, H, Kh = 300, 4, 2
+    q, k, v = (torch.from_numpy(_randn(rng, 1, Sp, H, hd)),
+               torch.from_numpy(_randn(rng, 1, Sp, Kh, hd)),
+               torch.from_numpy(_randn(rng, 1, Sp, Kh, hdv)))
+    kw = dict(causal=True, window=window)
+    m, l, acc = flash_partials_plain(q, k, v, q_offset=0, **kw)
+    _, rows, _ = span_plan(Sp, Sp, q_offset=0, **kw)
+    for chunk in (16, 64, 128):
+        for c0 in range(0, Sp, chunk):
+            n = min(chunk, Sp - c0)
+            cm, cl, cacc = flash_partials_plain(
+                q[:, c0:c0 + n].contiguous(), k, v, q_offset=c0, **kw)
+            for i in range(n):
+                r = rows[c0 + i]
+                sl = slice(r.start, r.stop)
+                assert torch.equal(cm[:, :, i, sl], m[:, :, c0 + i, sl])
+                assert torch.equal(cl[:, :, i, sl], l[:, :, c0 + i, sl])
+                assert torch.equal(cacc[:, :, i, sl],
+                                   acc[:, :, c0 + i, sl])
+            assert span_plan(n, Sp, q_offset=c0, **kw)[1] == \
+                rows[c0:c0 + n]
+
+
 def test_flash_unread_spans_change_nothing():
     """The combine reads only a row's own spans: garbage (NaN, inf) in the
     others leaves the output's bits as they were."""
@@ -147,17 +204,37 @@ def test_flash_unread_spans_change_nothing():
 
 def test_flash_geometry():
     """The launch geometry the C launcher checks: 128-key spans and the
-    shared-memory sums of csrc/flash_attention.cu's header at hd 256; one
-    pass with 64-key tiles elsewhere."""
+    shared-memory sums of csrc/flash_attention.cu's header at (128, 128),
+    (192, 128) and (256, 256); one pass with 64-key tiles below."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert fk._geometry(256, 256, f32) == (32, SPAN, 210_944)
     assert fk._geometry(256, 256, bf16) == (64, SPAN, 188_416)
-    assert fk._geometry(192, 128, f32) == (64, 0, 218_112)
+    assert fk._geometry(192, 128, f32) == (32, SPAN, 145_408)
     assert fk._geometry(64, 64, f32) == (64, 0, 4 * (64 * 68 + 128 * 136))
     assert max(fk._geometry(a, b, t).smem for a, b in fk.HEAD_DIM_PAIRS
                for t in (f32, bf16)) <= 227 * 1024
     assert [fk.n_spans(s) for s in (0, 1, SPAN, SPAN + 1, 571)] == \
         [1, 1, 1, 2, 5]
+
+
+@pytest.mark.parametrize("hd,hdv,dtype,want", [
+    # Q 33,792 + ring 135,168 + P 18,432 + maxima and sums 1,024
+    (128, 128, torch.float32, (64, SPAN, 188_416)),
+    (128, 128, torch.bfloat16, (64, SPAN, 106_496)),
+    # Q 50,176 + ring (32-key tiles) 83,968 + P 10,240 + 1,024: 64-key f32
+    # tiles would need 237,568 B
+    (192, 128, torch.float32, (32, SPAN, 145_408)),
+    (192, 128, torch.bfloat16, (64, SPAN, 131_072)),
+    (256, 256, torch.float32, (32, SPAN, 210_944)),
+])
+def test_flash_span_geometry(hd, hdv, dtype, want):
+    """The span kernel's ring tile, span and shared memory at each pair it
+    takes: the sums in csrc/flash_attention.cu's header, within the
+    232,448 B a CTA may have."""
+    geo = fk._geometry(hd, hdv, dtype)
+    assert geo == want
+    assert geo.smem <= 227 * 1024
+    assert (hd, hdv) in fk.SPAN_PAIRS
 
 
 # ---------------------------------------------------------------------------

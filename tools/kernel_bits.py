@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Hold the hd <= 128 and (192, 128) attention kernels of two trees to the
-same bits, on one NVIDIA GPU.
+"""Hold the attention kernels of two trees to the same bits, on one NVIDIA
+GPU.
 
     python3 tools/kernel_bits.py save TREE OUT.pt    # TREE: a checkout's root
-    python3 tools/kernel_bits.py compare A.pt B.pt
+    python3 tools/kernel_bits.py compare A.pt B.pt [EXPECTED ...]
 
 ``save`` builds TREE's kernels (into build/kernels_<tree>/ beside the usual
 build directory, so two trees never share a library) and stores their
 outputs on fixed inputs made from seed 0: dense and paged decode at hd 16,
-32, 64 and 128 with G = 1, 4 and 8 and cache lengths at chunk edges, and
-flash at (hd, hdv) = (16, 16) ... (128, 128) and (192, 128), causal, with a
-window and a q_offset, in f32 and bf16.  ``compare`` exits non-zero unless
-every output is equal bit for bit.  To compare a commit with its parent,
-unpack the parent into a git-ignored directory (``git archive``) and run
-save for parent, change, change, parent, then compare each pair.
+32, 64, 128 and 256 with G = 1, 4 and 8 and cache lengths at chunk edges,
+and flash at every (hd, hdv) the kernel takes, causal, with a window and a
+q_offset, in f32 and bf16.  ``compare`` holds every output whose name holds
+none of the EXPECTED substrings (say ``"(128, 128)"``: the flash outputs a
+change redesigned) to the same bits, prints the names of the expected ones
+that changed, and exits non-zero if any other output differs.  To compare
+a commit with its parent, unpack the parent into a git-ignored directory
+(``git archive``) and run save for parent, change, change, parent, then
+compare each pair.
 """
 import sys
 from pathlib import Path
@@ -40,7 +43,7 @@ def save(tree: str, out: str) -> int:
             return torch.from_numpy(x).to(dev, dt)
         cl = torch.tensor([300, 1, 129, 0, 257], dtype=torch.int32,
                           device=dev)
-        for hd in (16, 32, 64, 128):
+        for hd in (16, 32, 64, 128, 256):
             for H, Kh in ((16, 16), (8, 2), (8, 1)):
                 q = rnd(5, H, hd)
                 kc, vc = rnd(5, Kh, 300, hd), rnd(5, Kh, 300, hd)
@@ -51,7 +54,8 @@ def save(tree: str, out: str) -> int:
                     rng.integers(1, 40, (5, 19)).astype(np.int32)).to(dev)
                 outs[f"paged {dt} hd={hd} H={H} Kh={Kh}"] = \
                     paged_decode_attention(q, kp, vp, bt, cl).cpu()
-        for hd, hdv in ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128)):
+        for hd, hdv in ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
+                        (256, 256)):
             for Sq, Skv, win, qo in ((512, 512, 0, None), (200, 330, 64, 130),
                                      (65, 65, 0, None)):
                 q, k, v = rnd(1, Sq, 8, hd), rnd(1, Skv, 4, hd), \
@@ -65,17 +69,27 @@ def save(tree: str, out: str) -> int:
     return 0
 
 
-def compare(a: str, b: str) -> int:
+def compare(a: str, b: str, *expected: str) -> int:
     import torch
     x, y = torch.load(a), torch.load(b)
-    bad = [k for k in x if k not in y or not torch.equal(x[k], y[k])]
-    print(f"{a} vs {b}: {len(x)} outputs, {len(bad)} differ"
+    differ = [k for k in x if k not in y or not torch.equal(x[k], y[k])]
+    free = [k for k in x if any(e in k for e in expected)]
+    bad = [k for k in differ if k not in free]
+    moved = [k for k in differ if k in free]
+    print(f"{a} vs {b}: {len(x)} outputs; {len(x) - len(free)} held to the "
+          f"same bits, {len(bad)} of them differ"
           + (": " + ", ".join(bad[:10]) if bad else ""))
+    if expected:
+        print(f"  expected to change ({', '.join(expected)}): {len(moved)} "
+              f"of {len(free)} changed" + "".join(f"\n    {k}"
+                                                for k in moved))
     return 1 if bad or set(x) != set(y) else 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] in ("save", "compare"):
-        sys.exit((save if sys.argv[1] == "save" else compare)(*sys.argv[2:]))
+    if len(sys.argv) == 4 and sys.argv[1] == "save":
+        sys.exit(save(*sys.argv[2:]))
+    if len(sys.argv) >= 4 and sys.argv[1] == "compare":
+        sys.exit(compare(*sys.argv[2:]))
     print(__doc__, file=sys.stderr)
     sys.exit(2)
