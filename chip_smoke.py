@@ -72,7 +72,25 @@ Phases, each fatal on failure:
      Mamba layers, 1 attention layer, 4 MoE MLPs of 16 experts):
      run() and a run refactored [0,4] -> [0,2,4,6] -> [0,4] with streams
      bit-identical, decode == forward at capacity factor E/K on requests
-     in reused slots, three profiled decode ticks and the peak memory.
+     in reused slots, three profiled decode ticks and the peak memory;
+ 14. serve full-width llama-3.2-vision-11b at full depth (40 layers, 8 of
+     them gated cross attention over 1601 seeded image tokens a request,
+     every gate set nonzero from a seed): run() and a run refactored
+     [0,20] -> [0,10,20,30] -> [0,20], streams bit-identical, the flash
+     and decode launches of the cross layers counted apart from the self
+     layers', one served cross call of each kernel held against its plain
+     version, decode == forward, three profiled ticks, the peak memory;
+ 15. serve full-width whisper-tiny with max_seq 1500: the port's encoder
+     on the card over seeded (1, 1500, 384) frames makes each request's
+     memory (its device time and flash launches), then as phase 14,
+     refactored [0,2] -> [0,1,2,3] -> [0,2];
+ 16. serve full-width qwen1.5-110b cut to 8 layers (64 heads on 8, G = 8):
+     run(), dense and paged-kernel runs refactored [0,4] -> [0,2,4,6] ->
+     [0,4], streams bit-identical and paged == dense, decode == forward,
+     three profiled ticks, the peak memory.  Phase 3 also holds and times
+     non-causal flash at the vision cross shapes (Skv 1601) and whisper's
+     encoder (hd 64, 1500 frames), cross decode over 1601 and 1500 memory
+     rows, and decode at G = 8.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -82,6 +100,8 @@ import os
 # deterministic cuBLAS: bit-identical streams across runs need it
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import collections  # noqa: E402
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
@@ -422,42 +442,72 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
             log(f"  {label}: no SDPA call for this shape ({e})"[:200])
             return None
 
-    flash = [  # (key, Sq, Skv, q_offset, H, Kh, hd, hdv, window)
-        ("hd256_window", 571, 571, 0, 4, 1, 256, 256, 512),
-        ("hd256_causal", 571, 571, 0, 4, 1, 256, 256, 0),
-        ("hd192_128", 512, 512, 0, 16, 16, 192, 128, 0),
-        ("hd128", 512, 512, 0, 16, 16, 128, 128, 0),
-        ("hd128_gqa", 512, 512, 0, 32, 8, 128, 128, 0),
+    flash = [  # (key, B, Sq, Skv, q_offset, H, Kh, hd, hdv, window, causal)
+        ("hd256_window", 1, 571, 571, 0, 4, 1, 256, 256, 512, True),
+        ("hd256_causal", 1, 571, 571, 0, 4, 1, 256, 256, 0, True),
+        ("hd192_128", 1, 512, 512, 0, 16, 16, 192, 128, 0, True),
+        ("hd128", 1, 512, 512, 0, 16, 16, 128, 128, 0, True),
+        ("hd128_gqa", 1, 512, 512, 0, 32, 8, 128, 128, 0, True),
         # deepseek-moe-16b's chunk-128 step at the end of a 512-token
         # bucket (phase 12's chunked run), and its largest bucket
-        ("hd128_chunk", 128, 512, 384, 16, 16, 128, 128, 0),
-        ("hd128_1024", 1024, 1024, 0, 16, 16, 128, 128, 0),
+        ("hd128_chunk", 1, 128, 512, 384, 16, 16, 128, 128, 0, True),
+        ("hd128_1024", 1, 1024, 1024, 0, 16, 16, 128, 128, 0, True),
+        # llama-3.2-vision-11b's cross prefill over 1601 memory keys, non-
+        # causal (phase 14): a 600-token prompt and the 1024 bucket
+        ("hd128_cross_600", 1, 600, 1601, 0, 32, 8, 128, 128, 0, False),
+        ("hd128_cross_1024", 1, 1024, 1601, 0, 32, 8, 128, 128, 0, False),
+        # whisper-tiny's encoder over 1500 frames, one and two at a time,
+        # and its decoder's cross prefill at the 1024 bucket (phase 15)
+        ("hd64_encoder", 1, 1500, 1500, 0, 6, 6, 64, 64, 0, False),
+        ("hd64_encoder_b2", 2, 1500, 1500, 0, 6, 6, 64, 64, 0, False),
+        ("hd64_cross_1024", 1, 1024, 1500, 0, 6, 6, 64, 64, 0, False),
     ]
-    for key, Sq, Skv, qo, H, Kh, hd, hdv, win in flash:
-        shape = (f"B=1 Sq={Sq} Skv={Skv} q_offset={qo} H={H} Kh={Kh} "
+    # vision's cross prefill at lengths off the 64-row query tile (each row
+    # reads all 13 spans); then a 600-token prompt padded to the 1024
+    # bucket: its real rows equal the unpadded call's bit for bit
+    for dt in ("float32", "bfloat16"):
+        for Sq in (1, 24, 63, 64, 65):
+            q = rnd((1, Sq, 32, 128), dt)
+            k, v = rnd((1, 1601, 8, 128), dt), rnd((1, 1601, 8, 128), dt)
+            kw = dict(causal=False, q_offset=0)
+            compare("flash_attention", dt, flash_attention(q, k, v, **kw),
+                    flash_attention_plain(q, k, v, **kw),
+                    f"cross Sq={Sq} Skv=1601 H=32 Kh=8 hd=128")
+        q = rnd((1, 1024, 32, 128), dt)
+        k, v = rnd((1, 1601, 8, 128), dt), rnd((1, 1601, 8, 128), dt)
+        padded = flash_attention(q, k, v, causal=False, q_offset=0)
+        real = flash_attention(q[:, :600].contiguous(), k, v, causal=False)
+        torch.cuda.synchronize()
+        check(torch.equal(padded[:, :600], real), f"flash {dt}: a padded "
+              "bucket's real rows differ from the unpadded call")
+        log(f"  {'flash cross bucket':24s} {dt:8s} {'Sq 600 in 1024':34s} "
+            "real rows bit-identical to the unpadded call")
+    for key, B, Sq, Skv, qo, H, Kh, hd, hdv, win, causal in flash:
+        shape = (f"B={B} Sq={Sq} Skv={Skv} q_offset={qo} H={H} Kh={Kh} "
                  f"hd={hd} hdv={hdv} "
-                 + (f"window={win}" if win else "causal"))
+                 + ((f"window={win}" if win else "causal") if causal
+                    else "non-causal"))
         for dt in ("float32", "bfloat16"):
-            q = rnd((1, Sq, H, hd), dt)
-            k, v = rnd((1, Skv, Kh, hd), dt), rnd((1, Skv, Kh, hdv), dt)
-            kw = dict(causal=True, window=win, q_offset=qo)
+            q = rnd((B, Sq, H, hd), dt)
+            k, v = rnd((B, Skv, Kh, hd), dt), rnd((B, Skv, Kh, hdv), dt)
+            kw = dict(causal=causal, window=win, q_offset=qo)
             err = compare("flash_attention", dt,
                           flash_attention(q, k, v, **kw),
                           flash_attention_plain(q, k, v, **kw), shape)
             if dt != "float32":
                 continue
-            mask = attention_mask(Sq, Skv, causal=True, window=win,
+            mask = attention_mask(Sq, Skv, causal=causal, window=win,
                                   q_offset=qo, device=dev)
-            pairs = int(mask.sum())
+            pairs = B * int(mask.sum())
             # q read and out written, k and v read, once each
-            nbytes = (Sq * H + Skv * Kh) * (hd + hdv) * 4
+            nbytes = B * (Sq * H + Skv * Kh) * (hd + hdv) * 4
             t_bound, by = bound(nbytes, 2 * H * pairs * (hd + hdv), "tf32x3")
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = (lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)) \
                 if win or qo else \
                 (lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
+                    qt, kt, vt, is_causal=causal, enable_gqa=True))
             r = dict(ms=time_ms(torch, lambda: flash_attention(q, k, v, **kw)),
                      plain_ms=time_ms(torch, lambda: flash_attention_plain(
                          q, k, v, **kw), iters=5),
@@ -469,7 +519,8 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
                 f"bound {t_bound:.4f} ms ({by})  [{r['shape']}]")
             if hd >= 128:
                 log(f"  {'  planned launch':24s} " + json.dumps(
-                    flash_geometry(torch, hd, hdv, Sq, Skv, qo, H, win)))
+                    flash_geometry(torch, hd, hdv, Sq, Skv, qo, B * H, win,
+                                   causal)))
                 r.update(ptxas("flash_attention",
                                f"flash_span_kernelIfLi{hd}ELi{hdv}E"))
                 r.update(split_share(torch, "flash_combine_kernel",
@@ -487,7 +538,44 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
         ("hd256_global", 4, 1, 256, 1024, ragged),
         ("hd128_mha", 16, 16, 128, 1024, ragged),
         ("hd128_gqa", 32, 8, 128, 1024, ragged),
+        # qwen1.5-110b's 64 heads on 8 (G = 8) at the chunk edges (phase 16)
+        ("hd128_g8", 64, 8, 128, 1024, [0, 1, 127, 128, 129, 257, 1024,
+                                        600]),
     ]
+    # cross decode reads every memory row: llama-3.2-vision-11b's 1601
+    # (phase 14) and whisper-tiny's 1500 encoder frames (phase 15); cross
+    # caches do not page
+    cross = [("hd128_cross", 32, 8, 128, 1601), ("hd64_cross", 6, 6, 64, 1500)]
+    for key, H, Kh, hd, M in cross:
+        label = f"cross hd={hd} H={H} Kh={Kh} cache_len={M}"
+        for dt in ("float32", "bfloat16"):
+            q = rnd((B, H, hd), dt)
+            kc, vc = rnd((B, Kh, M, hd), dt), rnd((B, Kh, M, hd), dt)
+            out = decode_attention(q, kc, vc, M)
+            err = compare("decode_attention", dt, out,
+                          decode_attention_plain(q, kc, vc, M), label)
+            torch.cuda.synchronize()
+            check(torch.equal(decode_attention(q, kc, vc, M), out),
+                  f"decode {dt} {label}: a second call differs")
+            if dt != "float32":
+                continue
+            nbytes = (B * H * hd * 2 + B * M * Kh * 2 * hd) * 4
+            t_bound, by = bound(nbytes, 2 * H * B * M * 2 * hd, dt)
+            q4 = q[:, :, None, :]
+            shape = f"B={B} H={H} Kh={Kh} hd={hd} cache_len=Smax={M} f32"
+            r = dict(ms=time_ms(torch, lambda: decode_attention(q, kc, vc,
+                                                                M)),
+                     plain_ms=time_ms(torch, lambda: decode_attention_plain(
+                         q, kc, vc, M), iters=5),
+                     library_ms=sdpa_ms(shape, lambda: (
+                         F.scaled_dot_product_attention(
+                             q4, kc, vc, enable_gqa=True))),
+                     bound_ms=t_bound, bound_by=by, max_abs_err=err,
+                     shape=shape)
+            results["decode_attention"][key] = r
+            log(f"  {'decode_attention ' + key:24s} {r['ms']:.4f} ms  plain "
+                f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
+                f"bound {t_bound:.4f} ms ({by})  [{shape}]")
     for key, H, Kh, hd, Smax, lens in decode:
         lens = np.array(lens, np.int32)
         label = f"hd={hd} H={H} Kh={Kh} Smax={Smax}"
@@ -571,14 +659,15 @@ def ptxas(lib, pattern):
     return {"registers": "not in the build log"}
 
 
-def flash_geometry(torch, hd, hdv, Sq, Skv, q_offset, H, window):
-    """The span kernel's planned launch at (hd, hdv), B = 1, f32, from the
-    wrapper's plan (computed, not measured): its CTAs (one per item), the
-    rows it finishes itself (one span), the rows the combine merges, and
-    its dynamic shared memory."""
+def flash_geometry(torch, hd, hdv, Sq, Skv, q_offset, H, window,
+                   causal=True):
+    """The span kernel's planned launch at (hd, hdv) over H heads (B * H
+    for a batch), f32, from the wrapper's plan (computed, not measured):
+    its CTAs (one per item), the rows it finishes itself (one span), the
+    rows the combine merges, and its dynamic shared memory."""
     from repro_torch.kernels import flash_attention as fk
     geo = fk._geometry(hd, hdv, torch.float32)
-    _, rows, ctas = fk.span_plan(Sq, Skv, causal=True, window=window,
+    _, rows, ctas = fk.span_plan(Sq, Skv, causal=causal, window=window,
                                  q_offset=q_offset)
     return dict(ctas=len(ctas) * H,
                 rows_direct=sum(len(r) == 1 for r in rows) * H,
@@ -784,17 +873,30 @@ def wkv_checks(torch, rnd, results):
 # ---------------------------------------------------------------------------
 
 def small_model_check(torch, arch):
-    from repro_torch.configs.base import get_arch
+    from repro_torch.configs.base import get_arch, shrink
     from repro_torch.convert import tree_from_numpy, tree_to_numpy
     from repro_torch.models import model as M
     from repro_torch.models.transformer import init_model
 
     cfg = get_arch(arch).smoke_config
+    if cfg.resolved_head_dim < 16:
+        # qwen1.5-110b's smoke config has head_dim 8, under the kernels'
+        # smallest (16): the same heads at twice the width
+        cfg = shrink(cfg, d_model=16 * cfg.n_heads)
     cpu = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
+    set_gates(cpu, 1)
     gpu = tree_from_numpy(tree_to_numpy(cpu), "cuda")
-    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40))
-    lc, _, _ = M.forward(cfg, cpu, {"tokens": torch.from_numpy(toks)})
-    lg, _, _ = M.forward(cfg, gpu, {"tokens": torch.from_numpy(toks).cuda()})
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 40)))}
+    if cfg.encoder_layers:                      # whisper: encoder frames
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 48, cfg.d_model)).astype(np.float32))
+    elif cfg.n_memory_tokens:                   # vision: image tokens
+        batch["memory"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_memory_tokens, cfg.d_model)).astype(np.float32))
+    lc, _, _ = M.forward(cfg, cpu, batch)
+    lg, _, _ = M.forward(cfg, gpu, {k: v.cuda() for k, v in batch.items()})
     err = float((lg.cpu() - lc).abs().max())
     log(f"  {arch} smoke-size forward, card vs CPU: logits "
         f"{tuple(lg.shape)}, max|err| {err:.3e} (tol 1e-4)")
@@ -807,40 +909,55 @@ def small_model_check(torch, arch):
 # phase 5: serve full-width qwen1.5-0.5b
 # ---------------------------------------------------------------------------
 
-def make_requests(cfg, Request):
+def make_requests(cfg, Request, memories=None):
+    """The 16 requests every serving phase sends; ``memories``: one cross-
+    attention memory per request (the same tensors in every run)."""
     rng = np.random.default_rng(0)
     out = []
     for i in range(16):
         r = Request(rid=i, arrival=0.0, prompt_len=int(rng.integers(24, 601)),
                     max_new_tokens=32)
         r.prompt_tokens = rng.integers(0, cfg.vocab_size, r.prompt_len)
+        if memories is not None:
+            r.memory = memories[i]
         out.append(r)
     return out
+
+
+def forward_batch(torch, req, toks):
+    """A whole-sequence forward's batch for ``req``: its tokens and, where
+    it has one, its memory."""
+    batch = {"tokens": torch.from_numpy(toks)[None].cuda()}
+    if getattr(req, "memory", None) is not None:
+        batch["memory"] = req.memory
+    return batch
 
 
 def top2_margin(torch, cfg, params, req, upto):
     """Top-2 logit gap where the stream chose its token ``upto``."""
     from repro_torch.models import model as M
     toks = np.concatenate([req.prompt_tokens, req.output[:upto]])
-    logits, _, _ = M.forward(cfg, params,
-                             {"tokens": torch.from_numpy(toks)[None].cuda()})
+    logits, _, _ = M.forward(cfg, params, forward_batch(torch, req, toks))
     top = torch.topk(logits[0, -1].float(), 2).values
     return float(top[0] - top[1])
 
 
-def serve(torch, label, cfg, params, kv, refactors, boundaries=(0, 12)):
+def serve(torch, label, cfg, params, kv, refactors, boundaries=(0, 12),
+          memories=None, max_seq=1024):
     from repro_torch.kernels import build
     from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
                                             KVCacheConfig)
     from repro_torch.serving.workload import Request
 
     eng = FlexPipeEngine(cfg, params, list(boundaries),
-                         EngineConfig(max_batch=8, max_seq=1024,
+                         EngineConfig(max_batch=8, max_seq=max_seq,
                                       kv=KVCacheConfig(**kv)))
     eng.warmup((4,))                # two balanced stages and four
-    reqs = make_requests(cfg, Request)
+    reqs = make_requests(cfg, Request, memories)
     torch.cuda.synchronize()
     build.reset_launches()
+    CROSS_LAUNCHES.clear()
+    CROSS_HELD[:] = [{"armed": True}]
     t0 = time.perf_counter()
     decode_s, decode_tok, decode_ticks, ticks, ticks_decoding = 0.0, 0, 0, 0, 0
     if refactors is None:
@@ -878,6 +995,8 @@ def serve(torch, label, cfg, params, kv, refactors, boundaries=(0, 12)):
     info = {"wall_s": wall, "launches": launches, "ticks": ticks,
             "ticks_decoding": ticks_decoding,
             "refactors": len(eng.refactor_events)}
+    if CROSS_LAUNCHES:
+        info["launches_cross"] = dict(CROSS_LAUNCHES)
     if decode_ticks:
         info.update(decode_tok_per_s=decode_tok / decode_s,
                     decode_ms_per_tick=decode_s / decode_ticks * 1e3,
@@ -909,15 +1028,16 @@ def kernel_profile(torch, fn, reps):
     return rows, wall_us
 
 
-def loaded_engine(torch, cfg, params, boundaries=(0, 12)):
+def loaded_engine(torch, cfg, params, boundaries=(0, 12), memories=None,
+                  max_seq=1024):
     """A dense engine at batch 8 with phase 5's first 8 requests admitted
     and 3 decode ticks run."""
     from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
     from repro_torch.serving.workload import Request
 
     eng = FlexPipeEngine(cfg, params, list(boundaries),
-                         EngineConfig(max_batch=8, max_seq=1024))
-    for r in make_requests(cfg, Request)[:8]:
+                         EngineConfig(max_batch=8, max_seq=max_seq))
+    for r in make_requests(cfg, Request, memories)[:8]:
         eng.submit(r, now=0.0)
     eng._admit(0.0)
     for t in range(3):
@@ -1075,8 +1195,7 @@ def decode_equals_forward(torch, cfg, params, reqs):
     checked, skipped, low = 0, 0, float("inf")
     for req in reqs:
         toks = np.concatenate([req.prompt_tokens, req.output[:-1]])
-        logits, _, _ = M.forward(cfg, params,
-                                 {"tokens": torch.from_numpy(toks)[None].cuda()})
+        logits, _, _ = M.forward(cfg, params, forward_batch(torch, req, toks))
         tail = logits[0, len(req.prompt_tokens) - 1:].float()
         top = torch.topk(tail, 2, dim=-1)
         margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
@@ -1096,17 +1215,20 @@ def decode_equals_forward(torch, cfg, params, reqs):
 
 
 def serving(torch, card, arch, generator, refactored, prefix="",
-            boundaries=(0, 12), moves=None, cfg=None):
-    """Serve full-width ``arch`` (or ``cfg``, a depth cut of it): a dense
-    run through run(), then one run per ``refactored`` entry (label -> KV
-    config) refactored mid-stream (``moves``: tick -> boundaries); every
-    stream must equal the run() streams."""
+            boundaries=(0, 12), moves=None, cfg=None, params=None,
+            memories=None, max_seq=1024):
+    """Serve full-width ``arch`` (or ``cfg``, a depth cut of it; ``params``
+    if given, else drawn from ``generator``): a dense run through run(),
+    then one run per ``refactored`` entry (label -> KV config) refactored
+    mid-stream (``moves``: tick -> boundaries); every stream must equal the
+    run() streams.  ``memories``: each request's cross-attention memory."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models.transformer import init_model
 
     cfg = cfg or get_arch(arch).config
     t0 = time.perf_counter()
-    params = init_model(cfg, generator, device="cuda")
+    if params is None:
+        params = init_model(cfg, generator, device="cuda")
     n = sum(t.numel() for t in tree_leaves(params))
     log(f"  {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
         f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {n} params f32 "
@@ -1114,12 +1236,13 @@ def serving(torch, card, arch, generator, refactored, prefix="",
     check(n == cfg.param_count(), "param count mismatch")
     moves = moves or {10: [0, 6, 12, 18], 30: [0, 12]}
     base, base_reqs, info_a = serve(torch, prefix + "dense run()", cfg,
-                                    params, {}, None, boundaries)
+                                    params, {}, None, boundaries, memories,
+                                    max_seq)
     runs = {prefix + "dense run()": info_a}
     for label, kv in refactored.items():
         label = prefix + label
         streams, reqs, info = serve(torch, label, cfg, params, kv, moves,
-                                    boundaries)
+                                    boundaries, memories, max_seq)
         runs[label] = info
         check(info["refactors"] == 2, f"{label}: refactors did not happen")
         if streams != base:
@@ -1912,11 +2035,12 @@ def decode_equals_forward_no_drop(torch, cfg, params, rids, boundaries):
                           [r for r in reqs if r.rid in rids])
 
 
-def profile_moe_ticks(torch, cfg, params, boundaries):
+def profile_moe_ticks(torch, cfg, params, boundaries, memories=None,
+                      max_seq=1024):
     """The host syncs of one decode tick, then three steady decode ticks
     under the profiler: device busy, idle share and the kernels that take
     the time."""
-    eng = loaded_engine(torch, cfg, params, boundaries)
+    eng = loaded_engine(torch, cfg, params, boundaries, memories, max_seq)
     syncs = count_syncs(torch, eng)
     prof = profile_ticks(torch, eng, 3)
     prof["syncs_per_tick"] = len(syncs)
@@ -2049,6 +2173,304 @@ def jamba_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 14-16: llama-3.2-vision-11b, whisper-tiny, qwen1.5-110b
+# ---------------------------------------------------------------------------
+
+# launches made inside cross-attention layers while ``watch_cross`` is on,
+# and the served cross calls held against the plain versions, since serve()
+# last cleared them and armed the holds (after its warm-up)
+CROSS_LAUNCHES = collections.Counter()
+CROSS_HELD: list = []
+# qwen1.5-110b (80 layers, 111.2 B params, 444.8 GB f32) cut to 8 layers at
+# full width: 13.4 B params, 53.4 GB; the depth is cut, no width
+QWEN110B_LAYERS = 8
+
+
+def set_gates(params, seed):
+    """Every cross-attention ``gate`` set from ``seed`` to +-[0.5, 1.5]
+    (|tanh| >= 0.46), in place: the reference initialises them to 0, where
+    a wrong cross kernel would change no token.  Returns the values."""
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k == "gate":
+                    out.append(float(rng.choice([-1.0, 1.0])
+                                     * rng.uniform(0.5, 1.5)))
+                    v.fill_(out[-1])
+                else:
+                    walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+    walk(params)
+    return out
+
+
+@contextlib.contextmanager
+def watch_cross(torch):
+    """While on, count the launches made inside cross-attention layers into
+    CROSS_LAUNCHES, and hold the first served cross prefill's flash output
+    and the first served cross decode's output against the plain version
+    on that call's own inputs (the plain versions launch nothing) into
+    CROSS_HELD, which it yields: after a serving run, that run's holds."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import layers as L
+
+    inner = L.apply_cross_attention
+    plain = {"flash_attention": flash_attention_plain,
+             "decode_attention": decode_attention_plain}
+    held = CROSS_HELD
+
+    def layer(cfg, params, x, **kw):
+        before = dict(build.launches)
+        name = "decode_attention" if x.shape[1] == 1 else "flash_attention"
+        if not held or any(h.get("kernel") == name for h in held):
+            out = inner(cfg, params, x, **kw)
+        else:
+            kernel, calls = getattr(L, name), []
+
+            def record(*a, **k):
+                calls.append((a, k, kernel(*a, **k)))
+                return calls[-1][2]
+            setattr(L, name, record)
+            try:
+                out = inner(cfg, params, x, **kw)
+            finally:
+                setattr(L, name, kernel)
+            a, k, got = calls[0]
+            err = float((got.float() - plain[name](*a, **k).float())
+                        .abs().max())
+            held.append({"kernel": name, "max_abs_err": err,
+                         "q": list(a[0].shape), "k": list(a[1].shape)})
+            log(f"  served cross {name} q{list(a[0].shape)} "
+                f"k{list(a[1].shape)}: kernel vs plain on the call's own "
+                f"inputs max|err| {err:.3e} (tol {TOL['float32']:g})")
+            check(err <= TOL["float32"], f"served cross {name}: error {err}")
+        for n, v in build.launches.items():
+            CROSS_LAUNCHES[n] += v - before.get(n, 0)
+        return out
+
+    L.apply_cross_attention = layer
+    held.clear()                       # unarmed until serve() arms it
+    try:
+        yield held
+    finally:
+        L.apply_cross_attention = inner
+        if held and "armed" in held[0]:
+            del held[0]
+
+
+def cross_counts(label, cfg, run, n_prefills):
+    """The flash and decode launches of ``run`` split between its cross
+    layers (the cross mixers, or whisper's extra cross sub-blocks) and its
+    self-attention layers; each checked against one launch per layer per
+    prefill and per decoding tick."""
+    n_cross = sum(1 for i in range(cfg.n_layers)
+                  if cfg.layer_kind(i).mixer == "cross"
+                  or cfg.layer_kind(i).extra_cross)
+    n_self = sum(1 for i in range(cfg.n_layers)
+                 if cfg.layer_kind(i).mixer == "attn")
+    cross = run.get("launches_cross", {})
+    out = {}
+    for name, per in (("flash_attention", n_prefills),
+                      ("decode_attention", run["ticks_decoding"])):
+        c = cross.get(name, 0)
+        out[name] = {"cross": c, "self": run["launches"].get(name, 0) - c}
+        log(f"  {label} {name}: {c} in the {n_cross} cross layers, "
+            f"{out[name]['self']} in the {n_self} self-attention layers")
+        check(c == n_cross * per and out[name]["self"] == n_self * per,
+              f"{label}: {name} launches {out[name]} are not one per layer "
+              f"for each of {per} calls")
+    return out
+
+
+def vision_phase(torch, card):
+    """Full-width llama-3.2-vision-11b at full depth (40 layers, 8 of them
+    gated cross attention, 9.78 B params, 39.1 GB f32) on phase 5's 16
+    requests, each with seeded image tokens (1, 1601, 4096) and every gate
+    set nonzero: run(), then a run refactored [0, 20] -> [0, 10, 20, 30] at
+    tick 10 and back at 30, streams bit-identical; flash 40 per prefill (32
+    causal, 8 non-causal over the memory) and decode 40 per decoding tick
+    (8 over all 1601 memory rows), counted apart; paged decode never (cross
+    caches do not page); one served cross call of each kernel held against
+    its plain version; decode == forward for requests 8 and 13; three
+    profiled decode ticks; the peak device memory."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import init_model
+
+    t0 = time.perf_counter()
+    held = free_weights(torch)
+    log(f"  device memory held from earlier phases: {held} B")
+    cfg = get_arch("llama-3.2-vision-11b").config
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    gates = set_gates(params, 0)
+    log(f"  cross gates set from seed 0: min |tanh| "
+        f"{min(abs(np.tanh(g)) for g in gates):.3f} over {len(gates)}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mems = [torch.randn((1, cfg.n_memory_tokens, cfg.d_model),
+                        generator=gen, device="cuda") for _ in range(16)]
+    half = cfg.n_layers // 2
+    with watch_cross(torch) as holds:
+        cfg, params, reqs, runs = serving(
+            torch, card, "llama-3.2-vision-11b", None,
+            {"dense refactored": {}}, prefix="vision ", boundaries=(0, half),
+            moves={10: [0, half // 2, half, half + half // 2],
+                   30: [0, half]}, cfg=cfg, params=params, memories=mems)
+    run = runs["vision dense refactored"]
+    L = cfg.n_layers
+    want_launches("the refactored run", run, {
+        "flash_attention": L * len(reqs),
+        "decode_attention": L * run["ticks_decoding"],
+        "paged_decode_attention": 0})
+    split = cross_counts("vision", cfg, run, len(reqs))
+    check(sorted(h["kernel"] for h in holds) == ["decode_attention",
+                                                 "flash_attention"],
+          f"vision: served cross calls held: {holds}")
+    decode_equals_forward(torch, cfg, params,
+                          [r for r in reqs if r.rid in (8, 13)])
+    prof = profile_moe_ticks(torch, cfg, params, (0, half), mems)
+    mem = peak_memory(torch, "llama-3.2-vision-11b")
+    out = {"layers": L, "launches_split": split, "served_holds": holds,
+           "decode_ms_per_tick": run.get("decode_ms_per_tick"),
+           "decode_tok_per_s": run.get("decode_tok_per_s"), **prof, **mem,
+           "s": time.perf_counter() - t0}
+    log(f"  llama-3.2-vision-11b phase on {card}: {json.dumps(out)}")
+    return runs, out
+
+
+def whisper_phase(torch, card):
+    """Full-width whisper-tiny (4 encoder and 4 decoder layers, d 384, 6
+    heads of 64) with max_seq = 1500, so the engine's cross memory is
+    whisper's 1500 encoder frames: the port's run_encoder on the card over
+    seeded frames (1, 1500, 384) makes each of phase 5's 16 requests' memory
+    (its device time and its 4 flash launches a call), every gate set
+    nonzero; run(), then a run refactored [0, 2] -> [0, 1, 2, 3] at tick 10
+    and back at 30, streams bit-identical; flash 8 per prefill and decode 8
+    per decoding tick, half of each in the cross sub-blocks; one served
+    cross call of each kernel held against its plain version; decode ==
+    forward for requests 8 and 13; three profiled decode ticks."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_model
+
+    t0 = time.perf_counter()
+    free_weights(torch)
+    cfg = get_arch("whisper-tiny").config
+    max_seq = cfg.n_memory_tokens                      # 1500 frames
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    set_gates(params, 0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = [torch.randn((1, max_seq, cfg.d_model), generator=gen,
+                          device="cuda") for _ in range(16)]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    mems = [M.run_encoder(cfg, params, f) for f in frames]
+    torch.cuda.synchronize()
+    enc_flash = build.launches.get("flash_attention", 0)
+    check(enc_flash == cfg.encoder_layers * len(frames),
+          f"whisper encoder: {enc_flash} flash launches for {len(frames)} "
+          "calls")
+    check(all(bool(torch.isfinite(m).all()) and m.shape == (1, max_seq,
+                                                             cfg.d_model)
+              for m in mems), "whisper encoder: bad output")
+    rows, wall_us = kernel_profile(
+        torch, lambda: M.run_encoder(cfg, params, frames[0]), 5)
+    enc = {"encoder_calls": len(frames), "encoder_flash_launches": enc_flash,
+           "encoder_busy_ms": sum(r[1] for r in rows) / 5 / 1e3,
+           "encoder_wall_ms": wall_us / 5 / 1e3,
+           "encoder_flash_ms": sum(r[1] for r in rows if "flash" in r[0])
+           / 5 / 1e3}
+    log(f"  whisper encoder over (1, {max_seq}, {cfg.d_model}) frames: "
+        f"{json.dumps(enc)} (profiler on)")
+    with watch_cross(torch) as holds:
+        cfg, params, reqs, runs = serving(
+            torch, card, "whisper-tiny", None, {"dense refactored": {}},
+            prefix="whisper ", boundaries=(0, 2),
+            moves={10: [0, 1, 2, 3], 30: [0, 2]}, cfg=cfg, params=params,
+            memories=mems, max_seq=max_seq)
+    run = runs["whisper dense refactored"]
+    L = cfg.n_layers
+    want_launches("the refactored run", run, {
+        "flash_attention": 2 * L * len(reqs),
+        "decode_attention": 2 * L * run["ticks_decoding"],
+        "paged_decode_attention": 0})
+    split = cross_counts("whisper", cfg, run, len(reqs))
+    check(sorted(h["kernel"] for h in holds) == ["decode_attention",
+                                                 "flash_attention"],
+          f"whisper: served cross calls held: {holds}")
+    decode_equals_forward(torch, cfg, params,
+                          [r for r in reqs if r.rid in (8, 13)])
+    prof = profile_moe_ticks(torch, cfg, params, (0, 2), mems, max_seq)
+    out = {"layers": L, **enc, "launches_split": split,
+           "served_holds": holds,
+           "decode_ms_per_tick": run.get("decode_ms_per_tick"),
+           "decode_tok_per_s": run.get("decode_tok_per_s"), **prof,
+           "s": time.perf_counter() - t0}
+    log(f"  whisper-tiny phase on {card}: {json.dumps(out)}")
+    return runs, out
+
+
+def qwen110b_phase(torch, card):
+    """qwen1.5-110b cut to 8 layers at full width (64 heads on 8, G = 8;
+    QKV bias; untied head) on phase 5's 16 requests: run(), then dense and
+    paged-kernel runs refactored [0, 4] -> [0, 2, 4, 6] at tick 10 and back
+    at 30, streams bit-identical and paged == dense; flash 8 per prefill,
+    decode (paged decode in the paged run) 8 per decoding tick; decode ==
+    forward for requests 8 and 13; three profiled decode ticks; the peak
+    device memory."""
+    from repro_torch.configs.base import get_arch, shrink
+
+    t0 = time.perf_counter()
+    free_weights(torch)
+    full = get_arch("qwen1.5-110b").config
+    cfg = shrink(full, n_layers=QWEN110B_LAYERS)
+    log(f"  qwen1.5-110b: {full.n_layers} layers, {full.param_count()} "
+        f"params ({full.param_count() * 4 / 1e9:.1f} GB f32) cut in depth to "
+        f"{cfg.n_layers} layers at full width: {cfg.param_count()} params "
+        f"({cfg.param_count() * 4 / 1e9:.1f} GB)")
+    half = cfg.n_layers // 2
+    cfg, params, reqs, runs = serving(
+        torch, card, "qwen1.5-110b",
+        torch.Generator(device="cuda").manual_seed(0),
+        {"dense refactored": {},
+         "paged kernel refact.": dict(paged=True, block_size=16,
+                                      paged_kernel=True)},
+        prefix="qwen110b ", boundaries=(0, half),
+        moves={10: [0, half // 2, half, half + half // 2], 30: [0, half]},
+        cfg=cfg)
+    L = cfg.n_layers
+    dense = runs["qwen110b dense refactored"]
+    want_launches("the dense refactored run", dense, {
+        "flash_attention": L * len(reqs),
+        "decode_attention": L * dense["ticks_decoding"],
+        "paged_decode_attention": 0})
+    paged = runs["qwen110b paged kernel refact."]
+    want_launches("the paged kernel run", paged, {
+        "flash_attention": L * len(reqs),
+        "paged_decode_attention": L * paged["ticks_decoding"],
+        "decode_attention": 0})
+    decode_equals_forward(torch, cfg, params,
+                          [r for r in reqs if r.rid in (8, 13)])
+    prof = profile_moe_ticks(torch, cfg, params, (0, half))
+    mem = peak_memory(torch, f"qwen1.5-110b ({L} layers)")
+    out = {"layers": L, "params": cfg.param_count(),
+           "decode_ms_per_tick": dense.get("decode_ms_per_tick"),
+           "decode_tok_per_s": dense.get("decode_tok_per_s"),
+           "paged_decode_ms_per_tick": paged.get("decode_ms_per_tick"),
+           **prof, **mem, "s": time.perf_counter() - t0}
+    log(f"  qwen1.5-110b phase on {card}: {json.dumps(out)}")
+    return runs, out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2081,7 +2503,8 @@ def main() -> int:
     kres = kernel_checks(torch)
     log("== 4. small-input model check")
     for arch in ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b",
-                 "deepseek-moe-16b", "jamba-v0.1-52b"):
+                 "deepseek-moe-16b", "jamba-v0.1-52b", "qwen1.5-110b",
+                 "llama-3.2-vision-11b", "whisper-tiny"):
         small_model_check(torch, arch)
     log("== 5. serving qwen1.5-0.5b")
     cfg, params, base_reqs, runs = serving(
@@ -2146,6 +2569,12 @@ def main() -> int:
     d_runs, d_out = deepseek_phase(torch, card)
     log("== 13. serving jamba-v0.1-52b (one 8-layer Jamba block)")
     j_runs, j_out = jamba_phase(torch, card)
+    log("== 14. serving llama-3.2-vision-11b (cross attention, 40 layers)")
+    v_runs, v_out = vision_phase(torch, card)
+    log("== 15. serving whisper-tiny (its encoder on the card, 1500 frames)")
+    w_runs, w_out = whisper_phase(torch, card)
+    log(f"== 16. serving qwen1.5-110b ({QWEN110B_LAYERS} of 80 layers)")
+    q_runs, q_out = qwen110b_phase(torch, card)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -2226,13 +2655,38 @@ def main() -> int:
             check((kernels[-1]["launches_jamba"] == 0) == paged_only,
                   f"{name} launched {kernels[-1]['launches_jamba']} times "
                   "on the jamba path")
+        # phases 14-16: each path's run, its count checked: > 0 where the
+        # kernel serves the model, 0 for paged decode on the cross models
+        # (their caches do not page) and for wkv6 on all three
+        for tag, model_runs, dense_run, paged_run in (
+                ("vision", v_runs, "vision dense refactored", None),
+                ("whisper", w_runs, "whisper dense refactored", None),
+                ("qwen110b", q_runs, "qwen110b dense refactored",
+                 "qwen110b paged kernel refact.")):
+            run = (paged_run if name == "paged_decode_attention" and paged_run
+                   else dense_run)
+            n = model_runs[run]["launches"].get(name, 0)
+            kernels[-1][f"launches_{tag}"] = n
+            kernels[-1][f"{tag}_launched_in"] = run
+            must = name in ("flash_attention", "decode_attention") or (
+                name == "paged_decode_attention" and paged_run is not None)
+            check(n > 0 if must else n == 0,
+                  f"{name} launched {n} times on the {tag} path ({run})")
+            cross = model_runs[run].get("launches_cross", {})
+            if must and tag != "qwen110b":
+                kernels[-1][f"launches_{tag}_cross"] = cross.get(name, 0)
         for key in ("hd256_window", "hd256_causal", "hd192_128",
                     "hd256_ring", "hd256_global", "hd128", "hd128_mha",
-                    "hd128_gqa", "hd128_chunk", "hd128_1024"):
+                    "hd128_gqa", "hd128_chunk", "hd128_1024",
+                    "hd128_cross_600", "hd128_cross_1024", "hd64_encoder",
+                    "hd64_encoder_b2", "hd64_cross_1024", "hd128_cross",
+                    "hd64_cross", "hd128_g8"):
             if key in r:
                 kernels[-1][key] = r[key]
-    log(f"  phases 12-13: deepseek-moe-16b {d_out['s']:.1f} s, "
-        f"jamba-v0.1-52b {j_out['s']:.1f} s; chip_smoke.py "
+    log(f"  phases 12-16: deepseek-moe-16b {d_out['s']:.1f} s, "
+        f"jamba-v0.1-52b {j_out['s']:.1f} s, llama-3.2-vision-11b "
+        f"{v_out['s']:.1f} s, whisper-tiny {w_out['s']:.1f} s, "
+        f"qwen1.5-110b {q_out['s']:.1f} s; chip_smoke.py "
         f"{time.perf_counter() - T_START:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -144,8 +144,11 @@ def _load_all() -> None:
     from repro_torch.configs import gemma3_1b  # noqa: F401
     from repro_torch.configs import gemma3_12b  # noqa: F401
     from repro_torch.configs import jamba_v0_1_52b  # noqa: F401
+    from repro_torch.configs import llama3_2_vision_11b  # noqa: F401
     from repro_torch.configs import qwen1_5_0_5b  # noqa: F401
+    from repro_torch.configs import qwen1_5_110b  # noqa: F401
     from repro_torch.configs import rwkv6_1_6b  # noqa: F401
+    from repro_torch.configs import whisper_tiny  # noqa: F401
 
 
 def shrink(cfg: ModelConfig, **overrides) -> ModelConfig:

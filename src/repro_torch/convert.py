@@ -11,11 +11,18 @@ when the head is untied, ``final_norm.scale``, and per block
 ``mixer`` (``repro.models.ssm.init_mamba``: ``w_x``, ``w_z``, ``conv_w``,
 ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``,
 ``out_proj``); or, for RWKV-6, the ``mixer`` tree of
-``repro.models.ssm.init_rwkv`` (nested ``tm.{w,k,v,r,g}``).  Caches are
-per-layer lists of ``{"mixer": {"k", "v"}}`` with dense ``(B, Kh, Smax,
-hd)`` rows or paged ``(n_blocks, Kh, block_size, hd)`` pools, Mamba state
-``{"mixer": {"conv", "ssm"}}`` or RWKV state ``{"mixer": {"sx_tm", "sx_cm",
-"wkv"}}``.  This module keeps
+``repro.models.ssm.init_rwkv`` (nested ``tm.{w,k,v,r,g}``).  A cross
+attention ``mixer`` holds the attention leaves and a scalar ``gate``; a
+block with ``extra_cross`` adds ``cross`` (the same leaves) and
+``ln_cross.scale``; a plain gelu MLP is ``mlp.w1 (d, ff)``, ``mlp.w2 (ff,
+d)``.  An encoder-decoder model adds ``encoder.blocks`` (attention blocks)
+and ``encoder.final_norm.scale``, and learned positions ``pos_embed
+(65536, d)``.  Caches are per-layer lists of ``{"mixer": {"k", "v"}}``
+with dense ``(B, Kh, Smax, hd)`` rows (``(B, Kh, M, hd)`` memory rows for
+a cross mixer, and a ``"cross": {"k", "v"}`` pair beside ``"mixer"`` for
+``extra_cross``) or paged ``(n_blocks, Kh, block_size, hd)`` pools, Mamba
+state ``{"mixer": {"conv", "ssm"}}`` or RWKV state ``{"mixer": {"sx_tm",
+"sx_cm", "wkv"}}``.  This module keeps
 that layout unchanged and only swaps the leaf type, so it takes numpy
 (after ``np.asarray`` on the JAX side) and never imports JAX.
 """

@@ -73,6 +73,10 @@ def _geometry(hd: int, dtype: torch.dtype, G: int) -> Geometry:
 
 
 def _lengths(cache_len, B: int, device) -> torch.Tensor:
+    if isinstance(cache_len, int):
+        # filled on the device: a Python int copied there would wait for
+        # the stream (cross decode passes cache_len = M in every layer)
+        return torch.full((B,), cache_len, dtype=torch.int32, device=device)
     cl = torch.as_tensor(cache_len, device=device)
     return cl.reshape(-1).to(torch.int32).expand(B).contiguous()
 

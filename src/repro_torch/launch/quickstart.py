@@ -7,7 +7,9 @@ FlexPipe engine, including one live, controller-driven refactoring.
 The twin of ``examples/quickstart.py``, with random weights from the
 port's own init (seed 0).  ``--device`` defaults to CUDA and raises without
 it; ``--arch`` serves another registered arch's smoke config (the
-reference serves qwen1.5-0.5b only), starting from two balanced stages.
+reference serves qwen1.5-0.5b only), starting from two balanced stages,
+and gives a cross-attention or encoder-decoder arch's requests seeded
+memories (``serve.attach_memories``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.configs.base import get_arch
 from repro_torch.core.controller import FlexPipeController
 from repro_torch.core.granularity import GranularityProfile
 from repro_torch.kernels import build
+from repro_torch.launch.serve import attach_memories
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
                                         balanced_boundaries)
@@ -69,6 +72,8 @@ def main(argv=None) -> None:
         device=device)
 
     reqs = requests()
+    attach_memories(cfg, params, reqs, engine.ecfg.max_seq,
+                    np.random.default_rng(1))
     print(f"submitting {len(reqs)} requests (stable -> burst)")
     build.reset_launches()
     stats = engine.run(reqs, controller=controller, time_per_tick=0.05)

@@ -9,6 +9,12 @@ and ``EngineConfig``, with random weights from the port's own init (seed 0)
 and ``--device``, which defaults to CUDA and raises without it.  The last
 line counts the kernel launches of the run (none on the CPU, where each
 kernel wrapper runs its plain version).
+
+Unlike the reference's launcher, which gives no request a memory, a
+cross-attention or encoder-decoder arch (llama-3.2-vision-11b,
+whisper-tiny) gets one per request from the run's seeded generator
+(``attach_memories``): the frontend stub the configs describe, image
+tokens or the encoder's output over frame embeddings.
 """
 from __future__ import annotations
 
@@ -22,14 +28,35 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import get_arch
 from repro_torch.core.controller import FlexPipeController
 from repro_torch.core.granularity import GranularityProfile
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import build
+from repro_torch.models.model import run_encoder
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.admission import AdmissionConfig
 from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
-                                        KVCacheConfig, PrefillConfig)
+                                        KVCacheConfig, PrefillConfig,
+                                        memory_rows)
 from repro_torch.serving.faults import (FaultInjector, FaultPolicy,
                                         StageHealthMonitor)
 from repro_torch.serving.workload import audit_requests, synth_requests
+
+
+def attach_memories(cfg: ModelConfig, params: dict, reqs: list,
+                    max_seq: int, rng: np.random.Generator) -> None:
+    """Give each request the memory a frontend would make, drawn from
+    ``rng``: image tokens (1, M, d) for a cross-attention model, the
+    encoder's output over frames (1, max_seq, d) for an encoder-decoder
+    one; requests of other models are left as they are."""
+    rows = memory_rows(cfg, max_seq)
+    if rows is None:
+        return
+    for r in reqs:
+        x = rng.standard_normal((1, rows, cfg.d_model)).astype(np.float32)
+        if cfg.encoder_layers:
+            frames = torch.from_numpy(x).to(params["embed"].device)
+            r.memory = run_encoder(cfg, params, frames)
+        else:
+            r.memory = x
 
 
 def main(argv=None) -> None:
@@ -149,6 +176,7 @@ def main(argv=None) -> None:
                           duration=args.duration, prompt_mean=24,
                           decode_mean=8, deadline_s=args.deadline,
                           priority_mix=mix)
+    attach_memories(cfg, params, reqs, eng.ecfg.max_seq, rng)
     print(f"{cfg.name}: serving {len(reqs)} requests "
           f"(rate={args.rate}, cv={args.cv}) on {device}")
     build.reset_launches()

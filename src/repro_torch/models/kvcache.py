@@ -1,7 +1,7 @@
 """KV cache construction and sizing, the paged block allocator and stage
 regrouping.
 
-Ports the attention-, Mamba- and RWKV-layer parts of
+Ports the attention-, cross-attention-, Mamba- and RWKV-layer parts of
 ``repro/models/kvcache.py``.  Two layouts:
 
 * **dense**: per-layer ``(batch, Kh, max_seq, hd)`` rows, or ``min(max_seq,
@@ -9,7 +9,12 @@ Ports the attention-, Mamba- and RWKV-layer parts of
   position modulo its length; a recurrent layer holds its state instead,
   whatever ``max_seq`` is: Mamba ``{"conv": (batch, d_conv - 1, d_inner),
   "ssm": (batch, d_inner, d_state)}``, RWKV ``{"sx_tm": (batch, d),
-  "sx_cm": (batch, d), "wkv": (batch, H, hd, hd)}``;
+  "sx_cm": (batch, d), "wkv": (batch, H, hd, hd)}``; a cross-attention
+  layer holds its memory's K/V, ``(batch, Kh, n_memory_tokens, hd)``, and
+  an ``extra_cross`` sub-block a second ``"cross"`` pair beside
+  ``"mixer"``, whose length is ``max_seq`` in an encoder-decoder model
+  (the encoder's output tracks the sequence) and ``n_memory_tokens``
+  otherwise;
 * **paged** (attention only): per-layer block pools
   ``(n_blocks, Kh, block_size, hd)`` plus per-slot block tables (host
   side) mapping logical token blocks to physical ones.  Tables are shared across layers, so refactoring stays a
@@ -26,11 +31,11 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV,
-                                      ModelConfig)
+from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA,
+                                      MIXER_RWKV, ModelConfig)
 from repro_torch.models.ssm import mamba_dims, rwkv_dims
 
-_DENSE_MIXERS = (MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV)
+_DENSE_MIXERS = (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA, MIXER_RWKV)
 
 
 def _check_ported(cfg: ModelConfig, layers, mixers) -> None:
@@ -43,22 +48,34 @@ def _check_ported(cfg: ModelConfig, layers, mixers) -> None:
 
 def layer_shapes(cfg: ModelConfig, i: int, batch: int, max_seq: int,
                  tensor_shards: int = 1) -> dict:
-    """Leaf shapes of layer ``i``'s dense cache (local shapes under
+    """Leaf shapes of layer ``i``'s dense cache, ``{"mixer": {...}}`` and,
+    for an ``extra_cross`` layer, ``"cross"`` (local shapes under
     ``tensor_shards``-way tensor parallelism)."""
-    if cfg.layer_kind(i).mixer == MIXER_MAMBA:
+    kind = cfg.layer_kind(i)
+    kh = max(cfg.n_kv_heads // tensor_shards, 1)
+    hd = cfg.resolved_head_dim
+    if kind.mixer == MIXER_MAMBA:
         di, _, N, dc = mamba_dims(cfg)
         di //= tensor_shards
-        return {"conv": (batch, dc - 1, di), "ssm": (batch, di, N)}
-    if cfg.layer_kind(i).mixer == MIXER_RWKV:
-        H, hd = rwkv_dims(cfg)
-        return {"sx_tm": (batch, cfg.d_model), "sx_cm": (batch, cfg.d_model),
-                "wkv": (batch, H // tensor_shards, hd, hd)}
-    seq = max_seq
-    if cfg.sliding_window and not cfg.is_global_layer(i):
-        seq = min(max_seq, cfg.sliding_window)        # the ring
-    shape = (batch, max(cfg.n_kv_heads // tensor_shards, 1), seq,
-             cfg.resolved_head_dim)
-    return {"k": shape, "v": shape}
+        out = {"mixer": {"conv": (batch, dc - 1, di), "ssm": (batch, di, N)}}
+    elif kind.mixer == MIXER_RWKV:
+        H, hs = rwkv_dims(cfg)
+        out = {"mixer": {"sx_tm": (batch, cfg.d_model),
+                         "sx_cm": (batch, cfg.d_model),
+                         "wkv": (batch, H // tensor_shards, hs, hs)}}
+    else:
+        seq = max_seq
+        if kind.mixer == MIXER_CROSS:
+            seq = cfg.n_memory_tokens
+        elif cfg.sliding_window and not cfg.is_global_layer(i):
+            seq = min(max_seq, cfg.sliding_window)        # the ring
+        shape = (batch, kh, seq, hd)
+        out = {"mixer": {"k": shape, "v": shape}}
+    if kind.extra_cross:
+        mem = max_seq if cfg.encoder_layers else (cfg.n_memory_tokens
+                                                  or max_seq)
+        out["cross"] = {"k": (batch, kh, mem, hd), "v": (batch, kh, mem, hd)}
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -68,9 +85,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     device = resolve_device(device)
     layers = layers if layers is not None else range(cfg.n_layers)
     _check_ported(cfg, layers, _DENSE_MIXERS)
-    return [{"mixer": {name: torch.zeros(shape, dtype=dtype, device=device)
-                       for name, shape in
-                       layer_shapes(cfg, i, batch, max_seq).items()}}
+    return [{part: {name: torch.zeros(shape, dtype=dtype, device=device)
+                    for name, shape in leaves.items()}
+             for part, leaves in layer_shapes(cfg, i, batch,
+                                              max_seq).items()}
             for i in layers]
 
 
@@ -88,7 +106,8 @@ NULL_BLOCK = 0          # physical block 0: trash target for masked writes
 
 def can_page(cfg: ModelConfig) -> bool:
     """Paging covers unwindowed full self-attention only: a recurrent
-    (Mamba, RWKV) layer's state has no token axis to page."""
+    (Mamba, RWKV) layer's state has no token axis to page, and a
+    cross-attention memory is one fixed block."""
     mixers = {k.mixer for k in cfg.pattern}
     return (mixers == {MIXER_ATTN}
             and not any(k.extra_cross for k in cfg.pattern)
@@ -125,8 +144,9 @@ def dense_slot_bytes(cfg: ModelConfig, max_seq: int, dtype=torch.bfloat16,
     _check_ported(cfg, range(cfg.n_layers), _DENSE_MIXERS)
     return sum(math.prod(shape) * dtype.itemsize
                for i in range(cfg.n_layers)
-               for shape in layer_shapes(cfg, i, 1, max_seq,
-                                         tensor_shards).values())
+               for leaves in layer_shapes(cfg, i, 1, max_seq,
+                                          tensor_shards).values()
+               for shape in leaves.values())
 
 
 def blocks_for(n_tokens: int, block_size: int) -> int:

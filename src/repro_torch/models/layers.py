@@ -1,5 +1,6 @@
 """Core layers of the serving path: RMSNorm, RoPE, GQA attention (global
-and sliding-window), SwiGLU and GeGLU, and top-k mixture of experts.
+and sliding-window), gated cross attention, SwiGLU, GeGLU and the plain
+gelu MLP, and top-k mixture of experts.
 
 Ports the main-path subset of ``repro/models/layers.py`` with the same
 param layout (``wq (d, H, hd)``, ``wk/wv (d, Kh, hd)``, ``wo (H, hd, d)``,
@@ -38,9 +39,14 @@ an ``(E, cap, d)`` buffer, the experts run as three ``torch.bmm`` calls,
 and each token gathers its kept rows back and sums them in k order.  The
 shared experts are added after the combine.
 
+Cross attention (llama-3.2-vision's gated image layers, whisper's decoder)
+attends from x to ``memory`` tokens ``(B, M, d)``, or, given no memory, to
+the K/V its cache holds.  A single query row goes through the decode
+kernel with ``cache_len = M``, longer inputs through the flash kernel with
+``causal=False``; the output enters the residual through ``tanh(gate)``.
+
 The sequence- and tensor-parallel branches (expert parallelism included)
-and the plain gelu MLP (whisper's ``w1/w2``) are not ported yet (see
-ROADMAP.md) and raise.
+are not ported yet (see ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -112,11 +118,14 @@ def _qkv(params: Params, x: torch.Tensor):
     return q, k, v
 
 
-def _positions(pos0, S: int, device) -> torch.Tensor:
-    """(S,) for a scalar pos0, (B, S) for a per-slot vector."""
-    p0 = torch.as_tensor(pos0, device=device)
-    ar = torch.arange(S, device=device)
-    return (p0[:, None] + ar) if p0.ndim == 1 else p0 + ar
+def positions(pos0, S: int, device) -> torch.Tensor:
+    """Absolute positions: (S,) for a scalar pos0, (B, S) for a per-slot
+    vector.  A Python int is not copied to the device (that copy would
+    wait for the stream in every layer)."""
+    if torch.is_tensor(pos0):
+        ar = torch.arange(S, device=pos0.device)
+        return (pos0[:, None] + ar) if pos0.ndim == 1 else pos0 + ar
+    return torch.arange(int(pos0), int(pos0) + S, device=device)
 
 
 def _dense_rows(c: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -207,9 +216,9 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         raise _todo("tensor/sequence-parallel attention")
     q, k, v = _qkv(params, x)
     if cfg.rope_theta:
-        positions = _positions(pos0, S, x.device)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        pos = positions(pos0, S, x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if block_table is not None and cache is not None:
@@ -270,20 +279,74 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# Cross attention
+# ---------------------------------------------------------------------------
+
+def apply_cross_attention(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                          *, memory=None, cache=None, tp_axis=None):
+    """Cross attention from x to ``memory`` tokens (B, M, d), a frontend's
+    precomputed image tokens or the encoder's output.
+
+    With ``memory``, K and V are projected from it and, when ``cache``
+    (dict k, v, head-major ``(B, Kh, M, hd)``) is given, written into it in
+    place (a memory of another length replaces the cache's tensors, as
+    the reference's returned cache does); without, they are read from the
+    cache.  One query row takes the decode kernel over all M rows, longer
+    inputs the flash kernel, non-causal.  Returns (y, cache, aux)."""
+    if tp_axis is not None:
+        raise _todo("tensor-parallel cross attention")
+    S = x.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    if cache is not None and memory is None:
+        k_hm, v_hm = cache["k"], cache["v"]
+        k = v = None
+    else:
+        memory = memory.to(params["wk"].dtype)
+        k = torch.einsum("bmd,dhk->bmhk", memory, params["wk"])
+        v = torch.einsum("bmd,dhk->bmhk", memory, params["wv"])
+        if "bk" in params:
+            k, v = k + params["bk"], v + params["bv"]
+        k_hm, v_hm = k.movedim(1, 2), v.movedim(1, 2)
+        if cache is not None:
+            for name, t in (("k", k_hm), ("v", v_hm)):
+                if cache[name].shape == t.shape:
+                    cache[name].copy_(t)
+                else:
+                    cache[name] = t.to(cache[name].dtype).contiguous()
+    M = k_hm.shape[2]
+    if S == 1:
+        out = decode_attention(q[:, 0].contiguous(), k_hm.contiguous(),
+                               v_hm.contiguous(), M)[:, None]
+    else:
+        if k is None:
+            k, v = (t.transpose(1, 2).to(q.dtype) for t in (k_hm, v_hm))
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=False, q_offset=0)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = y * torch.tanh(params["gate"].float()).to(y.dtype)
+    return y, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
 def apply_mlp(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
               tp_axis=None):
     """Gated MLP: SwiGLU, or GeGLU (tanh gelu) where ``mlp_act`` is
-    "geglu"."""
+    "geglu"; or, where the params hold ``w1/w2`` (whisper), the plain
+    two-matrix MLP with tanh gelu (``jax.nn.gelu``'s default form)."""
     if tp_axis is not None:
         raise _todo("tensor-parallel MLP")
-    if "w1" in params or cfg.mlp_act not in ("swiglu", "geglu"):
-        raise _todo(f"the {cfg.mlp_act} MLP")
-    g = torch.matmul(x, params["w_gate"])
-    u = torch.matmul(x, params["w_up"])
-    y = torch.matmul(_act(cfg, g) * u, params["w_down"])
+    if "w1" in params:
+        h = F.gelu(torch.matmul(x, params["w1"]), approximate="tanh")
+        y = torch.matmul(h, params["w2"])
+    else:
+        g = torch.matmul(x, params["w_gate"])
+        u = torch.matmul(x, params["w_up"])
+        y = torch.matmul(_act(cfg, g) * u, params["w_down"])
     return y, None, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

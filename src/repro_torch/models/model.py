@@ -1,8 +1,16 @@
-"""Model-level entry points: embed, head, forward, prefill, decode, generate.
+"""Model-level entry points: embed, head, encoder, forward, prefill, decode,
+generate.
 
-Ports ``repro/models/model.py`` for decoder-only models, with tied or
-untied heads.  These are the single-program reference paths; the serving
-engine composes the same blocks per stage.
+Ports ``repro/models/model.py`` (all but ``loss_fn``): decoder-only models
+with tied or untied heads, learned positions (``pos_embed``, where
+``rope_theta == 0``), cross-attention memory, and whisper's encoder.  These
+are the single-program reference paths; the serving engine composes the
+same blocks per stage.
+
+Batch dict convention, as the reference's:
+  tokens:  (B, S) int         decoder tokens
+  frames:  (B, S_enc, d)      encoder input (whisper's conv frontend stub)
+  memory:  (B, M, d)          image tokens (the vision frontend stub)
 """
 from __future__ import annotations
 
@@ -10,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MIXER_ATTN, LayerKind, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.transformer import BlockCtx, apply_block
@@ -18,10 +26,14 @@ from repro_torch.models.transformer import BlockCtx, apply_block
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                  pos0=0) -> torch.Tensor:
-    if cfg.rope_theta == 0:
-        raise NotImplementedError("learned position embeddings are not "
-                                  "ported to repro_torch yet; see ROADMAP.md")
-    return params["embed"][tokens]
+    """Token embeddings, plus learned positions from ``pos0`` where the
+    model has them."""
+    x = params["embed"][tokens]
+    if cfg.rope_theta == 0 and "pos_embed" in params:
+        pe = params["pos_embed"][L.positions(pos0, tokens.shape[1],
+                                             x.device)]
+        x = x + (pe[None] if pe.ndim == 2 else pe)
+    return x
 
 
 def lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -32,16 +44,39 @@ def lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, w)
 
 
+def run_encoder(cfg: ModelConfig, params: dict,
+                frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings (B, S_enc, d):
+    learned positions, non-causal attention blocks with no cache, then the
+    encoder's final norm.  Returns the decoder's memory (B, S_enc, d)."""
+    x = frames
+    if cfg.rope_theta == 0 and "pos_embed" in params:
+        x = x + params["pos_embed"][:x.shape[1]][None]
+    ctx = BlockCtx(causal=False)
+    kind = LayerKind(mixer=MIXER_ATTN)
+    for bp in params["encoder"]["blocks"]:
+        x, _, _ = apply_block(cfg, kind, bp, x, ctx)
+    return L.rms_norm(params["encoder"]["final_norm"], x, cfg.rms_eps)
+
+
+def _decoder_memory(cfg: ModelConfig, params: dict, batch: dict):
+    if cfg.encoder_layers and "frames" in batch:
+        return run_encoder(cfg, params, batch["frames"])
+    return batch.get("memory")
+
+
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             cache: Optional[list] = None, pos0=0):
     """Run all decoder blocks.  Returns (logits, cache, aux); ``cache`` is
     updated in place."""
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens, pos0)
+    memory = _decoder_memory(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, bp in enumerate(params["blocks"]):
         ctx = BlockCtx(pos0=pos0, cache=cache[i] if cache is not None else None,
-                       is_global=cfg.is_global_layer(i), causal=True)
+                       memory=memory, is_global=cfg.is_global_layer(i),
+                       causal=True)
         x, _, a = apply_block(cfg, cfg.layer_kind(i), bp, x, ctx)
         aux = aux + a
     return lm_head(cfg, params, x), cache, aux
@@ -58,11 +93,14 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int,
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
-                cache: list, pos):
-    """One decode step.  token: (B, 1); pos: cache length (int, or (B,)).
-    Returns (logits (B, vocab), cache)."""
-    logits, cache, _ = forward(cfg, params, {"tokens": token}, cache=cache,
-                               pos0=pos)
+                cache: list, pos, memory=None):
+    """One decode step.  token: (B, 1); pos: cache length (int, or (B,));
+    ``memory``, where given, is projected again by every cross layer
+    instead of reading its cache.  Returns (logits (B, vocab), cache)."""
+    batch = {"tokens": token}
+    if memory is not None:
+        batch["memory"] = memory
+    logits, cache, _ = forward(cfg, params, batch, cache=cache, pos0=pos)
     return logits[:, -1, :], cache
 
 
@@ -71,11 +109,12 @@ def greedy_generate(cfg: ModelConfig, params: dict, batch: dict, steps: int,
     """Reference autoregressive loop.  Returns (tokens (B, steps), cache)."""
     last, cache = prefill(cfg, params, batch, max_seq)
     pos = batch["tokens"].shape[1]
+    memory = batch.get("memory")
     toks = []
     tok = torch.argmax(last, dim=-1)[:, None]
     for _ in range(steps):
         toks.append(tok)
-        logits, cache = decode_step(cfg, params, tok, cache, pos)
+        logits, cache = decode_step(cfg, params, tok, cache, pos, memory)
         tok = torch.argmax(logits, dim=-1)[:, None]
         pos += 1
     return torch.cat(toks, dim=1), cache

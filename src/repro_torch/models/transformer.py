@@ -1,10 +1,12 @@
-"""Block composition for the serving path: pre-norm attention or Mamba-1
-mixers followed by a dense or MoE MLP, and RWKV-6 blocks, which own their
-two residuals and have no separate MLP.
+"""Block composition for the serving path: pre-norm self attention, gated
+cross attention or Mamba-1 mixers, an optional cross-attention sub-block
+(``extra_cross``, whisper's decoder), then a dense or MoE MLP; and RWKV-6
+blocks, which own their two residuals and have no separate MLP.  An
+encoder (whisper's) is a stack of non-causal attention blocks with its own
+final norm; learned positions (``rope_theta == 0``) are a ``pos_embed``
+table.
 
-Ports the attention, Mamba, dense/MoE MLP and RWKV parts of
-``repro/models/transformer.py`` (MLA and cross attention are not ported
-yet).  The
+Ports all of ``repro/models/transformer.py`` but MLA (not ported yet).  The
 JAX package stacks same-kind blocks and runs them with ``lax.scan``
 (``stack_blocks``, ``scan_threshold``); PyTorch runs eagerly, so the port
 loops over layers in Python and keeps one param dict per block.
@@ -19,9 +21,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV,
-                                      MLP_DENSE, MLP_MOE, LayerKind,
-                                      ModelConfig)
+from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA,
+                                      MIXER_RWKV, MLP_DENSE, MLP_MOE,
+                                      LayerKind, ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 
@@ -30,6 +32,7 @@ from repro_torch.models import ssm
 class BlockCtx:
     pos0: Any = 0                      # int, or (B,) positions for decode
     cache: Any = None                  # per-layer cache dict or None
+    memory: Any = None                 # (B, M, d) cross-attention memory
     is_global: bool = True
     causal: bool = True
     tp_axis: Optional[str] = None
@@ -42,15 +45,33 @@ class BlockCtx:
 
 _PORTED_KINDS = ((MIXER_ATTN, MLP_DENSE), (MIXER_ATTN, MLP_MOE),
                  (MIXER_MAMBA, MLP_DENSE), (MIXER_MAMBA, MLP_MOE),
-                 (MIXER_RWKV, "rwkv_cm"))
+                 (MIXER_CROSS, MLP_DENSE), (MIXER_RWKV, "rwkv_cm"))
 
 
 def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
-    if (kind.mixer, kind.mlp) not in _PORTED_KINDS or kind.extra_cross:
+    if (kind.mixer, kind.mlp) not in _PORTED_KINDS or \
+            (kind.extra_cross and kind.mixer == MIXER_RWKV):
         raise NotImplementedError(
             f"{cfg.name}: layer kind {kind} is not ported to repro_torch "
-            "yet (attention or Mamba with a dense or MoE MLP, and RWKV-6, "
-            "only); see ROADMAP.md, section 1")
+            "yet (attention, cross attention or Mamba with a dense or MoE "
+            "MLP, and RWKV-6, only); see ROADMAP.md, section 1")
+
+
+def _attention_spec(cfg: ModelConfig, gated: bool = False) -> dict:
+    """Self or cross attention's projections; a cross layer's ``gate`` is
+    a zero scalar, as the reference initialises it."""
+    d = cfg.d_model
+    H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    s = 1.0 / math.sqrt(d)
+    spec = {"wq": ((d, H, hd), s), "wk": ((d, Kh, hd), s),
+            "wv": ((d, Kh, hd), s),
+            "wo": ((H, hd, d), s / math.sqrt(2 * cfg.n_layers))}
+    if cfg.qkv_bias:
+        spec.update(bq=((H, hd), "zeros"), bk=((Kh, hd), "zeros"),
+                    bv=((Kh, hd), "zeros"))
+    if gated:
+        spec["gate"] = ((), "zeros")
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -70,38 +91,46 @@ def block_spec(cfg: ModelConfig, kind: LayerKind) -> dict:
     if kind.mixer == MIXER_MAMBA:
         mixer = ssm.mamba_spec(cfg)
     else:
-        H, Kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        s = 1.0 / math.sqrt(d)
-        mixer = {"wq": ((d, H, hd), s), "wk": ((d, Kh, hd), s),
-                 "wv": ((d, Kh, hd), s),
-                 "wo": ((H, hd, d), s / math.sqrt(2 * cfg.n_layers))}
-        if cfg.qkv_bias:
-            mixer.update(bq=((H, hd), "zeros"), bk=((Kh, hd), "zeros"),
-                         bv=((Kh, hd), "zeros"))
+        mixer = _attention_spec(cfg, gated=kind.mixer == MIXER_CROSS)
     if kind.mlp == MLP_MOE:
         mlp = L.moe_spec(cfg)
     else:
         ff = cfg.d_ff
         s = 1.0 / math.sqrt(d)
         sf = 1.0 / math.sqrt(ff) / math.sqrt(2 * cfg.n_layers)
-        mlp = {"w_gate": ((d, ff), s), "w_up": ((d, ff), s),
-               "w_down": ((ff, d), sf)}
-    return {"ln1": {"scale": ((d,), "ones")}, "mixer": mixer,
-            "ln2": {"scale": ((d,), "ones")}, "mlp": mlp}
+        mlp = ({"w1": ((d, ff), s), "w2": ((ff, d), sf)}
+               if cfg.mlp_act == "gelu" else
+               {"w_gate": ((d, ff), s), "w_up": ((d, ff), s),
+                "w_down": ((ff, d), sf)})
+    spec = {"ln1": {"scale": ((d,), "ones")}, "mixer": mixer}
+    if kind.extra_cross:
+        spec["cross"] = _attention_spec(cfg, gated=True)
+        spec["ln_cross"] = {"scale": ((d,), "ones")}
+    spec.update(ln2={"scale": ((d,), "ones")}, mlp=mlp)
+    return spec
+
+
+# the JAX package's learned position table: rows for every position
+MAX_POSITIONS = 65_536
 
 
 def model_spec(cfg: ModelConfig) -> dict:
-    if cfg.encoder_layers or cfg.rope_theta == 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoders and learned positions are not ported to "
-            "repro_torch yet; see ROADMAP.md, section 1")
-    s = 1.0 / math.sqrt(cfg.d_model)
-    spec = {"embed": ((cfg.vocab_size, cfg.d_model), s),
-            "final_norm": {"scale": ((cfg.d_model,), "ones")},
+    d = cfg.d_model
+    s = 1.0 / math.sqrt(d)
+    spec = {"embed": ((cfg.vocab_size, d), s),
+            "final_norm": {"scale": ((d,), "ones")},
             "blocks": [block_spec(cfg, cfg.layer_kind(i))
                        for i in range(cfg.n_layers)]}
     if not cfg.tie_embeddings:
-        spec["lm_head"] = ((cfg.d_model, cfg.vocab_size), s)
+        spec["lm_head"] = ((d, cfg.vocab_size), s)
+    if cfg.encoder_layers:
+        kind = LayerKind(mixer=MIXER_ATTN, mlp=MLP_DENSE)
+        spec["encoder"] = {
+            "blocks": [block_spec(cfg, kind)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": {"scale": ((d,), "ones")}}
+    if cfg.rope_theta == 0:                       # learned positions
+        spec["pos_embed"] = ((MAX_POSITIONS, d), 0.02)
     return spec
 
 
@@ -183,6 +212,10 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, params: dict,
         y, mc, aux = ssm.apply_mamba(cfg, params["mixer"], h,
                                      cache=cache.get("mixer"),
                                      tp_axis=ctx.tp_axis)
+    elif kind.mixer == MIXER_CROSS:
+        y, mc, aux = L.apply_cross_attention(
+            cfg, params["mixer"], h, memory=ctx.memory,
+            cache=cache.get("mixer"), tp_axis=ctx.tp_axis)
     else:
         y, mc, aux = L.apply_attention(
             cfg, params["mixer"], h, pos0=ctx.pos0, cache=cache.get("mixer"),
@@ -191,11 +224,20 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, params: dict,
             block_table=ctx.block_table, paged_kernel=ctx.paged_kernel,
             kv_extent=ctx.kv_extent)
     x = x + y
+    new = {"mixer": mc} if mc is not None else {}
+    if kind.extra_cross:
+        h = L.rms_norm(params["ln_cross"], x, cfg.rms_eps)
+        y, cc, _ = L.apply_cross_attention(
+            cfg, params["cross"], h, memory=ctx.memory,
+            cache=cache.get("cross"), tp_axis=ctx.tp_axis)
+        x = x + y
+        if cc is not None:
+            new["cross"] = cc
     h = L.rms_norm(params["ln2"], x, cfg.rms_eps)
     mlp = L.apply_moe if kind.mlp == MLP_MOE else L.apply_mlp
     y, _, a = mlp(cfg, params["mlp"], h, tp_axis=ctx.tp_axis)
     x = x + y
-    return x, ({"mixer": mc} if mc is not None else None), aux + a
+    return x, (new or None), aux + a
 
 
 def scan_runs(cfg: ModelConfig, lo: int, hi: int) -> list[tuple[int, int]]:

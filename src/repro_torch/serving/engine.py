@@ -2,7 +2,8 @@
 
 Ports the dense and paged serving path of ``repro/serving/engine.py``, for
 attention models (with dense or MoE MLPs) and, dense only, models with
-recurrent layers: RWKV-6, and Jamba's Mamba-1 and attention hybrid.  The
+recurrent layers (RWKV-6, and Jamba's Mamba-1 and attention hybrid) or
+cross attention (llama-3.2-vision, whisper's decoder).  The
 model is cut into pipeline stages at ``boundaries``; a ``refactor()``
 re-groups the stage boundaries between decode ticks without dropping a
 request, and greedy streams across it are bit-identical to an
@@ -48,9 +49,16 @@ caches of ``min(max_seq, window)`` rows, prompts prefill at their exact
 length (a bucket's padding would land in the ring), and the paged and
 chunked paths fall back as the reference's do.
 
+A request may carry a cross-attention ``memory`` (1, M, d), a tensor or a
+numpy array, as the reference's does: the whole-prompt prefill projects
+it into the slot's cross caches, and decode reads them.  It moves to the
+engine's device once, at its first admission, and stays on the request,
+so a re-admission after preemption reuses it.  A request without one
+reads zeroed cross caches, as in the reference.
+
 Not ported and raising ``NotImplementedError``: the fault path for
-recurrent (Mamba, RWKV) and sliding-window models, whose reference results
-are wrong (ROADMAP.md, section 3).  MoE models keep it, and replay as the
+recurrent (Mamba, RWKV), sliding-window and cross-attention models, whose
+reference results are wrong (ROADMAP.md, section 3).  MoE models keep it, and replay as the
 reference does: a tick's rows compete for expert capacity, so a stream can
 depend on the batch it shares (ROADMAP.md, section 3).
 """
@@ -65,7 +73,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import MIXER_MAMBA, MIXER_RWKV, ModelConfig
+from repro_torch.configs.base import (MIXER_CROSS, MIXER_MAMBA, MIXER_RWKV,
+                                      ModelConfig)
 from repro_torch.convert import torch_dtype
 from repro_torch.core.refactoring import (CacheSnapshot, block_validity,
                                           merge_paged_with_mask,
@@ -86,8 +95,8 @@ from repro_torch.serving.workload import Request
 
 
 def _fault_path_refusal(cfg: ModelConfig) -> Optional[str]:
-    """Why the fault path is not served for ``cfg``, or None.  Both cases
-    are the reference's: its streams differ after a lost stage."""
+    """Why the fault path is not served for ``cfg``, or None.  Each case
+    is the reference's: its streams differ after a lost stage."""
     mixers = {cfg.layer_kind(i).mixer for i in range(cfg.n_layers)}
     if mixers & {MIXER_MAMBA, MIXER_RWKV}:
         return ("recurrent (Mamba, RWKV) models: a delta replay cannot "
@@ -96,6 +105,22 @@ def _fault_path_refusal(cfg: ModelConfig) -> Optional[str]:
         return ("sliding-window models: the Eq. 10 merge restores rows by "
                 "position, and a ring that has wrapped holds positions at "
                 "other rows")
+    if MIXER_CROSS in mixers or any(k.extra_cross for k in cfg.pattern):
+        return ("cross-attention models: the Eq. 10 merge restores a "
+                "memory's rows only below each slot's token horizon, and the "
+                "replay rebuilds self-attention rows only")
+    return None
+
+
+def memory_rows(cfg: ModelConfig, max_seq: int) -> Optional[int]:
+    """Rows of a request's memory: its cross caches' length, or None for
+    a model with no cross layer."""
+    for i in range(cfg.n_layers):
+        shapes = layer_shapes(cfg, i, 1, max_seq)
+        if "cross" in shapes:
+            return shapes["cross"]["k"][2]
+        if cfg.layer_kind(i).mixer == MIXER_CROSS:
+            return shapes["mixer"]["k"][2]
     return None
 
 
@@ -286,6 +311,7 @@ class FlexPipeEngine:
             self._slot_blocks = [[] for _ in range(self.ecfg.max_batch)]
         # canonical state: the per-layer cache list
         self.caches = self._init_caches()
+        self._memory_len = memory_rows(cfg, self.ecfg.max_seq)
         self.slots = [Slot() for _ in range(self.ecfg.max_batch)]
         # with an AdmissionConfig the queue IS the bounded EDF queue (list-
         # compatible for len and append); without one, an unbounded FIFO
@@ -360,7 +386,8 @@ class FlexPipeEngine:
         shared: dict = {}
         out = []
         for i in layers:
-            key = tuple(layer_shapes(self.cfg, i, batch, seq).items())
+            key = tuple((part, tuple(leaves.items())) for part, leaves
+                        in layer_shapes(self.cfg, i, batch, seq).items())
             if key not in shared:
                 shared[key] = init_cache(self.cfg, batch, seq,
                                          self.cache_dtype, device=self.device,
@@ -648,8 +675,9 @@ class FlexPipeEngine:
         stages = sorted({min(max(s, 0), len(ranges) - 1) for s in stages})
         lost_layers = [li for s in stages for li in range(*ranges[s])]
         for li in lost_layers:
-            for t in self.caches[li]["mixer"].values():
-                t.zero_()
+            for leaves in self.caches[li].values():
+                for t in leaves.values():
+                    t.zero_()
         n_new = max(len(ranges) - len(stages), 1)
         nb = self._boundaries_for(n_new)
         was_warm = self.executors.is_warm(nb)
@@ -1054,6 +1082,27 @@ class FlexPipeEngine:
                 self._finish(slot_id, now)
         return Lb
 
+    def _request_memory(self, req: Request) -> Optional[torch.Tensor]:
+        """The request's cross-attention memory on the engine's device, in
+        the params' dtype, or None (no memory, or no cross layer to read
+        it).  Moved once and kept on the request."""
+        m = getattr(req, "memory", None)
+        if m is None or self._memory_len is None:
+            return None
+        dt = self.params["embed"].dtype
+        if not (torch.is_tensor(m) and m.device == self.device
+                and m.dtype == dt):
+            if not torch.is_tensor(m):
+                m = torch.from_numpy(np.array(m, np.float32))   # a copy
+            m = m.to(device=self.device, dtype=dt)
+            req.memory = m
+        want = (1, self._memory_len, self.cfg.d_model)
+        if tuple(m.shape) != want:
+            raise ValueError(f"request {req.rid}: memory of shape "
+                             f"{tuple(m.shape)}, the cross caches take "
+                             f"{want}")
+        return m
+
     def _prefill_into_slot(self, slot_id: int, req: Request,
                            now: float = 0.0) -> None:
         prompt, budget = self._truncate_prompt(req)
@@ -1070,6 +1119,7 @@ class FlexPipeEngine:
         Sp = self.executors.prefill_bucket(S)
         toks = np.zeros((1, Sp), np.int64)
         toks[0, :S] = prompt
+        memory = self._request_memory(req)
         out = self._upload(toks)
         slot_ix = (self._upload(self.block_tables[slot_id:slot_id + 1])
                    if self.ecfg.paged else slot_id)
@@ -1079,7 +1129,7 @@ class FlexPipeEngine:
                 lo, hi, first=(si == 0), last=(si == len(ranges) - 1))
             out, _ = fn(self.params["blocks"][lo:hi],
                         self.executors.head_params, out, self.caches[lo:hi],
-                        slot_ix, S)
+                        slot_ix, S, memory)
         slot = self.slots[slot_id]
         slot.request = req
         slot.pos = S

@@ -23,7 +23,10 @@ state survive it.
   recurrent (Mamba, RWKV) layer reads its cache as the initial state (and
   Mamba's conv as its history), so its slot row is zeroed first: a reused
   slot holds the last request's state, and idle-slot decode ticks write
-  garbage there.  Attention rows past the
+  garbage there.  A cross-attention layer writes the request's ``memory``
+  K/V into the slot's rows; given no memory it reads them, so they are
+  zeroed first, as the reference reads its zeroed batch-1 cache.
+  Attention rows past the
   prompt are left as the last request left them (the reference prefills
   into a zeroed cache): decode reads ``min(pos + 1, Smax)`` rows, so no
   stale row is read before decode has overwritten it, in a ring or not.
@@ -45,8 +48,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import (MIXER_ATTN, MIXER_MAMBA, MIXER_RWKV,
-                                      ModelConfig)
+from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA,
+                                      MIXER_RWKV, ModelConfig)
 from repro_torch.models.model import embed_tokens, lm_head
 from repro_torch.models.transformer import BlockCtx, apply_block
 
@@ -54,6 +57,12 @@ from repro_torch.models.transformer import BlockCtx, apply_block
 def stage_ranges(cfg: ModelConfig, boundaries) -> list[tuple[int, int]]:
     b = tuple(boundaries)
     return list(zip(b, b[1:] + (cfg.n_layers,)))
+
+
+def _slot_view(layer_cache: dict, slot: int) -> dict:
+    """Batch row ``slot`` of one layer's dense cache, as views."""
+    return {part: {n: t[slot:slot + 1] for n, t in leaves.items()}
+            for part, leaves in layer_cache.items()}
 
 
 def _argmax_ids(cfg, head_params, x) -> torch.Tensor:
@@ -101,9 +110,11 @@ class StagePrefillProgram:
         self.cfg, self.lo, self.hi = cfg, lo, hi
         self.first, self.last, self.paged = first, last, paged
 
-    def __call__(self, blocks, head_params, inp, caches, slot, true_len: int):
+    def __call__(self, blocks, head_params, inp, caches, slot, true_len: int,
+                 memory=None):
         """inp: (1, Sp) tokens (first stage) or activations; ``slot``: the
-        batch row (dense) or the slot's (1, max_blocks) table row (paged).
+        batch row (dense) or the slot's (1, max_blocks) table row (paged);
+        ``memory``: the request's (1, M, d) cross-attention memory or None.
         Returns (first sampled id (1,) on the last stage, else activations,
         caches)."""
         cfg = self.cfg
@@ -113,13 +124,18 @@ class StagePrefillProgram:
             if self.paged:
                 cache, bt = caches[i], slot
             else:
-                cache = {"mixer": {n: t[slot:slot + 1] for n, t
-                                   in caches[i]["mixer"].items()}}
-                bt = None
-                if cfg.layer_kind(li).mixer in (MIXER_MAMBA, MIXER_RWKV):
-                    for t in cache["mixer"].values():
+                cache, bt = _slot_view(caches[i], slot), None
+                kind = cfg.layer_kind(li)
+                stale = []
+                if kind.mixer in (MIXER_MAMBA, MIXER_RWKV) or (
+                        kind.mixer == MIXER_CROSS and memory is None):
+                    stale.append("mixer")
+                if kind.extra_cross and memory is None:
+                    stale.append("cross")
+                for part in stale:
+                    for t in cache[part].values():
                         t.zero_()
-            ctx = BlockCtx(pos0=0, cache=cache,
+            ctx = BlockCtx(pos0=0, cache=cache, memory=memory,
                            is_global=cfg.is_global_layer(li), block_table=bt)
             x, _, _ = apply_block(cfg, cfg.layer_kind(li), bp, x, ctx)
         if self.last:
@@ -153,9 +169,7 @@ class ChunkPrefillProgram:
             if self.paged:
                 cache, bt = caches[i], slot
             else:
-                cache = {"mixer": {n: t[slot:slot + 1] for n, t
-                                   in caches[i]["mixer"].items()}}
-                bt = None
+                cache, bt = _slot_view(caches[i], slot), None
             ctx = BlockCtx(pos0=pos0, cache=cache,
                            is_global=cfg.is_global_layer(li), block_table=bt,
                            kv_extent=self.kv_extent)
@@ -198,12 +212,14 @@ class ExecutorCache:
         self.builds = 0
         self._local: dict = {}
         self.head_params = {k: params[k] for k in
-                            ("embed", "final_norm", "lm_head") if k in params}
+                            ("embed", "final_norm", "lm_head", "pos_embed")
+                            if k in params}
         mixers = {cfg.layer_kind(i).mixer for i in range(cfg.n_layers)}
         # padding a prompt to a bucket is only safe where padded rows are
-        # masked downstream: position-masked attention caches
+        # masked downstream: position-masked attention caches, and cross
+        # attention, whose rows do not see each other
         self.can_bucket = (prefill_buckets and not cfg.sliding_window
-                           and mixers <= {MIXER_ATTN})
+                           and mixers <= {MIXER_ATTN, MIXER_CROSS})
         # a chunk attends over the cache rows of the chunks before it, so
         # those rows must hold exact copies of the fresh activations: f32
         # caches and plain attention only (recurrent state has no chunk

@@ -807,3 +807,176 @@ def test_cuda_moe_and_mamba_engines_equal_cpu(cuda_dev, arch, cf, paged):
     assert got == want
     dec = "paged_decode_attention" if paged else "decode_attention"
     assert launches.get(dec, 0) > 0 and launches.get("flash_attention", 0) > 0
+
+
+# the shapes cross attention and whisper's encoder give the flash kernel:
+# vision's cross prefill (32 heads on 8, hd 128, 1601 memory keys: 13
+# spans, every row reading every one) at buckets and lengths off the query
+# tile, whisper's encoder (6 heads of 64 over 1500 frames) and its decoder's
+# cross prefill at the 1024 bucket
+CROSS_FLASH_CASES = [  # (B, Sq, Skv, H, Kh, hd)
+    (1, 1, 1601, 32, 8, 128), (1, 24, 1601, 32, 8, 128),
+    (1, 63, 1601, 32, 8, 128), (1, 64, 1601, 32, 8, 128),
+    (1, 65, 1601, 32, 8, 128), (1, 600, 1601, 32, 8, 128),
+    (1, 1024, 1601, 32, 8, 128),
+    (1, 1500, 1500, 6, 6, 64), (2, 1500, 1500, 6, 6, 64),
+    (1, 1024, 1500, 6, 6, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,hd", CROSS_FLASH_CASES)
+def test_cuda_flash_non_causal_served_shapes(cuda_dev, dt, B, Sq, Skv, H, Kh,
+                                             hd):
+    """Non-causal flash at the cross and encoder shapes against the plain
+    version; ``q_offset`` None (END-aligned) and 0 give the same bits, as no
+    mask depends on it, and so does a second call."""
+    rng = np.random.default_rng(Sq + Skv + hd)
+    q = _rand(rng, (B, Sq, H, hd), dt, cuda_dev)
+    k = _rand(rng, (B, Skv, Kh, hd), dt, cuda_dev)
+    v = _rand(rng, (B, Skv, Kh, hd), dt, cuda_dev)
+    out = flash_attention(q, k, v, causal=False, q_offset=0)
+    torch.testing.assert_close(
+        out.float(), flash_attention_plain(q, k, v, causal=False,
+                                           q_offset=0).float(), **TOL[dt])
+    assert torch.equal(flash_attention(q, k, v, causal=False), out)
+    assert torch.equal(flash_attention(q, k, v, causal=False, q_offset=0),
+                       out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,H,Kh,Skv", [(128, 32, 8, 1601), (64, 6, 6, 1500)],
+                         ids=["vision", "whisper"])
+def test_cuda_flash_padded_bucket_rows(cuda_dev, dt, hd, H, Kh, Skv):
+    """A 600-token prompt padded to the 1024 bucket: its 600 real rows of a
+    non-causal call equal the unpadded call's bit for bit (rows do not see
+    each other), and the plain version's."""
+    rng = np.random.default_rng(hd)
+    q = _rand(rng, (1, 1024, H, hd), dt, cuda_dev)
+    k = _rand(rng, (1, Skv, Kh, hd), dt, cuda_dev)
+    v = _rand(rng, (1, Skv, Kh, hd), dt, cuda_dev)
+    padded = flash_attention(q, k, v, causal=False, q_offset=0)[:, :600]
+    real = flash_attention(q[:, :600].contiguous(), k, v, causal=False,
+                           q_offset=0)
+    assert torch.equal(padded, real)
+    torch.testing.assert_close(
+        real.float(), flash_attention_plain(q[:, :600], k, v, causal=False,
+                                            q_offset=0).float(), **TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Kh,hd,M", [(32, 8, 128, 1601), (6, 6, 64, 1500)],
+                         ids=["vision", "whisper"])
+def test_cuda_cross_decode_over_memory_rows(cuda_dev, dt, H, Kh, hd, M):
+    """Cross decode: every slot reads all M memory rows (cache_len = M, a
+    scalar or per slot) of a cache M rows long, against the plain version;
+    the same bits again."""
+    rng = np.random.default_rng(M)
+    B = 8
+    q = _rand(rng, (B, H, hd), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, M, hd), dt, cuda_dev)
+    vc = _rand(rng, (B, Kh, M, hd), dt, cuda_dev)
+    out = decode_attention(q, kc, vc, M)
+    torch.testing.assert_close(out.float(),
+                               decode_attention_plain(q, kc, vc, M).float(),
+                               **TOL[dt])
+    cl = torch.full((B,), M, dtype=torch.int32, device=cuda_dev)
+    assert torch.equal(decode_attention(q, kc, vc, cl), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_cuda_decode_g8_at_chunk_edges(cuda_dev, dt):
+    """qwen1.5-110b's 64 heads on 8 (G = 8, the kernel's MAX_GROUP) at hd
+    128, lengths at the chunk edges: dense and paged kernels against their
+    plain versions, and paged kernel == gather path == dense kernel bit for
+    bit on equal live rows."""
+    rng = np.random.default_rng(64)
+    lens = np.array([0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1,
+                     1008, 600], np.int32)
+    B, H, Kh, hd, Smax, bs = len(lens), 64, 8, 128, 1024, 16
+    q = _rand(rng, (B, H, hd), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    vc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    cl = torch.from_numpy(lens).to(cuda_dev)
+    torch.testing.assert_close(decode_attention(q, kc, vc, cl).float(),
+                               decode_attention_plain(q, kc, vc, cl).float(),
+                               **TOL[dt])
+    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, Smax // bs, dt, cuda_dev)
+    paged = paged_decode_attention(q, kp, vp, bt, cl)
+    torch.testing.assert_close(
+        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
+        **TOL[dt])
+    kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
+    kd, vd = kc.clone(), vc.clone()
+    for b, n in enumerate(lens.tolist()):
+        kd[b, :, :n] = kg[b, :, :n]
+        vd[b, :, :n] = vg[b, :, :n]
+    assert torch.equal(decode_attention(q, kg, vg, cl), paged)
+    assert torch.equal(decode_attention(q, kd, vd, cl), paged)
+    assert torch.equal(paged_decode_attention(q, kp, vp, bt, cl), paged)
+
+
+def _cross_streams(arch, params, device, max_seq=64):
+    """Six requests with seeded memories (none for request 4) through a
+    smoke engine refactored mid-stream; per-request streams and launches."""
+    from repro_torch.launch.serve import attach_memories
+    cfg = get_arch(arch).smoke_config
+    eng = FlexPipeEngine(cfg, params, [0, 1],
+                         EngineConfig(max_batch=4, max_seq=max_seq,
+                                      warm_profiles=(1, 2)), device=device)
+    rng = np.random.default_rng(8)
+    reqs = []
+    for i in range(6):
+        r = Request(rid=i, arrival=0.0, prompt_len=int(rng.integers(3, 31)),
+                    max_new_tokens=8)
+        r.prompt_tokens = rng.integers(0, cfg.vocab_size, r.prompt_len)
+        reqs.append(r)
+    attach_memories(cfg, params, reqs, max_seq, rng)
+    del reqs[4].memory
+    for r in reqs:
+        eng.submit(r, now=0.0)
+    build.reset_launches()
+    for t in range(100):
+        if t == 3:
+            assert eng.refactor([0])["compile_cache_hit"]
+        eng.step(t * 0.05)
+        if not eng.queue and all(s.done for s in eng.slots):
+            break
+    assert all(r.output is not None and len(r.output) == 8 for r in reqs)
+    return [r.output for r in reqs], dict(build.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_cuda_cross_engines_equal_cpu(cuda_dev, arch):
+    """The cross-attention smoke configs on the card, with every cross
+    gate set nonzero and a refactor mid-stream, give the CPU run's streams
+    through the flash and decode kernels (cross prefill non-causal, cross
+    decode over the memory rows; whisper's memories from its encoder)."""
+    cfg = get_arch(arch).smoke_config
+    cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gates = np.random.default_rng(1)
+
+    def set_gates(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k == "gate":
+                    v.fill_(float(gates.choice([-1.0, 1.0])
+                                  * gates.uniform(0.5, 1.5)))
+                else:
+                    set_gates(v)
+        elif isinstance(t, list):
+            for v in t:
+                set_gates(v)
+    set_gates(cpu)
+    card = tree_from_numpy(tree_to_numpy(cpu), cuda_dev)
+    want, _ = _cross_streams(arch, cpu, "cpu")
+    got, launches = _cross_streams(arch, card, cuda_dev)
+    assert got == want
+    assert launches.get("decode_attention", 0) > 0
+    assert launches.get("flash_attention", 0) > 0
+    assert launches.get("paged_decode_attention", 0) == 0

@@ -8,6 +8,7 @@ engine streams (prompts longer than the window, decodes that wrap it, slot
 reuse after a long prompt, refactors).  The reference's fault replay is
 wrong on ring caches; the port refuses it (ROADMAP.md, section 3).  The
 CUDA kernels at these shapes are tested in test_torch_cuda.py."""
+import dataclasses
 import warnings
 
 import numpy as np
@@ -98,12 +99,24 @@ def test_geglu_mlp_matches_jax():
     assert not torch.allclose(y, ys)
 
 
-def test_plain_gelu_mlp_still_raises():
+def test_plain_gelu_mlp_matches_jax():
+    """The two-matrix gelu MLP (whisper's ``w1/w2``) at gemma3's widths:
+    tanh gelu, as ``jax.nn.gelu``'s default, not PyTorch's erf form."""
     from repro_torch.configs.base import shrink
     whisper_like = shrink(CFG, mlp_act="gelu")
-    x, _ = _x(2, (1, 3, CFG.d_model))
-    with pytest.raises(NotImplementedError, match="gelu MLP"):
-        L.apply_mlp(whisper_like, {"w1": None, "w2": None}, x)
+    rng = np.random.default_rng(3)
+    pj = {"w1": rng.standard_normal((CFG.d_model, 96)).astype(np.float32)
+          / 8, "w2": rng.standard_normal((96, CFG.d_model)).astype(
+              np.float32) / 10}
+    x, xj = _x(2, (1, 3, CFG.d_model))
+    y, _, _ = L.apply_mlp(whisper_like, params_from_numpy(pj, "cpu"), x)
+    yj, _, _ = JL.apply_mlp(dataclasses.replace(JCFG, mlp_act="gelu"), pj,
+                            xj)
+    _close(y, yj)
+    erf = torch.matmul(torch.nn.functional.gelu(
+        torch.matmul(x, torch.from_numpy(pj["w1"]))),
+        torch.from_numpy(pj["w2"]))
+    assert not torch.allclose(y, erf, atol=1e-7, rtol=0)
 
 
 def _caches(layer, B, max_seq):

@@ -105,6 +105,19 @@ reqs += synth_requests(rng, rate=40.0, cv=5.0, duration=1.0, t0=2.0,
 assert eng.run(reqs, controller=FlexPipeController(cfg, profiles)).completed \
     == len(reqs)
 assert [len(ev["to"]) for ev in eng.refactor_events] == [4]
+from repro_torch.launch.serve import attach_memories
+for arch in ("llama-3.2-vision-11b", "whisper-tiny", "qwen1.5-110b"):
+    cfg = get_arch(arch).smoke_config
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = FlexPipeEngine(cfg, params, balanced_boundaries(cfg.n_layers, 2),
+                         EngineConfig(max_batch=2, max_seq=32,
+                                      warm_profiles=(1, 2)), device="cpu")
+    reqs = [Request(rid=i, arrival=0.0, prompt_len=5 + 4 * i,
+                    max_new_tokens=4) for i in range(3)]
+    attach_memories(cfg, params, reqs, 32, np.random.default_rng(0))
+    assert eng.run(reqs).completed == 3
+for mod in ("qwen1_5_110b", "llama3_2_vision_11b", "whisper_tiny"):
+    assert f"repro_torch.configs.{mod}" in sys.modules, mod
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -118,7 +131,7 @@ def test_package_imports_and_serves_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("MODULES")[1])
-    assert n >= 42
+    assert n >= 45
 
 
 def _imported_modules(path: Path) -> set[str]:

@@ -57,14 +57,17 @@ def _close(a, b, **tol):
     pytest.param("jamba-v0.1-52b", "config", id="jamba-v0.1-52b-config"),
     pytest.param("jamba-v0.1-52b", "smoke_config",
                  id="jamba-v0.1-52b-smoke_config"),
-])
+] + [pytest.param(arch, which, id=f"{arch}-{which.replace('_', '-')}")
+     for arch in ("qwen1.5-110b", "llama-3.2-vision-11b", "whisper-tiny")
+     for which in ("config", "smoke_config")])
 def test_configs_match_the_reference(arch, which):
     mine = getattr(get_arch(arch), which)
     theirs = getattr(jax_arch(arch), which)
     for f in ("name", "family", "n_layers", "d_model", "n_heads",
               "n_kv_heads", "d_ff", "vocab_size", "resolved_head_dim",
               "qkv_bias", "rope_theta", "rms_eps", "tie_embeddings",
-              "sliding_window", "global_every", "mlp_act", "source"):
+              "sliding_window", "global_every", "mlp_act", "source",
+              "encoder_layers", "n_memory_tokens"):
         assert getattr(mine, f) == getattr(theirs, f), f
     assert [(k.mixer, k.mlp, k.extra_cross) for k in mine.pattern] == \
         [(k.mixer, k.mlp, k.extra_cross) for k in theirs.pattern]
@@ -272,3 +275,93 @@ def test_greedy_generate_streams_match_jax():
     assert out.shape == (3, 8)
     np.testing.assert_array_equal(out.numpy(), np.asarray(oj))
     assert cache[0]["mixer"]["k"].dtype == torch.bfloat16   # as in JAX
+
+
+# ---------------------------------------------------------------------------
+# qwen1.5-110b: 64 heads on 8 (G = 8), QKV bias, untied head
+# ---------------------------------------------------------------------------
+
+Q110 = "qwen1.5-110b"
+Q_CFG, Q_JCFG = get_arch(Q110).smoke_config, jax_arch(Q110).smoke_config
+_Q: dict = {}
+
+
+def _q_params():
+    if not _Q:
+        jp = jax.jit(jax_init_model, static_argnums=1)(
+            jax.random.PRNGKey(0), Q_JCFG)
+        _Q["params"] = (params_from_numpy(jax.tree.map(np.asarray, jp),
+                                          "cpu"), jp)
+    return _Q["params"]
+
+
+def test_qwen110b_widths():
+    cfg = get_arch(Q110).config
+    assert (cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.qkv_bias, cfg.tie_embeddings) == (8, 128, True, False)
+    assert Q_CFG.n_heads // Q_CFG.n_kv_heads == 4
+    assert count_params(cfg) == jax_count_params(jax_arch(Q110).config)
+
+
+def test_qwen110b_logits_and_greedy_match_jax():
+    params, jparams = _q_params()
+    toks = np.random.default_rng(11).integers(0, Q_CFG.vocab_size, (2, 13))
+    lg, _, _ = M.forward(Q_CFG, params, {"tokens": torch.from_numpy(toks)})
+    jlg, _, _ = jax.jit(JM.forward, static_argnums=0)(
+        Q_JCFG, jparams, {"tokens": jnp.asarray(toks)})
+    _close(lg, jlg, atol=1e-4, rtol=1e-4)
+    got, _ = M.greedy_generate(Q_CFG, params,
+                               {"tokens": torch.from_numpy(toks)}, 8, 32)
+    ref, _ = jax.jit(JM.greedy_generate, static_argnums=(0, 3, 4))(
+        Q_JCFG, jparams, {"tokens": jnp.asarray(toks)}, 8, 32)
+    assert got.tolist() == np.asarray(ref).tolist()
+
+
+def _q_serve(pkg, *, paged=False, paged_kernel=False, refactors=None):
+    """Six requests (5-40-token prompts) on four slots, stepped until each
+    has ended; per-rid streams.  Only the port's engine refactors."""
+    from repro.serving import engine as JE
+    from repro.serving.workload import Request as JaxRequest
+    from repro_torch.serving import engine as TE
+    from repro_torch.serving.workload import Request
+    params, jparams = _q_params()
+    mod, R_ = (TE, Request) if pkg == "torch" else (JE, JaxRequest)
+    ecfg = mod.EngineConfig(
+        max_batch=4, max_seq=64,
+        warm_profiles=(1, 2, 4) if pkg == "torch" else (),
+        kv=mod.KVCacheConfig(paged=paged, block_size=8,
+                             paged_kernel=paged_kernel))
+    eng = (mod.FlexPipeEngine(Q_CFG, params, [0, 2], ecfg, device="cpu")
+           if pkg == "torch" else
+           mod.FlexPipeEngine(Q_JCFG, jparams, [0, 2], ecfg))
+    rng = np.random.default_rng(12)
+    for i in range(6):
+        r = R_(rid=i, arrival=0.0, prompt_len=int(rng.integers(5, 41)),
+               max_new_tokens=8)
+        r.prompt_tokens = rng.integers(0, Q_CFG.vocab_size, r.prompt_len)
+        eng.submit(r, now=0.0)
+    owner, hist, t = {}, {}, 0
+    while eng.queue or any(not s.done for s in eng.slots):
+        if refactors and t in refactors:
+            ev = eng.refactor(refactors[t])
+            assert ev["compile_cache_hit"] and ev["new_traces"] == 0, ev
+        eng.step(t * 0.05)
+        for i, s in enumerate(eng.slots):
+            if s.request is not None:
+                owner[i] = s.request.rid
+            if i in owner and s.generated:
+                hist[owner[i]] = list(s.generated)
+        t += 1
+    assert sorted(hist) == list(range(6))
+    return hist
+
+
+@pytest.mark.parametrize("run", ["dense refactored", "paged gather",
+                                 "paged kernel refactored"])
+def test_qwen110b_engine_streams_match_jax(run):
+    if "jax" not in _Q:
+        _Q["jax"] = _q_serve("jax")
+    moves = {3: [0, 1, 2, 3], 9: [0, 2]} if "refactored" in run else None
+    got = _q_serve("torch", paged="paged" in run,
+                   paged_kernel="kernel" in run, refactors=moves)
+    assert got == _Q["jax"]

@@ -23,12 +23,15 @@ from repro_torch.core.partitioner import partition
 from repro_torch.launch.roofline import (H100_SXM, Chip, layer_fwd,
                                          layer_param_bytes)
 from repro_torch.models import kvcache as K
-from repro_torch.models.transformer import BlockCtx, apply_block, init_block
+from repro_torch.models.transformer import (MAX_POSITIONS, BlockCtx,
+                                            apply_block, block_spec,
+                                            init_block, spec_numel)
 from repro_torch.serving.admission import CostModel
 
 torch.set_num_threads(2)
 
-ARCHS = ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b")
+ARCHS = ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b", "qwen1.5-110b",
+         "llama-3.2-vision-11b", "whisper-tiny")
 SIZES = ("config", "smoke_config")
 # the reference's constants as a Chip: its one peak serves both dtypes
 REF_CHIP = Chip(hbm_bw=R.HBM_BW, flops_f32=R.PEAK_FLOPS,
@@ -73,7 +76,14 @@ def test_layer_param_bytes_equal_reference(arch, size):
     total = sum(layer_param_bytes(cfg, j, 1, bytes_per_el=1)
                 for j in range(cfg.n_layers))
     head = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    assert total + head + cfg.d_model == cfg.param_count()
+    # whisper: the encoder's blocks and final norm, and learned positions
+    extra = 0
+    if cfg.encoder_layers:
+        extra += (cfg.encoder_layers * spec_numel(block_spec(cfg, LayerKind()))
+                  + cfg.d_model)
+    if cfg.rope_theta == 0:
+        extra += MAX_POSITIONS * cfg.d_model
+    assert total + head + cfg.d_model + extra == cfg.param_count()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -177,8 +187,11 @@ def test_layer_flops_match_counted_probe(arch):
                         device="cpu")
     B, S = 4, 64
     x = torch.zeros(B, S, cfg.d_model)
+    # whisper's cross sub-block reads a memory as long as the sequence,
+    # the context the analytic count gives it
+    memory = torch.zeros(B, S, cfg.d_model) if kind.extra_cross else None
     with FlopCounterMode(display=False) as fc:
-        apply_block(cfg, kind, params, x, BlockCtx(pos0=0))
+        apply_block(cfg, kind, params, x, BlockCtx(pos0=0, memory=memory))
     ana = layer_fwd(cfg, 0, B * S, S, T=1, decode=False).flops
     if kind.mixer == "attn":
         ana += 2 * 2 * (B * S) * cfg.n_heads * cfg.resolved_head_dim * S * 0.5
