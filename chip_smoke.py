@@ -90,7 +90,16 @@ Phases, each fatal on failure:
      three profiled ticks, the peak memory.  Phase 3 also holds and times
      non-causal flash at the vision cross shapes (Skv 1601) and whisper's
      encoder (hd 64, 1500 frames), cross decode over 1601 and 1500 memory
-     rows, and decode at G = 8.
+     rows, and decode at G = 8;
+ 17. serve full-width deepseek-v2-236b cut to 3 layers (MLA: 128 heads,
+     kv_lora 512, q_lora 1536, (nope, rope, v) = (128, 64, 128); 160
+     routed experts top-6 and 2 shared): run() and a run refactored [0,1]
+     -> [0,1,2] -> [0,1], streams bit-identical, flash at (192, 128) once
+     per layer per prefill and no decode kernel (decode is the absorbed
+     form, torch products), decode == forward at capacity factor E/K,
+     three profiled ticks, the absorbed decode timed alone at the served
+     shape, the peak memory.  Phase 3 also holds and times flash at (192,
+     128) with 128 heads (a 512 bucket and the 1024 bucket).
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -446,6 +455,11 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
         ("hd256_window", 1, 571, 571, 0, 4, 1, 256, 256, 512, True),
         ("hd256_causal", 1, 571, 571, 0, 4, 1, 256, 256, 0, True),
         ("hd192_128", 1, 512, 512, 0, 16, 16, 192, 128, 0, True),
+        # deepseek-v2-236b's MLA prefill (phase 17): 128 heads, a served
+        # 512 bucket and the 1024 bucket
+        ("hd192_128_h128", 1, 512, 512, 0, 128, 128, 192, 128, 0, True),
+        ("hd192_128_h128_1024", 1, 1024, 1024, 0, 128, 128, 192, 128, 0,
+         True),
         ("hd128", 1, 512, 512, 0, 16, 16, 128, 128, 0, True),
         ("hd128_gqa", 1, 512, 512, 0, 32, 8, 128, 128, 0, True),
         # deepseek-moe-16b's chunk-128 step at the end of a 512-token
@@ -883,6 +897,11 @@ def small_model_check(torch, arch):
         # qwen1.5-110b's smoke config has head_dim 8, under the kernels'
         # smallest (16): the same heads at twice the width
         cfg = shrink(cfg, d_model=16 * cfg.n_heads)
+    if cfg.mla is not None:
+        # MLA's smoke heads (24, 16) are no pair the flash kernel is built
+        # for: the real model's (nope, rope, v) = (128, 64, 128)
+        cfg = shrink(cfg, mla=dataclasses.replace(
+            cfg.mla, nope_head_dim=128, rope_head_dim=64, v_head_dim=128))
     cpu = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
     set_gates(cpu, 1)
     gpu = tree_from_numpy(tree_to_numpy(cpu), "cuda")
@@ -2471,6 +2490,109 @@ def qwen110b_phase(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: deepseek-v2-236b (MLA) cut in depth
+# ---------------------------------------------------------------------------
+
+# 3 of 60 layers at full width: 12.96 B params, 51.9 GB f32 (4 would be
+# 67.7 GB, too close to 80 GB beside a 1024-row MoE call's buffers)
+DSV2_LAYERS = 3
+
+
+def time_absorbed_decode(torch, cfg, params):
+    """The absorbed MLA decode (torch products; no kernel of the JAX
+    package covers it) at the served shape: batch 8 over a 1024-row
+    latent cache at phase 5's first 8 prompt lengths, one layer's
+    weights, timed as phase 3 times a kernel, beside the bound of the work
+    those lengths need (the live latent rows and both up-projections read
+    once)."""
+    from repro_torch.models.layers import mla_absorbed_decode
+    from repro_torch.serving.workload import Request
+
+    m, H, B, Smax = cfg.mla, cfg.n_heads, 8, 1024
+    nd, rd, r, vd = (m.nope_head_dim, m.rope_head_dim, m.kv_lora_rank,
+                     m.v_head_dim)
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    q_nope, q_rope = rnd(B, 1, H, nd), rnd(B, 1, H, rd)
+    lat, kr = rnd(B, Smax, r), rnd(B, Smax, rd)
+    p = params["blocks"][0]["mixer"]
+    lens = [q.prompt_len for q in make_requests(cfg, Request)[:B]]
+    pos = torch.tensor(lens, device="cuda")
+    scale = (nd + rd) ** -0.5
+
+    def fn():
+        return mla_absorbed_decode(q_nope, q_rope, lat, kr, p["wk_up"],
+                                   p["wv_up"], pos, scale)
+
+    ms = time_ms(torch, fn)
+    live = sum(lens) + B                        # rows [0, pos] per slot
+    nbytes = 4 * (live * (r + rd) + p["wk_up"].numel() + p["wv_up"].numel()
+                  + q_nope.numel() + q_rope.numel() + B * H * vd)
+    ops = 2 * H * (B * nd * r + live * (r + rd) + live * r + B * r * vd)
+    t_bound, by = bound(nbytes, ops, "float32")
+    out = {"ms": ms, "bound_ms": t_bound, "bound_by": by,
+           "shape": f"B={B} H={H} Smax={Smax} r={r} rd={rd} nd={nd} vd={vd}"
+                    f" f32, sum(pos + 1)={live}"}
+    log(f"  absorbed MLA decode, one layer: {ms:.4f} ms, bound "
+        f"{t_bound:.4f} ms ({by})  [{out['shape']}]")
+    return out
+
+
+def deepseek_v2_phase(torch, card):
+    """deepseek-v2-236b cut to 3 layers at full width (MLA with 128 heads;
+    160 routed experts top-6 and 2 shared; untied head) on phase 5's 16
+    requests: run(), then a run refactored [0, 1] -> [0, 1, 2] at tick 10
+    and back at 30, streams bit-identical; flash (at (192, 128)) 3 per
+    prefill, decode and paged decode never; decode == forward at capacity
+    factor E/K for requests 8 and 13; three profiled decode ticks; the
+    absorbed decode timed alone and its share of a tick's device time; the
+    peak device memory."""
+    from repro_torch.configs.base import get_arch, shrink
+
+    t0 = time.perf_counter()
+    free_weights(torch)
+    full = get_arch("deepseek-v2-236b").config
+    cfg = shrink(full, n_layers=DSV2_LAYERS)
+    log(f"  deepseek-v2-236b: {full.n_layers} layers, {full.param_count()} "
+        f"params ({full.param_count() * 4 / 1e9:.1f} GB f32) cut in depth to "
+        f"{cfg.n_layers} layers at full width: {cfg.param_count()} params "
+        f"({cfg.param_count() * 4 / 1e9:.1f} GB)")
+    cfg, params, reqs, runs = serving(
+        torch, card, "deepseek-v2-236b",
+        torch.Generator(device="cuda").manual_seed(0),
+        {"dense refactored": {}}, prefix="deepseek-v2 ", boundaries=(0, 1),
+        moves={10: [0, 1, 2], 30: [0, 1]}, cfg=cfg)
+    L = cfg.n_layers
+    for label in ("deepseek-v2 dense run()", "deepseek-v2 dense refactored"):
+        want_launches(label, runs[label], {
+            "flash_attention": L * len(reqs), "decode_attention": 0,
+            "paged_decode_attention": 0})
+    decode_equals_forward_no_drop(torch, cfg, params, (8, 13), (0, 1))
+    prof = profile_moe_ticks(torch, cfg, params, (0, 1))
+    absorbed = time_absorbed_decode(torch, cfg, params)
+    if prof.get("busy_ms_per_tick"):
+        absorbed["share_of_busy_tick"] = \
+            L * absorbed["ms"] / prof["busy_ms_per_tick"]
+        log(f"  absorbed decode: {L} x {absorbed['ms']:.4f} ms = "
+            f"{absorbed['share_of_busy_tick']:.3f} of the busy tick")
+    mem = peak_memory(torch, f"deepseek-v2-236b ({L} layers)")
+    dense = runs["deepseek-v2 dense refactored"]
+    out = {"layers": L, "params": cfg.param_count(),
+           "decode_ms_per_tick": dense.get("decode_ms_per_tick"),
+           "decode_tok_per_s": dense.get("decode_tok_per_s"),
+           **prof, "absorbed_decode": absorbed, **mem,
+           "s": time.perf_counter() - t0}
+    check(mem["headroom_bytes"] >= 2 * GiB,
+          f"deepseek-v2-236b at {L} layers left {mem['headroom_bytes']} B "
+          "free at its peak, under 2 GiB")
+    log(f"  deepseek-v2-236b phase on {card}: {json.dumps(out)}")
+    return runs, out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2504,7 +2626,7 @@ def main() -> int:
     log("== 4. small-input model check")
     for arch in ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b",
                  "deepseek-moe-16b", "jamba-v0.1-52b", "qwen1.5-110b",
-                 "llama-3.2-vision-11b", "whisper-tiny"):
+                 "llama-3.2-vision-11b", "whisper-tiny", "deepseek-v2-236b"):
         small_model_check(torch, arch)
     log("== 5. serving qwen1.5-0.5b")
     cfg, params, base_reqs, runs = serving(
@@ -2575,6 +2697,8 @@ def main() -> int:
     w_runs, w_out = whisper_phase(torch, card)
     log(f"== 16. serving qwen1.5-110b ({QWEN110B_LAYERS} of 80 layers)")
     q_runs, q_out = qwen110b_phase(torch, card)
+    log(f"== 17. serving deepseek-v2-236b ({DSV2_LAYERS} of 60 layers, MLA)")
+    v2_runs, v2_out = deepseek_v2_phase(torch, card)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -2655,27 +2779,33 @@ def main() -> int:
             check((kernels[-1]["launches_jamba"] == 0) == paged_only,
                   f"{name} launched {kernels[-1]['launches_jamba']} times "
                   "on the jamba path")
-        # phases 14-16: each path's run, its count checked: > 0 where the
-        # kernel serves the model, 0 for paged decode on the cross models
-        # (their caches do not page) and for wkv6 on all three
+        # phases 14-17: each path's run, its count checked: > 0 where the
+        # kernel serves the model, 0 for paged decode on the cross and MLA
+        # models (their caches do not page), for decode on deepseek-v2 and
+        # for wkv6 on all four
         for tag, model_runs, dense_run, paged_run in (
                 ("vision", v_runs, "vision dense refactored", None),
                 ("whisper", w_runs, "whisper dense refactored", None),
                 ("qwen110b", q_runs, "qwen110b dense refactored",
-                 "qwen110b paged kernel refact.")):
+                 "qwen110b paged kernel refact."),
+                ("deepseek_v2", v2_runs, "deepseek-v2 dense refactored",
+                 None)):
             run = (paged_run if name == "paged_decode_attention" and paged_run
                    else dense_run)
             n = model_runs[run]["launches"].get(name, 0)
             kernels[-1][f"launches_{tag}"] = n
             kernels[-1][f"{tag}_launched_in"] = run
-            must = name in ("flash_attention", "decode_attention") or (
-                name == "paged_decode_attention" and paged_run is not None)
+            # MLA's decode is the absorbed form: flash only
+            must = (name == "flash_attention" or (
+                name == "decode_attention" and tag != "deepseek_v2") or (
+                name == "paged_decode_attention" and paged_run is not None))
             check(n > 0 if must else n == 0,
                   f"{name} launched {n} times on the {tag} path ({run})")
             cross = model_runs[run].get("launches_cross", {})
-            if must and tag != "qwen110b":
+            if must and tag in ("vision", "whisper"):
                 kernels[-1][f"launches_{tag}_cross"] = cross.get(name, 0)
         for key in ("hd256_window", "hd256_causal", "hd192_128",
+                    "hd192_128_h128", "hd192_128_h128_1024",
                     "hd256_ring", "hd256_global", "hd128", "hd128_mha",
                     "hd128_gqa", "hd128_chunk", "hd128_1024",
                     "hd128_cross_600", "hd128_cross_1024", "hd64_encoder",
@@ -2683,10 +2813,11 @@ def main() -> int:
                     "hd64_cross", "hd128_g8"):
             if key in r:
                 kernels[-1][key] = r[key]
-    log(f"  phases 12-16: deepseek-moe-16b {d_out['s']:.1f} s, "
+    log(f"  phases 12-17: deepseek-moe-16b {d_out['s']:.1f} s, "
         f"jamba-v0.1-52b {j_out['s']:.1f} s, llama-3.2-vision-11b "
         f"{v_out['s']:.1f} s, whisper-tiny {w_out['s']:.1f} s, "
-        f"qwen1.5-110b {q_out['s']:.1f} s; chip_smoke.py "
+        f"qwen1.5-110b {q_out['s']:.1f} s, deepseek-v2-236b "
+        f"{v2_out['s']:.1f} s; chip_smoke.py "
         f"{time.perf_counter() - T_START:.1f} s in all")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

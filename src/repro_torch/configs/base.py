@@ -43,6 +43,18 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention: the query and key/value
+    low-rank widths and the per-head split of q/k into a position-free
+    (``nope``) part and a rotary part shared by every head."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Mamba-1 and RWKV-6 sizes."""
     # mamba
@@ -75,6 +87,7 @@ class ModelConfig:
     global_every: int = 0
     pattern: tuple[LayerKind, ...] = (LayerKind(),)
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     encoder_layers: int = 0
     n_memory_tokens: int = 0
@@ -141,6 +154,7 @@ def get_arch(name: str) -> ArchSpec:
 
 def _load_all() -> None:
     from repro_torch.configs import deepseek_moe_16b  # noqa: F401 (registers)
+    from repro_torch.configs import deepseek_v2_236b  # noqa: F401
     from repro_torch.configs import gemma3_1b  # noqa: F401
     from repro_torch.configs import gemma3_12b  # noqa: F401
     from repro_torch.configs import jamba_v0_1_52b  # noqa: F401

@@ -7,7 +7,9 @@ when the head is untied, ``final_norm.scale``, and per block
 ``mixer.wk/wv (d, Kh, hd)``, ``mixer.wo (H, hd, d)``, ``mixer.bq/bk/bv`` and
 ``mlp.w_gate/w_up (d, ff)``, ``mlp.w_down (ff, d)`` or, for an MoE MLP,
 ``mlp.router (d, E)``, stacked experts ``mlp.w_gate/w_up (E, d, fe)``,
-``mlp.w_down (E, fe, d)`` and the ``mlp.shared`` gated MLP; a Mamba-1
+``mlp.w_down (E, fe, d)`` and the ``mlp.shared`` gated MLP; an MLA
+``mixer`` (``wq_down``, ``wq_up``, ``wkv_down``, ``wk_up``, ``wv_up``,
+``wo``, ``q_norm``, ``kv_norm``); a Mamba-1
 ``mixer`` (``repro.models.ssm.init_mamba``: ``w_x``, ``w_z``, ``conv_w``,
 ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``,
 ``out_proj``); or, for RWKV-6, the ``mixer`` tree of
@@ -20,10 +22,10 @@ and ``encoder.final_norm.scale``, and learned positions ``pos_embed
 (65536, d)``.  Caches are per-layer lists of ``{"mixer": {"k", "v"}}``
 with dense ``(B, Kh, Smax, hd)`` rows (``(B, Kh, M, hd)`` memory rows for
 a cross mixer, and a ``"cross": {"k", "v"}`` pair beside ``"mixer"`` for
-``extra_cross``) or paged ``(n_blocks, Kh, block_size, hd)`` pools, Mamba
-state ``{"mixer": {"conv", "ssm"}}`` or RWKV state ``{"mixer": {"sx_tm",
-"sx_cm", "wkv"}}``.  This module keeps
-that layout unchanged and only swaps the leaf type, so it takes numpy
+``extra_cross``), MLA rows ``{"mixer": {"latent" (B, Smax, r), "k_rope"
+(B, Smax, rd)}}``, or paged ``(n_blocks, Kh, block_size, hd)`` pools,
+Mamba state ``{"mixer": {"conv", "ssm"}}`` or RWKV state ``{"mixer":
+{"sx_tm", "sx_cm", "wkv"}}``.  This module keeps that layout unchanged and only swaps the leaf type, so it takes numpy
 (after ``np.asarray`` on the JAX side) and never imports JAX.
 """
 from __future__ import annotations

@@ -6,8 +6,9 @@ FlexPipe engine, including one live, controller-driven refactoring.
 
 The twin of ``examples/quickstart.py``, with random weights from the
 port's own init (seed 0).  ``--device`` defaults to CUDA and raises without
-it; ``--arch`` serves another registered arch's smoke config (the
-reference serves qwen1.5-0.5b only), starting from two balanced stages,
+it; ``--arch`` serves another registered arch's smoke config (any of
+``serve``'s list, deepseek-v2-236b's MLA included; the reference serves
+qwen1.5-0.5b only), starting from two balanced stages,
 and gives a cross-attention or encoder-decoder arch's requests seeded
 memories (``serve.attach_memories``).
 """

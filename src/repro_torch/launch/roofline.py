@@ -12,7 +12,6 @@ Two things the reference fixes are explicit here: the hardware, a frozen
 from the serving dtype (4 for the port's f32 serving path).  Passing another
 ``Chip`` and ``bytes_per_el`` reproduces any other set of constants.
 
-MLA mixers, whose config the port lacks, raise ``NotImplementedError``.
 The whole-step model (``step_costs``,
 ``hbm_footprint``) waits for the multi-device work (ROADMAP.md, section 1).
 """
@@ -21,7 +20,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA,
-                                      MIXER_RWKV, MLP_MOE, ModelConfig)
+                                      MIXER_MLA, MIXER_RWKV, MLP_MOE,
+                                      ModelConfig)
 from repro_torch.models.layers import moe_capacity
 from repro_torch.models.ssm import mamba_dims, rwkv_dims
 from repro_torch.models.transformer import block_spec, spec_numel
@@ -59,12 +59,6 @@ class Costs:
     hbm_bytes: float = 0.0      # per device
 
 
-def _todo(cfg: ModelConfig, what: str):
-    return NotImplementedError(
-        f"{cfg.name}: the roofline of {what} is not ported to repro_torch "
-        "yet; see ROADMAP.md, section 1, item 4")
-
-
 def layer_fwd(cfg: ModelConfig, j: int, tok: int, ctx: int, T: int,
               decode: bool, *, bytes_per_el: int = 4) -> Costs:
     """One layer's forward cost on ONE device (T-way tensor parallel)."""
@@ -90,6 +84,28 @@ def layer_fwd(cfg: ModelConfig, j: int, tok: int, ctx: int, T: int,
         if decode:
             # per decode step each of `tok` requests reads its full k+v cache
             c.hbm_bytes += 2 * Khl * attn_ctx * hd * bytes_per_el * tok
+    elif kind.mixer == MIXER_MLA:
+        m = cfg.mla
+        Hl = cfg.n_heads // T
+        c.flops += 2 * tok * d * m.q_lora_rank                     # q down
+        c.flops += 2 * tok * m.q_lora_rank * Hl * (m.nope_head_dim
+                                                   + m.rope_head_dim)
+        c.flops += 2 * tok * d * (m.kv_lora_rank + m.rope_head_dim)  # kv down
+        if decode:
+            # absorbed: q_lat = q @ Wk_up ; scores vs latent; o_lat @ Wv_up
+            c.flops += 2 * tok * Hl * m.nope_head_dim * m.kv_lora_rank
+            c.flops += 2 * 2 * tok * Hl * ctx * (m.kv_lora_rank
+                                                 + m.rope_head_dim)
+            c.flops += 2 * tok * Hl * m.kv_lora_rank * m.v_head_dim
+            c.hbm_bytes += ctx * (m.kv_lora_rank + m.rope_head_dim) \
+                * bytes_per_el * tok
+        else:
+            # materialized k/v up-projections + flash attention
+            c.flops += 2 * tok * m.kv_lora_rank * Hl * (m.nope_head_dim
+                                                        + m.v_head_dim)
+            c.flops += 2 * 2 * tok * Hl * (m.nope_head_dim
+                                           + m.rope_head_dim) * ctx * 0.5
+        c.flops += 2 * tok * Hl * m.v_head_dim * d                 # out proj
     elif kind.mixer == MIXER_MAMBA:
         di, dtr, N, dc = mamba_dims(cfg)
         dil = di // T
@@ -109,8 +125,6 @@ def layer_fwd(cfg: ModelConfig, j: int, tok: int, ctx: int, T: int,
         # channel mix
         ffl = cfg.d_ff // T
         c.flops += 2 * tok * d * ffl + 2 * tok * ffl * d + 2 * tok * d * d
-    else:
-        raise _todo(cfg, f"the {kind.mixer!r} mixer")
     if kind.extra_cross:
         Hl = cfg.n_heads // T if cfg.n_heads % T == 0 else cfg.n_heads
         mem = ctx

@@ -8,7 +8,10 @@ The twin of ``repro/launch/serve.py``: the same flags, profiles, boundaries
 and ``EngineConfig``, with random weights from the port's own init (seed 0)
 and ``--device``, which defaults to CUDA and raises without it.  The last
 line counts the kernel launches of the run (none on the CPU, where each
-kernel wrapper runs its plain version).
+kernel wrapper runs its plain version).  ``--arch`` takes every
+registered arch: qwen1.5-0.5b, qwen1.5-110b, gemma3-1b, gemma3-12b,
+rwkv6-1.6b, deepseek-moe-16b, deepseek-v2-236b (MLA), jamba-v0.1-52b,
+llama-3.2-vision-11b and whisper-tiny.
 
 Unlike the reference's launcher, which gives no request a memory, a
 cross-attention or encoder-decoder arch (llama-3.2-vision-11b,

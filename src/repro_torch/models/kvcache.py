@@ -1,12 +1,14 @@
 """KV cache construction and sizing, the paged block allocator and stage
 regrouping.
 
-Ports the attention-, cross-attention-, Mamba- and RWKV-layer parts of
-``repro/models/kvcache.py``.  Two layouts:
+Ports the attention-, MLA-, cross-attention-, Mamba- and RWKV-layer parts
+of ``repro/models/kvcache.py``.  Two layouts:
 
 * **dense**: per-layer ``(batch, Kh, max_seq, hd)`` rows, or ``min(max_seq,
   sliding_window)`` rows for a windowed (local) layer, a ring addressed by
-  position modulo its length; a recurrent layer holds its state instead,
+  position modulo its length; an MLA layer its per-token latent and
+  shared rotary key, ``{"latent": (batch, max_seq, kv_lora_rank),
+  "k_rope": (batch, max_seq, rope_head_dim)}``; a recurrent layer holds its state instead,
   whatever ``max_seq`` is: Mamba ``{"conv": (batch, d_conv - 1, d_inner),
   "ssm": (batch, d_inner, d_state)}``, RWKV ``{"sx_tm": (batch, d),
   "sx_cm": (batch, d), "wkv": (batch, H, hd, hd)}``; a cross-attention
@@ -32,10 +34,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA,
-                                      MIXER_RWKV, ModelConfig)
+                                      MIXER_MLA, MIXER_RWKV, ModelConfig)
 from repro_torch.models.ssm import mamba_dims, rwkv_dims
 
-_DENSE_MIXERS = (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA, MIXER_RWKV)
+_DENSE_MIXERS = (MIXER_ATTN, MIXER_MLA, MIXER_CROSS, MIXER_MAMBA,
+                 MIXER_RWKV)
 
 
 def _check_ported(cfg: ModelConfig, layers, mixers) -> None:
@@ -58,6 +61,10 @@ def layer_shapes(cfg: ModelConfig, i: int, batch: int, max_seq: int,
         di, _, N, dc = mamba_dims(cfg)
         di //= tensor_shards
         out = {"mixer": {"conv": (batch, dc - 1, di), "ssm": (batch, di, N)}}
+    elif kind.mixer == MIXER_MLA:
+        m = cfg.mla
+        out = {"mixer": {"latent": (batch, max_seq, m.kv_lora_rank),
+                         "k_rope": (batch, max_seq, m.rope_head_dim)}}
     elif kind.mixer == MIXER_RWKV:
         H, hs = rwkv_dims(cfg)
         out = {"mixer": {"sx_tm": (batch, cfg.d_model),
@@ -106,8 +113,9 @@ NULL_BLOCK = 0          # physical block 0: trash target for masked writes
 
 def can_page(cfg: ModelConfig) -> bool:
     """Paging covers unwindowed full self-attention only: a recurrent
-    (Mamba, RWKV) layer's state has no token axis to page, and a
-    cross-attention memory is one fixed block."""
+    (Mamba, RWKV) layer's state has no token axis to page, a
+    cross-attention memory is one fixed block, and MLA's latent rows have
+    no paged layout (as in the reference)."""
     mixers = {k.mixer for k in cfg.pattern}
     return (mixers == {MIXER_ATTN}
             and not any(k.extra_cross for k in cfg.pattern)

@@ -1,6 +1,6 @@
 """Core layers of the serving path: RMSNorm, RoPE, GQA attention (global
-and sliding-window), gated cross attention, SwiGLU, GeGLU and the plain
-gelu MLP, and top-k mixture of experts.
+and sliding-window), gated cross attention, multi-head latent attention
+(MLA), SwiGLU, GeGLU and the plain gelu MLP, and top-k mixture of experts.
 
 Ports the main-path subset of ``repro/models/layers.py`` with the same
 param layout (``wq (d, H, hd)``, ``wk/wv (d, Kh, hd)``, ``wo (H, hd, d)``,
@@ -44,6 +44,12 @@ attends from x to ``memory`` tokens ``(B, M, d)``, or, given no memory, to
 the K/V its cache holds.  A single query row goes through the decode
 kernel with ``cache_len = M``, longer inputs through the flash kernel with
 ``causal=False``; the output enters the residual through ``tanh(gate)``.
+
+MLA (DeepSeek-V2) caches a per-token latent and one shared rotary key
+head, ``(B, Smax, r)`` and ``(B, Smax, rd)``.  A prompt materializes K and
+V from its latent and goes through the flash kernel at (hd, hdv) = (nd +
+rd, vd); decode stays in the reference's absorbed form, torch products in
+f32 (``mla_absorbed_decode``), which no kernel of the JAX package covers.
 
 The sequence- and tensor-parallel branches (expert parallelism included)
 are not ported yet (see ROADMAP.md) and raise.
@@ -326,6 +332,114 @@ def apply_cross_attention(cfg: ModelConfig, params: Params, x: torch.Tensor,
                               causal=False, q_offset=0)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     y = y * torch.tanh(params["gate"].float()).to(y.dtype)
+    return y, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_spec(cfg: ModelConfig) -> dict:
+    """Param tree of one MLA mixer as (shape, init) leaves, with the scales
+    of ``repro.models.layers.init_mla``: low-rank query ``wq_down (d, rq)``,
+    ``wq_up (rq, H, nd + rd)``; the shared down projection ``wkv_down (d,
+    r + rd)`` to the latent and the rotary key; ``wk_up (r, H, nd)``,
+    ``wv_up (r, H, vd)``, ``wo (H, vd, d)``; the two latents' norms."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    s = 1.0 / math.sqrt(d)
+    sl = 1.0 / math.sqrt(m.kv_lora_rank)
+    sq = 1.0 / math.sqrt(m.q_lora_rank)
+    return {
+        "wq_down": ((d, m.q_lora_rank), s),
+        "wq_up": ((m.q_lora_rank, H, m.nope_head_dim + m.rope_head_dim), sq),
+        "wkv_down": ((d, m.kv_lora_rank + m.rope_head_dim), s),
+        "wk_up": ((m.kv_lora_rank, H, m.nope_head_dim), sl),
+        "wv_up": ((m.kv_lora_rank, H, m.v_head_dim), sl),
+        "wo": ((H, m.v_head_dim, d), s / math.sqrt(2 * cfg.n_layers)),
+        "q_norm": ((m.q_lora_rank,), "ones"),
+        "kv_norm": ((m.kv_lora_rank,), "ones"),
+    }
+
+
+def mla_absorbed_decode(q_nope, q_rope, latent, k_rope, wk_up, wv_up, pos0,
+                        scale: float) -> torch.Tensor:
+    """One query row per slot against the latent cache, in the absorbed
+    form and in f32: ``q_nope @ wk_up`` scores against the latent rows,
+    plus ``q_rope . k_rope``; rows past each slot's position masked; the
+    softmax-weighted latent, then ``@ wv_up``.  q_nope (B, 1, H, nd),
+    q_rope (B, 1, H, rd), latent (B, Smax, r), k_rope (B, Smax, rd);
+    ``pos0`` an int or a (B,) tensor.  Returns (B, 1, H, vd) f32."""
+    lat = latent.float()
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope.float(), wk_up.float())
+    sc = torch.einsum("bshr,bjr->bshj", q_lat, lat)
+    sc = sc + torch.einsum("bshk,bjk->bshj", q_rope.float(), k_rope.float())
+    sc = sc * scale
+    rows = torch.arange(latent.shape[1], device=latent.device)
+    if torch.is_tensor(pos0):
+        mask = (rows[None, :] <= pos0.reshape(-1, 1))[:, None, None, :]
+    else:
+        mask = rows <= int(pos0)
+    p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+    o_lat = torch.einsum("bshj,bjr->bshr", p, lat)
+    return torch.einsum("bshr,rhk->bshk", o_lat, wv_up.float())
+
+
+def apply_mla(cfg: ModelConfig, params: Params, x: torch.Tensor, *, pos0,
+              cache=None, tp_axis=None):
+    """MLA: keys and values compressed into a per-token latent (plus one
+    rotary key head shared by all heads).  A prompt (S > 1) materializes
+    K and V from the latent and runs the flash kernel, causal, at (nd +
+    rd, vd); one token (S == 1) with a cache runs the absorbed decode over
+    the latent cache.
+
+    pos0: absolute position of x[:, 0]; an int, or for ragged decode a
+    (B,) tensor of per-slot positions.  cache: None or dict(latent (B,
+    Smax, r), k_rope (B, Smax, rd)), written in place: decode writes each
+    slot's row at its own position; a prompt writes rows [0, S), as the
+    reference does whatever ``pos0`` is.  Returns (y, cache, aux)."""
+    if tp_axis is not None:
+        raise _todo("tensor-parallel MLA")
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = params["wq_up"].shape[1]
+    nd, rd, r = m.nope_head_dim, m.rope_head_dim, m.kv_lora_rank
+    ql = rms_norm({"scale": params["q_norm"]},
+                  torch.matmul(x, params["wq_down"]), cfg.rms_eps)
+    q = torch.einsum("bsr,rhk->bshk", ql, params["wq_up"])
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    kv = torch.matmul(x, params["wkv_down"])
+    latent = rms_norm({"scale": params["kv_norm"]}, kv[..., :r], cfg.rms_eps)
+    pos = positions(pos0, S, x.device)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    k_rope = apply_rope(kv[..., r:][:, :, None, :], pos,
+                        cfg.rope_theta)[:, :, 0, :]     # (B, S, rd)
+    if cache is not None:
+        lat_c, kr_c = cache["latent"], cache["k_rope"]
+        if S == 1 and torch.is_tensor(pos0) and pos0.ndim == 1:
+            bi = torch.arange(B, device=x.device)
+            p = pos0.long()
+            lat_c[bi, p] = latent[:, 0].to(lat_c.dtype)
+            kr_c[bi, p] = k_rope[:, 0].to(kr_c.dtype)
+        else:
+            p = int(pos0) if S == 1 else 0
+            lat_c[:, p:p + S] = latent.to(lat_c.dtype)
+            kr_c[:, p:p + S] = k_rope.to(kr_c.dtype)
+    scale = 1.0 / math.sqrt(nd + rd)
+    if S == 1 and cache is not None:
+        out = mla_absorbed_decode(q_nope, q_rope, cache["latent"],
+                                  cache["k_rope"], params["wk_up"],
+                                  params["wv_up"], pos0, scale).to(x.dtype)
+    else:
+        k_nope = torch.einsum("bsr,rhk->bshk", latent, params["wk_up"])
+        v = torch.einsum("bsr,rhk->bshk", latent, params["wv_up"])
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, rd)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(q_full.contiguous(), k_full.contiguous(),
+                              v.contiguous(), causal=True, q_offset=0,
+                              scale=scale)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return y, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

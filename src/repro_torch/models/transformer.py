@@ -1,13 +1,12 @@
 """Block composition for the serving path: pre-norm self attention, gated
-cross attention or Mamba-1 mixers, an optional cross-attention sub-block
+cross attention, multi-head latent attention (MLA) or Mamba-1 mixers, an optional cross-attention sub-block
 (``extra_cross``, whisper's decoder), then a dense or MoE MLP; and RWKV-6
 blocks, which own their two residuals and have no separate MLP.  An
 encoder (whisper's) is a stack of non-causal attention blocks with its own
 final norm; learned positions (``rope_theta == 0``) are a ``pos_embed``
 table.
 
-Ports all of ``repro/models/transformer.py`` but MLA (not ported yet).  The
-JAX package stacks same-kind blocks and runs them with ``lax.scan``
+Ports all of ``repro/models/transformer.py``.  The JAX package stacks same-kind blocks and runs them with ``lax.scan``
 (``stack_blocks``, ``scan_threshold``); PyTorch runs eagerly, so the port
 loops over layers in Python and keeps one param dict per block.
 ``scan_runs`` stays, as the partition of a layer range into same-kind runs.
@@ -22,8 +21,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA,
-                                      MIXER_RWKV, MLP_DENSE, MLP_MOE,
-                                      LayerKind, ModelConfig)
+                                      MIXER_MLA, MIXER_RWKV, MLP_DENSE,
+                                      MLP_MOE, LayerKind, ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 
@@ -44,6 +43,7 @@ class BlockCtx:
 
 
 _PORTED_KINDS = ((MIXER_ATTN, MLP_DENSE), (MIXER_ATTN, MLP_MOE),
+                 (MIXER_MLA, MLP_DENSE), (MIXER_MLA, MLP_MOE),
                  (MIXER_MAMBA, MLP_DENSE), (MIXER_MAMBA, MLP_MOE),
                  (MIXER_CROSS, MLP_DENSE), (MIXER_RWKV, "rwkv_cm"))
 
@@ -53,8 +53,8 @@ def _check_kind(cfg: ModelConfig, kind: LayerKind) -> None:
             (kind.extra_cross and kind.mixer == MIXER_RWKV):
         raise NotImplementedError(
             f"{cfg.name}: layer kind {kind} is not ported to repro_torch "
-            "yet (attention, cross attention or Mamba with a dense or MoE "
-            "MLP, and RWKV-6, only); see ROADMAP.md, section 1")
+            "yet (attention, MLA, cross attention or Mamba with a dense or "
+            "MoE MLP, and RWKV-6, only); see ROADMAP.md, section 1")
 
 
 def _attention_spec(cfg: ModelConfig, gated: bool = False) -> dict:
@@ -90,6 +90,8 @@ def block_spec(cfg: ModelConfig, kind: LayerKind) -> dict:
                 "ln2": {"scale": ((d,), "ones")}}
     if kind.mixer == MIXER_MAMBA:
         mixer = ssm.mamba_spec(cfg)
+    elif kind.mixer == MIXER_MLA:
+        mixer = L.mla_spec(cfg)
     else:
         mixer = _attention_spec(cfg, gated=kind.mixer == MIXER_CROSS)
     if kind.mlp == MLP_MOE:
@@ -212,6 +214,10 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, params: dict,
         y, mc, aux = ssm.apply_mamba(cfg, params["mixer"], h,
                                      cache=cache.get("mixer"),
                                      tp_axis=ctx.tp_axis)
+    elif kind.mixer == MIXER_MLA:
+        y, mc, aux = L.apply_mla(cfg, params["mixer"], h, pos0=ctx.pos0,
+                                 cache=cache.get("mixer"),
+                                 tp_axis=ctx.tp_axis)
     elif kind.mixer == MIXER_CROSS:
         y, mc, aux = L.apply_cross_attention(
             cfg, params["mixer"], h, memory=ctx.memory,

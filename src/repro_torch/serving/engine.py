@@ -1,8 +1,8 @@
 """FlexPipe serving engine on PyTorch: the data plane with live refactoring.
 
 Ports the dense and paged serving path of ``repro/serving/engine.py``, for
-attention models (with dense or MoE MLPs) and, dense only, models with
-recurrent layers (RWKV-6, and Jamba's Mamba-1 and attention hybrid) or
+attention models (with dense or MoE MLPs) and, dense only, MLA models
+(deepseek-v2's latent caches) and models with recurrent layers (RWKV-6, and Jamba's Mamba-1 and attention hybrid) or
 cross attention (llama-3.2-vision, whisper's decoder).  The
 model is cut into pipeline stages at ``boundaries``; a ``refactor()``
 re-groups the stage boundaries between decode ticks without dropping a
@@ -60,7 +60,15 @@ Not ported and raising ``NotImplementedError``: the fault path for
 recurrent (Mamba, RWKV), sliding-window and cross-attention models, whose
 reference results are wrong (ROADMAP.md, section 3).  MoE models keep it, and replay as the
 reference does: a tick's rows compete for expert capacity, so a stream can
-depend on the batch it shares (ROADMAP.md, section 3).
+depend on the batch it shares (ROADMAP.md, section 3).  MLA models keep it
+too: their latent rows are positional like k/v rows, so the Eq. 10 merge
+and the decode replay rebuild them exactly.
+
+The reference's engine cannot decode MLA: its ``apply_mla`` writes the
+cache at one scalar position, and the engine's positions are per slot
+(ROADMAP.md, section 3).  Here the decode tick's ``(B,)`` positions reach
+``apply_mla``, which writes and masks each slot at its own position: what
+the reference's layer computes for that row alone.
 """
 from __future__ import annotations
 

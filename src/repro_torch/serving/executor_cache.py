@@ -49,7 +49,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import (MIXER_ATTN, MIXER_CROSS, MIXER_MAMBA,
-                                      MIXER_RWKV, ModelConfig)
+                                      MIXER_MLA, MIXER_RWKV, ModelConfig)
 from repro_torch.models.model import embed_tokens, lm_head
 from repro_torch.models.transformer import BlockCtx, apply_block
 
@@ -216,14 +216,15 @@ class ExecutorCache:
                             if k in params}
         mixers = {cfg.layer_kind(i).mixer for i in range(cfg.n_layers)}
         # padding a prompt to a bucket is only safe where padded rows are
-        # masked downstream: position-masked attention caches, and cross
-        # attention, whose rows do not see each other
+        # masked downstream: position-masked attention and MLA caches, and
+        # cross attention, whose rows do not see each other
         self.can_bucket = (prefill_buckets and not cfg.sliding_window
-                           and mixers <= {MIXER_ATTN, MIXER_CROSS})
+                           and mixers <= {MIXER_ATTN, MIXER_MLA,
+                                          MIXER_CROSS})
         # a chunk attends over the cache rows of the chunks before it, so
         # those rows must hold exact copies of the fresh activations: f32
-        # caches and plain attention only (recurrent state has no chunk
-        # resume path)
+        # caches and plain attention only (MLA, cross and recurrent caches
+        # have no chunk resume path)
         self.can_chunk = (self.can_bucket and mixers == {MIXER_ATTN}
                           and cache_dtype == torch.float32
                           and not any(cfg.layer_kind(i).extra_cross

@@ -1,9 +1,11 @@
 """Requests and synthetic arrival processes (the port's own copy).
 
-Mirrors ``repro/serving/workload.py``'s ``Request`` (with its admission and
-fault lifecycle fields), ``audit_requests`` and ``synth_requests``, drawing
-arrivals from ``core/cv_monitor.py``'s ``gamma_interarrivals``, so the same
-seed gives the same requests in both packages.
+Mirrors all of ``repro/serving/workload.py``: ``Request`` (with its
+admission and fault lifecycle fields), ``audit_requests``,
+``synth_requests``, and the multi-phase traces (``Phase``,
+``phased_trace``, ``azure_like_trace``) the cluster simulator replays,
+drawing arrivals from ``core/cv_monitor.py``'s ``gamma_interarrivals``, so
+the same seed gives the same requests in both packages.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ class Request:
     model: str = "default"
     deadline_s: float = 10.0            # SLO budget from arrival
     priority: int = 1                   # 0 interactive / 1 standard / 2 batch
-    # lifecycle (filled by the engine)
+    # lifecycle (filled by the engine or the simulator)
     start: float = -1.0
     first_token: float = -1.0
     finish: float = -1.0
@@ -112,3 +114,45 @@ def synth_requests(rng: np.random.Generator, *, rate: float, cv: float,
                            deadline_s=deadline_s, priority=prio))
         rid += 1
     return out
+
+
+@dataclass
+class Phase:
+    duration: float
+    rate: float
+    cv: float
+
+
+def phased_trace(rng: np.random.Generator, phases: list[Phase],
+                 **kw) -> list[Request]:
+    """Concatenated phases (the paper's CV=1 -> burst -> stable
+    scenarios); rids run on across phases."""
+    out: list[Request] = []
+    t0 = 0.0
+    for ph in phases:
+        reqs = synth_requests(rng, rate=ph.rate, cv=ph.cv,
+                              duration=ph.duration, t0=t0, **kw)
+        for r in reqs:
+            r.rid = len(out)
+            out.append(r)
+        t0 += ph.duration
+    return out
+
+
+def azure_like_trace(rng: np.random.Generator, *, duration: float = 7200.0,
+                     base_rate: float = 20.0, **kw) -> list[Request]:
+    """A two-hour lifecycle like the paper's Figs. 8-9: a baseline of
+    ``base_rate`` requests/s with bursts (2-5x the rate, CV 2-8) in a
+    quarter of the 60-240 s phases."""
+    phases = []
+    t = 0.0
+    while t < duration:
+        burst = rng.random() < 0.25
+        phases.append(Phase(
+            duration=float(rng.uniform(60, 240)),
+            rate=base_rate * (rng.uniform(2.0, 5.0) if burst
+                              else rng.uniform(0.6, 1.2)),
+            cv=float(rng.uniform(2.0, 8.0) if burst
+                     else rng.uniform(0.3, 1.2))))
+        t += phases[-1].duration
+    return phased_trace(rng, phases, **kw)

@@ -980,3 +980,56 @@ def test_cuda_cross_engines_equal_cpu(cuda_dev, arch):
     assert launches.get("decode_attention", 0) > 0
     assert launches.get("flash_attention", 0) > 0
     assert launches.get("paged_decode_attention", 0) == 0
+
+
+def _mla_cfg():
+    """deepseek-v2-236b's smoke config with its MLA heads widened to the
+    real model's (nope 128, rope 64, v 128): prefill runs the flash kernel
+    at (192, 128), the served pair (the smoke's (24, 16) is not built)."""
+    from repro_torch.configs.base import MLAConfig
+    cfg = get_arch("deepseek-v2-236b").smoke_config
+    return dataclasses.replace(cfg, mla=MLAConfig(
+        kv_lora_rank=32, q_lora_rank=48, rope_head_dim=64,
+        nope_head_dim=128, v_head_dim=128))
+
+
+def _mla_streams(device, params):
+    cfg = _mla_cfg()
+    eng = FlexPipeEngine(cfg, params, [0, 2],
+                         EngineConfig(max_batch=4, max_seq=128,
+                                      warm_profiles=(4,)), device=device)
+    rng = np.random.default_rng(5)
+    reqs = []
+    for i in range(6):
+        r = Request(rid=i, arrival=0.0, prompt_len=int(rng.integers(30, 62)),
+                    max_new_tokens=8)
+        r.prompt_tokens = rng.integers(0, cfg.vocab_size, r.prompt_len)
+        reqs.append(r)
+    for r in reqs:
+        eng.submit(r, now=0.0)
+    build.reset_launches()
+    for t in range(200):
+        if t == 5:
+            assert eng.refactor([0, 1, 2, 3])["compile_cache_hit"]
+        eng.step(t * 0.05)
+        if not eng.queue and all(s.done for s in eng.slots):
+            break
+    assert all(r.output is not None and len(r.output) == 8 for r in reqs)
+    return [r.output for r in reqs], dict(build.launches)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_engine_equals_cpu(cuda_dev):
+    """An MLA engine on the card (the smoke config at the real head dims),
+    refactored mid-stream, gives the CPU run's streams; every prefill runs
+    the flash kernel once per layer (4 layers) and decode, in the absorbed
+    form, launches no attention kernel."""
+    cfg = _mla_cfg()
+    cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_from_numpy(tree_to_numpy(cpu), cuda_dev)
+    want, _ = _mla_streams("cpu", cpu)
+    got, launches = _mla_streams(cuda_dev, card)
+    assert got == want
+    assert launches.get("flash_attention", 0) == cfg.n_layers * 6
+    assert launches.get("decode_attention", 0) == 0
+    assert launches.get("paged_decode_attention", 0) == 0

@@ -1,4 +1,6 @@
 """repro_torch stands alone: it imports neither jax nor the JAX package.
+The child interpreter imports every module, serves each model family's
+smoke config and runs the cluster simulator with both blocked.
 
 The import check runs in a fresh interpreter, since this test process has
 already imported jax; a source scan backs it up."""
@@ -106,7 +108,8 @@ assert eng.run(reqs, controller=FlexPipeController(cfg, profiles)).completed \
     == len(reqs)
 assert [len(ev["to"]) for ev in eng.refactor_events] == [4]
 from repro_torch.launch.serve import attach_memories
-for arch in ("llama-3.2-vision-11b", "whisper-tiny", "qwen1.5-110b"):
+for arch in ("llama-3.2-vision-11b", "whisper-tiny", "qwen1.5-110b",
+             "deepseek-v2-236b"):
     cfg = get_arch(arch).smoke_config
     params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     eng = FlexPipeEngine(cfg, params, balanced_boundaries(cfg.n_layers, 2),
@@ -116,8 +119,23 @@ for arch in ("llama-3.2-vision-11b", "whisper-tiny", "qwen1.5-110b"):
                     max_new_tokens=4) for i in range(3)]
     attach_memories(cfg, params, reqs, 32, np.random.default_rng(0))
     assert eng.run(reqs).completed == 3
-for mod in ("qwen1_5_110b", "llama3_2_vision_11b", "whisper_tiny"):
+for mod in ("qwen1_5_110b", "llama3_2_vision_11b", "whisper_tiny",
+            "deepseek_v2_236b"):
     assert f"repro_torch.configs.{mod}" in sys.modules, mod
+import copy
+from repro_torch.serving.cluster import FragmentedCluster
+from repro_torch.serving.simulator import POLICIES, ClusterSim
+from repro_torch.serving.workload import Phase, phased_trace
+reqs = phased_trace(np.random.default_rng(0), [Phase(10, 10, 0.5),
+                                               Phase(10, 40, 3.0)],
+                    deadline_s=4.0)
+for name in ("flexpipe", "alpaserve"):
+    out = ClusterSim(POLICIES[name], FragmentedCluster.synth(seed=1),
+                     np.random.default_rng(2), slo=4.0).run(
+                         copy.deepcopy(reqs))
+    assert out["completed"] == len(reqs), (name, out["completed"])
+for mod in ("cluster", "simulator"):
+    assert f"repro_torch.serving.{mod}" in sys.modules, mod
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad

@@ -7,7 +7,9 @@ gather and kernel paths, chunked prefill, refactors, slot reuse, Eq. 10
 fault replay), at the smoke's capacity factor 4.0 and at 0.5, where drops
 and the idle slots' rows decide routing.  The reference's chunked prefill
 is not whole-prompt prefill once capacity drops (ROADMAP.md, section 3):
-pinned in both packages at the real capacity factor 1.25."""
+pinned in both packages at the real capacity factor 1.25.  The reference's
+engine cannot decode MLA (deepseek-v2-236b); the port's serves it
+(tests/test_torch_mla.py holds MLA itself)."""
 import dataclasses
 
 import numpy as np
@@ -335,14 +337,14 @@ def test_moe_models_keep_the_fault_path():
     assert TE._fault_path_refusal(cfg) is None
 
 
-def test_mla_engine_decode_raises_in_reference_and_port_refuses_mla():
+def test_mla_engine_decode_raises_in_reference_and_port_serves_it():
     """ROADMAP.md, section 3: the reference's MLA decode writes its cache
     at ``(0, pos0, 0)``, and the engine's per-slot ``(B,)`` positions are
-    no scalar start index, so its first decode tick raises; MLA is not
-    ported, and the port says so."""
+    no scalar start index, so its first decode tick raises.  The port's
+    engine serves the same request, writing and masking each slot at its
+    own position, and its stream equals the reference's per-request loop
+    (``prefill``, then ``decode_step`` at scalar positions)."""
     from repro.models.transformer import init_model as jinit
-    from repro_torch.configs.base import MIXER_MLA, LayerKind
-    from repro_torch.models.transformer import block_spec
     jcfg = jax_arch("deepseek-v2-236b").smoke_config
     jparams = jax.jit(jinit, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
     eng = JE.FlexPipeEngine(jcfg, jparams, [0, 1],
@@ -351,6 +353,18 @@ def test_mla_engine_decode_raises_in_reference_and_port_refuses_mla():
                           max_new_tokens=2))
     with pytest.raises(TypeError, match="must be scalars"):
         eng.step(0.0)
-    cfg, _ = _cfgs(DS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1"):
-        block_spec(cfg, LayerKind(mixer=MIXER_MLA))
+    cfg = get_arch("deepseek-v2-236b").smoke_config
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    eng = TE.FlexPipeEngine(cfg, params, [0, 1],
+                            TE.EngineConfig(max_batch=2, max_seq=16),
+                            device="cpu")
+    req = Request(rid=0, arrival=0.0, prompt_len=3, max_new_tokens=2)
+    assert eng.run([req]).completed == 1
+    prompt = jnp.arange(3)[None] % jcfg.vocab_size   # the engine's default
+    last, cache = JM.prefill(jcfg, jparams, {"tokens": prompt}, 16,
+                             jnp.float32)
+    want = [int(jnp.argmax(last[0]))]
+    logits, _ = JM.decode_step(jcfg, jparams, jnp.asarray([[want[0]]]),
+                               cache, 3)
+    want.append(int(jnp.argmax(logits[0])))
+    assert req.output == want

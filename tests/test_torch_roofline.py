@@ -16,8 +16,7 @@ from repro.core.graph import build_graph as jax_build_graph
 from repro.launch import roofline as R
 from repro.models import kvcache as JK
 from repro.serving.admission import CostModel as JaxCostModel
-from repro_torch.configs.base import (MIXER_MLA, LayerKind, get_arch,
-                                      shrink)
+from repro_torch.configs.base import MIXER_MLA, LayerKind, get_arch
 from repro_torch.core.graph import build_graph
 from repro_torch.core.partitioner import partition
 from repro_torch.launch.roofline import (H100_SXM, Chip, layer_fwd,
@@ -31,7 +30,7 @@ from repro_torch.serving.admission import CostModel
 torch.set_num_threads(2)
 
 ARCHS = ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b", "qwen1.5-110b",
-         "llama-3.2-vision-11b", "whisper-tiny")
+         "llama-3.2-vision-11b", "whisper-tiny", "deepseek-v2-236b")
 SIZES = ("config", "smoke_config")
 # the reference's constants as a Chip: its one peak serves both dtypes
 REF_CHIP = Chip(hbm_bw=R.HBM_BW, flops_f32=R.PEAK_FLOPS,
@@ -163,24 +162,14 @@ def test_partition_defaults_are_the_h100s():
         partition(nodes, 2, mem_cap=half * 0.9)
 
 
-@pytest.mark.parametrize("kind,what", [
-    (LayerKind(mixer=MIXER_MLA), "'mla' mixer"),
-])
-def test_unported_mixers_raise(kind, what):
-    cfg = shrink(get_arch("qwen1.5-0.5b").smoke_config, pattern=(kind,))
-    with pytest.raises(NotImplementedError, match=what + ".*item 4"):
-        layer_fwd(cfg, 0, 8, 256, 1, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer_param_bytes(cfg, 0, 1)
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_layer_flops_match_counted_probe(arch):
     """Analytic layer FLOPs against torch's FLOP counter on one smoke
     layer's forward, in the band of tests/test_roofline.py's XLA probe.
     The plain attention computes every score (the analytic count halves
     them for causal prefill), so the probe is held against the un-halved
-    count, as the reference's probe is."""
+    count, as the reference's probe is; MLA's the same way, at its
+    (nope + rope) width."""
     cfg = get_arch(arch).smoke_config
     kind = cfg.layer_kind(0)
     params = init_block(cfg, kind, torch.Generator().manual_seed(0),
@@ -195,6 +184,10 @@ def test_layer_flops_match_counted_probe(arch):
     ana = layer_fwd(cfg, 0, B * S, S, T=1, decode=False).flops
     if kind.mixer == "attn":
         ana += 2 * 2 * (B * S) * cfg.n_heads * cfg.resolved_head_dim * S * 0.5
+    if kind.mixer == MIXER_MLA:
+        m = cfg.mla
+        ana += 2 * 2 * (B * S) * cfg.n_heads * (m.nope_head_dim
+                                                + m.rope_head_dim) * S * 0.5
     ratio = fc.get_total_flops() / ana
     assert 0.7 < ratio < 1.45, (arch, fc.get_total_flops(), ana)
 
