@@ -99,7 +99,22 @@ Phases, each fatal on failure:
      form, torch products), decode == forward at capacity factor E/K,
      three profiled ticks, the absorbed decode timed alone at the served
      shape, the peak memory.  Phase 3 also holds and times flash at (192,
-     128) with 128 heads (a 512 bucket and the 1024 bucket).
+     128) with 128 heads (a 512 bucket and the 1024 bucket);
+ 18. training through the one-rank train step (repro_torch.parallel.
+     pipeline.build_train_step): the backward kernels of flash attention
+     and wkv6 against autograd through their plain versions at the
+     full-width training shapes (flash B 4, Sq = Skv 512, 16 heads of 64,
+     causal; wkv6 B 4, S 512, 32 heads of 64), two calls' bits equal,
+     timed beside the bound, the plain backward and SDPA's backward; one
+     step of qwen1.5-0.5b at full width cut to 2 layers on the card
+     against the same step on the CPU; qwen1.5-0.5b at full width and
+     depth (B 8, seq 512, M 2, remat, f32) for 20 steps, its loss falling,
+     flash 24 x M x 2 and its backward 24 x M launches a step, no decode,
+     ms per step, tokens/s, device busy and idle share, peak memory; the
+     same run under TrainSupervisor with a checkpoint every 5 steps and a
+     fault at step 12, each step's loss equal to the uninterrupted run's;
+     rwkv6-1.6b at full width (B 4, seq 512, M 1) for 5 steps, wkv6's
+     backward 24 launches a step.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -114,6 +129,7 @@ import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
@@ -2594,6 +2610,352 @@ def deepseek_v2_phase(torch, card):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 18: training (the backward kernels; qwen1.5-0.5b and rwkv6-1.6b)
+# ---------------------------------------------------------------------------
+
+# the backward kernels against autograd through their plain versions, f32,
+# on the card: the largest error over every gradient, times the largest
+# |gradient| (both sum over hundreds of rows, keys or steps, in other
+# orders); 13x the largest an H100 showed (6.6e-7 flash, 7.8e-7 wkv6)
+BWD_TOL = 1e-5
+# qwen1.5-0.5b's training call (B 4: one of M = 2 microbatches of 8, 16
+# heads of 64, causal) and rwkv6-1.6b's (B 4, 32 heads of 64)
+FLASH_TRAIN = dict(B=4, S=512, H=16, hd=64)
+WKV_TRAIN = dict(B=4, S=512, H=32, hd=64)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=10, total_steps=20)
+TRAIN_STEPS = 20
+FAULT_AT, CKPT_EVERY = 12, 5
+RWKV_TRAIN_STEPS = 5
+
+
+def _bwd_compare(torch, name, got, ref):
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    top = max(float(r.abs().max()) for r in ref)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    log(f"  {name:24s} float32  max|err| {err:.3e} (tol {BWD_TOL:g} x "
+        f"max|grad| {top:.3e})")
+    check(finite, f"{name}: non-finite gradient")
+    check(err <= BWD_TOL * top, f"{name}: error {err} > {BWD_TOL} x {top}")
+    return err, top
+
+
+def training_kernel_checks(torch):
+    """Each backward kernel at its full-width training shape against
+    autograd through the plain version on the same inputs: every gradient,
+    a second call's bits, and the kernel's, the plain backward's and (for
+    flash) SDPA's backward's device times beside the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_wkv as RW
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(18)
+
+    def rnd(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    out = {}
+    B, S, H, hd = (FLASH_TRAIN[k] for k in ("B", "S", "H", "hd"))
+    q, k, v, do = (rnd((B, S, H, hd)) for _ in range(4))
+    scale = 1.0 / math.sqrt(hd)
+    with torch.no_grad():
+        o = FA.flash_attention(q, k, v)
+    args = (q, k, v, o, do, True, 0, scale, 0)
+    got = FA._launch_backward(*args)
+    ref = FA.flash_attention_bwd_plain(q, k, v, do)
+    err, top = _bwd_compare(torch, "flash_attention_bwd", got, ref)
+    check(all(torch.equal(a, b) for a, b in
+              zip(got, FA._launch_backward(*args))),
+          "flash_attention_bwd: two calls gave different bits")
+    ms = time_ms(torch, lambda: FA._launch_backward(*args))
+    with torch.enable_grad():
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        op = FA.flash_attention_plain(*ins)
+        plain = time_ms(torch, lambda: torch.autograd.grad(
+            op, ins, do, retain_graph=True), iters=5)
+        # SDPA's backward alone, (B, H, S, hd) layout
+        sins = [t.transpose(1, 2).contiguous().requires_grad_(True)
+                for t in (q, k, v)]
+        so = F.scaled_dot_product_attention(*sins, is_causal=True)
+        sdo = do.transpose(1, 2).contiguous()
+        lib = time_ms(torch, lambda: torch.autograd.grad(
+            so, sins, sdo, retain_graph=True))
+    del op, so, ins, sins
+    pairs = B * H * S * (S + 1) // 2
+    # q, k, v, o and dO read once, dq, dk and dv written once; 5 products of
+    # hd per visible pair (S, dP, dV, dK, dQ) as 3xTF32
+    t_bound, by = bound(8 * B * S * H * hd * 4, 5 * 2 * hd * pairs, "tf32x3")
+    shape = f"B={B} Sq=Skv={S} H=Kh={H} hd={hd} causal f32"
+    out["flash_attention_bwd"] = dict(
+        max_abs_err=err, max_abs_grad=top, ms=ms, plain_ms=plain,
+        library_ms=lib, bound_ms=t_bound, bound_by=by, shape=shape)
+    log(f"  {'flash_attention_bwd':24s} {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"SDPA backward {lib:.4f} ms  bound {t_bound:.4f} ms ({by})  "
+        f"[{shape}]")
+
+    B, S, H, hd = (WKV_TRAIN[k] for k in ("B", "S", "H", "hd"))
+    r, kk, vv = (rnd((B, S, H, hd), 0.5) for _ in range(3))
+    w = torch.sigmoid(rnd((B, S, H, hd))) * 0.5 + 0.45
+    u = rnd((H, hd), 0.1)
+    st0 = rnd((B, H, hd, hd))
+    dy = rnd((B, S, H, hd))
+    wargs = (r, kk, vv, w, u, st0, dy, None)
+    got = RW._launch_backward(*wargs)
+    ref = RW.wkv6_bwd_plain(*wargs)
+    err, top = _bwd_compare(torch, "wkv6_bwd", got, ref)
+    check(all(torch.equal(a, b) for a, b in
+              zip(got, RW._launch_backward(*wargs))),
+          "wkv6_bwd: two calls gave different bits")
+    ms = time_ms(torch, lambda: RW._launch_backward(*wargs))
+    plain = time_ms(torch, lambda: RW.wkv6_bwd_plain(*wargs), iters=2,
+                    warmup=1)
+    n = B * S * H * hd
+    # r, k, v, w and dy read, dr, dk, dv and dw written, u, du, state0 and
+    # dstate0; 14 flops per state element and step (the state recomputed:
+    # a product and a multiply-add; the backward step: five multiply-adds
+    # and a product)
+    t_bound, by = bound((9 * n + 2 * H * hd + 2 * B * H * hd * hd) * 4,
+                        14 * B * H * hd * hd * S, "float32")
+    shape = f"B={B} S={S} H={H} hd={hd} f32, state0"
+    out["wkv6_bwd"] = dict(
+        max_abs_err=err, max_abs_grad=top, ms=ms, plain_ms=plain,
+        library_ms=None, bound_ms=t_bound, bound_by=by, shape=shape)
+    log(f"  {'wkv6_bwd':24s} {ms:.4f} ms  plain {plain:.4f} ms (forward "
+        f"and backward, host-bound)  library n/a  bound {t_bound:.4f} ms "
+        f"({by})  [{shape}]")
+    return out
+
+
+def _train_setup(torch, cfg, plan, seq, batch, device, generator):
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.pipeline import build_train_step, stack_params
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.configs.base import ShapeConfig
+
+    params = stack_params(cfg, plan, init_model(cfg, generator,
+                                                device=device))
+    opt = init_opt_state(params)
+    step, _ = build_train_step(cfg, plan, None,
+                               ShapeConfig("train", seq, batch, "train"),
+                               AdamWConfig(**TRAIN_OPT),
+                               param_dtype=torch.float32)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch, seed=0))
+    return params, opt, step, data
+
+
+def _batch(torch, data, i, device):
+    b = data.batch(i)
+    return {k: torch.from_numpy(b[k]).to(device) for k in ("tokens",
+                                                           "labels")}
+
+
+def train_card_vs_cpu(torch):
+    """One train step of qwen1.5-0.5b at full width cut to 2 layers (B 2,
+    S 128, M 2, remat on) on the card and on the CPU from the same params:
+    loss, grad norm and every param after the update.  Adam's first step
+    moves each element by lr_1 (1 + wd |p|) times the sign of its gradient
+    (m/sqrt(v) = g/|g|), so an element whose gradient is near zero may move
+    the other way on the other device: params are held to 2.5 lr_1, and the
+    share of elements differing by more than 1e-6 is reported."""
+    from repro_torch.configs.base import PipelinePlan, get_arch, shrink
+    from repro_torch.training.optimizer import AdamWConfig, schedule
+    from repro_torch.tree import tree_leaves
+
+    cfg = shrink(get_arch("qwen1.5-0.5b").config, n_layers=2)
+    plan = PipelinePlan(microbatches=2, remat=True)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params, opt, step, data = _train_setup(
+            torch, cfg, plan, 128, 2, dev, torch.Generator().manual_seed(0))
+        params, opt, m = step(params, opt, _batch(torch, data, 0, dev))
+        res[dev] = (params, {k: float(v) for k, v in m.items()})
+    lr1 = float(schedule(AdamWConfig(**TRAIN_OPT), 1))
+    a, b = res["cpu"][1], res["cuda"][1]
+    d_max, n_off, n_all = 0.0, 0, 0
+    for pc, pg in zip(tree_leaves(res["cpu"][0]), tree_leaves(res["cuda"][0])):
+        d = (pc - pg.cpu()).abs()
+        d_max = max(d_max, float(d.max()))
+        n_off += int((d > 1e-6).sum())
+        n_all += d.numel()
+    out = {"loss_cpu": a["loss"], "loss_cuda": b["loss"],
+           "grad_norm_cpu": a["grad_norm"], "grad_norm_cuda": b["grad_norm"],
+           "param_max_abs_diff": d_max, "lr_1": lr1,
+           "param_share_over_1e-6": n_off / n_all}
+    log(f"  card vs CPU (2 layers, B 2, S 128): {json.dumps(out)}")
+    check(abs(a["loss"] - b["loss"]) <= 1e-5 * abs(a["loss"]),
+          "train step: loss on the card differs from the CPU's")
+    check(abs(a["grad_norm"] - b["grad_norm"]) <= 1e-4 * a["grad_norm"],
+          "train step: grad norm on the card differs from the CPU's")
+    check(d_max <= 2.5 * lr1, f"train step: params differ by {d_max}")
+    return out
+
+
+def train_run(torch, card, label, cfg, plan, seq, batch, steps, want):
+    """``steps`` train steps from seeded params on the card: every loss
+    finite, the launches per step of each kernel as ``want`` says, ms per
+    step and tokens/s (host clock around synchronized steps), device busy
+    and idle share over one profiled step, peak memory.  Returns (losses,
+    info, setup)."""
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    free_weights(torch)
+    params, opt, step, data = _train_setup(
+        torch, cfg, plan, seq, batch, dev,
+        torch.Generator(device="cuda").manual_seed(0))
+    batches = [_batch(torch, data, i, dev) for i in range(steps)]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i])
+        losses.append(float(m["loss"]))          # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = dict(build.launches)
+    for name, per_step in want.items():
+        n = launches.get(name, 0)
+        log(f"  {label}: {name} launches {n} = {steps} x {per_step}")
+        check(n == steps * per_step,
+              f"{label}: {name} launched {n} times, not {steps} x "
+              f"{per_step}")
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: a non-finite loss: {losses}")
+    ms = 1e3 * float(np.median(times[1:]))
+    info = {"steps": steps, "losses": losses, "ms_per_step": ms,
+            "tok_per_s": batch * seq / ms * 1e3,
+            "launches": {k: v for k, v in launches.items() if v}}
+    last = batches[-1]
+    rows, wall_us = kernel_profile(torch, lambda: step(params, opt, last), 1)
+    busy_us = sum(r[1] for r in rows)
+    if rows:
+        info.update(profiled_ms_per_step=wall_us / 1e3,
+                    busy_ms_per_step=busy_us / 1e3,
+                    idle_share=1 - busy_us / wall_us)
+        ours = ("flash_kernel", "row_kernel", "dkdv_kernel", "dq_kernel",
+                "wkv6_kernel", "wkv6_bwd_kernel")
+        for i, (key, us, n) in enumerate(rows):
+            if i < 8 or any(k in key for k in ours):
+                log(f"    {us / 1e3:10.3f} ms {n:6d}x  {key[:80]}")
+        info["by_kernel"] = [(key, us / 1e3, n) for key, us, n in rows[:20]]
+    else:
+        log("  profiler saw no device time: busy and idle not measured")
+    info.update(peak_memory(torch, label))
+    log(f"  {label} on {card}: " + json.dumps(
+        {k: v for k, v in info.items() if k != "by_kernel"}))
+    return losses, info, (params, opt, step, batches)
+
+
+def supervised_run(torch, cfg, plan, seq, batch, ref_losses):
+    """The same run under TrainSupervisor, a checkpoint every CKPT_EVERY
+    steps (params and optimizer state, in the reference's format, under
+    build/), a fault injected at step FAULT_AT: each step after the
+    restore must give the uninterrupted run's loss."""
+    import shutil
+
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.fault_tolerance import TrainSupervisor
+
+    dev = torch.device("cuda")
+    free_weights(torch)
+    params, opt, step, data = _train_setup(
+        torch, cfg, plan, seq, batch, dev,
+        torch.Generator(device="cuda").manual_seed(0))
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    sup = TrainSupervisor(ckpt_dir=str(ckpt_dir), ckpt_every=CKPT_EVERY)
+    losses: dict = {}
+    t_io = [0.0]
+
+    def one_step(state, i):
+        p, o = state
+        p, o, m = step(p, o, _batch(torch, data, i, dev))
+        losses.setdefault(i, []).append(float(m["loss"]))
+        return (p, o)
+
+    def save(state, i):
+        t0 = time.perf_counter()
+        ckpt.save(str(ckpt_dir), state, step=i)
+        t_io[0] += time.perf_counter() - t0
+
+    def restore():
+        # a second restore would mean a real failure: let it through
+        check(sup.restarts <= 1, "train supervisor: more than one restart")
+        t0 = time.perf_counter()
+        state, i, _ = ckpt.restore(str(ckpt_dir), (params, opt))
+        t_io[0] += time.perf_counter() - t0
+        return state, i
+
+    t0 = time.perf_counter()
+    state, n = sup.run(n_steps=TRAIN_STEPS, step_fn=one_step,
+                       state=(params, opt), save_fn=save, restore_fn=restore,
+                       inject_fault_at=FAULT_AT)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    restored_at = FAULT_AT - FAULT_AT % CKPT_EVERY
+    replayed = [i for i in sorted(losses) if len(losses[i]) > 1]
+    last = [losses[i][-1] for i in range(TRAIN_STEPS)]
+    bits = all(last[i] == ref_losses[i] for i in range(TRAIN_STEPS))
+    out = {"steps": n, "restarts": sup.restarts, "restored_at": restored_at,
+           "replayed_steps": replayed, "losses_equal_bits": bits,
+           "checkpoint_io_s": t_io[0], "wall_s": wall}
+    log(f"  supervised run: {json.dumps(out)}")
+    check(n == TRAIN_STEPS and sup.restarts == 1,
+          "train supervisor: not one restart")
+    check(replayed == list(range(restored_at, FAULT_AT)),
+          f"train supervisor: replayed {replayed}")
+    for i in range(TRAIN_STEPS):
+        check(abs(last[i] - ref_losses[i]) <= 1e-6 * abs(ref_losses[i]),
+              f"train supervisor: step {i} loss {last[i]} != "
+              f"{ref_losses[i]}")
+    return out
+
+
+def training_phase(torch, card):
+    """Phase 18: the port's one-rank train step on the card.  qwen1.5-0.5b
+    at full width cut to 2 layers against the CPU; at full width and depth
+    (24 layers, B 8, seq 512, M 2, remat, f32) for TRAIN_STEPS steps, its
+    loss falling, flash forward 24 x M x 2 launches a step (remat runs each
+    tick's forward again), the flash backward 24 x M, no decode; the same
+    run under TrainSupervisor with a fault; rwkv6-1.6b at full width (24
+    layers, B 4, seq 512, M 1) for a few steps, wkv6's backward 24 a
+    step."""
+    from repro_torch.configs.base import PipelinePlan, get_arch
+
+    t0 = time.perf_counter()
+    free_weights(torch)
+    out = {"card_vs_cpu": train_card_vs_cpu(torch)}
+    cfg = get_arch("qwen1.5-0.5b").config
+    plan = PipelinePlan(microbatches=2, remat=True)
+    L, M = cfg.n_layers, plan.microbatches
+    losses, info, setup = train_run(
+        torch, card, "qwen1.5-0.5b train", cfg, plan, 512, 8, TRAIN_STEPS, {"flash_attention": L * M * 2,
+                      "flash_attention_bwd": L * M, "decode_attention": 0,
+                      "paged_decode_attention": 0})
+    del setup
+    first, tail = losses[0], float(np.mean(losses[-5:]))
+    log(f"  qwen1.5-0.5b losses: {losses}")
+    check(tail < first, f"qwen1.5-0.5b: the last 5 steps' mean loss {tail} "
+          f"is not below step 0's {first}")
+    out["qwen"] = info
+    out["supervised"] = supervised_run(torch, cfg, plan, 512, 8, losses)
+    cfg = get_arch("rwkv6-1.6b").config
+    plan = PipelinePlan(microbatches=1, remat=True)
+    losses, info, setup = train_run(
+        torch, card, "rwkv6-1.6b train", cfg, plan, 512, 4, RWKV_TRAIN_STEPS, {"wkv6": cfg.n_layers * 2,
+                           "wkv6_bwd": cfg.n_layers})
+    del setup
+    out["rwkv6"] = info
+    free_weights(torch)
+    out["s"] = time.perf_counter() - t0
+    log(f"  phase 18 on {card}: {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2699,6 +3061,9 @@ def main() -> int:
     q_runs, q_out = qwen110b_phase(torch, card)
     log(f"== 17. serving deepseek-v2-236b ({DSV2_LAYERS} of 60 layers, MLA)")
     v2_runs, v2_out = deepseek_v2_phase(torch, card)
+    log("== 18. training: the backward kernels, qwen1.5-0.5b and rwkv6-1.6b")
+    tres = training_kernel_checks(torch)
+    t_out = training_phase(torch, card)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -2813,6 +3178,27 @@ def main() -> int:
                     "hd64_cross", "hd128_g8"):
             if key in r:
                 kernels[-1][key] = r[key]
+    # the backward kernels: launches counted in phase 18's training runs
+    for name, fwd, run in (("flash_attention_bwd", "flash_attention",
+                            "qwen"),
+                           ("wkv6_bwd", "wkv6", "rwkv6")):
+        r = tres[name]
+        n = t_out[run]["launches"].get(name, 0)
+        check(n > 0, f"{name} was not launched on the training path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": sources[fwd].replace(".cu", "_bwd.cu"),
+            "replaces": replaces[fwd] + " (its gradient; the Pallas "
+                        "package has no backward kernel)",
+            "launches": n, "launched_in": f"{run} training, "
+                                          f"{t_out[run]['steps']} steps",
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_grad": r["max_abs_grad"],
+            "tolerance": f"{BWD_TOL:g} x max|grad|",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    log(f"  phase 18 (training) {t_out['s']:.1f} s")
     log(f"  phases 12-17: deepseek-moe-16b {d_out['s']:.1f} s, "
         f"jamba-v0.1-52b {j_out['s']:.1f} s, llama-3.2-vision-11b "
         f"{v_out['s']:.1f} s, whisper-tiny {w_out['s']:.1f} s, "

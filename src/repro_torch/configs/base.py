@@ -1,9 +1,10 @@
 """Model configuration and architecture registry (the port's own copy).
 
 Mirrors ``repro/configs/base.py`` field for field for the parts the serving
-path and the controller read, so a test can build the same config in both
-packages.  Pipeline
-plans and input shapes of the JAX package are not part of the port yet.
+path, the controller and the train step read, so a test can build the same
+config in both packages: model configs, input shapes (``ShapeConfig``) and
+pipeline plans (``PipelinePlan``).  The registry's per-shape default plans
+are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -127,6 +128,80 @@ class ModelConfig:
         from repro_torch.models.transformer import count_params
         return count_params(self)
 
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Parallelism plan: FlexPipe's granularity knob
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PipelinePlan:
+    """Factorization of the mesh axes for one pipeline configuration.
+
+    The production mesh's model axis (16) factorizes into
+    ``stages * tensor * replica``; FlexPipe refactoring moves between plans.
+    """
+    stages: int = 1               # pipeline stages S (the paper's granularity)
+    tensor: int = 1               # tensor parallelism T inside each stage
+    replica: int = 1              # extra model-axis replicas R (serving DP)
+    microbatches: int = 1         # GPipe microbatch count M
+    # decode-time sequence parallelism: shard the KV cache over the data axis
+    # (flash-decode across devices), used for long_500k
+    seq_parallel_kv: bool = False
+    remat: bool = True            # activation checkpointing for training
+    # ZeRO-3/FSDP: params (and optimizer moments) additionally sharded over
+    # the data axis, all-gathered per layer inside the stage
+    fsdp: bool = False
+    # cast FSDP all-gathers to fp8
+    fsdp_fp8_gather: bool = False
+    # KV cache dtype: "bf16" | "fp8"
+    kv_dtype: str = "bf16"
+
+    @property
+    def model_axis(self) -> int:
+        return self.stages * self.tensor * self.replica
+
+    def validate(self, cfg: ModelConfig, model_axis: int = 16) -> None:
+        if self.model_axis != model_axis:
+            raise ValueError(
+                f"plan S*T*R={self.model_axis} != model axis {model_axis}")
+        if cfg.n_patterns % self.stages != 0:
+            raise ValueError(
+                f"{cfg.name}: {cfg.n_patterns} patterns not divisible by "
+                f"S={self.stages} (pattern boundary constraint, DESIGN.md §5)")
+        # non-divisible head/ff dims degrade to replication in sharding
+        if cfg.vocab_size % (self.stages * self.tensor):
+            raise ValueError(
+                f"{cfg.name}: vocab {cfg.vocab_size} not divisible by "
+                f"S*T={self.stages * self.tensor} (vocab-parallel embed/head)")
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
 
 _REGISTRY: dict[str, "ArchSpec"] = {}
 

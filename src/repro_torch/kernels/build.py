@@ -12,6 +12,12 @@ on the CPU takes a kernel's plain PyTorch version (see the wrappers).
 
 Every wrapper adds one to ``launches[name]`` when it launches its kernel,
 and nowhere else, so a run can show which kernels its path went through.
+The backward kernels count under ``flash_attention_bwd`` and ``wkv6_bwd``
+(one per backward call, whatever its number of launches).
+
+Under autograd a wrapper either goes through an ``autograd.Function``
+whose backward is a kernel too (flash attention, wkv6) or raises
+(``refuse_grad``: the decode kernels, which nothing differentiates).
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -55,11 +63,25 @@ SIGNATURES: dict[str, dict[str, list]] = {
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
              _I, _I, _I, _P],
     },
+    "flash_attention_bwd": {
+        # q, k, v, o, dout, dq, dk, dv, scratch, B, Sq, Skv, H, Kh, hd, hdv,
+        # q_offset, causal, window, scale, tile, stream
+        "flash_attention_bwd_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _I, _I, _I, _F, _I, _P],
+    },
     "rwkv6_wkv": {
         # r, k, v, w, u, state (in and out), y,
         # B, S, H, hd, rows, dtype, smem, stream
         "wkv6_launch":
             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "rwkv6_wkv_bwd": {
+        # r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, du, dstate0,
+        # scratch, B, S, H, hd, chunk, stream
+        "wkv6_bwd_launch":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+             _I, _I, _I, _I, _P],
     },
 }
 
@@ -179,6 +201,34 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
             if m:
                 out[fn][key] = int(m.group(1))
     return out
+
+
+def plain_path(t, what: str) -> bool:
+    """Which way a wrapper goes for its input ``t``: True on the CPU (the
+    plain PyTorch version), False on CUDA (the kernel); any other device
+    raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"{what}: no kernel for {t.device}")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on ``tensors``: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a kernel that has no backward: its
+    output, written by a ctypes launch, would carry no gradient."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and its output would "
+            "carry no gradient; call it under torch.no_grad() or on tensors "
+            "that do not require grad (ROADMAP.md, section 2)")
 
 
 def check(err: int, what: str) -> None:

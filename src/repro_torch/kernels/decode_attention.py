@@ -24,6 +24,10 @@ merged in slice order into the chunk's partial: ``cluster_plan``,
 ``decode_partials_plain(..., width=SLICE)`` and ``decode_cluster_merge_plain``
 are its plain versions, and ``_geometry`` the launch geometry that the C
 launcher checks.
+
+Decode is never differentiated: on CUDA tensors both wrappers raise where
+autograd would record the call (``build.refuse_grad``), since the kernel
+has no backward and its output would carry no gradient.
 """
 from __future__ import annotations
 
@@ -312,11 +316,10 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
             or k_cache.shape[3] != hd:
         raise ValueError(f"decode attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)}")
-    if q.device.type == "cpu":
+    if build.plain_path(q, "decode attention"):
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode attention: no kernel for {q.device}")
+    build.refuse_grad("decode_attention", q, k_cache, v_cache)
     _check_cuda(q, (k_cache, v_cache), hd, hdv, H, Kh)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     cl = _lengths(cache_len, B, q.device)
@@ -354,11 +357,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
                          f"q{tuple(q.shape)} k{tuple(k_pool.shape)} "
                          f"v{tuple(v_pool.shape)} "
                          f"tables{tuple(block_tables.shape)}")
-    if q.device.type == "cpu":
+    if build.plain_path(q, "paged decode attention"):
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             cache_len, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged decode attention: no kernel for {q.device}")
+    build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     _check_cuda(q, (k_pool, v_pool), hd, hdv, H, Kh)
     if block_tables.dtype != torch.int32 or not block_tables.is_contiguous() \
             or block_tables.device != q.device:

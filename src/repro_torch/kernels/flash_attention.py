@@ -20,6 +20,12 @@ in one span, the row's output; a second kernel merges each other row's
 spans in span order.  ``span_plan``, ``flash_partials_plain`` and
 ``flash_combine_plain`` are the plain versions of that plan and of both
 passes, and ``_geometry`` the launch geometry that the C launcher checks.
+
+Where autograd records a call on CUDA tensors (grad mode on, an input
+requiring grad), the wrapper goes through ``FlashAttentionFn``, whose
+backward is ``csrc/flash_attention_bwd.cu`` (f32; the Pallas package has
+no backward kernel, JAX differentiates its jnp path).  Its plain version is
+``flash_attention_bwd_plain``, autograd through ``flash_attention_plain``.
 """
 from __future__ import annotations
 
@@ -204,22 +210,107 @@ def flash_combine_plain(m, l, acc, *, Skv: int, causal=True, window=0,
     return o.permute(0, 2, 1, 3).to(dtype)
 
 
+def flash_attention_bwd_plain(q, k, v, dout, *, causal=True, window=0,
+                              scale=None, q_offset=None):
+    """The backward's plain version: (dq, dk, dv) of
+    ``flash_attention_plain`` for the incoming ``dout``, by autograd."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = flash_attention_plain(qq, kk, vv, causal=causal, window=window,
+                                  scale=scale, q_offset=q_offset)
+        return torch.autograd.grad(o, (qq, kk, vv), dout)
+
+
+def bwd_tile(hd: int, hdv: int) -> int:
+    """Rows of the backward kernels' query and key tiles
+    (csrc/flash_attention_bwd.cu, ``Geo::BT``), which the launcher checks."""
+    return 32 if hd > 64 or hdv > 64 else 64
+
+
+def _launch_forward(q, k, v, causal, window, scale, q_offset):
+    """The forward kernel on validated CUDA inputs."""
+    B, Sq, H, hd = q.shape
+    Skv, Kh, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    out = torch.empty((B, Sq, H, hdv), dtype=q.dtype, device=q.device)
+    if Sq == 0:
+        return out
+    geo = _geometry(hd, hdv, q.dtype)
+    # the span pass's partials: (m, l, acc[hdv]) per (b, h, row, span);
+    # rows with one span never touch theirs
+    scratch = (torch.empty(B * H * Sq * n_spans(Skv) * (hdv + 2),
+                           dtype=torch.float32, device=q.device)
+               if geo.span else None)
+    lib = build.library("flash_attention")
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None, B, Sq, Skv, H,
+        Kh, hd, hdv, q_offset, int(causal), int(window), scale,
+        _DTYPES[q.dtype], geo.span, geo.smem,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention")
+    build.launches["flash_attention"] += 1
+    return out
+
+
+def _launch_backward(q, k, v, o, dout, causal, window, scale, q_offset):
+    """The backward kernels (csrc/flash_attention_bwd.cu) on f32 CUDA
+    inputs: (dq, dk, dv)."""
+    B, Sq, H, hd = q.shape
+    Skv, Kh, hdv = k.shape[1], k.shape[2], v.shape[-1]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if Sq == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # each row's log-sum-exp and D = dout . o
+    scratch = torch.empty(2 * B * H * Sq, dtype=torch.float32,
+                          device=q.device)
+    lib = build.library("flash_attention_bwd")
+    err = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        scratch.data_ptr(), B, Sq, Skv, H, Kh, hd, hdv, q_offset,
+        int(causal), int(window), scale, bwd_tile(hd, hdv),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention_bwd")
+    build.launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernels.  It
+    saves q, k, v and the output; the backward recomputes each row's
+    log-sum-exp from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        o = _launch_forward(q, k, v, causal, window, scale, q_offset)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = (causal, window, scale, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _launch_backward(q, k, v, o, dout.contiguous(),
+                                      *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, q_offset: int | None = None):
     """q: (B, Sq, H, hd); k/v: (B, Skv, Kh, hd/hdv). Returns (B, Sq, H, hdv).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    through ``FlashAttentionFn`` where autograd records the call (f32
+    only)."""
     B, Sq, H, hd = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     hdv = v.shape[-1]
     if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if q.device.type == "cpu":
+    if build.plain_path(q, "flash attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention: no kernel for {q.device}")
     for t in (q, k, v):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("flash attention: q, k and v must share one "
@@ -244,22 +335,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash attention: H={H} not a multiple of Kh={Kh}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
-    out = torch.empty((B, Sq, H, hdv), dtype=q.dtype, device=q.device)
-    if Sq == 0:
-        return out
-    geo = _geometry(hd, hdv, q.dtype)
-    # the span pass's partials: (m, l, acc[hdv]) per (b, h, row, span);
-    # rows with one span never touch theirs
-    scratch = (torch.empty(B * H * Sq * n_spans(Skv) * (hdv + 2),
-                           dtype=torch.float32, device=q.device)
-               if geo.span else None)
-    lib = build.library("flash_attention")
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None, B, Sq, Skv, H,
-        Kh, hd, hdv, q_offset, int(causal), int(window), scale,
-        _DTYPES[q.dtype], geo.span, geo.smem,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention")
-    build.launches["flash_attention"] += 1
-    return out
+    if build.needs_grad(q, k, v):
+        if q.dtype != torch.float32:
+            raise NotImplementedError(
+                "flash attention: the backward kernel takes float32 only; "
+                "bf16 training is a later item (ROADMAP.md, section 2)")
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                      q_offset)
+    return _launch_forward(q, k, v, causal, window, scale, q_offset)

@@ -16,6 +16,11 @@ It returns y ``(B, S, H, hd)`` in r's dtype and the final state
 is updated with no second state allocated), or a new tensor when there is
 no ``state0``.  Without ``state0`` it equals the Pallas kernel; with it,
 the reference ``repro.kernels.ref.wkv6_ref(..., state0=)``.
+
+Under autograd on CUDA the call goes through ``WKV6Fn``, whose backward is
+``csrc/rwkv6_wkv_bwd.cu`` (f32; the Pallas package has no backward kernel,
+JAX differentiates its scan).  Its plain version is ``wkv6_bwd_plain``,
+autograd through ``wkv6_plain``.
 """
 from __future__ import annotations
 
@@ -83,10 +88,115 @@ def wkv6_plain(r, k, v, w, u, state0=None):
     return y.to(r.dtype), st
 
 
+def wkv6_bwd_plain(r, k, v, w, u, state0, dy, dstate=None):
+    """The backward's plain version: (dr, dk, dv, dw, du, dstate0) of
+    ``wkv6_plain`` for the incoming ``dy`` and final-state gradient
+    ``dstate`` (None: zero), by autograd; dstate0 is None without
+    ``state0``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (r, k, v, w, u)]
+        s0 = (state0.detach().requires_grad_(True) if state0 is not None
+              else None)
+        y, st = wkv6_plain(*ins, s0)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(st)
+            grads.append(dstate)
+        g = torch.autograd.grad(outs, ins + ([s0] if s0 is not None else []),
+                                grads, allow_unused=True)
+    g = [torch.zeros_like(t) if d is None else d for d, t in zip(g, ins)] \
+        + ([g[5]] if s0 is not None else [None])
+    return tuple(g)
+
+
+def bwd_chunk(hd: int) -> int:
+    """Steps per chunk of the backward kernel (csrc/rwkv6_wkv_bwd.cu,
+    ``Geo::TC``): a chunk's states fill 128 KB of shared memory."""
+    return min(64, 32768 // (hd * hd))
+
+
+def _launch_forward(r, k, v, w, u, st):
+    """The forward kernel on validated CUDA inputs; ``st`` (B, H, hd, hd)
+    f32 holds the initial state and is overwritten with the final one."""
+    B, S, H, hd = r.shape
+    y = torch.empty_like(r)
+    geo = _geometry(hd, r.dtype, S)
+    lib = build.library("rwkv6_wkv")
+    err = lib.wkv6_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        st.data_ptr(), y.data_ptr(), B, S, H, hd, geo.rows, _DTYPES[r.dtype],
+        geo.smem, torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(err, "wkv6")
+    build.launches["wkv6"] += 1
+    return y, st
+
+
+def _launch_backward(r, k, v, w, u, state0, dy, dstate):
+    """The backward kernel (csrc/rwkv6_wkv_bwd.cu) on f32 CUDA inputs:
+    (dr, dk, dv, dw, du, dstate0); ``state0`` and ``dstate`` may be None
+    (zero)."""
+    B, S, H, hd = r.shape
+    dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+    du = torch.empty_like(u)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if S == 0:
+        for t in (dr, dk, dv, dw, du):
+            t.zero_()
+        return dr, dk, dv, dw, du, (ds0.copy_(dstate) if dstate is not None
+                                    else ds0.zero_())
+    tc = bwd_chunk(hd)
+    # du's per-(b, h) sums, then the state at each chunk's start
+    scratch = torch.empty(B * H * hd + B * H * -(-S // tc) * hd * hd,
+                          dtype=torch.float32, device=r.device)
+    lib = build.library("rwkv6_wkv_bwd")
+    err = lib.wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        state0.data_ptr() if state0 is not None else None, dy.data_ptr(),
+        dstate.data_ptr() if dstate is not None else None, dr.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+        ds0.data_ptr(), scratch.data_ptr(), B, S, H, hd, tc,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(err, "wkv6_bwd")
+    build.launches["wkv6_bwd"] += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+class WKV6Fn(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel.  The
+    kernel writes the final state into a copy of ``state0`` (or a zero
+    state), so ``state0``, which the backward reads, is left as it is."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        ctx.set_materialize_grads(False)
+        B, S, H, hd = r.shape
+        st = (state0.clone() if state0 is not None else
+              torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                          device=r.device))
+        y, st = _launch_forward(r, k, v, w, u, st)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        dr, dk, dv, dw, du, ds0 = _launch_backward(
+            r, k, v, w, u, s0, dy.contiguous(),
+            dstate.contiguous() if dstate is not None else None)
+        return dr, dk, dv, dw, du, (ds0 if s0 is not None else None)
+
+
 def wkv6(r, k, v, w, u, state0=None):
     """r, k, v, w: (B, S, H, hd); u: (H, hd); state0: None or (B, H, hd,
     hd) f32, overwritten with the final state.  Returns (y (B, S, H, hd) in
-    r's dtype, final state)."""
+    r's dtype, final state).
+
+    Where autograd records the call (grad mode on, an input requiring
+    grad), ``state0`` is left as it is and the final state is a new tensor,
+    so no tensor autograd keeps is overwritten; on CUDA the call then goes
+    through ``WKV6Fn`` (f32 only)."""
     B, S, H, hd = r.shape
     st_shape = (B, H, hd, hd)
     if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape \
@@ -96,11 +206,10 @@ def wkv6(r, k, v, w, u, state0=None):
             f"wkv6: bad shapes r{tuple(r.shape)} k{tuple(k.shape)} "
             f"v{tuple(v.shape)} w{tuple(w.shape)} u{tuple(u.shape)} "
             f"state0{None if state0 is None else tuple(state0.shape)}")
-    if r.device.type == "cpu":
+    grad = build.needs_grad(r, k, v, w, u, state0)
+    if build.plain_path(r, "wkv6"):
         y, st = wkv6_plain(r, k, v, w, u, state0)
-        return y, (st if state0 is None else state0.copy_(st))
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6: no kernel for {r.device}")
+        return y, (st if state0 is None or grad else state0.copy_(st))
     for t in (k, v, w):
         if t.device != r.device or t.dtype != r.dtype:
             raise ValueError("wkv6: r, k, v and w must share one device and "
@@ -123,15 +232,12 @@ def wkv6(r, k, v, w, u, state0=None):
     if any(t.data_ptr() % 16 for t in (r, k, v, w)):
         raise ValueError("wkv6: r, k, v and w must be 16-byte aligned (the "
                          "kernel copies them by cp.async)")
-    y = torch.empty_like(r)
+    if grad:
+        if r.dtype != torch.float32:
+            raise NotImplementedError(
+                "wkv6: the backward kernel takes float32 only; bf16 "
+                "training is a later item (ROADMAP.md, section 2)")
+        return WKV6Fn.apply(r, k, v, w, u, state0)
     st = (state0 if state0 is not None else
           torch.zeros(st_shape, dtype=torch.float32, device=r.device))
-    geo = _geometry(hd, r.dtype, S)
-    lib = build.library("rwkv6_wkv")
-    err = lib.wkv6_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        st.data_ptr(), y.data_ptr(), B, S, H, hd, geo.rows, _DTYPES[r.dtype],
-        geo.smem, torch.cuda.current_stream(r.device).cuda_stream)
-    build.check(err, "wkv6")
-    build.launches["wkv6"] += 1
-    return y, st
+    return _launch_forward(r, k, v, w, u, st)

@@ -1,2 +1,2 @@
-"""Entry points (``serve``, ``quickstart``) and the card's cost model
-(``roofline``)."""
+"""Entry points (``serve``, ``quickstart``, ``train``, ``train_pipeline``)
+and the card's cost model (``roofline``)."""

@@ -1,16 +1,19 @@
 """Model-level entry points: embed, head, encoder, forward, prefill, decode,
 generate.
 
-Ports ``repro/models/model.py`` (all but ``loss_fn``): decoder-only models
+Ports ``repro/models/model.py``: decoder-only models
 with tied or untied heads, learned positions (``pos_embed``, where
 ``rope_theta == 0``), cross-attention memory, and whisper's encoder.  These
 are the single-program reference paths; the serving engine composes the
-same blocks per stage.
+same blocks per stage, and ``loss_fn`` is the reference the one-rank
+train step (``parallel/pipeline.py``) is held to.
 
 Batch dict convention, as the reference's:
   tokens:  (B, S) int         decoder tokens
   frames:  (B, S_enc, d)      encoder input (whisper's conv frontend stub)
   memory:  (B, M, d)          image tokens (the vision frontend stub)
+  labels:  (B, S) int         training targets
+  mask:    (B, S) float       optional weights of the targets
 """
 from __future__ import annotations
 
@@ -80,6 +83,28 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         x, _, a = apply_block(cfg, cfg.layer_kind(i), bp, x, ctx)
         aux = aux + a
     return lm_head(cfg, params, x), cache, aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            aux_weight: float = 0.01, tp_axis=None):
+    """Next-token cross entropy (f32 log-softmax NLL, weighted by
+    ``mask``) plus ``aux_weight`` times the MoE aux loss.  Returns (total,
+    {"nll", "aux"})."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "tensor-parallel loss_fn is not ported to repro_torch yet; see "
+            "ROADMAP.md, section 1 (multi-rank)")
+    logits, _, aux = forward(cfg, params, batch)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = loss + aux_weight * aux
+    return total, {"nll": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_seq: int,

@@ -18,9 +18,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
     CHUNK, decode_attention, decode_attention_plain, gather_pages,
     paged_decode_attention, paged_decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (HEAD_DIM_PAIRS,
+                                                 flash_attention,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain)
-from repro_torch.kernels.rwkv6_wkv import _geometry, wkv6, wkv6_plain
+from repro_torch.kernels.rwkv6_wkv import (_geometry, bwd_chunk, wkv6,
+                                           wkv6_bwd_plain, wkv6_plain)
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
                                         KVCacheConfig, PrefillConfig)
@@ -1033,3 +1036,114 @@ def test_cuda_mla_engine_equals_cpu(cuda_dev):
     assert launches.get("flash_attention", 0) == cfg.n_layers * 6
     assert launches.get("decode_attention", 0) == 0
     assert launches.get("paged_decode_attention", 0) == 0
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (training)
+# ---------------------------------------------------------------------------
+
+# the flash backward against autograd through the plain version, f32: the
+# kernel sums over up to a few hundred rows or keys in another order
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _grads_equal_plain(got, ref, tol):
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,hdv", HEAD_DIM_PAIRS)
+@pytest.mark.parametrize("causal,window,G,Sq,Skv,q_offset", [
+    (True, 0, 1, 100, 100, None),        # Sq off the 64-row tile
+    (True, 0, 4, 77, 130, None),         # GQA, end-aligned rows
+    (True, 24, 1, 129, 129, None),       # a window
+    (False, 0, 4, 65, 33, None),         # full attention, Skv < Sq
+    (True, 0, 2, 50, 200, 17),           # an explicit q_offset
+    (True, 16, 2, 31, 300, 250),         # window, rows past the keys' end
+])
+def test_cuda_flash_backward(cuda_dev, hd, hdv, causal, window, G, Sq, Skv,
+                             q_offset):
+    """dQ, dK and dV of the kernel (through FlashAttentionFn) against
+    autograd through the plain version on the card; a second backward
+    gives the same bits."""
+    rng = np.random.default_rng(7)
+    B, Kh = 2, 2
+    H = Kh * G
+    q = _rand(rng, (B, Sq, H, hd), "float32", cuda_dev)
+    k = _rand(rng, (B, Skv, Kh, hd), "float32", cuda_dev)
+    v = _rand(rng, (B, Skv, Kh, hdv), "float32", cuda_dev)
+    dout = _rand(rng, (B, Sq, H, hdv), "float32", cuda_dev)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = build.launches["flash_attention_bwd"]
+    got = torch.autograd.grad(flash_attention(*ins, **kw), ins, dout)
+    assert build.launches["flash_attention_bwd"] == before + 1
+    _grads_equal_plain(got, flash_attention_bwd_plain(q, k, v, dout, **kw),
+                       BWD_TOL)
+    again = torch.autograd.grad(flash_attention(*ins, **kw), ins, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_refuses_bf16(cuda_dev):
+    q = torch.zeros((1, 8, 2, 64), device=cuda_dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q, q.detach(), q.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("edge", ["one", "below", "at", "above", "long"])
+def test_cuda_wkv6_backward(cuda_dev, hd, edge):
+    """dr, dk, dv, dw, du and dstate0 of the kernel (through WKV6Fn), with
+    a state0 and a final-state gradient, against autograd through the plain
+    version, at S across the backward's chunk edges; a second backward
+    gives the same bits; state0 is left as it was."""
+    tc = bwd_chunk(hd)
+    S = {"one": 1, "below": tc - 1 or 1, "at": tc, "above": tc + 1,
+         "long": 131}[edge]
+    rng = np.random.default_rng(8)
+    B, H = 2, 2
+    r, k, v, w, u, st0 = _wkv_inputs(rng, B, S, H, hd, "float32", cuda_dev)
+    dy = _rand(rng, (B, S, H, hd), "float32", cuda_dev)
+    dst = _rand(rng, (B, H, hd, hd), "float32", cuda_dev)
+    keep = st0.clone()
+    ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, st0)]
+    y, st = wkv6(*ins)
+    assert torch.equal(ins[5].detach(), keep)
+    got = torch.autograd.grad((y, st), ins, (dy, dst))
+    ref = wkv6_bwd_plain(r, k, v, w, u, st0, dy, dst)
+    for g, rf in zip(got, ref):
+        torch.testing.assert_close(
+            g, rf, rtol=0, atol=WKV_TOL["float32"] * float(rf.abs().max()))
+    y2, st2 = wkv6(*ins)
+    again = torch.autograd.grad((y2, st2), ins, (dy, dst))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_backward_without_state(cuda_dev):
+    """The training call: no state0, only y's gradient."""
+    rng = np.random.default_rng(9)
+    r, k, v, w, u, _ = _wkv_inputs(rng, 2, 70, 4, 64, "float32", cuda_dev,
+                                   with_state=False)
+    dy = _rand(rng, (2, 70, 4, 64), "float32", cuda_dev)
+    ins = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    y, _ = wkv6(*ins)
+    got = torch.autograd.grad(y, ins, dy)
+    ref = wkv6_bwd_plain(r, k, v, w, u, None, dy)
+    for g, rf in zip(got, ref[:5]):
+        torch.testing.assert_close(
+            g, rf, rtol=0, atol=WKV_TOL["float32"] * float(rf.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_refuses_grad(cuda_dev):
+    q = torch.zeros((2, 4, 64), device=cuda_dev, requires_grad=True)
+    kc = torch.zeros((2, 4, 32, 64), device=cuda_dev)
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        decode_attention(q, kc, kc, 5)
+    with torch.no_grad():
+        decode_attention(q, kc, kc, 5)

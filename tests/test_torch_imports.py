@@ -1,6 +1,7 @@
 """repro_torch stands alone: it imports neither jax nor the JAX package.
 The child interpreter imports every module, serves each model family's
-smoke config and runs the cluster simulator with both blocked.
+smoke config, runs the cluster simulator and takes a train step with a
+checkpoint round trip, with both blocked.
 
 The import check runs in a fresh interpreter, since this test process has
 already imported jax; a source scan backs it up."""
@@ -136,6 +137,34 @@ for name in ("flexpipe", "alpaserve"):
     assert out["completed"] == len(reqs), (name, out["completed"])
 for mod in ("cluster", "simulator"):
     assert f"repro_torch.serving.{mod}" in sys.modules, mod
+import tempfile
+from repro_torch.configs.base import PipelinePlan, ShapeConfig
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.models.model import loss_fn
+from repro_torch.parallel.pipeline import build_train_step, stack_params
+from repro_torch.training import checkpoint as ckpt
+from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+cfg = get_arch("qwen1.5-0.5b").smoke_config
+plan = PipelinePlan(microbatches=2)
+flat = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+params = stack_params(cfg, plan, flat)
+opt = init_opt_state(params)
+step, _ = build_train_step(cfg, plan, None, ShapeConfig("t", 16, 4, "train"),
+                           AdamWConfig(), param_dtype=torch.float32)
+b = {k: torch.from_numpy(v) for k, v in
+     TokenPipeline(DataConfig(cfg.vocab_size, 16, 4)).batch(0).items()}
+ref, _ = loss_fn(cfg, flat, b, aux_weight=0.0)
+params, opt, m = step(params, opt, b)
+assert abs(float(m["loss"]) - float(ref)) < 1e-5 * float(ref)
+with tempfile.TemporaryDirectory() as d:
+    ckpt.save(d, (params, opt), step=1)
+    (p2, o2), s, _ = ckpt.restore(d, (params, opt))
+    assert s == 1 and int(o2.step) == 1
+for mod in ("tree", "parallel.pipeline", "training.optimizer",
+            "training.checkpoint", "training.compression",
+            "training.fault_tolerance", "data.pipeline", "launch.train",
+            "launch.train_pipeline"):
+    assert f"repro_torch.{mod}" in sys.modules, mod
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
