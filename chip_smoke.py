@@ -130,6 +130,7 @@ import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
@@ -2640,11 +2641,41 @@ def _bwd_compare(torch, name, got, ref):
     return err, top
 
 
+def _bwd_kernels_info(torch, lib, fn, smem):
+    """Registers, spills and dynamic shared memory of each kernel of a
+    backward library (its build log), and each kernel's share of one call's
+    device time (torch.profiler over 5 calls)."""
+    from repro_torch.kernels import build
+
+    regs = {}
+    for name, r in build.ptxas_report(lib).items():
+        m = re.search(r"(row_kernel|dkdv_kernel|dq_combine_kernel|"
+                      r"wkv6_bwd_kernel|du_sum_kernel)(I\w+)?", name)
+        if m:      # the kernel's name and its template's ints
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            regs[f"{m.group(1)}<{','.join(args)}>"] = dict(r)
+    rows, _ = kernel_profile(torch, fn, 5)
+    total = sum(r[1] for r in rows) or 1.0
+    share = {key[:60]: dict(ms=us / 5e3, share=us / total)
+             for key, us, _ in rows}
+    log(f"    {lib}: dynamic shared memory {smem}; registers and spills "
+        f"{json.dumps(regs)}")
+    for key, d in share.items():
+        log(f"    {d['ms']:.4f} ms ({d['share']:.3f})  {key}")
+    if not rows:
+        log("    the profiler saw no device time in this profile: by kernel "
+            "not measured (the training runs' profiles split it)")
+    return dict(ptxas=regs, dynamic_smem=smem,
+                by_kernel=share or "not measured")
+
+
 def training_kernel_checks(torch):
     """Each backward kernel at its full-width training shape against
     autograd through the plain version on the same inputs: every gradient,
     a second call's bits, and the kernel's, the plain backward's and (for
-    flash) SDPA's backward's device times beside the bound."""
+    flash) SDPA's backward's device times beside the bound; flash also at
+    (128, 128) on the same shape beside SDPA's backward; each kernel's
+    registers, spills and shared memory, and its share of a call."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rwkv6_wkv as RW
@@ -2694,6 +2725,38 @@ def training_kernel_checks(torch):
     log(f"  {'flash_attention_bwd':24s} {ms:.4f} ms  plain {plain:.4f} ms  "
         f"SDPA backward {lib:.4f} ms  bound {t_bound:.4f} ms ({by})  "
         f"[{shape}]")
+    geo = FA._bwd_geometry(hd, hd)
+    out["flash_attention_bwd"].update(_bwd_kernels_info(
+        torch, "flash_attention_bwd", lambda: FA._launch_backward(*args),
+        {"dkdv_kernel": geo.smem, "row_kernel": geo.row_smem,
+         "dq_combine_kernel": 0}))
+    del args, q, k, v, do, o
+    # the design's second template: (128, 128), query tiles of 32
+    q, k, v, do = (rnd((B, S, H, 128)) for _ in range(4))
+    with torch.no_grad():
+        o = FA.flash_attention(q, k, v)
+    args = (q, k, v, o, do, True, 0, 1.0 / math.sqrt(128), 0)
+    got = FA._launch_backward(*args)
+    err128, top128 = _bwd_compare(torch, "flash_attention_bwd (128)", got,
+                                  FA.flash_attention_bwd_plain(q, k, v, do))
+    ms128 = time_ms(torch, lambda: FA._launch_backward(*args))
+    with torch.enable_grad():
+        sins = [t.transpose(1, 2).contiguous().requires_grad_(True)
+                for t in (q, k, v)]
+        so = F.scaled_dot_product_attention(*sins, is_causal=True)
+        sdo = do.transpose(1, 2).contiguous()
+        lib128 = time_ms(torch, lambda: torch.autograd.grad(
+            so, sins, sdo, retain_graph=True))
+    del so, sins
+    b128, by128 = bound(8 * B * S * H * 128 * 4, 5 * 2 * 128 * pairs,
+                        "tf32x3")
+    out["flash_attention_bwd"]["hd128"] = dict(
+        ms=ms128, library_ms=lib128, bound_ms=b128, bound_by=by128,
+        max_abs_err=err128, max_abs_grad=top128,
+        shape=f"B={B} Sq=Skv={S} H=Kh={H} hd=128 causal f32")
+    log(f"  {'flash_attention_bwd (128)':24s} {ms128:.4f} ms  SDPA backward "
+        f"{lib128:.4f} ms  bound {b128:.4f} ms ({by128})")
+    del args, q, k, v, do, o, got
 
     B, S, H, hd = (WKV_TRAIN[k] for k in ("B", "S", "H", "hd"))
     r, kk, vv = (rnd((B, S, H, hd), 0.5) for _ in range(3))
@@ -2725,6 +2788,11 @@ def training_kernel_checks(torch):
     log(f"  {'wkv6_bwd':24s} {ms:.4f} ms  plain {plain:.4f} ms (forward "
         f"and backward, host-bound)  library n/a  bound {t_bound:.4f} ms "
         f"({by})  [{shape}]")
+    geo = RW._bwd_geometry(hd)
+    out["wkv6_bwd"].update(_bwd_kernels_info(
+        torch, "rwkv6_wkv_bwd", lambda: RW._launch_backward(*wargs),
+        {"wkv6_bwd_kernel": geo.smem, "du_sum_kernel": 0}))
+    out["wkv6_bwd"]["geometry"] = geo._asdict()
     return out
 
 
@@ -2836,12 +2904,28 @@ def train_run(torch, card, label, cfg, plan, seq, batch, steps, want):
         info.update(profiled_ms_per_step=wall_us / 1e3,
                     busy_ms_per_step=busy_us / 1e3,
                     idle_share=1 - busy_us / wall_us)
-        ours = ("flash_kernel", "row_kernel", "dkdv_kernel", "dq_kernel",
-                "wkv6_kernel", "wkv6_bwd_kernel")
+        ours = ("flash_kernel", "row_kernel", "dkdv_kernel",
+                "dq_combine_kernel", "wkv6_kernel", "wkv6_bwd_kernel")
         for i, (key, us, n) in enumerate(rows):
             if i < 8 or any(k in key for k in ours):
                 log(f"    {us / 1e3:10.3f} ms {n:6d}x  {key[:80]}")
         info["by_kernel"] = [(key, us / 1e3, n) for key, us, n in rows[:20]]
+        # each backward kernel's share of its backward's device time in
+        # the step: the flash backward's row pass, main kernel and combine
+        for name, parts in (("flash_attention_bwd", ("row_kernel",
+                                                     "dkdv_kernel",
+                                                     "dq_combine_kernel")),
+                            ("wkv6_bwd", ("wkv6_bwd_kernel",
+                                          "du_sum_kernel"))):
+            us = {k: sum(u for key, u, _ in rows if f"::{k}<" in key
+                         or f"::{k}(" in key) for k in parts}
+            tot = sum(us.values())
+            if tot > 0:
+                info[f"{name}_split"] = {k: dict(ms=u / 1e3, share=u / tot)
+                                         for k, u in us.items()}
+                log(f"    {name} in the step: " + ", ".join(
+                    f"{k} {u / 1e3:.3f} ms ({u / tot:.3f})"
+                    for k, u in us.items()))
     else:
         log("  profiler saw no device time: busy and idle not measured")
     info.update(peak_memory(torch, label))
@@ -3197,7 +3281,13 @@ def main() -> int:
             "tolerance": f"{BWD_TOL:g} x max|grad|",
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "by_kernel": r["by_kernel"], "ptxas": r["ptxas"],
+            "dynamic_smem": r["dynamic_smem"]})
+        if "hd128" in r:
+            kernels[-1]["hd128"] = r["hd128"]
+        kernels[-1]["split_in_training"] = t_out[run].get(f"{name}_split",
+                                                          "not measured")
     log(f"  phase 18 (training) {t_out['s']:.1f} s")
     log(f"  phases 12-17: deepseek-moe-16b {d_out['s']:.1f} s, "
         f"jamba-v0.1-52b {j_out['s']:.1f} s, llama-3.2-vision-11b "

@@ -65,10 +65,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "flash_attention_bwd": {
         # q, k, v, o, dout, dq, dk, dv, scratch, B, Sq, Skv, H, Kh, hd, hdv,
-        # q_offset, causal, window, scale, tile, stream
+        # q_offset, causal, window, scale, keys, rows, smem, row_smem, stream
         "flash_attention_bwd_launch":
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _I, _I, _I, _F, _I, _P],
+             _I, _I, _I, _F, _I, _I, _I, _I, _P],
     },
     "rwkv6_wkv": {
         # r, k, v, w, u, state (in and out), y,
@@ -78,10 +78,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "rwkv6_wkv_bwd": {
         # r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, du, dstate0,
-        # scratch, B, S, H, hd, chunk, stream
+        # scratch, B, S, H, hd, cluster, chunk, smem, stream
         "wkv6_bwd_launch":
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-             _I, _I, _I, _I, _P],
+             _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

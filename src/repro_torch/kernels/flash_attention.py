@@ -26,6 +26,11 @@ requiring grad), the wrapper goes through ``FlashAttentionFn``, whose
 backward is ``csrc/flash_attention_bwd.cu`` (f32; the Pallas package has
 no backward kernel, JAX differentiates its jnp path).  Its plain version is
 ``flash_attention_bwd_plain``, autograd through ``flash_attention_plain``.
+The backward's main kernel runs one CTA per (key tile, b, kv head) and
+writes dQ as one f32 partial per key tile, which a combine sums in
+key-tile order: ``bwd_plan``, ``flash_bwd_partials_plain`` and
+``flash_bwd_combine_plain`` are the plain versions of that split, and
+``_bwd_geometry`` the tiles and shared memory its launcher checks.
 """
 from __future__ import annotations
 
@@ -221,10 +226,119 @@ def flash_attention_bwd_plain(q, k, v, dout, *, causal=True, window=0,
         return torch.autograd.grad(o, (qq, kk, vv), dout)
 
 
-def bwd_tile(hd: int, hdv: int) -> int:
-    """Rows of the backward kernels' query and key tiles
-    (csrc/flash_attention_bwd.cu, ``Geo::BT``), which the launcher checks."""
-    return 32 if hd > 64 or hdv > 64 else 64
+# the backward's LSE and D rows are padded to a multiple of this
+# (kStatsRows in csrc/flash_attention_bwd.cu)
+BWD_STATS_ROWS = 64
+BWD_WARPS = 8
+
+
+class BwdGeometry(NamedTuple):
+    keys: int            # keys per CTA of the main kernel (BK)
+    rows: int            # query rows per tile (BQ)
+    smem: int            # dynamic shared memory of dkdv_kernel, bytes
+    row_smem: int        # of the row pass, bytes
+
+
+def _bwd_geometry(hd: int, hdv: int) -> BwdGeometry:
+    """The backward kernels' geometry (csrc/flash_attention_bwd.cu,
+    ``Geo``), which the launcher refuses to differ: BQ query rows a tile,
+    64 up to hd 64 and 32 above; BK keys a CTA, 64, or 32 at hd 256.  The
+    main kernel holds K and V, a 2-stage ring of Q, dO, LSE and D, P^T and
+    dS^T (rows padded to BQ + 8) and dS (rows padded to BK + 8); the row
+    pass holds Q, a 2-stage ring of K and its warps' row maxima and sums.
+    Q and K rows are padded to hd + 4 floats, V and dO rows to hdv + 4."""
+    bk = 32 if hd > 192 else 64
+    bq = 32 if hd > 64 or hdv > 64 else 64
+    qs, vs = hd + 4, hdv + 4
+    main = (bk * (qs + vs) + 2 * bq * (qs + vs) + 4 * bq
+            + 2 * bk * (bq + 8) + bq * (bk + 8))
+    row = bq * qs + 2 * bk * qs + 2 * BWD_WARPS * 16
+    return BwdGeometry(bk, bq, 4 * main, 4 * row)
+
+
+def bwd_plan(Sq: int, Skv: int, hd: int, hdv: int, *, causal=True,
+             window=0, q_offset=None):
+    """The backward's split: the key-tile count; per query row the key
+    tiles whose dQ partials the combine adds, as ``range(first, end)``; and
+    per key tile, in launch order, the query tiles its CTA visits (for each
+    of the group's heads)."""
+    geo = _bwd_geometry(hd, hdv)
+    bk, bq = geo.keys, geo.rows
+    q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
+    nkt = -(-Skv // bk)
+    rows = []
+    for i in range(Sq):
+        lo, hi = _visible(q_offset + i, Skv, causal, window)
+        rows.append(range(lo // bk, hi // bk + 1) if hi >= lo else range(0))
+    ctas = []
+    for kt in range(nkt):
+        k0 = kt * bk
+        rlo, rhi = 0, Sq
+        if causal:
+            rlo = max(0, k0 - q_offset)
+            if window:
+                rhi = min(Sq, k0 + bk - 1 + window - q_offset)
+        ctas.append((kt, list(range(rlo // bq, (rhi - 1) // bq + 1))
+                     if rhi > rlo else []))
+    return nkt, rows, ctas
+
+
+def flash_bwd_partials_plain(q, k, v, dout, *, causal=True, window=0,
+                             scale=None, q_offset=None):
+    """The backward's main pass, written out in f32: dS = P (dP - D) with P
+    the softmax over the keys a row sees and D = dout . o; dV = P^T dout
+    and dK = scale dS^T Q summed over the group's heads; and per key tile
+    of ``_bwd_geometry``'s keys, dQ's partial dS[:, tile] K[tile] (without
+    the scale).  Returns (partials (B, H, n key tiles, Sq, hd), dk, dv)."""
+    B, Sq, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    hdv = v.shape[-1]
+    G = H // Kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
+    bk = _bwd_geometry(hd, hdv).keys
+    nkt = -(-Skv // bk)
+    qf = q.float().reshape(B, Sq, Kh, G, hd)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, Sq, Kh, G, hdv)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    s = torch.einsum("bqhgd,bjhd->bhgqj", qf, kf) * scale
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)),
+                    torch.zeros_like(s))
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bhgqj,bjhc->bhgqc", p, vf)
+    d = (dof.permute(0, 2, 3, 1, 4) * o).sum(dim=-1)
+    dp = torch.einsum("bqhgc,bjhc->bhgqj", dof, vf)
+    ds = p * (dp - d[..., None])
+    dv = torch.einsum("bhgqj,bqhgc->bjhc", p, dof)
+    dk = torch.einsum("bhgqj,bqhgd->bjhd", ds, qf) * scale
+    pad = nkt * bk - Skv
+    dsp = torch.nn.functional.pad(ds, (0, pad)).reshape(B, Kh, G, Sq, nkt,
+                                                         bk)
+    kp = torch.nn.functional.pad(kf, (0, 0, 0, 0, 0, pad)).reshape(
+        B, nkt, bk, Kh, hd)
+    part = torch.einsum("bhgqtj,btjhd->bhgtqd", dsp, kp)
+    return part.reshape(B, H, nkt, Sq, hd), dk, dv
+
+
+def flash_bwd_combine_plain(part, *, Skv: int, hdv: int, causal=True,
+                            window=0, scale=None, q_offset=None):
+    """The backward's combine: each row's dQ partials over the key tiles it
+    sees (``bwd_plan``), added in key-tile order, times the scale; tiles
+    the row does not see may hold anything.  Returns dq (B, Sq, H, hd)."""
+    B, H, nkt, Sq, hd = part.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    _, rows, _ = bwd_plan(Sq, Skv, hd, hdv, causal=causal, window=window,
+                          q_offset=q_offset)
+    live = torch.zeros((Sq, nkt), dtype=torch.bool, device=part.device)
+    for i, r in enumerate(rows):
+        live[i, r.start:r.stop] = True
+    dq = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=part.device)
+    for kt in range(nkt):                    # key-tile order, as the kernel
+        dq = torch.where(live[:, kt, None], dq + part[:, :, kt], dq)
+    return (dq * scale).permute(0, 2, 1, 3)
 
 
 def _launch_forward(q, k, v, causal, window, scale, q_offset):
@@ -253,23 +367,29 @@ def _launch_forward(q, k, v, causal, window, scale, q_offset):
 
 
 def _launch_backward(q, k, v, o, dout, causal, window, scale, q_offset):
-    """The backward kernels (csrc/flash_attention_bwd.cu) on f32 CUDA
-    inputs: (dq, dk, dv)."""
+    """The backward kernels (csrc/flash_attention_bwd.cu: the row pass,
+    the main kernel and dQ's combine) on f32 CUDA inputs: (dq, dk, dv)."""
     B, Sq, H, hd = q.shape
     Skv, Kh, hdv = k.shape[1], k.shape[2], v.shape[-1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # each row's log-sum-exp and D = dout . o
-    scratch = torch.empty(2 * B * H * Sq, dtype=torch.float32,
-                          device=q.device)
+    # the kernels copy every input row in 16-byte pieces
+    q, k, v, o, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                        for t in (q, k, v, o, dout))
+    geo = _bwd_geometry(hd, hdv)
+    sqp = -(-Sq // BWD_STATS_ROWS) * BWD_STATS_ROWS
+    # each row's log-sum-exp and D = dout . o, then dQ's key-tile partials
+    scratch = torch.empty(2 * B * H * sqp
+                          + B * H * -(-Skv // geo.keys) * Sq * hd,
+                          dtype=torch.float32, device=q.device)
     lib = build.library("flash_attention_bwd")
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         scratch.data_ptr(), B, Sq, Skv, H, Kh, hd, hdv, q_offset,
-        int(causal), int(window), scale, bwd_tile(hd, hdv),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(causal), int(window), scale, geo.keys, geo.rows, geo.smem,
+        geo.row_smem, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd")
     build.launches["flash_attention_bwd"] += 1
     return dq, dk, dv

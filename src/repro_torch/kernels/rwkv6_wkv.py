@@ -20,7 +20,11 @@ the reference ``repro.kernels.ref.wkv6_ref(..., state0=)``.
 Under autograd on CUDA the call goes through ``WKV6Fn``, whose backward is
 ``csrc/rwkv6_wkv_bwd.cu`` (f32; the Pallas package has no backward kernel,
 JAX differentiates its scan).  Its plain version is ``wkv6_bwd_plain``,
-autograd through ``wkv6_plain``.
+autograd through ``wkv6_plain``.  The kernel splits each head's state
+columns over a cluster of CTAs and sums the row gradients (dr, dk, dw)
+over the cluster in rank order: ``wkv6_bwd_partials_plain`` and
+``wkv6_bwd_groups_plain`` are the plain versions of that split, and
+``_bwd_geometry`` its geometry, which the launcher checks.
 """
 from __future__ import annotations
 
@@ -109,10 +113,109 @@ def wkv6_bwd_plain(r, k, v, w, u, state0, dy, dstate=None):
     return tuple(g)
 
 
-def bwd_chunk(hd: int) -> int:
-    """Steps per chunk of the backward kernel (csrc/rwkv6_wkv_bwd.cu,
-    ``Geo::TC``): a chunk's states fill 128 KB of shared memory."""
-    return min(64, 32768 // (hd * hd))
+class BwdGeometry(NamedTuple):
+    cluster: int         # CTAs per (b, h), each owning ``cols`` columns
+    cols: int            # state columns per CTA (JC)
+    threads: int         # per CTA: 8 columns of a row a lane
+    chunk: int           # steps per chunk (TC)
+    smem: int            # dynamic shared memory per CTA, bytes
+
+
+def _bwd_geometry(hd: int) -> BwdGeometry:
+    """The backward kernel's geometry (csrc/rwkv6_wkv_bwd.cu, ``Geo``),
+    which the launcher refuses to differ: 32 state columns a CTA (hd 16:
+    16), hd / 32 CTAs a cluster, 8 columns a thread, chunks of 16 steps
+    (two sub-chunks of 8 in registers).  Shared memory: one region that
+    holds pass 1's 3-stage ring (a chunk's k and w rows and its columns of
+    v a stage) or, in pass 2, 2 stages of a chunk's r, k, w rows and its
+    columns of v and dy and 2 buffers of the row partials the cluster's
+    ranks push for this rank's rows (per rank dr, dk and dw, 16 steps each,
+    and v . dy); then dv's warp partials, each thread's chunk-start state
+    (2 stages), u, sum_i r u k per step and du's per-thread sums."""
+    jc, tc, e = min(32, hd), 16, 8
+    nt = hd * jc // e
+    c = hd // jc
+    region = max(3 * tc * (2 * hd + jc),
+                 2 * tc * (3 * hd + 2 * jc) + 2 * c * (3 * tc * jc + tc))
+    floats = region + tc * (nt // 32) * jc + 2 * nt * e + hd + tc + nt
+    return BwdGeometry(c, jc, nt, tc, 4 * floats)
+
+
+def _wkv_states(r, k, v, w, state0):
+    """The state before each step, (S + 1, B, H, hd, hd) f32, from state0
+    (or zero): entry t is the state step t reads, entry S the final one."""
+    B, S, H, hd = r.shape
+    st = (state0.float() if state0 is not None
+          else torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                           device=r.device))
+    out = [st]
+    for t in range(S):
+        st = w[:, t].float()[..., None] * st \
+            + k[:, t].float()[..., None] * v[:, t].float()[..., None, :]
+        out.append(st)
+    return torch.stack(out)
+
+
+def wkv6_bwd_partials_plain(r, k, v, w, u, state0, dy, dstate=None,
+                            groups=1):
+    """The backward kernel's split, written out in f32: the state's columns
+    in ``groups`` equal groups (the cluster's CTAs), each walked back over
+    its columns alone.  Returns (dr, dk, dw partials, each (groups, B, S,
+    H, hd): the row sums over the group's columns, without the u terms;
+    v . dy over the group's columns (groups, B, S, H); dv (B, S, H, hd),
+    each column complete in its group; dstate0 (B, H, hd, hd))."""
+    B, S, H, hd = r.shape
+    if groups < 1 or hd % groups:
+        raise ValueError(f"wkv6: {groups} groups do not cut {hd} columns "
+                         "evenly")
+    cw = hd // groups
+    states = _wkv_states(r, k, v, w, state0)
+    rf, kf, vf, wf, dyf = (x.float() for x in (r, k, v, w, dy))
+    rku = (rf * u.float()[None, None] * kf).sum(-1)       # (B, S, H)
+    pr, pk, pw, pvd = [], [], [], []
+    dv = torch.empty((B, S, H, hd), dtype=torch.float32, device=r.device)
+    ds0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    for c in range(groups):
+        cols = slice(c * cw, (c + 1) * cw)
+        ds = (dstate.float()[..., cols] if dstate is not None else
+              torch.zeros((B, H, hd, cw), dtype=torch.float32,
+                          device=r.device))
+        gr, gk, gw = (torch.empty((B, S, H, hd), dtype=torch.float32,
+                                  device=r.device) for _ in range(3))
+        for t in range(S - 1, -1, -1):
+            sp = states[t][..., cols]                  # (B, H, hd, cw)
+            yy, vv = dyf[:, t, :, cols], vf[:, t, :, cols]
+            gr[:, t] = (sp * yy[:, :, None, :]).sum(-1)
+            gw[:, t] = (ds * sp).sum(-1)
+            gk[:, t] = (ds * vv[:, :, None, :]).sum(-1)
+            dv[:, t, :, cols] = (ds * kf[:, t, :, :, None]).sum(-2) \
+                + yy * rku[:, t, :, None]
+            ds = wf[:, t, :, :, None] * ds \
+                + rf[:, t, :, :, None] * yy[:, :, None, :]
+        ds0[..., cols] = ds
+        pr.append(gr)
+        pk.append(gk)
+        pw.append(gw)
+        pvd.append((vf[..., cols] * dyf[..., cols]).sum(-1))
+    return (torch.stack(pr), torch.stack(pk), torch.stack(pw),
+            torch.stack(pvd), dv, ds0)
+
+
+def wkv6_bwd_groups_plain(r, k, v, w, u, state0, dy, dstate=None, groups=1):
+    """The backward through ``wkv6_bwd_partials_plain``: each row gradient
+    and v . dy summed over the groups in rank order, then the u terms, as
+    the kernel's reduction does.  Returns (dr, dk, dv, dw, du, dstate0),
+    dstate0 None without ``state0``, as ``wkv6_bwd_plain``."""
+    pr, pk, pw, pvd, dv, ds0 = wkv6_bwd_partials_plain(
+        r, k, v, w, u, state0, dy, dstate, groups)
+    dr, dk, dw, vdy = pr[0], pk[0], pw[0], pvd[0]
+    for c in range(1, groups):                 # rank order, as the kernel
+        dr, dk, dw, vdy = dr + pr[c], dk + pk[c], dw + pw[c], vdy + pvd[c]
+    uf, rf, kf = u.float()[None, None], r.float(), k.float()
+    dr = dr + uf * kf * vdy[..., None]
+    dk = dk + rf * uf * vdy[..., None]
+    du = (rf * kf * vdy[..., None]).sum(dim=(0, 1))
+    return dr, dk, dv, dw, du, (ds0 if state0 is not None else None)
 
 
 def _launch_forward(r, k, v, w, u, st):
@@ -144,9 +247,12 @@ def _launch_backward(r, k, v, w, u, state0, dy, dstate):
             t.zero_()
         return dr, dk, dv, dw, du, (ds0.copy_(dstate) if dstate is not None
                                     else ds0.zero_())
-    tc = bwd_chunk(hd)
+    # the kernel copies rows and reads states in 16-byte pieces
+    state0, dy, dstate = (t if t is None or t.data_ptr() % 16 == 0
+                          else t.clone() for t in (state0, dy, dstate))
+    geo = _bwd_geometry(hd)
     # du's per-(b, h) sums, then the state at each chunk's start
-    scratch = torch.empty(B * H * hd + B * H * -(-S // tc) * hd * hd,
+    scratch = torch.empty(B * H * hd + B * H * -(-S // geo.chunk) * hd * hd,
                           dtype=torch.float32, device=r.device)
     lib = build.library("rwkv6_wkv_bwd")
     err = lib.wkv6_bwd_launch(
@@ -154,8 +260,8 @@ def _launch_backward(r, k, v, w, u, state0, dy, dstate):
         state0.data_ptr() if state0 is not None else None, dy.data_ptr(),
         dstate.data_ptr() if dstate is not None else None, dr.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        ds0.data_ptr(), scratch.data_ptr(), B, S, H, hd, tc,
-        torch.cuda.current_stream(r.device).cuda_stream)
+        ds0.data_ptr(), scratch.data_ptr(), B, S, H, hd, geo.cluster,
+        geo.chunk, geo.smem, torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "wkv6_bwd")
     build.launches["wkv6_bwd"] += 1
     return dr, dk, dv, dw, du, ds0

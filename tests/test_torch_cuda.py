@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention import (HEAD_DIM_PAIRS,
                                                  flash_attention,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
-from repro_torch.kernels.rwkv6_wkv import (_geometry, bwd_chunk, wkv6,
+from repro_torch.kernels.rwkv6_wkv import (_bwd_geometry, _geometry, wkv6,
                                            wkv6_bwd_plain, wkv6_plain)
 from repro_torch.models.transformer import init_model
 from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
@@ -1101,7 +1101,7 @@ def test_cuda_wkv6_backward(cuda_dev, hd, edge):
     a state0 and a final-state gradient, against autograd through the plain
     version, at S across the backward's chunk edges; a second backward
     gives the same bits; state0 is left as it was."""
-    tc = bwd_chunk(hd)
+    tc = _bwd_geometry(hd).chunk
     S = {"one": 1, "below": tc - 1 or 1, "at": tc, "above": tc + 1,
          "long": 131}[edge]
     rng = np.random.default_rng(8)
@@ -1137,6 +1137,76 @@ def test_cuda_wkv6_backward_without_state(cuda_dev):
     for g, rf in zip(got, ref[:5]):
         torch.testing.assert_close(
             g, rf, rtol=0, atol=WKV_TOL["float32"] * float(rf.abs().max()))
+
+
+# the redesigned backward kernels at their own edges: flash's key tiles of
+# 64 (32 at hd 256) and query tiles of 64 or 32, whose dQ partials the
+# combine sums; wkv6's chunks of 16 steps (two sub-chunks of 8 in
+# registers) on clusters of hd / 32 CTAs
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,hdv", [(64, 64), (128, 128), (256, 256)])
+@pytest.mark.parametrize("causal,window,G,Sq,Skv,q_offset", [
+    (True, 0, 1, 63, 63, None), (True, 0, 1, 64, 64, None),
+    (True, 0, 1, 65, 65, None), (True, 0, 1, 127, 127, None),
+    (True, 0, 1, 128, 128, None), (True, 0, 1, 129, 129, None),
+    (True, 0, 1, 257, 257, None),
+    (True, 64, 2, 200, 257, None),       # a window across the key tiles
+    (True, 0, 8, 40, 129, None),         # G = 8
+    (True, 32, 1, 60, 100, -20),         # q_offset < 0: rows see no key
+    (True, 16, 2, 31, 128, 200),         # windowed rows past every key
+])
+def test_cuda_flash_backward_tile_edges(cuda_dev, hd, hdv, causal, window, G,
+                                        Sq, Skv, q_offset):
+    """dQ, dK and dV of the kernel against autograd through the plain
+    version across the key and query tiles' edges; a second backward gives
+    the same bits."""
+    rng = np.random.default_rng(Skv + G)
+    B, Kh = 1, 2
+    H = Kh * G
+    q = _rand(rng, (B, Sq, H, hd), "float32", cuda_dev)
+    k = _rand(rng, (B, Skv, Kh, hd), "float32", cuda_dev)
+    v = _rand(rng, (B, Skv, Kh, hdv), "float32", cuda_dev)
+    dout = _rand(rng, (B, Sq, H, hdv), "float32", cuda_dev)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*ins, **kw), ins, dout)
+    _grads_equal_plain(got, flash_attention_bwd_plain(q, k, v, dout, **kw),
+                       BWD_TOL)
+    again = torch.autograd.grad(flash_attention(*ins, **kw), ins, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("S", [8, 9, 15, 16, 17, 40])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_cuda_wkv6_backward_chunk_edges(cuda_dev, hd, S, with_state):
+    """The six gradients of the kernel (through WKV6Fn) against autograd
+    through the plain version at the chunk's and sub-chunk's edges, on
+    every cluster size (hd / 32 CTAs; one at hd 16 and 32), with a state0
+    and a final-state gradient or with neither; a second backward gives the
+    same bits."""
+    rng = np.random.default_rng(S + hd)
+    B, H = 2, 3
+    r, k, v, w, u, st0 = _wkv_inputs(rng, B, S, H, hd, "float32", cuda_dev,
+                                     with_state=with_state)
+    dy = _rand(rng, (B, S, H, hd), "float32", cuda_dev)
+    dst = (_rand(rng, (B, H, hd, hd), "float32", cuda_dev) if with_state
+           else None)
+    leaves = (r, k, v, w, u) + ((st0,) if with_state else ())
+    ins = [t.clone().requires_grad_(True) for t in leaves]
+
+    def grads():
+        y, st = wkv6(*ins)
+        if with_state:
+            return torch.autograd.grad((y, st), ins, (dy, dst))
+        return torch.autograd.grad(y, ins, dy)
+    got = grads()
+    ref = wkv6_bwd_plain(r, k, v, w, u, st0 if with_state else None, dy, dst)
+    for g, rf in zip(got, ref):
+        torch.testing.assert_close(
+            g, rf, rtol=0, atol=WKV_TOL["float32"] * float(rf.abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(got, grads()))
 
 
 @pytest.mark.cuda

@@ -280,15 +280,23 @@ def test_cpu_wkv6_under_autograd_keeps_state0():
 
 
 def test_backward_kernel_geometry():
-    """The backward kernels' tiles and chunks, which their launchers
-    check: a flash tile's operands fit one CTA's shared memory, and wkv6's
-    chunk states fill 128 KB."""
+    """The backward kernels' geometry, which their launchers check.  Flash:
+    64 query rows a tile up to hd 64 and 32 above, 64 keys a CTA (32 at hd
+    256), and both kernels' shared memory within a CTA's 227 KB at every
+    head pair.  wkv6: 32 state columns a CTA (16 at hd 16), hd / 32 CTAs a
+    cluster, 8 columns a thread, chunks of 16 steps; at hd 64 two CTAs fit
+    an SM."""
     for hd, hdv in FA.HEAD_DIM_PAIRS:
-        bt = FA.bwd_tile(hd, hdv)
-        floats = 2 * bt * (hd + 1) + 2 * bt * (hdv + 1) + 2 * bt * (bt + 1) \
-            + 2 * bt
-        assert bt in (32, 64) and 4 * floats <= 227 * 1024
+        geo = FA._bwd_geometry(hd, hdv)
+        assert geo.keys == (32 if hd == 256 else 64)
+        assert geo.rows == (64 if max(hd, hdv) <= 64 else 32)
+        assert geo.smem <= 227 * 1024 and geo.row_smem <= 227 * 1024
+    assert FA._bwd_geometry(64, 64) == (64, 64, 160768, 53248)
+    assert FA._bwd_geometry(256, 256).smem == 215552
     for hd in RW.HEAD_DIMS:
-        tc = RW.bwd_chunk(hd)
-        assert 1 <= tc <= 64 and tc * hd * hd * 4 <= 128 * 1024
-    assert RW.bwd_chunk(64) == 8 and FA.bwd_tile(64, 64) == 64
+        geo = RW._bwd_geometry(hd)
+        assert geo.cols == min(32, hd) and geo.cluster == hd // geo.cols
+        assert geo.threads == hd * geo.cols // 8 and geo.chunk == 16
+        assert 1 <= geo.cluster <= 8 and geo.smem <= 227 * 1024
+    assert RW._bwd_geometry(64) == (2, 32, 256, 16, 91712)
+    assert 2 * RW._bwd_geometry(64).smem <= 227 * 1024

@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Hold the attention kernels of two trees to the same bits, on one NVIDIA
-GPU.
+"""Hold the kernels of two trees to the same bits, on one NVIDIA GPU.
 
     python3 tools/kernel_bits.py save TREE OUT.pt    # TREE: a checkout's root
     python3 tools/kernel_bits.py compare A.pt B.pt [EXPECTED ...]
@@ -10,10 +9,15 @@ build directory, so two trees never share a library) and stores their
 outputs on fixed inputs made from seed 0: dense and paged decode at hd 16,
 32, 64, 128 and 256 with G = 1, 4 and 8 and cache lengths at chunk edges,
 and flash at every (hd, hdv) the kernel takes, causal, with a window and a
-q_offset, in f32 and bf16.  ``compare`` holds every output whose name holds
-none of the EXPECTED substrings (say ``"(128, 128)"``: the flash outputs a
-change redesigned) to the same bits, prints the names of the expected ones
-that changed, and exits non-zero if any other output differs.  To compare
+q_offset, in f32 and bf16; wkv6's output and final state at hd 16, 64 and
+128, with and without a state0, over 1, 9 and 600 steps, in f32 and bf16;
+and the backward kernels' gradients (names starting "backward"): flash at
+every (hd, hdv), causal, with a window and a q_offset, and GQA, and wkv6 at
+hd 16, 64 and 128 with a state0 and a final-state gradient.  ``compare``
+holds every output whose name holds none of the EXPECTED substrings (say
+``"(128, 128)"``: the flash outputs a change redesigned, or ``backward``)
+to the same bits, prints the names of the expected ones that changed, and
+exits non-zero if any other output differs.  To compare
 a commit with its parent, unpack the parent into a git-ignored directory
 (``git archive``) and run save for parent, change, change, parent, then
 compare each pair.
@@ -32,6 +36,10 @@ def save(tree: str, out: str) -> int:
                        ("kernels_" + "_".join(root.parts[1:])))
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       paged_decode_attention)
+    import math
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_wkv as RW
     from repro_torch.kernels.flash_attention import flash_attention
     dev = "cuda"
     outs = {}
@@ -64,6 +72,47 @@ def save(tree: str, out: str) -> int:
                      f"window={win}"] = flash_attention(
                          q, k, v, causal=True, window=win,
                          q_offset=qo).cpu()
+        for hd in (16, 64, 128):
+            for S in (1, 9, 600):
+                r, k, v = rnd(2, S, 4, hd), rnd(2, S, 4, hd), rnd(2, S, 4, hd)
+                w = torch.sigmoid(rnd(2, S, 4, hd).float()).to(dt) * 0.5 \
+                    + 0.45
+                u = rnd(4, hd).float() * 0.1
+                for with_state in (False, True):
+                    st = rnd(2, 4, hd, hd).float() if with_state else None
+                    y, fin = RW.wkv6(r, k, v, w, u, st)
+                    key = f"wkv6 {dt} hd={hd} S={S} state0={with_state}"
+                    outs[key + " y"] = y.cpu()
+                    outs[key + " state"] = fin.cpu()
+    rng = np.random.default_rng(1)
+
+    def rnd32(*shape, scale=1.0):
+        x = (rng.standard_normal(shape) * scale).astype(np.float32)
+        return torch.from_numpy(x).to(dev)
+    for hd, hdv in FA.HEAD_DIM_PAIRS:
+        for Sq, Skv, H, Kh, win, qo, causal in (
+                (512, 512, 8, 4, 0, 0, True), (200, 330, 8, 2, 64, 130, True),
+                (65, 129, 4, 4, 0, 0, False)):
+            q, k, v = rnd32(1, Sq, H, hd), rnd32(1, Skv, Kh, hd), \
+                rnd32(1, Skv, Kh, hdv)
+            do = rnd32(1, Sq, H, hdv)
+            with torch.no_grad():
+                o = flash_attention(q, k, v, causal=causal, window=win,
+                                    q_offset=qo)
+            grads = FA._launch_backward(q, k, v, o, do, causal, win,
+                                        1.0 / math.sqrt(hd), qo)
+            for name, g in zip(("dq", "dk", "dv"), grads):
+                outs[f"backward flash ({hd}, {hdv}) Sq={Sq} Skv={Skv} H={H} "
+                     f"Kh={Kh} window={win} causal={causal} {name}"] = g.cpu()
+    for hd in (16, 64, 128):
+        B, S, H = 2, 100, 4
+        r, k, v = (rnd32(B, S, H, hd, scale=0.5) for _ in range(3))
+        w = torch.sigmoid(rnd32(B, S, H, hd)) * 0.5 + 0.45
+        grads = RW._launch_backward(r, k, v, w, rnd32(H, hd, scale=0.1),
+                                    rnd32(B, H, hd, hd), rnd32(B, S, H, hd),
+                                    rnd32(B, H, hd, hd))
+        for name, g in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), grads):
+            outs[f"backward wkv6 hd={hd} S={S} {name}"] = g.cpu()
     torch.save(outs, out)
     print(f"{root}: {len(outs)} outputs saved to {out}")
     return 0

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the flash and decode kernels spend their time, stage by stage, on
-one NVIDIA GPU, and what flash costs over the calls the served models make.
+"""Where the flash, decode and backward kernels spend their time, stage by
+stage, on one NVIDIA GPU, and what flash costs over the calls the served
+models make.
 
-    python3 tools/kernel_stages.py [--tree DIR] [hd256] [hd128] [served]
+    python3 tools/kernel_stages.py [--tree DIR] [hd256] [hd128] [served] [bwd]
+                                   [wkvbwd]
 
-(default: all three, on this checkout's sources; --tree measures another
-checkout's, such as a parent unpacked under build/: its sources are
+(default: the first three, on this checkout's sources; --tree measures
+another checkout's, such as a parent unpacked under build/: its sources are
 instrumented and its package imported).
 
 hd256 and hd128 copy csrc/decode_attention.cu and csrc/flash_attention.cu
@@ -31,6 +33,20 @@ jamba-v0.1-52b, 32 heads on 8: each prompt at its exact length), each
 timed with CUDA events, and per run the sum over its calls of count x ms
 for one layer.  Run on two trees in one call, it gives the net change of a
 kernel change over the mix of shapes those runs serve.
+
+bwd: the backward kernels through the tree's own launchers, f32, at the
+training calls of chip_smoke.py's phase 18 (flash at qwen1.5-0.5b's B 4,
+Sq = Skv 512, 16 heads of 64, causal, and at (128, 128) on the same
+shape; wkv6 at rwkv6-1.6b's B 4, S 512, 32 heads of 64, with a state0),
+each timed with CUDA events beside SDPA's backward on the same inputs, and
+the device time of each kernel of a call (torch.profiler).  Run it on the
+parent and the change in turns (parent, change, change, parent) in one
+call to compare the two.
+
+wkvbwd: the wkv6 backward kernel at the same rwkv6 call, stage by stage:
+cycles that thread 0 of each CTA adds up per stage over the chunk loops
+(an instrumented copy of csrc/rwkv6_wkv_bwd.cu), and how many of its
+clusters the card holds at once (cudaOccupancyMaxActiveClusters).
 
 Needs CUDA and nvcc; exits non-zero without them.
 """
@@ -136,8 +152,8 @@ def instrument(name, points, tag="", edits=()):
     if r.returncode:
         raise SystemExit(r.stdout + r.stderr)
     lib = ctypes.CDLL(str(lib))
-    sig = build.SIGNATURES[name][f"{name}_launch"]
-    getattr(lib, f"{name}_launch").argtypes = sig
+    for fn, sig in build.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = sig
     return lib
 
 
@@ -314,6 +330,173 @@ def served(torch, dev):
         print(f"  {run}: sum {total:.4f} ms per layer")
 
 
+# the wkv6 backward kernel's stages, as cycles that thread 0 of each CTA
+# adds up over the chunk loops (STG(k) adds the cycles since the last STG)
+WKV_BWD_STAGES = [
+    (0, "pass 1: chunk arrived"), (1, "pass 1: steps"),
+    (2, "pass 2: copies awaited"), (3, "pass 2: barrier"),
+    (4, "pass 2: next copies issued, dots"), (5, "pass 2: recompute and walk"),
+    (6, "pass 2: dv written"), (7, "pass 2: cluster barrier"),
+    (8, "pass 2: rows reduced"), (9, "dstate0, du")]
+WKV_BWD_EDITS = [
+    ("  cg::cluster_group cluster = cg::this_cluster();\n",
+     "  cg::cluster_group cluster = cg::this_cluster();\n"
+     "  long long c_last_ = clock64(), c_acc_[10] = {0};\n"),
+    ("    cp_async_wait<2>();\n    __syncthreads();\n",
+     "    cp_async_wait<2>();\n    __syncthreads();\n    STG(0)\n"),
+    ("    __syncthreads();                 // this stage read before it is "
+     "refilled\n  }\n",
+     "    __syncthreads();                 // this stage read before it is "
+     "refilled\n    STG(1)\n  }\n"),
+    ("    cp_async_wait<0>();\n    // the chunk's stage has landed",
+     "    cp_async_wait<0>();\n    STG(2)\n"
+     "    // the chunk's stage has landed"),
+    ("    if (ch > 0) stage(ch - 1);\n    cp_async_commit();\n",
+     "    STG(3)\n    if (ch > 0) stage(ch - 1);\n    cp_async_commit();\n"),
+    ("    // the chunk's second sub-chunk from the state TR steps in",
+     "    STG(4)\n"
+     "    // the chunk's second sub-chunk from the state TR steps in"),
+    ("    cluster_arrive();     // this rank's pushes",
+     "    STG(5)\n    cluster_arrive();     // this rank's pushes"),
+    ("    cluster_wait();       // every rank's pushes",
+     "    STG(6)\n    cluster_wait();       // every rank's pushes"),
+    ("    // rows [rank RC, rank RC + RC)",
+     "    STG(7)\n    // rows [rank RC, rank RC + RC)"),
+    ("      du = fmaf(rr * kk, vdy, du);\n    }\n  }\n",
+     "      du = fmaf(rr * kk, vdy, du);\n    }\n    STG(8)\n  }\n"),
+    ("    a.du_part[size_t(bh) * HD + rank * RC + tid] = acc;\n  }\n}",
+     "    a.du_part[size_t(bh) * HD + rank * RC + tid] = acc;\n  }\n"
+     "  STG(9)\n  if (threadIdx.x == 0) {\n"
+     "    const int id_ = blockIdx.y * gridDim.x + blockIdx.x;\n"
+     "    for (int k_ = 0; k_ < 10; ++k_) stage_c[id_ * 32 + k_] = "
+     "c_acc_[k_];\n  }\n}"),
+    ("  RT_CASE(16) RT_CASE(32) RT_CASE(64) RT_CASE(128)\n#undef RT_CASE\n"
+     "  return static_cast<int>(cudaErrorInvalidValue);\n}\n",
+     "  RT_CASE(16) RT_CASE(32) RT_CASE(64) RT_CASE(128)\n#undef RT_CASE\n"
+     "  return static_cast<int>(cudaErrorInvalidValue);\n}\n"
+     "extern \"C\" int wkv6_bwd_occupancy64(int* clusters, int* blocks) {\n"
+     "  using G = Geo<64>;\n  auto kern = wkv6_bwd_kernel<64>;\n"
+     "  cudaFuncSetAttribute(kern, "
+     "cudaFuncAttributeMaxDynamicSharedMemorySize, 4 * G::kFloats);\n"
+     "  cudaLaunchConfig_t cfg = {};\n"
+     "  cfg.gridDim = dim3(G::C, 128, 1);\n"
+     "  cfg.blockDim = dim3(G::NT, 1, 1);\n"
+     "  cfg.dynamicSmemBytes = 4 * G::kFloats;\n"
+     "  cudaLaunchAttribute attr[1];\n"
+     "  attr[0].id = cudaLaunchAttributeClusterDimension;\n"
+     "  attr[0].val.clusterDim.x = G::C;\n"
+     "  attr[0].val.clusterDim.y = 1;\n  attr[0].val.clusterDim.z = 1;\n"
+     "  cfg.attrs = attr;\n  cfg.numAttrs = 1;\n"
+     "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, G::NT, "
+     "4 * G::kFloats);\n"
+     "  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, "
+     "kern, &cfg));\n}\n"),
+    ("namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n#define STG(k) if (threadIdx.x == "
+     "0) { long long c_ = clock64(); c_acc_[k] += c_ - c_last_; c_last_ = "
+     "c_; }\n"),
+]
+
+
+def wkv_bwd_stages(torch, dev, stream):
+    """The wkv6 backward kernel at rwkv6-1.6b's training call, stage by
+    stage: cycles per CTA summed over its chunks (median and largest over
+    the CTAs)."""
+    from repro_torch.kernels import rwkv6_wkv as RW
+    lib = instrument("rwkv6_wkv_bwd", [], edits=WKV_BWD_EDITS)
+    B, S, H, hd = 4, 512, 32, 64
+    geo = RW._bwd_geometry(hd)
+    r, k, v, dy = (torch.randn(B, S, H, hd, device=dev) for _ in range(4))
+    w = torch.sigmoid(torch.randn(B, S, H, hd, device=dev)) * 0.5 + 0.45
+    u = torch.randn(H, hd, device=dev) * 0.1
+    st0 = torch.randn(B, H, hd, hd, device=dev)
+    outs = [torch.empty_like(r) for _ in range(4)]
+    du, ds0 = torch.empty_like(u), torch.empty_like(st0)
+    scratch = torch.empty(B * H * hd + B * H * -(-S // geo.chunk) * hd * hd,
+                          device=dev)
+
+    def call():
+        err = lib.wkv6_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), st0.data_ptr(), dy.data_ptr(), None,
+            *(t.data_ptr() for t in outs), du.data_ptr(), ds0.data_ptr(),
+            scratch.data_ptr(), B, S, H, hd, geo.cluster, geo.chunk,
+            geo.smem, stream)
+        assert err == 0, err
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    clusters, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    lib.wkv6_bwd_occupancy64(ctypes.byref(clusters), ctypes.byref(blocks))
+    print(f"wkv6_bwd_kernel<64>: at most {clusters.value} clusters of "
+          f"{geo.cluster} at once on the card, {blocks.value} CTAs an SM")
+    lib.stages_clear()
+    call()
+    torch.cuda.synchronize()
+    n = B * H * geo.cluster * 32
+    c = np.zeros(n, np.int64)
+    g = np.zeros(n, np.uint64)
+    lib.stages_get(c.ctypes.data, g.ctypes.data, n)
+    c = c.reshape(-1, 32)[:, :10]
+    print(f"wkv6_bwd_kernel<64>, B={B} S={S} H={H}, {c.shape[0]} CTAs "
+          f"(cycles a CTA, summed over its chunks):")
+    for k, name in WKV_BWD_STAGES:
+        print(f"  {name:30s} median {np.median(c[:, k]):9.0f}  max "
+              f"{c[:, k].max():9.0f}")
+    tot = c.sum(axis=1)
+    print(f"  {'all':30s} median {np.median(tot):9.0f}  max {tot.max():9.0f}")
+
+
+def bwd(torch, dev):
+    import math
+
+    import chip_smoke as cs
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_wkv as RW
+    rng = np.random.default_rng(18)
+
+    def rnd(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    def by_kernel(fn):
+        rows, _ = cs.kernel_profile(torch, fn, 5)
+        total = sum(r[1] for r in rows)
+        return "; ".join(f"{key[:40]} {us / 5e3:.4f} ms ({us / total:.3f})"
+                         for key, us, n in rows)
+
+    print(f"backward kernels of {TREE}, f32 (CUDA events, ms per call):")
+    B, S, H = 4, 512, 16
+    for hd in (64, 128):
+        q, k, v, do = (rnd((B, S, H, hd)) for _ in range(4))
+        with torch.no_grad():
+            o = FA.flash_attention(q, k, v)
+        args = (q, k, v, o, do, True, 0, 1.0 / math.sqrt(hd), 0)
+        ms = cs.time_ms(torch, lambda: FA._launch_backward(*args))
+        with torch.enable_grad():
+            sins = [t.transpose(1, 2).contiguous().requires_grad_(True)
+                    for t in (q, k, v)]
+            so = F.scaled_dot_product_attention(*sins, is_causal=True)
+            sdo = do.transpose(1, 2).contiguous()
+            lib = cs.time_ms(torch, lambda: torch.autograd.grad(
+                so, sins, sdo, retain_graph=True))
+        del so, sins
+        print(f"  flash backward ({hd}, {hd}) B={B} Sq=Skv={S} H={H} causal:"
+              f" {ms:.4f} ms  SDPA backward {lib:.4f} ms  ratio "
+              f"{ms / lib:.3f}")
+        shares = by_kernel(lambda: FA._launch_backward(*args))
+        print(f"    by kernel: {shares}")
+    B, S, H, hd = 4, 512, 32, 64
+    r, kk, vv = (rnd((B, S, H, hd), 0.5) for _ in range(3))
+    w = torch.sigmoid(rnd((B, S, H, hd))) * 0.5 + 0.45
+    u, st0, dy = rnd((H, hd), 0.1), rnd((B, H, hd, hd)), rnd((B, S, H, hd))
+    wargs = (r, kk, vv, w, u, st0, dy, None)
+    ms = cs.time_ms(torch, lambda: RW._launch_backward(*wargs))
+    print(f"  wkv6 backward B={B} S={S} H={H} hd={hd} state0: {ms:.4f} ms")
+    print(f"    by kernel: {by_kernel(lambda: RW._launch_backward(*wargs))}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -343,6 +526,10 @@ def main():
         hd128(torch, fk, dev, stream)
     if "served" in which:
         served(torch, dev)
+    if "bwd" in which:
+        bwd(torch, dev)
+    if "wkvbwd" in which:
+        wkv_bwd_stages(torch, dev, stream)
     return 0
 
 
