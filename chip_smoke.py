@@ -114,7 +114,22 @@ Phases, each fatal on failure:
      same run under TrainSupervisor with a checkpoint every 5 steps and a
      fault at step 12, each step's loss equal to the uninterrupted run's;
      rwkv6-1.6b at full width (B 4, seq 512, M 1) for 5 steps, wkv6's
-     backward 24 launches a step.
+     backward 24 launches a step;
+ 19. multi-rank execution: 4 rank processes share the card (spawned, the
+     gloo backend named, every kernel built in phase 2 and only loaded by
+     the ranks, each rank importing repro_torch alone) and run full-width
+     qwen1.5-0.5b (24 layers, its vocabulary split over S x T = 4) at S =
+     2, T = 2, M = 2 from the same seeded weights as a one-rank run here:
+     build_prefill_step at B 8 x 512, 16 build_decode_step steps fed the
+     one-rank run's greedy tokens (logits within PAR_LOGIT_TOL of its,
+     greedy tokens equal where its top-2 margin exceeds 1e-3), and 5
+     build_train_step steps (remat; step 0's loss within 1e-4 of one
+     rank's, its grad norm 4 x one rank's, as the reference's psum
+     transpose makes it, the loss falling); per rank the flash, flash
+     backward and decode launches (exact counts), one served call of each
+     held against its plain version, the collectives issued and bytes
+     staged through host memory, ms per decode and train step and the
+     peak memory, all labelled as 4 ranks on one card.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -3040,6 +3055,366 @@ def training_phase(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: multi-rank execution, 4 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# full-width qwen1.5-0.5b (24 layers, its 151,936-token vocabulary split over
+# S x T = 4) at S = 2, T = 2, M = 2 on a (data 1, model 4) mesh of 4 rank
+# processes on cuda:0.  NCCL refuses two ranks on one device, so the world
+# runs gloo, named; gloo reduces CUDA tensors itself and every other
+# collective (the stage rotation's sends, the gathers) is staged through
+# pinned host memory.  Times here are not multi-GPU times.
+PAR_RANKS = 4
+PAR_PLAN = dict(stages=2, tensor=2, replica=1, microbatches=2)
+PAR_B, PAR_SQ, PAR_DECODE, PAR_STEPS = 8, 512, 16, 5
+PAR_LABEL = "4 ranks on one card, gloo through host memory"
+# the 4-rank logits against the one-rank path's on the same card and
+# weights: the tensor-parallel psums and the vocab shards' sums run in other
+# orders than one rank's (f32); 5.7x the largest error an H100 showed over
+# the prefill and 16 decode steps (1.75e-5)
+PAR_LOGIT_TOL = 1e-4
+PAR_TIMEOUT_S = 600.0
+
+
+def _par_shapes():
+    from repro_torch.configs.base import ShapeConfig
+    return (ShapeConfig("p", PAR_SQ + PAR_DECODE, PAR_B, "prefill"),
+            ShapeConfig("d", PAR_SQ + PAR_DECODE, PAR_B, "decode"),
+            ShapeConfig("t", PAR_SQ, PAR_B, "train"))
+
+
+def _par_batches(torch, cfg, device):
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=PAR_SQ, global_batch=PAR_B,
+                                    seed=0))
+    return [_batch(torch, data, i, device) for i in range(PAR_STEPS)]
+
+
+def parallel_reference(torch):
+    """The one-rank path on the card, from the same seeded weights: a
+    prefill of B 8 x 512 seeded tokens, 16 greedy decode steps, and
+    PAR_STEPS train steps (remat); logits, fed tokens, top-2 margins,
+    losses and grad norms, with ms per decode and train step."""
+    from repro_torch.configs.base import PipelinePlan, get_arch
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.pipeline import (build_decode_step,
+                                               build_prefill_step,
+                                               build_train_step,
+                                               stack_params)
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+
+    dev = torch.device("cuda")
+    cfg = get_arch("qwen1.5-0.5b").config
+    f32 = torch.float32
+    one = PipelinePlan(microbatches=PAR_PLAN["microbatches"])
+    ps, ds, ts = _par_shapes()
+    params = stack_params(cfg, one, init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), f32, dev))
+    rng = np.random.default_rng(19)
+    tokens = rng.integers(0, cfg.vocab_size, (PAR_B, PAR_SQ)).astype(
+        np.int32)
+    pre, _ = build_prefill_step(cfg, one, None, ps, f32, cache_dtype=f32)
+    dec, _ = build_decode_step(cfg, one, None, ds, f32, cache_dtype=f32)
+    last, caches = pre(params, {"tokens": torch.from_numpy(tokens).to(dev)})
+    logits, fed, times = [last.cpu().numpy()], [], []
+    for i in range(PAR_DECODE):
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        fed.append(tok.cpu().numpy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, caches = dec(params, caches, tok, PAR_SQ + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        logits.append(last.cpu().numpy())
+    del caches
+    top2 = [np.sort(x, axis=-1)[:, -2:] for x in logits]
+    margins = [t[:, 1] - t[:, 0] for t in top2]
+    step, _ = build_train_step(cfg, PipelinePlan(
+        microbatches=PAR_PLAN["microbatches"], remat=True), None, ts,
+        AdamWConfig(**TRAIN_OPT), param_dtype=f32)
+    opt = init_opt_state(params)
+    losses, gnorms, ttimes = [], [], []
+    for b in _par_batches(torch, cfg, dev):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        ttimes.append(time.perf_counter() - t0)
+    del params, opt
+    free_weights(torch)
+    return {"tokens": tokens, "logits": logits, "fed": fed,
+            "margins": margins, "losses": losses, "grad_norms": gnorms,
+            "decode_ms": 1e3 * float(np.median(times)),
+            "train_ms": 1e3 * float(np.median(ttimes[1:]))}
+
+
+def _capture(torch, calls, L, stage):
+    """Wrap the model's flash and decode entry points to keep in ``calls``
+    (cloned) the inputs of one call of each kind from this rank's first
+    real tick, tick == stage index: at an earlier tick a later stage runs
+    on the zero state, whose v is constant along the sequence, so its
+    attention returns v and its dQ and dK are 0, which no kernel fault
+    would change.  Each pass (the prefill, a decode step, a train step's
+    forward) calls each of the stage's L layers once a tick, from tick 0."""
+    from repro_torch.models import layers
+    seen = {}
+
+    def wrap(name, fn):
+        def wrapped(*a, **kw):
+            key = name + ("_train" if torch.is_grad_enabled() and
+                          a[0].requires_grad else "")
+            n = seen[key] = seen.get(key, -1) + 1
+            if n // L == stage and key not in calls:
+                calls[key] = ([x.detach().clone() if torch.is_tensor(x)
+                               else x for x in a], dict(kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    layers.flash_attention = wrap("flash_attention", layers.flash_attention)
+    layers.decode_attention = wrap("decode_attention",
+                                   layers.decode_attention)
+
+
+def _varies(x, dim):
+    """Whether ``x`` differs anywhere along ``dim``."""
+    return bool((x - x.narrow(dim, 0, 1)).abs().amax() > 0)
+
+
+def _served_holds(torch, calls):
+    """Each captured call through its kernel and its plain version: the
+    largest error (forward) or the largest error over the gradients (the
+    flash backward, autograd through the plain version)."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+
+    out = {}
+    (q, k, v), kw = calls["flash_attention"]
+    check(all(_varies(x, 1) for x in (q, k, v)),
+          "phase 19: the served flash call's q, k or v is constant along "
+          "the sequence")
+    with torch.no_grad():
+        got = FA.flash_attention(q, k, v, **kw)
+        ref = FA.flash_attention_plain(q, k, v, **kw)
+    out["flash_attention"] = float((got - ref).abs().max())
+    a, _ = calls["decode_attention"]
+    check(_varies(a[0], 0) and _varies(a[2], 2),
+          "phase 19: the served decode call's q is constant over the batch "
+          "or its v cache along the sequence")
+    with torch.no_grad():
+        got = DA.decode_attention(*a)
+        ref = DA.decode_attention_plain(*a)
+    out["decode_attention"] = float((got - ref).abs().max())
+    (q, k, v), kw = calls["flash_attention_train"]
+    check(all(_varies(x, 1) for x in (q, k, v)),
+          "phase 19: the trained flash call's q, k or v is constant along "
+          "the sequence")
+    rng = np.random.default_rng(20)
+    do = torch.from_numpy(rng.standard_normal(q.shape[:-1] + (
+        v.shape[-1],)).astype(np.float32)).to(q.device)
+    with torch.no_grad():
+        o = FA.flash_attention(q, k, v, **kw)
+    scale = kw.get("scale") or 1.0 / math.sqrt(q.shape[-1])
+    got = FA._launch_backward(q, k, v, o, do, kw.get("causal", True),
+                              kw.get("window", 0), scale,
+                              kw.get("q_offset") or 0)
+    ref = FA.flash_attention_bwd_plain(q, k, v, do, causal=kw.get(
+        "causal", True), window=kw.get("window", 0), scale=kw.get("scale"),
+        q_offset=kw.get("q_offset"))
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    top = max(float(r.abs().max()) for r in ref)
+    out["flash_attention_bwd"] = err
+    out["flash_attention_bwd_max_abs_grad"] = top
+    return out
+
+
+def parallel_rank(rank, world, device, ref):
+    """One rank of phase 19: its shards of the weights, the prefill, the
+    decode steps (fed the one-rank path's tokens) and the train steps,
+    each of its kernel launches and collectives counted from 0 just before
+    and read just after; then one served call of each kernel against its
+    plain version.  Rank 0 also gathers the logits and compares them."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    check(not bad, f"rank {rank} imported {bad[:5]}")
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs.base import PipelinePlan, get_arch
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.pipeline import (build_decode_step,
+                                               build_prefill_step,
+                                               build_train_step,
+                                               stack_params)
+    from repro_torch.parallel.sharding import shard, unshard
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+
+    build.load_all()                     # the parent built every library
+    f32 = torch.float32
+    cfg = get_arch("qwen1.5-0.5b").config
+    base = make_local_mesh(1, world, device)
+    ps, ds, ts = _par_shapes()
+    plan = PipelinePlan(**PAR_PLAN)
+    pre, pst = build_prefill_step(cfg, plan, base, ps, f32, cache_dtype=f32)
+    dec, dst = build_decode_step(cfg, plan, base, ds, f32, cache_dtype=f32)
+    mesh = pst["mesh"]
+    g = stack_params(cfg, plan, init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), f32, device))
+    params = shard(g, pst["pspecs"], mesh)
+    del g
+    torch.cuda.empty_cache()
+    calls = {}
+    _capture(torch, calls, cfg.n_layers // plan.stages, mesh.index("stage"))
+    out = {"rank": rank, "coords": mesh.coords}
+
+    def counts():
+        c = {"launches": {k: v for k, v in build.launches.items() if v},
+             "comm": comm.stats()}
+        build.reset_launches()
+        comm.reset_stats()
+        return c
+
+    tokens = torch.from_numpy(ref["tokens"]).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts()
+    t0 = time.perf_counter()
+    last, caches = pre(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    local, times = [last], []
+    for i in range(PAR_DECODE):
+        tok = torch.from_numpy(ref["fed"][i]).to(device)
+        t0 = time.perf_counter()
+        lg, caches = dec(params, caches, tok, PAR_SQ + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        local.append(lg)
+    out["serve"] = counts()
+    out["decode_ms"] = 1e3 * float(np.median(times))
+    del caches
+    step, _ = build_train_step(cfg, PipelinePlan(**PAR_PLAN, remat=True),
+                               base, ts, AdamWConfig(**TRAIN_OPT),
+                               param_dtype=f32)
+    opt = init_opt_state(params)
+    batches = _par_batches(torch, cfg, device)
+    torch.cuda.synchronize()
+    counts()
+    losses, gnorms, ttimes = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        ttimes.append(time.perf_counter() - t0)
+    out["train"] = counts()
+    out.update(losses=losses, grad_norms=gnorms,
+               train_ms=1e3 * float(np.median(ttimes[1:])),
+               peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    out["served_holds"] = _served_holds(torch, calls)
+    errs, wrong, held = [], 0, 0
+    for i, lg in enumerate(local):
+        full = unshard(lg, pst["lspec"], mesh).cpu().numpy()
+        if rank == 0:
+            errs.append(float(np.abs(full - ref["logits"][i]).max()))
+            if i < PAR_DECODE:
+                want = ref["fed"][i][:, 0]
+                sure = ref["margins"][i] > MARGIN_TOL
+                held += int(sure.sum())
+                wrong += int((full.argmax(-1) != want)[sure].sum())
+    out.update(logit_errors=errs, greedy_held=held, greedy_wrong=wrong)
+    return out
+
+
+def parallel_phase(torch, card, backend="gloo"):
+    """Phase 19: multi-rank execution.  The one-rank reference runs here
+    on cuda:0; then PAR_RANKS rank processes (spawned, the backend named,
+    every kernel built here first: the ranks only load build/kernels), each
+    importing repro_torch alone, sit on cuda:(rank % device_count): under
+    gloo they share one card, under nccl each needs its own.  A failing
+    rank or a world past its time fails the phase."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.mesh import run_world
+
+    cards = torch.cuda.device_count()
+    label = PAR_LABEL if backend == "gloo" and cards == 1 else (
+        f"{PAR_RANKS} ranks on {cards} cards, {backend}"
+        + (" through host memory" if backend == "gloo" else ""))
+    t0 = time.perf_counter()
+    free_weights(torch)
+    ref = parallel_reference(torch)
+    log(f"  one rank on {card}: decode {ref['decode_ms']:.3f} ms a step, "
+        f"train {ref['train_ms']:.3f} ms a step, losses {ref['losses']}")
+    t1 = time.perf_counter()
+    ranks = run_world(parallel_rank, PAR_RANKS, (ref,), backend=backend,
+                      device=None, timeout_s=PAR_TIMEOUT_S)
+    world_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    L = get_arch("qwen1.5-0.5b").config.n_layers // PAR_PLAN["stages"]
+    M = PAR_PLAN["microbatches"]
+    ticks = M + PAR_PLAN["stages"] - 1
+    want_serve = {"flash_attention": ticks * L,
+                  "decode_attention": PAR_DECODE * ticks * L}
+    want_train = {"flash_attention": PAR_STEPS * ticks * L * 2,
+                  "flash_attention_bwd": PAR_STEPS * ticks * L}
+    for r in ranks:
+        log(f"  rank {r['rank']} {r['coords']} ({label}): " + json.dumps(
+            {k: r[k] for k in ("serve", "train", "prefill_ms", "decode_ms",
+                               "train_ms", "peak_allocated_bytes",
+                               "served_holds")}))
+        for part, want in (("serve", want_serve), ("train", want_train)):
+            got = r[part]["launches"]
+            for name, n in want.items():
+                check(got.get(name, 0) == n,
+                      f"phase 19 rank {r['rank']}: {name} launched "
+                      f"{got.get(name, 0)} times in {part}, not {n}")
+            check(got.get("paged_decode_attention", 0) == 0,
+                  "phase 19: paged decode launched")
+        if backend == "gloo":
+            check(r["serve"]["comm"].get("bytes_staged", 0) > 0,
+                  "phase 19: no collective was staged through host memory")
+        h = r["served_holds"]
+        for name in ("flash_attention", "decode_attention"):
+            check(h[name] <= TOL["float32"],
+                  f"phase 19 rank {r['rank']}: served {name} off its plain "
+                  f"version by {h[name]}")
+        check(h["flash_attention_bwd"] <= BWD_TOL * h[
+            "flash_attention_bwd_max_abs_grad"],
+              f"phase 19 rank {r['rank']}: flash backward off by "
+              f"{h['flash_attention_bwd']}")
+        check(r["losses"] == r0["losses"], "phase 19: ranks' losses differ")
+    err = max(r0["logit_errors"])
+    log(f"  4-rank logits against one rank: max|err| {err:.3e} over the "
+        f"prefill and {PAR_DECODE} decode steps (tol {PAR_LOGIT_TOL:g}); "
+        f"greedy tokens equal at {r0['greedy_held'] - r0['greedy_wrong']} "
+        f"of {r0['greedy_held']} rows with a top-2 margin over "
+        f"{MARGIN_TOL:g}")
+    check(err <= PAR_LOGIT_TOL, f"phase 19: logits off by {err}")
+    check(r0["greedy_wrong"] == 0, "phase 19: a greedy token differs")
+    l0, l1 = r0["losses"][0], ref["losses"][0]
+    ratio = r0["grad_norms"][0] / ref["grad_norms"][0]
+    log(f"  train: losses {r0['losses']} (one rank {ref['losses']}); step-0 "
+        f"grad norm {r0['grad_norms'][0]:.4f} = {ratio:.5f} x one rank's "
+        f"(the reference's psum-transpose count, ROADMAP.md section 3)")
+    check(abs(l0 - l1) <= 1e-4 * abs(l1), f"phase 19: step-0 loss {l0} != "
+          f"{l1}")
+    check(abs(ratio - PAR_RANKS) <= 1e-3 * PAR_RANKS,
+          f"phase 19: grad norm ratio {ratio}, not {PAR_RANKS}")
+    check(r0["losses"][-1] < r0["losses"][0], "phase 19: the loss did not "
+          "fall")
+    out = {"ranks": ranks, "one_rank": {k: ref[k] for k in (
+        "decode_ms", "train_ms", "losses", "grad_norms")},
+        "logit_max_abs_err": err, "world_s": world_s,
+        "s": time.perf_counter() - t0, "label": label}
+    log(f"  phase 19 on {card} ({label}): world {world_s:.1f} s, "
+        f"phase {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3148,6 +3523,9 @@ def main() -> int:
     log("== 18. training: the backward kernels, qwen1.5-0.5b and rwkv6-1.6b")
     tres = training_kernel_checks(torch)
     t_out = training_phase(torch, card)
+    log(f"== 19. multi-rank: {PAR_RANKS} ranks on one card (S = "
+        f"{PAR_PLAN['stages']}, T = {PAR_PLAN['tensor']}, gloo)")
+    p_out = parallel_phase(torch, card)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -3253,6 +3631,15 @@ def main() -> int:
             cross = model_runs[run].get("launches_cross", {})
             if must and tag in ("vision", "whisper"):
                 kernels[-1][f"launches_{tag}_cross"] = cross.get(name, 0)
+        if name in ("flash_attention", "decode_attention"):
+            # phase 19: per rank, its serving and its training counted apart
+            kernels[-1]["launches_parallel_per_rank"] = [
+                {"serve": r["serve"]["launches"].get(name, 0),
+                 "train": r["train"]["launches"].get(name, 0)}
+                for r in p_out["ranks"]]
+            kernels[-1]["parallel_launched_in"] = p_out["label"]
+            kernels[-1]["parallel_served_max_abs_err"] = [
+                r["served_holds"][name] for r in p_out["ranks"]]
         for key in ("hd256_window", "hd256_causal", "hd192_128",
                     "hd192_128_h128", "hd192_128_h128_1024",
                     "hd256_ring", "hd256_global", "hd128", "hd128_mha",
@@ -3288,7 +3675,14 @@ def main() -> int:
             kernels[-1]["hd128"] = r["hd128"]
         kernels[-1]["split_in_training"] = t_out[run].get(f"{name}_split",
                                                           "not measured")
-    log(f"  phase 18 (training) {t_out['s']:.1f} s")
+        if name == "flash_attention_bwd":
+            kernels[-1]["launches_parallel_per_rank"] = [
+                r["train"]["launches"].get(name, 0) for r in p_out["ranks"]]
+            kernels[-1]["parallel_launched_in"] = p_out["label"]
+            kernels[-1]["parallel_served_max_abs_err"] = [
+                r["served_holds"][name] for r in p_out["ranks"]]
+    log(f"  phase 18 (training) {t_out['s']:.1f} s; phase 19 (multi-rank) "
+        f"{p_out['s']:.1f} s")
     log(f"  phases 12-17: deepseek-moe-16b {d_out['s']:.1f} s, "
         f"jamba-v0.1-52b {j_out['s']:.1f} s, llama-3.2-vision-11b "
         f"{v_out['s']:.1f} s, whisper-tiny {w_out['s']:.1f} s, "

@@ -1,2 +1,3 @@
-"""Entry points (``serve``, ``quickstart``, ``train``, ``train_pipeline``)
-and the card's cost model (``roofline``)."""
+"""Entry points (``serve``, ``quickstart``, ``train``, ``train_pipeline``),
+meshes and worlds of ranks (``mesh``), and the card's cost model
+(``roofline``)."""

@@ -87,15 +87,17 @@ def layer_shapes(cfg: ModelConfig, i: int, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None,
-               layers: Optional[range] = None) -> list:
-    """Zero dense caches for ``layers`` (default: all)."""
+               layers: Optional[range] = None,
+               tensor_shards: int = 1) -> list:
+    """Zero dense caches for ``layers`` (default: all), at one rank's local
+    shapes under ``tensor_shards``-way tensor parallelism."""
     device = resolve_device(device)
     layers = layers if layers is not None else range(cfg.n_layers)
     _check_ported(cfg, layers, _DENSE_MIXERS)
     return [{part: {name: torch.zeros(shape, dtype=dtype, device=device)
                     for name, shape in leaves.items()}
-             for part, leaves in layer_shapes(cfg, i, batch,
-                                              max_seq).items()}
+             for part, leaves in layer_shapes(cfg, i, batch, max_seq,
+                                              tensor_shards).items()}
             for i in layers]
 
 

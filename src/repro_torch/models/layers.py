@@ -51,8 +51,20 @@ V from its latent and goes through the flash kernel at (hd, hdv) = (nd +
 rd, vd); decode stays in the reference's absorbed form, torch products in
 f32 (``mla_absorbed_decode``), which no kernel of the JAX package covers.
 
-The sequence- and tensor-parallel branches (expert parallelism included)
-are not ported yet (see ROADMAP.md) and raise.
+Tensor parallelism (``tp_axis``, a mesh axis name; ``parallel.comm``):
+params are a rank's shards, and every shape is read from them, so a layer
+runs its H/T local heads (through the same kernels: their G only shrinks),
+its ff/T columns or its E/T local experts, and the output projection's
+partial sums are psummed over the axis.  Where the q heads cannot split
+(``sharding._attn_heads_shardable``) every rank computes all of them and
+the psum is divided by T.  An expert-parallel MoE routes over all E
+experts on every rank, runs the assignments of its own E/T experts and
+psums the combined output; its aux loss is psummed and divided by T.
+Sequence-parallel decode (``sp_axis``) keeps a global-attention cache's
+rows split over the axis: the owner of row ``pos0`` writes it, and each
+rank attends over its rows in f32 torch products, combined with a
+log-sum-exp psum (the reference's jnp path; no kernel takes partial
+softmax statistics).
 """
 from __future__ import annotations
 
@@ -66,14 +78,13 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   gather_pages,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.parallel import comm
 
 Params = dict
 
 
-def _todo(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md, "
-        "section 1 (modules to port)")
+def _maybe_psum(x: torch.Tensor, tp_axis) -> torch.Tensor:
+    return comm.psum(x, tp_axis) if tp_axis else x
 
 
 # ---------------------------------------------------------------------------
@@ -218,8 +229,6 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     the gather path.  Returns (y, cache, aux)."""
     B, S, _ = x.shape
     window = 0 if is_global else cfg.sliding_window
-    if tp_axis is not None or sp_axis is not None:
-        raise _todo("tensor/sequence-parallel attention")
     q, k, v = _qkv(params, x)
     if cfg.rope_theta:
         pos = positions(pos0, S, x.device)
@@ -232,7 +241,14 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                                     wo=params["wo"], causal=causal,
                                     paged_kernel=paged_kernel,
                                     kv_extent=kv_extent)
-        return y, cache, aux
+        return _maybe_psum(y, tp_axis), cache, aux
+
+    if sp_axis is not None and not window and S == 1 and cache is not None:
+        for name, t in (("k", k), ("v", v)):
+            sp_cache_write(cache[name], t.movedim(1, 2), pos0, sp_axis)
+        out = sp_decode_attention(q, cache["k"], cache["v"], pos0, sp_axis)
+        y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+        return _maybe_psum(y, tp_axis), cache, aux
 
     if cache is not None:
         kc, vc = cache["k"], cache["v"]
@@ -281,7 +297,59 @@ def apply_attention(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal, window=window, q_offset=0)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, cache, aux
+    return _heads_psum(cfg, params, y, tp_axis), cache, aux
+
+
+def _heads_psum(cfg: ModelConfig, params: Params, y: torch.Tensor, tp_axis):
+    """The output projection's psum over ``tp_axis``; where the q heads did
+    not split, every rank computed all of them, and the sum is divided by
+    the axis size (small models on wide tensor axes)."""
+    y = _maybe_psum(y, tp_axis)
+    if tp_axis is not None and params["wq"].shape[-2] == cfg.n_heads:
+        y = y / comm.axis_size(tp_axis)
+    return y
+
+
+def sp_decode_attention(q: torch.Tensor, k_loc: torch.Tensor,
+                        v_loc: torch.Tensor, pos, axis: str, scale=None):
+    """Sequence-parallel decode attention (flash-decode across ranks): the
+    cache's rows are split over mesh axis ``axis``; each rank attends over
+    its ``Sloc`` rows (global rows ``r * Sloc + j``, those <= ``pos``) and
+    the partials combine through a pmax and two psums.  q (B, 1, H, hd);
+    k_loc, v_loc (B, Kh, Sloc, hd).  f32 torch products, as the reference's
+    jnp."""
+    B, _, H, hd = q.shape
+    Kh, Sloc = k_loc.shape[1], k_loc.shape[2]
+    G = H // Kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    r = comm.axis_index(axis)
+    qf = (q.float() * scale).reshape(B, Kh, G, hd)
+    s = torch.einsum("bhgk,bhjk->bhgj", qf, k_loc.float())
+    gpos = r * Sloc + torch.arange(Sloc, device=q.device)
+    mask = (gpos <= int(pos))[None, None, None, :]
+    s = s.masked_fill(~mask, float("-inf"))
+    m = comm.pmax(s.max(dim=-1).values, axis)
+    m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.where(mask, torch.exp(s - m_safe[..., None]),
+                    torch.zeros_like(s))
+    l_sum = comm.psum(p.sum(dim=-1), axis)
+    o = comm.psum(torch.einsum("bhgj,bhjk->bhgk", p, v_loc.float()), axis)
+    out = o / torch.clamp(l_sum, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def sp_cache_write(cache_leaf: torch.Tensor, update: torch.Tensor, pos,
+                   axis: str) -> torch.Tensor:
+    """Write one decode row ``update`` (B, Kh, 1, hd) into a cache whose
+    rows are split over ``axis`` (B, Kh, Sloc, hd), in place: only the rank
+    owning global row ``pos`` writes it (the others rewrite their row 0
+    with its own value, as the reference's masked update does)."""
+    Sloc = cache_leaf.shape[2]
+    owner = int(pos) // Sloc
+    if comm.axis_index(axis) == owner:
+        cache_leaf[:, :, int(pos) - owner * Sloc] = \
+            update[:, :, 0].to(cache_leaf.dtype)
+    return cache_leaf
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +367,6 @@ def apply_cross_attention(cfg: ModelConfig, params: Params, x: torch.Tensor,
     the reference's returned cache does); without, they are read from the
     cache.  One query row takes the decode kernel over all M rows, longer
     inputs the flash kernel, non-causal.  Returns (y, cache, aux)."""
-    if tp_axis is not None:
-        raise _todo("tensor-parallel cross attention")
     S = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     if "bq" in params:
@@ -332,7 +398,8 @@ def apply_cross_attention(cfg: ModelConfig, params: Params, x: torch.Tensor,
                               causal=False, q_offset=0)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     y = y * torch.tanh(params["gate"].float()).to(y.dtype)
-    return y, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return (_heads_psum(cfg, params, y, tp_axis), cache,
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +465,6 @@ def apply_mla(cfg: ModelConfig, params: Params, x: torch.Tensor, *, pos0,
     Smax, r), k_rope (B, Smax, rd)), written in place: decode writes each
     slot's row at its own position; a prompt writes rows [0, S), as the
     reference does whatever ``pos0`` is.  Returns (y, cache, aux)."""
-    if tp_axis is not None:
-        raise _todo("tensor-parallel MLA")
     m = cfg.mla
     B, S, _ = x.shape
     H = params["wq_up"].shape[1]
@@ -440,7 +505,8 @@ def apply_mla(cfg: ModelConfig, params: Params, x: torch.Tensor, *, pos0,
                               v.contiguous(), causal=True, q_offset=0,
                               scale=scale)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return (_maybe_psum(y, tp_axis), cache,
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -452,8 +518,6 @@ def apply_mlp(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     """Gated MLP: SwiGLU, or GeGLU (tanh gelu) where ``mlp_act`` is
     "geglu"; or, where the params hold ``w1/w2`` (whisper), the plain
     two-matrix MLP with tanh gelu (``jax.nn.gelu``'s default form)."""
-    if tp_axis is not None:
-        raise _todo("tensor-parallel MLP")
     if "w1" in params:
         h = F.gelu(torch.matmul(x, params["w1"]), approximate="tanh")
         y = torch.matmul(h, params["w2"])
@@ -461,7 +525,8 @@ def apply_mlp(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
         g = torch.matmul(x, params["w_gate"])
         u = torch.matmul(x, params["w_up"])
         y = torch.matmul(_act(cfg, g) * u, params["w_down"])
-    return y, None, torch.zeros((), dtype=torch.float32, device=x.device)
+    return (_maybe_psum(y, tp_axis), None,
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _act(cfg: ModelConfig, g: torch.Tensor) -> torch.Tensor:
@@ -524,31 +589,42 @@ def moe_route(cfg: ModelConfig, router: torch.Tensor, xt: torch.Tensor):
 def apply_moe(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
               tp_axis=None):
     """Top-k MoE with capacity-bounded dispatch (GShard style).  Returns
-    (y, None, aux)."""
-    if tp_axis is not None:
-        raise _todo("expert-parallel MoE")
+    (y, None, aux).
+
+    Expert parallelism: the experts' leading dim is this rank's E_loc of
+    the E experts along ``tp_axis`` (rank r holds experts [r E_loc, (r + 1)
+    E_loc)); the router and the activations are whole on every rank, each
+    rank runs only the kept assignments of its own experts, and the output
+    psum combines them (no all-to-all)."""
     mo = cfg.moe
     B, S, d = x.shape
-    T, E, K = B * S, mo.n_experts, mo.top_k
+    T, K = B * S, mo.top_k
+    E_loc = params["w_gate"].shape[0]
+    e0 = comm.axis_index(tp_axis) * E_loc if tp_axis else 0
     xt = x.reshape(T, d)
     topw, topi, pos, keep, cap, aux = moe_route(cfg, params["router"], xt)
-    # each kept assignment owns row (expert, position) of the dispatch
-    # buffer; dropped ones all point at one spare row past the experts'
-    # rows, which no expert reads and which combines with weight 0
-    row = torch.where(keep, topi * cap + pos,
-                      torch.full_like(pos, E * cap)).reshape(-1)
-    xe = x.new_zeros((E * cap + 1, d))
+    # each kept assignment of a local expert owns row (expert, position) of
+    # the dispatch buffer; the others all point at one spare row past the
+    # experts' rows, which no expert reads and which combines with weight 0
+    li = topi - e0
+    mine = keep & (li >= 0) & (li < E_loc)
+    row = torch.where(mine, li * cap + pos,
+                      torch.full_like(pos, E_loc * cap)).reshape(-1)
+    xe = x.new_zeros((E_loc * cap + 1, d))
     xe[row] = xt[:, None, :].expand(T, K, d).reshape(T * K, d)
-    xe = xe[:E * cap].reshape(E, cap, d)
+    xe = xe[:E_loc * cap].reshape(E_loc, cap, d)
     g = torch.bmm(xe, params["w_gate"])
     u = torch.bmm(xe, params["w_up"])
-    ye = torch.bmm(_act(cfg, g) * u, params["w_down"]).reshape(E * cap, d)
+    ye = torch.bmm(_act(cfg, g) * u, params["w_down"]).reshape(E_loc * cap, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])
-    w = (topw * keep).to(x.dtype).reshape(T, K, 1)
+    w = (topw * mine).to(x.dtype).reshape(T, K, 1)
     y = (ye[row].reshape(T, K, d) * w).sum(dim=1).reshape(B, S, d)
     if mo.n_shared:
         sh = params["shared"]
         g = torch.matmul(x, sh["w_gate"])
         u = torch.matmul(x, sh["w_up"])
         y = y + torch.matmul(_act(cfg, g) * u, sh["w_down"])
+    if tp_axis:
+        y = comm.psum(y, tp_axis)
+        aux = comm.psum(aux, tp_axis) / comm.axis_size(tp_axis)
     return y, None, aux

@@ -28,7 +28,12 @@ cache with f32 activations is updated with no copy; otherwise the new
 state, like the token-shift rows, is copied in after the layer, cast as the
 JAX code casts it (to the activations' dtype, then to the cache's).
 
-The tensor-parallel branches are not ported yet (see ROADMAP.md).
+Tensor parallelism (``tp_axis``, a mesh axis name; ``parallel.comm``)
+splits the inner (Mamba) or channel (RWKV) dimension: each rank reads its
+widths from its param shards, and the projections that mix the whole
+dimension psum their partial sums over the axis (Mamba's ``x_proj`` and
+``out_proj``; RWKV's ``Wo`` and ``Wv_cm``).  RWKV's WKV runs on the rank's
+H/T local heads.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_wkv import wkv6
 from repro_torch.models.layers import rms_norm
+from repro_torch.parallel import comm
 
 _MIX_NAMES = ("w", "k", "v", "r", "g")
 
@@ -78,13 +84,15 @@ def mamba_spec(cfg: ModelConfig) -> dict:
 
 
 def _mamba_core(params: dict, xc: torch.Tensor, z: torch.Tensor,
-                h0: Optional[torch.Tensor]):
+                h0: Optional[torch.Tensor], tp_axis=None):
     """Selective scan over xc (B, S, di), the conv'd input, from state
     ``h0`` (B, di, N) or zeros.  Returns (y (B, S, di), final state)."""
     B, S, di = xc.shape
     N = params["A_log"].shape[1]
     dtr = params["dt_proj"].shape[0]
     xdbl = torch.matmul(xc, params["x_proj"])
+    if tp_axis:
+        xdbl = comm.psum(xdbl, tp_axis)     # di is split: partial sums
     dt, Bc, Cc = torch.split(xdbl, [dtr, N, N], dim=-1)
     dt = F.softplus(torch.matmul(dt, params["dt_proj"])
                     + params["dt_bias"]).float()                 # (B, S, di)
@@ -110,10 +118,6 @@ def apply_mamba(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     None, or the layer's ``{"conv", "ssm"}``, read as the history and
     initial state and overwritten with the final ones.  Returns
     (y, cache, aux)."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "tensor-parallel Mamba is not ported to repro_torch yet; see "
-            "ROADMAP.md, section 1")
     S = x.shape[1]
     dc = params["conv_w"].shape[0]
     x_in = torch.matmul(x, params["w_x"])
@@ -126,8 +130,10 @@ def apply_mamba(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     xc = sum(xin_ext[:, k:k + S, :] * params["conv_w"][k] for k in range(dc))
     xc = F.silu(xc + params["conv_b"])
     y, hT = _mamba_core(params, xc, z,
-                        cache["ssm"] if cache is not None else None)
+                        cache["ssm"] if cache is not None else None, tp_axis)
     out = torch.matmul(y, params["out_proj"])
+    if tp_axis:
+        out = comm.psum(out, tp_axis)
     if cache is not None:
         if dc > 1:
             cache["conv"].copy_(xin_ext[:, -(dc - 1):, :])
@@ -190,12 +196,8 @@ def apply_rwkv(cfg: ModelConfig, params: dict, x_res: torch.Tensor, *,
     + residual (the layer owns both residuals).  ``cache``: None, or the
     layer's state dict, read as the initial state and overwritten with the
     final one.  Returns (x, cache, aux)."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "tensor-parallel RWKV is not ported to repro_torch yet; see "
-            "ROADMAP.md, section 1")
     B, S, _ = x_res.shape
-    H, hd = rwkv_dims(cfg)
+    hd = cfg.ssm.head_size
     x = rms_norm(ln1, x_res, cfg.rms_eps)
     # ---- time mix --------------------------------------------------------
     sx = _shifted(x, cache["sx_tm"] if cache is not None else None)
@@ -204,7 +206,8 @@ def apply_rwkv(cfg: ModelConfig, params: dict, x_res: torch.Tensor, *,
     tm = params["tm"]
     xw, xk, xv, xr, xg = (_ddlerp(tm[n], x, sx, xxx) for n in _MIX_NAMES)
 
-    dh = params["Wr"].shape[1]
+    dh = params["Wr"].shape[1]                 # the local width under TP
+    H = dh // hd
     r = torch.matmul(xr, params["Wr"]).reshape(B, S, H, hd)
     k = torch.matmul(xk, params["Wk"]).reshape(B, S, H, hd)
     v = torch.matmul(xv, params["Wv"]).reshape(B, S, H, hd)
@@ -224,7 +227,8 @@ def apply_rwkv(cfg: ModelConfig, params: dict, x_res: torch.Tensor, *,
         yf.var(-1, keepdim=True, correction=0) + 1e-5)
     y = (yf.reshape(B, S, dh) * params["ln_x"].float()).to(x.dtype)
     y = y * g
-    x_res = x_res + torch.matmul(y, params["Wo"])
+    tm_out = torch.matmul(y, params["Wo"])
+    x_res = x_res + (comm.psum(tm_out, tp_axis) if tp_axis else tm_out)
 
     # ---- channel mix -----------------------------------------------------
     x = rms_norm(ln2, x_res, cfg.rms_eps)
@@ -234,6 +238,8 @@ def apply_rwkv(cfg: ModelConfig, params: dict, x_res: torch.Tensor, *,
     xr2 = x + (sx2 - x) * params["maa_r"]
     kk = torch.square(F.relu(torch.matmul(xk2, params["Wk_cm"])))
     kv = torch.matmul(kk, params["Wv_cm"])
+    if tp_axis:
+        kv = comm.psum(kv, tp_axis)
     out = x_res + torch.sigmoid(torch.matmul(xr2, params["Wr_cm"])) * kv
 
     if cache is not None:

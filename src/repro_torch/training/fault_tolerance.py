@@ -5,8 +5,9 @@ Ports ``StepWatchdog`` and ``TrainSupervisor`` of
 exception from the step, or the watchdog's 'failed' verdict on a step that
 outran its timeout), restore the latest checkpoint, and replay the data
 pipeline from the checkpointed step (its batches are seeded by step, so the
-replay is exact).  ``elastic_mesh``, which rebuilds a smaller mesh from the
-surviving devices, waits for the multi-rank slice (ROADMAP.md, section 1).
+replay is exact).  ``elastic_mesh`` lays the largest (pod, data, model)
+mesh over the surviving ranks: the model axis (the plan's S x T x R) stays
+whole, and data parallelism shrinks.
 
 Straggler detection: a step slower than ``straggler_factor`` times the
 median for ``patience`` steps in a row is flagged.
@@ -17,6 +18,8 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from repro_torch.launch.mesh import Mesh
 
 
 @dataclass
@@ -40,6 +43,22 @@ class StepWatchdog:
         else:
             self._slow_streak = 0
         return "straggler" if self._slow_streak >= self.patience else "ok"
+
+
+def elastic_mesh(n_devices: int, model_axis: int = 16, pods: int = 1,
+                 device=None) -> Mesh:
+    """The largest valid (pod, data, model) mesh over the first
+    ``n_devices`` ranks of the world (the survivors).  The model axis stays
+    intact (the pipeline and tensor structure is fixed by the plan) and
+    data parallelism shrinks; the trainer then splits or cuts the global
+    batch.  A rank past the mesh takes part in making its groups only."""
+    per_pod = n_devices // pods
+    data = per_pod // model_axis
+    if data < 1:
+        raise ValueError(f"cannot build mesh: {n_devices} devices")
+    shape = (pods, data, model_axis) if pods > 1 else (data, model_axis)
+    names = ("pod", "data", "model") if pods > 1 else ("data", "model")
+    return Mesh(names, shape, device)
 
 
 @dataclass

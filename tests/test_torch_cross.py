@@ -16,6 +16,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax_compile import with_gates
 
 from repro.configs.base import get_arch as jax_arch
 from repro.models import kvcache as JK
@@ -49,22 +50,6 @@ MEM = CFG.n_memory_tokens
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def with_gates(tree, seed):
-    """``tree`` with every cross ``gate`` set from ``seed`` to +-[0.5,
-    1.5]: |tanh| >= 0.46, so a wrong cross layer changes the tokens."""
-    rng = np.random.default_rng(seed)
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: (np.float32(rng.choice([-1.0, 1.0])
-                                   * rng.uniform(0.5, 1.5))
-                        if k == "gate" else walk(v)) for k, v in t.items()}
-        if isinstance(t, list):
-            return [walk(v) for v in t]
-        return t
-    return walk(tree)
 
 
 NP_PARAMS = with_gates(jax.tree.map(np.asarray, jax.jit(

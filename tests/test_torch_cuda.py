@@ -1217,3 +1217,68 @@ def test_cuda_decode_refuses_grad(cuda_dev):
         decode_attention(q, kc, kc, 5)
     with torch.no_grad():
         decode_attention(q, kc, kc, 5)
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_share_one_card(cuda_dev, tmp_path):
+    """A gloo world of two ranks on cuda:0 (tests/torch_dist.py), qwen's
+    smoke config at S = 2: a train step and a prefill and decode step
+    against the same steps at one rank on the card (loss 1e-5 relative,
+    grad norm 2x the one rank's, the reference's psum-transpose count;
+    logits 1e-4), through the flash, flash backward and decode kernels, the
+    stage rotation staged through host memory; NCCL refuses the two ranks
+    on one device."""
+    from torch_dist import run_cases
+
+    from repro_torch.configs.base import PipelinePlan, ShapeConfig
+    from repro_torch.launch.mesh import init_rank
+    from repro_torch.parallel.pipeline import (build_decode_step,
+                                               build_prefill_step,
+                                               build_train_step, stack_params)
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(ValueError, match="NCCL refuses"):
+            init_rank(0, 2, "nccl", f"file://{tmp_path}/never")
+    cfg = get_arch("qwen1.5-0.5b").smoke_config
+    params = tree_to_numpy(init_model(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu"))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)
+    plan = dict(stages=2, microbatches=2)
+    got_t, got_s = run_cases([
+        {"kind": "train", "arch": "qwen1.5-0.5b", "plan": plan,
+         "mesh": (1, 2), "params": params, "return_params": False,
+         "batches": [{"tokens": tokens, "labels": tokens}], "opt": {}},
+        {"kind": "serve", "arch": "qwen1.5-0.5b", "plan": plan,
+         "mesh": (1, 2), "params": params, "tokens": tokens, "max_seq": 16}],
+        nranks=2, device=None)
+    one = PipelinePlan(microbatches=2)
+    p = stack_params(cfg, one, tree_from_numpy(params, cuda_dev))
+    t = torch.from_numpy(tokens).to(cuda_dev)
+    step, _ = build_train_step(cfg, one, None, ShapeConfig("t", 16, 8,
+                                                           "train"),
+                               AdamWConfig(), param_dtype=torch.float32)
+    _, _, m = step(p, init_opt_state(p), {"tokens": t, "labels": t})
+    tm = got_t["metrics"][0]
+    np.testing.assert_allclose(tm["loss"], float(m["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(tm["grad_norm"] / float(m["grad_norm"]), 2.0,
+                               rtol=1e-4)
+    assert got_t["launches"]["flash_attention"] > 0
+    assert got_t["launches"]["flash_attention_bwd"] > 0
+    assert got_t["comm"]["bytes_staged"] > 0
+    p = stack_params(cfg, one, tree_from_numpy(params, cuda_dev))
+    f32 = torch.float32
+    pre, _ = build_prefill_step(cfg, one, None, ShapeConfig("p", 16, 8,
+                                                            "prefill"),
+                                param_dtype=f32, cache_dtype=f32)
+    dec, _ = build_decode_step(cfg, one, None, ShapeConfig("d", 16, 8,
+                                                           "decode"),
+                               param_dtype=f32, cache_dtype=f32)
+    last, caches = pre(p, {"tokens": t[:, :-1]})
+    logits, _ = dec(p, caches, t[:, -1:], 15)
+    np.testing.assert_allclose(got_s["prefill"], last.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_s["decode"][0], logits.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    assert got_s["prefill_counts"]["launches"]["flash_attention"] > 0
+    assert got_s["decode0_counts"]["launches"]["decode_attention"] > 0

@@ -160,7 +160,8 @@ with tempfile.TemporaryDirectory() as d:
     ckpt.save(d, (params, opt), step=1)
     (p2, o2), s, _ = ckpt.restore(d, (params, opt))
     assert s == 1 and int(o2.step) == 1
-for mod in ("tree", "parallel.pipeline", "training.optimizer",
+for mod in ("tree", "parallel.pipeline", "parallel.comm",
+            "parallel.sharding", "launch.mesh", "training.optimizer",
             "training.checkpoint", "training.compression",
             "training.fault_tolerance", "data.pipeline", "launch.train",
             "launch.train_pipeline"):

@@ -210,13 +210,6 @@ def test_apply_mla_per_slot_decode_equals_reference_rows(positions):
             _close(cache[name][b:b + 1], jc[name])
 
 
-def test_apply_mla_refuses_tensor_parallel():
-    p, _ = _mixer()
-    with pytest.raises(NotImplementedError, match="tensor-parallel MLA"):
-        L.apply_mla(CFG, p, torch.zeros(1, 2, CFG.d_model), pos0=0,
-                    tp_axis="model")
-
-
 # ---------------------------------------------------------------------------
 # model
 # ---------------------------------------------------------------------------

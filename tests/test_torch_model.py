@@ -242,15 +242,30 @@ def test_paged_attention_matches_jax(paged_kernel):
 
 
 def test_unported_branches_raise():
+    """The tensor- and sequence-parallel branches, once refused, are ported:
+    with no mesh bound (one rank) each is the plain path, as JAX's psum
+    over a size-1 axis is the identity; the sequence-parallel decode equals
+    the plain decode.  kv_extent without a cache to read is a plain
+    prefill, as in the reference.  (Over several ranks:
+    tests/test_torch_parallel_*.py.)"""
     x, _ = _x(7, (1, 4, 64))
     p = PARAMS["blocks"][0]["mixer"]
-    for kw in (dict(tp_axis="model"), dict(sp_axis="data")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            L.apply_attention(CFG, p, x, pos0=0, **kw)
-    # kv_extent is ported: without a cache to read it is a plain prefill,
-    # as in the reference
-    y, _, _ = L.apply_attention(CFG, p, x, pos0=0, kv_extent=16)
-    torch.testing.assert_close(y, L.apply_attention(CFG, p, x, pos0=0)[0])
+    want = L.apply_attention(CFG, p, x, pos0=0)[0]
+    for kw in (dict(tp_axis="tensor"), dict(sp_axis="data"),
+               dict(kv_extent=16)):
+        torch.testing.assert_close(
+            L.apply_attention(CFG, p, x, pos0=0, **kw)[0], want)
+    caches = []
+    for kw in ({}, dict(sp_axis="data")):
+        c = {n: torch.zeros(1, CFG.n_kv_heads, 8, CFG.resolved_head_dim)
+             for n in ("k", "v")}
+        L.apply_attention(CFG, p, x, pos0=0, cache=c)
+        y, c, _ = L.apply_attention(CFG, p, x[:, :1], pos0=4, cache=c, **kw)
+        caches.append((y, c))
+    torch.testing.assert_close(caches[1][0], caches[0][0], atol=3e-5,
+                               rtol=3e-5)
+    for n in ("k", "v"):
+        assert torch.equal(caches[1][1][n], caches[0][1][n])
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """repro_torch's one-rank train step against the JAX package's
 ``build_train_step`` on a (1, 1) mesh: qwen1.5-0.5b and rwkv6-1.6b smoke
 configs, M = 2 microbatches, remat on and off, 3 steps on TokenPipeline
-data; the loss's invariance to M at one rank; the stacked param layout for
-S in {1, 2, 4}; and the plans that need collectives, refused.
+data; the loss's invariance to M at one rank; and the stacked param layout
+for S in {1, 2, 4}.  Plans over several ranks are held in
+tests/test_torch_parallel_*.py.
 
 Each step's loss, grad norm and lr are held at rtol 1e-5 (rwkv6's grad norm
 at 1e-3: its group norm conditions the gradients, see
@@ -14,7 +15,6 @@ at most 0.1 % of qwen's elements (15 % of rwkv6's, whose gradients all
 carry the group norm's conditioning) may differ by more than 1e-6
 (measured: 0.02 % and 8 %).
 """
-import dataclasses
 import functools
 
 import jax
@@ -199,20 +199,3 @@ def test_stacked_layout_equals_reference(arch, S):
     back = unstack_params(cfg, plan, stacked)
     for a, b in zip(tree_leaves(tp), tree_leaves(back)):
         assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("change", [
-    dict(stages=2), dict(tensor=2), dict(replica=2), dict(fsdp=True),
-    dict(seq_parallel_kv=True), "compress_pod", "mesh"])
-def test_multi_rank_plans_are_refused(change):
-    cfg = get_arch("qwen1.5-0.5b").smoke_config
-    plan, kw, mesh = PipelinePlan(), {}, None
-    if change == "compress_pod":
-        kw["compress_pod"] = True
-    elif change == "mesh":
-        mesh = object()
-    else:
-        plan = dataclasses.replace(plan, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1"):
-        build_train_step(cfg, plan, mesh, ShapeConfig("t", 16, 8, "train"),
-                         **kw)

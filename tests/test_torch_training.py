@@ -372,10 +372,11 @@ class TestLaunchers:
         assert capsys.readouterr().out.splitlines()[-1] == "done"
         assert ckpt.latest_step(str(tmp_path)) == 25
 
-    def test_train_pipeline_launcher(self, tmp_path, capsys):
+    def test_train_pipeline_launcher(self, tmp_path, capfd):
+        # 8 rank processes (S = 2 x T = 2 on a (2, 4) mesh) print to fd 1
         res = train_pipeline.main(["--steps", "30", "--device", "cpu",
                                    "--ckpt", str(tmp_path)])
-        out = capsys.readouterr().out
+        out = capfd.readouterr().out
         assert out.splitlines()[-1] == "OK"
         assert "restored from checkpoint at step 0" in out
         assert res["step"] == 30 and res["restarts"] == 1
