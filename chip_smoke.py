@@ -129,7 +129,21 @@ Phases, each fatal on failure:
      backward and decode launches (exact counts), one served call of each
      held against its plain version, the collectives issued and bytes
      staged through host memory, ms per decode and train step and the
-     peak memory, all labelled as 4 ranks on one card.
+     peak memory, all labelled as 4 ranks on one card;
+ 20. caches narrower than the query: dense and paged decode over every
+     (q, cache) pair of {f32, bf16} x {f32, bf16, float8_e4m3fn} at
+     qwen1.5-0.5b's, qwen1.5-110b's (G = 8) and gemma3-1b's (hd 256)
+     decode shapes, each against its plain version, paged == the dense
+     kernel on the gathered view bit for bit, each timed beside its bytes
+     bound and its plain version; full-width qwen1.5-0.5b served through
+     the engine with cache_dtype="bfloat16" under f32 params (phase 5's
+     requests) and through one rank of build_prefill_step /
+     build_decode_step at PipelinePlan(kv_dtype="fp8") (phase 19's prefill
+     and 16 decode steps), each path's launches counted and one served
+     decode call of each held against its plain version at a real tick;
+     and launch/roofline.py's step_costs on an H100 (f32) beside phase
+     18's train step, phase 5/6's decode tick and phase 19's steps, the
+     gap recorded.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -3407,11 +3421,379 @@ def parallel_phase(torch, card, backend="gloo"):
     check(r0["losses"][-1] < r0["losses"][0], "phase 19: the loss did not "
           "fall")
     out = {"ranks": ranks, "one_rank": {k: ref[k] for k in (
-        "decode_ms", "train_ms", "losses", "grad_norms")},
+        "decode_ms", "train_ms", "losses", "grad_norms", "tokens", "fed",
+        "logits")},
         "logit_max_abs_err": err, "world_s": world_s,
         "s": time.perf_counter() - t0, "label": label}
     log(f"  phase 19 on {card} ({label}): world {world_s:.1f} s, "
         f"phase {out['s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: decode over caches narrower than the query, and the roofline
+# ---------------------------------------------------------------------------
+
+PAIR_QDTS = ("float32", "bfloat16")
+PAIR_CDTS = ("float32", "bfloat16", "float8_e4m3fn")
+_RAGGED = [1024, 1, 17, 512, 600, 333, 1000, 64]
+PAIR_SHAPES = {  # name: (B, H, Kh, hd, Smax, cache_len)
+    "qwen1.5-0.5b": (8, 16, 16, 64, 1024, _RAGGED),
+    "qwen1.5-110b G=8": (8, 64, 8, 128, 1024,
+                         [0, 1, 127, 128, 129, 257, 1024, 600]),
+    "gemma3-1b hd=256": (8, 4, 1, 256, 1024, _RAGGED),
+}
+# a served decode call is taken at this tick, or decode step, of its path
+# (every slot is decoding by then), from its middle layer: past layer 0, q
+# depends on each slot's cache, not only on its token and position
+KV_HOLD_TICK = 5
+
+
+def _pair_hold(torch, out, ref, qdt):
+    """The largest error of ``out`` against ``ref``, failing beyond the
+    tolerance of q's dtype (for bf16, beyond a one-ulp flip of the final
+    rounding, as phase 3)."""
+    diff = (out.float() - ref.float()).abs()
+    over = diff > TOL[qdt]
+    if qdt == "bfloat16":
+        near = (out.view(torch.int16).int()
+                - ref.view(torch.int16).int()).abs() <= 1
+        over &= ~near
+    check(bool(torch.isfinite(out.float()).all()), "non-finite output")
+    check(not bool(over.any()), f"error {float(diff.max())} > {TOL[qdt]}")
+    return float(diff.max())
+
+
+def decode_pair_checks(torch, card):
+    """Phase 20 (a): dense and paged decode over every (q, cache) pair of
+    {f32, bf16} x {f32, bf16, fp8} at qwen1.5-0.5b's, qwen1.5-110b's (G =
+    8) and gemma3-1b's (hd 256, the cluster core) decode shapes: each
+    against its plain version, paged == the dense kernel on the gathered
+    view bit for bit, and each timed beside its bytes bound and its plain
+    version (the bound halves from bf16 to fp8 and quarters from f32)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain, gather_pages,
+        paged_decode_attention, paged_decode_attention_plain)
+    dev = torch.device("cuda")
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float8_e4m3fn": torch.float8_e4m3fn}
+    rng = np.random.default_rng(20)
+    out = {}
+    for shape, (B, H, Kh, hd, Smax, lens) in PAIR_SHAPES.items():
+        bs = 16
+        M = Smax // bs
+        n_blocks = 1 + B * M
+        f32 = {k: torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(dev) for k, s in (
+            ("q", (B, H, hd)), ("k", (B, Kh, Smax, hd)),
+            ("v", (B, Kh, Smax, hd)), ("kp", (n_blocks, Kh, bs, hd)),
+            ("vp", (n_blocks, Kh, bs, hd)))}
+        perm = rng.permutation(np.arange(1, n_blocks))
+        tables = np.zeros((B, M), np.int32)
+        i = 0
+        for b, n in enumerate(lens):
+            nb = -(-n // bs)
+            tables[b, :nb] = perm[i:i + nb]
+            i += nb
+        bt = torch.from_numpy(tables).to(dev)
+        cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        live = int(sum(lens))
+        for qdt in PAIR_QDTS:
+            q = f32["q"].to(dts[qdt])
+            for cdt in PAIR_CDTS:
+                kc, vc, kp, vp = (f32[x].to(dts[cdt]) for x in
+                                  ("k", "v", "kp", "vp"))
+                label = f"{shape} q={qdt} cache={cdt}"
+                try:
+                    dense = decode_attention(q, kc, vc, cl)
+                    err = _pair_hold(torch, dense, decode_attention_plain(
+                        q, kc, vc, cl), qdt)
+                    paged = paged_decode_attention(q, kp, vp, bt, cl)
+                    perr = _pair_hold(torch, paged,
+                                      paged_decode_attention_plain(
+                                          q, kp, vp, bt, cl), qdt)
+                    gathered = decode_attention(q, gather_pages(kp, bt),
+                                                gather_pages(vp, bt), cl)
+                    torch.cuda.synchronize()
+                    check(torch.equal(paged, gathered), "paged != dense")
+                except SmokeFailure as e:
+                    raise SmokeFailure(f"phase 20 {label}: {e}") from None
+                es = kc.element_size()
+                nbytes = (B * H * hd * 2 * q.element_size()
+                          + live * Kh * 2 * hd * es + B * 4)
+                t_bound, by = bound(nbytes, 2 * H * live * 2 * hd,
+                                    "float32")
+                r = {"max_abs_err": err, "paged_max_abs_err": perr,
+                     "ms": time_ms(torch, lambda: decode_attention(
+                         q, kc, vc, cl)),
+                     "paged_ms": time_ms(torch, lambda: paged_decode_attention(
+                         q, kp, vp, bt, cl)),
+                     "plain_ms": time_ms(torch, lambda: decode_attention_plain(
+                         q, kc, vc, cl), iters=5),
+                     "paged_plain_ms": time_ms(
+                         torch, lambda: paged_decode_attention_plain(
+                             q, kp, vp, bt, cl), iters=5),
+                     "bound_ms": t_bound, "bound_by": by,
+                     "library_ms": None}
+                out[label] = r
+                log(f"  {label:50s} max|err| {err:.3e} (paged {perr:.3e}, "
+                    f"== dense bits) {r['ms']:.4f} ms, paged "
+                    f"{r['paged_ms']:.4f}, plain {r['plain_ms']:.4f} and "
+                    f"{r['paged_plain_ms']:.4f}, bound {t_bound:.4f} ({by})")
+    log(f"  phase 20 (a) on {card}: {len(out)} (shape, q, cache) "
+        "cases held")
+    return out, decode_ptxas()
+
+
+def decode_ptxas():
+    """Per core and cache type, the most registers and the spill bytes
+    over the decode library's instantiations (this run's build log)."""
+    from repro_torch.kernels import build
+    out = {}
+    for fn, r in build.ptxas_report("decode_attention").items():
+        core = ("cluster" if "decode_cluster_kernel" in fn else "split"
+                if "decode_split_kernel" in fn else None)
+        if core is None:
+            continue
+        cdt = ("float8_e4m3fn" if "__nv_fp8_e4m3" in fn else "bfloat16"
+               if "__nv_bfloat16" in fn else "float32")
+        e = out.setdefault(f"{core} {cdt}", {"instantiations": 0,
+                                             "registers_max": 0,
+                                             "spill_bytes": 0})
+        e["instantiations"] += 1
+        e["registers_max"] = max(e["registers_max"], r.get("registers", 0))
+        e["spill_bytes"] += r.get("spill_stores", 0) + r.get("spill_loads",
+                                                             0)
+    log("  decode instantiations by core and cache type (-Xptxas -v): "
+        + json.dumps(out))
+    return out
+
+
+def _watch_decode(torch, calls, at):
+    """Wrap the model's decode entry point: keep (cloned) the inputs of
+    its ``at``-th call, and count the calls by (q, cache) dtypes."""
+    from repro_torch.models import layers
+    orig = layers.decode_attention
+    seen = collections.Counter()
+
+    def wrapped(q, k, v, *a, **kw):
+        n = sum(seen.values())
+        seen[(str(q.dtype), str(k.dtype))] += 1
+        if n == at:
+            calls["decode"] = ([x.detach().clone() if torch.is_tensor(x)
+                                else x for x in (q, k, v, *a)], dict(kw))
+        return orig(q, k, v, *a, **kw)
+    layers.decode_attention = wrapped
+    return orig, seen
+
+
+def _served_decode_hold(torch, calls, label):
+    """The captured call through the kernel and its plain version; it must
+    be a real one: q varying over the batch and v along the sequence."""
+    from repro_torch.kernels import decode_attention as DA
+    check("decode" in calls, f"phase 20 {label}: no decode call captured")
+    a, kw = calls["decode"]
+    check(_varies(a[0], 0) and _varies(a[1].float(), 2)
+          and _varies(a[2].float(), 2),
+          f"phase 20 {label}: the served decode call's q is constant over "
+          "the batch, or its k or v cache along the sequence")
+    with torch.no_grad():
+        got = DA.decode_attention(*a, **kw)
+        ref = DA.decode_attention_plain(*a, **kw)
+    err = float((got - ref).abs().max())
+    check(err <= TOL["float32"], f"phase 20 {label}: served decode off its "
+          f"plain version by {err}")
+    return {"max_abs_err": err, "q": str(a[0].dtype), "cache": str(a[1].dtype)}
+
+
+def narrow_cache_serving(torch, card, base_streams, one_rank):
+    """Phase 20 (b): full-width qwen1.5-0.5b (random f32 weights, seed 0)
+    through the engine with cache_dtype="bfloat16" (phase 5's 16
+    requests), and through one rank of build_prefill_step /
+    build_decode_step at PipelinePlan(kv_dtype="fp8") (phase 19's B 8 x 512
+    prefill and 16 decode steps, fed its one-rank path's tokens); each
+    path's launches counted from 0 just before and read just after, and one
+    served decode call of each held against its plain version."""
+    from repro_torch.configs.base import PipelinePlan, get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.pipeline import (build_decode_step,
+                                               build_prefill_step,
+                                               stack_params)
+    from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
+    from repro_torch.serving.workload import Request
+
+    dev = torch.device("cuda")
+    cfg = get_arch("qwen1.5-0.5b").config
+    f32 = torch.float32
+    free_weights(torch)
+    out = {}
+    # the engine, a bf16 cache under phase 5's f32 params
+    params = init_model(cfg, torch.Generator().manual_seed(0), f32, dev)
+    eng = FlexPipeEngine(cfg, params, [0, 12], EngineConfig(
+        max_batch=8, max_seq=1024, cache_dtype="bfloat16"))
+    caches = [t for c in eng.caches for t in c["mixer"].values()]
+    check(all(t.dtype == torch.bfloat16 for t in caches),
+          "phase 20: the engine's caches are not bf16")
+    reqs = make_requests(cfg, Request)
+    calls = {}
+    orig, seen = _watch_decode(torch, calls, KV_HOLD_TICK * cfg.n_layers
+                               + cfg.n_layers // 2)
+    # run() steps the engine; each step that decoded launches one decode
+    # per layer, each request's prefill one flash per layer (phase 5)
+    ticks_decoding, step = [0], eng.step
+
+    def counted_step(now):
+        rep = step(now)
+        ticks_decoding[0] += rep.decoded > 0
+        return rep
+    eng.step = counted_step
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        eng.run(reqs)
+    finally:
+        layers.decode_attention = orig
+        eng.step = step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    check(all(r.finish >= 0 and len(r.output) == 32 for r in reqs),
+          "phase 20: a request did not complete with 32 tokens")
+    L = cfg.n_layers
+    want_launches("the bf16-cache engine run", {"launches": launches}, {
+        "flash_attention": L * len(reqs),
+        "decode_attention": L * ticks_decoding[0],
+        "paged_decode_attention": 0})
+    same = sum(list(r.output) == base_streams[r.rid] for r in reqs)
+    out["engine_bf16_cache"] = {
+        "wall_s": wall, "launches": launches,
+        "ticks_decoding": ticks_decoding[0],
+        "calls_by_dtype": {f"q={a} cache={b}": n
+                           for (a, b), n in seen.items()},
+        "streams_equal_to_f32_cache": same,
+        "served_hold": _served_decode_hold(torch, calls, "engine")}
+    log("  engine, bf16 cache, f32 params: "
+        + json.dumps(out["engine_bf16_cache"]))
+    del eng, params
+    free_weights(torch)
+    # one rank of the pipeline steps at kv_dtype="fp8", on phase 19's
+    # one-rank weights
+    plan = PipelinePlan(microbatches=PAR_PLAN["microbatches"],
+                        kv_dtype="fp8")
+    ps, ds, _ = _par_shapes()
+    sp = stack_params(cfg, plan, init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), f32, dev))
+    pre, _ = build_prefill_step(cfg, plan, None, ps, f32)
+    dec, _ = build_decode_step(cfg, plan, None, ds, f32)
+    calls = {}
+    orig, seen = _watch_decode(torch, calls, KV_HOLD_TICK * cfg.n_layers
+                               * PAR_PLAN["microbatches"] + cfg.n_layers // 2)
+    tokens = torch.from_numpy(one_rank["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        last, kv = pre(sp, {"tokens": tokens})
+        leaves = [t for layer in kv.values() for part in layer.values()
+                  for t in part.values()]
+        check(all(t.dtype == torch.float8_e4m3fn for t in leaves),
+              "phase 20: the fp8 plan's caches are not float8_e4m3fn")
+        logits, times = [last], []
+        for i in range(PAR_DECODE):
+            tok = torch.from_numpy(one_rank["fed"][i]).to(dev)
+            t1 = time.perf_counter()
+            lg, kv = dec(sp, kv, tok, PAR_SQ + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            logits.append(lg)
+    finally:
+        layers.decode_attention = orig
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    ticks = PAR_PLAN["microbatches"]
+    want = {"flash_attention": ticks * cfg.n_layers,
+            "decode_attention": PAR_DECODE * ticks * cfg.n_layers}
+    for name, n in want.items():
+        check(launches.get(name, 0) == n, f"phase 20: {name} launched "
+              f"{launches.get(name, 0)} times on the fp8 path, not {n}")
+    errs, agree = [], 0
+    for i, lg in enumerate(logits):
+        lg = lg.float().cpu().numpy()
+        check(np.isfinite(lg).all(), "phase 20: non-finite fp8 logits")
+        errs.append(float(np.abs(lg - one_rank["logits"][i]).max()))
+        if i < PAR_DECODE:
+            agree += int((lg.argmax(-1) == one_rank["fed"][i][:, 0]).sum())
+    out["pipeline_fp8_cache"] = {
+        "launches": launches,
+        "calls_by_dtype": {f"q={a} cache={b}": n
+                           for (a, b), n in seen.items()},
+        "decode_ms": 1e3 * float(np.median(times)),
+        "logit_max_abs_diff_to_f32_cache": max(errs),
+        "greedy_equal_to_f32_cache": f"{agree} of {PAR_DECODE * PAR_B}",
+        "served_hold": _served_decode_hold(torch, calls, "fp8 pipeline")}
+    log(f"  one rank, PipelinePlan(kv_dtype='fp8'): "
+        f"{json.dumps(out['pipeline_fp8_cache'])}")
+    del sp, kv, logits
+    free_weights(torch)
+    return out
+
+
+def roofline_gaps(torch, card, measured):
+    """Phase 20 (c): launch/roofline.py's step_costs on H100_SXM (f32,
+    bytes_per_el=4) beside the steps measured earlier in this run: phase
+    18's qwen train step, phase 5/6's dense decode tick (one rank), and
+    phase 19's S = 2, T = 2 steps (4 ranks, on one card here).  The gap is
+    recorded, not tuned away."""
+    from repro_torch.configs.base import PipelinePlan, ShapeConfig, get_arch
+    from repro_torch.launch.roofline import H100_SXM, step_costs
+    cfg = get_arch("qwen1.5-0.5b").config
+    ps, ds, ts = _par_shapes()
+    cases = [
+        ("phase 18 train step, one rank", ShapeConfig("t", 512, 8, "train"),
+         PipelinePlan(microbatches=2, remat=True), 1, measured["train"]),
+        ("phase 5/6 decode tick, one rank", ShapeConfig("d", 1024, 8,
+                                                        "decode"),
+         PipelinePlan(), 1, measured["tick"]),
+        ("phase 19 prefill, S2 T2, a rank", ShapeConfig(
+            "p", PAR_SQ, PAR_B, "prefill"), PipelinePlan(**PAR_PLAN), 4,
+         measured["par_prefill"]),
+        ("phase 19 decode step, S2 T2, a rank", ds, PipelinePlan(**PAR_PLAN),
+         4, measured["par_decode"]),
+        ("phase 19 train step, S2 T2, a rank", ts,
+         PipelinePlan(**PAR_PLAN, remat=True), 4, measured["par_train"]),
+    ]
+    out = []
+    for label, shape, plan, model, ms in cases:
+        r = step_costs(cfg, shape, plan, pod=1, data=1, model=model,
+                       chip=H100_SXM, bytes_per_el=4)
+        pred = r["step_time_lower_bound_s"] * 1e3
+        row = {"case": label, "predicted_ms": pred,
+               "dominant": r["dominant"],
+               "compute_ms": r["compute_s"] * 1e3,
+               "memory_ms": r["memory_s"] * 1e3,
+               "collective_ms": r["collective_s"] * 1e3,
+               "measured": ms,
+               "measured_over_predicted": {k: v / pred for k, v in ms.items()
+                                           if isinstance(v, float)}}
+        out.append(row)
+        log(f"  {label:38s} roofline {pred:9.3f} ms ({r['dominant']}); "
+            f"measured {json.dumps(ms)}")
+    log(f"  phase 20 (c) on {card}: the roofline is a lower bound; each "
+        "measured step's gap to it is recorded above")
+    return out
+
+
+def narrow_cache_phase(torch, card, base_streams, one_rank, measured):
+    t0 = time.perf_counter()
+    pairs, regs = decode_pair_checks(torch, card)
+    served = narrow_cache_serving(torch, card, base_streams, one_rank)
+    gaps = roofline_gaps(torch, card, measured)
+    out = {"pairs": pairs, "ptxas": regs, "served": served,
+           "roofline": gaps, "s": time.perf_counter() - t0}
+    log(f"  phase 20 on {card}: {out['s']:.1f} s")
     return out
 
 
@@ -3457,7 +3839,7 @@ def main() -> int:
          "paged kernel refact.": dict(paged=True, block_size=16,
                                       paged_kernel=True)})
     log("== 6. where a dense decode tick's time goes")
-    profile_decode(torch, card, cfg, params, 20)
+    tick_profile = profile_decode(torch, card, cfg, params, 20)
     qwen = (cfg, params, base_reqs)           # phase 9 serves it again
     log("== 7. serving rwkv6-1.6b")
     # 1/10: a cold refactor's throwaway tick holds one layer's scratch
@@ -3526,6 +3908,22 @@ def main() -> int:
     log(f"== 19. multi-rank: {PAR_RANKS} ranks on one card (S = "
         f"{PAR_PLAN['stages']}, T = {PAR_PLAN['tensor']}, gloo)")
     p_out = parallel_phase(torch, card)
+    log("== 20. decode over bf16 and fp8 caches; the roofline beside the "
+        "card")
+    ranks = p_out["ranks"]
+    n_out = narrow_cache_phase(torch, card, base, p_out["one_rank"], {
+        "train": {"ms_per_step": t_out["qwen"]["ms_per_step"],
+                  "busy_ms_per_step": t_out["qwen"].get(
+                      "busy_ms_per_step", "not measured")},
+        "tick": {"ms_per_tick": runs["dense refactored"][
+            "decode_ms_per_tick"], "busy_ms_per_tick": tick_profile.get(
+                "busy_ms_per_tick", "not measured")},
+        "par_prefill": {"ms_per_rank_max": max(r["prefill_ms"]
+                                               for r in ranks)},
+        "par_decode": {"ms_per_rank_max": max(r["decode_ms"] for r in ranks),
+                       "one_rank_ms": p_out["one_rank"]["decode_ms"]},
+        "par_train": {"ms_per_rank_max": max(r["train_ms"] for r in ranks),
+                      "one_rank_ms": p_out["one_rank"]["train_ms"]}})
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -3640,6 +4038,25 @@ def main() -> int:
             kernels[-1]["parallel_launched_in"] = p_out["label"]
             kernels[-1]["parallel_served_max_abs_err"] = [
                 r["served_holds"][name] for r in p_out["ranks"]]
+        if name in ("decode_attention", "paged_decode_attention"):
+            # phase 20: every (q, cache) dtype pair at three shapes, and the
+            # launches of the two narrow-cache paths (both dense)
+            ms_key, plain_key, err_key = (
+                ("ms", "plain_ms", "max_abs_err")
+                if name == "decode_attention" else
+                ("paged_ms", "paged_plain_ms", "paged_max_abs_err"))
+            kernels[-1]["cache_pairs"] = {
+                label: {"ms": c[ms_key], "plain_ms": c[plain_key],
+                        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                        "max_abs_err": c[err_key],
+                        "library_ms": c["library_ms"]}
+                for label, c in n_out["pairs"].items()}
+            kernels[-1]["cache_pairs_ptxas"] = n_out["ptxas"]
+            for path, run in n_out["served"].items():
+                kernels[-1][f"launches_{path}"] = run["launches"].get(name, 0)
+                if name == "decode_attention":
+                    kernels[-1][f"{path}_served_max_abs_err"] = \
+                        run["served_hold"]["max_abs_err"]
         for key in ("hd256_window", "hd256_causal", "hd192_128",
                     "hd192_128_h128", "hd192_128_h128_1024",
                     "hd256_ring", "hd256_global", "hd128", "hd128_mha",
@@ -3682,7 +4099,9 @@ def main() -> int:
             kernels[-1]["parallel_served_max_abs_err"] = [
                 r["served_holds"][name] for r in p_out["ranks"]]
     log(f"  phase 18 (training) {t_out['s']:.1f} s; phase 19 (multi-rank) "
-        f"{p_out['s']:.1f} s")
+        f"{p_out['s']:.1f} s; phase 20 (narrow caches) {n_out['s']:.1f} s")
+    log("  phase 20 roofline against the card: " + json.dumps(
+        n_out["roofline"]))
     log(f"  phases 12-17: deepseek-moe-16b {d_out['s']:.1f} s, "
         f"jamba-v0.1-52b {j_out['s']:.1f} s, llama-3.2-vision-11b "
         f"{v_out['s']:.1f} s, whisper-tiny {w_out['s']:.1f} s, "

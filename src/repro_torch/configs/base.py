@@ -210,6 +210,11 @@ _REGISTRY: dict[str, "ArchSpec"] = {}
 class ArchSpec:
     config: ModelConfig
     smoke_config: ModelConfig
+    default_plans: dict[str, PipelinePlan]          # shape name -> plan
+    skip_shapes: tuple[str, ...] = ()     # e.g. long_500k for full attention
+
+    def plan_for(self, shape: str) -> PipelinePlan:
+        return self.default_plans[shape]
 
 
 def register(spec: ArchSpec) -> ArchSpec:
@@ -225,6 +230,12 @@ def get_arch(name: str) -> ArchSpec:
                        "(other architectures are still to be ported, see "
                        "ROADMAP.md)")
     return _REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
 
 
 def _load_all() -> None:

@@ -4,8 +4,8 @@
 As in the JAX package, the real model's first dense layer is an MoE layer
 like the rest, so every stage holds one layer kind (~0.4% of params).
 """
-from repro_torch.configs.base import (MLP_MOE, ArchSpec, LayerKind,
-                                      ModelConfig, MoEConfig, register,
+from repro_torch.configs.base import (MLP_MOE, ArchSpec, LayerKind, MoEConfig,
+                                      ModelConfig, PipelinePlan, register,
                                       shrink)
 
 CONFIG = ModelConfig(
@@ -21,4 +21,14 @@ SMOKE = shrink(CONFIG, n_layers=4, d_model=64, n_heads=4, n_kv_heads=4,
                moe=MoEConfig(n_experts=8, top_k=2, d_expert=96, n_shared=1,
                              capacity_factor=4.0))
 
-register(ArchSpec(config=CONFIG, smoke_config=SMOKE))
+register(ArchSpec(
+    config=CONFIG, smoke_config=SMOKE,
+    default_plans={
+        "train_4k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=8, fsdp=True),
+        "prefill_32k": PipelinePlan(stages=2, tensor=8, replica=1, microbatches=1),
+        "decode_32k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=4),
+        "long_500k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=1,
+                                  seq_parallel_kv=True),
+    },
+    skip_shapes=("long_500k",),   # pure full attention
+))

@@ -5,9 +5,9 @@ MLA: q_lora=1536, nope_head_dim=128, rope_head_dim=64, v_head_dim=128.
 As in the JAX package, the real model's first dense layer is an MoE layer
 like the rest, so every stage holds one layer kind.
 """
-from repro_torch.configs.base import (MIXER_MLA, MLP_MOE, ArchSpec,
-                                      LayerKind, MLAConfig, ModelConfig,
-                                      MoEConfig, register, shrink)
+from repro_torch.configs.base import (MIXER_MLA, MLP_MOE, ArchSpec, LayerKind,
+                                      MLAConfig, MoEConfig, ModelConfig,
+                                      PipelinePlan, register, shrink)
 
 CONFIG = ModelConfig(
     name="deepseek-v2-236b", family="moe", n_layers=60, d_model=5120,
@@ -26,4 +26,15 @@ SMOKE = shrink(CONFIG, n_layers=4, d_model=64, n_heads=4, n_kv_heads=4,
                mla=MLAConfig(kv_lora_rank=32, q_lora_rank=48, rope_head_dim=8,
                              nope_head_dim=16, v_head_dim=16))
 
-register(ArchSpec(config=CONFIG, smoke_config=SMOKE))
+register(ArchSpec(
+    config=CONFIG, smoke_config=SMOKE,
+    default_plans={
+        "train_4k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=8, fsdp=True),
+        "prefill_32k": PipelinePlan(stages=2, tensor=8, replica=1, microbatches=1),
+        "decode_32k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=4),
+        "long_500k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=1,
+                                  seq_parallel_kv=True),
+    },
+    # MLA compresses the per-token cache but attention over 500k stays dense
+    skip_shapes=("long_500k",),
+))

@@ -8,8 +8,8 @@ at odd ones.  Mamba layers carry O(1) state (a ``d_conv - 1``-row conv
 history and a ``d_inner x d_state`` SSM state per slot).
 """
 from repro_torch.configs.base import (MIXER_ATTN, MIXER_MAMBA, MLP_DENSE,
-                                      MLP_MOE, ArchSpec, LayerKind,
-                                      ModelConfig, MoEConfig, SSMConfig,
+                                      MLP_MOE, ArchSpec, LayerKind, MoEConfig,
+                                      ModelConfig, PipelinePlan, SSMConfig,
                                       register, shrink)
 
 _PATTERN = tuple(
@@ -32,4 +32,13 @@ SMOKE = shrink(CONFIG, n_layers=8, d_model=64, n_heads=4, n_kv_heads=2,
                              capacity_factor=4.0),
                ssm=SSMConfig(d_state=8, d_conv=4, expand=2))
 
-register(ArchSpec(config=CONFIG, smoke_config=SMOKE))
+register(ArchSpec(
+    config=CONFIG, smoke_config=SMOKE,
+    default_plans={
+        "train_4k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=8, fsdp=True),
+        "prefill_32k": PipelinePlan(stages=2, tensor=8, replica=1, microbatches=1),
+        "decode_32k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=4),
+        "long_500k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=1,
+                                  seq_parallel_kv=True),
+    },
+))

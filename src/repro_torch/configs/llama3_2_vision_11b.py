@@ -8,7 +8,8 @@ The repeating pattern is 5 layers: 4 self attention, then 1 cross
 attention whose output enters the residual through ``tanh(gate)``.
 """
 from repro_torch.configs.base import (MIXER_CROSS, ArchSpec, LayerKind,
-                                      ModelConfig, register, shrink)
+                                      ModelConfig, PipelinePlan, register,
+                                      shrink)
 
 CONFIG = ModelConfig(
     name="llama-3.2-vision-11b", family="vlm", n_layers=40, d_model=4096,
@@ -21,4 +22,14 @@ CONFIG = ModelConfig(
 SMOKE = shrink(CONFIG, n_layers=5, d_model=64, n_heads=4, n_kv_heads=2,
                d_ff=160, vocab_size=512, n_memory_tokens=8)
 
-register(ArchSpec(config=CONFIG, smoke_config=SMOKE))
+register(ArchSpec(
+    config=CONFIG, smoke_config=SMOKE,
+    default_plans={
+        "train_4k": PipelinePlan(stages=8, tensor=2, replica=1, microbatches=8, fsdp=True),
+        "prefill_32k": PipelinePlan(stages=2, tensor=8, replica=1, microbatches=1),
+        "decode_32k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=4),
+        "long_500k": PipelinePlan(stages=4, tensor=4, replica=1, microbatches=1,
+                                  seq_parallel_kv=True),
+    },
+    skip_shapes=("long_500k",),   # pure full attention backbone
+))

@@ -5,8 +5,8 @@ No KV cache: decode state is O(1) per layer (two token-shift rows and one
 hd x hd WKV matrix per head).
 """
 from repro_torch.configs.base import (MIXER_RWKV, ArchSpec, LayerKind,
-                                      ModelConfig, SSMConfig, register,
-                                      shrink)
+                                      ModelConfig, PipelinePlan, SSMConfig,
+                                      register, shrink)
 
 CONFIG = ModelConfig(
     name="rwkv6-1.6b", family="ssm", n_layers=24, d_model=2048,
@@ -20,4 +20,13 @@ SMOKE = shrink(CONFIG, n_layers=4, d_model=64, n_heads=4, n_kv_heads=4,
                d_ff=160, vocab_size=512,
                ssm=SSMConfig(head_size=16, decay_lora=8, mix_lora=8))
 
-register(ArchSpec(config=CONFIG, smoke_config=SMOKE))
+register(ArchSpec(
+    config=CONFIG, smoke_config=SMOKE,
+    default_plans={
+        "train_4k": PipelinePlan(stages=8, tensor=2, replica=1, microbatches=8),
+        "prefill_32k": PipelinePlan(stages=2, tensor=8, replica=1, microbatches=1),
+        "decode_32k": PipelinePlan(stages=4, tensor=2, replica=2, microbatches=2),
+        # O(1) state: no seq-parallel needed; data axis idles at batch 1
+        "long_500k": PipelinePlan(stages=8, tensor=2, replica=1, microbatches=1),
+    },
+))

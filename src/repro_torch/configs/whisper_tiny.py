@@ -7,7 +7,7 @@ two-matrix gelu MLP, and a cross-attention sub-block after every decoder
 layer's self attention (``extra_cross``).
 """
 from repro_torch.configs.base import (ArchSpec, LayerKind, ModelConfig,
-                                      register, shrink)
+                                      PipelinePlan, register, shrink)
 
 CONFIG = ModelConfig(
     name="whisper-tiny", family="audio", n_layers=4, d_model=384,
@@ -20,4 +20,13 @@ CONFIG = ModelConfig(
 SMOKE = shrink(CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
                d_ff=160, vocab_size=512, encoder_layers=2, n_memory_tokens=10)
 
-register(ArchSpec(config=CONFIG, smoke_config=SMOKE))
+register(ArchSpec(
+    config=CONFIG, smoke_config=SMOKE,
+    default_plans={
+        "train_4k": PipelinePlan(stages=1, tensor=2, replica=8, microbatches=1),
+        "prefill_32k": PipelinePlan(stages=1, tensor=16, replica=1, microbatches=1),
+        "decode_32k": PipelinePlan(stages=1, tensor=4, replica=4, microbatches=1),
+        "long_500k": PipelinePlan(stages=1, tensor=16, replica=1, microbatches=1),
+    },
+    skip_shapes=("long_500k",),   # enc-dec; 500k decode outside model family
+))

@@ -18,6 +18,14 @@ The backward kernels count under ``flash_attention_bwd`` and ``wkv6_bwd``
 Under autograd a wrapper either goes through an ``autograd.Function``
 whose backward is a kernel too (flash attention, wkv6) or raises
 (``refuse_grad``: the decode kernels, which nothing differentiates).
+
+Tensors on the ``meta`` device (``launch/dryrun.py`` runs a step at full
+size on them) take a third route (``route``): the wrapper runs the checks
+it runs before a launch, all but the data's alignment, so a call the card
+refuses raises there too, then returns ``meta_outputs``, the call's
+outputs as shapes with no data, differentiable to its inputs' shapes.  It
+computes nothing, so it is no fallback: a CPU tensor still takes the
+plain version and a CUDA tensor the kernel.
 """
 from __future__ import annotations
 
@@ -45,16 +53,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: dict[str, dict[str, list]] = {
     "decode_attention": {
         # q, k, v, cache_len, scratch, tickets, out,
-        # B, H, Kh, Smax, hd, hdv, scale, dtype, cluster, smem, stream
+        # B, H, Kh, Smax, hd, hdv, scale, q dtype, cache dtype, cluster,
+        # smem, stream
         "decode_attention_launch":
             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-             _I, _P],
+             _I, _I, _P],
         # q, k_pool, v_pool, tables, cache_len, scratch, tickets, out,
-        # B, H, Kh, block_size, M, hd, hdv, scale, dtype, cluster, smem,
-        # stream
+        # B, H, Kh, block_size, M, hd, hdv, scale, q dtype, cache dtype,
+        # cluster, smem, stream
         "paged_decode_attention_launch":
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-             _I, _I, _I, _P],
+             _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         # q, k, v, out, scratch, B, Sq, Skv, H, Kh, hd, hdv,
@@ -203,15 +212,41 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
     return out
 
 
-def plain_path(t, what: str) -> bool:
-    """Which way a wrapper goes for its input ``t``: True on the CPU (the
-    plain PyTorch version), False on CUDA (the kernel); any other device
-    raises."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type == "cuda":
-        return False
-    raise ValueError(f"{what}: no kernel for {t.device}")
+def route(t, what: str) -> str:
+    """Which way a wrapper goes for its input ``t``: ``"plain"`` on the CPU
+    (the plain PyTorch version), ``"kernel"`` on CUDA, ``"meta"`` on meta
+    tensors (shapes only: the wrapper checks its inputs as for the kernel,
+    then returns ``meta_outputs``); any other device raises."""
+    kind = {"cpu": "plain", "cuda": "kernel", "meta": "meta"}.get(
+        t.device.type)
+    if kind is None:
+        raise ValueError(f"{what}: no kernel for {t.device}")
+    return kind
+
+
+class _Shapes(torch.autograd.Function):
+    """A kernel's call on meta tensors: ``make()``'s outputs, and as the
+    gradients, meta tensors of the tensor inputs' shapes."""
+
+    @staticmethod
+    def forward(ctx, make, *inputs):
+        ctx.like = [(t.shape, t.dtype) if torch.is_tensor(t) else None
+                    for t in inputs]
+        return make()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(None if x is None else
+                        torch.empty(x[0], dtype=x[1], device="meta")
+                        for x in ctx.like))
+
+
+def meta_outputs(make, *inputs):
+    """The meta route of a wrapper: ``make()``, a tensor or a tuple of meta
+    tensors of the outputs' shapes and dtypes; where autograd records the
+    call, the gradients of ``inputs`` are meta tensors of their shapes.
+    Counts no launch."""
+    return _Shapes.apply(make, *inputs)
 
 
 def needs_grad(*tensors) -> bool:

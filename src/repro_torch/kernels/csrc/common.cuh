@@ -9,6 +9,7 @@ namespace rt {
 
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
+constexpr int kDtypeFP8 = 2;        // float8_e4m3fn, a plain cast (no scale)
 constexpr float kNegInf = -1e30f;   // finite mask value, as the Pallas kernels
 constexpr unsigned kFull = 0xffffffffu;
 

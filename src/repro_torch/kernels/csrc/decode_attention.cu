@@ -23,16 +23,29 @@
 // paged == dense invariant).  A paged CTA reads block_tables[b, p / bs]
 // itself.  A wrapper call counts as one launch in build.launches.
 //
+// The cache may be narrower than the query, as the Pallas kernels allow
+// (they widen every q, k and v block to f32 on read): q is f32 or bf16, the
+// cache (dense rows or pools) f32, bf16 or float8_e4m3fn, a plain cast with
+// no scale, as the reference's kv_dtype="fp8" writes it.  Each core is
+// templated on the cache's element type only: K and V are read narrow and
+// widened in registers (fp8 through cuda_fp8.h's e4m3x2 -> f16x2, exact, then
+// f32), q is read once per CTA into f32 whatever its dtype, and the output
+// is written in q's dtype, so the instantiations grow with the cache types
+// (three), not with the pairs (six).  Everything after the widening is f32,
+// so an f32/f32 or bf16/bf16 call computes what it did before the cache
+// type was split from q's.
+//
 // hd <= 128 (decode_split_kernel, then decode_combine_kernel: two CUDA
 // launches on one stream, no atomics):
 //   * one CTA of 4 warps per (b*Kh + kh, chunk), so a slot with a long
 //     cache spreads over many SMs; a CTA whose chunk starts at or past
 //     cache_len[b] exits at once;
 //   * inside a chunk warp w takes positions [32w, 32w + 32); each K or V row
-//     is read as 16-byte vectors (float4 or 8 bf16) by the lanes of one row
-//     group, so one load instruction of the warp covers 32 / (lanes per
-//     row) whole rows (2 at hd=64 f32), and up to four of them are issued
-//     before any is used;
+//     is read as 16-byte vectors (float4, 8 bf16 or 16 fp8; 8-byte vectors
+//     of 8 fp8 at G > 4) by the lanes of one row group, so one load
+//     instruction of the warp covers 32 / (lanes per row) whole rows (2 at
+//     hd=64 f32, 8 at hd=64 fp8), and up to four of them are issued before
+//     any is used;
 //   * a row's q.k is reduced by a fixed-order xor-shuffle across its lanes;
 //     each row group keeps an online-softmax state per query row (the G =
 //     H/Kh rows of a kv head share every K/V row read), the groups merge by
@@ -91,16 +104,18 @@
 // mbarriers in 16 bytes; K and V 32 x HD each; in f32: q (KG x 256), the
 // warps' partial scores (4 x KG x 32), P (KG x 32), the CTA's acc (KG x
 // 256), m and l (2 x KG).  f32 KG = 4: 16 + 65,536 + 10,784 = 76,336 B;
-// bf16: 43,568 B.  The bound stays bytes: gemma3-1b's phase-3 shapes read
-// 4.2 MB (ring) and 7.3 MB (global) of K and V, 1.3 and 2.2 us at 3.35
-// TB/s.  On an H100 the kernel's time is a chain of latencies, not
-// bandwidth (tools/kernel_stages.py times each stage): the copies are
-// issued, the slice lands, then S and the softmax, P.V, the cluster
-// barrier and merge, and the ticket and folded combine each take
-// 500-2,500 cycles.
+// bf16: 43,568 B; fp8: 27,184 B.  The bound stays bytes: gemma3-1b's
+// phase-3 shapes read 4.2 MB (ring) and 7.3 MB (global) of f32 K and V,
+// 1.3 and 2.2 us at 3.35 TB/s.  On an H100 the kernel's time is a chain
+// of latencies, not bandwidth (tools/kernel_stages.py times each stage):
+// the copies are issued, the slice lands, then S and the softmax, P.V,
+// the cluster barrier and merge, and the ticket and folded combine each
+// take 500-2,500 cycles.
 #include <stdint.h>
 
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 
 #include "common.cuh"
 
@@ -116,25 +131,70 @@ constexpr int kWideHD = 256;                // head size of the cluster core
 constexpr int kCluster = 4;                 // CTAs per chunk at hd 256
 constexpr int kSlice = kChunk / kCluster;   // positions per CTA at hd 256
 
-// a 16-byte vector of T, widened to f32 into f[0, 16 / sizeof(T))
-template <typename T>
-__device__ __forceinline__ void widen(const uint4& u, float* f);
-template <>
-__device__ __forceinline__ void widen<float>(const uint4& u, float* f) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
+using fp8 = __nv_fp8_e4m3;
+
+// two e4m3 values (the low byte first) to f32, exactly: e4m3 -> f16 holds
+// every value, and f16 -> f32 too
+__device__ __forceinline__ float2 fp8x2_to_float2(uint32_t x) {
+  const __half2_raw h =
+      __nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(x),
+                                 __NV_E4M3);
+  return __half22float2(__half2(h));
 }
-template <>
-__device__ __forceinline__ void widen<__nv_bfloat16>(const uint4& u,
-                                                     float* f) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+
+// the 32-bit words of a loaded vector
+__device__ __forceinline__ void words(const uint4& u, uint32_t* w) {
+  w[0] = u.x;
+  w[1] = u.y;
+  w[2] = u.z;
+  w[3] = u.w;
+}
+__device__ __forceinline__ void words(const uint2& u, uint32_t* w) {
+  w[0] = u.x;
+  w[1] = u.y;
+}
+
+// a vector of VB bytes (16 or 8) of the cache
+template <int VB> struct Vec;
+template <> struct Vec<16> { using type = uint4; };
+template <> struct Vec<8> { using type = uint2; };
+
+// a vector of VB bytes of T, widened to f32 into f[0, VB / sizeof(T))
+template <typename T, typename V>
+__device__ __forceinline__ void widen(const V& u, float* f) {
+  constexpr int NW = sizeof(V) / 4;
+  uint32_t w[NW];
+  words(u, w);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);           // bf16 -> f32 exactly
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  for (int i = 0; i < NW; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      f[i] = __uint_as_float(w[i]);
+    } else if constexpr (sizeof(T) == 2) {
+      f[2 * i] = __uint_as_float(w[i] << 16);         // bf16 -> f32 exactly
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      const float2 a = fp8x2_to_float2(w[i] & 0xffffu);
+      const float2 b = fp8x2_to_float2(w[i] >> 16);
+      f[4 * i] = a.x;
+      f[4 * i + 1] = a.y;
+      f[4 * i + 2] = b.x;
+      f[4 * i + 3] = b.y;
+    }
   }
+}
+
+// element i of q, f32 or bf16 by the call's query dtype
+__device__ __forceinline__ float load_q(const void* q, int64_t i, bool bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i])
+              : static_cast<const float*>(q)[i];
+}
+// element i of the output, in q's dtype
+__device__ __forceinline__ void store_out(void* out, int64_t i, float x,
+                                          bool bf16) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(x);
+  else
+    static_cast<float*>(out)[i] = x;
 }
 
 // the cache row of logical position p of (b, kh)
@@ -154,12 +214,18 @@ __device__ __forceinline__ int64_t cache_row(const int* tables, int b, int kh,
 
 template <typename T, int HD, int KG, bool PAGED>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+decode_split_kernel(const void* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ cache_len,
                     const int* __restrict__ tables, float* __restrict__ part,
-                    int H, int Kh, int rows, int M, int nch, float scale) {
-  // rows: Smax (dense) or block_size (paged); M: table width (paged)
-  constexpr int VEC = 16 / sizeof(T);         // elements per 16-byte load
+                    int H, int Kh, int rows, int M, int nch, float scale,
+                    bool q_bf16) {
+  // rows: Smax (dense) or block_size (paged); M: table width (paged).
+  // A lane loads 16-byte vectors of the cache, or 8-byte ones for fp8 at
+  // KG 8, where 16 elements of q and acc per query row would not fit in
+  // registers; the lanes then hold what they hold at bf16.
+  constexpr int VB = (sizeof(T) == 1 && KG > 4) ? 8 : 16;
+  using V = typename Vec<VB>::type;
+  constexpr int VEC = VB / sizeof(T);         // elements per vector load
   constexpr int LPR = HD / VEC;               // lanes per cache row
   constexpr int RPI = 32 / LPR;               // rows per warp-wide load
   constexpr int STEPS = kPerWarp / RPI;
@@ -191,8 +257,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int g = 0; g < KG; ++g) {
 #pragma unroll
     for (int e = 0; e < VEC; ++e)
-      qv[g][e] = g < G ? rt::to_f32(q[((int64_t)b * H + kh * G + g) * HD +
-                                      c * VEC + e]) *
+      qv[g][e] = g < G ? load_q(q,
+                                ((int64_t)b * H + kh * G + g) * HD + c * VEC +
+                                    e,
+                                q_bf16) *
                              scale
                        : 0.f;
   }
@@ -208,18 +276,18 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int w0 = c0 + warp * kPerWarp;
 #pragma unroll 1
   for (int i0 = 0; i0 < STEPS && w0 + i0 * RPI < len; i0 += U) {
-    uint4 kr[U], vr[U];
+    V kr[U], vr[U];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = w0 + (i0 + u) * RPI + r;
       ok[u] = p < len;
-      kr[u] = make_uint4(0u, 0u, 0u, 0u);
+      kr[u] = V{};
       vr[u] = kr[u];
       if (ok[u]) {
         const int64_t row = cache_row<PAGED>(tables, b, kh, Kh, rows, M, p);
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(k + row * HD) + c);
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(v + row * HD) + c);
+        kr[u] = __ldg(reinterpret_cast<const V*>(k + row * HD) + c);
+        vr[u] = __ldg(reinterpret_cast<const V*>(v + row * HD) + c);
       }
     }
 #pragma unroll
@@ -305,11 +373,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_combine_kernel(const float* __restrict__ part,
-                      const int* __restrict__ cache_len, T* __restrict__ out,
-                      int H, int Kh, int cap, int nch) {
+                      const int* __restrict__ cache_len, void* __restrict__ out,
+                      int H, int Kh, int cap, int nch, bool out_bf16) {
   const int bkh = blockIdx.x;
   const int b = bkh / Kh;
   const int kh = bkh % Kh;
@@ -329,8 +397,8 @@ decode_combine_kernel(const float* __restrict__ part,
       L += ps[1] * cs;
       O += ps[2 + d] * cs;
     }
-    out[((int64_t)b * H + kh * G + g) * HD + d] =
-        rt::from_f32<T>(O / fmaxf(L, 1e-30f));
+    store_out(out, ((int64_t)b * H + kh * G + g) * HD + d,
+              O / fmaxf(L, 1e-30f), out_bf16);
   }
 }
 
@@ -408,13 +476,13 @@ __device__ __forceinline__ void cluster_wait() {
 
 template <typename T, int KG, bool PAGED>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
+decode_cluster_kernel(const void* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const int* __restrict__ cache_len,
                       const int* __restrict__ tables,
                       float* __restrict__ part, int* __restrict__ tickets,
-                      T* __restrict__ out, int H, int Kh, int rows, int M,
-                      int nch, float scale) {
+                      void* __restrict__ out, int H, int Kh, int rows, int M,
+                      int nch, float scale, bool q_bf16) {
   constexpr int HD = kWideHD;
   constexpr int NT = kWarps * 32;
   constexpr int VEC = 16 / sizeof(T);
@@ -450,8 +518,9 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (c0 >= len) {                        // dead chunk: the whole cluster
     if (len <= 0 && chunk == 0)           // an empty slot's output is 0
       for (int i = threadIdx.x; i < G * CW; i += NT)
-        out[((int64_t)b * H + kh * G + i / CW) * HD + rank * CW + i % CW] =
-            rt::from_f32<T>(0.f);
+        store_out(out,
+                  ((int64_t)b * H + kh * G + i / CW) * HD + rank * CW + i % CW,
+                  0.f, q_bf16);
     return;
   }
   const int s0 = c0 + rank * kSlice;
@@ -485,7 +554,7 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   // q, scaled, in f32 (rows past G are never read)
   for (int i = tid; i < G * HD; i += NT)
-    qs[i] = rt::to_f32(q[((int64_t)b * H + kh * G) * HD + i]) * scale;
+    qs[i] = load_q(q, ((int64_t)b * H + kh * G) * HD + i, q_bf16) * scale;
   __syncthreads();   // q, and the barriers' initialisation
 
   if (n > 0) {
@@ -552,11 +621,16 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
             *reinterpret_cast<const float2*>(vs + j * HD + 2 * tid);
         v0 = x.x;
         v1 = x.y;
-      } else {
+      } else if constexpr (sizeof(T) == 2) {
         const __nv_bfloat162 x =
             *reinterpret_cast<const __nv_bfloat162*>(vs + j * HD + 2 * tid);
         v0 = __low2float(x);
         v1 = __high2float(x);
+      } else {
+        const float2 x = fp8x2_to_float2(
+            *reinterpret_cast<const uint16_t*>(vs + j * HD + 2 * tid));
+        v0 = x.x;
+        v1 = x.y;
       }
 #pragma unroll
       for (int g = 0; g < KG; ++g) {
@@ -678,8 +752,8 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < PER; ++e) {
       const int i = tid + e * NT, g = i / CW, d = rank * CW + i % CW;
       if (i < G * CW)
-        out[((int64_t)b * H + kh * G + g) * HD + d] =
-            rt::from_f32<T>(O[e] / fmaxf(gl[0][g], 1e-30f));
+        store_out(out, ((int64_t)b * H + kh * G + g) * HD + d,
+                  O[e] / fmaxf(gl[0][g], 1e-30f), q_bf16);
     }
   }
   cluster_wait();   // no CTA leaves while another may read its memory
@@ -692,20 +766,20 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD, int KG, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* tables,
            const void* cache_len, void* scratch, void* out, int B, int H,
-           int Kh, int rows, int M, float scale, cudaStream_t stream) {
+           int Kh, int rows, int M, float scale, bool q_bf16,
+           cudaStream_t stream) {
   const int cap = PAGED ? M * rows : rows;
   const int nch = cap > 0 ? (cap + kChunk - 1) / kChunk : 1;
   decode_split_kernel<T, HD, KG, PAGED>
       <<<dim3(B * Kh, nch), kWarps * 32, 0, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const int*>(cache_len),
-          static_cast<const int*>(tables), static_cast<float*>(scratch), H,
-          Kh, rows, M, nch, scale);
+          q, static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const int*>(cache_len), static_cast<const int*>(tables),
+          static_cast<float*>(scratch), H, Kh, rows, M, nch, scale, q_bf16);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  decode_combine_kernel<T, HD><<<B * Kh, kWarps * 32, 0, stream>>>(
+  decode_combine_kernel<HD><<<B * Kh, kWarps * 32, 0, stream>>>(
       static_cast<const float*>(scratch), static_cast<const int*>(cache_len),
-      static_cast<T*>(out), H, Kh, cap, nch);
+      out, H, Kh, cap, nch, q_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -713,7 +787,8 @@ template <typename T, int KG, bool PAGED>
 int launch_wide(const void* q, const void* k, const void* v,
                 const void* tables, const void* cache_len, void* scratch,
                 void* tickets, void* out, int B, int H, int Kh, int rows,
-                int M, float scale, int smem, cudaStream_t stream) {
+                int M, float scale, bool q_bf16, int smem,
+                cudaStream_t stream) {
   constexpr int bytes = wide_smem<T, KG>();
   static_assert(bytes <= 227 * 1024, "slice does not fit in shared memory");
   const int cap = PAGED ? M * rows : rows;
@@ -736,36 +811,39 @@ int launch_wide(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(q),
-                         static_cast<const T*>(k), static_cast<const T*>(v),
+  e = cudaLaunchKernelEx(&cfg, kern, q, static_cast<const T*>(k),
+                         static_cast<const T*>(v),
                          static_cast<const int*>(cache_len),
                          static_cast<const int*>(tables),
                          static_cast<float*>(scratch),
-                         static_cast<int*>(tickets), static_cast<T*>(out), H,
-                         Kh, rows, M, nch, scale);
+                         static_cast<int*>(tickets), out, H, Kh, rows, M, nch,
+                         scale, q_bf16);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// cluster and smem: the geometry kernels/decode_attention.py computed (1
-// and 0 for hd <= 128; kCluster and wide_smem at hd 256); any other is
-// refused
+// qdtype: q's and the output's (f32 or bf16); cdtype: the cache's (f32,
+// bf16 or fp8).  cluster and smem: the geometry kernels/decode_attention.py
+// computed (1 and 0 for hd <= 128; kCluster and wide_smem at hd 256); any
+// other is refused
 template <bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const void* tables,
              const void* cache_len, void* scratch, void* tickets, void* out,
              int B, int H, int Kh, int rows, int M, int hd, int hdv,
-             float scale, int dtype, int cluster, int smem, void* stream) {
+             float scale, int qdtype, int cdtype, int cluster, int smem,
+             void* stream) {
   if (B <= 0 || Kh <= 0 || H % Kh != 0 || H / Kh > kMaxG || rows < 0 ||
-      M < 0)
+      M < 0 || (qdtype != rt::kDtypeF32 && qdtype != rt::kDtypeBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / Kh;
+  const bool q_bf16 = qdtype == rt::kDtypeBF16;
   if (hd == kWideHD && hdv == kWideHD) {
     if (cluster != kCluster) return static_cast<int>(cudaErrorInvalidValue);
 #define RT_W(T, KG)                                                        \
   return launch_wide<T, KG, PAGED>(q, k, v, tables, cache_len, scratch,    \
                                    tickets, out, B, H, Kh, rows, M, scale, \
-                                   smem, s);
+                                   q_bf16, smem, s);
 #define RT_WIDE(T)                                                         \
   {                                                                        \
     if (G == 1) RT_W(T, 1)                                                 \
@@ -773,8 +851,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
     if (G <= 4) RT_W(T, 4)                                                 \
     RT_W(T, 8)                                                             \
   }
-    if (dtype == rt::kDtypeF32) RT_WIDE(float)
-    if (dtype == rt::kDtypeBF16) RT_WIDE(__nv_bfloat16)
+    if (cdtype == rt::kDtypeF32) RT_WIDE(float)
+    if (cdtype == rt::kDtypeBF16) RT_WIDE(__nv_bfloat16)
+    if (cdtype == rt::kDtypeFP8) RT_WIDE(fp8)
 #undef RT_WIDE
 #undef RT_W
     return static_cast<int>(cudaErrorInvalidValue);
@@ -783,7 +862,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
     return static_cast<int>(cudaErrorInvalidValue);
 #define RT_G(T, D, KG)                                                     \
   return launch<T, D, KG, PAGED>(q, k, v, tables, cache_len, scratch, out, \
-                                 B, H, Kh, rows, M, scale, s);
+                                 B, H, Kh, rows, M, scale, q_bf16, s);
 #define RT_CASE(T, D)                                                      \
   if (hd == D && hdv == D) {                                               \
     if (G == 1) RT_G(T, D, 1)                                              \
@@ -791,12 +870,14 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
     if (G <= 4) RT_G(T, D, 4)                                              \
     RT_G(T, D, 8)                                                          \
   }
-  if (dtype == rt::kDtypeF32) {
+  if (cdtype == rt::kDtypeF32) {
     RT_CASE(float, 16) RT_CASE(float, 32) RT_CASE(float, 64)
     RT_CASE(float, 128)
-  } else if (dtype == rt::kDtypeBF16) {
+  } else if (cdtype == rt::kDtypeBF16) {
     RT_CASE(__nv_bfloat16, 16) RT_CASE(__nv_bfloat16, 32)
     RT_CASE(__nv_bfloat16, 64) RT_CASE(__nv_bfloat16, 128)
+  } else if (cdtype == rt::kDtypeFP8) {
+    RT_CASE(fp8, 16) RT_CASE(fp8, 32) RT_CASE(fp8, 64) RT_CASE(fp8, 128)
   }
 #undef RT_CASE
 #undef RT_G
@@ -810,19 +891,19 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        void* scratch, void* tickets,
                                        void* out, int B, int H, int Kh,
                                        int Smax, int hd, int hdv, float scale,
-                                       int dtype, int cluster, int smem,
-                                       void* stream) {
+                                       int qdtype, int cdtype, int cluster,
+                                       int smem, void* stream) {
   return dispatch<false>(q, k, v, nullptr, cache_len, scratch, tickets, out,
-                         B, H, Kh, Smax, 0, hd, hdv, scale, dtype, cluster,
-                         smem, stream);
+                         B, H, Kh, Smax, 0, hd, hdv, scale, qdtype, cdtype,
+                         cluster, smem, stream);
 }
 
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* cache_len, void* scratch, void* tickets, void* out, int B,
     int H, int Kh, int block_size, int M, int hd, int hdv, float scale,
-    int dtype, int cluster, int smem, void* stream) {
+    int qdtype, int cdtype, int cluster, int smem, void* stream) {
   return dispatch<true>(q, k_pool, v_pool, tables, cache_len, scratch,
                         tickets, out, B, H, Kh, block_size, M, hd, hdv, scale,
-                        dtype, cluster, smem, stream);
+                        qdtype, cdtype, cluster, smem, stream);
 }

@@ -10,7 +10,10 @@ dense caches ``(B, Kh, Smax, hd/hdv)``; pools ``(n_blocks, Kh, block_size,
 hd/hdv)`` with ``block_tables (B, M)`` int32 (0 = the null block);
 ``cache_len`` a scalar or ``(B,)``; f32 online softmax with a finite
 ``-1e30`` mask; out ``(B, H, hdv)`` in q's dtype.  Positions at or past
-``cache_len`` contribute exactly zero, whatever those rows hold.
+``cache_len`` contribute exactly zero, whatever those rows hold.  As the
+Pallas kernels widen every block to f32 on read, the cache may be narrower
+than the query: q f32 or bf16, the cache f32, bf16 or ``float8_e4m3fn`` (a
+plain cast with no scale, as ``PipelinePlan(kv_dtype="fp8")`` writes it).
 
 The kernel splits the logical positions into fixed chunks of ``CHUNK``
 (split-KV), writes one partial softmax state per live chunk into an f32
@@ -39,7 +42,10 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}      # q and the output
+# the cache's element types (rt::kDtype* in csrc/common.cuh)
+CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1,
+                torch.float8_e4m3fn: 2}
 HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated (hd == hdv) in the .cu
 MAX_GROUP = 8                      # H / Kh held in registers by the kernel
 CHUNK = 128                        # positions per chunk (kChunk, .cu)
@@ -62,10 +68,10 @@ def _group_slots(G: int) -> int:
 
 
 def _geometry(hd: int, dtype: torch.dtype, G: int) -> Geometry:
-    """The kernels' launch geometry: one CTA per chunk below WIDE_HD; at
-    WIDE_HD a cluster of CLUSTER CTAs per chunk with ``wide_smem`` bytes of
-    dynamic shared memory (csrc/decode_attention.cu), which the launcher
-    refuses to differ."""
+    """The kernels' launch geometry for a cache of ``dtype``: one CTA per
+    chunk below WIDE_HD; at WIDE_HD a cluster of CLUSTER CTAs per chunk with
+    ``wide_smem`` bytes of dynamic shared memory (csrc/decode_attention.cu),
+    which the launcher refuses to differ."""
     if hd != WIDE_HD:
         return Geometry(1, CHUNK, 0, 0)
     es, kg = dtype.itemsize, _group_slots(G)
@@ -248,28 +254,40 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, cache_len,
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _check_cuda(q, caches, hd, hdv, H, Kh):
+def _check(q, caches, hd, hdv, H, Kh):
+    """What the kernel takes, on CUDA and on meta alike: one device,
+    contiguous inputs, the (q, cache) dtype pair, the head size and the
+    group."""
+    cdt = caches[0].dtype
     for t in (q, *caches):
-        if t.device != q.device or t.dtype != q.dtype:
+        if t.device != q.device:
             raise ValueError("decode attention: q, k and v must share one "
-                             f"device and dtype, got {t.device}/{t.dtype} "
-                             f"vs {q.device}/{q.dtype}")
+                             f"device, got {t.device} vs {q.device}")
         if not t.is_contiguous():
             raise ValueError("decode attention: inputs must be contiguous")
     for t in caches:
-        if t.data_ptr() % 16:
-            raise ValueError("decode attention: the kernel reads cache rows "
-                             "as 16-byte vectors; k and v must start on a "
-                             "16-byte boundary")
+        if t.dtype != cdt:
+            raise ValueError("decode attention: k and v must share one "
+                             f"dtype, got {t.dtype} vs {cdt}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"decode attention kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
+        raise TypeError(f"decode attention kernel takes a float32 or "
+                        f"bfloat16 query, got {q.dtype}")
+    if cdt not in CACHE_DTYPES:
+        raise TypeError(f"decode attention kernel takes a float32, bfloat16 "
+                        f"or float8_e4m3fn cache, got {cdt}")
     if hd != hdv or hd not in HEAD_DIMS:
         raise ValueError(f"decode attention kernel is built for hd == hdv "
                          f"in {HEAD_DIMS}, got hd={hd}, hdv={hdv}")
     if H % Kh or H // Kh > MAX_GROUP:
         raise ValueError(f"decode attention kernel needs H % Kh == 0 and "
                          f"H / Kh <= {MAX_GROUP}, got H={H}, Kh={Kh}")
+
+
+def _check_aligned(caches):
+    if any(t.data_ptr() % 16 for t in caches):
+        raise ValueError("decode attention: the kernel reads cache rows as "
+                         "16-byte vectors; k and v must start on a 16-byte "
+                         "boundary")
 
 
 def _check_chunks(geo: Geometry, cap: int):
@@ -316,16 +334,20 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
             or k_cache.shape[3] != hd:
         raise ValueError(f"decode attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k_cache.shape)} v{tuple(v_cache.shape)}")
-    if build.plain_path(q, "decode attention"):
+    how = build.route(q, "decode attention")
+    if how == "plain":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       scale=scale)
     build.refuse_grad("decode_attention", q, k_cache, v_cache)
-    _check_cuda(q, (k_cache, v_cache), hd, hdv, H, Kh)
+    _check(q, (k_cache, v_cache), hd, hdv, H, Kh)
+    if how == "meta":
+        return q.new_empty((B, H, hdv))
+    _check_aligned((k_cache, v_cache))
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     cl = _lengths(cache_len, B, q.device)
     out = torch.empty((B, H, hdv), dtype=q.dtype, device=q.device)
     scratch = _scratch(B, H, Kh, Smax, hdv, q.device)
-    geo = _geometry(hd, q.dtype, H // Kh)
+    geo = _geometry(hd, k_cache.dtype, H // Kh)
     _check_chunks(geo, Smax)
     tickets = _tickets(geo, B * Kh * geo.cluster, q.device)
     lib = build.library("decode_attention")
@@ -333,7 +355,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cl.data_ptr(),
         scratch.data_ptr(), _ptr(tickets), out.data_ptr(), B, H, Kh, Smax,
         hd, hdv, scale,
-        _DTYPES[q.dtype], geo.cluster, geo.smem,
+        _DTYPES[q.dtype], CACHE_DTYPES[k_cache.dtype], geo.cluster, geo.smem,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attention")
     build.launches["decode_attention"] += 1
@@ -357,20 +379,24 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
                          f"q{tuple(q.shape)} k{tuple(k_pool.shape)} "
                          f"v{tuple(v_pool.shape)} "
                          f"tables{tuple(block_tables.shape)}")
-    if build.plain_path(q, "paged decode attention"):
+    how = build.route(q, "paged decode attention")
+    if how == "plain":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             cache_len, scale=scale)
     build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
-    _check_cuda(q, (k_pool, v_pool), hd, hdv, H, Kh)
+    _check(q, (k_pool, v_pool), hd, hdv, H, Kh)
     if block_tables.dtype != torch.int32 or not block_tables.is_contiguous() \
             or block_tables.device != q.device:
         raise ValueError("paged decode attention: block_tables must be a "
                          "contiguous int32 tensor on q's device")
+    if how == "meta":
+        return q.new_empty((B, H, hdv))
+    _check_aligned((k_pool, v_pool))
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     cl = _lengths(cache_len, B, q.device)
     out = torch.empty((B, H, hdv), dtype=q.dtype, device=q.device)
     scratch = _scratch(B, H, Kh, M * bs, hdv, q.device)
-    geo = _geometry(hd, q.dtype, H // Kh)
+    geo = _geometry(hd, k_pool.dtype, H // Kh)
     _check_chunks(geo, M * bs)
     tickets = _tickets(geo, B * Kh * geo.cluster, q.device)
     lib = build.library("decode_attention")
@@ -378,8 +404,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), cl.data_ptr(), scratch.data_ptr(),
         _ptr(tickets), out.data_ptr(), B, H, Kh, bs, M, hd, hdv, scale,
-        _DTYPES[q.dtype],
-        geo.cluster, geo.smem,
+        _DTYPES[q.dtype], CACHE_DTYPES[k_pool.dtype], geo.cluster, geo.smem,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_attention")
     build.launches["paged_decode_attention"] += 1

@@ -428,7 +428,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if build.plain_path(q, "flash attention"):
+    how = build.route(q, "flash attention")
+    if how == "plain":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_offset=q_offset)
     for t in (q, k, v):
@@ -437,14 +438,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                              "device and dtype")
         if not t.is_contiguous():
             raise ValueError("flash attention: inputs must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash attention: the kernel copies k and v rows in "
-                         "16-byte pieces; both must start on a 16-byte "
-                         "boundary")
-    if (hd, hdv) in SPAN_PAIRS and q.data_ptr() % 16:
-        raise ValueError(f"flash attention: at (hd, hdv) = ({hd}, {hdv}) "
-                         "the kernel copies q rows in 16-byte pieces too; "
-                         "q must start on a 16-byte boundary")
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -453,13 +446,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{HEAD_DIM_PAIRS}, got hd={hd}, hdv={hdv}")
     if H % Kh:
         raise ValueError(f"flash attention: H={H} not a multiple of Kh={Kh}")
+    grad = build.needs_grad(q, k, v)
+    if grad and q.dtype != torch.float32:
+        raise NotImplementedError(
+            "flash attention: the backward kernel takes float32 only; "
+            "bf16 training is a later item (ROADMAP.md, section 2)")
+    if how == "meta":
+        return build.meta_outputs(lambda: q.new_empty((B, Sq, H, hdv)),
+                                  q, k, v)
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash attention: the kernel copies k and v rows in "
+                         "16-byte pieces; both must start on a 16-byte "
+                         "boundary")
+    if (hd, hdv) in SPAN_PAIRS and q.data_ptr() % 16:
+        raise ValueError(f"flash attention: at (hd, hdv) = ({hd}, {hdv}) "
+                         "the kernel copies q rows in 16-byte pieces too; "
+                         "q must start on a 16-byte boundary")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
-    if build.needs_grad(q, k, v):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                "flash attention: the backward kernel takes float32 only; "
-                "bf16 training is a later item (ROADMAP.md, section 2)")
+    if grad:
         return FlashAttentionFn.apply(q, k, v, causal, window, scale,
                                       q_offset)
     return _launch_forward(q, k, v, causal, window, scale, q_offset)

@@ -313,7 +313,8 @@ def wkv6(r, k, v, w, u, state0=None):
             f"v{tuple(v.shape)} w{tuple(w.shape)} u{tuple(u.shape)} "
             f"state0{None if state0 is None else tuple(state0.shape)}")
     grad = build.needs_grad(r, k, v, w, u, state0)
-    if build.plain_path(r, "wkv6"):
+    how = build.route(r, "wkv6")
+    if how == "plain":
         y, st = wkv6_plain(r, k, v, w, u, state0)
         return y, (st if state0 is None or grad else state0.copy_(st))
     for t in (k, v, w):
@@ -335,14 +336,20 @@ def wkv6(r, k, v, w, u, state0=None):
     if not all(t.is_contiguous() for t in (r, k, v, w, u, state0)
                if t is not None):
         raise ValueError("wkv6: inputs must be contiguous")
+    if grad and r.dtype != torch.float32:
+        raise NotImplementedError(
+            "wkv6: the backward kernel takes float32 only; bf16 "
+            "training is a later item (ROADMAP.md, section 2)")
+    if how == "meta":
+        y, st = build.meta_outputs(
+            lambda: (r.new_empty(r.shape),
+                     torch.empty(st_shape, dtype=torch.float32,
+                                 device="meta")), r, k, v, w, u, state0)
+        return y, (st if state0 is None or grad else state0)
     if any(t.data_ptr() % 16 for t in (r, k, v, w)):
         raise ValueError("wkv6: r, k, v and w must be 16-byte aligned (the "
                          "kernel copies them by cp.async)")
     if grad:
-        if r.dtype != torch.float32:
-            raise NotImplementedError(
-                "wkv6: the backward kernel takes float32 only; bf16 "
-                "training is a later item (ROADMAP.md, section 2)")
         return WKV6Fn.apply(r, k, v, w, u, state0)
     st = (state0 if state0 is not None else
           torch.zeros(st_shape, dtype=torch.float32, device=r.device))

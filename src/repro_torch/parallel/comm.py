@@ -32,8 +32,13 @@ two ranks on one device), ``gloo`` on the CPU, and ``gloo`` on a shared
 card when the caller names it.  Gloo reduces and broadcasts CUDA tensors
 itself; every other collective on a CUDA tensor under gloo is staged
 through pinned host memory and back, on the rank's current stream (the
-copies synchronize it).  ``stats()`` counts the collectives issued and the
+copies synchronize it).  ``stats()`` counts the collectives issued, by op
+and in all, the bytes of the local tensor each one takes, by op, and the
 bytes staged.
+
+A meta tensor (``launch/dryrun.py`` runs a rank's step at full size on
+them, in torch's fake process group) carries no data: its collective is
+counted and its output shaped, and no process group is called.
 """
 from __future__ import annotations
 
@@ -65,8 +70,12 @@ def bind(mesh):
 
 
 def stats() -> dict:
-    """Collectives issued and bytes staged through host memory (gloo on a
-    CUDA tensor) since the last ``reset_stats``, with counts by op."""
+    """Since the last ``reset_stats``: collectives issued (``collectives``,
+    and by op: ``all_reduce``, ``all_gather``, ``reduce_scatter``,
+    ``ppermute``), the bytes of the local tensor each op took
+    (``<op>_bytes``: the input of an all-reduce, all-gather or
+    reduce-scatter, the tensor a ppermute sends), and bytes staged through
+    host memory (gloo on a CUDA tensor)."""
     return dict(_STATS)
 
 
@@ -125,19 +134,26 @@ def _from_host(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return h.to(like.device)
 
 
-def _count(op: str) -> None:
+def _count(op: str, x: torch.Tensor) -> None:
     _STATS["collectives"] += 1
     _STATS[op] += 1
+    _STATS[op + "_bytes"] += x.numel() * x.element_size()
+
+
+def _meta(x: torch.Tensor) -> bool:
+    return x.device.type == "meta"
 
 
 def _all_reduce(mesh, axes: tuple, x: torch.Tensor,
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     """A new tensor: ``x`` reduced over ``axes``."""
-    _count("all_reduce")
+    _count("all_reduce", x)
     return _reduce(mesh, axes, x, op)
 
 
 def _reduce(mesh, axes: tuple, x: torch.Tensor, op) -> torch.Tensor:
+    if _meta(x):
+        return x.detach().clone()
     g = mesh.group(axes)
     if _staged(mesh, "all_reduce", x):
         h = _to_host(x)
@@ -151,7 +167,9 @@ def _reduce(mesh, axes: tuple, x: torch.Tensor, op) -> torch.Tensor:
 def _all_gather(mesh, axes: tuple, x: torch.Tensor, dim: int):
     """``x`` of every rank along ``axes``, concatenated on ``dim`` in the
     order of their index along ``axes``."""
-    _count("all_gather")
+    _count("all_gather", x)
+    if _meta(x):
+        return torch.cat([x.detach()] * mesh.size(axes), dim=dim)
     g = mesh.group(axes)
     order = mesh.gather_order(axes)
     staged = _staged(mesh, "all_gather", x)
@@ -165,7 +183,7 @@ def _all_gather(mesh, axes: tuple, x: torch.Tensor, dim: int):
 def _reduce_scatter(mesh, axes: tuple, x: torch.Tensor, dim: int):
     """``x`` summed over ``axes``, then this rank's tile of ``dim`` (its
     index along ``axes``)."""
-    _count("reduce_scatter")
+    _count("reduce_scatter", x)
     n = mesh.size(axes)
     if x.shape[dim] % n:
         raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} is "
@@ -182,7 +200,9 @@ def _reduce_scatter(mesh, axes: tuple, x: torch.Tensor, dim: int):
 def _permute(mesh, axis: str, x: torch.Tensor, perm) -> torch.Tensor:
     """Send ``x`` along ``axis`` by ``perm`` (pairs (src index, dst
     index)); a rank no pair sends to gets zeros, as in JAX."""
-    _count("ppermute")
+    _count("ppermute", x)
+    if _meta(x):
+        return torch.zeros_like(x)
     me = mesh.index((axis,))
     members = mesh.members((axis,))
     staged = _staged(mesh, "ppermute", x)

@@ -88,6 +88,59 @@ def test_cuda_decode_kernels(cuda_dev, dt, B, H, Kh, hd, Smax):
                                **TOL[dt])
 
 
+# the caches the decode kernels take beside q's dtype
+CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cdt", list(CACHE_DTYPES))
+@pytest.mark.parametrize("B,H,Kh,hd,Smax", [(8, 16, 16, 64, 1024),
+                                            (3, 8, 2, 16, 100),
+                                            (4, 64, 8, 128, 520),
+                                            (3, 4, 1, 256, 300)])
+def test_cuda_decode_dtype_pairs(cuda_dev, qdt, cdt, B, H, Kh, hd, Smax):
+    """Every (q, cache) pair of {f32, bf16} x {f32, bf16, fp8}: the dense
+    and paged kernels against their plain versions (which widen the cache
+    to f32 as the kernels do, so an f32 query holds at 3e-5 whatever the
+    cache), and paged == the dense kernel on the gathered view, bit for
+    bit; lengths at the chunk edges, G 1, 4 and 8, hd 16 to 256."""
+    rng = np.random.default_rng(hd + H)
+    q = _rand(rng, (B, H, hd), qdt, cuda_dev)
+    lens = np.array(([0, 1, CHUNK, CHUNK + 1, Smax] * 2)[:B], np.int32)
+    cl = torch.from_numpy(np.minimum(lens, Smax)).to(cuda_dev)
+    cd = CACHE_DTYPES[cdt]
+    kc = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
+    vc = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
+    dense = decode_attention(q, kc, vc, cl)
+    assert dense.dtype == q.dtype
+    torch.testing.assert_close(dense.float(),
+                               decode_attention_plain(q, kc, vc, cl).float(),
+                               **TOL[qdt])
+    kp, vp, bt = _pools(rng, cl.tolist(), Kh, hd, 16, -(-Smax // 16),
+                        "float32", cuda_dev)
+    kp, vp = kp.to(cd), vp.to(cd)
+    paged = paged_decode_attention(q, kp, vp, bt, cl)
+    torch.testing.assert_close(
+        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
+        **TOL[qdt])
+    gathered = decode_attention(q, gather_pages(kp, bt), gather_pages(vp, bt),
+                                cl)
+    assert torch.equal(paged, gathered)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_refuses_other_dtypes(cuda_dev):
+    """An fp8 query, and k and v in two dtypes, are refused."""
+    q = torch.zeros((1, 2, 64), device=cuda_dev)
+    kc = torch.zeros((1, 2, 8, 64), device=cuda_dev)
+    with pytest.raises(TypeError):
+        decode_attention(q.to(torch.float8_e4m3fn), kc, kc, 4)
+    with pytest.raises(ValueError):
+        decode_attention(q, kc, kc.to(torch.bfloat16), 4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Sq,Skv,H,Kh,hd,causal,window,q_offset", [

@@ -2,6 +2,8 @@
 and the Pallas kernels (interpret mode), wrapper dispatch, build.py's
 error without nvcc.  The CUDA kernels themselves are tested in
 test_torch_cuda.py, which imports no JAX so it also runs on a GPU machine."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from repro_torch.kernels.decode_attention import (
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.rwkv6_wkv import wkv6
 
 torch.set_num_threads(2)
 
@@ -297,10 +300,111 @@ def test_cpu_wrappers_use_plain_versions_and_count_nothing():
 
 
 def test_wrappers_reject_other_devices():
-    q = torch.zeros((1, 2, 16), device="meta")
+    """A device with no route (neither the CPU, CUDA nor meta) raises; a
+    meta tensor takes the shape-only route (the dry run) and launches
+    nothing."""
     with pytest.raises(ValueError, match="no kernel"):
-        decode_attention(q, torch.zeros((1, 2, 8, 16), device="meta"),
-                         torch.zeros((1, 2, 8, 16), device="meta"), 4)
+        build.route(SimpleNamespace(device=torch.device("xpu")),
+                    "decode attention")
+    build.reset_launches()
+    q = torch.zeros((1, 2, 16), device="meta")
+    out = decode_attention(q, torch.zeros((1, 2, 8, 16), device="meta"),
+                           torch.zeros((1, 2, 8, 16), device="meta"), 4)
+    assert out.device.type == "meta" and out.shape == (1, 2, 16)
+    qf = torch.zeros((1, 5, 2, 16), device="meta", requires_grad=True)
+    o = flash_attention(qf, qf.detach(), qf.detach())
+    assert o.shape == (1, 5, 2, 16)
+    (g,) = torch.autograd.grad(o.sum(), qf)
+    assert g.shape == qf.shape and g.device.type == "meta"
+    assert sum(build.launches.values()) == 0
+
+
+def _meta(*shape, dtype=torch.float32, grad=False):
+    return torch.empty(shape, dtype=dtype, device="meta",
+                       requires_grad=grad)
+
+
+F8 = torch.float8_e4m3fn
+BF = torch.bfloat16
+_META_REFUSED = {
+    "decode fp8 query": lambda: decode_attention(
+        _meta(1, 2, 16, dtype=F8), _meta(1, 2, 8, 16, dtype=F8),
+        _meta(1, 2, 8, 16, dtype=F8), 4),
+    "decode f16 cache": lambda: decode_attention(
+        _meta(1, 2, 16), _meta(1, 2, 8, 16, dtype=torch.float16),
+        _meta(1, 2, 8, 16, dtype=torch.float16), 4),
+    "decode k and v dtypes differ": lambda: decode_attention(
+        _meta(1, 2, 16), _meta(1, 2, 8, 16, dtype=F8),
+        _meta(1, 2, 8, 16, dtype=BF), 4),
+    "decode G 16": lambda: decode_attention(
+        _meta(1, 16, 16), _meta(1, 1, 8, 16), _meta(1, 1, 8, 16), 4),
+    "decode hd 48": lambda: decode_attention(
+        _meta(1, 2, 48), _meta(1, 2, 8, 48), _meta(1, 2, 8, 48), 4),
+    "decode hd != hdv": lambda: decode_attention(
+        _meta(1, 2, 64), _meta(1, 2, 8, 64), _meta(1, 2, 8, 32), 4),
+    "decode under autograd": lambda: decode_attention(
+        _meta(1, 2, 16, grad=True), _meta(1, 2, 8, 16),
+        _meta(1, 2, 8, 16), 4),
+    "decode non-contiguous cache": lambda: decode_attention(
+        _meta(1, 2, 16), _meta(1, 8, 2, 16).transpose(1, 2),
+        _meta(1, 8, 2, 16).transpose(1, 2), 4),
+    "paged fp8 query": lambda: paged_decode_attention(
+        _meta(1, 2, 16, dtype=F8), _meta(3, 2, 8, 16, dtype=F8),
+        _meta(3, 2, 8, 16, dtype=F8), _meta(1, 2, dtype=torch.int32), 4),
+    "paged G 16": lambda: paged_decode_attention(
+        _meta(1, 16, 16), _meta(3, 1, 8, 16), _meta(3, 1, 8, 16),
+        _meta(1, 2, dtype=torch.int32), 4),
+    "paged int64 tables": lambda: paged_decode_attention(
+        _meta(1, 2, 16), _meta(3, 2, 8, 16), _meta(3, 2, 8, 16),
+        _meta(1, 2, dtype=torch.int64), 4),
+    "flash (48, 48)": lambda: flash_attention(
+        _meta(1, 4, 2, 48), _meta(1, 4, 2, 48), _meta(1, 4, 2, 48)),
+    "flash f16": lambda: flash_attention(
+        *(_meta(1, 4, 2, 16, dtype=torch.float16) for _ in range(3))),
+    "flash q and k dtypes differ": lambda: flash_attention(
+        _meta(1, 4, 2, 16), _meta(1, 4, 2, 16, dtype=BF),
+        _meta(1, 4, 2, 16, dtype=BF)),
+    "flash H % Kh": lambda: flash_attention(
+        _meta(1, 4, 3, 16), _meta(1, 4, 2, 16), _meta(1, 4, 2, 16)),
+    "flash bf16 under autograd": lambda: flash_attention(
+        _meta(1, 4, 2, 16, dtype=BF, grad=True), _meta(1, 4, 2, 16, dtype=BF),
+        _meta(1, 4, 2, 16, dtype=BF)),
+    "wkv6 hd 48": lambda: wkv6(*(_meta(1, 4, 2, 48) for _ in range(4)),
+                               _meta(2, 48)),
+    "wkv6 bf16 u": lambda: wkv6(*(_meta(1, 4, 2, 16) for _ in range(4)),
+                                _meta(2, 16, dtype=BF)),
+    "wkv6 bf16 under autograd": lambda: wkv6(
+        _meta(1, 4, 2, 16, dtype=BF, grad=True),
+        *(_meta(1, 4, 2, 16, dtype=BF) for _ in range(3)), _meta(2, 16)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_META_REFUSED))
+def test_meta_route_refuses_what_the_card_refuses(case):
+    """The meta route (the dry run's) runs the checks the CUDA route runs
+    before its launch, all but the 16-byte alignment of the data: a call the
+    kernel does not take raises on meta as it would on the card, so a dry
+    run cannot record a step the card refuses as runnable."""
+    build.reset_launches()
+    with pytest.raises((ValueError, TypeError, RuntimeError,
+                        NotImplementedError)):
+        _META_REFUSED[case]()
+    assert sum(build.launches.values()) == 0
+
+
+@pytest.mark.parametrize("q_dt", [torch.float32, BF])
+@pytest.mark.parametrize("c_dt", [torch.float32, BF, F8])
+def test_meta_route_takes_every_cache_pair(q_dt, c_dt):
+    """Every (q, cache) pair the kernel takes passes the meta route's
+    checks, dense and paged, at G 8 and hd 256: the output is q's dtype."""
+    q = _meta(2, 16, 256, dtype=q_dt)
+    kc = _meta(2, 2, 256, 256, dtype=c_dt)
+    pool = _meta(5, 2, 64, 256, dtype=c_dt)
+    tables = _meta(2, 4, dtype=torch.int32)
+    for out in (decode_attention(q, kc, kc, 9),
+                paged_decode_attention(q, pool, pool, tables, 9)):
+        assert out.device.type == "meta" and out.dtype == q_dt
+        assert out.shape == (2, 16, 256)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -2,6 +2,8 @@
 kernel (interpret mode) and the JAX oracle, the layer, the model and the
 serving engine held against the JAX package on the same converted params.
 The CUDA kernel itself is tested in test_torch_cuda.py."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from repro.serving.workload import Request as JaxRequest
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import (cache_from_numpy, cache_to_numpy,
                                  params_from_numpy, tree_to_numpy)
+from repro_torch.kernels import build
 from repro_torch.kernels.rwkv6_wkv import (FEW_STEPS, HEAD_DIMS, _geometry,
                                            wkv6, wkv6_plain)
 from repro_torch.models import model as M
@@ -122,8 +125,16 @@ def test_wkv6_wrapper_dispatch():
         st_new, wkv6_plain(r.bfloat16(), k, v, w, u)[1])
     with pytest.raises(ValueError, match="bad shapes"):
         wkv6(r, k, v, w, u[:1])
+    # a device with no route raises; meta is the dry run's shape-only route
     with pytest.raises(ValueError, match="no kernel"):
-        wkv6(*(x.to("meta") for x in (r, k, v, w, u)))
+        build.route(SimpleNamespace(device=torch.device("xpu")), "wkv6")
+    build.reset_launches()
+    mr, mk, mv, mw, mu, ms0 = (x.to("meta") for x in (r, k, v, w, u, st0))
+    my, mst = wkv6(mr, mk, mv, mw, mu)
+    assert my.device.type == "meta" and my.shape == r.shape
+    assert mst.shape == st0.shape and mst.dtype == torch.float32
+    assert wkv6(mr, mk, mv, mw, mu, ms0)[1] is ms0
+    assert sum(build.launches.values()) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

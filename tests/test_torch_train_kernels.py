@@ -138,7 +138,7 @@ def kernel_branch(monkeypatch):
     def loader(name):
         raise AssertionError(f"library loader reached for {name}")
 
-    monkeypatch.setattr(build, "plain_path", lambda t, what: False)
+    monkeypatch.setattr(build, "route", lambda t, what: "kernel")
     monkeypatch.setattr(build, "library", loader)
 
 

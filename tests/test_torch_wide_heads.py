@@ -33,10 +33,25 @@ HD = 256
 SLICE_LENS = [1, SLICE - 1, SLICE, SLICE + 1, CHUNK - 1, CHUNK, CHUNK + 1]
 
 
-def _close(a, b):
+def _close(a, b, err_msg=""):
     np.testing.assert_allclose(np.asarray(a, np.float32),
                                np.asarray(b, np.float32), atol=ATOL,
-                               rtol=RTOL)
+                               rtol=RTOL, err_msg=err_msg)
+
+
+def _rows_off(a, b):
+    """For a failure's message: each (query row, head) of two (B, S, H, hd)
+    outputs whose error passes the tolerance, with its largest error, and
+    the process's torch settings that could change CPU numerics."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    off = np.abs(a - b) > ATOL + RTOL * np.abs(b)
+    err = np.abs(a - b).max(axis=-1)
+    rows = [f"(b={i}, row={r}, head={h}): {err[i, r, h]:.3e}"
+            for i, r, h in zip(*np.nonzero(off.any(axis=-1)))]
+    return (f"{len(rows)} (row, head) pairs off: " + "; ".join(rows[:16])
+            + f" | threads={torch.get_num_threads()} "
+            f"matmul={torch.get_float32_matmul_precision()} "
+            f"capability={torch.backends.cpu.get_cpu_capability()}")
 
 
 def _randn(rng, *shape):
@@ -120,7 +135,7 @@ def test_flash_span_mirror_vs_plain_and_pallas(S, window, q_offset, Skv):
     assert m.shape == (1, 4, S, math.ceil(Skv / SPAN))
     out = flash_combine_plain(m, l, acc, Skv=Skv, **kw)
     plain = flash_attention_plain(tq, tk, tv, **kw)
-    _close(out, plain)
+    _close(out, plain, _rows_off(out, plain))
     pallas = pl_flash(*map(jnp.asarray, (q, k, v)), window=window,
                       q_offset=q_offset, block_q=64, block_k=64)
     _close(out, np.asarray(pallas))

@@ -7,8 +7,10 @@
 ``save`` builds TREE's kernels (into build/kernels_<tree>/ beside the usual
 build directory, so two trees never share a library) and stores their
 outputs on fixed inputs made from seed 0: dense and paged decode at hd 16,
-32, 64, 128 and 256 with G = 1, 4 and 8 and cache lengths at chunk edges,
-and flash at every (hd, hdv) the kernel takes, causal, with a window and a
+32, 64, 128 and 256 with G = 1, 4 and 8 and cache lengths at chunk edges
+(with q and the cache in one dtype, and, where TREE's decode takes them,
+over a cache in another dtype than q: names holding "cache="), and
+flash at every (hd, hdv) the kernel takes, causal, with a window and a
 q_offset, in f32 and bf16; wkv6's output and final state at hd 16, 64 and
 128, with and without a state0, over 1, 9 and 600 steps, in f32 and bf16;
 and the backward kernels' gradients (names starting "backward"): flash at
@@ -17,7 +19,9 @@ hd 16, 64 and 128 with a state0 and a final-state gradient.  ``compare``
 holds every output whose name holds none of the EXPECTED substrings (say
 ``"(128, 128)"``: the flash outputs a change redesigned, or ``backward``)
 to the same bits, prints the names of the expected ones that changed, and
-exits non-zero if any other output differs.  To compare
+exits non-zero if any other output differs, or if an output other than a
+"cache=" pair is missing from one of the two files (a tree whose decode
+refuses a pair saves none of it).  To compare
 a commit with its parent, unpack the parent into a git-ignored directory
 (``git archive``) and run save for parent, change, change, parent, then
 compare each pair.
@@ -62,6 +66,19 @@ def save(tree: str, out: str) -> int:
                     rng.integers(1, 40, (5, 19)).astype(np.int32)).to(dev)
                 outs[f"paged {dt} hd={hd} H={H} Kh={Kh}"] = \
                     paged_decode_attention(q, kp, vp, bt, cl).cpu()
+                for cdt in (torch.float32, torch.bfloat16,
+                            torch.float8_e4m3fn):
+                    if cdt == dt:
+                        continue
+                    c = [t.float().to(cdt) for t in (kc, vc, kp, vp)]
+                    key = f"q={dt} cache={cdt} hd={hd} H={H} Kh={Kh}"
+                    try:
+                        outs["decode " + key] = decode_attention(
+                            q, c[0], c[1], cl).cpu()
+                        outs["paged " + key] = paged_decode_attention(
+                            q, c[2], c[3], bt, cl).cpu()
+                    except (TypeError, ValueError):
+                        pass        # a tree whose kernel takes one dtype
         for hd, hdv in ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
                         (256, 256)):
             for Sq, Skv, win, qo in ((512, 512, 0, None), (200, 330, 64, 130),
@@ -132,7 +149,11 @@ def compare(a: str, b: str, *expected: str) -> int:
         print(f"  expected to change ({', '.join(expected)}): {len(moved)} "
               f"of {len(free)} changed" + "".join(f"\n    {k}"
                                                 for k in moved))
-    return 1 if bad or set(x) != set(y) else 0
+    alone = sorted(set(x) ^ set(y))
+    if alone:
+        print(f"  in one file only: {len(alone)}"
+              + "".join(f"\n    {k}" for k in alone[:10]))
+    return 1 if bad or any("cache=" not in k for k in alone) else 0
 
 
 if __name__ == "__main__":

@@ -240,7 +240,7 @@ def hd256(torch, dk, fk, dev, stream):
             err = lib.decode_attention_launch(
                 q.data_ptr(), kc.data_ptr(), vc.data_ptr(), cl.data_ptr(),
                 scratch.data_ptr(), tickets.data_ptr(), out.data_ptr(), B, H,
-                Kh, Smax, hd, hd, hd ** -0.5, 0, geo.cluster, geo.smem,
+                Kh, Smax, hd, hd, hd ** -0.5, 0, 0, geo.cluster, geo.smem,
                 stream)
             assert err == 0, err
         run_stages(lib, torch, call, geo.cluster * dk.n_chunks(Smax) * B * Kh,
