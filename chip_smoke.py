@@ -143,7 +143,19 @@ Phases, each fatal on failure:
      decode call of each held against its plain version at a real tick;
      and launch/roofline.py's step_costs on an H100 (f32) beside phase
      18's train step, phase 5/6's decode tick and phase 19's steps, the
-     gap recorded.
+     gap recorded;
+ 21. bf16 training, the reference's default dtype: the flash backward
+     kernel at bf16 at both training shapes (phase 18's, and the (128,
+     128) template at 16 heads of 128), equal bit for bit to the f32
+     kernel on the widened inputs rounded to bf16, held against its plain
+     version, two calls' bits equal, timed beside its bound (bf16 tensor
+     cores, and 3xTF32 as the products it runs), the f32 kernel on the
+     same widened inputs, its plain version and SDPA's bf16 backward; one
+     bf16 step of full-width qwen1.5-0.5b cut to 2 layers on the card
+     against the same step on the CPU; full-width qwen1.5-0.5b at full
+     depth through build_train_step's default dtype for 5 steps, its loss
+     falling, flash and flash-backward launches a step exactly counted,
+     ms per step, device busy share and peak memory.
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -2825,20 +2837,30 @@ def training_kernel_checks(torch):
     return out
 
 
-def _train_setup(torch, cfg, plan, seq, batch, device, generator):
+def _train_setup(torch, cfg, plan, seq, batch, device, generator,
+                 bf16=False):
+    """Params, optimizer state, step and data of a one-rank train run: f32,
+    or (``bf16``) at build_train_step's default dtype, bf16, from the same
+    f32 draws rounded to bf16."""
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.models.transformer import init_model
     from repro_torch.parallel.pipeline import build_train_step, stack_params
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.tree import tree_map
 
     params = stack_params(cfg, plan, init_model(cfg, generator,
                                                 device=device))
+    if bf16:
+        params = tree_map(lambda t: t.to(torch.bfloat16), params)
     opt = init_opt_state(params)
-    step, _ = build_train_step(cfg, plan, None,
-                               ShapeConfig("train", seq, batch, "train"),
-                               AdamWConfig(**TRAIN_OPT),
-                               param_dtype=torch.float32)
+    kw = {} if bf16 else {"param_dtype": torch.float32}
+    step, structs = build_train_step(
+        cfg, plan, None, ShapeConfig("train", seq, batch, "train"),
+        AdamWConfig(**TRAIN_OPT), **kw)
+    want = torch.bfloat16 if bf16 else torch.float32
+    check(all(s.dtype == want for s in tree_leaves(structs["params"])),
+          f"train step: params are not {want}")
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=batch, seed=0))
     return params, opt, step, data
@@ -2891,19 +2913,20 @@ def train_card_vs_cpu(torch):
     return out
 
 
-def train_run(torch, card, label, cfg, plan, seq, batch, steps, want):
-    """``steps`` train steps from seeded params on the card: every loss
-    finite, the launches per step of each kernel as ``want`` says, ms per
-    step and tokens/s (host clock around synchronized steps), device busy
-    and idle share over one profiled step, peak memory.  Returns (losses,
-    info, setup)."""
+def train_run(torch, card, label, cfg, plan, seq, batch, steps, want,
+              bf16=False):
+    """``steps`` train steps from seeded params on the card (f32, or bf16:
+    ``_train_setup``): every loss finite, the launches per step of each
+    kernel as ``want`` says, ms per step and tokens/s (host clock around
+    synchronized steps), device busy and idle share over one profiled step,
+    peak memory.  Returns (losses, info, setup)."""
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
     free_weights(torch)
     params, opt, step, data = _train_setup(
         torch, cfg, plan, seq, batch, dev,
-        torch.Generator(device="cuda").manual_seed(0))
+        torch.Generator(device="cuda").manual_seed(0), bf16)
     batches = [_batch(torch, data, i, dev) for i in range(steps)]
     torch.cuda.synchronize()
     build.reset_launches()
@@ -3797,6 +3820,193 @@ def narrow_cache_phase(torch, card, base_streams, one_rank, measured):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: bf16 training, the reference's default dtype
+# ---------------------------------------------------------------------------
+
+BF16_TRAIN_STEPS = 5
+# the 2-layer bf16 step, card against CPU: two bf16 runs lie as far apart
+# as bf16 lies from f32, so the loss and grad norm are held within
+# BF16_FACTOR times the larger of the two devices' bf16-to-f32 distances
+# (phase 18's f32 step from the same draws); each param within 2.5 lr_1
+# (phase 18's rule) plus one bf16 ulp of its value (a flip of the final
+# rounding)
+BF16_FACTOR = 2.0
+
+
+def _ulp_bf16(torch, x):
+    """One bf16 ulp at each |x| (normal range)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
+                      - 7)
+
+
+def bf16_bwd_kernel_checks(torch):
+    """The flash backward kernel at bf16 at both training shapes: its
+    gradients equal the f32 kernel's on the widened inputs (q, k, v, the
+    forward's bf16 output, dO) rounded to bf16, bit for bit; within one
+    bf16 ulp or TOL["bfloat16"] of its plain version on the same inputs
+    (D from the forward's bf16 output, as the kernel: the two differ by
+    their f32 sums' order, so by a flip of the final rounding); a second
+    call's bits equal; and its device time beside the bound (bf16 tensor
+    cores; and 3xTF32, the products it runs), the f32 kernel's on the same
+    widened inputs, the plain backward's and SDPA's bf16 backward's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    out = {}
+    B, S, H = (FLASH_TRAIN[k] for k in ("B", "S", "H"))
+    for hd in (FLASH_TRAIN["hd"], 128):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (B, S, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(4))
+        with torch.no_grad():
+            o = FA.flash_attention(q, k, v)
+        args = (q, k, v, o, do, True, 0, 1.0 / math.sqrt(hd), 0)
+        wide = tuple(t.float() for t in args[:5]) + args[5:]
+        got = FA._launch_backward(*args)
+        f32 = FA._launch_backward(*wide)
+        flips = [int((g != w.to(torch.bfloat16)).sum())
+                 for g, w in zip(got, f32)]
+        label = f"flash_attention_bwd bf16 hd={hd}"
+        log(f"  {label}: elements differing from the f32 kernel on the "
+            f"widened inputs, rounded: {flips} (dq, dk, dv)")
+        check(all(g.dtype == torch.bfloat16 for g in got),
+              f"{label}: gradients are not bf16")
+        check(flips == [0, 0, 0], f"{label}: not the f32 kernel's bits "
+              f"rounded ({flips})")
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, FA._launch_backward(*args))),
+            f"{label}: two calls gave different bits")
+        ref = FA.flash_attention_bwd_plain(q, k, v, do, o=o)
+        err = max(float((g.float() - r.float()).abs().max())
+                  for g, r in zip(got, ref))
+        over = sum(int((((g.float() - r.float()).abs()) > torch.clamp(
+            _ulp_bf16(torch, r.float()), min=TOL["bfloat16"])).sum())
+            for g, r in zip(got, ref))
+        top = max(float(r.float().abs().max()) for r in ref)
+        log(f"  {label}: max|err| vs plain {err:.3e} (tol one bf16 ulp or "
+            f"{TOL['bfloat16']:g}; max|grad| {top:.3e}), {over} over")
+        check(over == 0, f"{label}: {over} elements beyond one bf16 ulp or "
+              f"{TOL['bfloat16']} of the plain version")
+        ms = time_ms(torch, lambda: FA._launch_backward(*args))
+        f32_ms = time_ms(torch, lambda: FA._launch_backward(*wide))
+        with torch.enable_grad():
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            op = FA.flash_attention_plain(*ins)
+            plain = time_ms(torch, lambda: torch.autograd.grad(
+                op, ins, do, retain_graph=True), iters=5)
+            sins = [t.transpose(1, 2).contiguous().requires_grad_(True)
+                    for t in (q, k, v)]
+            so = F.scaled_dot_product_attention(*sins, is_causal=True)
+            sdo = do.transpose(1, 2).contiguous()
+            lib = time_ms(torch, lambda: torch.autograd.grad(
+                so, sins, sdo, retain_graph=True))
+        del op, so, ins, sins
+        pairs = B * H * S * (S + 1) // 2
+        # q, k, v, o and dO read once, dq, dk and dv written once (bf16); 5
+        # products of hd per visible pair
+        nbytes, ops = 8 * B * S * H * hd * 2, 5 * 2 * hd * pairs
+        t_bound, by = bound(nbytes, ops, "bfloat16")
+        t_tf32, by_tf32 = bound(nbytes, ops, "tf32x3")
+        shape = f"B={B} Sq=Skv={S} H=Kh={H} hd={hd} causal bf16"
+        out[hd] = dict(max_abs_err=err, max_abs_grad=top, ms=ms,
+                       f32_ms=f32_ms, plain_ms=plain, library_ms=lib,
+                       bound_ms=t_bound, bound_by=by,
+                       bound_ms_tf32x3=t_tf32, bound_by_tf32x3=by_tf32,
+                       shape=shape, bits_equal_f32_rounded=True)
+        log(f"  {label}: {ms:.4f} ms  f32 kernel on the widened inputs "
+            f"{f32_ms:.4f} ms  plain {plain:.4f} ms  SDPA bf16 backward "
+            f"{lib:.4f} ms  bound {t_bound:.4f} ms ({by}, bf16 tensor "
+            f"cores) / {t_tf32:.4f} ms ({by_tf32}, 3xTF32)  [{shape}]")
+        del args, wide, got, f32, ref, q, k, v, do, o
+    return out
+
+
+def bf16_card_vs_cpu(torch, f32_step):
+    """One bf16 train step of qwen1.5-0.5b at full width cut to 2 layers
+    (phase 18's setup, its f32 draws rounded to bf16) on the card and on
+    the CPU: loss and grad norm within BF16_FACTOR times the larger
+    bf16-to-f32 distance of the two devices (``f32_step``: phase 18's f32
+    step), every param within 2.5 lr_1 plus one bf16 ulp."""
+    from repro_torch.configs.base import PipelinePlan, get_arch, shrink
+    from repro_torch.training.optimizer import AdamWConfig, schedule
+    from repro_torch.tree import tree_leaves
+
+    cfg = shrink(get_arch("qwen1.5-0.5b").config, n_layers=2)
+    plan = PipelinePlan(microbatches=2, remat=True)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        params, opt, step, data = _train_setup(
+            torch, cfg, plan, 128, 2, dev, torch.Generator().manual_seed(0),
+            bf16=True)
+        params, opt, m = step(params, opt, _batch(torch, data, 0, dev))
+        res[dev] = (params, {k: float(v) for k, v in m.items()},
+                    time.perf_counter() - t0)
+    lr1 = float(schedule(AdamWConfig(**TRAIN_OPT), 1))
+    a, b = res["cpu"][1], res["cuda"][1]
+    out = {"loss_cpu": a["loss"], "loss_cuda": b["loss"],
+           "grad_norm_cpu": a["grad_norm"], "grad_norm_cuda": b["grad_norm"],
+           "cpu_s": res["cpu"][2], "lr_1": lr1}
+    for key, f32k in (("loss", "loss"), ("grad_norm", "grad_norm")):
+        dist = max(abs(a[key] - f32_step[f"{f32k}_cpu"]),
+                   abs(b[key] - f32_step[f"{f32k}_cuda"]))
+        out[f"{key}_bf16_to_f32"] = dist
+        check(abs(a[key] - b[key]) <= BF16_FACTOR * dist,
+              f"bf16 train step: {key} on the card {b[key]} vs the CPU's "
+              f"{a[key]}, beyond {BF16_FACTOR} x {dist}")
+    worst, n_off, n_all = 0.0, 0, 0
+    for pc, pg in zip(tree_leaves(res["cpu"][0]), tree_leaves(res["cuda"][0])):
+        check(pc.dtype == pg.dtype == torch.bfloat16,
+              "bf16 train step: a param left bf16")
+        pc, pg = pc.float(), pg.float().cpu()
+        d = (pc - pg).abs()
+        worst = max(worst, float((d / (2.5 * lr1 + _ulp_bf16(torch, pc)))
+                                 .max()))
+        n_off += int((d > 0).sum())
+        n_all += d.numel()
+    out.update(param_worst_share_of_tol=worst, param_share_differing=n_off
+               / n_all)
+    log(f"  bf16 card vs CPU (2 layers, B 2, S 128): {json.dumps(out)}")
+    check(worst <= 1.0, f"bf16 train step: a param differs by {worst} of "
+          f"2.5 lr_1 + one bf16 ulp")
+    return out
+
+
+def bf16_training_phase(torch, card, f32_step):
+    """Phase 21: the bf16 backward kernel, a 2-layer bf16 step on the card
+    against the CPU, and full-width qwen1.5-0.5b at full depth (B 8, seq
+    512, M 2, remat) through build_train_step's default dtype for
+    BF16_TRAIN_STEPS steps: its loss falling, flash 24 x M x 2 and its
+    backward 24 x M launches a step, no decode."""
+    from repro_torch.configs.base import PipelinePlan, get_arch
+
+    t0 = time.perf_counter()
+    free_weights(torch)
+    out = {"kernel": bf16_bwd_kernel_checks(torch),
+           "card_vs_cpu": bf16_card_vs_cpu(torch, f32_step)}
+    cfg = get_arch("qwen1.5-0.5b").config
+    plan = PipelinePlan(microbatches=2, remat=True)
+    L, M = cfg.n_layers, plan.microbatches
+    losses, info, setup = train_run(
+        torch, card, "qwen1.5-0.5b train bf16", cfg, plan, 512, 8,
+        BF16_TRAIN_STEPS, {"flash_attention": L * M * 2,
+                           "flash_attention_bwd": L * M,
+                           "decode_attention": 0,
+                           "paged_decode_attention": 0}, bf16=True)
+    del setup
+    log(f"  qwen1.5-0.5b bf16 losses: {losses}")
+    check(losses[-1] < losses[0], f"qwen1.5-0.5b bf16: the last loss "
+          f"{losses[-1]} is not below step 0's {losses[0]}")
+    out["qwen"] = info
+    free_weights(torch)
+    out["s"] = time.perf_counter() - t0
+    log(f"  phase 21 on {card}: {out['s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3924,6 +4134,9 @@ def main() -> int:
                        "one_rank_ms": p_out["one_rank"]["decode_ms"]},
         "par_train": {"ms_per_rank_max": max(r["train_ms"] for r in ranks),
                       "one_rank_ms": p_out["one_rank"]["train_ms"]}})
+
+    log("== 21. bf16 training (the reference's default dtype)")
+    b_out = bf16_training_phase(torch, card, t_out["card_vs_cpu"])
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -4098,8 +4311,30 @@ def main() -> int:
             kernels[-1]["parallel_launched_in"] = p_out["label"]
             kernels[-1]["parallel_served_max_abs_err"] = [
                 r["served_holds"][name] for r in p_out["ranks"]]
+    # the bf16 backward: the same kernel's bf16 instantiation, its launches
+    # counted in phase 21's bf16 training run
+    n = b_out["qwen"]["launches"].get("flash_attention_bwd", 0)
+    check(n > 0, "the bf16 flash backward was not launched on the bf16 "
+          "training path")
+    r = b_out["kernel"][FLASH_TRAIN["hd"]]
+    kernels.append({
+        "name": "flash_attention_bwd_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": replaces["flash_attention"] + " (its gradient at bf16; "
+                    "the Pallas package has no backward kernel)",
+        "launches": n, "launched_in": f"qwen bf16 training, "
+                                      f"{b_out['qwen']['steps']} steps",
+        "max_abs_err": r["max_abs_err"], "max_abs_grad": r["max_abs_grad"],
+        "tolerance": "one bf16 ulp or %g; bits == the f32 kernel on the "
+                     "widened inputs, rounded" % TOL["bfloat16"],
+        "ms": r["ms"], "f32_ms": r["f32_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "bound_ms_tf32x3": r["bound_ms_tf32x3"],
+        "library_ms": r["library_ms"], "shape": r["shape"],
+        "hd128": b_out["kernel"][128]})
     log(f"  phase 18 (training) {t_out['s']:.1f} s; phase 19 (multi-rank) "
-        f"{p_out['s']:.1f} s; phase 20 (narrow caches) {n_out['s']:.1f} s")
+        f"{p_out['s']:.1f} s; phase 20 (narrow caches) {n_out['s']:.1f} s; "
+        f"phase 21 (bf16 training) {b_out['s']:.1f} s")
     log("  phase 20 roofline against the card: " + json.dumps(
         n_out["roofline"]))
     log(f"  phases 12-17: deepseek-moe-16b {d_out['s']:.1f} s, "

@@ -74,10 +74,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
     },
     "flash_attention_bwd": {
         # q, k, v, o, dout, dq, dk, dv, scratch, B, Sq, Skv, H, Kh, hd, hdv,
-        # q_offset, causal, window, scale, keys, rows, smem, row_smem, stream
+        # q_offset, causal, window, scale, dtype, keys, rows, smem,
+        # row_smem, stream
         "flash_attention_bwd_launch":
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _I, _I, _I, _F, _I, _I, _I, _I, _P],
+             _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     },
     "rwkv6_wkv": {
         # r, k, v, w, u, state (in and out), y,

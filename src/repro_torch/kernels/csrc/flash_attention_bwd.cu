@@ -1,11 +1,13 @@
-// The backward of flash attention on Hopper: dQ, dK and dV, f32.
+// The backward of flash attention on Hopper: dQ, dK and dV, over f32 or
+// bf16 inputs.
 //
 // The Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention -> _flash_kernel) has no backward kernel: the JAX
 // package trains through flash_attention_jnp (src/repro/models/layers.py),
 // and XLA differentiates it.  This computes the gradients of the forward
 // kernel of csrc/flash_attention.cu, for every (hd, hdv) it takes, causal,
-// windowed or full, GQA, at any q_offset, in f32.  With x = scale * q.k over
+// windowed or full, GQA, at any q_offset, in f32 or bf16.  With x = scale *
+// q.k over
 // the keys a row may see, p = softmax(x), o = p.v and the incoming dO:
 //   D_i  = sum_c dO_ic o_ic
 //   dV_j = sum_i p_ij dO_i
@@ -59,11 +61,25 @@
 //     independent accumulator chains added in order, row maxima and sums by
 //     xor shuffles, the row pass's key groups and the combine's key tiles
 //     in order): two calls give the same bits.
+//   * bf16 (the reference's default training dtype): q, k, v, o and dO are
+//     widened exactly to f32 on their way into the f32 tiles (16-byte
+//     loads of 8 elements into registers, then st.shared; cp.async cannot
+//     widen), and everything after is the f32 path above: the same tiles,
+//     shared memory, products and summation order.  dK and dV are summed
+//     over the group's heads in f32 and dQ's partials stay f32; each
+//     gradient is rounded once, to nearest even, as it is stored.  So the
+//     bf16 backward equals the f32 backward of the widened inputs rounded
+//     to bf16, bit for bit (chip_smoke.py phase 21 holds it).  A bf16 tile
+//     would halve the loads, but the f32 tiles already fill shared memory
+//     at (256, 256) and the products stay 3xTF32: bf16 tensor-core
+//     products (m16n8k16, wgmma) are later work.
 // On an H100 at qwen1.5-0.5b's training call (tools/kernel_stages.py bwd)
 // the main kernel takes 0.73 of a call, the row pass 0.20 and the combine
 // 0.06: the row pass's sixth product and the 3xTF32 splits and fragment
 // loads, as in the forward, set the pace.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -110,9 +126,10 @@ struct Geo {
   static constexpr int kRow = BQ * QS + 2 * BK * QS + 2 * kWarps * 16;
 };
 
+template <typename T>
 struct Args {
-  const float *q, *k, *v, *o, *dout;
-  float *dq, *dk, *dv;
+  const T *q, *k, *v, *o, *dout;   // float or __nv_bfloat16
+  T *dq, *dk, *dv;
   float *lse, *dd, *part;   // scratch: (B H Sqp) each, then the partials
   int B, Sq, Skv, H, Kh, q_offset, causal, window, Sqp, nkt;
   float scale;
@@ -126,20 +143,68 @@ __device__ __forceinline__ bool visible(int qp, int key, int Skv, int causal,
 }
 
 // rows [r0, r0 + R) of a (B, S, Hx, D) tensor at (b, head) into shared
-// rows of stride D + 4, by 16-byte cp.async; rows past S as zeros
-template <int D, int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int b,
+// f32 rows of stride D + 4; rows past S as zeros.  f32 by 16-byte
+// cp.async; bf16 by 16-byte loads of 8 elements into registers (all of a
+// thread's pieces in flight at once), each widened exactly to f32 and
+// stored, so the tile holds the same floats as the f32 path's would
+template <int D, int R, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src, int b,
                                           int head, int r0, int S, int Hx) {
-  constexpr int C4 = D / 4;
-  for (int idx = threadIdx.x; idx < R * C4; idx += kThreads) {
-    const int r = idx / C4, c = idx - r * C4;
-    const int row = r0 + r;
-    const bool ok = row < S;
-    cp_async16(dst + r * (D + 4) + 4 * c,
-               src + ((size_t(b) * S + (ok ? row : 0)) * Hx + head) * D +
-                   4 * c,
-               ok);
+  if constexpr (std::is_same_v<T, float>) {
+    constexpr int C4 = D / 4;
+    for (int idx = threadIdx.x; idx < R * C4; idx += kThreads) {
+      const int r = idx / C4, c = idx - r * C4;
+      const int row = r0 + r;
+      const bool ok = row < S;
+      cp_async16(dst + r * (D + 4) + 4 * c,
+                 src + ((size_t(b) * S + (ok ? row : 0)) * Hx + head) * D +
+                     4 * c,
+                 ok);
+    }
+  } else {
+    constexpr int C8 = D / 8, N = (R * C8 + kThreads - 1) / kThreads;
+    uint4 x[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / C8, c = idx - r * C8;
+      x[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (idx < R * C8 && r0 + r < S)
+        x[i] = *reinterpret_cast<const uint4*>(
+            src + ((size_t(b) * S + r0 + r) * Hx + head) * D + 8 * c);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      if (idx >= R * C8) continue;
+      const int r = idx / C8, c = idx - r * C8;
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x[i]);
+      const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+      const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+      float* d = dst + r * (D + 4) + 8 * c;
+      *reinterpret_cast<float4*>(d) = make_float4(f0.x, f0.y, f1.x, f1.y);
+      *reinterpret_cast<float4*>(d + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
+    }
   }
+}
+
+// 4 consecutive elements at p (16-byte aligned for f32, 8 for bf16), each
+// widened exactly to f32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// (x, y) at p, each rounded once to T (to nearest even for bf16)
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // acc (16 rows x 8 N) = A . B^T over KD: A(m, k) = a[m AS + k] (k along a
@@ -218,7 +283,8 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 }
 
 // the key range [lo, hi) the rows [q0, q0 + R) of a query tile may see
-__device__ __forceinline__ void key_range(const Args& a, int q0, int R,
+template <typename T>
+__device__ __forceinline__ void key_range(const Args<T>& a, int q0, int R,
                                           int& lo, int& hi) {
   const int last = min(q0 + R, a.Sq) - 1;
   lo = 0;
@@ -232,8 +298,8 @@ __device__ __forceinline__ void key_range(const Args& a, int q0, int R,
 // ---------------------------------------------------------------------------
 // row pass: LSE (log2 domain) and D per query row
 // ---------------------------------------------------------------------------
-template <int HD, int HDV>
-__global__ void __launch_bounds__(kThreads, 1) row_kernel(const Args a) {
+template <int HD, int HDV, typename T>
+__global__ void __launch_bounds__(kThreads, 1) row_kernel(const Args<T> a) {
   using G = Geo<HD, HDV>;
   constexpr int BQ = G::BQ, BK = G::BK, QS = G::QS, NA = G::NA;
   extern __shared__ __align__(16) float smem[];
@@ -314,8 +380,8 @@ __global__ void __launch_bounds__(kThreads, 1) row_kernel(const Args a) {
         ((size_t(b) * a.Sq + drow) * a.H + h) * HDV + part * CW;
 #pragma unroll
     for (int c = 0; c < CW; c += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(a.dout + base + c);
-      const float4 y = *reinterpret_cast<const float4*>(a.o + base + c);
+      const float4 x = load4(a.dout + base + c);
+      const float4 y = load4(a.o + base + c);
       d = fmaf(x.x, y.x, d);
       d = fmaf(x.y, y.y, d);
       d = fmaf(x.z, y.z, d);
@@ -348,8 +414,8 @@ __global__ void __launch_bounds__(kThreads, 1) row_kernel(const Args a) {
 // ---------------------------------------------------------------------------
 // dK, dV and dQ's key-tile partials: one CTA per (key tile, b, kv head)
 // ---------------------------------------------------------------------------
-template <int HD, int HDV>
-__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args a) {
+template <int HD, int HDV, typename T>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args<T> a) {
   using G = Geo<HD, HDV>;
   constexpr int BQ = G::BQ, BK = G::BK, QS = G::QS, VS = G::VS;
   constexpr int TS = G::TS, NS = G::NS, NA = G::NA;
@@ -476,25 +542,23 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args a) {
     const int key = k0 + 16 * rb + g + 8 * r;
     if (key >= a.Skv) continue;
     const size_t row = (size_t(b) * a.Skv + key) * a.Kh + kvh;
-    float* pk = a.dk + row * HD + cb * (HD / G::CB) + 2 * t;
-    float* pv = a.dv + row * HDV + cb * (HDV / G::CB) + 2 * t;
+    T* pk = a.dk + row * HD + cb * (HD / G::CB) + 2 * t;
+    T* pv = a.dv + row * HDV + cb * (HDV / G::CB) + 2 * t;
 #pragma unroll
     for (int n = 0; n < G::ND; ++n)
-      *reinterpret_cast<float2*>(pk + 8 * n) =
-          make_float2(dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
+      store2(pk + 8 * n, dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
 #pragma unroll
     for (int n = 0; n < G::NV; ++n)
-      *reinterpret_cast<float2*>(pv + 8 * n) =
-          make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+      store2(pv + 8 * n, dv[n][2 * r], dv[n][2 * r + 1]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // dQ: each row's key-tile partials summed in key-tile order, times scale
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kCombineThreads)
-    dq_combine_kernel(const Args a, int BK) {
+    dq_combine_kernel(const Args<T> a, int BK) {
   constexpr int C4 = HD / 4;
   const int idx = blockIdx.x * kCombineThreads + threadIdx.x;
   const int row = idx / C4, c = idx - row * C4;
@@ -518,9 +582,9 @@ __global__ void __launch_bounds__(kCombineThreads)
       s.w += x.w;
     }
   }
-  *reinterpret_cast<float4*>(a.dq + ((size_t(b) * a.Sq + row) * a.H + h) *
-                                        HD + 4 * c) =
-      make_float4(s.x * a.scale, s.y * a.scale, s.z * a.scale, s.w * a.scale);
+  T* pq = a.dq + ((size_t(b) * a.Sq + row) * a.H + h) * HD + 4 * c;
+  store2(pq, s.x * a.scale, s.y * a.scale);
+  store2(pq + 2, s.z * a.scale, s.w * a.scale);
 }
 
 template <typename K>
@@ -531,8 +595,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <int HD, int HDV>
-int launch(const Args& a, int keys, int rows, int smem, int row_smem,
+template <int HD, int HDV, typename T>
+int launch(const Args<T>& a, int keys, int rows, int smem, int row_smem,
            cudaStream_t s) {
   using G = Geo<HD, HDV>;
   constexpr int main_bytes = 4 * G::kMain, row_bytes = 4 * G::kRow;
@@ -543,48 +607,37 @@ int launch(const Args& a, int keys, int rows, int smem, int row_smem,
       a.nkt != (a.Skv + G::BK - 1) / G::BK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if ((e = allow_smem(row_kernel<HD, HDV>, row_bytes)) != cudaSuccess ||
-      (e = allow_smem(dkdv_kernel<HD, HDV>, main_bytes)) != cudaSuccess)
+  if ((e = allow_smem(row_kernel<HD, HDV, T>, row_bytes)) != cudaSuccess ||
+      (e = allow_smem(dkdv_kernel<HD, HDV, T>, main_bytes)) != cudaSuccess)
     return static_cast<int>(e);
   const int nq = (a.Sq + G::BQ - 1) / G::BQ;
-  row_kernel<HD, HDV><<<dim3(a.B * a.H, nq), kThreads, row_bytes, s>>>(a);
+  row_kernel<HD, HDV, T><<<dim3(a.B * a.H, nq), kThreads, row_bytes, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  dkdv_kernel<HD, HDV>
+  dkdv_kernel<HD, HDV, T>
       <<<dim3(a.B * a.Kh, a.nkt), kThreads, main_bytes, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   const int n = a.Sq * (HD / 4);
-  dq_combine_kernel<HD>
+  dq_combine_kernel<HD, T>
       <<<dim3((n + kCombineThreads - 1) / kCombineThreads, a.B * a.H),
          kCombineThreads, 0, s>>>(a, G::BK);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// q (B, Sq, H, hd), k (B, Skv, Kh, hd), v (B, Skv, Kh, hdv), o and dout
-// (B, Sq, H, hdv), all f32, contiguous and 16-byte aligned; writes dq, dk,
-// dv (shaped as q, k, v).  scratch: each row's LSE and D (2 B H Sqp floats,
-// Sqp = Sq rounded up to 64), then dQ's partials (B H ceil(Skv / keys) Sq
-// hd floats).  keys, rows, smem and row_smem are the wrapper's geometry
-// (kernels/flash_attention.py::_bwd_geometry), refused if they are not this
-// launcher's own.
-extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* scratch, int B,
-    int Sq, int Skv, int H, int Kh, int hd, int hdv, int q_offset,
-    int causal, int window, float scale, int keys, int rows, int smem,
-    int row_smem, void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || Kh <= 0 || H % Kh != 0 || keys <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.o = static_cast<const float*>(o);
-  a.dout = static_cast<const float*>(dout);
-  a.dq = static_cast<float*>(dq);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
+template <typename T>
+int launch_dtype(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, void* dq, void* dk, void* dv,
+                 void* scratch, int B, int Sq, int Skv, int H, int Kh, int hd,
+                 int hdv, int q_offset, int causal, int window, float scale,
+                 int keys, int rows, int smem, int row_smem, cudaStream_t s) {
+  Args<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.o = static_cast<const T*>(o);
+  a.dout = static_cast<const T*>(dout);
+  a.dq = static_cast<T*>(dq);
+  a.dk = static_cast<T*>(dk);
+  a.dv = static_cast<T*>(dv);
   a.B = B;
   a.Sq = Sq;
   a.Skv = Skv;
@@ -599,12 +652,42 @@ extern "C" int flash_attention_bwd_launch(
   a.lse = static_cast<float*>(scratch);
   a.dd = a.lse + size_t(B) * H * a.Sqp;
   a.part = a.dd + size_t(B) * H * a.Sqp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RT_CASE(D, DV)    \
   if (hd == D && hdv == DV) \
-    return launch<D, DV>(a, keys, rows, smem, row_smem, s);
+    return launch<D, DV, T>(a, keys, rows, smem, row_smem, s);
   RT_CASE(16, 16) RT_CASE(32, 32) RT_CASE(64, 64) RT_CASE(128, 128)
   RT_CASE(192, 128) RT_CASE(256, 256)
 #undef RT_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// q (B, Sq, H, hd), k (B, Skv, Kh, hd), v (B, Skv, Kh, hdv), o and dout
+// (B, Sq, H, hdv), all of one dtype (0 f32, 1 bf16), contiguous and
+// 16-byte aligned; writes dq, dk, dv (shaped as q, k, v, in that dtype).
+// scratch (f32): each row's LSE and D (2 B H Sqp floats, Sqp = Sq rounded
+// up to 64), then dQ's partials (B H ceil(Skv / keys) Sq hd floats).
+// keys, rows, smem and row_smem are the wrapper's geometry
+// (kernels/flash_attention.py::_bwd_geometry), refused if they are not
+// this launcher's own.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* scratch, int B,
+    int Sq, int Skv, int H, int Kh, int hd, int hdv, int q_offset,
+    int causal, int window, float scale, int dtype, int keys, int rows,
+    int smem, int row_smem, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || Kh <= 0 || H % Kh != 0 || keys <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kDtypeF32)
+    return launch_dtype<float>(q, k, v, o, dout, dq, dk, dv, scratch, B, Sq,
+                               Skv, H, Kh, hd, hdv, q_offset, causal, window,
+                               scale, keys, rows, smem, row_smem, s);
+  if (dtype == rt::kDtypeBF16)
+    return launch_dtype<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, scratch,
+                                       B, Sq, Skv, H, Kh, hd, hdv, q_offset,
+                                       causal, window, scale, keys, rows,
+                                       smem, row_smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

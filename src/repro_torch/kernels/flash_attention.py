@@ -23,9 +23,10 @@ passes, and ``_geometry`` the launch geometry that the C launcher checks.
 
 Where autograd records a call on CUDA tensors (grad mode on, an input
 requiring grad), the wrapper goes through ``FlashAttentionFn``, whose
-backward is ``csrc/flash_attention_bwd.cu`` (f32; the Pallas package has
-no backward kernel, JAX differentiates its jnp path).  Its plain version is
-``flash_attention_bwd_plain``, autograd through ``flash_attention_plain``.
+backward is ``csrc/flash_attention_bwd.cu`` (f32 or bf16; the Pallas
+package has no backward kernel, JAX differentiates its jnp path).  Its
+plain version is ``flash_attention_bwd_plain``: f32 math on the widened
+inputs, each gradient rounded once to the inputs' dtype, as the kernel.
 The backward's main kernel runs one CTA per (key tile, b, kv head) and
 writes dQ as one f32 partial per key tile, which a combine sums in
 key-tile order: ``bwd_plan``, ``flash_bwd_partials_plain`` and
@@ -216,14 +217,31 @@ def flash_combine_plain(m, l, acc, *, Skv: int, causal=True, window=0,
 
 
 def flash_attention_bwd_plain(q, k, v, dout, *, causal=True, window=0,
-                              scale=None, q_offset=None):
+                              scale=None, q_offset=None, o=None):
     """The backward's plain version: (dq, dk, dv) of
-    ``flash_attention_plain`` for the incoming ``dout``, by autograd."""
+    ``flash_attention_plain`` for the incoming ``dout``, in f32 on q, k, v
+    and dout widened to f32, each gradient rounded once to q's dtype: at
+    bf16, the kernel's rule (f32 math on the widened inputs, rounded when
+    stored), not autograd in bf16 arithmetic.  ``o``: the forward's output,
+    whose D = dout . o the kernel reads (at bf16 the forward's rounded
+    output); given, the gradients follow it (``flash_bwd_partials_plain``
+    and its combine); None, autograd through the f32 forward."""
+    if o is not None:
+        part, dk, dv = flash_bwd_partials_plain(
+            q, k, v, dout, causal=causal, window=window, scale=scale,
+            q_offset=q_offset, o=o)
+        dq = flash_bwd_combine_plain(part, Skv=k.shape[1], hdv=v.shape[-1],
+                                     causal=causal, window=window,
+                                     scale=scale, q_offset=q_offset)
+        return tuple(g.to(q.dtype) for g in (dq, dk, dv))
     with torch.enable_grad():
-        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
-        o = flash_attention_plain(qq, kk, vv, causal=causal, window=window,
-                                  scale=scale, q_offset=q_offset)
-        return torch.autograd.grad(o, (qq, kk, vv), dout)
+        qq, kk, vv = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        out = flash_attention_plain(qq, kk, vv, causal=causal,
+                                    window=window, scale=scale,
+                                    q_offset=q_offset)
+        grads = torch.autograd.grad(out, (qq, kk, vv), dout.float())
+    return tuple(g.to(q.dtype) for g in grads)
 
 
 # the backward's LSE and D rows are padded to a multiple of this
@@ -284,12 +302,13 @@ def bwd_plan(Sq: int, Skv: int, hd: int, hdv: int, *, causal=True,
 
 
 def flash_bwd_partials_plain(q, k, v, dout, *, causal=True, window=0,
-                             scale=None, q_offset=None):
+                             scale=None, q_offset=None, o=None):
     """The backward's main pass, written out in f32: dS = P (dP - D) with P
-    the softmax over the keys a row sees and D = dout . o; dV = P^T dout
-    and dK = scale dS^T Q summed over the group's heads; and per key tile
-    of ``_bwd_geometry``'s keys, dQ's partial dS[:, tile] K[tile] (without
-    the scale).  Returns (partials (B, H, n key tiles, Sq, hd), dk, dv)."""
+    the softmax over the keys a row sees and D = dout . o (``o`` the
+    forward's output, widened; None: P V in f32); dV = P^T dout and dK =
+    scale dS^T Q summed over the group's heads; and per key tile of
+    ``_bwd_geometry``'s keys, dQ's partial dS[:, tile] K[tile] (without the
+    scale).  Returns (partials (B, H, n key tiles, Sq, hd), dk, dv)."""
     B, Sq, H, hd = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     hdv = v.shape[-1]
@@ -308,7 +327,10 @@ def flash_bwd_partials_plain(q, k, v, dout, *, causal=True, window=0,
     p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)),
                     torch.zeros_like(s))
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    o = torch.einsum("bhgqj,bjhc->bhgqc", p, vf)
+    if o is None:
+        o = torch.einsum("bhgqj,bjhc->bhgqc", p, vf)
+    else:
+        o = o.float().reshape(B, Sq, Kh, G, hdv).permute(0, 2, 3, 1, 4)
     d = (dof.permute(0, 2, 3, 1, 4) * o).sum(dim=-1)
     dp = torch.einsum("bqhgc,bjhc->bhgqj", dof, vf)
     ds = p * (dp - d[..., None])
@@ -368,7 +390,8 @@ def _launch_forward(q, k, v, causal, window, scale, q_offset):
 
 def _launch_backward(q, k, v, o, dout, causal, window, scale, q_offset):
     """The backward kernels (csrc/flash_attention_bwd.cu: the row pass,
-    the main kernel and dQ's combine) on f32 CUDA inputs: (dq, dk, dv)."""
+    the main kernel and dQ's combine) on CUDA inputs of one dtype, f32 or
+    bf16: (dq, dk, dv) in that dtype."""
     B, Sq, H, hd = q.shape
     Skv, Kh, hdv = k.shape[1], k.shape[2], v.shape[-1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -388,8 +411,9 @@ def _launch_backward(q, k, v, o, dout, causal, window, scale, q_offset):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         scratch.data_ptr(), B, Sq, Skv, H, Kh, hd, hdv, q_offset,
-        int(causal), int(window), scale, geo.keys, geo.rows, geo.smem,
-        geo.row_smem, torch.cuda.current_stream(q.device).cuda_stream)
+        int(causal), int(window), scale, _DTYPES[q.dtype], geo.keys,
+        geo.rows, geo.smem, geo.row_smem,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd")
     build.launches["flash_attention_bwd"] += 1
     return dq, dk, dv
@@ -398,7 +422,7 @@ def _launch_backward(q, k, v, o, dout, causal, window, scale, q_offset):
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel, differentiated by the backward kernels.  It
     saves q, k, v and the output; the backward recomputes each row's
-    log-sum-exp from them."""
+    log-sum-exp from them.  The gradients come in the inputs' dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, q_offset):
@@ -420,8 +444,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, H, hd); k/v: (B, Skv, Kh, hd/hdv). Returns (B, Sq, H, hdv).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    through ``FlashAttentionFn`` where autograd records the call (f32
-    only)."""
+    through ``FlashAttentionFn`` where autograd records the call."""
     B, Sq, H, hd = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     hdv = v.shape[-1]
@@ -446,11 +469,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{HEAD_DIM_PAIRS}, got hd={hd}, hdv={hdv}")
     if H % Kh:
         raise ValueError(f"flash attention: H={H} not a multiple of Kh={Kh}")
-    grad = build.needs_grad(q, k, v)
-    if grad and q.dtype != torch.float32:
-        raise NotImplementedError(
-            "flash attention: the backward kernel takes float32 only; "
-            "bf16 training is a later item (ROADMAP.md, section 2)")
     if how == "meta":
         return build.meta_outputs(lambda: q.new_empty((B, Sq, H, hdv)),
                                   q, k, v)
@@ -464,7 +482,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          "q must start on a 16-byte boundary")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
-    if grad:
+    if build.needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window, scale,
                                       q_offset)
     return _launch_forward(q, k, v, causal, window, scale, q_offset)

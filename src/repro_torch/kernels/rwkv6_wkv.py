@@ -338,8 +338,9 @@ def wkv6(r, k, v, w, u, state0=None):
         raise ValueError("wkv6: inputs must be contiguous")
     if grad and r.dtype != torch.float32:
         raise NotImplementedError(
-            "wkv6: the backward kernel takes float32 only; bf16 "
-            "training is a later item (ROADMAP.md, section 2)")
+            "wkv6: the backward kernel takes float32 only, and no caller "
+            "needs more: the RWKV layer widens r, k and v to float32 before "
+            "the WKV call at any param dtype (ROADMAP.md, section 2)")
     if how == "meta":
         y, st = build.meta_outputs(
             lambda: (r.new_empty(r.shape),

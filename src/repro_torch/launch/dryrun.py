@@ -20,9 +20,9 @@ operation computes shapes only (the kernel wrappers' meta route,
   bytes of their local tensors (``comm.stats()``).  Every call is counted,
   loop bodies each time they run; the reference's HLO census counts each
   occurrence once, loop bodies once;
-- ``param_dtype``: bf16 for serving, as the reference's; f32 for training,
-  whose backward kernels take f32 only (the bf16 backward is a later item,
-  ROADMAP.md section 1), so that a train cell is the step the card runs;
+- ``param_dtype``: bf16 for every cell, as the reference's (its
+  ``build_train_step``, ``build_prefill_step`` and ``build_decode_step``
+  default to bf16, and its dry run passes no dtype);
 - ``roofline`` and ``hbm_analytic``: ``step_costs`` and ``hbm_footprint``
   on an H100 (``launch/roofline.py``) at that dtype's bytes;
 - ``status`` ``error`` and the reason where the step cannot run on meta
@@ -61,8 +61,8 @@ GB = 1024 ** 3
 CENSUS = ("every collective call one step issues at this rank, loop bodies "
           "counted each time they run; bytes: the local tensor each call "
           "takes")
-# the steps' params: bf16 as the reference's, f32 for training (above)
-PARAM_DTYPE = {"train": torch.float32, "prefill": torch.bfloat16,
+# the steps' params: bf16 for every kind, the reference's default
+PARAM_DTYPE = {"train": torch.bfloat16, "prefill": torch.bfloat16,
                "decode": torch.bfloat16}
 
 

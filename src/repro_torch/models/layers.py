@@ -196,7 +196,7 @@ def _paged_attention(q, k, v, cache, block_table, *, pos0, wo, causal,
     else:
         if B != 1:
             raise ValueError("paged prefill runs one slot at a time")
-        p0 = int(torch.as_tensor(pos0).reshape(-1)[0])
+        p0 = int(pos0)              # a prefill's start: a host int
         pos = p0 + torch.arange(S, device=q.device)
         pids = bt[0, pos // bs].long()
         offs = pos % bs

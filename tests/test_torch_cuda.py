@@ -1139,11 +1139,89 @@ def test_cuda_flash_backward(cuda_dev, hd, hdv, causal, window, G, Sq, Skv,
 
 
 @pytest.mark.cuda
-def test_cuda_flash_backward_refuses_bf16(cuda_dev):
-    q = torch.zeros((1, 8, 2, 64), device=cuda_dev, dtype=torch.bfloat16,
-                    requires_grad=True)
+def test_cuda_wkv6_backward_refuses_bf16(cuda_dev):
+    """wkv6's backward kernel takes f32 only, and under autograd the
+    wrapper refuses bf16 r, k and v: no caller needs more, since the RWKV
+    layer widens r, k and v to f32 before the WKV call even at bf16 params
+    (models/ssm.py), as the reference's does."""
+    rng = np.random.default_rng(3)
+    r, k, v, w, u, _ = _wkv_inputs(rng, 1, 8, 2, 64, "bfloat16", cuda_dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q, q.detach(), q.detach())
+        wkv6(r.requires_grad_(True), k, v, w, u, None)
+
+
+def _bf16_flash_inputs(rng, B, Sq, Skv, H, Kh, hd, hdv, dev):
+    q = _rand(rng, (B, Sq, H, hd), "bfloat16", dev)
+    k = _rand(rng, (B, Skv, Kh, hd), "bfloat16", dev)
+    v = _rand(rng, (B, Skv, Kh, hdv), "bfloat16", dev)
+    return q, k, v, _rand(rng, (B, Sq, H, hdv), "bfloat16", dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,hdv", HEAD_DIM_PAIRS)
+@pytest.mark.parametrize("causal,window,G,Sq,Skv,q_offset", [
+    (True, 0, 1, 100, 100, None),
+    (True, 0, 4, 77, 130, None),
+    (True, 24, 1, 129, 129, None),
+    (False, 0, 4, 65, 33, None),
+    (True, 16, 2, 31, 300, 250),
+])
+def test_cuda_flash_backward_bf16_is_f32_rounded(cuda_dev, hd, hdv, causal,
+                                                 window, G, Sq, Skv,
+                                                 q_offset):
+    """The bf16 backward equals the f32 backward kernel on the widened
+    inputs (q, k, v, the forward's bf16 output and dO), each gradient
+    rounded to bf16, bit for bit; a second call gives the same bits; and
+    under autograd it goes through FlashAttentionFn with bf16 gradients."""
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.default_rng(11)
+    B, Kh = 2, 2
+    q, k, v, do = _bf16_flash_inputs(rng, B, Sq, Skv, Kh * G, Kh, hd, hdv,
+                                     cuda_dev)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    with torch.no_grad():
+        o = flash_attention(q, k, v, **kw)
+    args = (causal, window, hd ** -0.5,
+            (Skv - Sq) if q_offset is None else q_offset)
+    got = FA._launch_backward(q, k, v, o, do, *args)
+    wide = FA._launch_backward(*(t.float() for t in (q, k, v, o, do)), *args)
+    for g, w in zip(got, wide):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+    again = FA._launch_backward(q, k, v, o, do, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = build.launches["flash_attention_bwd"]
+    auto = torch.autograd.grad(flash_attention(*ins, **kw), ins, do)
+    assert build.launches["flash_attention_bwd"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, auto))
+
+
+def _ulp_bf16(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,hdv", HEAD_DIM_PAIRS)
+def test_cuda_flash_backward_bf16_equals_plain(cuda_dev, hd, hdv):
+    """The bf16 backward kernel against its plain version (f32 math on the
+    widened inputs, D from the forward's bf16 output as the kernel's,
+    rounded once) on the same inputs, within one bf16 ulp or TOL's atol,
+    element by element: the two sum in other orders."""
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.default_rng(12)
+    q, k, v, do = _bf16_flash_inputs(rng, 2, 200, 330, 8, 2, hd, hdv,
+                                     cuda_dev)
+    kw = dict(causal=True, window=64, q_offset=130)
+    with torch.no_grad():
+        o = flash_attention(q, k, v, **kw)
+    got = FA._launch_backward(q, k, v, o, do, True, 64, hd ** -0.5, 130)
+    ref = flash_attention_bwd_plain(q, k, v, do, o=o, **kw)
+    for g, r in zip(got, ref):
+        err = (g.float() - r.float()).abs()
+        tol = torch.clamp(_ulp_bf16(r.float()),
+                          min=TOL["bfloat16"]["atol"])
+        assert bool((err <= tol).all()), float(err.max())
 
 
 @pytest.mark.cuda

@@ -358,3 +358,25 @@ def test_dry_run_cell_records_a_step_the_card_refuses():
     assert cells["g1"] == {"status": "ok", "error": ""}
     assert cells["g16"]["status"] == "error"
     assert "H / Kh <= 8" in cells["g16"]["error"], cells["g16"]
+
+
+def test_dry_run_train_cell_runs_at_bf16():
+    """A train cell runs at bf16 params, the reference's default, and
+    records ok: the flash wrapper's meta route runs the checks its CUDA
+    route runs, and its backward takes bf16 (in a fresh interpreter, in a
+    fake world of 256)."""
+    code = "\n".join([
+        "import json",
+        "from repro_torch.launch import dryrun",
+        "with dryrun.fake_world(256):",
+        "    rec = dryrun.run_cell('qwen1.5-0.5b', 'train_4k', False,",
+        "                          verbose=False)",
+        "print('CELL' + json.dumps({k: rec.get(k) for k in",
+        "                           ('status', 'error', 'param_dtype')}))"])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    cell = json.loads(res.stdout.split("CELL")[1])
+    assert cell == {"status": "ok", "error": None,
+                    "param_dtype": "bfloat16"}, cell

@@ -187,7 +187,7 @@ def test_flash_goes_through_its_function(kernel_branch, monkeypatch,
     """Under autograd the kernel branch runs FlashAttentionFn: its output
     has a grad_fn, and backward gives the plain version's gradients (GQA:
     dk and dv summed over the group); without autograd it launches the
-    forward alone."""
+    forward alone.  bf16 inputs go the same way, with bf16 gradients."""
     calls = []
     _flash_stand_ins(monkeypatch, calls)
     rng = np.random.default_rng(5)
@@ -206,9 +206,16 @@ def test_flash_goes_through_its_function(kernel_branch, monkeypatch,
     with torch.no_grad():
         assert FA.flash_attention(*ins, window=window).grad_fn is None
     assert calls == ["forward", "backward", "forward"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FA.flash_attention(*(t.to(torch.bfloat16).requires_grad_(True)
-                             for t in (q, k, v)))
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    ins = [t.clone().requires_grad_(True) for t in bf[:3]]
+    out = FA.flash_attention(*ins, window=window, q_offset=q_offset)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(out, ins, bf[3])
+    want = FA.flash_attention_bwd_plain(*bf, window=window,
+                                        q_offset=q_offset)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
 
 
 def _wkv_inputs(rng, B=2, S=7, H=2, hd=16):

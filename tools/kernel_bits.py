@@ -14,14 +14,16 @@ flash at every (hd, hdv) the kernel takes, causal, with a window and a
 q_offset, in f32 and bf16; wkv6's output and final state at hd 16, 64 and
 128, with and without a state0, over 1, 9 and 600 steps, in f32 and bf16;
 and the backward kernels' gradients (names starting "backward"): flash at
-every (hd, hdv), causal, with a window and a q_offset, and GQA, and wkv6 at
-hd 16, 64 and 128 with a state0 and a final-state gradient.  ``compare``
+every (hd, hdv), causal, with a window and a q_offset, and GQA, in f32
+and, where TREE's flash backward takes it, bf16 through autograd (names
+starting "backward bf16"), and wkv6 at hd 16, 64 and 128 with a state0 and
+a final-state gradient.  ``compare``
 holds every output whose name holds none of the EXPECTED substrings (say
 ``"(128, 128)"``: the flash outputs a change redesigned, or ``backward``)
 to the same bits, prints the names of the expected ones that changed, and
 exits non-zero if any other output differs, or if an output other than a
-"cache=" pair is missing from one of the two files (a tree whose decode
-refuses a pair saves none of it).  To compare
+"cache=" pair or a bf16 backward is missing from one of the two files (a
+tree whose kernel refuses an input saves none of it).  To compare
 a commit with its parent, unpack the parent into a git-ignored directory
 (``git archive``) and run save for parent, change, change, parent, then
 compare each pair.
@@ -121,6 +123,17 @@ def save(tree: str, out: str) -> int:
             for name, g in zip(("dq", "dk", "dv"), grads):
                 outs[f"backward flash ({hd}, {hdv}) Sq={Sq} Skv={Skv} H={H} "
                      f"Kh={Kh} window={win} causal={causal} {name}"] = g.cpu()
+            bf = [t.to(torch.bfloat16).requires_grad_(True) for t in (q, k, v)]
+            try:
+                o = flash_attention(*bf, causal=causal, window=win,
+                                    q_offset=qo)
+            except NotImplementedError:
+                continue            # a tree whose backward takes f32 only
+            grads = torch.autograd.grad(o, bf, do.to(torch.bfloat16))
+            for name, g in zip(("dq", "dk", "dv"), grads):
+                outs[f"backward bf16 flash ({hd}, {hdv}) Sq={Sq} Skv={Skv} "
+                     f"H={H} Kh={Kh} window={win} causal={causal} "
+                     f"{name}"] = g.cpu()
     for hd in (16, 64, 128):
         B, S, H = 2, 100, 4
         r, k, v = (rnd32(B, S, H, hd, scale=0.5) for _ in range(3))
@@ -153,7 +166,9 @@ def compare(a: str, b: str, *expected: str) -> int:
     if alone:
         print(f"  in one file only: {len(alone)}"
               + "".join(f"\n    {k}" for k in alone[:10]))
-    return 1 if bad or any("cache=" not in k for k in alone) else 0
+    optional = ("cache=", "backward bf16")
+    return 1 if bad or any(not any(o in k for o in optional)
+                           for k in alone) else 0
 
 
 if __name__ == "__main__":
