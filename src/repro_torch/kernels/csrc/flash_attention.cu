@@ -129,8 +129,10 @@ using rt::cp_async16;
 using rt::cp_async_commit;
 using rt::cp_async_wait;
 using rt::mma_3xtf32;
+using rt::mma_bf16;
 using rt::smem_addr;
 using rt::split;
+using rt::split_bf16;
 
 constexpr int kRowWarps = 4;       // m16 row tiles per CTA
 constexpr int kPairs = 2;          // warps per row tile (key or column halves)
@@ -155,26 +157,6 @@ template <typename T, int HD, int HDV>
 __host__ __device__ constexpr size_t smem_bytes(int bk) {
   return sizeof(T) * (kBQ * stride<T, HD>() +
                       2 * bk * (stride<T, HD>() + stride<T, HDV>()));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-// (x, y) as a bf16 pair hi plus the pair of what it rounded off, lo
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
 }
 
 // S (16 x 8 NT per warp) = Q_warp . K_warp^T, raw (unscaled) scores, with

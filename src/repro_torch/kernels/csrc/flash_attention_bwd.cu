@@ -7,20 +7,22 @@
 // and XLA differentiates it.  This computes the gradients of the forward
 // kernel of csrc/flash_attention.cu, for every (hd, hdv) it takes, causal,
 // windowed or full, GQA, at any q_offset, in f32 or bf16.  With x = scale *
-// q.k over
-// the keys a row may see, p = softmax(x), o = p.v and the incoming dO:
+// q.k over the keys a row may see, p = softmax(x), o = p.v and the
+// incoming dO:
 //   D_i  = sum_c dO_ic o_ic
 //   dV_j = sum_i p_ij dO_i
 //   dS_ij = p_ij (dO_i . v_j - D_i)
 //   dQ_i = scale sum_j dS_ij k_j,   dK_j = scale sum_i dS_ij q_i
-// (dK and dV summed over the G query heads of a kv head).
+// (dK and dV summed over the G query heads of a kv head).  The forward
+// keeps no log-sum-exp (its bits stay as they are), so the backward
+// recomputes it.  f32 and bf16 run two designs; neither uses atomics, and
+// every sum has a fixed order, so two calls give the same bits.
 //
-// Bound on an H100: operations.  The least work is 5 products of hd per
-// visible (row, key) pair: S = Q.K^T, dP = dO.V^T, dV, dK and dQ; at the
-// training shape of qwen1.5-0.5b (B 4, Sq = Skv = 512, 16 heads of 64,
+// f32.  Bound on an H100: operations.  The least work is 5 products of hd
+// per visible (row, key) pair: S = Q.K^T, dP = dO.V^T, dV, dK and dQ; at
+// the training shape of qwen1.5-0.5b (B 4, Sq = Skv = 512, 16 heads of 64,
 // causal) 5.4 GFLOP, 0.033 ms as three TF32 products each at 495 TFLOP/s.
-// The forward keeps no log-sum-exp (its bits stay as they are), so a row
-// pass recomputes it: 6 products of hd a pair.  The design:
+// A row pass recomputes the LSE: 6 products of hd a pair.  The design:
 //   * row_kernel, one CTA per (query tile of BQ rows, b, h), tiles with the
 //     most keys first: S on the tensor cores over the key tiles the rows
 //     see (a 2-stage cp.async ring of K tiles), an online max and sum per
@@ -53,30 +55,76 @@
 //     and checked by the launcher): BQ 64 at hd <= 64, else 32; BK 64, or
 //     32 at hd 256.  Shared memory of dkdv_kernel: 160,768 B at (64, 64),
 //     165,376 B at (128, 128), 198,144 B at (192, 128), 215,552 B at (256,
-//     256): every pair runs this design;
+//     256);
 //   * masks as the forward: keys at or past Skv, past the row's position
 //     when causal, and outside the window; a row that sees no key has
-//     P = 0 and zero gradients, as the plain version's;
-//   * no atomics, and every sum has a fixed order (k-steps in order,
-//     independent accumulator chains added in order, row maxima and sums by
-//     xor shuffles, the row pass's key groups and the combine's key tiles
-//     in order): two calls give the same bits.
-//   * bf16 (the reference's default training dtype): q, k, v, o and dO are
-//     widened exactly to f32 on their way into the f32 tiles (16-byte
-//     loads of 8 elements into registers, then st.shared; cp.async cannot
-//     widen), and everything after is the f32 path above: the same tiles,
-//     shared memory, products and summation order.  dK and dV are summed
-//     over the group's heads in f32 and dQ's partials stay f32; each
-//     gradient is rounded once, to nearest even, as it is stored.  So the
-//     bf16 backward equals the f32 backward of the widened inputs rounded
-//     to bf16, bit for bit (chip_smoke.py phase 21 holds it).  A bf16 tile
-//     would halve the loads, but the f32 tiles already fill shared memory
-//     at (256, 256) and the products stay 3xTF32: bf16 tensor-core
-//     products (m16n8k16, wgmma) are later work.
+//     P = 0 and zero gradients, as the plain version's.
 // On an H100 at qwen1.5-0.5b's training call (tools/kernel_stages.py bwd)
 // the main kernel takes 0.73 of a call, the row pass 0.20 and the combine
 // 0.06: the row pass's sixth product and the 3xTF32 splits and fragment
 // loads, as in the forward, set the pace.
+//
+// bf16 (the reference's default training dtype).  Bound on an H100 at
+// qwen's call: bytes (8 bf16 tensors, 33.5 MB, 0.0100 ms, against 5
+// products at 989 TFLOP/s, 0.0054 ms), so at this size the time is set by
+// latency and the causal triangle's longest CTA, not by either bound.  The
+// earlier design widened bf16 into the f32 tiles above and ran 3xTF32
+// (0.2801 ms there, 5.5x SDPA's bf16 backward): three TF32 products where
+// one bf16 product is exact, synchronous widening loads, f32 tiles that
+// held one CTA an SM, and 38 MB of f32 dQ partials.  This design:
+//   * the tiles stay bf16 in shared memory and arrive by 16-byte cp.async
+//     into a 2-stage ring that is in flight while the current tile's
+//     products run; rows sit at a stride of D + 8 elements (the forward's
+//     rule), so the 8 row addresses of every ldmatrix hit 8 distinct
+//     16-byte bank groups;
+//   * products are m16n8k16 bf16 mma.sync with f32 accumulation, operands
+//     by ldmatrix (x4: two n8 tiles at once).  S and dP take bf16 operands
+//     as they are (bf16 x bf16 is exact in f32).  P and dS stay f32 and
+//     enter dV, dK and dQ as a bf16 pair hi + lo (split_bf16, two products,
+//     as the forward's P.V), so each gradient keeps f32 accuracy until its
+//     one rounding, on store.  S and dP come out in the C layout whose
+//     register pairs are the A fragment of the next product, so P and dS
+//     never touch shared memory: the dK/dV kernel computes them transposed
+//     (S^T = K.Q^T, dP^T = V.dO^T: rows keys, columns queries), and the
+//     second operand of each gradient product (dO, Q, K) is read by
+//     ldmatrix.trans;
+//   * dq_bf16_kernel, one CTA per (query tile of 64 rows, b, h), tiles with
+//     the most keys first (4 warps, each 16 rows, or 8 warps at hd 256, two
+//     column groups of dQ): D = dO . o from global rows, then one walk over
+//     the key tiles its rows see, in key order: S and dP, an online max and
+//     sum per row (log2 domain), dS' = exp2(x - m) (dP - D), and dQ += dS'.K
+//     in registers, dQ rescaled by exp2(m_old - m_new) as the running max
+//     grows (as the forward rescales O) and divided by the row's sum at the
+//     end.  It writes each row's LSE and D (f32 scratch) for the dK/dV
+//     kernel, and its dQ row once, rounded once.  So dQ needs no f32
+//     partials and no combine (38 MB written and read back at qwen's call
+//     in the f32 design); it recomputes S and dP, 7 products of hd a visible
+//     pair where the f32 design runs 6;
+//   * dkdv_bf16_kernel, one CTA per (key tile of 64 keys, b, kv head), key
+//     tile 0 first: K and V stay in shared memory while it walks the G
+//     heads and the query tiles that see its keys, each tile's Q, dO, LSE
+//     and D by cp.async; each warp holds 16 keys' S^T and dP^T over the
+//     tile, and dV and dK in registers (4 warps; at hd > 128 two column
+//     groups each of them, 8 warps, S^T and dP^T computed by both);
+//   * a warp skips a block where no (row, key) pair is visible and tests no
+//     mask where every pair is; masks as the f32 design's;
+//   * geometry (GeoBf16, mirrored by _bwd_geometry(hd, hdv, bfloat16) and
+//     checked by the launcher): ring tiles of 64 rows or keys up to hd 64,
+//     else 32.  Shared memory: 56,320 B (dK/dV) and 55,552 B (dQ) at (64,
+//     64); 70,144 and 69,888 at (128, 128); 86,528 and 86,272 at (192,
+//     128); 135,680 and 135,424 at (256, 256).  At (64, 64) that would let
+//     an SM hold four CTAs of each, and registers (240 and 167 a thread,
+//     no spills) hold two and three.  The ring stays two deep: at qwen's
+//     call both grids are 512 CTAs, and a third stage, and a register cap
+//     for a third dK/dV CTA an SM, did not shorten either kernel.
+// On an H100 at qwen1.5-0.5b's training call (tools/kernel_stages.py bwd
+// and bf16bwd) the call takes 0.094 ms, 1.8x SDPA's bf16 backward: dQ
+// 0.035 (a CTA 6.2 us + 3.6 a key tile), dK/dV 0.057 (2.8 us + 5.3 a
+// query tile); with the dK/dV kernel's products removed the call takes
+// 0.056.  So the products set the pace: with the lo halves of P and dS
+// the design runs 10 products of hd a visible pair where SDPA's backward
+// runs 5, both on mma.sync.  wgmma, with the transposed operands read
+// from shared memory in its core-matrix layout, is the next step.
 #include <stdint.h>
 
 #include <type_traits>
@@ -89,8 +137,12 @@ namespace {
 using rt::cp_async16;
 using rt::cp_async_commit;
 using rt::cp_async_wait;
+using rt::ldsm_x4;
+using rt::ldsm_x4_trans;
 using rt::mma_3xtf32;
+using rt::mma_bf16;
 using rt::split;
+using rt::split_bf16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -142,64 +194,24 @@ __device__ __forceinline__ bool visible(int qp, int key, int Skv, int causal,
   return key <= qp && (window == 0 || key > qp - window);
 }
 
-// rows [r0, r0 + R) of a (B, S, Hx, D) tensor at (b, head) into shared
-// f32 rows of stride D + 4; rows past S as zeros.  f32 by 16-byte
-// cp.async; bf16 by 16-byte loads of 8 elements into registers (all of a
-// thread's pieces in flight at once), each widened exactly to f32 and
-// stored, so the tile holds the same floats as the f32 path's would
-template <int D, int R, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int b,
+// rows [r0, r0 + R) of a (B, S, Hx, D) f32 tensor at (b, head) into shared
+// rows of stride D + 4 by 16-byte cp.async; rows past S as zeros
+template <int D, int R>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int b,
                                           int head, int r0, int S, int Hx) {
-  if constexpr (std::is_same_v<T, float>) {
-    constexpr int C4 = D / 4;
-    for (int idx = threadIdx.x; idx < R * C4; idx += kThreads) {
-      const int r = idx / C4, c = idx - r * C4;
-      const int row = r0 + r;
-      const bool ok = row < S;
-      cp_async16(dst + r * (D + 4) + 4 * c,
-                 src + ((size_t(b) * S + (ok ? row : 0)) * Hx + head) * D +
-                     4 * c,
-                 ok);
-    }
-  } else {
-    constexpr int C8 = D / 8, N = (R * C8 + kThreads - 1) / kThreads;
-    uint4 x[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / C8, c = idx - r * C8;
-      x[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < R * C8 && r0 + r < S)
-        x[i] = *reinterpret_cast<const uint4*>(
-            src + ((size_t(b) * S + r0 + r) * Hx + head) * D + 8 * c);
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      if (idx >= R * C8) continue;
-      const int r = idx / C8, c = idx - r * C8;
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x[i]);
-      const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-      const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-      float* d = dst + r * (D + 4) + 8 * c;
-      *reinterpret_cast<float4*>(d) = make_float4(f0.x, f0.y, f1.x, f1.y);
-      *reinterpret_cast<float4*>(d + 4) = make_float4(f2.x, f2.y, f3.x, f3.y);
-    }
+  constexpr int C4 = D / 4;
+  for (int idx = threadIdx.x; idx < R * C4; idx += kThreads) {
+    const int r = idx / C4, c = idx - r * C4;
+    const int row = r0 + r;
+    const bool ok = row < S;
+    cp_async16(dst + r * (D + 4) + 4 * c,
+               src + ((size_t(b) * S + (ok ? row : 0)) * Hx + head) * D +
+                   4 * c,
+               ok);
   }
 }
 
-// 4 consecutive elements at p (16-byte aligned for f32, 8 for bf16), each
-// widened exactly to f32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// (x, y) at p, each rounded once to T (to nearest even for bf16)
+// (x, y) at p, each rounded once to its type (to nearest even for bf16)
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
@@ -298,8 +310,9 @@ __device__ __forceinline__ void key_range(const Args<T>& a, int q0, int R,
 // ---------------------------------------------------------------------------
 // row pass: LSE (log2 domain) and D per query row
 // ---------------------------------------------------------------------------
-template <int HD, int HDV, typename T>
-__global__ void __launch_bounds__(kThreads, 1) row_kernel(const Args<T> a) {
+template <int HD, int HDV>
+__global__ void __launch_bounds__(kThreads, 1)
+    row_kernel(const Args<float> a) {
   using G = Geo<HD, HDV>;
   constexpr int BQ = G::BQ, BK = G::BK, QS = G::QS, NA = G::NA;
   extern __shared__ __align__(16) float smem[];
@@ -380,8 +393,8 @@ __global__ void __launch_bounds__(kThreads, 1) row_kernel(const Args<T> a) {
         ((size_t(b) * a.Sq + drow) * a.H + h) * HDV + part * CW;
 #pragma unroll
     for (int c = 0; c < CW; c += 4) {
-      const float4 x = load4(a.dout + base + c);
-      const float4 y = load4(a.o + base + c);
+      const float4 x = *reinterpret_cast<const float4*>(a.dout + base + c);
+      const float4 y = *reinterpret_cast<const float4*>(a.o + base + c);
       d = fmaf(x.x, y.x, d);
       d = fmaf(x.y, y.y, d);
       d = fmaf(x.z, y.z, d);
@@ -414,8 +427,9 @@ __global__ void __launch_bounds__(kThreads, 1) row_kernel(const Args<T> a) {
 // ---------------------------------------------------------------------------
 // dK, dV and dQ's key-tile partials: one CTA per (key tile, b, kv head)
 // ---------------------------------------------------------------------------
-template <int HD, int HDV, typename T>
-__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args<T> a) {
+template <int HD, int HDV>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkdv_kernel(const Args<float> a) {
   using G = Geo<HD, HDV>;
   constexpr int BQ = G::BQ, BK = G::BK, QS = G::QS, VS = G::VS;
   constexpr int TS = G::TS, NS = G::NS, NA = G::NA;
@@ -542,8 +556,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args<T> a) {
     const int key = k0 + 16 * rb + g + 8 * r;
     if (key >= a.Skv) continue;
     const size_t row = (size_t(b) * a.Skv + key) * a.Kh + kvh;
-    T* pk = a.dk + row * HD + cb * (HD / G::CB) + 2 * t;
-    T* pv = a.dv + row * HDV + cb * (HDV / G::CB) + 2 * t;
+    float* pk = a.dk + row * HD + cb * (HD / G::CB) + 2 * t;
+    float* pv = a.dv + row * HDV + cb * (HDV / G::CB) + 2 * t;
 #pragma unroll
     for (int n = 0; n < G::ND; ++n)
       store2(pk + 8 * n, dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
@@ -556,9 +570,9 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(const Args<T> a) {
 // ---------------------------------------------------------------------------
 // dQ: each row's key-tile partials summed in key-tile order, times scale
 // ---------------------------------------------------------------------------
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kCombineThreads)
-    dq_combine_kernel(const Args<T> a, int BK) {
+    dq_combine_kernel(const Args<float> a, int BK) {
   constexpr int C4 = HD / 4;
   const int idx = blockIdx.x * kCombineThreads + threadIdx.x;
   const int row = idx / C4, c = idx - row * C4;
@@ -582,9 +596,397 @@ __global__ void __launch_bounds__(kCombineThreads)
       s.w += x.w;
     }
   }
-  T* pq = a.dq + ((size_t(b) * a.Sq + row) * a.H + h) * HD + 4 * c;
+  float* pq = a.dq + ((size_t(b) * a.Sq + row) * a.H + h) * HD + 4 * c;
   store2(pq, s.x * a.scale, s.y * a.scale);
   store2(pq + 2, s.z * a.scale, s.w * a.scale);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: bf16 tiles by cp.async, m16n8k16 products, dQ in a kernel of its own
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+template <int HD, int HDV>
+struct GeoBf16 {
+  static constexpr int R = 4;                     // m16 row tiles a CTA
+  static constexpr int BK = 16 * R;               // keys a dK/dV CTA
+  static constexpr int BQ = 16 * R;               // query rows a dQ CTA
+  static constexpr int T = HD > 64 ? 32 : 64;     // rows or keys a ring tile
+  static constexpr int CK = HD > 128 ? 2 : 1;     // column groups of dK, dV
+  static constexpr int CQ = HD > 192 ? 2 : 1;     // and of dQ
+  static constexpr int kStages = 2;               // ring depth (>= 2)
+  static constexpr int QS = HD + 8, VS = HDV + 8;   // row strides, elements
+  static constexpr int NT = T / 8;                // n8 tiles of S a warp
+  static constexpr int NK = HD / CK / 8, NV = HDV / CK / 8, NQ = HD / CQ / 8;
+  static constexpr int kDkdvThreads = 32 * R * CK, kDqThreads = 32 * R * CQ;
+  // bytes of the dK/dV kernel: K and V, then per stage Q, dO, LSE and D
+  static constexpr int kDkdv =
+      2 * BK * (QS + VS) + kStages * (2 * T * (QS + VS) + 8 * T);
+  // of the dQ kernel: Q and dO, then per stage K and V, then D
+  static constexpr int kDq =
+      2 * BQ * (QS + VS) + kStages * 2 * T * (QS + VS) + 4 * BQ;
+  static_assert(NT % 2 == 0 && NK % 2 == 0 && NV % 2 == 0 && NQ % 2 == 0,
+                "n8 tiles come in pairs (one ldmatrix.x4 each)");
+  static_assert(HD % 16 == 0 && HDV % 16 == 0, "k-steps of 16");
+  static_assert(kStatsRows % T == 0 && kStatsRows % BQ == 0, "stats rows");
+};
+
+// rows [r0, r0 + R) of a (B, S, Hx, D) bf16 tensor at (b, head) into shared
+// rows of stride D + 8 by 16-byte cp.async; rows past S as zeros
+template <int D, int R, int NTH>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
+                                          int head, int r0, int S, int Hx) {
+  constexpr int C8 = D / 8;
+  for (int idx = threadIdx.x; idx < R * C8; idx += NTH) {
+    const int r = idx / C8, c = idx - r * C8;
+    const int row = r0 + r;
+    const bool ok = row < S;
+    cp_async16(dst + r * (D + 8) + 8 * c,
+               src + ((size_t(b) * S + (ok ? row : 0)) * Hx + head) * D +
+                   8 * c,
+               ok);
+  }
+}
+
+// how query rows [r0, r0 + nr) and keys [c0, c0 + nc) meet: some pair
+// visible (any), every pair visible (all)
+struct Cover {
+  bool any, all;
+};
+__device__ __forceinline__ Cover cover(const Args<bf16>& a, int r0, int nr,
+                                       int c0, int nc) {
+  const int r1 = min(r0 + nr, a.Sq) - 1, c1 = min(c0 + nc, a.Skv) - 1;
+  if (r1 < r0 || c1 < c0) return {false, false};
+  const bool whole = r0 + nr <= a.Sq && c0 + nc <= a.Skv;
+  if (!a.causal) return {true, whole};
+  const int p0 = a.q_offset + r0, p1 = a.q_offset + r1;
+  return {c0 <= p1 && !(a.window && c1 <= p0 - a.window),
+          whole && c1 <= p0 && !(a.window && c0 <= p1 - a.window)};
+}
+
+// acc (16 x 8 N) = A . B^T over KD: A's 16 rows at a (stride AS), B's 8 N
+// rows at b (stride BS), k along the rows of both, bf16 in shared memory,
+// fragments by ldmatrix.  Each n8 tile's k-steps accumulate in order.
+template <int KD, int N, int AS, int BS>
+__device__ __forceinline__ void mma_rows(float (&acc)[N][4], const bf16* a,
+                                         const bf16* b, int lane) {
+  zero(acc);
+  // A: matrices (rows 0-7, 8-15) x (k 0-7, 8-15); B: (k 0-7, 8-15) x (n
+  // 0-7, 8-15), so one x4 gives the b0, b1 pairs of two n8 tiles
+  const bf16* ap = a + (lane & 15) * AS + (lane >> 4) * 8;
+  const bf16* bp = b + ((lane & 7) + (lane >> 4) * 8) * BS +
+                   ((lane >> 3) & 1) * 8;
+#pragma unroll 4
+  for (int k = 0; k < KD / 16; ++k) {
+    uint32_t af[4];
+    ldsm_x4(af, ap + 16 * k);
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      uint32_t bf[4];
+      ldsm_x4(bf, bp + 16 * j * BS + 16 * k);
+      mma_bf16(acc[2 * j], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x 8 N) += F . B over 16 KS: F is f32 in C fragments, f[2 kk] and
+// f[2 kk + 1] its columns 16 kk .. 16 kk + 15, entering as a bf16 pair hi +
+// lo (lo first); B (k rows, n columns) at b, stride BS, by ldmatrix.trans.
+// Groups of up to 8 n8 tiles take their lo products, then their hi
+// products, so no product waits on the one just issued.
+template <int KS, int N, int BS>
+__device__ __forceinline__ void mma_frag(float (&acc)[N][4],
+                                         const float (&f)[2 * KS][4],
+                                         const bf16* b, int lane) {
+  constexpr int NB = N % 8 == 0 ? 8 : N % 6 == 0 ? 6 : N % 4 == 0 ? 4 : 2;
+  const bf16* bp = b + (lane & 15) * BS + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t hi[4], lo[4];
+    split_bf16(f[2 * kk][0], f[2 * kk][1], hi[0], lo[0]);
+    split_bf16(f[2 * kk][2], f[2 * kk][3], hi[1], lo[1]);
+    split_bf16(f[2 * kk + 1][0], f[2 * kk + 1][1], hi[2], lo[2]);
+    split_bf16(f[2 * kk + 1][2], f[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int n0 = 0; n0 < N; n0 += NB) {
+      uint32_t r[NB / 2][4];
+#pragma unroll
+      for (int n = 0; n < NB / 2; ++n)
+        ldsm_x4_trans(r[n], bp + 16 * kk * BS + 8 * n0 + 16 * n);
+#pragma unroll
+      for (int n = 0; n < NB / 2; ++n) {
+        mma_bf16(acc[n0 + 2 * n], lo, r[n][0], r[n][1]);
+        mma_bf16(acc[n0 + 2 * n + 1], lo, r[n][2], r[n][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NB / 2; ++n) {
+        mma_bf16(acc[n0 + 2 * n], hi, r[n][0], r[n][1]);
+        mma_bf16(acc[n0 + 2 * n + 1], hi, r[n][2], r[n][3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dQ, and each row's LSE and D: one CTA per (query tile, b, h)
+// ---------------------------------------------------------------------------
+template <int HD, int HDV>
+__global__ void __launch_bounds__(GeoBf16<HD, HDV>::kDqThreads)
+    dq_bf16_kernel(const Args<bf16> a) {
+  using G = GeoBf16<HD, HDV>;
+  constexpr int BQ = G::BQ, T = G::T, QS = G::QS, VS = G::VS, NT = G::NT;
+  constexpr int NTH = G::kDqThreads, STAGE = T * (QS + VS);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* os = qs + BQ * QS;                       // dO
+  bf16* ring = os + BQ * VS;                     // stages of K, V
+  float* dsm = reinterpret_cast<float*>(ring + G::kStages * STAGE);
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int kvh = h / (a.H / a.Kh);
+  const int nqt = (a.Sq + BQ - 1) / BQ;
+  const int q0 = (nqt - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rq = warp % G::R, cq = warp / G::R;
+  const int row0 = q0 + 16 * rq;                 // this warp's rows
+  const float c2 = a.scale * kLog2e;
+  int lo, hi;
+  key_range(a, q0, BQ, lo, hi);
+  const int kt0 = lo / T;
+  const int nk = hi > lo ? (hi - 1) / T - kt0 + 1 : 0;
+  auto load_item = [&](int it) {
+    bf16* st = ring + (it % G::kStages) * STAGE;
+    const int kb = (kt0 + it) * T;
+    load_tile<HD, T, NTH>(st, a.k, b, kvh, kb, a.Skv, a.Kh);
+    load_tile<HDV, T, NTH>(st + T * QS, a.v, b, kvh, kb, a.Skv, a.Kh);
+  };
+  load_tile<HD, BQ, NTH>(qs, a.q, b, h, q0, a.Sq, a.H);
+  load_tile<HDV, BQ, NTH>(os, a.dout, b, h, q0, a.Sq, a.H);
+#pragma unroll
+  for (int i = 0; i < G::kStages - 1; ++i) {
+    if (i < nk) load_item(i);
+    cp_async_commit();
+  }
+  {
+    // D = dO . o, in f32, each row's columns over TPR neighbouring lanes
+    constexpr int TPR = NTH / BQ, CW = HDV / TPR;
+    static_assert(CW % 8 == 0, "16-byte pieces");
+    const int dr = threadIdx.x / TPR, part = threadIdx.x % TPR;
+    const int row = q0 + dr;
+    float d = 0.f;
+    if (row < a.Sq) {
+      const size_t base =
+          ((size_t(b) * a.Sq + row) * a.H + h) * HDV + part * CW;
+#pragma unroll
+      for (int c = 0; c < CW; c += 8) {
+        const uint4 x = *reinterpret_cast<const uint4*>(a.dout + base + c);
+        const uint4 y = *reinterpret_cast<const uint4*>(a.o + base + c);
+        const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 xf = __bfloat1622float2(xp[i]);
+          const float2 yf = __bfloat1622float2(yp[i]);
+          d = fmaf(xf.x, yf.x, d);
+          d = fmaf(xf.y, yf.y, d);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1) d += __shfl_xor_sync(rt::kFull, d, o);
+    if (part == 0) {
+      dsm[dr] = d;
+      a.dd[size_t(bh) * a.Sqp + row] = d;     // 0 past Sq
+    }
+  }
+  const bf16* qw = qs + 16 * rq * QS;
+  const bf16* ow = os + 16 * rq * VS;
+  // each row's running max (log2 domain) and this lane's part of its sum;
+  // dq holds sum_j exp2(x_j - m) (dP_j - D) k_j, rescaled as m grows
+  float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
+  float dq[G::NQ][4];
+  zero(dq);
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<G::kStages - 2>();   // item it has landed
+    __syncthreads();                   // for every thread; item it - 1 read
+    if (it + G::kStages - 1 < nk) load_item(it + G::kStages - 1);
+    cp_async_commit();
+    const bf16* kst = ring + (it % G::kStages) * STAGE;
+    const bf16* vst = kst + T * QS;
+    const int kb = (kt0 + it) * T;
+    const Cover cv = cover(a, row0, 16, kb, T);
+    if (!cv.any) continue;
+    float s[NT][4], dp[NT][4];
+    mma_rows<HD, NT, QS, QS>(s, qw, kst, lane);
+    mma_rows<HDV, NT, VS, VS>(dp, ow, vst, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      float mx = rt::kNegInf;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool vis =
+              cv.all || (row < a.Sq &&
+                         visible(a.q_offset + row, kb + 8 * j + 2 * t + e,
+                                 a.Skv, a.causal, a.window));
+          const float x = vis ? s[j][2 * r + e] * c2 : rt::kNegInf;
+          s[j][2 * r + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(rt::kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(rt::kFull, mx, 2));
+      const float mn = fmaxf(m[r], mx), c = exp2f(m[r] - mn);
+      const float D = dsm[16 * rq + g + 8 * r];
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[j][2 * r + e];
+          const float p = x > 0.5f * rt::kNegInf ? exp2f(x - mn) : 0.f;
+          sum += p;
+          s[j][2 * r + e] = p * (dp[j][2 * r + e] - D);
+        }
+      l[r] = l[r] * c + sum;
+      m[r] = mn;
+#pragma unroll
+      for (int n = 0; n < G::NQ; ++n) {
+        dq[n][2 * r] *= c;
+        dq[n][2 * r + 1] *= c;
+      }
+    }
+    mma_frag<NT / 2, G::NQ, QS>(dq, s, kst + cq * (HD / G::CQ), lane);
+  }
+  cp_async_wait<0>();                // no copy outlives the CTA
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(rt::kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(rt::kFull, l[r], 2);
+    const int row = row0 + g + 8 * r;
+    const bool live = row < a.Sq && l[r] > 0.f;
+    // each row's LSE (log2 domain), for the dK/dV kernel
+    if (cq == 0 && t == 0)
+      a.lse[size_t(bh) * a.Sqp + row] = live ? m[r] + log2f(l[r]) : 0.f;
+    if (row >= a.Sq) continue;
+    const float f = live ? a.scale / l[r] : 0.f;
+    bf16* pq = a.dq + ((size_t(b) * a.Sq + row) * a.H + h) * HD +
+               cq * (HD / G::CQ) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < G::NQ; ++n)
+      store2(pq + 8 * n, dq[n][2 * r] * f, dq[n][2 * r + 1] * f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dK and dV: one CTA per (key tile, b, kv head)
+// ---------------------------------------------------------------------------
+template <int HD, int HDV>
+__global__ void __launch_bounds__(GeoBf16<HD, HDV>::kDkdvThreads)
+    dkdv_bf16_kernel(const Args<bf16> a) {
+  using G = GeoBf16<HD, HDV>;
+  constexpr int BK = G::BK, T = G::T, QS = G::QS, VS = G::VS, NT = G::NT;
+  constexpr int NTH = G::kDkdvThreads;
+  constexpr int STAGE = T * (QS + VS) + 4 * T;   // Q, dO, then 2 T floats
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + BK * QS;
+  bf16* ring = vs + BK * VS;                     // stages of Q, dO, LSE, D
+  const int bk = blockIdx.x, b = bk / a.Kh, kvh = bk - b * a.Kh;
+  const int k0 = blockIdx.y * BK;
+  const int Gq = a.H / a.Kh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rk = warp % G::R, ck = warp / G::R;
+  const int key0 = k0 + 16 * rk;                 // this warp's keys
+  const float c2 = a.scale * kLog2e;
+  // the query tiles with a row that may see a key of [k0, k0 + BK)
+  int rlo = 0, rhi = a.Sq;
+  if (a.causal) {
+    rlo = max(0, k0 - a.q_offset);
+    if (a.window) rhi = min(a.Sq, k0 + BK - 1 + a.window - a.q_offset);
+  }
+  const int qt0 = rlo / T;
+  const int nq = rhi > rlo ? (rhi - 1) / T - qt0 + 1 : 0;
+  const int n_it = Gq * nq;
+  // item it: head kvh G + it / nq, query tile qt0 + it % nq
+  auto load_item = [&](int it) {
+    bf16* st = ring + (it % G::kStages) * STAGE;
+    const int h = kvh * Gq + it / nq, q0 = (qt0 + it % nq) * T;
+    load_tile<HD, T, NTH>(st, a.q, b, h, q0, a.Sq, a.H);
+    load_tile<HDV, T, NTH>(st + T * QS, a.dout, b, h, q0, a.Sq, a.H);
+    float* sf = reinterpret_cast<float*>(st + T * (QS + VS));
+    const size_t r0 = size_t(b * a.H + h) * a.Sqp + q0;
+    for (int idx = threadIdx.x; idx < T / 2; idx += NTH) {
+      const int which = idx / (T / 4), c = idx % (T / 4);
+      cp_async16(sf + which * T + 4 * c, (which ? a.dd : a.lse) + r0 + 4 * c,
+                 true);
+    }
+  };
+  load_tile<HD, BK, NTH>(ks, a.k, b, kvh, k0, a.Skv, a.Kh);
+  load_tile<HDV, BK, NTH>(vs, a.v, b, kvh, k0, a.Skv, a.Kh);
+#pragma unroll
+  for (int i = 0; i < G::kStages - 1; ++i) {
+    if (i < n_it) load_item(i);
+    cp_async_commit();
+  }
+  const bf16* kw = ks + 16 * rk * QS;
+  const bf16* vw = vs + 16 * rk * VS;
+  float dk[G::NK][4], dv[G::NV][4];
+  zero(dk);
+  zero(dv);
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<G::kStages - 2>();   // item it has landed
+    __syncthreads();                   // for every thread; item it - 1 read
+    if (it + G::kStages - 1 < n_it) load_item(it + G::kStages - 1);
+    cp_async_commit();
+    const bf16* qst = ring + (it % G::kStages) * STAGE;
+    const bf16* ost = qst + T * QS;
+    const float* lse = reinterpret_cast<const float*>(ost + T * VS);
+    const float* dd = lse + T;
+    const int q0 = (qt0 + it % nq) * T;
+    const Cover cv = cover(a, q0, T, key0, 16);
+    if (cv.any) {
+      // S^T = K.Q^T and dP^T = V.dO^T (rows: this warp's keys; columns:
+      // the tile's rows), P^T and dS^T in place, then dV += P^T.dO and
+      // dK += dS^T.Q
+      float s[NT][4], dp[NT][4];
+      mma_rows<HD, NT, QS, QS>(s, kw, qst, lane);
+      mma_rows<HDV, NT, VS, VS>(dp, vw, ost, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * t + (e & 1);
+          const bool vis =
+              cv.all || (q0 + ql < a.Sq &&
+                         visible(a.q_offset + q0 + ql, key0 + g + 8 * (e >> 1),
+                                 a.Skv, a.causal, a.window));
+          const float p = vis ? exp2f(fmaf(s[j][e], c2, -lse[ql])) : 0.f;
+          dp[j][e] = vis ? p * (dp[j][e] - dd[ql]) : 0.f;
+          s[j][e] = p;
+        }
+      mma_frag<NT / 2, G::NV, VS>(dv, s, ost + ck * (HDV / G::CK), lane);
+      mma_frag<NT / 2, G::NK, QS>(dk, dp, qst + ck * (HD / G::CK), lane);
+    }
+  }
+  cp_async_wait<0>();                // no copy outlives the CTA
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + g + 8 * r;
+    if (key >= a.Skv) continue;
+    const size_t row = (size_t(b) * a.Skv + key) * a.Kh + kvh;
+    bf16* pk = a.dk + row * HD + ck * (HD / G::CK) + 2 * t;
+    bf16* pv = a.dv + row * HDV + ck * (HDV / G::CK) + 2 * t;
+#pragma unroll
+    for (int n = 0; n < G::NK; ++n)
+      store2(pk + 8 * n, dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
+#pragma unroll
+    for (int n = 0; n < G::NV; ++n)
+      store2(pv + 8 * n, dv[n][2 * r], dv[n][2 * r + 1]);
+  }
 }
 
 template <typename K>
@@ -595,8 +997,8 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <int HD, int HDV, typename T>
-int launch(const Args<T>& a, int keys, int rows, int smem, int row_smem,
+template <int HD, int HDV>
+int launch(const Args<float>& a, int keys, int rows, int smem, int row_smem,
            cudaStream_t s) {
   using G = Geo<HD, HDV>;
   constexpr int main_bytes = 4 * G::kMain, row_bytes = 4 * G::kRow;
@@ -607,19 +1009,45 @@ int launch(const Args<T>& a, int keys, int rows, int smem, int row_smem,
       a.nkt != (a.Skv + G::BK - 1) / G::BK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if ((e = allow_smem(row_kernel<HD, HDV, T>, row_bytes)) != cudaSuccess ||
-      (e = allow_smem(dkdv_kernel<HD, HDV, T>, main_bytes)) != cudaSuccess)
+  if ((e = allow_smem(row_kernel<HD, HDV>, row_bytes)) != cudaSuccess ||
+      (e = allow_smem(dkdv_kernel<HD, HDV>, main_bytes)) != cudaSuccess)
     return static_cast<int>(e);
   const int nq = (a.Sq + G::BQ - 1) / G::BQ;
-  row_kernel<HD, HDV, T><<<dim3(a.B * a.H, nq), kThreads, row_bytes, s>>>(a);
+  row_kernel<HD, HDV><<<dim3(a.B * a.H, nq), kThreads, row_bytes, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  dkdv_kernel<HD, HDV, T>
+  dkdv_kernel<HD, HDV>
       <<<dim3(a.B * a.Kh, a.nkt), kThreads, main_bytes, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   const int n = a.Sq * (HD / 4);
-  dq_combine_kernel<HD, T>
+  dq_combine_kernel<HD>
       <<<dim3((n + kCombineThreads - 1) / kCombineThreads, a.B * a.H),
          kCombineThreads, 0, s>>>(a, G::BK);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16: keys and rows are the dK/dV CTA's keys and the dQ CTA's rows, smem
+// and row_smem the two kernels' shared memory; dQ's kernel, which writes
+// each row's LSE and D, runs first
+template <int HD, int HDV>
+int launch(const Args<bf16>& a, int keys, int rows, int smem, int row_smem,
+           cudaStream_t s) {
+  using G = GeoBf16<HD, HDV>;
+  static_assert(G::kDkdv <= kMaxSmem && G::kDq <= kMaxSmem,
+                "tiles do not fit in shared memory");
+  if (keys != G::BK || rows != G::BQ || smem != G::kDkdv ||
+      row_smem != G::kDq || a.Sqp % kStatsRows != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  if ((e = allow_smem(dq_bf16_kernel<HD, HDV>, G::kDq)) != cudaSuccess ||
+      (e = allow_smem(dkdv_bf16_kernel<HD, HDV>, G::kDkdv)) != cudaSuccess)
+    return static_cast<int>(e);
+  const int nq = (a.Sq + G::BQ - 1) / G::BQ;
+  dq_bf16_kernel<HD, HDV>
+      <<<dim3(a.B * a.H, nq), G::kDqThreads, G::kDq, s>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  dkdv_bf16_kernel<HD, HDV>
+      <<<dim3(a.B * a.Kh, (a.Skv + G::BK - 1) / G::BK), G::kDkdvThreads,
+         G::kDkdv, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -651,10 +1079,10 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* o,
   a.nkt = (Skv + keys - 1) / keys;
   a.lse = static_cast<float*>(scratch);
   a.dd = a.lse + size_t(B) * H * a.Sqp;
-  a.part = a.dd + size_t(B) * H * a.Sqp;
+  a.part = std::is_same_v<T, float> ? a.dd + size_t(B) * H * a.Sqp : nullptr;
 #define RT_CASE(D, DV)    \
   if (hd == D && hdv == DV) \
-    return launch<D, DV, T>(a, keys, rows, smem, row_smem, s);
+    return launch<D, DV>(a, keys, rows, smem, row_smem, s);
   RT_CASE(16, 16) RT_CASE(32, 32) RT_CASE(64, 64) RT_CASE(128, 128)
   RT_CASE(192, 128) RT_CASE(256, 256)
 #undef RT_CASE
@@ -667,7 +1095,8 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* o,
 // (B, Sq, H, hdv), all of one dtype (0 f32, 1 bf16), contiguous and
 // 16-byte aligned; writes dq, dk, dv (shaped as q, k, v, in that dtype).
 // scratch (f32): each row's LSE and D (2 B H Sqp floats, Sqp = Sq rounded
-// up to 64), then dQ's partials (B H ceil(Skv / keys) Sq hd floats).
+// up to 64), then, for f32 only, dQ's partials (B H ceil(Skv / keys) Sq hd
+// floats).
 // keys, rows, smem and row_smem are the wrapper's geometry
 // (kernels/flash_attention.py::_bwd_geometry), refused if they are not
 // this launcher's own.
@@ -685,9 +1114,8 @@ extern "C" int flash_attention_bwd_launch(
                                Skv, H, Kh, hd, hdv, q_offset, causal, window,
                                scale, keys, rows, smem, row_smem, s);
   if (dtype == rt::kDtypeBF16)
-    return launch_dtype<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, scratch,
-                                       B, Sq, Skv, H, Kh, hd, hdv, q_offset,
-                                       causal, window, scale, keys, rows,
-                                       smem, row_smem, s);
+    return launch_dtype<bf16>(q, k, v, o, dout, dq, dk, dv, scratch, B, Sq,
+                              Skv, H, Kh, hd, hdv, q_offset, causal, window,
+                              scale, keys, rows, smem, row_smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

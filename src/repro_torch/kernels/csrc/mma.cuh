@@ -1,5 +1,6 @@
-// f32 products on Hopper's tensor cores and 16-byte asynchronous copies,
-// shared by the flash attention kernels (forward and backward).
+// Products on Hopper's tensor cores (f32 as 3xTF32, bf16 on m16n8k16),
+// ldmatrix and 16-byte asynchronous copies, shared by the flash attention
+// kernels (forward and backward).
 //
 // 3xTF32: x = big + small with big = cvt.rna.tf32(x) and small =
 // cvt.rna.tf32(x - big); a product as small.big + big.small + big.big, each
@@ -8,10 +9,20 @@
 // = 4 g + t: A (16 x 8) a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
 // t + 4); B (8 x 8) b0 (k = t, n = g), b1 (k = t + 4, n = g); C (16 x 8) c0
 // (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+//
+// bf16: m16n8k16 (row.col) with f32 accumulation; each register holds a
+// pair of bf16 along k: A a0 (g, k 2t, 2t + 1), a1 (g + 8, the same), a2
+// (g, k 2t + 8, 2t + 9), a3 (g + 8, the same); B b0 (k 2t, 2t + 1; n g),
+// b1 (k 2t + 8, 2t + 9; n g); C as above.  So the C fragments of two
+// neighbouring n8 tiles are, packed in pairs, the A fragment of a product
+// whose k runs over their 16 columns.  A product of bf16 values is exact
+// in f32; an f32 operand (P, dS) enters as a bf16 pair hi + lo, two
+// products, which keeps it to about 16 significant bits.
 #pragma once
 
 #include <stdint.h>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rt {
@@ -65,6 +76,43 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, as, bb0, bb1);
   mma_tf32(d, ab, bs0, bs1);
   mma_tf32(d, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// (x, y) as a bf16 pair hi plus the pair of what it rounded off, lo
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+// four 8x8 b16 matrices from shared memory, lanes 8i..8i+7 addressing the
+// rows of matrix i: lane (g, t) gets row g, columns 2t and 2t + 1 of each;
+// .trans: rows 2t and 2t + 1 of column g
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
 }  // namespace rt

@@ -27,11 +27,15 @@ backward is ``csrc/flash_attention_bwd.cu`` (f32 or bf16; the Pallas
 package has no backward kernel, JAX differentiates its jnp path).  Its
 plain version is ``flash_attention_bwd_plain``: f32 math on the widened
 inputs, each gradient rounded once to the inputs' dtype, as the kernel.
-The backward's main kernel runs one CTA per (key tile, b, kv head) and
-writes dQ as one f32 partial per key tile, which a combine sums in
+At f32 the backward's main kernel runs one CTA per (key tile, b, kv head)
+and writes dQ as one f32 partial per key tile, which a combine sums in
 key-tile order: ``bwd_plan``, ``flash_bwd_partials_plain`` and
-``flash_bwd_combine_plain`` are the plain versions of that split, and
-``_bwd_geometry`` the tiles and shared memory its launcher checks.
+``flash_bwd_combine_plain`` are the plain versions of that split.  At
+bf16 a dQ kernel (one CTA per query tile, b, h) walks the key tiles its
+rows see with an online softmax, writing dQ and each row's LSE, and a
+dK/dV kernel (one CTA per key tile, b, kv head) walks the query tiles
+that see its keys: ``bwd_plan_bf16`` gives both walks.  ``_bwd_geometry``
+gives the tiles and shared memory the launcher checks, by dtype.
 """
 from __future__ import annotations
 
@@ -257,14 +261,38 @@ class BwdGeometry(NamedTuple):
     row_smem: int        # of the row pass, bytes
 
 
-def _bwd_geometry(hd: int, hdv: int) -> BwdGeometry:
-    """The backward kernels' geometry (csrc/flash_attention_bwd.cu,
-    ``Geo``), which the launcher refuses to differ: BQ query rows a tile,
-    64 up to hd 64 and 32 above; BK keys a CTA, 64, or 32 at hd 256.  The
-    main kernel holds K and V, a 2-stage ring of Q, dO, LSE and D, P^T and
-    dS^T (rows padded to BQ + 8) and dS (rows padded to BK + 8); the row
-    pass holds Q, a 2-stage ring of K and its warps' row maxima and sums.
-    Q and K rows are padded to hd + 4 floats, V and dO rows to hdv + 4."""
+class BwdGeometryBf16(NamedTuple):
+    keys: int            # keys per CTA of the dK/dV kernel (BK)
+    rows: int            # query rows per CTA of the dQ kernel (BQ)
+    tile: int            # query rows (dK/dV) or keys (dQ) per ring tile
+    smem: int            # dynamic shared memory of the dK/dV kernel, bytes
+    row_smem: int        # of the dQ kernel (which also finds LSE and D)
+
+
+def _bwd_geometry(hd: int, hdv: int, dtype: torch.dtype = torch.float32):
+    """The backward kernels' geometry (csrc/flash_attention_bwd.cu, ``Geo``
+    and ``GeoBf16``), which the launcher refuses to differ.
+
+    f32: BQ query rows a tile, 64 up to hd 64 and 32 above; BK keys a CTA,
+    64, or 32 at hd 256.  The main kernel holds K and V, a 2-stage ring of
+    Q, dO, LSE and D, P^T and dS^T (rows padded to BQ + 8) and dS (rows
+    padded to BK + 8); the row pass holds Q, a 2-stage ring of K and its
+    warps' row maxima and sums.  Q and K rows are padded to hd + 4 floats,
+    V and dO rows to hdv + 4.
+
+    bf16: 64 keys a dK/dV CTA and 64 rows a dQ CTA (4 m16 row tiles);
+    ring tiles of 64 rows or keys up to hd 64, else 32.  The dK/dV kernel
+    holds K and V and a 2-stage ring of Q, dO, LSE and D; the dQ kernel Q
+    and dO, a 2-stage ring of K and V, and each row's D.  Rows stay bf16,
+    padded to hd + 8 (hdv + 8) elements."""
+    if dtype == torch.bfloat16:
+        t = 32 if hd > 64 else 64
+        rows = 2 * 64 * (hd + 8 + hdv + 8)            # K and V, or Q and dO
+        ring = 2 * 2 * t * (hd + 8 + hdv + 8)
+        return BwdGeometryBf16(64, 64, t, rows + ring + 2 * 2 * t * 4,
+                               rows + ring + 4 * 64)
+    if dtype != torch.float32:
+        raise TypeError(f"flash attention backward: no kernel for {dtype}")
     bk = 32 if hd > 192 else 64
     bq = 32 if hd > 64 or hdv > 64 else 64
     qs, vs = hd + 4, hdv + 4
@@ -274,9 +302,36 @@ def _bwd_geometry(hd: int, hdv: int) -> BwdGeometry:
     return BwdGeometry(bk, bq, 4 * main, 4 * row)
 
 
+def _key_range(q0: int, last: int, Skv: int, q_offset: int, causal: bool,
+               window: int):
+    """The keys [lo, hi) that rows q0..last of a query tile may see."""
+    lo, hi = 0, Skv
+    if causal:
+        hi = max(0, min(Skv, q_offset + last + 1))
+        if window:
+            lo = max(0, q_offset + q0 - window + 1)
+    return lo, hi
+
+
+def _row_range(k0: int, keys: int, Sq: int, q_offset: int, causal: bool,
+               window: int):
+    """The query rows [lo, hi) that may see a key of [k0, k0 + keys)."""
+    lo, hi = 0, Sq
+    if causal:
+        lo = max(0, k0 - q_offset)
+        if window:
+            hi = min(Sq, k0 + keys - 1 + window - q_offset)
+    return lo, hi
+
+
+def _tiles(lo: int, hi: int, size: int) -> range:
+    """The tiles of ``size`` that cover [lo, hi)."""
+    return range(lo // size, (hi - 1) // size + 1) if hi > lo else range(0)
+
+
 def bwd_plan(Sq: int, Skv: int, hd: int, hdv: int, *, causal=True,
              window=0, q_offset=None):
-    """The backward's split: the key-tile count; per query row the key
+    """The f32 backward's split: the key-tile count; per query row the key
     tiles whose dQ partials the combine adds, as ``range(first, end)``; and
     per key tile, in launch order, the query tiles its CTA visits (for each
     of the group's heads)."""
@@ -288,17 +343,29 @@ def bwd_plan(Sq: int, Skv: int, hd: int, hdv: int, *, causal=True,
     for i in range(Sq):
         lo, hi = _visible(q_offset + i, Skv, causal, window)
         rows.append(range(lo // bk, hi // bk + 1) if hi >= lo else range(0))
-    ctas = []
-    for kt in range(nkt):
-        k0 = kt * bk
-        rlo, rhi = 0, Sq
-        if causal:
-            rlo = max(0, k0 - q_offset)
-            if window:
-                rhi = min(Sq, k0 + bk - 1 + window - q_offset)
-        ctas.append((kt, list(range(rlo // bq, (rhi - 1) // bq + 1))
-                     if rhi > rlo else []))
+    ctas = [(kt, list(_tiles(*_row_range(kt * bk, bk, Sq, q_offset, causal,
+                                         window), bq)))
+            for kt in range(nkt)]
     return nkt, rows, ctas
+
+
+def bwd_plan_bf16(Sq: int, Skv: int, hd: int, hdv: int, *, causal=True,
+                  window=0, q_offset=None):
+    """The bf16 backward's walks, by ``_bwd_geometry(hd, hdv, bfloat16)``:
+    per query tile of ``rows`` rows, the key tiles of ``tile`` keys that its
+    dQ CTA walks (once, with an online softmax), and per key tile of
+    ``keys`` keys, the query tiles of ``tile`` rows that its dK/dV CTA
+    visits (for each of the group's heads); each as ``range(first, end)``,
+    in key or row order."""
+    geo = _bwd_geometry(hd, hdv, torch.bfloat16)
+    q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
+    dq = [_tiles(*_key_range(q0, min(q0 + geo.rows, Sq) - 1, Skv, q_offset,
+                             causal, window), geo.tile)
+          for q0 in range(0, Sq, geo.rows)]
+    dkdv = [_tiles(*_row_range(k0, geo.keys, Sq, q_offset, causal, window),
+                   geo.tile)
+            for k0 in range(0, Skv, geo.keys)]
+    return dq, dkdv
 
 
 def flash_bwd_partials_plain(q, k, v, dout, *, causal=True, window=0,
@@ -389,9 +456,10 @@ def _launch_forward(q, k, v, causal, window, scale, q_offset):
 
 
 def _launch_backward(q, k, v, o, dout, causal, window, scale, q_offset):
-    """The backward kernels (csrc/flash_attention_bwd.cu: the row pass,
-    the main kernel and dQ's combine) on CUDA inputs of one dtype, f32 or
-    bf16: (dq, dk, dv) in that dtype."""
+    """The backward kernels (csrc/flash_attention_bwd.cu; f32: the row
+    pass, the main kernel and dQ's combine; bf16: the dQ kernel, then the
+    dK/dV kernel) on CUDA inputs of one dtype, f32 or bf16: (dq, dk, dv) in
+    that dtype."""
     B, Sq, H, hd = q.shape
     Skv, Kh, hdv = k.shape[1], k.shape[2], v.shape[-1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -400,12 +468,14 @@ def _launch_backward(q, k, v, o, dout, causal, window, scale, q_offset):
     # the kernels copy every input row in 16-byte pieces
     q, k, v, o, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
                         for t in (q, k, v, o, dout))
-    geo = _bwd_geometry(hd, hdv)
+    geo = _bwd_geometry(hd, hdv, q.dtype)
     sqp = -(-Sq // BWD_STATS_ROWS) * BWD_STATS_ROWS
-    # each row's log-sum-exp and D = dout . o, then dQ's key-tile partials
-    scratch = torch.empty(2 * B * H * sqp
-                          + B * H * -(-Skv // geo.keys) * Sq * hd,
-                          dtype=torch.float32, device=q.device)
+    # each row's log-sum-exp and D = dout . o; at f32 then dQ's key-tile
+    # partials (the bf16 design writes dQ whole)
+    n = 2 * B * H * sqp
+    if q.dtype == torch.float32:
+        n += B * H * -(-Skv // geo.keys) * Sq * hd
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device)
     lib = build.library("flash_attention_bwd")
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -136,6 +136,59 @@ def test_flash_bwd_plan():
     assert all(len(r) == 0 for r in rows) and ctas == [(0, [])]
 
 
+# (Sq, Skv, causal, window, q_offset): Sq off the 64-row tile, windows,
+# q_offset below 0 and past every key, full attention
+BF16_PLAN_CASES = [
+    (512, 512, True, 0, None),           # qwen1.5-0.5b's training call
+    (100, 100, True, 0, None),
+    (77, 130, True, 0, None),            # end-aligned rows
+    (129, 129, True, 24, None),          # a window
+    (200, 330, True, 64, 130),           # window and q_offset
+    (31, 300, True, 16, 250),            # rows past the keys' end
+    (30, 63, True, 0, -10),              # rows before every key
+    (65, 33, False, 0, None),            # full attention, Skv < Sq
+]
+
+
+@pytest.mark.parametrize("hd,hdv", FA.HEAD_DIM_PAIRS)
+@pytest.mark.parametrize("case", BF16_PLAN_CASES)
+def test_flash_bwd_plan_bf16(hd, hdv, case):
+    """The bf16 backward's walks against ``_visible`` row by row: each dQ
+    CTA walks exactly the key tiles holding a key one of its rows sees, and
+    each dK/dV CTA visits exactly the query tiles holding a row that sees
+    one of its keys (no tile more: the walks are tight at both ends and
+    every tile between holds a visible pair)."""
+    Sq, Skv, causal, window, q_offset = case
+    geo = FA._bwd_geometry(hd, hdv, torch.bfloat16)
+    dq, dkdv = FA.bwd_plan_bf16(Sq, Skv, hd, hdv, causal=causal,
+                                window=window, q_offset=q_offset)
+    qo = (Skv - Sq) if q_offset is None else q_offset
+    seen = []                  # per row, the keys it sees: [lo, hi]
+    for i in range(Sq):
+        lo, hi = FA._visible(qo + i, Skv, causal, window)
+        seen.append((lo, hi))
+    assert len(dq) == -(-Sq // geo.rows)
+    for qt, walk in enumerate(dq):
+        tiles = set()
+        for i in range(qt * geo.rows, min((qt + 1) * geo.rows, Sq)):
+            lo, hi = seen[i]
+            tiles.update(range(lo // geo.tile, hi // geo.tile + 1)
+                         if hi >= lo else ())
+        assert set(walk) == tiles, (qt, walk, sorted(tiles))
+    assert len(dkdv) == -(-Skv // geo.keys)
+    for kt, walk in enumerate(dkdv):
+        k0, k1 = kt * geo.keys, min((kt + 1) * geo.keys, Skv) - 1
+        tiles = {i // geo.tile for i in range(Sq)
+                 if seen[i][1] >= seen[i][0] and seen[i][0] <= k1
+                 and seen[i][1] >= k0}
+        assert set(walk) == tiles, (kt, walk, sorted(tiles))
+    if (Sq, Skv, causal, window) == (512, 512, True, 0) and hd == 64:
+        # the causal triangle: query tile i walks i + 1 key tiles, key
+        # tile j is visited by 8 - j query tiles (36 of 64 pairs each)
+        assert [len(w) for w in dq] == list(range(1, 9))
+        assert [len(w) for w in dkdv] == list(range(8, 0, -1))
+
+
 # ---------------------------------------------------------------------------
 # wkv6: state columns in groups
 # ---------------------------------------------------------------------------

@@ -1157,6 +1157,17 @@ def _bf16_flash_inputs(rng, B, Sq, Skv, H, Kh, hd, hdv, dev):
     return q, k, v, _rand(rng, (B, Sq, H, hdv), "bfloat16", dev)
 
 
+def _ulp_bf16(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def _within_ulp(got, want):
+    """Elementwise |got - want| <= one bf16 ulp of want or TOL's atol."""
+    err = (got.float() - want.float()).abs()
+    tol = torch.clamp(_ulp_bf16(want.float()), min=TOL["bfloat16"]["atol"])
+    assert bool((err <= tol).all()), float(err.max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd,hdv", HEAD_DIM_PAIRS)
 @pytest.mark.parametrize("causal,window,G,Sq,Skv,q_offset", [
@@ -1165,14 +1176,21 @@ def _bf16_flash_inputs(rng, B, Sq, Skv, H, Kh, hd, hdv, dev):
     (True, 24, 1, 129, 129, None),
     (False, 0, 4, 65, 33, None),
     (True, 16, 2, 31, 300, 250),
+    (True, 0, 1, 65, 65, None),          # one row past the 64-row tile
+    (True, 40, 4, 190, 190, None),       # window, GQA 4, off the tiles
+    (True, 0, 4, 33, 97, 40),            # q_offset, GQA 4
+    (True, 0, 2, 50, 200, 17),           # an explicit q_offset
+    (True, 0, 1, 30, 63, -10),           # rows before every key
 ])
-def test_cuda_flash_backward_bf16_is_f32_rounded(cuda_dev, hd, hdv, causal,
-                                                 window, G, Sq, Skv,
-                                                 q_offset):
-    """The bf16 backward equals the f32 backward kernel on the widened
-    inputs (q, k, v, the forward's bf16 output and dO), each gradient
-    rounded to bf16, bit for bit; a second call gives the same bits; and
-    under autograd it goes through FlashAttentionFn with bf16 gradients."""
+def test_cuda_flash_backward_bf16_near_f32_rounded(cuda_dev, hd, hdv,
+                                                   causal, window, G, Sq,
+                                                   Skv, q_offset):
+    """The bf16 backward within one bf16 ulp (or TOL's atol) of the f32
+    backward kernel on the widened inputs (q, k, v, the forward's bf16
+    output and dO), each gradient rounded to bf16: the bf16 design's
+    m16n8k16 products sum in another order than 3xTF32, so the two may
+    round to neighbours; a second call gives the same bits; and under
+    autograd it goes through FlashAttentionFn with bf16 gradients."""
     from repro_torch.kernels import flash_attention as FA
     rng = np.random.default_rng(11)
     B, Kh = 2, 2
@@ -1187,7 +1205,7 @@ def test_cuda_flash_backward_bf16_is_f32_rounded(cuda_dev, hd, hdv, causal,
     wide = FA._launch_backward(*(t.float() for t in (q, k, v, o, do)), *args)
     for g, w in zip(got, wide):
         assert g.dtype == torch.bfloat16
-        assert torch.equal(g, w.to(torch.bfloat16))
+        _within_ulp(g, w.to(torch.bfloat16))
     again = FA._launch_backward(q, k, v, o, do, *args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -1195,10 +1213,6 @@ def test_cuda_flash_backward_bf16_is_f32_rounded(cuda_dev, hd, hdv, causal,
     auto = torch.autograd.grad(flash_attention(*ins, **kw), ins, do)
     assert build.launches["flash_attention_bwd"] == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, auto))
-
-
-def _ulp_bf16(x):
-    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
 
 
 @pytest.mark.cuda
@@ -1218,10 +1232,7 @@ def test_cuda_flash_backward_bf16_equals_plain(cuda_dev, hd, hdv):
     got = FA._launch_backward(q, k, v, o, do, True, 64, hd ** -0.5, 130)
     ref = flash_attention_bwd_plain(q, k, v, do, o=o, **kw)
     for g, r in zip(got, ref):
-        err = (g.float() - r.float()).abs()
-        tol = torch.clamp(_ulp_bf16(r.float()),
-                          min=TOL["bfloat16"]["atol"])
-        assert bool((err <= tol).all()), float(err.max())
+        _within_ulp(g, r)
 
 
 @pytest.mark.cuda

@@ -307,3 +307,37 @@ def test_backward_kernel_geometry():
         assert 1 <= geo.cluster <= 8 and geo.smem <= 227 * 1024
     assert RW._bwd_geometry(64) == (2, 32, 256, 16, 91712)
     assert 2 * RW._bwd_geometry(64).smem <= 227 * 1024
+
+
+# an H100 SM's shared memory, the most one CTA may opt into, and what the
+# SM reserves for each CTA it holds
+SM_SMEM, CTA_SMEM_MAX, CTA_RESERVED = 233472, 232448, 1024
+# the bf16 design's CTAs an SM by shared memory: (dK/dV kernel, dQ kernel)
+BF16_CTAS_PER_SM = {(16, 16): (11, 11), (32, 32): (7, 7), (64, 64): (4, 4),
+                    (128, 128): (3, 3), (192, 128): (2, 2),
+                    (256, 256): (1, 1)}
+
+
+@pytest.mark.parametrize("hd,hdv", FA.HEAD_DIM_PAIRS)
+def test_backward_kernel_geometry_bf16(hd, hdv):
+    """The bf16 backward's geometry, which its launcher checks: 64 keys a
+    dK/dV CTA and 64 rows a dQ CTA; ring tiles of 64 up to hd 64, else 32;
+    the bytes of each kernel's bf16 tiles (rows padded by 8 elements),
+    within the opt-in limit, and the CTAs an SM holds by them; the f32
+    geometry unchanged by the dtype argument."""
+    geo = FA._bwd_geometry(hd, hdv, torch.bfloat16)
+    t = 32 if hd > 64 else 64
+    assert (geo.keys, geo.rows, geo.tile) == (64, 64, t)
+    bf16_row, qs, vs = 2, hd + 8, hdv + 8
+    kv = 64 * (qs + vs) * bf16_row
+    assert geo.smem == kv + 2 * (t * (qs + vs) * bf16_row + 2 * t * 4)
+    assert geo.row_smem == kv + 2 * t * (qs + vs) * bf16_row + 64 * 4
+    for smem, want in zip((geo.smem, geo.row_smem),
+                          BF16_CTAS_PER_SM[(hd, hdv)]):
+        assert smem <= CTA_SMEM_MAX
+        assert SM_SMEM // (smem + CTA_RESERVED) == want
+    f32 = FA._bwd_geometry(hd, hdv, torch.float32)
+    assert f32 == FA._bwd_geometry(hd, hdv)
+    assert type(f32) is FA.BwdGeometry and len(f32) == 4
+    with pytest.raises(TypeError, match="no kernel"):
+        FA._bwd_geometry(hd, hdv, torch.float16)

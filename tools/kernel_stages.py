@@ -4,7 +4,7 @@ stage, on one NVIDIA GPU, and what flash costs over the calls the served
 models make.
 
     python3 tools/kernel_stages.py [--tree DIR] [hd256] [hd128] [served] [bwd]
-                                   [wkvbwd]
+                                   [wkvbwd] [bf16bwd]
 
 (default: the first three, on this checkout's sources; --tree measures
 another checkout's, such as a parent unpacked under build/: its sources are
@@ -34,14 +34,23 @@ timed with CUDA events, and per run the sum over its calls of count x ms
 for one layer.  Run on two trees in one call, it gives the net change of a
 kernel change over the mix of shapes those runs serve.
 
-bwd: the backward kernels through the tree's own launchers, f32, at the
-training calls of chip_smoke.py's phase 18 (flash at qwen1.5-0.5b's B 4,
-Sq = Skv 512, 16 heads of 64, causal, and at (128, 128) on the same
-shape; wkv6 at rwkv6-1.6b's B 4, S 512, 32 heads of 64, with a state0),
-each timed with CUDA events beside SDPA's backward on the same inputs, and
-the device time of each kernel of a call (torch.profiler).  Run it on the
-parent and the change in turns (parent, change, change, parent) in one
-call to compare the two.
+bwd: the backward kernels through the tree's own launchers at the
+training calls of chip_smoke.py's phases 18 and 21 (flash at qwen1.5-0.5b's
+B 4, Sq = Skv 512, 16 heads of 64, causal, and at (128, 128) on the same
+shape, in f32 and in bf16; wkv6 at rwkv6-1.6b's B 4, S 512, 32 heads of 64,
+with a state0, f32), each timed with CUDA events beside SDPA's backward on
+the same inputs (in the same dtype), and the device time of each kernel of
+a call (torch.profiler).  Run it on the parent and the change in turns
+(parent, change, change, parent) in one call to compare the two.
+
+bf16bwd: the bf16 flash backward's two kernels (dq_bf16_kernel, then
+dkdv_bf16_kernel) at qwen1.5-0.5b's training call and at (128, 128),
+through an instrumented copy of csrc/flash_attention_bwd.cu: per CTA its
+entry and exit (%globaltimer) and the tiles it walks, reported as each
+kernel's span and the CTA time by tiles walked (the slope is the time a
+tile costs under the card's real concurrency); and a copy with every
+product of the dK/dV kernel removed (its loads, barriers and softmax
+alone; outputs wrong, timing only), timed beside the real call.
 
 wkvbwd: the wkv6 backward kernel at the same rwkv6 call, stage by stage:
 cycles that thread 0 of each CTA adds up per stage over the chunk loops
@@ -51,6 +60,7 @@ clusters the card holds at once (cudaOccupancyMaxActiveClusters).
 Needs CUDA and nvcc; exits non-zero without them.
 """
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -447,6 +457,123 @@ def wkv_bwd_stages(torch, dev, stream):
     print(f"  {'all':30s} median {np.median(tot):9.0f}  max {tot.max():9.0f}")
 
 
+GTIME = ("unsigned long long {v}; asm volatile(\"mov.u64 %0, "
+         "%%globaltimer;\" : \"=l\"({v}));")
+# per CTA: entry and exit times in stage_g, its SM and tiles walked in
+# stage_c; the dQ kernel in slots 0-1, the dK/dV kernel in slots 2-3
+BF16_TIMELINE = [
+    ("  const int row0 = q0 + 16 * rq;                 // this warp's rows\n",
+     "  const int row0 = q0 + 16 * rq;                 // this warp's rows\n"
+     "  " + GTIME.format(v="tl0_") + "\n"),
+    ("      store2(pq + 8 * n, dq[n][2 * r] * f, dq[n][2 * r + 1] * f);\n"
+     "  }\n}",
+     "      store2(pq + 8 * n, dq[n][2 * r] * f, dq[n][2 * r + 1] * f);\n"
+     "  }\n  if (threadIdx.x == 0) {\n    " + GTIME.format(v="tl1_") +
+     "\n    unsigned sm_; asm volatile(\"mov.u32 %0, %%smid;\" : "
+     "\"=r\"(sm_));\n    const int id_ = blockIdx.y * gridDim.x + "
+     "blockIdx.x;\n    stage_g[id_ * 32] = tl0_; stage_g[id_ * 32 + 1] = "
+     "tl1_;\n    stage_c[id_ * 32] = sm_; stage_c[id_ * 32 + 1] = nk;\n  }"
+     "\n}"),
+    ("  const int key0 = k0 + 16 * rk;                 // this warp's keys\n",
+     "  const int key0 = k0 + 16 * rk;                 // this warp's keys\n"
+     "  " + GTIME.format(v="tl0_") + "\n"),
+    ("      store2(pv + 8 * n, dv[n][2 * r], dv[n][2 * r + 1]);\n  }\n}\n\n"
+     "template <typename K>",
+     "      store2(pv + 8 * n, dv[n][2 * r], dv[n][2 * r + 1]);\n  }\n"
+     "  if (threadIdx.x == 0) {\n    " + GTIME.format(v="tl1_") +
+     "\n    unsigned sm_; asm volatile(\"mov.u32 %0, %%smid;\" : "
+     "\"=r\"(sm_));\n    const int id_ = blockIdx.y * gridDim.x + "
+     "blockIdx.x;\n    stage_g[id_ * 32 + 2] = tl0_; stage_g[id_ * 32 + 3] "
+     "= tl1_;\n    stage_c[id_ * 32 + 2] = sm_; stage_c[id_ * 32 + 3] = "
+     "n_it;\n  }\n}\n\ntemplate <typename K>"),
+]
+# the dK/dV kernel without its four products
+BF16_NO_PRODUCTS = [
+    ("      mma_rows<HD, NT, QS, QS>(s, kw, qst, lane);\n", "      zero(s);\n"),
+    ("      mma_rows<HDV, NT, VS, VS>(dp, vw, ost, lane);\n",
+     "      zero(dp);\n"),
+    ("      mma_frag<NT / 2, G::NV, VS>(dv, s, ost + ck * (HDV / G::CK), "
+     "lane);\n", ""),
+    ("      mma_frag<NT / 2, G::NK, QS>(dk, dp, qst + ck * (HD / G::CK), "
+     "lane);\n", ""),
+]
+
+
+def bf16_bwd_stages(torch, dev, stream):
+    """The bf16 flash backward's kernels at the training calls: per-CTA
+    timelines, and the dK/dV kernel without its products."""
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    timed = instrument("flash_attention_bwd", [], tag="_timeline",
+                       edits=BF16_TIMELINE)
+    bare = instrument("flash_attention_bwd", [], tag="_noprod",
+                      edits=BF16_NO_PRODUCTS)
+    regs = {}
+    for k, r in build.ptxas_report("flash_attention_bwd").items():
+        m = re.search(r"([a-z]+_bf16_kernel)ILi(\d+)ELi(\d+)E", k)
+        if m and "registers" in r:
+            regs[f"{m.group(1)}<{m.group(2)},{m.group(3)}>"] = r["registers"]
+    print(f"bf16 flash backward kernels, registers a thread: {regs}")
+    rng = np.random.default_rng(28)
+    B, S, H = 4, 512, 16
+    for hd in (64, 128):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (B, S, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(4))
+        with torch.no_grad():
+            o = FA.flash_attention(q, k, v)
+        geo = FA._bwd_geometry(hd, hd, torch.bfloat16)
+        outs = [torch.empty_like(t) for t in (q, k, v)]
+        scratch = torch.empty(2 * B * H * S, device=dev)
+
+        def call(lib):
+            err = lib.flash_attention_bwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), *(t.data_ptr() for t in outs),
+                scratch.data_ptr(), B, S, S, H, H, hd, hd, 0, 1, 0,
+                hd ** -0.5, 1, geo.keys, geo.rows, geo.smem, geo.row_smem,
+                stream)
+            assert err == 0, err
+        ms = {}
+        for name, lib in (("real", build.library("flash_attention_bwd")),
+                          ("no dK/dV products", bare), ("real", None)):
+            lib = lib or build.library("flash_attention_bwd")
+            ms.setdefault(name, []).append(
+                cs.time_ms(torch, lambda: call(lib), iters=50))
+        print(f"  ({hd}, {hd}) B={B} Sq=Skv={S} H={H} causal: "
+              + "; ".join(f"{n} {min(t):.4f} ms" for n, t in ms.items()))
+        for _ in range(3):
+            call(timed)
+        torch.cuda.synchronize()
+        timed.stages_clear()
+        call(timed)
+        torch.cuda.synchronize()
+        n = 1 << 16
+        c = np.zeros(n, np.int64)
+        g = np.zeros(n, np.uint64)
+        timed.stages_get(c.ctypes.data, g.ctypes.data, n)
+        c, g = c.reshape(-1, 32), g.reshape(-1, 32).astype(np.int64)
+        for name, k0 in (("dq_bf16_kernel", 0), ("dkdv_bf16_kernel", 2)):
+            live = g[:, k0] != 0
+            t0 = g[live, k0].min()
+            dur = (g[live, k0 + 1] - g[live, k0]) / 1e3
+            tiles = c[live, k0 + 1]
+            fit = np.polyfit(tiles, dur, 1) if len(set(tiles)) > 1 \
+                else (float("nan"), float("nan"))
+            print(f"    {name}: {int(live.sum())} CTAs on "
+                  f"{len(set(c[live, k0]))} SMs, span "
+                  f"{(g[live, k0 + 1].max() - t0) / 1e3:.2f} us, last entry "
+                  f"{(g[live, k0].max() - t0) / 1e3:.2f} us; CTA us = "
+                  f"{fit[1]:.2f} + {fit[0]:.2f} per tile walked")
+            for nt in sorted(set(tiles)):
+                sel = tiles == nt
+                print(f"      {nt:3d} tiles: {int(sel.sum()):4d} CTAs, us "
+                      f"median {np.median(dur[sel]):.2f} max "
+                      f"{dur[sel].max():.2f}, entry median "
+                      f"{np.median(g[live, k0][sel] - t0) / 1e3:.2f}")
+
+
 def bwd(torch, dev):
     import math
 
@@ -463,13 +590,15 @@ def bwd(torch, dev):
     def by_kernel(fn):
         rows, _ = cs.kernel_profile(torch, fn, 5)
         total = sum(r[1] for r in rows)
-        return "; ".join(f"{key[:40]} {us / 5e3:.4f} ms ({us / total:.3f})"
-                         for key, us, n in rows)
+        return "; ".join(
+            f"{key.replace('void (anonymous namespace)::', '')[:40]} "
+            f"{us / 5e3:.4f} ms ({us / total:.3f})" for key, us, n in rows)
 
-    print(f"backward kernels of {TREE}, f32 (CUDA events, ms per call):")
+    print(f"backward kernels of {TREE} (CUDA events, ms per call):")
     B, S, H = 4, 512, 16
-    for hd in (64, 128):
-        q, k, v, do = (rnd((B, S, H, hd)) for _ in range(4))
+    for dt, hd in ((torch.float32, 64), (torch.float32, 128),
+                   (torch.bfloat16, 64), (torch.bfloat16, 128)):
+        q, k, v, do = (rnd((B, S, H, hd)).to(dt) for _ in range(4))
         with torch.no_grad():
             o = FA.flash_attention(q, k, v)
         args = (q, k, v, o, do, True, 0, 1.0 / math.sqrt(hd), 0)
@@ -482,8 +611,8 @@ def bwd(torch, dev):
             lib = cs.time_ms(torch, lambda: torch.autograd.grad(
                 so, sins, sdo, retain_graph=True))
         del so, sins
-        print(f"  flash backward ({hd}, {hd}) B={B} Sq=Skv={S} H={H} causal:"
-              f" {ms:.4f} ms  SDPA backward {lib:.4f} ms  ratio "
+        print(f"  flash backward ({hd}, {hd}) {str(dt)[6:]} B={B} Sq=Skv={S} "
+              f"H={H} causal: {ms:.4f} ms  SDPA backward {lib:.4f} ms  ratio "
               f"{ms / lib:.3f}")
         shares = by_kernel(lambda: FA._launch_backward(*args))
         print(f"    by kernel: {shares}")
@@ -530,6 +659,8 @@ def main():
         bwd(torch, dev)
     if "wkvbwd" in which:
         wkv_bwd_stages(torch, dev, stream)
+    if "bf16bwd" in which:
+        bf16_bwd_stages(torch, dev, stream)
     return 0
 
 
