@@ -24,7 +24,9 @@ Phases, each fatal on failure:
      (from this run's build log, -Xptxas -v), its device time by kernel
      and its combine's share of it (the profiler), and in the log only its
      planned launch geometry (CTAs, cluster size, dynamic shared memory,
-     computed from the wrapper's plan);
+     computed from the wrapper's plan); the bf16 one-pass flash kernel
+     (flash_wgmma_kernel, hd <= 64) at each pair against the plain
+     version and its design's mirror, repeat bits, no spills;
   4. check the port's logits on the card against its CPU path (smoke size,
      qwen1.5-0.5b, rwkv6-1.6b, gemma3-1b, deepseek-moe-16b and
      jamba-v0.1-52b);
@@ -146,11 +148,14 @@ Phases, each fatal on failure:
      gap recorded;
  21. bf16 training, the reference's default dtype: the flash backward
      kernel at bf16 at both training shapes (phase 18's, and the (128,
-     128) template at 16 heads of 128), equal bit for bit to the f32
-     kernel on the widened inputs rounded to bf16, held against its plain
+     128) template at 16 heads of 128), within one bf16 ulp of the f32
+     kernel on the widened inputs rounded to bf16 and of its plain
      version, two calls' bits equal, timed beside its bound (bf16 tensor
      cores, and 3xTF32 as the products it runs), the f32 kernel on the
-     same widened inputs, its plain version and SDPA's bf16 backward; one
+     same widened inputs, its plain version and SDPA's bf16 backward; the
+     bf16 forward at the training call (flash_wgmma_kernel, against the
+     plain version and its mirror) and at the (128, 128) template, each
+     beside its bound and SDPA's bf16 forward; one
      bf16 step of full-width qwen1.5-0.5b cut to 2 layers on the card
      against the same step on the CPU; full-width qwen1.5-0.5b at full
      depth through build_train_step's default dtype for 5 steps, its loss
@@ -447,6 +452,7 @@ def kernel_checks(torch):
                 log(f"  {'flash_attention':24s} {ms:.4f} ms  library "
                     f"{lib:.4f} ms  [B=1 Sq=Skv=1024 H=Kh=16 hd=64 causal "
                     f"f32]")
+    wgmma_checks(torch, rnd, results)
     flash_composition(torch, rnd)
     # the chunked-prefill shape: a 128-row chunk at the end of a 512-token
     # bucket, K/V read back from the cache (phase 9's chunk 128)
@@ -772,6 +778,68 @@ def split_share(torch, combine, fn, reps=20):
     comb = sum(t for key, t in us.items() if combine in key)
     return dict(kernels_us=us,
                 combine_share=comb / total if total else "not measured")
+
+
+def wgmma_checks(torch, rnd, results):
+    """The bf16 one-pass flash kernel (flash_wgmma_kernel) at each pair it
+    takes, (16, 16), (32, 32) and (64, 64): causal, windowed, q_offset with
+    Sq and Skv off the 64-row tile and GQA, non-causal, rows that see no
+    key; 0 elements beyond one bf16 ulp or TOL["bfloat16"] of the plain
+    version and of the design's plain mirror (flash_wgmma_plain: the same
+    64-key tiles, online softmax and P as bf16 hi + lo), a second call's
+    bits equal, and no spills in the build log."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain, flash_wgmma_plain)
+    cases = [  # (B, Sq, Skv, H, Kh, window, q_offset, causal, label)
+        (1, 512, 512, 16, 16, 0, None, True, "Sq=Skv=512 causal"),
+        (2, 130, 130, 4, 4, 40, None, True, "B=2 Sq=Skv=130 window=40"),
+        (1, 70, 200, 8, 2, 0, 100, True, "Sq=70 Skv=200 q_offset=100 G=4"),
+        (1, 17, 90, 4, 1, 0, 0, False, "Sq=17 Skv=90 non-causal G=4"),
+        (1, 100, 40, 4, 4, 0, -70, True, "Sq=100 Skv=40 q_offset=-70"),
+    ]
+    out = {"kernel": "flash_wgmma_kernel", "cases": 0,
+           "max_abs_err_vs_plain": 0.0, "max_abs_err_vs_mirror": 0.0,
+           "tolerance": "one bf16 ulp or %g, of the plain version and of "
+                        "flash_wgmma_plain" % TOL["bfloat16"]}
+    for hd in (16, 32, 64):
+        for B, Sq, Skv, H, Kh, win, qo, causal, label in cases:
+            q = rnd((B, Sq, H, hd), "bfloat16")
+            k, v = rnd((B, Skv, Kh, hd), "bfloat16"), rnd((B, Skv, Kh, hd),
+                                                          "bfloat16")
+            kw = dict(causal=causal, window=win, q_offset=qo)
+            got = flash_attention(q, k, v, **kw)
+            again = flash_attention(q, k, v, **kw)
+            plain = flash_attention_plain(q, k, v, **kw)
+            mirror = flash_wgmma_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            case = f"({hd}, {hd}) {label}"
+            n_p, e_p = _over_ulp(torch, got, plain)
+            n_m, e_m = _over_ulp(torch, got, mirror)
+            log(f"  {'flash_wgmma_kernel':24s} bfloat16 {case:40s} max|err| "
+                f"{e_p:.3e} vs plain ({int((got != plain).sum())} of "
+                f"{got.numel()} differ), {e_m:.3e} vs the mirror "
+                f"({int((got != mirror).sum())} differ); {n_p} and {n_m} "
+                "beyond one bf16 ulp or %g" % TOL["bfloat16"])
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"flash_wgmma_kernel {case}: non-finite output")
+            check(n_p == 0 and n_m == 0, f"flash_wgmma_kernel {case}: "
+                  f"{n_p} elements beyond one bf16 ulp or "
+                  f"{TOL['bfloat16']} of the plain version, {n_m} of the "
+                  "mirror")
+            check(torch.equal(got, again),
+                  f"flash_wgmma_kernel {case}: two calls gave other bits")
+            out["cases"] += 1
+            out["max_abs_err_vs_plain"] = max(out["max_abs_err_vs_plain"],
+                                              e_p)
+            out["max_abs_err_vs_mirror"] = max(
+                out["max_abs_err_vs_mirror"], e_m)
+        r = ptxas("flash_attention", f"flash_wgmma_kernelILi{hd}ELi{hd}E")
+        out[f"ptxas_{hd}"] = r
+        log(f"  {'flash_wgmma_kernel':24s} ({hd}, {hd}) registers and "
+            f"spills: {r}")
+        check(not r.get("spill_stores") and not r.get("spill_loads"),
+              f"flash_wgmma_kernel ({hd}, {hd}) spills: {r}")
+    results["flash_attention"]["bf16_one_pass"] = out
 
 
 def flash_composition(torch, rnd):
@@ -1138,8 +1206,8 @@ def profile_ticks(torch, eng, ticks):
         f"ms/tick, device busy {out['busy_ms_per_tick']:.3f} ms/tick, "
         f"idle share {out['idle_share']:.3f} (profiler on)")
     ours = ("decode_split_kernel", "decode_combine_kernel", "flash_kernel",
-            "wkv6_kernel", "decode_cluster_kernel", "flash_span_kernel",
-            "flash_combine_kernel")
+            "flash_wgmma_kernel", "wkv6_kernel", "decode_cluster_kernel",
+            "flash_span_kernel", "flash_combine_kernel")
     for i, (key, us, n) in enumerate(rows):
         if i < 10 or any(k in key for k in ours):
             log(f"    {us / ticks:10.1f} us/tick {n / ticks:6.1f}/tick  "
@@ -2957,7 +3025,8 @@ def train_run(torch, card, label, cfg, plan, seq, batch, steps, want,
         info.update(profiled_ms_per_step=wall_us / 1e3,
                     busy_ms_per_step=busy_us / 1e3,
                     idle_share=1 - busy_us / wall_us)
-        ours = ("flash_kernel", "row_kernel", "dkdv_kernel",
+        ours = ("flash_kernel", "flash_wgmma_kernel", "row_kernel",
+                "dkdv_kernel", "dq_bf16_kernel", "dkdv_bf16_kernel",
                 "dq_combine_kernel", "wkv6_kernel", "wkv6_bwd_kernel")
         for i, (key, us, n) in enumerate(rows):
             if i < 8 or any(k in key for k in ours):
@@ -3944,33 +4013,54 @@ def bf16_bwd_kernel_checks(torch):
                             if "bf16" in k}
         del args, wide, got, f32, ref, q, k, v, do, o
     # the bf16 forward at qwen's training call, as the bf16 step calls it
-    hd = FLASH_TRAIN["hd"]
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(
-        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
-    with torch.no_grad():
-        got = FA.flash_attention(q, k, v)
-        ref = FA.flash_attention_plain(q, k, v)
-        over, err = _over_ulp(torch, got, ref)
-        check(over == 0, f"flash_attention bf16 (training call): {over} "
-              f"elements beyond one bf16 ulp or {TOL['bfloat16']} of the "
-              "plain version")
-        ms = time_ms(torch, lambda: FA.flash_attention(q, k, v))
-        plain = time_ms(torch, lambda: FA.flash_attention_plain(q, k, v),
-                        iters=5)
-        sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, is_causal=True))
-    # q, k, v read and out written once (bf16); S and P.V, 2 products of hd
-    # per visible pair
-    t_bound, by = bound(4 * B * S * H * hd * 2, 2 * 2 * hd * pairs,
-                        "bfloat16")
-    shape = f"B={B} Sq=Skv={S} H=Kh={H} hd={hd} causal bf16"
-    out["forward"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                          library_ms=lib, bound_ms=t_bound, bound_by=by,
-                          shape=shape)
-    log(f"  flash_attention bf16 (training call): {ms:.4f} ms  plain "
-        f"{plain:.4f} ms  SDPA bf16 forward {lib:.4f} ms  bound "
-        f"{t_bound:.4f} ms ({by})  max|err| vs plain {err:.3e}  [{shape}]")
+    # (flash_wgmma_kernel), then at the (128, 128) template on the same
+    # shape (the span kernel)
+    for hd in (FLASH_TRAIN["hd"], 128):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, S, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(3))
+        shape = f"B={B} Sq=Skv={S} H=Kh={H} hd={hd} causal bf16"
+        with torch.no_grad():
+            got = FA.flash_attention(q, k, v)
+            ref = FA.flash_attention_plain(q, k, v)
+            over, err = _over_ulp(torch, got, ref)
+            check(over == 0, f"flash_attention bf16 ({shape}): {over} "
+                  f"elements beyond one bf16 ulp or {TOL['bfloat16']} of "
+                  "the plain version")
+            check(torch.equal(got, FA.flash_attention(q, k, v)),
+                  f"flash_attention bf16 ({shape}): two calls gave other "
+                  "bits")
+            r = dict(max_abs_err=err, shape=shape)
+            if hd == FLASH_TRAIN["hd"]:
+                n_m, e_m = _over_ulp(torch, got, FA.flash_wgmma_plain(
+                    q, k, v))
+                check(n_m == 0, f"flash_attention bf16 ({shape}): {n_m} "
+                      f"elements beyond one bf16 ulp or {TOL['bfloat16']} "
+                      "of flash_wgmma_plain")
+                r.update(max_abs_err_vs_mirror=e_m,
+                         ptxas=ptxas("flash_attention",
+                                     f"flash_wgmma_kernelILi{hd}ELi{hd}E"))
+                r["plain_ms"] = time_ms(
+                    torch, lambda: FA.flash_attention_plain(q, k, v),
+                    iters=5)
+            r["ms"] = time_ms(torch, lambda: FA.flash_attention(q, k, v))
+            sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            r["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, is_causal=True))
+        # q, k, v read and out written once (bf16); S and P.V, 2 products
+        # of hd per visible pair
+        r["bound_ms"], r["bound_by"] = bound(4 * B * S * H * hd * 2,
+                                             2 * 2 * hd * pairs, "bfloat16")
+        out["forward" if hd == FLASH_TRAIN["hd"] else "forward_hd128"] = r
+        plain = r.get("plain_ms")
+        log(f"  flash_attention bf16: {r['ms']:.4f} ms  plain "
+            + (f"{plain:.4f} ms" if plain is not None else "not timed")
+            + f"  SDPA bf16 forward "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})  max|err| vs plain {err:.3e}"
+            + (f", vs flash_wgmma_plain {r['max_abs_err_vs_mirror']:.3e}; "
+               f"{r['ptxas']}" if "ptxas" in r else "") + f"  [{shape}]")
     return out
 
 
@@ -4229,6 +4319,7 @@ def main() -> int:
             "launched_in": paths[name]})
         if name == "flash_attention":
             kernels[-1]["chunk"] = r["chunk"]
+            kernels[-1]["bf16_one_pass"] = r["bf16_one_pass"]
             info = chunk_runs["chunk128 dense"][1]
             kernels[-1]["launches_chunked"] = \
                 info["launches"]["flash_attention"]
@@ -4387,8 +4478,8 @@ def main() -> int:
         "shape": r["shape"], "by_kernel": r["by_kernel"],
         "ptxas": r["ptxas"], "dynamic_smem": r["dynamic_smem"],
         "hd128": b_out["kernel"][128]})
-    # the bf16 forward: flash_attention's bf16 instantiation at the training
-    # call, its launches counted in the same bf16 training run
+    # the bf16 forward: flash_wgmma_kernel at the training call, its
+    # launches counted in the same bf16 training run
     n = b_out["qwen"]["launches"].get("flash_attention", 0)
     check(n > 0, "the bf16 flash forward was not launched on the bf16 "
           "training path")
@@ -4402,7 +4493,9 @@ def main() -> int:
         "tolerance": tolerance["flash_attention"][1],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": r["shape"]})
+        "shape": r["shape"], "kernel": "flash_wgmma_kernel",
+        "max_abs_err_vs_mirror": r["max_abs_err_vs_mirror"],
+        "ptxas": r["ptxas"], "hd128": b_out["kernel"]["forward_hd128"]})
     log(f"  phase 18 (training) {t_out['s']:.1f} s; phase 19 (multi-rank) "
         f"{p_out['s']:.1f} s; phase 20 (narrow caches) {n_out['s']:.1f} s; "
         f"phase 21 (bf16 training) {b_out['s']:.1f} s")

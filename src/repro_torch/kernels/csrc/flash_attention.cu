@@ -6,7 +6,9 @@
 // Bound on an H100: operations.  At Sq = Skv = 512 and hd = 64 a head does
 // about 2 * 2 * 512 * 512 / 2 * 64 causal flops against 4 * 512 * 64 * 4
 // bytes of q, k, v and out: ~64 flops per byte, so the products belong on
-// the tensor cores.  The design:
+// the tensor cores.  Three designs share the file: flash_kernel (f32 at hd
+// <= 64), flash_wgmma_kernel (bf16 at hd <= 64) and the span kernel (hd >=
+// 128, both types), each below.  flash_kernel:
 //   * one CTA of 8 warps per (b*h, tile of 64 query rows): each m16 row
 //     tile has two warps, one per half of every kv tile's keys, each with
 //     its own online-softmax state; the pair merges once, at the end, in
@@ -26,9 +28,10 @@
 //         cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and each
 //         product as small.big + big.small + big.big summed in f32, which
 //         keeps f32 accuracy (1xTF32 keeps about three decimal digits);
-//       - bf16: m16n8k16 with f32 accumulation, V read by ldmatrix.trans;
-//         P (f32) enters P.V as a bf16 pair hi + lo, two products, so the
-//         output keeps f32 accuracy up to its final rounding to bf16;
+//       - bf16 (the span kernel's fragment code): m16n8k16 with f32
+//         accumulation, V read by ldmatrix.trans; P (f32) enters P.V as a
+//         bf16 pair hi + lo, two products, so the output keeps f32
+//         accuracy up to its final rounding to bf16;
 //   * the online softmax runs on the accumulator fragments, in the log2
 //     domain; a row's max and sum are taken across the 4 lanes that share
 //     it by two xor-shuffles in a fixed order.  P's accumulator layout
@@ -44,8 +47,65 @@
 //     here (cp.async zero-fills rows past Skv), with no padded copies;
 //   * every sum has a fixed order and there are no atomics: the same inputs
 //     give the same bits.
-// Up to hd = hdv = 64 flash_kernel runs as above: tiles of 64 keys, the two
-// warps of a row tile splitting them.
+// Up to hd = hdv = 64 in f32 flash_kernel runs as above: tiles of 64 keys,
+// the two warps of a row tile splitting them.
+//
+// bf16 at (16, 16), (32, 32) and (64, 64) runs flash_wgmma_kernel, on
+// Hopper's warpgroup products (wgmma.cuh).  At qwen1.5-0.5b's training
+// call (B 4, Sq = Skv 512, 16 heads of 64, causal) the bound is bytes:
+// q, k, v and out are 16.8 MB, 5.0 us on an H100, against 3.3 us for the
+// three products of hd a visible pair (S, and P.V as P's hi and lo) on the
+// bf16 tensor cores.  flash_kernel's bf16 instantiation took 6.8x that
+// bytes bound, 2.06x SDPA's bf16 forward: mma.sync products fed by 32-bit
+// loads, Q reloaded from shared memory every tile, two barriers a tile
+// across 8 warps and a pair merge.  The design:
+//   * one CTA of one warpgroup (4 warps, 128 threads) per (b*h, tile of 64
+//     query rows), longest rows first; warp w owns rows 16w..16w+15 for the
+//     whole walk, so a row's max and sum stay in the 4 lanes that share it
+//     (two xor-shuffles, a fixed order) and nothing is merged;
+//   * Q (with the first tile) and 64-key K and V tiles of ABSOLUTE keys
+//     (tile0 = kv_lo / 64 * 64) arrive by 16-byte cp.async into a 3-stage
+//     ring, each chunk XORed into the swizzled layout of its row width
+//     (128, 64 or 32 bytes, wgmma.cuh), rows past Sq and Skv zero-filled;
+//     a thread's chunks lie 2048 bytes apart, so its swizzled offsets and
+//     source strides are fixed and a tile costs it a compare and an add a
+//     copy; fence.proxy.async, then one barrier a tile, hands the copies
+//     to the tensor cores;
+//   * S = Q.K^T: wgmma m64n64k16, both operands K-major from shared memory
+//     (Q stays in place for the whole walk); the 64x64 f32 S lands in
+//     registers in the accumulator layout;
+//   * the online softmax on those registers, in the log2 domain with the
+//     finite kNegInf: the mask only on tiles the causal bound, the window
+//     or the ragged kv edge cut; row maxima on the raw scores (scale > 0
+//     rounds monotonically), P = 2^(fma(s, scale', -m)) by one ex2.approx
+//     .ftz each; each lane sums its 16 values of a row in order;
+//   * O += P_lo.V + P_hi.V: P, split into bf16 hi and lo, is already the
+//     register A operand of the k16 chunks (no shuffles); two RS wgmma
+//     m64n{hdv}k16 a chunk, lo first, with V MN-major in shared memory
+//     through the transpose bit.  So P keeps f32 accuracy up to the
+//     output's rounding, as the plain version and the Pallas kernel;
+//   * tile it's S is issued, then tile it - 1's P.V behind it; the warp
+//     waits for S alone and runs the softmax while that P.V runs on the
+//     tensor cores, then waits for it, rescales O and splits the new P:
+//     the same operations in the same order as without the overlap, so
+//     the same bits; the ring's third stage holds tile it - 1's V while
+//     tile it + 1 loads;
+//   * O leaves through Q's tile (swizzled) as 16-byte pieces of whole rows.
+//   * fully masked tiles add exact zeros at an exact scale of 1, tiles are
+//     absolute and rows independent, every sum has a fixed order and there
+//     are no atomics: the same inputs give the same bits, and chunked calls
+//     give one call's rows bit for bit.
+// At hd 64 it holds 123 registers (3 CTAs an SM, by the ring's 58,368 B).
+// Its timeline (tools/kernel_stages.py bf16fwd, an H100) is set by the
+// longest CTAs' serial walk: a prologue of loads shared by the whole first
+// wave, then per tile the softmax's issue (about half a tile), S's latency
+// and the barrier.  Tried and left out: a 2-stage ring at 4 CTAs an SM,
+// and a fourth stage to load two tiles ahead (no faster).  Replaced, as
+// the timelines showed each as a large share of a tile: exp2f with its
+// subnormal fix-up, a scale multiply and a masked-value compare per
+// score, and per-copy address arithmetic.
+// TMA is not used: cp.async with fixed per-thread offsets keeps the
+// ring's copies to a few instructions a tile.
 //
 // (128, 128), (192, 128) and (256, 256) run flash_span_kernel and
 // flash_combine_kernel.  The one-pass layout above lost there: at hd 256
@@ -122,6 +182,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -302,12 +363,14 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
 }
 
-template <typename T, int HD, int HDV>
+// f32 only: bf16 at hd <= 64 runs flash_wgmma_kernel
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-             int H, int Kh, int q_offset, int causal, int window,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int Sq,
+             int Skv, int H, int Kh, int q_offset, int causal, int window,
              float scale) {
+  using T = float;
   constexpr int BK = kTileKeys;               // kv positions per tile
   constexpr int WK = BK / kPairs;             // keys per warp
   constexpr int NT = WK / 8;                  // n8 tiles of S per warp
@@ -512,6 +575,279 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row0 + 8 < Sq)
       store2<T>(out + (((int64_t)b * Sq + row0 + 8) * H + h) * HDV + d,
                 o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at (16, 16), (32, 32) and (64, 64): one warpgroup per 64 query rows,
+// its products on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;    // one warpgroup: warp w owns rows 16w..
+constexpr int kWgStages = 3;       // depth of the K/V ring
+constexpr int kWgMinCtas = 3;      // CTAs an SM the registers must allow
+constexpr int kWgAlign = 1024;     // where a swizzle pattern starts
+
+// the tiles' start rounded up to kWgAlign, Q's tile, then the ring's K
+// tiles, then its V tiles, each in the swizzled layout of its row width
+template <int HD, int HDV>
+__host__ __device__ constexpr size_t wg_smem_bytes() {
+  return kWgAlign + 2 * (kBQ * HD + kWgStages * kTileKeys * (HD + HDV));
+}
+
+// 2^x in one MUFU.EX2, results below 2^-126 flushed to zero (exp2f adds
+// a range fix-up around it for subnormal results, which P does not need)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD, int HDV>
+__global__ void __launch_bounds__(kWgThreads, kWgMinCtas)
+flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+                   int Kh, int q_offset, int causal, int window,
+                   float scale) {
+  using rt::Swz;
+  constexpr int BK = kTileKeys;               // keys a tile
+  constexpr int QT = kBQ * Swz<HD>::kRow;     // bytes of Q's tile
+  constexpr int KT = BK * Swz<HD>::kRow;      // of a K tile
+  constexpr int VT = BK * Swz<HDV>::kRow;     // of a V tile
+  constexpr int QC = Swz<HD>::kRow / 16;      // 16-byte chunks a Q or K row
+  constexpr int VC = Swz<HDV>::kRow / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t qa = (raw + kWgAlign - 1) & ~uint32_t(kWgAlign - 1);
+  const uint32_t ka = qa + QT, va = ka + kWgStages * KT;
+  unsigned char* qs = smem_raw + (qa - raw);
+  unsigned char* ks = qs + QT;
+  unsigned char* vs = ks + kWgStages * KT;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int kh = h / (H / Kh);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest rows first
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;                     // fragment row group
+  const int t = lane % 4;                     // thread in the group
+
+  // kv span any row of this tile can see; tiles keep absolute alignment
+  const int last_q = min(q0 + kBQ, Sq) - 1;
+  int kv_hi = Skv;
+  int kv_lo = 0;
+  if (causal) {
+    kv_hi = min(Skv, q_offset + last_q + 1);
+    if (window) kv_lo = max(0, q_offset + q0 - window + 1);
+  }
+  const int tile0 = (kv_lo / BK) * BK;
+  const int n_tiles = kv_hi > tile0 ? (kv_hi - tile0 + BK - 1) / BK : 0;
+
+  // 16-byte cp.async copies by all 128 threads, each to its swizzled
+  // place: thread i copies chunk i % C of rows i / C + j * 128 / C, which
+  // lie 2048 bytes apart, so the swizzle's XOR is the same for every j;
+  // rows past Skv (Sq) are zero-filled
+  static_assert(HD == HDV, "K and V rows share the copy pattern");
+  constexpr int RJ = kWgThreads / QC;         // rows a pass of copies covers
+  const int cr = threadIdx.x / QC, cc = threadIdx.x % QC;
+  const uint32_t csw = Swz<HD>::at(cr, cc);   // + j * RJ rows
+  const int64_t krow0 = (int64_t)b * Skv * Kh + kh;   // row p at + p * Kh
+  auto load_tile = [&](int it) {
+    const int p0 = tile0 + it * BK + cr;
+    const int64_t off = (krow0 + (int64_t)p0 * Kh) * HD + 8 * cc;
+    unsigned char* kd = ks + (it % kWgStages) * KT + csw;
+    unsigned char* vd = vs + (it % kWgStages) * VT + csw;
+#pragma unroll
+    for (int j = 0; j < BK / RJ; ++j) {
+      const bool ok = p0 + j * RJ < Skv;
+      const int64_t src = ok ? off + (int64_t)j * RJ * Kh * HD : 0;
+      cp_async16(kd + j * RJ * Swz<HD>::kRow, k + src, ok);
+      cp_async16(vd + j * RJ * Swz<HDV>::kRow, v + src, ok);
+    }
+  };
+  if (n_tiles > 0) {
+    // q (B, Sq, H, HD): raw rows, zeros past Sq, with the first tile
+    for (int i = threadIdx.x; i < kBQ * QC; i += kWgThreads) {
+      const int r = i / QC, c = i % QC, qi = q0 + r;
+      const bool ok = qi < Sq;
+      cp_async16(qs + Swz<HD>::at(r, c),
+                 q + (((int64_t)b * Sq + (ok ? qi : 0)) * H + h) * HD + 8 * c,
+                 ok);
+    }
+    load_tile(0);
+  }
+  cp_async_commit();
+
+  const float qk_scale = scale * kLog2e;
+  const int row0 = q0 + 16 * warp + g;        // query rows g and g + 8
+  const int qp0 = q_offset + row0, qp1 = qp0 + 8;   // absolute positions
+
+  float o[HDV / 2];
+#pragma unroll
+  for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
+  float m0 = rt::kNegInf, m1 = rt::kNegInf;   // running max, log2 domain
+  float l0 = 0.f, l1 = 0.f;                   // this lane's partial sums
+
+  // P of a tile as bf16 pairs hi + lo; O += P_lo . V + P_hi . V of the
+  // tile in stage st, k16 chunk by chunk, lo first, issued (not awaited)
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
+  auto issue_pv = [&](int st) {
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+      const uint64_t dv =
+          rt::desc_mn<HDV>(va + st * VT + 16 * c * Swz<HDV>::kRow);
+      rt::wgmma_rs<HDV>(o, pl[c], dv);
+      rt::wgmma_rs<HDV>(o, ph[c], dv);
+    }
+    rt::wg_commit();
+  };
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();   // this thread's copies of tile it
+    rt::fence_proxy_async();
+    __syncthreads();   // every thread's copies landed, and tile it - 2's
+                       // products are done: its stage may be refilled
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    cp_async_commit();
+    const int st = it % kWgStages;
+
+    // S = Q . K^T, raw scores; then tile it - 1's P.V, which runs on the
+    // tensor cores while this tile's softmax runs
+    float s[32];
+    rt::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      rt::wgmma_ss_n64(s, rt::desc_k<HD>(qa + 32 * kk),
+                       rt::desc_k<HD>(ka + st * KT + 32 * kk), kk > 0);
+    rt::wg_commit();
+    if (it > 0) {
+      issue_pv((it - 1) % kWgStages);
+      rt::wg_wait<1>();
+    } else {
+      rt::wg_wait<0>();
+    }
+    rt::reg_fence(s);
+
+    // the mask matters only where the causal bound, the window or the
+    // ragged kv edge cuts this tile for some row of the CTA: there a
+    // masked raw score becomes kNegInf, whose 2^(fma) below is 0
+    const int t0 = tile0 + it * BK;
+    const bool full =
+        t0 + BK <= Skv &&
+        (!causal || (t0 + BK - 1 <= q_offset + q0 &&
+                     (!window || t0 > q_offset + q0 + kBQ - 1 - window)));
+    if (!full) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t0 + 8 * j + 2 * t + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          bool ok = key < Skv;
+          if (causal) {
+            ok = ok && key <= qp;
+            if (window) ok = ok && key > qp - window;
+          }
+          if (!ok) s[4 * j + e] = rt::kNegInf;
+        }
+    }
+    // row maxima of the raw scores: scaling rounds monotonically, so
+    // max(s) * scale' is the max of the scaled scores
+    float mx0 = rt::kNegInf, mx1 = rt::kNegInf;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0 > rt::kNegInf ? mx0 * qk_scale : mx0);
+    const float mn1 = fmaxf(m1, mx1 > rt::kNegInf ? mx1 * qk_scale : mx1);
+    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // P = 2^(s scale' - m), one fma a score; a row that has seen no key
+    // yet subtracts 0, so its masked scores give 0, not 2^0
+    const float b0 = mn0 > rt::kNegInf ? mn0 : 0.f;
+    const float b1 = mn1 > rt::kNegInf ? mn1 : 0.f;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      s[4 * j] = ex2(fmaf(s[4 * j], qk_scale, -b0));
+      s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], qk_scale, -b0));
+      s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], qk_scale, -b1));
+      s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], qk_scale, -b1));
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+    // tile it - 1's P.V is done: O and P's registers are free
+    rt::wg_wait<0>();
+    rt::reg_fence(o);
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+      rt::reg_fence(ph[c]);
+      rt::reg_fence(pl[c]);
+    }
+#pragma unroll
+    for (int n = 0; n < HDV / 8; ++n) {
+      o[4 * n] *= c0;
+      o[4 * n + 1] *= c0;
+      o[4 * n + 2] *= c1;
+      o[4 * n + 3] *= c1;
+    }
+    // P as bf16 pairs hi + lo, already in the A layout of the k16 chunk of
+    // keys 16 c .. 16 c + 15 (S's n8 blocks 2c and 2c + 1)
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], ph[c][r],
+                   pl[c][r]);
+  }
+  if (n_tiles > 0) {   // the last tile's P.V
+    rt::wg_fence();
+    issue_pv((n_tiles - 1) % kWgStages);
+    rt::wg_wait<0>();
+    rt::reg_fence(o);
+  }
+  cp_async_wait<0>();
+
+  // row sums across the quad, in a fixed order
+  l0 += __shfl_xor_sync(rt::kFull, l0, 1);
+  l0 += __shfl_xor_sync(rt::kFull, l0, 2);
+  l1 += __shfl_xor_sync(rt::kFull, l1, 1);
+  l1 += __shfl_xor_sync(rt::kFull, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // O through Q's tile (no S reads it any more), each warp its own 16
+  // rows in the swizzled layout of their width, then back as 16-byte
+  // pieces of whole rows
+  static_assert(HD == HDV, "O's rows take Q's place");
+  const int r0 = 16 * warp + g;
+#pragma unroll
+  for (int n = 0; n < HDV / 8; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(qs + Swz<HDV>::at(r0, n) + 4 * t) =
+        __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+    *reinterpret_cast<__nv_bfloat162*>(qs + Swz<HDV>::at(r0 + 8, n) +
+                                       4 * t) =
+        __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * VC; i += 32) {
+    const int r = i / VC, c = i % VC, row = q0 + 16 * warp + r;
+    if (row < Sq)
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + row) * H + h) *
+                                          HDV + 8 * c) =
+          *reinterpret_cast<const uint4*>(qs + Swz<HDV>::at(16 * warp + r,
+                                                            c));
   }
 }
 
@@ -987,25 +1323,52 @@ int launch_span(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD, int HDV>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int H, int Kh, int q_offset, int causal,
            int window, float scale, int smem, cudaStream_t stream) {
+  using T = float;
   constexpr size_t bytes = smem_bytes<T, HD, HDV>(kTileKeys);
   static_assert(bytes <= kMaxSmem, "tile does not fit in shared memory");
   if (smem != static_cast<int>(bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_kernel<T, HD, HDV><<<grid, kThreads, bytes, stream>>>(
+  flash_kernel<HD, HDV><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, Kh,
       q_offset, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int HDV>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                 int B, int Sq, int Skv, int H, int Kh, int q_offset,
+                 int causal, int window, float scale, int smem,
+                 cudaStream_t stream) {
+  constexpr size_t bytes = wg_smem_bytes<HD, HDV>();
+  static_assert(bytes <= kMaxSmem, "tiles do not fit in shared memory");
+  // the row maxima are taken on the unscaled scores
+  if (smem != static_cast<int>(bytes) || !(scale > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<HD, HDV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  flash_wgmma_kernel<HD, HDV><<<grid, kWgThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Kh, q_offset, causal,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1015,9 +1378,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // 128); kernels/flash_attention.py's HEAD_DIM_PAIRS lists the same.  span
 // and smem are the geometry the wrapper computed (kernels/
 // flash_attention.py::_geometry): span 0 and smem_bytes for flash_kernel
-// (hd <= 64), kSpan and span_smem for the span kernel ((128, 128), (192,
-// 128) and (256, 256), which also take the f32 scratch of B x H x Sq x
-// n_spans partials); any other is refused.
+// (f32, hd <= 64), span 0 and wg_smem_bytes for flash_wgmma_kernel (bf16,
+// hd <= 64, scale > 0), kSpan and span_smem for the span kernel ((128,
+// 128), (192, 128) and (256, 256), which also take the f32 scratch of B x
+// H x Sq x n_spans partials); any other is refused.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* scratch,
                                       int B, int Sq, int Skv, int H, int Kh,
@@ -1033,21 +1397,29 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return launch_span<T, D, DV>(q, k, v, out, scratch, B, Sq, Skv, H, Kh, \
                                  q_offset, causal, window, scale, span,    \
                                  smem, s);
-#define RT_CASE(T, D, DV)                                                  \
+#define RT_CASE(D, DV)                                                     \
   if (hd == D && hdv == DV)                                                \
     return span != 0 ? static_cast<int>(cudaErrorInvalidValue)            \
-                     : launch<T, D, DV>(q, k, v, out, B, Sq, Skv, H, Kh,   \
-                                        q_offset, causal, window, scale,   \
-                                        smem, s);
-#define RT_ALL(T)                                                          \
-  RT_CASE(T, 16, 16) RT_CASE(T, 32, 32) RT_CASE(T, 64, 64)                 \
+                     : launch<D, DV>(q, k, v, out, B, Sq, Skv, H, Kh,      \
+                                     q_offset, causal, window, scale,      \
+                                     smem, s);
+#define RT_WG(D, DV)                                                       \
+  if (hd == D && hdv == DV)                                                \
+    return span != 0 ? static_cast<int>(cudaErrorInvalidValue)            \
+                     : launch_wgmma<D, DV>(q, k, v, out, B, Sq, Skv, H,    \
+                                           Kh, q_offset, causal, window,  \
+                                           scale, smem, s);
+#define RT_SPANS(T)                                                        \
   RT_SPAN(T, 128, 128) RT_SPAN(T, 192, 128) RT_SPAN(T, 256, 256)
   if (dtype == rt::kDtypeF32) {
-    RT_ALL(float)
+    RT_CASE(16, 16) RT_CASE(32, 32) RT_CASE(64, 64)
+    RT_SPANS(float)
   } else if (dtype == rt::kDtypeBF16) {
-    RT_ALL(__nv_bfloat16)
+    RT_WG(16, 16) RT_WG(32, 32) RT_WG(64, 64)
+    RT_SPANS(__nv_bfloat16)
   }
-#undef RT_ALL
+#undef RT_SPANS
+#undef RT_WG
 #undef RT_CASE
 #undef RT_SPAN
   return static_cast<int>(cudaErrorInvalidValue);

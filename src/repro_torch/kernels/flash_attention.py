@@ -21,6 +21,14 @@ spans in span order.  ``span_plan``, ``flash_partials_plain`` and
 ``flash_combine_plain`` are the plain versions of that plan and of both
 passes, and ``_geometry`` the launch geometry that the C launcher checks.
 
+At bf16 and (hd, hdv) of at most (64, 64) the kernel is
+``flash_wgmma_kernel``: one warpgroup per 64 query rows, 64-key tiles of
+absolute keys, S and P.V on Hopper's wgmma, P entering P.V as bf16 hi + lo
+(f32 accuracy up to the output's rounding).  ``flash_wgmma_plain`` is the
+plain version of that design's arithmetic, which the tests hold against
+``flash_attention_plain`` and the Pallas kernel, and the kernel against.
+It takes scale > 0 (its row maxima are taken on the unscaled scores).
+
 Where autograd records a call on CUDA tensors (grad mode on, an input
 requiring grad), the wrapper goes through ``FlashAttentionFn``, whose
 backward is ``csrc/flash_attention_bwd.cu`` (f32 or bf16; the Pallas
@@ -56,6 +64,9 @@ HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
 SPAN_PAIRS = ((128, 128), (192, 128), (256, 256))
 SPAN = 128                         # absolute key positions per span (kSpan)
 TILE_Q = 64                        # query rows per CTA (kBQ)
+TILE_K = 64                        # keys per ring tile of the one-pass kernels
+WG_STAGES = 3                      # K/V ring depth of the bf16 one-pass kernel
+WG_ALIGN = 1024                    # its tiles' alignment (kWgAlign)
 LOG2E = 1.4426950408889634
 
 
@@ -67,14 +78,21 @@ class Geometry(NamedTuple):
 
 def _geometry(hd: int, hdv: int, dtype: torch.dtype) -> Geometry:
     """The kernels' launch geometry (csrc/flash_attention.cu: kTileKeys and
-    smem_bytes, or span_tile and span_smem for the span kernel), which the
-    launcher refuses to differ: Q's tile and a 2-stage K/V ring, rows padded
-    by 16 bytes (f32) or 8 elements (bf16), and in the span kernel P and the
-    pair's row maxima and sums in f32; its ring tiles hold 64 keys, or 32
-    for f32 rows wider than 128."""
+    smem_bytes, wg_smem_bytes for the bf16 one-pass kernel, or span_tile
+    and span_smem for the span kernel), which the launcher refuses to
+    differ.  f32 one-pass and the span kernel: Q's tile and a 2-stage K/V
+    ring, rows padded by 16 bytes (f32) or 8 elements (bf16), and in the
+    span kernel P and the pair's row maxima and sums in f32; its ring tiles
+    hold 64 keys, or 32 for f32 rows wider than 128.  bf16 one-pass
+    (``flash_wgmma_kernel``): unpadded swizzled bf16 rows, Q's tile and a
+    ``WG_STAGES``-deep ring of 64-key K and V tiles, behind ``WG_ALIGN``
+    bytes for rounding the tiles' start up to a swizzle boundary."""
     es = dtype.itemsize
     if (hd, hdv) not in SPAN_PAIRS:
-        return Geometry(64, 0, _ring_smem(hd, hdv, es, 64))
+        if dtype == torch.bfloat16:
+            return Geometry(TILE_K, 0, WG_ALIGN + es * (
+                TILE_Q * hd + WG_STAGES * TILE_K * (hd + hdv)))
+        return Geometry(TILE_K, 0, _ring_smem(hd, hdv, es, TILE_K))
     bk = 32 if es == 4 and hd > 128 else 64
     return Geometry(bk, SPAN, _ring_smem(hd, hdv, es, bk)
                     + 4 * (4 * 16 * (bk + 8) + 4 * 2 * 2 * 16))
@@ -160,6 +178,92 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
     o = torch.einsum("bhgqj,bjhk->bhgqk", p, v.float()) \
         / torch.clamp(l, min=1e-30)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hdv).to(q.dtype)
+
+
+def flash_wgmma_plain(q, k, v, *, causal=True, window=0, scale=None,
+                      q_offset=None):
+    """The bf16 one-pass kernel's arithmetic (``flash_wgmma_kernel``),
+    written out in f32 on the widened inputs: per query tile of ``TILE_Q``
+    rows, the ``TILE_K``-key tiles of absolute keys from the one holding
+    the tile's first visible key, each as S = q.k (every product exact, the
+    hd terms added in order) times scale * log2(e), masked to -1e30; the
+    online softmax in the log2 domain (row max, rescale by 2^(m - m'), P =
+    2^(s scale log2(e) - m') with one rounding, as the kernel's fma; each
+    row's sum kept as the kernel's four lanes' partials,
+    added (0 + 1) + (2 + 3) at the end); P as bf16 hi plus bf16 lo, and O +=
+    P_lo V then P_hi V per 16-key chunk, each chunk's 16 terms added in
+    order; out = O / max(l, 1e-30), rounded to q's dtype.  Every sum runs
+    elementwise in a fixed order, so a row's result depends only on its
+    absolute position and its tile's walk, and the extra tiles a chunk's
+    walk may take add exact zeros at an exact scale of 1: chunked calls
+    equal one call bit for bit, as the kernel's do."""
+    B, Sq, H, hd = q.shape
+    Skv, Kh = k.shape[1], k.shape[2]
+    hdv = v.shape[-1]
+    G = H // Kh
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
+    # scale * log2(e) as the kernel forms it, in f32
+    qk = float(torch.tensor(scale, dtype=torch.float32)
+               * torch.tensor(LOG2E, dtype=torch.float32))
+    pad = -(-Skv // TILE_K) * TILE_K - Skv
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad)) \
+        .permute(0, 2, 1, 3)                         # (B, Kh, keys, hd)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)) \
+        .permute(0, 2, 1, 3)                         # (B, Kh, keys, hdv)
+    qf = q.float().reshape(B, Sq, Kh, G, hd).permute(0, 2, 3, 1, 4)
+    out = torch.zeros((B, Kh, G, Sq, hdv), dtype=torch.float32,
+                      device=q.device)
+    for q0 in range(0, Sq, TILE_Q):
+        R = min(TILE_Q, Sq - q0)
+        lo, hi = _key_range(q0, q0 + R - 1, Skv, q_offset, causal, window)
+        tile0 = lo // TILE_K * TILE_K
+        qt = qf[:, :, :, q0:q0 + R, None, :]         # (B, Kh, G, R, 1, hd)
+        qp = q_offset + q0 + torch.arange(R, device=q.device)[:, None]
+        m = torch.full((B, Kh, G, R), NEG_INF, device=q.device)
+        lanes = torch.zeros((B, Kh, G, R, 4), device=q.device)
+        o = torch.zeros((B, Kh, G, R, hdv), device=q.device)
+        for t0 in range(tile0, hi, TILE_K):
+            kt = kf[:, :, None, None, t0:t0 + TILE_K]   # (B, Kh, 1, 1, K, hd)
+            vt = vf[:, :, None, None, t0:t0 + TILE_K]
+            s = torch.zeros((B, Kh, G, R, TILE_K), device=q.device)
+            for d in range(hd):
+                s = s + qt[..., d] * kt[..., d]
+            key = t0 + torch.arange(TILE_K, device=q.device)[None, :]
+            ok = key < Skv
+            if causal:
+                ok = ok & (key <= qp)
+                if window:
+                    ok = ok & (key > qp - window)
+            x = torch.where(ok, s * qk, torch.full_like(s, NEG_INF))
+            mn = torch.maximum(m, x.amax(dim=-1))
+            c = torch.exp2(m - mn)
+            m = mn
+            # 2^(s qk - m) with s qk - m rounded once, as the kernel's fma
+            # (s qk is exact in f64); a row without a key subtracts 0
+            b = torch.where(mn > NEG_INF, mn, torch.zeros_like(mn))
+            e = (s.double() * qk - b[..., None].double()).float()
+            p = torch.where(ok, torch.exp2(e), torch.zeros_like(e))
+            # lane t holds keys 8 j + 2 t and 8 j + 2 t + 1, j in order
+            pairs = p.reshape(*p.shape[:-1], TILE_K // 8, 4, 2)
+            pairs = pairs[..., 0] + pairs[..., 1]
+            part = pairs[..., 0, :]
+            for j in range(1, TILE_K // 8):
+                part = part + pairs[..., j, :]
+            lanes = lanes * c[..., None] + part
+            o = o * c[..., None]
+            p_hi = p.to(torch.bfloat16).float()
+            p_lo = (p - p_hi).to(torch.bfloat16).float()
+            for c16 in range(0, TILE_K, 16):
+                for half in (p_lo, p_hi):
+                    acc = half[..., c16, None] * vt[..., c16, :]
+                    for j in range(c16 + 1, c16 + 16):
+                        acc = acc + half[..., j, None] * vt[..., j, :]
+                    o = o + acc
+        l = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+        out[:, :, :, q0:q0 + R] = o * (1.0 / torch.clamp(l, min=1e-30))[
+            ..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hdv).to(q.dtype)
 
 
 def flash_partials_plain(q, k, v, *, causal=True, window=0, scale=None,
@@ -539,6 +643,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{HEAD_DIM_PAIRS}, got hd={hd}, hdv={hdv}")
     if H % Kh:
         raise ValueError(f"flash attention: H={H} not a multiple of Kh={Kh}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if q.dtype == torch.bfloat16 and (hd, hdv) not in SPAN_PAIRS \
+            and not scale > 0:
+        raise ValueError("flash attention: the bf16 kernel at hd <= 64 "
+                         "takes scale > 0 (it takes each row's max on the "
+                         f"unscaled scores), got {scale}")
     if how == "meta":
         return build.meta_outputs(lambda: q.new_empty((B, Sq, H, hdv)),
                                   q, k, v)
@@ -546,11 +656,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash attention: the kernel copies k and v rows in "
                          "16-byte pieces; both must start on a 16-byte "
                          "boundary")
-    if (hd, hdv) in SPAN_PAIRS and q.data_ptr() % 16:
+    if ((hd, hdv) in SPAN_PAIRS or q.dtype == torch.bfloat16) \
+            and q.data_ptr() % 16:
         raise ValueError(f"flash attention: at (hd, hdv) = ({hd}, {hdv}) "
-                         "the kernel copies q rows in 16-byte pieces too; "
-                         "q must start on a 16-byte boundary")
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+                         f"and {q.dtype} the kernel copies q rows in 16-byte "
+                         "pieces too; q must start on a 16-byte boundary")
     q_offset = (Skv - Sq) if q_offset is None else int(q_offset)
     if build.needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window, scale,

@@ -21,7 +21,8 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.flash_attention import (HEAD_DIM_PAIRS,
                                                  flash_attention,
                                                  flash_attention_bwd_plain,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 flash_wgmma_plain)
 from repro_torch.kernels.rwkv6_wkv import (_bwd_geometry, _geometry, wkv6,
                                            wkv6_bwd_plain, wkv6_plain)
 from repro_torch.models.transformer import init_model
@@ -159,6 +160,59 @@ def test_cuda_flash_kernel(cuda_dev, dt, Sq, Skv, H, Kh, hd, causal, window,
     torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
                                flash_attention_plain(q, k, v, **kw).float(),
                                **TOL[dt])
+
+
+def _over_bf16_ulp(got, want):
+    """Elements of ``got`` beyond one bf16 ulp of ``want`` or 5e-3."""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    return int(((got - want).abs() > ulp.clamp_min(5e-3)).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("B,Sq,Skv,H,Kh,causal,window,q_offset", [
+    (1, 512, 512, 16, 16, True, 0, None),
+    (2, 130, 130, 4, 4, True, 40, None),
+    (1, 70, 200, 8, 2, True, 0, 100),
+    (1, 17, 90, 4, 1, False, 0, 0),
+    (1, 100, 40, 4, 4, True, 0, -70),
+])
+def test_cuda_flash_wgmma(cuda_dev, hd, B, Sq, Skv, H, Kh, causal, window,
+                          q_offset):
+    """The bf16 one-pass kernel (flash_wgmma_kernel) within one bf16 ulp or
+    5e-3 of the plain version and of its design's mirror
+    (flash_wgmma_plain), at Sq and Skv off its tiles, windows, q_offset,
+    GQA and rows that see no key; two calls give the same bits."""
+    rng = np.random.default_rng(hd + Sq + Skv)
+    q = _rand(rng, (B, Sq, H, hd), "bfloat16", cuda_dev)
+    k = _rand(rng, (B, Skv, Kh, hd), "bfloat16", cuda_dev)
+    v = _rand(rng, (B, Skv, Kh, hd), "bfloat16", cuda_dev)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = flash_attention(q, k, v, **kw)
+    assert _over_bf16_ulp(got, flash_attention_plain(q, k, v, **kw)) == 0
+    assert _over_bf16_ulp(got, flash_wgmma_plain(q, k, v, **kw)) == 0
+    assert torch.equal(got, flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("window", [0, 100])
+def test_cuda_flash_wgmma_chunked(cuda_dev, hd, window):
+    """flash_wgmma_kernel chunk by chunk (16, 64, 128 rows at q_offset c0)
+    equals one call bit for bit: its tiles are absolute."""
+    rng = np.random.default_rng(hd + window)
+    Sp, H, Kh = 300, 8, 2
+    q = _rand(rng, (1, Sp, H, hd), "bfloat16", cuda_dev)
+    k = _rand(rng, (1, Sp, Kh, hd), "bfloat16", cuda_dev)
+    v = _rand(rng, (1, Sp, Kh, hd), "bfloat16", cuda_dev)
+    whole = flash_attention(q, k, v, q_offset=0, window=window)
+    for chunk in (16, 64, 128):
+        parts = [flash_attention(q[:, c0:c0 + chunk].contiguous(), k, v,
+                                 q_offset=c0, window=window)
+                 for c0 in range(0, Sp, chunk)]
+        assert torch.equal(torch.cat(parts, 1), whole), chunk
 
 
 def _pools(rng, lens, Kh, hd, bs, M, dt, dev):

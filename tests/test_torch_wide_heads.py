@@ -226,6 +226,14 @@ def test_flash_geometry():
     assert fk._geometry(256, 256, bf16) == (64, SPAN, 188_416)
     assert fk._geometry(192, 128, f32) == (32, SPAN, 145_408)
     assert fk._geometry(64, 64, f32) == (64, 0, 4 * (64 * 68 + 128 * 136))
+    # bf16 one pass (flash_wgmma_kernel): 1,024 to align the tiles, Q's 64
+    # rows and a 3-stage ring of 64-key K and V tiles, unpadded bf16
+    assert fk._geometry(64, 64, bf16) == (64, 0, 1024 + 2 * (64 * 64
+                                                             + 3 * 64 * 128))
+    assert fk._geometry(32, 32, bf16) == (64, 0, 1024 + 2 * (64 * 32
+                                                             + 3 * 64 * 64))
+    assert fk._geometry(16, 16, bf16) == (64, 0, 1024 + 2 * (64 * 16
+                                                             + 3 * 64 * 32))
     assert max(fk._geometry(a, b, t).smem for a, b in fk.HEAD_DIM_PAIRS
                for t in (f32, bf16)) <= 227 * 1024
     assert [fk.n_spans(s) for s in (0, 1, SPAN, SPAN + 1, 571)] == \

@@ -4,7 +4,7 @@ stage, on one NVIDIA GPU, and what flash costs over the calls the served
 models make.
 
     python3 tools/kernel_stages.py [--tree DIR] [hd256] [hd128] [served] [bwd]
-                                   [wkvbwd] [bf16bwd]
+                                   [wkvbwd] [bf16bwd] [bf16fwd]
 
 (default: the first three, on this checkout's sources; --tree measures
 another checkout's, such as a parent unpacked under build/: its sources are
@@ -51,6 +51,20 @@ kernel's span and the CTA time by tiles walked (the slope is the time a
 tile costs under the card's real concurrency); and a copy with every
 product of the dK/dV kernel removed (its loads, barriers and softmax
 alone; outputs wrong, timing only), timed beside the real call.
+
+bf16fwd: the bf16 flash forward through the tree's own wrapper at
+qwen1.5-0.5b's training call (B 4, Sq = Skv 512, 16 heads of 64, causal)
+and at the (128, 128) template on the same shape, each beside SDPA's bf16
+forward (run it on the parent and the change in turns in one call); then,
+where the tree has flash_wgmma_kernel, that kernel's registers and spills
+and its per-CTA timeline at the training call (an instrumented copy of
+csrc/flash_attention.cu): each CTA's entry and exit (%globaltimer) and its
+tiles, the time a tile costs under the card's real concurrency, and by
+tiles walked the median cycles of the prologue (Q and the first tile
+issued and awaited), a tile's stages (its copies awaited, the barrier and
+the next tile's copies issued; S, with the last tile's P.V issued behind
+it; the softmax, while that P.V runs; that P.V awaited, O rescaled and P
+split) and the epilogue (the last tile's P.V, O stored).
 
 wkvbwd: the wkv6 backward kernel at the same rwkv6 call, stage by stage:
 cycles that thread 0 of each CTA adds up per stage over the chunk loops
@@ -574,6 +588,159 @@ def bf16_bwd_stages(torch, dev, stream):
                       f"{np.median(g[live, k0][sel] - t0) / 1e3:.2f}")
 
 
+# the bf16 one-pass forward (flash_wgmma_kernel): thread 0 of each CTA
+# stamps clock64 at its entry (slot 0), when its first copies are issued (1)
+# and per tile walked (the first FWD_TILES): the tile ready (2 + 4 it), S
+# (3 + 4 it), softmax and P split (4 + 4 it), P.V (5 + 4 it); and its end
+# (62); stage_g holds the CTA's entry and exit %globaltimer, its SM and the
+# tiles it walked (slots 0-3)
+FWD_TILES = 14
+FWD_SLOTS = 64
+FWD_STAMP = ("if (threadIdx.x == 0) stage_c[((blockIdx.y * gridDim.x + "
+             "blockIdx.x) * {n}) + ({k})] = clock64();\n")
+
+
+def _fwd_stamp(k):
+    return FWD_STAMP.format(n=FWD_SLOTS, k=k)
+
+
+FWD_TIMELINE = [
+    ("  unsigned char* vs = ks + kWgStages * KT;\n",
+     "  unsigned char* vs = ks + kWgStages * KT;\n  " + _fwd_stamp(0)
+     + "  " + GTIME.format(v="tl0_") + "\n"),
+    ("    load_tile(0);\n  }\n  cp_async_commit();\n",
+     "    load_tile(0);\n  }\n  cp_async_commit();\n  " + _fwd_stamp(1)),
+    ("    const int st = it % kWgStages;\n",
+     "    const int st = it % kWgStages;\n    const int sl_ = 2 + 4 * "
+     f"min(it, {FWD_TILES - 1});\n    " + _fwd_stamp("sl_")),
+    ("    rt::reg_fence(s);\n",
+     "    rt::reg_fence(s);\n    " + _fwd_stamp("sl_ + 1")),
+    ("    // tile it - 1's P.V is done: O and P's registers are free\n",
+     "    " + _fwd_stamp("sl_ + 2")
+     + "    // tile it - 1's P.V is done: O and P's registers are free\n"),
+    ("                   pl[c][r]);\n  }\n  if (n_tiles > 0) {",
+     "                   pl[c][r]);\n    " + _fwd_stamp("sl_ + 3")
+     + "  }\n  if (n_tiles > 0) {"),
+    ("                                                            c));\n"
+     "  }\n}",
+     "                                                            c));\n"
+     "  }\n  " + _fwd_stamp(62) + "  if (threadIdx.x == 0) {\n    "
+     + GTIME.format(v="tl1_") + "\n    unsigned sm_; asm volatile(\"mov.u32 "
+     "%0, %%smid;\" : \"=r\"(sm_));\n    const int id_ = (blockIdx.y * "
+     f"gridDim.x + blockIdx.x) * {FWD_SLOTS};\n    stage_g[id_] = tl0_; "
+     "stage_g[id_ + 1] = tl1_; stage_g[id_ + 2] = sm_; stage_g[id_ + 3] = "
+     "n_tiles;\n  }\n}"),
+]
+
+
+def bf16_fwd_stages(torch, dev, stream):
+    """The bf16 one-pass forward at qwen1.5-0.5b's training call (and its
+    (128, 128) template, which the span kernel serves), through the tree's
+    wrapper, beside SDPA's bf16 forward; then, where the tree has
+    flash_wgmma_kernel, its per-CTA timeline at the training call from an
+    instrumented copy."""
+    import chip_smoke as cs
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.default_rng(29)
+    B, S, H = 4, 512, 16
+    print(f"bf16 flash forward of {TREE} (CUDA events, ms per call):")
+    for hd in (64, 128):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, S, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(3))
+        sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms, lib = [], []
+        with torch.no_grad():
+            for _ in range(2):
+                ms.append(cs.time_ms(
+                    torch, lambda: FA.flash_attention(q, k, v), iters=50))
+                lib.append(cs.time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        sq, sk, sv, is_causal=True), iters=50))
+        print(f"  ({hd}, {hd}) B={B} Sq=Skv={S} H={H} causal: "
+              f"{min(ms):.4f} ms ({ms[0]:.4f}, {ms[1]:.4f})  SDPA bf16 "
+              f"forward {min(lib):.4f} ms  ratio {min(ms) / min(lib):.3f}")
+    if "flash_wgmma_kernel" not in (CSRC / "flash_attention.cu").read_text():
+        print("  (no flash_wgmma_kernel in this tree: no timeline)")
+        return
+    build.library("flash_attention")
+    regs = {k: r for k, r in build.ptxas_report("flash_attention").items()
+            if "flash_wgmma_kernel" in k}
+    print(f"  flash_wgmma_kernel registers and spills: {regs}")
+    fwd_timeline(torch, dev, stream)
+
+
+def fwd_timeline(torch, dev, stream, tag="_fwd_timeline"):
+    """flash_wgmma_kernel's per-CTA timeline at the training call, from an
+    instrumented copy of the tree's csrc/flash_attention.cu."""
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.default_rng(29)
+    timed = instrument("flash_attention", [], tag=tag, edits=FWD_TIMELINE)
+    B, S, H, hd = 4, 512, 16, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    out = torch.empty_like(q)
+    geo = FA._geometry(hd, hd, torch.bfloat16)
+
+    def call():
+        err = timed.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            B, S, S, H, H, hd, hd, 0, 1, 0, hd ** -0.5, 1, geo.span, geo.smem,
+            stream)
+        assert err == 0, err
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    timed.stages_clear()
+    call()
+    torch.cuda.synchronize()
+    n = 1 << 16
+    c = np.zeros(n, np.int64)
+    g = np.zeros(n, np.uint64)
+    timed.stages_get(c.ctypes.data, g.ctypes.data, n)
+    c = c.reshape(-1, FWD_SLOTS)
+    g = g.reshape(-1, FWD_SLOTS).astype(np.int64)
+    live = g[:, 0] != 0
+    c, g = c[live], g[live]
+    t0 = g[:, 0].min()
+    dur = (g[:, 1] - g[:, 0]) / 1e3
+    tiles = g[:, 3]
+    fit = np.polyfit(tiles, dur, 1)
+    print(f"  flash_wgmma_kernel<64, 64>, B={B} Sq=Skv={S} H={H} causal: "
+          f"{len(g)} CTAs on {len(set(g[:, 2]))} SMs, span "
+          f"{(g[:, 1].max() - t0) / 1e3:.2f} us, last entry "
+          f"{(g[:, 0].max() - t0) / 1e3:.2f} us; CTA us = {fit[1]:.2f} + "
+          f"{fit[0]:.2f} per tile walked")
+    for nt in sorted(set(tiles)):
+        sel = tiles == nt
+        cc = c[sel]
+        last = 2 + 4 * (min(nt, FWD_TILES) - 1)
+        stages = {"prologue (entry to tile 0 ready)": cc[:, 2] - cc[:, 0],
+                  "epilogue (the last P.V, O stored)":
+                      cc[:, 62] - cc[:, last + 3]}
+        per = {"ready (copies awaited, barrier, next issued)": [],
+               "S (the last tile's P.V issued)": [], "softmax": [],
+               "the last tile's P.V awaited, O rescaled, P split": []}
+        names = list(per)
+        for it in range(min(nt, FWD_TILES)):
+            b = 2 + 4 * it
+            if it:
+                per[names[0]].append(cc[:, b] - cc[:, b - 1])
+            for j in range(1, 4):
+                per[names[j]].append(cc[:, b + j] - cc[:, b + j - 1])
+        txt = "; ".join(f"{name} {np.median(x):.0f}"
+                        for name, x in stages.items())
+        txt += "; a tile: " + ", ".join(
+            f"{name} {np.median(np.concatenate(x)):.0f}"
+            for name, x in per.items() if x)
+        print(f"    {nt:3d} tiles: {int(sel.sum()):4d} CTAs, us median "
+              f"{np.median(dur[sel]):.2f} max {dur[sel].max():.2f}, entry "
+              f"median {np.median(g[sel, 0] - t0) / 1e3:.2f}; cycles "
+              f"(median): {txt}")
+
+
 def bwd(torch, dev):
     import math
 
@@ -661,6 +828,8 @@ def main():
         wkv_bwd_stages(torch, dev, stream)
     if "bf16bwd" in which:
         bf16_bwd_stages(torch, dev, stream)
+    if "bf16fwd" in which:
+        bf16_fwd_stages(torch, dev, stream)
     return 0
 
 
