@@ -25,8 +25,9 @@ Phases, each fatal on failure:
      and its combine's share of it (the profiler), and in the log only its
      planned launch geometry (CTAs, cluster size, dynamic shared memory,
      computed from the wrapper's plan); the bf16 one-pass flash kernel
-     (flash_wgmma_kernel, hd <= 64) at each pair against the plain
-     version and its design's mirror, repeat bits, no spills;
+     (flash_wgmma_kernel, hd <= 64 and (128, 128)) at each pair against
+     the plain version and its design's mirror, repeat bits, no spills,
+     the CTAs an SM holds;
   4. check the port's logits on the card against its CPU path (smoke size,
      qwen1.5-0.5b, rwkv6-1.6b, gemma3-1b, deepseek-moe-16b and
      jamba-v0.1-52b);
@@ -153,12 +154,17 @@ Phases, each fatal on failure:
      version, two calls' bits equal, timed beside its bound (bf16 tensor
      cores, and 3xTF32 as the products it runs), the f32 kernel on the
      same widened inputs, its plain version and SDPA's bf16 backward; the
-     bf16 forward at the training call (flash_wgmma_kernel, against the
-     plain version and its mirror) and at the (128, 128) template, each
-     beside its bound and SDPA's bf16 forward; one
-     bf16 step of full-width qwen1.5-0.5b cut to 2 layers on the card
-     against the same step on the CPU; full-width qwen1.5-0.5b at full
-     depth through build_train_step's default dtype for 5 steps, its loss
+     bf16 forward (flash_wgmma_kernel, against the plain version and its
+     mirror) at the training call and at the (128, 128) template, each
+     beside its bound and SDPA's bf16 forward, and at (128, 128) in turns
+     with the span kernel it replaced (built in phase 2 from a copy of
+     the source whose bf16 dispatch sends that pair to it); one bf16 step
+     of full-width qwen1.5-0.5b cut to 2 layers on the card against the
+     same step on the CPU; through build_train_step's default dtype for 5
+     steps each, full-width qwen1.5-0.5b at full depth and full-width
+     deepseek-moe-16b cut to 4 of its 28 layers (every flash call at (128,
+     128): 16 forward and 8 backward launches a step; its first flash
+     call held against the plain version and the mirror), each loss
      falling, flash and flash-backward launches a step exactly counted,
      ms per step, device busy share and peak memory.
 The line before the last holds the per-kernel results as JSON, and the last
@@ -496,14 +502,16 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
     (window 512) and global, at (192, 128) and at hd 128 (Sq = Skv = 512,
     causal); dense and paged decode on a 512-row ring and 1024-row caches;
     paged == gather == dense bit for bit.  Each f32 case is timed beside its
-    bound and one SDPA call; each span or cluster kernel also reports its
+    bound and one SDPA call, and each flash case at bf16 too (its own row,
+    "bf16": the span kernel, or flash_wgmma_kernel at (128, 128), with its
+    registers and spills); each span or cluster kernel also reports its
     registers, spills and device time by kernel, and logs its planned
     launch geometry."""
     from repro_torch.kernels.decode_attention import (
         _group_slots, decode_attention, decode_attention_plain,
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
-        attention_mask, flash_attention, flash_attention_plain)
+        attention_mask, flash_attention, flash_attention_plain, is_span)
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -572,14 +580,14 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
             err = compare("flash_attention", dt,
                           flash_attention(q, k, v, **kw),
                           flash_attention_plain(q, k, v, **kw), shape)
-            if dt != "float32":
-                continue
             mask = attention_mask(Sq, Skv, causal=causal, window=win,
                                   q_offset=qo, device=dev)
             pairs = B * int(mask.sum())
-            # q read and out written, k and v read, once each
-            nbytes = B * (Sq * H + Skv * Kh) * (hd + hdv) * 4
-            t_bound, by = bound(nbytes, 2 * H * pairs * (hd + hdv), "tf32x3")
+            # q read and out written, k and v read, once each; S and P.V,
+            # one product each (3xTF32 in f32)
+            nbytes = B * (Sq * H + Skv * Kh) * (hd + hdv) * q.element_size()
+            t_bound, by = bound(nbytes, 2 * H * pairs * (hd + hdv),
+                                "tf32x3" if dt == "float32" else dt)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib = (lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True)) \
@@ -591,6 +599,22 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
                          q, k, v, **kw), iters=5),
                      library_ms=sdpa_ms(shape, lib), bound_ms=t_bound,
                      bound_by=by, max_abs_err=err, shape=shape + " f32")
+            if dt != "float32":
+                # the bf16 call's own row: the span kernel, or
+                # flash_wgmma_kernel at (128, 128)
+                span = is_span(hd, hdv, torch.bfloat16)
+                r.update(shape=shape + " bf16", kernel="flash_span_kernel"
+                         if span else "flash_wgmma_kernel",
+                         ptxas=ptxas("flash_attention",
+                                     f"flash_span_kernelI13__nv_bfloat16Li"
+                                     f"{hd}ELi{hdv}E" if span else
+                                     f"flash_wgmma_kernelILi{hd}ELi{hdv}E"))
+                results["flash_attention"][key]["bf16"] = r
+                log(f"  {'flash_attention ' + key:24s} {r['ms']:.4f} ms  "
+                    f"plain {r['plain_ms']:.4f} ms  SDPA "
+                    f"{r['library_ms']} ms  bound {t_bound:.4f} ms ({by})  "
+                    f"{r['kernel']} {r['ptxas']}  [{r['shape']}]")
+                continue
             results["flash_attention"][key] = r
             log(f"  {'flash_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
@@ -782,12 +806,15 @@ def split_share(torch, combine, fn, reps=20):
 
 def wgmma_checks(torch, rnd, results):
     """The bf16 one-pass flash kernel (flash_wgmma_kernel) at each pair it
-    takes, (16, 16), (32, 32) and (64, 64): causal, windowed, q_offset with
-    Sq and Skv off the 64-row tile and GQA, non-causal, rows that see no
-    key; 0 elements beyond one bf16 ulp or TOL["bfloat16"] of the plain
-    version and of the design's plain mirror (flash_wgmma_plain: the same
-    64-key tiles, online softmax and P as bf16 hi + lo), a second call's
-    bits equal, and no spills in the build log."""
+    takes, (16, 16), (32, 32), (64, 64) and (128, 128): causal, windowed,
+    q_offset with Sq and Skv off the 64-row tile and GQA, non-causal, rows
+    that see no key; 0 elements beyond one bf16 ulp or TOL["bfloat16"] of
+    the plain version and of the design's plain mirror (flash_wgmma_plain:
+    the same 64-key tiles, online softmax and P as bf16 hi + lo), a second
+    call's bits equal, no spills in the build log, and the CTAs an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at least the
+    launch bounds' minimum (3 up to hd 64, 2 at hd 128)."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain, flash_wgmma_plain)
     cases = [  # (B, Sq, Skv, H, Kh, window, q_offset, causal, label)
@@ -801,7 +828,7 @@ def wgmma_checks(torch, rnd, results):
            "max_abs_err_vs_plain": 0.0, "max_abs_err_vs_mirror": 0.0,
            "tolerance": "one bf16 ulp or %g, of the plain version and of "
                         "flash_wgmma_plain" % TOL["bfloat16"]}
-    for hd in (16, 32, 64):
+    for hd in (16, 32, 64, 128):
         for B, Sq, Skv, H, Kh, win, qo, causal, label in cases:
             q = rnd((B, Sq, H, hd), "bfloat16")
             k, v = rnd((B, Skv, Kh, hd), "bfloat16"), rnd((B, Skv, Kh, hd),
@@ -839,6 +866,11 @@ def wgmma_checks(torch, rnd, results):
             f"spills: {r}")
         check(not r.get("spill_stores") and not r.get("spill_loads"),
               f"flash_wgmma_kernel ({hd}, {hd}) spills: {r}")
+        occ = build.library("flash_attention").flash_wgmma_occupancy(hd)
+        out[f"occupancy_{hd}"] = occ
+        log(f"  {'flash_wgmma_kernel':24s} ({hd}, {hd}): {occ} CTAs an SM")
+        check(occ >= (3 if hd <= 64 else 2), f"flash_wgmma_kernel ({hd}, "
+              f"{hd}): {occ} CTAs an SM")
     results["flash_attention"]["bf16_one_pass"] = out
 
 
@@ -3895,6 +3927,9 @@ def narrow_cache_phase(torch, card, base_streams, one_rank, measured):
 # ---------------------------------------------------------------------------
 
 BF16_TRAIN_STEPS = 5
+# deepseek-moe-16b's bf16 run: 4 of its 28 layers at full width (2.8 B
+# params; bf16 params and gradients and f32 moments are about 33 GB)
+DSMOE_TRAIN_LAYERS = 4
 # the 2-layer bf16 step, card against CPU: two bf16 runs lie as far apart
 # as bf16 lies from f32, so the loss and grad norm are held within
 # BF16_FACTOR times the larger of the two devices' bf16-to-f32 distances
@@ -3918,7 +3953,69 @@ def _over_ulp(torch, got, want):
     return int((d > tol).sum()), float(d.max())
 
 
-def bf16_bwd_kernel_checks(torch):
+# phase 21 times the bf16 forward at (128, 128) beside the design it
+# replaced, the span kernel: a copy of csrc/flash_attention.cu whose bf16
+# dispatch sends that pair to flash_span_kernel again, built with the
+# others in phase 2 into build/earlier/
+EARLIER_EDIT = ("RT_WG(128, 128)", "RT_SPAN(__nv_bfloat16, 128, 128)")
+
+
+def start_earlier_span():
+    """Start nvcc on the earlier design's copy (EARLIER_EDIT); returns the
+    process and the library's path."""
+    from repro_torch.kernels import build
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    check(src.count(EARLIER_EDIT[0]) == 1, "flash_attention.cu: the bf16 "
+          f"dispatch's {EARLIER_EDIT[0]} is not there once")
+    out = ROOT / "build" / "earlier"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / "flash_attention_span128.cu"
+    cu.write_text(src.replace(*EARLIER_EDIT))
+    lib = out / "libflash_attention_span128.so"
+    return subprocess.Popen(
+        [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+         str(lib), str(cu)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True), lib
+
+
+def finish_earlier_span(started):
+    """Wait for the earlier design's build; its library, loaded."""
+    import ctypes
+    from repro_torch.kernels import build
+    proc, path = started
+    text, _ = proc.communicate()
+    check(proc.returncode == 0, f"the earlier design's build failed: {text}")
+    lib = ctypes.CDLL(str(path))
+    for fn, sig in build.SIGNATURES["flash_attention"].items():
+        getattr(lib, fn).argtypes = sig
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def earlier_span_forward(torch, lib, q, k, v):
+    """A causal, end-aligned bf16 call at (hd, hd) through the span kernel
+    of the earlier design's library: a function that launches it into one
+    output.  Its launches count nowhere (build.launches counts the
+    port's)."""
+    from repro_torch.kernels import flash_attention as FA
+    B, S, H, hd = q.shape
+    geo = FA._span_geometry(hd, hd, q.element_size())
+    out = torch.empty_like(q)
+    scratch = torch.empty(B * H * S * FA.n_spans(S) * (hd + 2),
+                          dtype=torch.float32, device=q.device)
+
+    def call():
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, S, S, H, H, hd, hd, 0, 1, 0,
+            1.0 / math.sqrt(hd), 1, geo.span, geo.smem,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the earlier design's launch failed: {err}")
+        return out
+    return call
+
+
+def bf16_bwd_kernel_checks(torch, span_lib):
     """The flash backward kernel at bf16 at both training shapes: its
     gradients bf16; each within one bf16 ulp or TOL["bfloat16"] of the f32
     kernel on the widened inputs (q, k, v, the forward's bf16 output, dO),
@@ -3930,9 +4027,12 @@ def bf16_bwd_kernel_checks(torch):
     bound (bf16 tensor cores), the f32 kernel's on the widened inputs (the
     design the bf16 backward ran before: widened bf16 in its f32 tiles),
     the plain backward's and SDPA's bf16 backward's; its kernels' registers
-    and spills.  Then the bf16 forward at qwen's training call (the kernel
-    the bf16 step runs 96 times) against its plain version, beside its
-    bound and SDPA's bf16 forward."""
+    and spills.  Then the bf16 forward (flash_wgmma_kernel) at qwen's
+    training call (the kernel its bf16 step runs 96 times) and at the
+    (128, 128) template (deepseek-moe-16b's call), each against its plain
+    version and its mirror, repeat bits, no spills, beside its bound and
+    SDPA's bf16 forward; at (128, 128) also beside the span kernel it
+    replaced (``span_lib``: that design's library), timed in turns."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
 
@@ -4012,38 +4112,52 @@ def bf16_bwd_kernel_checks(torch):
         out[hd]["ptxas"] = {k: r for k, r in out[hd]["ptxas"].items()
                             if "bf16" in k}
         del args, wide, got, f32, ref, q, k, v, do, o
-    # the bf16 forward at qwen's training call, as the bf16 step calls it
-    # (flash_wgmma_kernel), then at the (128, 128) template on the same
-    # shape (the span kernel)
+    # the bf16 forward as the bf16 steps call it (flash_wgmma_kernel): at
+    # qwen's training call, and at the (128, 128) template on the same
+    # shape (deepseek-moe-16b's call), there in turns with the span kernel
+    # it replaced (the earlier design's library)
     for hd in (FLASH_TRAIN["hd"], 128):
         q, k, v = (torch.from_numpy(rng.standard_normal(
             (B, S, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
             for _ in range(3))
         shape = f"B={B} Sq=Skv={S} H=Kh={H} hd={hd} causal bf16"
+        label = f"flash_attention bf16 ({shape})"
         with torch.no_grad():
             got = FA.flash_attention(q, k, v)
             ref = FA.flash_attention_plain(q, k, v)
             over, err = _over_ulp(torch, got, ref)
-            check(over == 0, f"flash_attention bf16 ({shape}): {over} "
-                  f"elements beyond one bf16 ulp or {TOL['bfloat16']} of "
-                  "the plain version")
+            check(over == 0, f"{label}: {over} elements beyond one bf16 ulp "
+                  f"or {TOL['bfloat16']} of the plain version")
             check(torch.equal(got, FA.flash_attention(q, k, v)),
-                  f"flash_attention bf16 ({shape}): two calls gave other "
-                  "bits")
-            r = dict(max_abs_err=err, shape=shape)
-            if hd == FLASH_TRAIN["hd"]:
-                n_m, e_m = _over_ulp(torch, got, FA.flash_wgmma_plain(
-                    q, k, v))
-                check(n_m == 0, f"flash_attention bf16 ({shape}): {n_m} "
-                      f"elements beyond one bf16 ulp or {TOL['bfloat16']} "
-                      "of flash_wgmma_plain")
-                r.update(max_abs_err_vs_mirror=e_m,
-                         ptxas=ptxas("flash_attention",
-                                     f"flash_wgmma_kernelILi{hd}ELi{hd}E"))
-                r["plain_ms"] = time_ms(
-                    torch, lambda: FA.flash_attention_plain(q, k, v),
-                    iters=5)
-            r["ms"] = time_ms(torch, lambda: FA.flash_attention(q, k, v))
+                  f"{label}: two calls gave other bits")
+            n_m, e_m = _over_ulp(torch, got, FA.flash_wgmma_plain(q, k, v))
+            check(n_m == 0, f"{label}: {n_m} elements beyond one bf16 ulp "
+                  f"or {TOL['bfloat16']} of flash_wgmma_plain")
+            r = dict(max_abs_err=err, max_abs_err_vs_mirror=e_m,
+                     shape=shape, kernel="flash_wgmma_kernel",
+                     ptxas=ptxas("flash_attention",
+                                 f"flash_wgmma_kernelILi{hd}ELi{hd}E"))
+            check(not r["ptxas"].get("spill_stores")
+                  and not r["ptxas"].get("spill_loads"),
+                  f"{label}: spills {r['ptxas']}")
+            r["plain_ms"] = time_ms(
+                torch, lambda: FA.flash_attention_plain(q, k, v), iters=5)
+            kernel = lambda: FA.flash_attention(q, k, v)  # noqa: E731
+            if hd == 128:
+                span = earlier_span_forward(torch, span_lib, q, k, v)
+                n_e, e_e = _over_ulp(torch, span(), ref)
+                check(n_e == 0, f"{label}: the span kernel's output has {n_e} "
+                      "elements beyond one bf16 ulp of the plain version")
+                turns = [time_ms(torch, f) for f in (kernel, span, span,
+                                                     kernel)]
+                r.update(ms=min(turns[0], turns[3]),
+                         earlier_ms=min(turns[1], turns[2]),
+                         ms_turns=turns, earlier_max_abs_err=e_e,
+                         earlier="flash_span_kernel<bf16, 128, 128> and its "
+                                 "combine, the design this pair ran before "
+                                 "(kernel, span, span, kernel in turns)")
+            else:
+                r["ms"] = time_ms(torch, kernel)
             sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             r["library_ms"] = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
@@ -4053,15 +4167,16 @@ def bf16_bwd_kernel_checks(torch):
         r["bound_ms"], r["bound_by"] = bound(4 * B * S * H * hd * 2,
                                              2 * 2 * hd * pairs, "bfloat16")
         out["forward" if hd == FLASH_TRAIN["hd"] else "forward_hd128"] = r
-        plain = r.get("plain_ms")
-        log(f"  flash_attention bf16: {r['ms']:.4f} ms  plain "
-            + (f"{plain:.4f} ms" if plain is not None else "not timed")
-            + f"  SDPA bf16 forward "
+        log(f"  flash_attention bf16: {r['ms']:.4f} ms"
+            + (f"  earlier design (the span kernel) {r['earlier_ms']:.4f} "
+               f"ms, turns {[round(t, 4) for t in r['ms_turns']]}"
+               if "earlier_ms" in r else "")
+            + f"  plain {r['plain_ms']:.4f} ms  SDPA bf16 forward "
             f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})  max|err| vs plain {err:.3e}"
-            + (f", vs flash_wgmma_plain {r['max_abs_err_vs_mirror']:.3e}; "
-               f"{r['ptxas']}" if "ptxas" in r else "") + f"  [{shape}]")
+            f"({r['bound_by']})  max|err| vs plain {err:.3e}, vs "
+            f"flash_wgmma_plain {e_m:.3e}; {r['ptxas']}  [{shape}]")
     return out
+
 
 
 def bf16_card_vs_cpu(torch, f32_step):
@@ -4115,17 +4230,60 @@ def bf16_card_vs_cpu(torch, f32_step):
     return out
 
 
-def bf16_training_phase(torch, card, f32_step):
-    """Phase 21: the bf16 backward kernel, a 2-layer bf16 step on the card
-    against the CPU, and full-width qwen1.5-0.5b at full depth (B 8, seq
-    512, M 2, remat) through build_train_step's default dtype for
-    BF16_TRAIN_STEPS steps: its loss falling, flash 24 x M x 2 and its
-    backward 24 x M launches a step, no decode."""
-    from repro_torch.configs.base import PipelinePlan, get_arch
+def _capture_first_flash(torch, calls):
+    """Wrap the model's flash entry point to keep in ``calls`` (cloned) the
+    inputs of its first call; returns the function that unwraps it."""
+    from repro_torch.models import layers
+    orig = layers.flash_attention
+
+    def wrapped(*a, **kw):
+        if "flash_attention" not in calls:
+            calls["flash_attention"] = ([x.detach().clone() if
+                                         torch.is_tensor(x) else x
+                                         for x in a], dict(kw))
+        return orig(*a, **kw)
+    layers.flash_attention = wrapped
+    return lambda: setattr(layers, "flash_attention", orig)
+
+
+def _hold_first_flash(torch, calls, label):
+    """The captured call (a real step's first: layer 0 on the embedded
+    tokens) through the kernel, against its plain version and
+    flash_wgmma_plain, within one bf16 ulp or TOL["bfloat16"]."""
+    from repro_torch.kernels import flash_attention as FA
+    (q, k, v), kw = calls["flash_attention"]
+    check(all(_varies(x, 1) for x in (q, k, v)), f"{label}: the captured "
+          "flash call's q, k or v is constant along the sequence")
+    with torch.no_grad():
+        got = FA.flash_attention(q, k, v, **kw)
+        n_p, e_p = _over_ulp(torch, got, FA.flash_attention_plain(q, k, v,
+                                                                  **kw))
+        n_m, e_m = _over_ulp(torch, got, FA.flash_wgmma_plain(q, k, v, **kw))
+    out = {"shape": list(q.shape), "kv_shape": list(k.shape),
+           "dtype": str(q.dtype), "max_abs_err": e_p,
+           "max_abs_err_vs_mirror": e_m}
+    log(f"  {label}: the first flash call of the run {json.dumps(out)}")
+    check(n_p == 0 and n_m == 0, f"{label}: the first flash call has {n_p} "
+          f"elements beyond one bf16 ulp or {TOL['bfloat16']} of the plain "
+          f"version, {n_m} of flash_wgmma_plain")
+    return out
+
+
+def bf16_training_phase(torch, card, f32_step, span_lib):
+    """Phase 21: the bf16 backward kernel and the bf16 forward at both
+    training shapes, a 2-layer bf16 step on the card against the CPU, and
+    through build_train_step's default dtype (B 8, seq 512, M 2, remat) for
+    BF16_TRAIN_STEPS steps each: full-width qwen1.5-0.5b at full depth
+    (flash 24 x M x 2 and its backward 24 x M launches a step) and
+    full-width deepseek-moe-16b cut to DSMOE_TRAIN_LAYERS layers (16 heads
+    of 128: flash_wgmma_kernel at (128, 128), L x M x 2 and its backward L
+    x M a step; its first flash call held against its plain version and
+    mirror); each loss falling, no decode."""
+    from repro_torch.configs.base import PipelinePlan, get_arch, shrink
 
     t0 = time.perf_counter()
     free_weights(torch)
-    out = {"kernel": bf16_bwd_kernel_checks(torch),
+    out = {"kernel": bf16_bwd_kernel_checks(torch, span_lib),
            "card_vs_cpu": bf16_card_vs_cpu(torch, f32_step)}
     cfg = get_arch("qwen1.5-0.5b").config
     plan = PipelinePlan(microbatches=2, remat=True)
@@ -4141,6 +4299,36 @@ def bf16_training_phase(torch, card, f32_step):
     check(losses[-1] < losses[0], f"qwen1.5-0.5b bf16: the last loss "
           f"{losses[-1]} is not below step 0's {losses[0]}")
     out["qwen"] = info
+    # deepseek-moe-16b: each flash call is the (128, 128) template's shape
+    # (B 4 a microbatch, seq 512, 16 heads of 128, causal)
+    full = get_arch("deepseek-moe-16b").config
+    cfg = shrink(full, n_layers=DSMOE_TRAIN_LAYERS)
+    n = cfg.param_count()
+    log(f"  deepseek-moe-16b: {DSMOE_TRAIN_LAYERS} of {full.n_layers} "
+        f"layers at full width, {n} params; bf16 params and gradients and "
+        f"f32 moments: {12 * n / GiB:.1f} GiB before the step's "
+        "temporaries")
+    L = cfg.n_layers
+    calls = {}
+    unwrap = _capture_first_flash(torch, calls)
+    try:
+        losses, info, setup = train_run(
+            torch, card, "deepseek-moe-16b train bf16", cfg, plan, 512, 8,
+            BF16_TRAIN_STEPS, {"flash_attention": L * M * 2,
+                               "flash_attention_bwd": L * M,
+                               "decode_attention": 0,
+                               "paged_decode_attention": 0}, bf16=True)
+    finally:
+        unwrap()
+    del setup
+    log(f"  deepseek-moe-16b bf16 losses: {losses}")
+    check(losses[-1] < losses[0], f"deepseek-moe-16b bf16: the last loss "
+          f"{losses[-1]} is not below step 0's {losses[0]}")
+    info["layers"] = L
+    info["params"] = n
+    info["first_flash_call"] = _hold_first_flash(
+        torch, calls, "deepseek-moe-16b train bf16")
+    out["deepseek_moe"] = info
     free_weights(torch)
     out["s"] = time.perf_counter() - t0
     log(f"  phase 21 on {card}: {out['s']:.1f} s")
@@ -4171,9 +4359,13 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     log("== 2. build")
     t0 = time.perf_counter()
-    build.load_all()
+    started = start_earlier_span()
+    try:
+        build.load_all()
+    finally:
+        span_lib = finish_earlier_span(started)
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-        f"({build.BUILD_DIR})")
+        f"({build.BUILD_DIR}; phase 21's earlier design beside them)")
     log("== 3. kernels vs plain versions")
     kres = kernel_checks(torch)
     log("== 4. small-input model check")
@@ -4276,7 +4468,8 @@ def main() -> int:
                       "one_rank_ms": p_out["one_rank"]["train_ms"]}})
 
     log("== 21. bf16 training (the reference's default dtype)")
-    b_out = bf16_training_phase(torch, card, t_out["card_vs_cpu"])
+    b_out = bf16_training_phase(torch, card, t_out["card_vs_cpu"],
+                                span_lib)
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -4477,7 +4670,13 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": r["shape"], "by_kernel": r["by_kernel"],
         "ptxas": r["ptxas"], "dynamic_smem": r["dynamic_smem"],
-        "hd128": b_out["kernel"][128]})
+        "hd128": dict(b_out["kernel"][128], launches=b_out["deepseek_moe"][
+            "launches"].get("flash_attention_bwd", 0),
+            launched_in=f"deepseek-moe-16b bf16 training "
+                        f"({b_out['deepseek_moe']['layers']} layers), "
+                        f"{b_out['deepseek_moe']['steps']} steps")})
+    check(kernels[-1]["hd128"]["launches"] > 0, "the bf16 flash backward at "
+          "(128, 128) was not launched on the deepseek-moe bf16 path")
     # the bf16 forward: flash_wgmma_kernel at the training call, its
     # launches counted in the same bf16 training run
     n = b_out["qwen"]["launches"].get("flash_attention", 0)
@@ -4496,6 +4695,30 @@ def main() -> int:
         "shape": r["shape"], "kernel": "flash_wgmma_kernel",
         "max_abs_err_vs_mirror": r["max_abs_err_vs_mirror"],
         "ptxas": r["ptxas"], "hd128": b_out["kernel"]["forward_hd128"]})
+    # the bf16 forward at (128, 128): flash_wgmma_kernel at the template,
+    # its launches counted in deepseek-moe-16b's bf16 training run
+    d = b_out["deepseek_moe"]
+    n = d["launches"].get("flash_attention", 0)
+    check(n > 0, "the bf16 flash forward at (128, 128) was not launched on "
+          "the deepseek-moe bf16 training path")
+    r = b_out["kernel"]["forward_hd128"]
+    kernels.append({
+        "name": "flash_attention_bf16_hd128", "route": "cuda",
+        "source": sources["flash_attention"],
+        "replaces": replaces["flash_attention"], "launches": n,
+        "launched_in": f"deepseek-moe-16b bf16 training ({d['layers']} "
+                       f"layers), {d['steps']} steps",
+        "max_abs_err": r["max_abs_err"],
+        "max_abs_err_vs_mirror": r["max_abs_err_vs_mirror"],
+        "tolerance": tolerance["flash_attention"][1],
+        "ms": r["ms"], "earlier_ms": r["earlier_ms"],
+        "earlier": r["earlier"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "shape": r["shape"],
+        "kernel": "flash_wgmma_kernel", "ptxas": r["ptxas"],
+        "occupancy": kres["flash_attention"]["bf16_one_pass"][
+            "occupancy_128"],
+        "first_flash_call": d["first_flash_call"]})
     log(f"  phase 18 (training) {t_out['s']:.1f} s; phase 19 (multi-rank) "
         f"{p_out['s']:.1f} s; phase 20 (narrow caches) {n_out['s']:.1f} s; "
         f"phase 21 (bf16 training) {b_out['s']:.1f} s")

@@ -7,8 +7,9 @@
 // about 2 * 2 * 512 * 512 / 2 * 64 causal flops against 4 * 512 * 64 * 4
 // bytes of q, k, v and out: ~64 flops per byte, so the products belong on
 // the tensor cores.  Three designs share the file: flash_kernel (f32 at hd
-// <= 64), flash_wgmma_kernel (bf16 at hd <= 64) and the span kernel (hd >=
-// 128, both types), each below.  flash_kernel:
+// <= 64), flash_wgmma_kernel (bf16 at hd <= 64 and at (128, 128)) and the
+// span kernel (f32 at hd >= 128, bf16 at (192, 128) and (256, 256)), each
+// below.  flash_kernel:
 //   * one CTA of 8 warps per (b*h, tile of 64 query rows): each m16 row
 //     tile has two warps, one per half of every kv tile's keys, each with
 //     its own online-softmax state; the pair merges once, at the end, in
@@ -50,9 +51,10 @@
 // Up to hd = hdv = 64 in f32 flash_kernel runs as above: tiles of 64 keys,
 // the two warps of a row tile splitting them.
 //
-// bf16 at (16, 16), (32, 32) and (64, 64) runs flash_wgmma_kernel, on
-// Hopper's warpgroup products (wgmma.cuh).  At qwen1.5-0.5b's training
-// call (B 4, Sq = Skv 512, 16 heads of 64, causal) the bound is bytes:
+// bf16 at (16, 16), (32, 32), (64, 64) and (128, 128) runs
+// flash_wgmma_kernel, on Hopper's warpgroup products (wgmma.cuh).  At
+// qwen1.5-0.5b's training call (B 4, Sq = Skv 512, 16 heads of 64, causal)
+// the bound is bytes:
 // q, k, v and out are 16.8 MB, 5.0 us on an H100, against 3.3 us for the
 // three products of hd a visible pair (S, and P.V as P's hi and lo) on the
 // bf16 tensor cores.  flash_kernel's bf16 instantiation took 6.8x that
@@ -106,10 +108,36 @@
 // score, and per-copy address arithmetic.
 // TMA is not used: cp.async with fixed per-thread offsets keeps the
 // ring's copies to a few instructions a tile.
+// At (128, 128) (deepseek-moe-16b's and qwen1.5-110b's heads; the span
+// kernel took 5.2x SDPA's bf16 forward at the template B 4, Sq = Skv 512,
+// 16 heads, where the bound is 33.5 MB of bytes, 10.0 us) the same walk
+// runs with rows of 256 bytes, two swizzle atoms:
+//   * Q, K and V tiles are stored as two 64-column blocks, each a 64-row
+//     tile of 128-byte swizzled rows (rt::Swz<128, 64>); S's k-step kk
+//     reads block kk / 4, 32 (kk % 4) bytes in, by the same descriptor
+//     as at hd 64; a thread's copies lie 8 rows (1,024 bytes) apart in
+//     one block, so their XOR is still fixed;
+//   * P.V is one RS wgmma m64n128k16 per chunk and half of P: its MN-major
+//     V descriptor spans both column blocks through LBO, the 8,192 bytes
+//     between them (PTX's canonical MN-major layout, as CUTLASS builds
+//     it), rather than two m64n64 products a chunk on the halves of V and
+//     O (LBO unused): half the instructions for the same work, and 0.0231
+//     against 0.0238 ms at the template, the same bits (an H100); the
+//     descriptors of hd <= 64 keep their fields;
+//   * 115,712 B of shared memory (Q 16,384 and a 3-stage ring of 98,304)
+//     and __launch_bounds__(128, 2): two CTAs fill an SM's 233,472 B with
+//     their 1 KB reserves, so the launcher asks for the largest shared
+//     carveout; a thread holds O (64 f32), S (32) and P hi + lo (32).
+// At (128, 128) it holds 156 registers (2 CTAs an SM) and takes 0.023 ms
+// at the template against the span kernel's 0.110 and SDPA's 0.021 (an
+// H100, tools/kernel_stages.py bf16fwd): 512 CTAs in two waves, a tile
+// about 600 cycles of copies and barrier, 650 S, 920 softmax and 300 the
+// previous P.V's tail, so a CTA costs 2.7 us + 1.6 per tile.
 //
-// (128, 128), (192, 128) and (256, 256) run flash_span_kernel and
-// flash_combine_kernel.  The one-pass layout above lost there: at hd 256
-// f32 tiles of 64 keys do not fit and a warp's O would be 128 registers
+// f32 at (128, 128), (192, 128) and (256, 256), and bf16 at (192, 128) and
+// (256, 256), run flash_span_kernel and flash_combine_kernel.  The f32
+// one-pass layout lost there: at hd 256 f32 tiles of 64 keys do not fit
+// and a warp's O would be 128 registers
 // (53x its bound, behind SDPA); at hd 128 and (192, 128) (168,960 and
 // 218,112 B, one CTA an SM) the grid was one wave of B x H x Sq/64 CTAs
 // (128 at deepseek-moe-16b's 512-token prefill, 32 at its 128-row chunk)
@@ -579,14 +607,21 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at (16, 16), (32, 32) and (64, 64): one warpgroup per 64 query rows,
-// its products on wgmma
+// bf16 at (16, 16), (32, 32), (64, 64) and (128, 128): one warpgroup per
+// 64 query rows, its products on wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;    // one warpgroup: warp w owns rows 16w..
 constexpr int kWgStages = 3;       // depth of the K/V ring
-constexpr int kWgMinCtas = 3;      // CTAs an SM the registers must allow
 constexpr int kWgAlign = 1024;     // where a swizzle pattern starts
+
+// CTAs an SM the registers must allow: 3 up to hd 64; 2 at hd 128, whose
+// 115,712 B of tiles admit no third, and whose thread holds O (64 f32), S
+// (32) and the overlapped tile's P hi + lo (32)
+template <int HD>
+__host__ __device__ constexpr int wg_min_ctas() {
+  return HD > 64 ? 2 : 3;
+}
 
 // the tiles' start rounded up to kWgAlign, Q's tile, then the ring's K
 // tiles, then its V tiles, each in the swizzled layout of its row width
@@ -604,20 +639,22 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 template <int HD, int HDV>
-__global__ void __launch_bounds__(kWgThreads, kWgMinCtas)
+__global__ void __launch_bounds__(kWgThreads, wg_min_ctas<HD>())
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
                    int Kh, int q_offset, int causal, int window,
                    float scale) {
-  using rt::Swz;
   constexpr int BK = kTileKeys;               // keys a tile
-  constexpr int QT = kBQ * Swz<HD>::kRow;     // bytes of Q's tile
-  constexpr int KT = BK * Swz<HD>::kRow;      // of a K tile
-  constexpr int VT = BK * Swz<HDV>::kRow;     // of a V tile
-  constexpr int QC = Swz<HD>::kRow / 16;      // 16-byte chunks a Q or K row
-  constexpr int VC = Swz<HDV>::kRow / 16;
+  using QTile = rt::Swz<HD, kBQ>;             // Q's tile, then O's
+  using KTile = rt::Swz<HD, BK>;
+  using VTile = rt::Swz<HDV, BK>;
+  constexpr int QT = QTile::kBytes;           // bytes of Q's tile
+  constexpr int KT = KTile::kBytes;           // of a K tile
+  constexpr int VT = VTile::kBytes;           // of a V tile
+  constexpr int QC = HD / 8;                  // 16-byte chunks a Q or K row
+  constexpr int VC = HDV / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t qa = (raw + kWgAlign - 1) & ~uint32_t(kWgAlign - 1);
@@ -648,12 +685,15 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
   // 16-byte cp.async copies by all 128 threads, each to its swizzled
   // place: thread i copies chunk i % C of rows i / C + j * 128 / C, which
-  // lie 2048 bytes apart, so the swizzle's XOR is the same for every j;
-  // rows past Skv (Sq) are zero-filled
+  // lie RJ atom rows apart within the chunk's column block (2048 bytes up
+  // to hd 64, 1024 at hd 128: whole swizzle patterns), so the swizzle's
+  // XOR is the same for every j; rows past Skv (Sq) are zero-filled
   static_assert(HD == HDV, "K and V rows share the copy pattern");
   constexpr int RJ = kWgThreads / QC;         // rows a pass of copies covers
+  static_assert(RJ * KTile::kRow % kWgAlign == 0,
+                "a thread's copies lie whole swizzle patterns apart");
   const int cr = threadIdx.x / QC, cc = threadIdx.x % QC;
-  const uint32_t csw = Swz<HD>::at(cr, cc);   // + j * RJ rows
+  const uint32_t csw = KTile::at(cr, cc);     // + j * RJ rows
   const int64_t krow0 = (int64_t)b * Skv * Kh + kh;   // row p at + p * Kh
   auto load_tile = [&](int it) {
     const int p0 = tile0 + it * BK + cr;
@@ -664,8 +704,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < BK / RJ; ++j) {
       const bool ok = p0 + j * RJ < Skv;
       const int64_t src = ok ? off + (int64_t)j * RJ * Kh * HD : 0;
-      cp_async16(kd + j * RJ * Swz<HD>::kRow, k + src, ok);
-      cp_async16(vd + j * RJ * Swz<HDV>::kRow, v + src, ok);
+      cp_async16(kd + j * RJ * KTile::kRow, k + src, ok);
+      cp_async16(vd + j * RJ * VTile::kRow, v + src, ok);
     }
   };
   if (n_tiles > 0) {
@@ -673,7 +713,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = threadIdx.x; i < kBQ * QC; i += kWgThreads) {
       const int r = i / QC, c = i % QC, qi = q0 + r;
       const bool ok = qi < Sq;
-      cp_async16(qs + Swz<HD>::at(r, c),
+      cp_async16(qs + QTile::at(r, c),
                  q + (((int64_t)b * Sq + (ok ? qi : 0)) * H + h) * HD + 8 * c,
                  ok);
     }
@@ -692,13 +732,14 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   float l0 = 0.f, l1 = 0.f;                   // this lane's partial sums
 
   // P of a tile as bf16 pairs hi + lo; O += P_lo . V + P_hi . V of the
-  // tile in stage st, k16 chunk by chunk, lo first, issued (not awaited)
+  // tile in stage st, k16 chunk by chunk, lo first, issued (not awaited);
+  // at hdv 128 each product spans both of V's column blocks (LBO)
   uint32_t ph[BK / 16][4], pl[BK / 16][4];
   auto issue_pv = [&](int st) {
 #pragma unroll
     for (int c = 0; c < BK / 16; ++c) {
       const uint64_t dv =
-          rt::desc_mn<HDV>(va + st * VT + 16 * c * Swz<HDV>::kRow);
+          rt::desc_mn<VTile>(va + st * VT + 16 * c * VTile::kRow);
       rt::wgmma_rs<HDV>(o, pl[c], dv);
       rt::wgmma_rs<HDV>(o, ph[c], dv);
     }
@@ -720,8 +761,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     rt::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      rt::wgmma_ss_n64(s, rt::desc_k<HD>(qa + 32 * kk),
-                       rt::desc_k<HD>(ka + st * KT + 32 * kk), kk > 0);
+      rt::wgmma_ss_n64(s, rt::desc_k<QTile>(qa + QTile::kstep(kk)),
+                       rt::desc_k<KTile>(ka + st * KT + KTile::kstep(kk)),
+                       kk > 0);
     rt::wg_commit();
     if (it > 0) {
       issue_pv((it - 1) % kWgStages);
@@ -833,10 +875,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int r0 = 16 * warp + g;
 #pragma unroll
   for (int n = 0; n < HDV / 8; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(qs + Swz<HDV>::at(r0, n) + 4 * t) =
+    *reinterpret_cast<__nv_bfloat162*>(qs + QTile::at(r0, n) + 4 * t) =
         __floats2bfloat162_rn(o[4 * n] * inv0, o[4 * n + 1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(qs + Swz<HDV>::at(r0 + 8, n) +
-                                       4 * t) =
+    *reinterpret_cast<__nv_bfloat162*>(qs + QTile::at(r0 + 8, n) + 4 * t) =
         __floats2bfloat162_rn(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
   }
   __syncwarp();
@@ -846,7 +887,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     if (row < Sq)
       *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + row) * H + h) *
                                           HDV + 8 * c) =
-          *reinterpret_cast<const uint4*>(qs + Swz<HDV>::at(16 * warp + r,
+          *reinterpret_cast<const uint4*>(qs + QTile::at(16 * warp + r,
                                                             c));
   }
 }
@@ -1346,6 +1387,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the dynamic shared memory flash_wgmma_kernel takes, and the carveout
+// that lets wg_min_ctas of it share an SM (at hd 128 two CTAs fill the
+// SM's 233,472 B, each with its 1 KB reserve)
+template <int HD, int HDV>
+cudaError_t wg_attributes() {
+  constexpr size_t bytes = wg_smem_bytes<HD, HDV>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel<HD, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(flash_wgmma_kernel<HD, HDV>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 template <int HD, int HDV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  int B, int Sq, int Skv, int H, int Kh, int q_offset,
@@ -1356,12 +1412,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   // the row maxima are taken on the unscaled scores
   if (smem != static_cast<int>(bytes) || !(scale > 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<HD, HDV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = wg_attributes<HD, HDV>();
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_wgmma_kernel<HD, HDV><<<grid, kWgThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -1379,9 +1431,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // and smem are the geometry the wrapper computed (kernels/
 // flash_attention.py::_geometry): span 0 and smem_bytes for flash_kernel
 // (f32, hd <= 64), span 0 and wg_smem_bytes for flash_wgmma_kernel (bf16,
-// hd <= 64, scale > 0), kSpan and span_smem for the span kernel ((128,
-// 128), (192, 128) and (256, 256), which also take the f32 scratch of B x
-// H x Sq x n_spans partials); any other is refused.
+// hd <= 128, scale > 0), kSpan and span_smem for the span kernel (f32 at
+// (128, 128), (192, 128) and (256, 256), bf16 at (192, 128) and (256,
+// 256), which also take the f32 scratch of B x H x Sq x n_spans partials);
+// any other is refused.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, void* scratch,
                                       int B, int Sq, int Skv, int H, int Kh,
@@ -1409,18 +1462,34 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                      : launch_wgmma<D, DV>(q, k, v, out, B, Sq, Skv, H,    \
                                            Kh, q_offset, causal, window,  \
                                            scale, smem, s);
-#define RT_SPANS(T)                                                        \
-  RT_SPAN(T, 128, 128) RT_SPAN(T, 192, 128) RT_SPAN(T, 256, 256)
   if (dtype == rt::kDtypeF32) {
     RT_CASE(16, 16) RT_CASE(32, 32) RT_CASE(64, 64)
-    RT_SPANS(float)
+    RT_SPAN(float, 128, 128) RT_SPAN(float, 192, 128)
+    RT_SPAN(float, 256, 256)
   } else if (dtype == rt::kDtypeBF16) {
-    RT_WG(16, 16) RT_WG(32, 32) RT_WG(64, 64)
-    RT_SPANS(__nv_bfloat16)
+    RT_WG(16, 16) RT_WG(32, 32) RT_WG(64, 64) RT_WG(128, 128)
+    RT_SPAN(__nv_bfloat16, 192, 128) RT_SPAN(__nv_bfloat16, 256, 256)
   }
-#undef RT_SPANS
 #undef RT_WG
 #undef RT_CASE
 #undef RT_SPAN
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// CTAs of flash_wgmma_kernel<hd, hd> an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the attributes its
+// launcher sets), or -1 for a pair it does not take
+extern "C" int flash_wgmma_occupancy(int hd) {
+  int n = -1;
+#define RT_OCC(D)                                                         \
+  if (hd == D) {                                                          \
+    if (wg_attributes<D, D>() != cudaSuccess ||                           \
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
+            &n, flash_wgmma_kernel<D, D>, kWgThreads,                     \
+            wg_smem_bytes<D, D>()) != cudaSuccess)                        \
+      return -1;                                                          \
+  }
+  RT_OCC(16) RT_OCC(32) RT_OCC(64) RT_OCC(128)
+#undef RT_OCC
+  return n;
 }

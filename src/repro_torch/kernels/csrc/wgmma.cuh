@@ -12,23 +12,29 @@
 // accumulator, packed in pairs, are the A operand of a product whose k
 // runs over their 16 columns.
 //
-// Operands in shared memory are tiles of rows of D bf16 (2 D bytes: 32,
-// 64 or 128), stored in the swizzled layout of that width: the 16-byte
-// chunk c of row r sits at byte r * 2D + 16 c, with bits [4, 7) of that
-// offset XORed by bits [7, 10) (CUTLASS's Swizzle<B, 4, 3>: B = 1, 2, 3 for
-// 32-, 64- and 128-byte rows), counted from a 1024-byte boundary.  The
-// descriptor names that mode, so the hardware undoes the XOR on its own
-// addresses: both sides must agree, or the numbers come out wrong without
-// any error.
+// Operands in shared memory are tiles of R rows of D bf16.  A row of up to
+// 64 bf16 (32, 64 or 128 bytes) is one swizzle atom wide and is stored in
+// the swizzled layout of its width: the 16-byte chunk c of row r sits at
+// byte r * 2D + 16 c, with bits [4, 7) of that offset XORed by bits [7,
+// 10) (CUTLASS's Swizzle<B, 4, 3>: B = 1, 2, 3 for 32-, 64- and 128-byte
+// rows), counted from a 1024-byte boundary.  A row of 128 bf16 is stored
+// as two column blocks of 64, each an R-row tile of 128-byte swizzled rows,
+// the second R * 128 bytes after the first.  The descriptor names the
+// mode, so the hardware undoes the XOR on its own addresses: both sides
+// must agree, or the numbers come out wrong without any error.
 //   * K-major (rows along k: Q and K in S = Q K^T): a k16 step is 32
-//     bytes of each row; the descriptor of step kk starts 32 kk bytes into
-//     the tile; SBO is the 8-row group's 16 D bytes; LBO is unused.
+//     bytes of each row of one column block; the descriptor of step kk
+//     starts in block kk / (atom / 16), 32 (kk % (atom / 16)) bytes in;
+//     SBO is the 8-row group's 8 atom-row bytes; LBO is unused.
 //   * MN-major (rows along k, columns along n: V in O += P V, through the
 //     transpose bit, which 16-bit types allow): a k16 step is 16 whole
-//     rows, 32 D bytes on; n spans one row, the swizzle's whole width, so
-//     the next-column-block stride (LBO) is never used; SBO is again the
-//     8-row group's stride.  LBO is set to the same value, which reads the
-//     same whichever of the two fields the hardware takes for the k stride.
+//     rows, 16 atom rows on; SBO is again the 8-row group's stride
+//     (PTX's canonical MN-major layout ((T, 8, m), (8, k)) : ((1, T, LBO),
+//     (8T, SBO)) in 16-byte units, CUTLASS's make_gmma_desc).  LBO is the
+//     stride between column blocks along n: at 128 columns (N = 128) the
+//     R * 128 bytes to the second block.  Where n fits one atom it is never
+//     used, and is set equal to SBO, which reads the same whichever of the
+//     two fields the hardware takes for the k stride.
 #pragma once
 
 #include <stdint.h>
@@ -37,18 +43,29 @@
 
 namespace rt {
 
-// a tile of rows of D bf16 in the swizzled layout of its width
-template <int D>
+// a tile of R rows of D bf16: one swizzle atom a row up to D = 64, two
+// column blocks of 64 at D = 128
+template <int D, int R>
 struct Swz {
-  static_assert(D == 16 || D == 32 || D == 64, "one swizzle atom a row");
-  static constexpr int kRow = 2 * D;               // bytes a row
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "rows of 16, 32, 64 or 128 bf16");
+  static constexpr int kAtom = D < 64 ? D : 64;    // bf16 an atom row
+  static constexpr int kRow = 2 * kAtom;           // bytes an atom row
   static constexpr int kMask = kRow / 16 - 1;      // 16-byte chunks - 1
-  static constexpr uint64_t kMode = D == 64 ? 1 : D == 32 ? 2 : 3;
+  static constexpr uint64_t kMode = kAtom == 64 ? 1 : kAtom == 32 ? 2 : 3;
   static constexpr uint32_t kGroup = 8 * kRow;     // 8 rows: SBO
+  static constexpr uint32_t kBlock = R * kRow;     // a column block
+  static constexpr uint32_t kBytes = D / kAtom * kBlock;
+  // the MN-major LBO: the next column block, or SBO where there is none
+  static constexpr uint32_t kLbo = D > kAtom ? kBlock : kGroup;
   // byte offset of the 16-byte chunk c of row r
   __device__ static __forceinline__ uint32_t at(int r, int c) {
-    const uint32_t off = r * kRow + 16 * c;
-    return off ^ (((off >> 7) & kMask) << 4);
+    const uint32_t off = r * kRow + 16 * (c & kMask);
+    return c / (kMask + 1) * kBlock + (off ^ (((off >> 7) & kMask) << 4));
+  }
+  // where the K-major k16 step kk (columns 16 kk .. 16 kk + 15) starts
+  __host__ __device__ static constexpr uint32_t kstep(int kk) {
+    return kk / (kAtom / 16) * kBlock + 32 * (kk % (kAtom / 16));
   }
 };
 
@@ -58,15 +75,15 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint64_t mode,
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
 }
-// a K-major operand of rows of D bf16 at shared address addr
-template <int D>
+// a K-major operand: a step of tile type T at shared address addr
+template <class T>
 __device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return wg_desc(addr, Swz<D>::kMode, 16, Swz<D>::kGroup);
+  return wg_desc(addr, T::kMode, 16, T::kGroup);
 }
-// an MN-major operand (k along rows, n along a row of D bf16)
-template <int D>
+// an MN-major operand (k along rows, n along a row) of tile type T
+template <class T>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
-  return wg_desc(addr, Swz<D>::kMode, Swz<D>::kGroup, Swz<D>::kGroup);
+  return wg_desc(addr, T::kMode, T::kLbo, T::kGroup);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -121,6 +138,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : RT_D8(0), RT_D8(8), RT_D8(16), RT_D8(24), RT_D8(32), RT_D8(40),
+        RT_D8(48), RT_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
                                              const uint32_t (&a)[4],

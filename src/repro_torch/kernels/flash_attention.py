@@ -11,7 +11,8 @@ position of q row 0 within the kv span; ``None`` means END-aligned,
 when ``causal``.  Unlike the Pallas kernel, the CUDA kernel takes
 ``q_offset``, ``Sq`` and ``Skv`` at run time.
 
-At (hd, hdv) in ``SPAN_PAIRS`` the kernel splits the key range into fixed
+At f32 and (hd, hdv) in ``SPAN_PAIRS``, and at bf16 and (hd, hdv) in
+``SPAN_PAIRS_BF16`` (``is_span``), the kernel splits the key range into fixed
 spans of ``SPAN`` absolute key positions.  One CTA per work item, a (span,
 tile of ``TILE_Q`` query rows, b*h) that some row of the tile sees, longest
 items first, writes its rows' partial softmax states (log2 domain) into an
@@ -21,10 +22,11 @@ spans in span order.  ``span_plan``, ``flash_partials_plain`` and
 ``flash_combine_plain`` are the plain versions of that plan and of both
 passes, and ``_geometry`` the launch geometry that the C launcher checks.
 
-At bf16 and (hd, hdv) of at most (64, 64) the kernel is
+At bf16 and (hd, hdv) of at most (64, 64), and at (128, 128), the kernel is
 ``flash_wgmma_kernel``: one warpgroup per 64 query rows, 64-key tiles of
 absolute keys, S and P.V on Hopper's wgmma, P entering P.V as bf16 hi + lo
-(f32 accuracy up to the output's rounding).  ``flash_wgmma_plain`` is the
+(f32 accuracy up to the output's rounding); at (128, 128) its rows are two
+64-column blocks of one swizzle atom each.  ``flash_wgmma_plain`` is the
 plain version of that design's arithmetic, which the tests hold against
 ``flash_attention_plain`` and the Pallas kernel, and the kernel against.
 It takes scale > 0 (its row maxima are taken on the unscaled scores).
@@ -60,8 +62,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # package passes (hd 256 is gemma3's; (192, 128) is MLA prefill's)
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
                   (256, 256))
-# the (hd, hdv) the span kernel takes; the others run in one pass
+# the (hd, hdv) the span kernel takes, f32 and bf16; the others run in one
+# pass (at bf16 (128, 128) too, in flash_wgmma_kernel)
 SPAN_PAIRS = ((128, 128), (192, 128), (256, 256))
+SPAN_PAIRS_BF16 = ((192, 128), (256, 256))
 SPAN = 128                         # absolute key positions per span (kSpan)
 TILE_Q = 64                        # query rows per CTA (kBQ)
 TILE_K = 64                        # keys per ring tile of the one-pass kernels
@@ -76,6 +80,12 @@ class Geometry(NamedTuple):
     smem: int            # dynamic shared memory per CTA, bytes
 
 
+def is_span(hd: int, hdv: int, dtype: torch.dtype) -> bool:
+    """Whether the span kernel serves (hd, hdv) at ``dtype``."""
+    return (hd, hdv) in (SPAN_PAIRS_BF16 if dtype == torch.bfloat16
+                         else SPAN_PAIRS)
+
+
 def _geometry(hd: int, hdv: int, dtype: torch.dtype) -> Geometry:
     """The kernels' launch geometry (csrc/flash_attention.cu: kTileKeys and
     smem_bytes, wg_smem_bytes for the bf16 one-pass kernel, or span_tile
@@ -88,11 +98,17 @@ def _geometry(hd: int, hdv: int, dtype: torch.dtype) -> Geometry:
     ``WG_STAGES``-deep ring of 64-key K and V tiles, behind ``WG_ALIGN``
     bytes for rounding the tiles' start up to a swizzle boundary."""
     es = dtype.itemsize
-    if (hd, hdv) not in SPAN_PAIRS:
+    if not is_span(hd, hdv, dtype):
         if dtype == torch.bfloat16:
             return Geometry(TILE_K, 0, WG_ALIGN + es * (
                 TILE_Q * hd + WG_STAGES * TILE_K * (hd + hdv)))
         return Geometry(TILE_K, 0, _ring_smem(hd, hdv, es, TILE_K))
+    return _span_geometry(hd, hdv, es)
+
+
+def _span_geometry(hd: int, hdv: int, es: int) -> Geometry:
+    """The span kernel's geometry at (hd, hdv) for elements of ``es``
+    bytes (span_tile and span_smem)."""
     bk = 32 if es == 4 and hd > 128 else 64
     return Geometry(bk, SPAN, _ring_smem(hd, hdv, es, bk)
                     + 4 * (4 * 16 * (bk + 8) + 4 * 2 * 2 * 16))
@@ -644,11 +660,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if H % Kh:
         raise ValueError(f"flash attention: H={H} not a multiple of Kh={Kh}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    if q.dtype == torch.bfloat16 and (hd, hdv) not in SPAN_PAIRS \
+    if q.dtype == torch.bfloat16 and not is_span(hd, hdv, q.dtype) \
             and not scale > 0:
-        raise ValueError("flash attention: the bf16 kernel at hd <= 64 "
-                         "takes scale > 0 (it takes each row's max on the "
-                         f"unscaled scores), got {scale}")
+        raise ValueError("flash attention: the bf16 one-pass kernel (hd <= "
+                         "128) takes scale > 0 (it takes each row's max on "
+                         f"the unscaled scores), got {scale}")
     if how == "meta":
         return build.meta_outputs(lambda: q.new_empty((B, Sq, H, hdv)),
                                   q, k, v)

@@ -171,7 +171,7 @@ def _over_bf16_ulp(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("B,Sq,Skv,H,Kh,causal,window,q_offset", [
     (1, 512, 512, 16, 16, True, 0, None),
     (2, 130, 130, 4, 4, True, 40, None),
@@ -197,7 +197,7 @@ def test_cuda_flash_wgmma(cuda_dev, hd, B, Sq, Skv, H, Kh, causal, window,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("window", [0, 100])
 def test_cuda_flash_wgmma_chunked(cuda_dev, hd, window):
     """flash_wgmma_kernel chunk by chunk (16, 64, 128 rows at q_offset c0)
@@ -421,7 +421,8 @@ FLASH_SPAN_NARROW_CASES = [
 def test_cuda_flash_span_kernel_narrow(cuda_dev, dt, hd, hdv):
     """The span kernel at (128, 128) and (192, 128) across span edges, with
     windows, q_offset, GQA and Sq off the query tile: against the plain
-    version, and the same bits again."""
+    version, and the same bits again (bf16 (128, 128) runs the one-pass
+    flash_wgmma_kernel, held here at the same cases)."""
     rng = np.random.default_rng(hd + hdv)
     for Sq, Skv, H, Kh, window, q_offset in FLASH_SPAN_NARROW_CASES:
         q = _rand(rng, (1, Sq, H, hd), dt, cuda_dev)
@@ -447,8 +448,9 @@ def test_cuda_flash_span_kernel_narrow(cuda_dev, dt, hd, hdv):
 def test_cuda_flash_chunk_composition_narrow(cuda_dev, dt, hd, hdv, chunk,
                                              Sp, H, Kh, window):
     """Chunk-by-chunk calls give one call's bits in the span kernel at
-    (128, 128) and (192, 128): deepseek-moe-16b's bucket, jamba-v0.1-52b's
-    heads at a prompt off the spans and tiles, and a window."""
+    (128, 128) and (192, 128) (flash_wgmma_kernel at bf16 (128, 128)):
+    deepseek-moe-16b's bucket, jamba-v0.1-52b's heads at a prompt off the
+    spans and tiles, and a window."""
     rng = np.random.default_rng(hd + chunk + Sp)
     q = _rand(rng, (1, Sp, H, hd), dt, cuda_dev)
     k = _rand(rng, (1, Sp, Kh, hd), dt, cuda_dev)
@@ -1287,6 +1289,37 @@ def test_cuda_flash_backward_bf16_equals_plain(cuda_dev, hd, hdv):
     ref = flash_attention_bwd_plain(q, k, v, do, o=o, **kw)
     for g, r in zip(got, ref):
         _within_ulp(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,H,Kh,window,q_offset", [
+    (512, 512, 16, 16, 0, None),         # the (128, 128) template at B 1
+    (130, 130, 8, 2, 40, None),          # GQA 4, a window, off the tiles
+    (70, 200, 8, 2, 0, 100),             # q_offset, Sq and Skv off tiles
+])
+def test_cuda_flash_wgmma_backward_bf16(cuda_dev, Sq, Skv, H, Kh, window,
+                                        q_offset):
+    """At bf16 (128, 128) the forward is flash_wgmma_kernel and the
+    backward reads its o (D = dout . o): through FlashAttentionFn, each
+    gradient bf16 and within one bf16 ulp or TOL's atol of
+    flash_attention_bwd_plain on the same o; one backward launch; a second
+    backward gives the same bits."""
+    rng = np.random.default_rng(30)
+    q, k, v, do = _bf16_flash_inputs(rng, 1, Sq, Skv, H, Kh, 128, 128,
+                                     cuda_dev)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*ins, **kw)
+    assert _over_bf16_ulp(o, flash_wgmma_plain(q, k, v, **kw)) == 0
+    before = build.launches["flash_attention_bwd"]
+    got = torch.autograd.grad(o, ins, do, retain_graph=True)
+    assert build.launches["flash_attention_bwd"] == before + 1
+    ref = flash_attention_bwd_plain(q, k, v, do, o=o.detach(), **kw)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        _within_ulp(g, r)
+    again = torch.autograd.grad(o, ins, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -2,9 +2,9 @@
 (``flash_wgmma_plain``: 64-key absolute tiles, the log2-domain online
 softmax, P.V as bf16 hi plus bf16 lo products summed in f32) held within
 one bf16 ulp or 5e-3 of ``flash_attention_plain`` and of the Pallas kernel
-in interpret mode, on seeded bf16 inputs at (16, 16), (32, 32) and (64,
-64); its chunked calls bit-identical to one call; and the launch geometry
-(``_geometry``) the C launcher checks.  The CUDA kernel that runs this
+in interpret mode, on seeded bf16 inputs at (16, 16), (32, 32), (64, 64)
+and (128, 128); its chunked calls bit-identical to one call; and the launch
+geometry (``_geometry``) the C launcher checks.  The CUDA kernel that runs this
 design (``flash_wgmma_kernel``) is held to the same mirror in
 test_torch_cuda.py and chip_smoke.py."""
 import numpy as np
@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention import (
 torch.set_num_threads(2)
 
 BF16_TOL = 5e-3
-PAIRS = [(16, 16), (32, 32), (64, 64)]
+PAIRS = [(16, 16), (32, 32), (64, 64), (128, 128)]
 
 
 def _bf16(rng, *shape):
@@ -113,29 +113,35 @@ def test_flash_wgmma_geometry(hd, hdv):
     """wg_smem_bytes: the tiles' start rounded up to a 1024-byte swizzle
     boundary, Q's 64 rows and a WG_STAGES-deep ring of 64-key K and V
     tiles, all unpadded bf16 rows: at (64, 64) 58,368 B, so three CTAs
-    share an SM's 228 KB."""
+    share an SM's 228 KB (wg_min_ctas); at (128, 128) 115,712 B, so two
+    fill it exactly, with each CTA's 1 KB reserve."""
     geo = fk._geometry(hd, hdv, torch.bfloat16)
     assert geo.tile == TILE_K == 64 and geo.span == 0
+    assert not fk.is_span(hd, hdv, torch.bfloat16)
     assert geo.smem == WG_ALIGN + 2 * (TILE_Q * hd
                                        + WG_STAGES * TILE_K * (hd + hdv))
-    assert 3 * (geo.smem + 1024) <= 228 * 1024
+    ctas = 3 if hd <= 64 else 2
+    assert ctas * (geo.smem + 1024) <= 228 * 1024
+    if hd == 128:
+        assert geo.smem == 115_712
+        assert 2 * (geo.smem + 1024) == 228 * 1024
 
 
 def test_flash_wgmma_refuses_nonpositive_scale():
     """The kernel takes each row's max on the unscaled scores, which only a
     positive scale keeps: the wrapper's checks (run on meta tensors as for
-    the card) refuse any other at bf16 and hd <= 64, and take it at f32 and
-    at the span pairs."""
+    the card) refuse any other at bf16 and hd <= 128, and take it at f32 and
+    at the bf16 span pairs."""
     def meta(dt, hd, Kh=2):
         return (torch.empty((1, 8, 4, hd), dtype=dt, device="meta"),
                 torch.empty((1, 8, Kh, hd), dtype=dt, device="meta"),
                 torch.empty((1, 8, Kh, hd), dtype=dt, device="meta"))
-    for hd in (16, 32, 64):
+    for hd in (16, 32, 64, 128):
         with pytest.raises(ValueError, match="scale > 0"):
             fk.flash_attention(*meta(torch.bfloat16, hd), scale=-0.125)
         assert fk.flash_attention(*meta(torch.bfloat16, hd)).shape == \
             (1, 8, 4, hd)
         assert fk.flash_attention(*meta(torch.float32, hd),
                                   scale=-0.125).shape == (1, 8, 4, hd)
-    assert fk.flash_attention(*meta(torch.bfloat16, 128),
-                              scale=-0.125).shape == (1, 8, 4, 128)
+    assert fk.flash_attention(*meta(torch.bfloat16, 256),
+                              scale=-0.125).shape == (1, 8, 4, 256)

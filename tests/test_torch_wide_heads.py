@@ -243,7 +243,9 @@ def test_flash_geometry():
 @pytest.mark.parametrize("hd,hdv,dtype,want", [
     # Q 33,792 + ring 135,168 + P 18,432 + maxima and sums 1,024
     (128, 128, torch.float32, (64, SPAN, 188_416)),
-    (128, 128, torch.bfloat16, (64, SPAN, 106_496)),
+    # bf16 runs in one pass (flash_wgmma_kernel): 1,024 to align the
+    # tiles, Q 16,384 and a 3-stage ring of 98,304, no spans
+    (128, 128, torch.bfloat16, (64, 0, 115_712)),
     # Q 50,176 + ring (32-key tiles) 83,968 + P 10,240 + 1,024: 64-key f32
     # tiles would need 237,568 B
     (192, 128, torch.float32, (32, SPAN, 145_408)),
@@ -252,12 +254,14 @@ def test_flash_geometry():
 ])
 def test_flash_span_geometry(hd, hdv, dtype, want):
     """The span kernel's ring tile, span and shared memory at each pair it
-    takes: the sums in csrc/flash_attention.cu's header, within the
-    232,448 B a CTA may have."""
+    takes (and at bf16 (128, 128), which the one-pass kernel takes): the
+    sums in csrc/flash_attention.cu's header, within the 232,448 B a CTA
+    may have."""
     geo = fk._geometry(hd, hdv, dtype)
     assert geo == want
     assert geo.smem <= 227 * 1024
     assert (hd, hdv) in fk.SPAN_PAIRS
+    assert fk.is_span(hd, hdv, dtype) == (geo.span == SPAN)
 
 
 # ---------------------------------------------------------------------------

@@ -54,10 +54,11 @@ alone; outputs wrong, timing only), timed beside the real call.
 
 bf16fwd: the bf16 flash forward through the tree's own wrapper at
 qwen1.5-0.5b's training call (B 4, Sq = Skv 512, 16 heads of 64, causal)
-and at the (128, 128) template on the same shape, each beside SDPA's bf16
-forward (run it on the parent and the change in turns in one call); then,
-where the tree has flash_wgmma_kernel, that kernel's registers and spills
-and its per-CTA timeline at the training call (an instrumented copy of
+and at the (128, 128) template on the same shape (deepseek-moe-16b's
+call), each beside SDPA's bf16 forward (run it on the parent and the
+change in turns in one call); then, where the tree has
+flash_wgmma_kernel, that kernel's registers and spills and its per-CTA
+timeline at each of those two calls it takes (an instrumented copy of
 csrc/flash_attention.cu): each CTA's entry and exit (%globaltimer) and its
 tiles, the time a tile costs under the card's real concurrency, and by
 tiles walked the median cycles of the prologue (Q and the first tile
@@ -634,11 +635,10 @@ FWD_TIMELINE = [
 
 
 def bf16_fwd_stages(torch, dev, stream):
-    """The bf16 one-pass forward at qwen1.5-0.5b's training call (and its
-    (128, 128) template, which the span kernel serves), through the tree's
-    wrapper, beside SDPA's bf16 forward; then, where the tree has
-    flash_wgmma_kernel, its per-CTA timeline at the training call from an
-    instrumented copy."""
+    """The bf16 forward at qwen1.5-0.5b's training call and at the (128,
+    128) template, through the tree's wrapper, beside SDPA's bf16 forward;
+    then, where the tree has flash_wgmma_kernel, its per-CTA timeline at
+    each of the two that it takes, from an instrumented copy."""
     import chip_smoke as cs
     import torch.nn.functional as F
     from repro_torch.kernels import build
@@ -662,23 +662,31 @@ def bf16_fwd_stages(torch, dev, stream):
         print(f"  ({hd}, {hd}) B={B} Sq=Skv={S} H={H} causal: "
               f"{min(ms):.4f} ms ({ms[0]:.4f}, {ms[1]:.4f})  SDPA bf16 "
               f"forward {min(lib):.4f} ms  ratio {min(ms) / min(lib):.3f}")
-    if "flash_wgmma_kernel" not in (CSRC / "flash_attention.cu").read_text():
+    src = (CSRC / "flash_attention.cu").read_text()
+    if "flash_wgmma_kernel" not in src:
         print("  (no flash_wgmma_kernel in this tree: no timeline)")
         return
     build.library("flash_attention")
     regs = {k: r for k, r in build.ptxas_report("flash_attention").items()
             if "flash_wgmma_kernel" in k}
     print(f"  flash_wgmma_kernel registers and spills: {regs}")
-    fwd_timeline(torch, dev, stream)
+    fwd_timeline(torch, dev, stream,
+                 [64] + [128] * ("RT_WG(128, 128)" in src))
 
 
-def fwd_timeline(torch, dev, stream, tag="_fwd_timeline"):
-    """flash_wgmma_kernel's per-CTA timeline at the training call, from an
-    instrumented copy of the tree's csrc/flash_attention.cu."""
+def fwd_timeline(torch, dev, stream, hds, tag="_fwd_timeline"):
+    """flash_wgmma_kernel's per-CTA timeline at the training call's shape
+    at each hd of ``hds``, from an instrumented copy of the tree's
+    csrc/flash_attention.cu."""
+    timed = instrument("flash_attention", [], tag=tag, edits=FWD_TIMELINE)
+    for hd in hds:
+        _fwd_timeline(torch, dev, stream, timed, hd)
+
+
+def _fwd_timeline(torch, dev, stream, timed, hd):
     from repro_torch.kernels import flash_attention as FA
     rng = np.random.default_rng(29)
-    timed = instrument("flash_attention", [], tag=tag, edits=FWD_TIMELINE)
-    B, S, H, hd = 4, 512, 16, 64
+    B, S, H = 4, 512, 16
     q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(
         np.float32)).to(dev, torch.bfloat16) for _ in range(3))
     out = torch.empty_like(q)
@@ -708,7 +716,8 @@ def fwd_timeline(torch, dev, stream, tag="_fwd_timeline"):
     dur = (g[:, 1] - g[:, 0]) / 1e3
     tiles = g[:, 3]
     fit = np.polyfit(tiles, dur, 1)
-    print(f"  flash_wgmma_kernel<64, 64>, B={B} Sq=Skv={S} H={H} causal: "
+    print(f"  flash_wgmma_kernel<{hd}, {hd}>, B={B} Sq=Skv={S} H={H} "
+          "causal: "
           f"{len(g)} CTAs on {len(set(g[:, 2]))} SMs, span "
           f"{(g[:, 1].max() - t0) / 1e3:.2f} us, last entry "
           f"{(g[:, 0].max() - t0) / 1e3:.2f} us; CTA us = {fit[1]:.2f} + "
