@@ -25,9 +25,13 @@ Phases, each fatal on failure:
      and its combine's share of it (the profiler), and in the log only its
      planned launch geometry (CTAs, cluster size, dynamic shared memory,
      computed from the wrapper's plan); the bf16 one-pass flash kernel
-     (flash_wgmma_kernel, hd <= 64 and (128, 128)) at each pair against
-     the plain version and its design's mirror, repeat bits, no spills,
-     the CTAs an SM holds;
+     (flash_wgmma_kernel, hd <= 64, (128, 128) and (192, 128)) at each
+     pair against the plain version and its design's mirror, repeat bits,
+     no spills, the CTAs an SM holds; at bf16 (192, 128) (MLA prefill, 16
+     heads and deepseek-v2-236b's 128 at the 512 and 1024 buckets) it is
+     also timed in turns with the span kernel it replaced (built in phase
+     2 from a copy of the source whose bf16 dispatch sends that pair
+     there);
   4. check the port's logits on the card against its CPU path (smoke size,
      qwen1.5-0.5b, rwkv6-1.6b, gemma3-1b, deepseek-moe-16b and
      jamba-v0.1-52b);
@@ -157,8 +161,8 @@ Phases, each fatal on failure:
      bf16 forward (flash_wgmma_kernel, against the plain version and its
      mirror) at the training call and at the (128, 128) template, each
      beside its bound and SDPA's bf16 forward, and at (128, 128) in turns
-     with the span kernel it replaced (built in phase 2 from a copy of
-     the source whose bf16 dispatch sends that pair to it); one bf16 step
+     with the span kernel it replaced (phase 3's copy of the source); one
+     bf16 step
      of full-width qwen1.5-0.5b cut to 2 layers on the card against the
      same step on the CPU; through build_train_step's default dtype for 5
      steps each, full-width qwen1.5-0.5b at full depth and full-width
@@ -166,7 +170,29 @@ Phases, each fatal on failure:
      128): 16 forward and 8 backward launches a step; its first flash
      call held against the plain version and the mirror), each loss
      falling, flash and flash-backward launches a step exactly counted,
-     ms per step, device busy share and peak memory.
+     ms per step, device busy share and peak memory;
+ 22. serving at the reference's default bf16 params: full-width
+     qwen1.5-0.5b with bf16 params and a bf16 cache on phase 5's 16
+     requests (run(), dense and paged-kernel runs refactored [0,12] ->
+     [0,6,12,18] -> [0,12]; streams bit-identical, paged == dense; flash
+     24 per prefill, on flash_wgmma_kernel at hd 64, and decode or paged
+     decode 24 per tick with a bf16 query over the bf16 cache, exactly
+     counted; one served call of each kernel at a real tick held within
+     one bf16 ulp or 5e-3 of its plain version, flash also of its mirror;
+     ms/tick, tok/s, three profiled ticks, peak memory); deepseek-v2-236b
+     cut to 3 layers at bf16 (about 26 GB; bf16 latent cache; run() and a
+     run refactored [0,1] -> [0,1,2] -> [0,1], streams bit-identical;
+     flash at (192, 128) 3 per prefill, no decode kernel; its first
+     served flash call held against plain and mirror; three profiled
+     ticks, peak memory and headroom; the bf16 decode-vs-forward logit
+     distance of requests 8 and 13, recorded); one rank of
+     build_prefill_step / build_decode_step for qwen1.5-0.5b at their
+     default bf16 (phase 19's B 8 x 512 prefill and 16 decode steps,
+     launches exactly counted, one served call of each kernel held); and
+     phase 4 at bf16 for qwen1.5-0.5b and deepseek-v2 with its MLA heads
+     widened to the served pair (the card's logits within 2x the CPU's
+     own bf16-to-f32 distance, from the same bf16-rounded weights; the
+     argmax agreement recorded).
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -266,7 +292,10 @@ def bound(bytes_moved, ops, dtype):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_checks(torch):
+def kernel_checks(torch, span_lib):
+    """Phase 3; ``span_lib``: the earlier design's library (EARLIER_EDIT),
+    the span kernel that flash_wgmma_kernel at bf16 (192, 128) is timed
+    beside."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import (
         CHUNK, decode_attention, decode_attention_plain, gather_pages,
@@ -483,7 +512,7 @@ def kernel_checks(torch):
     log(f"  {'flash_attention chunk':24s} {c['ms']:.4f} ms  plain "
         f"{c['plain_ms']:.4f} ms  library {c['library_ms']:.4f} ms  bound "
         f"{c['bound_ms']:.4f} ms ({by})  [{c['shape']}]")
-    head_shape_checks(torch, rnd, compare, decode_case, results)
+    head_shape_checks(torch, rnd, compare, decode_case, results, span_lib)
     wkv_checks(torch, rnd, results)
     for name, r in results.items():
         lib = r["library_ms"]
@@ -494,7 +523,44 @@ def kernel_checks(torch):
     return results
 
 
-def head_shape_checks(torch, rnd, compare, decode_case, results):
+def wgmma_beside_span(torch, span_lib, q, k, v, kw, label):
+    """flash_wgmma_kernel at bf16 (192, 128) on a causal end-aligned call:
+    within one bf16 ulp or TOL["bfloat16"] of the plain version and of
+    flash_wgmma_plain, its CTAs an SM, and its time in turns with the span
+    kernel it replaced (the earlier design's library: kernel, span, span,
+    kernel)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    kernel = lambda: FA.flash_attention(q, k, v, **kw)  # noqa: E731
+    with torch.no_grad():
+        got = kernel()
+        n_p, e_p = _over_ulp(torch, got, FA.flash_attention_plain(q, k, v,
+                                                                  **kw))
+        n_m, e_m = _over_ulp(torch, got, FA.flash_wgmma_plain(q, k, v, **kw))
+        span = earlier_span_forward(torch, span_lib, q, k, v)
+        n_e, e_e = _over_ulp(torch, span(), FA.flash_attention_plain(
+            q, k, v, **kw))
+        check(n_p == 0 and n_m == 0, f"flash_wgmma_kernel {label}: {n_p} "
+              f"elements beyond one bf16 ulp or {TOL['bfloat16']} of the "
+              f"plain version, {n_m} of the mirror")
+        check(n_e == 0, f"the span kernel {label}: {n_e} elements beyond "
+              "one bf16 ulp of the plain version")
+        check(torch.equal(got, kernel()),
+              f"flash_wgmma_kernel {label}: two calls gave other bits")
+        turns = [time_ms(torch, f) for f in (kernel, span, span, kernel)]
+    hd, hdv = q.shape[-1], v.shape[-1]
+    return dict(ms=min(turns[0], turns[3]), earlier_ms=min(turns[1],
+                                                           turns[2]),
+                ms_turns=turns, max_abs_err_vs_mirror=e_m,
+                earlier_max_abs_err=e_e,
+                earlier=f"flash_span_kernel<bf16, {hd}, {hdv}> and its "
+                        "combine, the design this pair ran before (kernel, "
+                        "span, span, kernel in turns)",
+                occupancy=build.library(
+                    "flash_attention").flash_wgmma_occupancy(hd, hdv))
+
+
+def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
     """gemma3-1b's attention shapes (hd 256, 4 query heads on one kv head),
     MLA prefill's (hd 192, hdv 128), and deepseek-moe-16b's (hd 128, 16
     heads) and jamba-v0.1-52b's (hd 128, 32 heads on 8 kv heads), f32 and
@@ -503,8 +569,10 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
     causal); dense and paged decode on a 512-row ring and 1024-row caches;
     paged == gather == dense bit for bit.  Each f32 case is timed beside its
     bound and one SDPA call, and each flash case at bf16 too (its own row,
-    "bf16": the span kernel, or flash_wgmma_kernel at (128, 128), with its
-    registers and spills); each span or cluster kernel also reports its
+    "bf16": the span kernel at hd 256, or flash_wgmma_kernel, with its
+    registers and spills; at (192, 128) also held against its mirror, with
+    its CTAs an SM and its time in turns with the span kernel it replaced,
+    ``span_lib``); each span or cluster kernel also reports its
     registers, spills and device time by kernel, and logs its planned
     launch geometry."""
     from repro_torch.kernels.decode_attention import (
@@ -609,11 +677,26 @@ def head_shape_checks(torch, rnd, compare, decode_case, results):
                                      f"flash_span_kernelI13__nv_bfloat16Li"
                                      f"{hd}ELi{hdv}E" if span else
                                      f"flash_wgmma_kernelILi{hd}ELi{hdv}E"))
+                if (hd, hdv) == (192, 128):
+                    r.update(wgmma_beside_span(torch, span_lib, q, k, v, kw,
+                                               shape))
+                    check(not r["ptxas"].get("spill_stores")
+                          and not r["ptxas"].get("spill_loads")
+                          and r["occupancy"] >= 2, f"flash_wgmma_kernel "
+                          f"(192, 128): spills {r['ptxas']} or "
+                          f"{r['occupancy']} CTAs an SM")
                 results["flash_attention"][key]["bf16"] = r
                 log(f"  {'flash_attention ' + key:24s} {r['ms']:.4f} ms  "
                     f"plain {r['plain_ms']:.4f} ms  SDPA "
                     f"{r['library_ms']} ms  bound {t_bound:.4f} ms ({by})  "
-                    f"{r['kernel']} {r['ptxas']}  [{r['shape']}]")
+                    f"{r['kernel']} {r['ptxas']}"
+                    + (f"  earlier design (the span kernel) "
+                       f"{r['earlier_ms']:.4f} ms, turns "
+                       f"{[round(t, 4) for t in r['ms_turns']]}, vs mirror "
+                       f"{r['max_abs_err_vs_mirror']:.3e}, "
+                       f"{r['occupancy']} CTAs an SM"
+                       if "earlier_ms" in r else "")
+                    + f"  [{r['shape']}]")
                 continue
             results["flash_attention"][key] = r
             log(f"  {'flash_attention ' + key:24s} {r['ms']:.4f} ms  plain "
@@ -806,14 +889,15 @@ def split_share(torch, combine, fn, reps=20):
 
 def wgmma_checks(torch, rnd, results):
     """The bf16 one-pass flash kernel (flash_wgmma_kernel) at each pair it
-    takes, (16, 16), (32, 32), (64, 64) and (128, 128): causal, windowed,
+    takes, (16, 16), (32, 32), (64, 64), (128, 128) and (192, 128): causal,
+    windowed,
     q_offset with Sq and Skv off the 64-row tile and GQA, non-causal, rows
     that see no key; 0 elements beyond one bf16 ulp or TOL["bfloat16"] of
     the plain version and of the design's plain mirror (flash_wgmma_plain:
     the same 64-key tiles, online softmax and P as bf16 hi + lo), a second
     call's bits equal, no spills in the build log, and the CTAs an SM holds
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at least the
-    launch bounds' minimum (3 up to hd 64, 2 at hd 128)."""
+    launch bounds' minimum (3 up to hd 64, 2 at hd 128 and 192)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain, flash_wgmma_plain)
@@ -828,10 +912,10 @@ def wgmma_checks(torch, rnd, results):
            "max_abs_err_vs_plain": 0.0, "max_abs_err_vs_mirror": 0.0,
            "tolerance": "one bf16 ulp or %g, of the plain version and of "
                         "flash_wgmma_plain" % TOL["bfloat16"]}
-    for hd in (16, 32, 64, 128):
+    for hd, hdv in ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128)):
         for B, Sq, Skv, H, Kh, win, qo, causal, label in cases:
             q = rnd((B, Sq, H, hd), "bfloat16")
-            k, v = rnd((B, Skv, Kh, hd), "bfloat16"), rnd((B, Skv, Kh, hd),
+            k, v = rnd((B, Skv, Kh, hd), "bfloat16"), rnd((B, Skv, Kh, hdv),
                                                           "bfloat16")
             kw = dict(causal=causal, window=win, q_offset=qo)
             got = flash_attention(q, k, v, **kw)
@@ -839,7 +923,7 @@ def wgmma_checks(torch, rnd, results):
             plain = flash_attention_plain(q, k, v, **kw)
             mirror = flash_wgmma_plain(q, k, v, **kw)
             torch.cuda.synchronize()
-            case = f"({hd}, {hd}) {label}"
+            case = f"({hd}, {hdv}) {label}"
             n_p, e_p = _over_ulp(torch, got, plain)
             n_m, e_m = _over_ulp(torch, got, mirror)
             log(f"  {'flash_wgmma_kernel':24s} bfloat16 {case:40s} max|err| "
@@ -860,17 +944,18 @@ def wgmma_checks(torch, rnd, results):
                                               e_p)
             out["max_abs_err_vs_mirror"] = max(
                 out["max_abs_err_vs_mirror"], e_m)
-        r = ptxas("flash_attention", f"flash_wgmma_kernelILi{hd}ELi{hd}E")
+        r = ptxas("flash_attention", f"flash_wgmma_kernelILi{hd}ELi{hdv}E")
         out[f"ptxas_{hd}"] = r
-        log(f"  {'flash_wgmma_kernel':24s} ({hd}, {hd}) registers and "
+        log(f"  {'flash_wgmma_kernel':24s} ({hd}, {hdv}) registers and "
             f"spills: {r}")
         check(not r.get("spill_stores") and not r.get("spill_loads"),
-              f"flash_wgmma_kernel ({hd}, {hd}) spills: {r}")
-        occ = build.library("flash_attention").flash_wgmma_occupancy(hd)
+              f"flash_wgmma_kernel ({hd}, {hdv}) spills: {r}")
+        occ = build.library("flash_attention").flash_wgmma_occupancy(hd,
+                                                                     hdv)
         out[f"occupancy_{hd}"] = occ
-        log(f"  {'flash_wgmma_kernel':24s} ({hd}, {hd}): {occ} CTAs an SM")
+        log(f"  {'flash_wgmma_kernel':24s} ({hd}, {hdv}): {occ} CTAs an SM")
         check(occ >= (3 if hd <= 64 else 2), f"flash_wgmma_kernel ({hd}, "
-              f"{hd}): {occ} CTAs an SM")
+              f"{hdv}): {occ} CTAs an SM")
     results["flash_attention"]["bf16_one_pass"] = out
 
 
@@ -1044,12 +1129,9 @@ def wkv_checks(torch, rnd, results):
 # phase 4: the port's logits on the card against its CPU path
 # ---------------------------------------------------------------------------
 
-def small_model_check(torch, arch):
+def smoke_cfg(arch):
+    """``arch``'s smoke config at head dims the kernels are built for."""
     from repro_torch.configs.base import get_arch, shrink
-    from repro_torch.convert import tree_from_numpy, tree_to_numpy
-    from repro_torch.models import model as M
-    from repro_torch.models.transformer import init_model
-
     cfg = get_arch(arch).smoke_config
     if cfg.resolved_head_dim < 16:
         # qwen1.5-110b's smoke config has head_dim 8, under the kernels'
@@ -1060,6 +1142,15 @@ def small_model_check(torch, arch):
         # for: the real model's (nope, rope, v) = (128, 64, 128)
         cfg = shrink(cfg, mla=dataclasses.replace(
             cfg.mla, nope_head_dim=128, rope_head_dim=64, v_head_dim=128))
+    return cfg
+
+
+def small_model_check(torch, arch):
+    from repro_torch.convert import tree_from_numpy, tree_to_numpy
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_model
+
+    cfg = smoke_cfg(arch)
     cpu = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
     set_gates(cpu, 1)
     gpu = tree_from_numpy(tree_to_numpy(cpu), "cuda")
@@ -1120,7 +1211,10 @@ def top2_margin(torch, cfg, params, req, upto):
 
 
 def serve(torch, label, cfg, params, kv, refactors, boundaries=(0, 12),
-          memories=None, max_seq=1024):
+          memories=None, max_seq=1024, cache_dtype="float32", watch=None):
+    """Phase 5's 16 requests through an engine: run(), or stepped with
+    ``refactors`` (tick -> boundaries); ``watch``: a function called just
+    before the requests go in, returning the function that ends it."""
     from repro_torch.kernels import build
     from repro_torch.serving.engine import (EngineConfig, FlexPipeEngine,
                                             KVCacheConfig)
@@ -1128,6 +1222,7 @@ def serve(torch, label, cfg, params, kv, refactors, boundaries=(0, 12),
 
     eng = FlexPipeEngine(cfg, params, list(boundaries),
                          EngineConfig(max_batch=8, max_seq=max_seq,
+                                      cache_dtype=cache_dtype,
                                       kv=KVCacheConfig(**kv)))
     eng.warmup((4,))                # two balanced stages and four
     reqs = make_requests(cfg, Request, memories)
@@ -1135,10 +1230,23 @@ def serve(torch, label, cfg, params, kv, refactors, boundaries=(0, 12),
     build.reset_launches()
     CROSS_LAUNCHES.clear()
     CROSS_HELD[:] = [{"armed": True}]
+    unwatch = watch() if watch else (lambda: None)
     t0 = time.perf_counter()
     decode_s, decode_tok, decode_ticks, ticks, ticks_decoding = 0.0, 0, 0, 0, 0
     if refactors is None:
-        eng.run(reqs)                          # the user's entry point
+        step = eng.step
+
+        def counted_step(now):                 # run() steps the engine
+            nonlocal ticks_decoding
+            rep = step(now)
+            ticks_decoding += rep.decoded > 0
+            return rep
+        eng.step = counted_step
+        try:
+            eng.run(reqs)                      # the user's entry point
+        finally:
+            eng.step = step
+            unwatch()
     else:
         for r in reqs:
             eng.submit(r, now=0.0)
@@ -1158,6 +1266,7 @@ def serve(torch, label, cfg, params, kv, refactors, boundaries=(0, 12),
                 decode_ticks += 1
             ticks += 1
             now += 0.05
+        unwatch()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(build.launches)
@@ -1206,14 +1315,15 @@ def kernel_profile(torch, fn, reps):
 
 
 def loaded_engine(torch, cfg, params, boundaries=(0, 12), memories=None,
-                  max_seq=1024):
+                  max_seq=1024, cache_dtype="float32"):
     """A dense engine at batch 8 with phase 5's first 8 requests admitted
     and 3 decode ticks run."""
     from repro_torch.serving.engine import EngineConfig, FlexPipeEngine
     from repro_torch.serving.workload import Request
 
     eng = FlexPipeEngine(cfg, params, list(boundaries),
-                         EngineConfig(max_batch=8, max_seq=max_seq))
+                         EngineConfig(max_batch=8, max_seq=max_seq,
+                                      cache_dtype=cache_dtype))
     for r in make_requests(cfg, Request, memories)[:8]:
         eng.submit(r, now=0.0)
     eng._admit(0.0)
@@ -1393,33 +1503,40 @@ def decode_equals_forward(torch, cfg, params, reqs):
 
 def serving(torch, card, arch, generator, refactored, prefix="",
             boundaries=(0, 12), moves=None, cfg=None, params=None,
-            memories=None, max_seq=1024):
+            memories=None, max_seq=1024, dtype=None, cache_dtype="float32",
+            watches=None):
     """Serve full-width ``arch`` (or ``cfg``, a depth cut of it; ``params``
-    if given, else drawn from ``generator``): a dense run through run(),
-    then one run per ``refactored`` entry (label -> KV config) refactored
-    mid-stream (``moves``: tick -> boundaries); every stream must equal the
-    run() streams.  ``memories``: each request's cross-attention memory."""
+    if given, else drawn from ``generator`` in ``dtype``, f32 by default):
+    a dense run through run(), then one run per ``refactored`` entry (label
+    -> KV config) refactored mid-stream (``moves``: tick -> boundaries);
+    every stream must equal the run() streams.  ``memories``: each
+    request's cross-attention memory; ``watches``: label -> serve's
+    ``watch`` for that run."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models.transformer import init_model
 
     cfg = cfg or get_arch(arch).config
     t0 = time.perf_counter()
     if params is None:
-        params = init_model(cfg, generator, device="cuda")
+        params = init_model(cfg, generator, dtype or torch.float32,
+                            device="cuda")
     n = sum(t.numel() for t in tree_leaves(params))
+    pdt = str(params["embed"].dtype).replace("torch.", "")
     log(f"  {arch}: {cfg.n_layers} layers, d={cfg.d_model}, "
-        f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {n} params f32 "
-        f"({time.perf_counter() - t0:.1f} s to init)")
+        f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {n} params {pdt}, "
+        f"{cache_dtype} cache ({time.perf_counter() - t0:.1f} s to init)")
     check(n == cfg.param_count(), "param count mismatch")
     moves = moves or {10: [0, 6, 12, 18], 30: [0, 12]}
-    base, base_reqs, info_a = serve(torch, prefix + "dense run()", cfg,
-                                    params, {}, None, boundaries, memories,
-                                    max_seq)
+    watches = watches or {}
+    base, base_reqs, info_a = serve(
+        torch, prefix + "dense run()", cfg, params, {}, None, boundaries,
+        memories, max_seq, cache_dtype, watches.get(prefix + "dense run()"))
     runs = {prefix + "dense run()": info_a}
     for label, kv in refactored.items():
         label = prefix + label
         streams, reqs, info = serve(torch, label, cfg, params, kv, moves,
-                                    boundaries, memories, max_seq)
+                                    boundaries, memories, max_seq,
+                                    cache_dtype, watches.get(label))
         runs[label] = info
         check(info["refactors"] == 2, f"{label}: refactors did not happen")
         if streams != base:
@@ -1434,8 +1551,8 @@ def serving(torch, card, arch, generator, refactored, prefix="",
         log(f"  {label}: all 16 streams bit-identical to the dense run")
     a = runs[prefix + "dense refactored"]
     log(f"  {arch} decode: {a['decode_tok_per_s']:.1f} tok/s, "
-        f"{a['decode_ms_per_tick']:.3f} ms/tick at batch 8 (dense, f32) "
-        f"on {card}")
+        f"{a['decode_ms_per_tick']:.3f} ms/tick at batch 8 (dense, {pdt} "
+        f"params, {cache_dtype} cache) on {card}")
     return cfg, params, base_reqs, runs
 
 
@@ -2213,11 +2330,12 @@ def decode_equals_forward_no_drop(torch, cfg, params, rids, boundaries):
 
 
 def profile_moe_ticks(torch, cfg, params, boundaries, memories=None,
-                      max_seq=1024):
+                      max_seq=1024, cache_dtype="float32"):
     """The host syncs of one decode tick, then three steady decode ticks
     under the profiler: device busy, idle share and the kernels that take
     the time."""
-    eng = loaded_engine(torch, cfg, params, boundaries, memories, max_seq)
+    eng = loaded_engine(torch, cfg, params, boundaries, memories, max_seq,
+                        cache_dtype)
     syncs = count_syncs(torch, eng)
     prof = profile_ticks(torch, eng, 3)
     prof["syncs_per_tick"] = len(syncs)
@@ -3953,11 +4071,13 @@ def _over_ulp(torch, got, want):
     return int((d > tol).sum()), float(d.max())
 
 
-# phase 21 times the bf16 forward at (128, 128) beside the design it
-# replaced, the span kernel: a copy of csrc/flash_attention.cu whose bf16
-# dispatch sends that pair to flash_span_kernel again, built with the
-# others in phase 2 into build/earlier/
-EARLIER_EDIT = ("RT_WG(128, 128)", "RT_SPAN(__nv_bfloat16, 128, 128)")
+# phases 3 and 21 time the bf16 forward at (192, 128) and (128, 128)
+# beside the design each replaced, the span kernel: a copy of
+# csrc/flash_attention.cu whose bf16 dispatch sends both pairs to
+# flash_span_kernel again, built with the others in phase 2 into
+# build/earlier/
+EARLIER_EDIT = [("RT_WG(128, 128)", "RT_SPAN(__nv_bfloat16, 128, 128)"),
+                ("RT_WG(192, 128)", "RT_SPAN(__nv_bfloat16, 192, 128)")]
 
 
 def start_earlier_span():
@@ -3965,12 +4085,14 @@ def start_earlier_span():
     process and the library's path."""
     from repro_torch.kernels import build
     src = (build.CSRC / "flash_attention.cu").read_text()
-    check(src.count(EARLIER_EDIT[0]) == 1, "flash_attention.cu: the bf16 "
-          f"dispatch's {EARLIER_EDIT[0]} is not there once")
+    for old, new in EARLIER_EDIT:
+        check(src.count(old) == 1, "flash_attention.cu: the bf16 "
+              f"dispatch's {old} is not there once")
+        src = src.replace(old, new)
     out = ROOT / "build" / "earlier"
     out.mkdir(parents=True, exist_ok=True)
     cu = out / "flash_attention_span128.cu"
-    cu.write_text(src.replace(*EARLIER_EDIT))
+    cu.write_text(src)
     lib = out / "libflash_attention_span128.so"
     return subprocess.Popen(
         [build.find_nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
@@ -3993,21 +4115,22 @@ def finish_earlier_span(started):
 
 
 def earlier_span_forward(torch, lib, q, k, v):
-    """A causal, end-aligned bf16 call at (hd, hd) through the span kernel
-    of the earlier design's library: a function that launches it into one
-    output.  Its launches count nowhere (build.launches counts the
-    port's)."""
+    """A causal, end-aligned bf16 call (q (B, S, H, hd), k (B, S, Kh, hd),
+    v (B, S, Kh, hdv)) through the span kernel of the earlier design's
+    library: a function that launches it into one output.  Its launches
+    count nowhere (build.launches counts the port's)."""
     from repro_torch.kernels import flash_attention as FA
     B, S, H, hd = q.shape
-    geo = FA._span_geometry(hd, hd, q.element_size())
-    out = torch.empty_like(q)
-    scratch = torch.empty(B * H * S * FA.n_spans(S) * (hd + 2),
+    Kh, hdv = k.shape[2], v.shape[-1]
+    geo = FA._span_geometry(hd, hdv, q.element_size())
+    out = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
+    scratch = torch.empty(B * H * S * FA.n_spans(S) * (hdv + 2),
                           dtype=torch.float32, device=q.device)
 
     def call():
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), B, S, S, H, H, hd, hd, 0, 1, 0,
+            scratch.data_ptr(), B, S, S, H, Kh, hd, hdv, 0, 1, 0,
             1.0 / math.sqrt(hd), 1, geo.span, geo.smem,
             torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"the earlier design's launch failed: {err}")
@@ -4230,42 +4353,85 @@ def bf16_card_vs_cpu(torch, f32_step):
     return out
 
 
-def _capture_first_flash(torch, calls):
-    """Wrap the model's flash entry point to keep in ``calls`` (cloned) the
-    inputs of its first call; returns the function that unwraps it."""
+SERVED = ("flash_attention", "decode_attention", "paged_decode_attention")
+
+
+def _watch_served(torch, calls, at):
+    """A ``watch`` for serve() (or around a train run): wrap the model's
+    flash, decode and paged decode entry points to keep in ``calls``
+    (cloned) the inputs of the run's first flash call (layer 0 on the first
+    prompt or batch) and of the ``at``-th call of each decode kind (a real
+    tick's), and count the calls by (q, k) dtypes."""
     from repro_torch.models import layers
-    orig = layers.flash_attention
 
-    def wrapped(*a, **kw):
-        if "flash_attention" not in calls:
-            calls["flash_attention"] = ([x.detach().clone() if
-                                         torch.is_tensor(x) else x
-                                         for x in a], dict(kw))
-        return orig(*a, **kw)
-    layers.flash_attention = wrapped
-    return lambda: setattr(layers, "flash_attention", orig)
+    def watch():
+        orig = {n: getattr(layers, n) for n in SERVED}
+        seen = collections.Counter()
+
+        def wrap(name):
+            def wrapped(*a, **kw):
+                n = sum(v for (k, *_), v in seen.items() if k == name)
+                seen[(name, str(a[0].dtype), str(a[1].dtype))] += 1
+                if n == (0 if name == "flash_attention" else at):
+                    calls[name] = ([x.detach().clone() if torch.is_tensor(x)
+                                    else x for x in a], dict(kw))
+                return orig[name](*a, **kw)
+            return wrapped
+        for name in SERVED:
+            setattr(layers, name, wrap(name))
+
+        def unwatch():
+            for name, fn in orig.items():
+                setattr(layers, name, fn)
+            calls["by_dtype"] = {f"{k} q={a} k={b}": n
+                                 for (k, a, b), n in seen.items()}
+        return unwatch
+    return watch
 
 
-def _hold_first_flash(torch, calls, label):
-    """The captured call (a real step's first: layer 0 on the embedded
-    tokens) through the kernel, against its plain version and
-    flash_wgmma_plain, within one bf16 ulp or TOL["bfloat16"]."""
+def _hold_served(torch, calls, name, label):
+    """The captured call of ``name`` through its kernel against its plain
+    version (flash also against flash_wgmma_plain), within one bf16 ulp or
+    TOL["bfloat16"]; the call must be a real one (flash: q, k and v vary
+    along the sequence; decode: q over the batch, the caches along the
+    rows)."""
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    (q, k, v), kw = calls["flash_attention"]
-    check(all(_varies(x, 1) for x in (q, k, v)), f"{label}: the captured "
-          "flash call's q, k or v is constant along the sequence")
+    check(name in calls, f"{label}: no {name} call captured")
+    a, kw = calls[name]
+    if name == "flash_attention":
+        real = all(_varies(x, 1) for x in a[:3])
+    elif name == "decode_attention":
+        real = (_varies(a[0], 0) and _varies(a[1].float(), 2)
+                and _varies(a[2].float(), 2))
+    else:
+        real = _varies(a[0], 0) and _varies(a[1].float(), 0)
+    check(real, f"{label}: the captured {name} call is constant where a "
+          "real call varies")
+    fn = {"flash_attention": FA.flash_attention,
+          "decode_attention": DA.decode_attention,
+          "paged_decode_attention": DA.paged_decode_attention}[name]
+    plain = {"flash_attention": FA.flash_attention_plain,
+             "decode_attention": DA.decode_attention_plain,
+             "paged_decode_attention": DA.paged_decode_attention_plain}[name]
     with torch.no_grad():
-        got = FA.flash_attention(q, k, v, **kw)
-        n_p, e_p = _over_ulp(torch, got, FA.flash_attention_plain(q, k, v,
-                                                                  **kw))
-        n_m, e_m = _over_ulp(torch, got, FA.flash_wgmma_plain(q, k, v, **kw))
-    out = {"shape": list(q.shape), "kv_shape": list(k.shape),
-           "dtype": str(q.dtype), "max_abs_err": e_p,
-           "max_abs_err_vs_mirror": e_m}
-    log(f"  {label}: the first flash call of the run {json.dumps(out)}")
-    check(n_p == 0 and n_m == 0, f"{label}: the first flash call has {n_p} "
-          f"elements beyond one bf16 ulp or {TOL['bfloat16']} of the plain "
-          f"version, {n_m} of flash_wgmma_plain")
+        got = fn(*a, **kw)
+        check(torch.equal(got, fn(*a, **kw)),
+              f"{label}: the served {name} call gave other bits again")
+        n_p, e_p = _over_ulp(torch, got, plain(*a, **kw))
+        n_m, e_m = (_over_ulp(torch, got, FA.flash_wgmma_plain(*a, **kw))
+                    if name == "flash_attention" else (0, None))
+    out = {"q": list(a[0].shape), "k": list(a[1].shape),
+           "dtype": str(a[0].dtype), "cache_dtype": str(a[1].dtype),
+           "max_abs_err": e_p}
+    if e_m is not None:
+        out["max_abs_err_vs_mirror"] = e_m
+    log(f"  {label}: served {name} {json.dumps(out)}")
+    check(got.dtype == a[0].dtype == torch.bfloat16,
+          f"{label}: the served {name} call is not bf16")
+    check(n_p == 0 and n_m == 0, f"{label}: the served {name} call has "
+          f"{n_p} elements beyond one bf16 ulp or {TOL['bfloat16']} of its "
+          f"plain version, {n_m} of flash_wgmma_plain")
     return out
 
 
@@ -4310,7 +4476,7 @@ def bf16_training_phase(torch, card, f32_step, span_lib):
         "temporaries")
     L = cfg.n_layers
     calls = {}
-    unwrap = _capture_first_flash(torch, calls)
+    unwrap = _watch_served(torch, calls, 0)()
     try:
         losses, info, setup = train_run(
             torch, card, "deepseek-moe-16b train bf16", cfg, plan, 512, 8,
@@ -4326,12 +4492,271 @@ def bf16_training_phase(torch, card, f32_step, span_lib):
           f"{losses[-1]} is not below step 0's {losses[0]}")
     info["layers"] = L
     info["params"] = n
-    info["first_flash_call"] = _hold_first_flash(
-        torch, calls, "deepseek-moe-16b train bf16")
+    info["first_flash_call"] = _hold_served(
+        torch, calls, "flash_attention", "deepseek-moe-16b train bf16")
     out["deepseek_moe"] = info
     free_weights(torch)
     out["s"] = time.perf_counter() - t0
     log(f"  phase 21 on {card}: {out['s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: serving at the reference's default bf16 params
+# ---------------------------------------------------------------------------
+
+def bf16_small_model_check(torch, arch):
+    """Phase 4 at bf16: the smoke config (smoke_cfg: deepseek-v2 with its
+    MLA heads widened to the served pair) from the same bf16-rounded
+    weights on the card and on the CPU; the card's logits within
+    BF16_FACTOR times the CPU's own bf16-to-f32 distance, and how often the
+    argmax agrees."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import init_model
+    from repro_torch.tree import tree_map
+
+    cfg = smoke_cfg(arch)
+    f32 = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
+    cpu = tree_map(lambda t: t.to(torch.bfloat16), f32)
+    f32 = tree_map(lambda t: t.float(), cpu)        # the same rounded weights
+    gpu = tree_map(lambda t: t.to("cuda"), cpu)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 40)))}
+    l32, _, _ = M.forward(cfg, f32, batch)
+    l16, _, _ = M.forward(cfg, cpu, batch)
+    lg, _, _ = M.forward(cfg, gpu, {k: v.cuda() for k, v in batch.items()})
+    lg = lg.float().cpu()
+    dist = float((l16.float() - l32.float()).abs().max())
+    err = float((lg - l16.float()).abs().max())
+    agree = float((lg.argmax(-1) == l16.argmax(-1)).float().mean())
+    out = {"card_vs_cpu_bf16": err, "cpu_bf16_to_f32": dist,
+           "argmax_agrees": agree, "params": str(
+               next(iter(tree_leaves(gpu))).dtype)}
+    log(f"  {arch} smoke-size forward at bf16, card vs CPU: "
+        f"{json.dumps(out)} (limit {BF16_FACTOR} x the CPU's distance)")
+    check(bool(torch.isfinite(lg).all()), f"{arch}: non-finite bf16 logits")
+    check(dist > 0 and err <= BF16_FACTOR * dist, f"{arch}: bf16 card "
+          f"logits {err} from the CPU's, beyond {BF16_FACTOR} x {dist}")
+    return out
+
+
+def decode_vs_forward_bf16(torch, cfg, params, reqs, rids):
+    """For ``rids``: each served stream fed back through the model's own
+    prefill (bf16 cache) and decode steps, its logits against one
+    whole-sequence forward's at the same positions, at capacity factor E/K
+    (the same expert assignments): the largest distance and how often the
+    argmax agrees, recorded, not held (bf16 rounds the two paths apart)."""
+    from repro_torch.models import model as M
+    cfg = no_drop(cfg)
+    out = {}
+    with torch.no_grad():
+        for req in (r for r in reqs if r.rid in rids):
+            toks = np.concatenate([req.prompt_tokens, req.output[:-1]])
+            full, _, _ = M.forward(cfg, params, forward_batch(torch, req,
+                                                              toks))
+            full = full[0, len(req.prompt_tokens) - 1:].float()
+            last, cache = M.prefill(
+                cfg, params, forward_batch(torch, req, req.prompt_tokens),
+                1024, cache_dtype=torch.bfloat16)
+            steps = [last[0].float()]
+            for j, tok in enumerate(req.output[:-1]):
+                lg, cache = M.decode_step(
+                    cfg, params, torch.tensor([[tok]], device="cuda"), cache,
+                    len(req.prompt_tokens) + j)
+                steps.append(lg[0].float())
+            steps = torch.stack(steps)
+            out[req.rid] = {
+                "max_abs_diff": float((steps - full).abs().max()),
+                "argmax_agrees": float((steps.argmax(-1) == full.argmax(-1))
+                                       .float().mean()),
+                "max_abs_logit": float(full.abs().max())}
+            del cache
+    log(f"  bf16 decode vs forward (cf E/K, bf16 cache), not held: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def bf16_one_rank(torch, one_rank):
+    """One rank of build_prefill_step / build_decode_step for full-width
+    qwen1.5-0.5b at their default bf16 params and cache: phase 19's B 8 x
+    512 prefill and 16 greedy decode steps; launches counted from 0 just
+    before and read just after, one served call of each kernel held
+    against its plain version; the logits' distance to phase 19's f32
+    one-rank path and its greedy agreement, recorded."""
+    from repro_torch.configs.base import PipelinePlan, get_arch
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_model
+    from repro_torch.parallel.pipeline import (build_decode_step,
+                                               build_prefill_step,
+                                               stack_params)
+
+    dev = torch.device("cuda")
+    cfg = get_arch("qwen1.5-0.5b").config
+    plan = PipelinePlan(microbatches=PAR_PLAN["microbatches"])
+    ps, ds, _ = _par_shapes()
+    sp = stack_params(cfg, plan, init_model(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16,
+        dev))
+    pre, _ = build_prefill_step(cfg, plan, None, ps)
+    dec, _ = build_decode_step(cfg, plan, None, ds)
+    calls = {}
+    M, L = PAR_PLAN["microbatches"], cfg.n_layers
+    unwatch = _watch_served(torch, calls, KV_HOLD_TICK * L * M + L // 2)()
+    tokens = torch.from_numpy(one_rank["tokens"]).to(dev)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    try:
+        last, kv = pre(sp, {"tokens": tokens})
+        leaves = [t for layer in kv.values() for part in layer.values()
+                  for t in part.values()]
+        check(all(t.dtype == torch.bfloat16 for t in leaves),
+              "phase 22: the one-rank steps' caches are not bf16")
+        logits, times = [last], []
+        for i in range(PAR_DECODE):
+            tok = last.argmax(-1, keepdim=True).to(torch.int32)
+            t1 = time.perf_counter()
+            last, kv = dec(sp, kv, tok, PAR_SQ + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            logits.append(last)
+    finally:
+        unwatch()
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    want_launches("one rank at bf16", {"launches": launches}, {
+        "flash_attention": M * L, "decode_attention": PAR_DECODE * M * L,
+        "paged_decode_attention": 0})
+    errs, agree = [], 0
+    for i, lg in enumerate(logits):
+        lg = lg.float().cpu().numpy()
+        check(np.isfinite(lg).all(), "phase 22: non-finite bf16 logits")
+        errs.append(float(np.abs(lg - one_rank["logits"][i]).max()))
+        if i < PAR_DECODE:
+            agree += int((lg.argmax(-1) == one_rank["fed"][i][:, 0]).sum())
+    out = {"launches": launches, "calls_by_dtype": calls["by_dtype"],
+           "decode_ms": 1e3 * float(np.median(times)),
+           "logit_max_abs_diff_to_f32": max(errs),
+           "greedy_equal_to_f32": f"{agree} of {PAR_DECODE * PAR_B}",
+           "served": {n: _hold_served(torch, calls, n, "one rank at bf16")
+                      for n in SERVED[:2]}}
+    log(f"  one rank at bf16 params and cache: {json.dumps(out)}")
+    del sp, kv, logits
+    free_weights(torch)
+    return out
+
+
+def bf16_serving_phase(torch, card, one_rank):
+    """Phase 22: serving at the reference's default bf16 params.
+    (a) full-width qwen1.5-0.5b, bf16 params and cache, phase 5's 16
+    requests: run(), a dense and a paged-kernel run refactored [0, 12] ->
+    [0, 6, 12, 18] -> [0, 12], streams bit-identical; flash 24 per prefill
+    (flash_wgmma_kernel at hd 64) and decode or paged decode 24 per tick,
+    exactly; one served call of each kernel held against its plain version
+    (flash also against flash_wgmma_plain); ms/tick, tok/s, three profiled
+    ticks, peak memory.  (b) deepseek-v2-236b cut to DSV2_LAYERS layers,
+    bf16 params and latent cache: run() and a run refactored [0, 1] -> [0,
+    1, 2] -> [0, 1], streams bit-identical; flash at (192, 128) 3 per
+    prefill, no decode kernel; its first served flash call held; three
+    profiled ticks, peak memory and headroom; the bf16 decode-vs-forward
+    distance for requests 8 and 13, recorded.  (c) one rank of the
+    pipeline steps at their default bf16 (bf16_one_rank).  (d) phase 4 at
+    bf16 (bf16_small_model_check) for qwen1.5-0.5b and the widened MLA
+    deepseek-v2."""
+    from repro_torch.configs.base import get_arch, shrink
+
+    t0 = time.perf_counter()
+    free_weights(torch)
+    out = {}
+    # (a) qwen1.5-0.5b
+    calls = {"dense": {}, "paged": {}}
+    L = get_arch("qwen1.5-0.5b").config.n_layers
+    at = KV_HOLD_TICK * L + L // 2
+    cfg, params, reqs, runs = serving(
+        torch, card, "qwen1.5-0.5b", torch.Generator().manual_seed(0),
+        {"dense refactored": {},
+         "paged kernel refact.": dict(paged=True, block_size=16,
+                                      paged_kernel=True)},
+        prefix="qwen bf16 ", dtype=torch.bfloat16, cache_dtype="bfloat16",
+        watches={"qwen bf16 dense refactored":
+                 _watch_served(torch, calls["dense"], at),
+                 "qwen bf16 paged kernel refact.":
+                 _watch_served(torch, calls["paged"], at)})
+    for label, run in runs.items():
+        paged = "paged" in label
+        want_launches(label, run, {
+            "flash_attention": L * len(reqs),
+            "decode_attention": 0 if paged else L * run["ticks_decoding"],
+            "paged_decode_attention":
+                L * run["ticks_decoding"] if paged else 0})
+    served = {"flash_attention": _hold_served(
+                  torch, calls["dense"], "flash_attention", "qwen bf16"),
+              "decode_attention": _hold_served(
+                  torch, calls["dense"], "decode_attention", "qwen bf16"),
+              "paged_decode_attention": _hold_served(
+                  torch, calls["paged"], "paged_decode_attention",
+                  "qwen bf16")}
+    prof = profile_moe_ticks(torch, cfg, params, (0, 12),
+                             cache_dtype="bfloat16")
+    mem = peak_memory(torch, "qwen1.5-0.5b at bf16")
+    dense = runs["qwen bf16 dense refactored"]
+    out["qwen"] = {"runs": runs, "served": served,
+                   "calls_by_dtype": calls["dense"]["by_dtype"],
+                   "paged_calls_by_dtype": calls["paged"]["by_dtype"],
+                   "decode_ms_per_tick": dense["decode_ms_per_tick"],
+                   "decode_tok_per_s": dense["decode_tok_per_s"], **prof,
+                   **mem}
+    del params
+    free_weights(torch)
+    # (b) deepseek-v2-236b, DSV2_LAYERS layers
+    full = get_arch("deepseek-v2-236b").config
+    cfg = shrink(full, n_layers=DSV2_LAYERS)
+    log(f"  deepseek-v2-236b: {cfg.n_layers} of {full.n_layers} layers at "
+        f"full width, {cfg.param_count()} params "
+        f"({cfg.param_count() * 2 / 1e9:.1f} GB bf16)")
+    calls = {}
+    cfg, params, reqs, runs = serving(
+        torch, card, "deepseek-v2-236b",
+        torch.Generator(device="cuda").manual_seed(0),
+        {"dense refactored": {}}, prefix="deepseek-v2 bf16 ",
+        boundaries=(0, 1), moves={10: [0, 1, 2], 30: [0, 1]}, cfg=cfg,
+        dtype=torch.bfloat16, cache_dtype="bfloat16",
+        watches={"deepseek-v2 bf16 dense run()":
+                 _watch_served(torch, calls, 0)})
+    Lv = cfg.n_layers
+    for label, run in runs.items():
+        want_launches(label, run, {
+            "flash_attention": Lv * len(reqs), "decode_attention": 0,
+            "paged_decode_attention": 0})
+    first = _hold_served(torch, calls, "flash_attention",
+                         "deepseek-v2 bf16")
+    check(first["q"][-1] == 192 and first["k"][-1] == 192,
+          f"deepseek-v2 bf16: the first flash call is not at hd 192: {first}")
+    streams = decode_vs_forward_bf16(torch, cfg, params, reqs, (8, 13))
+    prof = profile_moe_ticks(torch, cfg, params, (0, 1),
+                             cache_dtype="bfloat16")
+    mem = peak_memory(torch, f"deepseek-v2-236b at bf16 ({Lv} layers)")
+    check(mem["headroom_bytes"] >= 2 * GiB,
+          f"deepseek-v2-236b at bf16 left {mem['headroom_bytes']} B free "
+          "at its peak, under 2 GiB")
+    dense = runs["deepseek-v2 bf16 dense refactored"]
+    out["deepseek_v2"] = {
+        "runs": runs, "layers": Lv, "params": cfg.param_count(),
+        "first_flash_call": first, "decode_vs_forward": streams,
+        "decode_ms_per_tick": dense["decode_ms_per_tick"],
+        "decode_tok_per_s": dense["decode_tok_per_s"], **prof, **mem}
+    del params
+    free_weights(torch)
+    # (c) one rank of the pipeline steps, (d) phase 4 at bf16
+    out["one_rank"] = bf16_one_rank(torch, one_rank)
+    out["small"] = {arch: bf16_small_model_check(torch, arch)
+                    for arch in ("qwen1.5-0.5b", "deepseek-v2-236b")}
+    out["s"] = time.perf_counter() - t0
+    log(f"  phase 22 on {card}: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("qwen", "deepseek_v2")}))
+    for k in ("qwen", "deepseek_v2"):
+        log(f"  phase 22 {k}: " + json.dumps(
+            {a: b for a, b in out[k].items() if a != "runs"}))
     return out
 
 
@@ -4367,7 +4792,7 @@ def main() -> int:
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_DIR}; phase 21's earlier design beside them)")
     log("== 3. kernels vs plain versions")
-    kres = kernel_checks(torch)
+    kres = kernel_checks(torch, span_lib)
     log("== 4. small-input model check")
     for arch in ("qwen1.5-0.5b", "rwkv6-1.6b", "gemma3-1b",
                  "deepseek-moe-16b", "jamba-v0.1-52b", "qwen1.5-110b",
@@ -4470,6 +4895,9 @@ def main() -> int:
     log("== 21. bf16 training (the reference's default dtype)")
     b_out = bf16_training_phase(torch, card, t_out["card_vs_cpu"],
                                 span_lib)
+    log("== 22. serving at bf16 params: qwen1.5-0.5b, deepseek-v2-236b "
+        f"({DSV2_LAYERS} layers), one rank's steps, phase 4 at bf16")
+    s_out = bf16_serving_phase(torch, card, p_out["one_rank"])
 
     paths = {"decode_attention": "dense run()",
              "flash_attention": "dense run()",
@@ -4604,6 +5032,23 @@ def main() -> int:
                 if name == "decode_attention":
                     kernels[-1][f"{path}_served_max_abs_err"] = \
                         run["served_hold"]["max_abs_err"]
+        # phase 22: qwen1.5-0.5b at bf16 params and cache (flash at hd 64
+        # is flash_wgmma_kernel), the one rank's bf16 steps
+        qb = s_out["qwen"]
+        run = ("qwen bf16 paged kernel refact."
+               if name == "paged_decode_attention"
+               else "qwen bf16 dense refactored")
+        if name != "wkv6":
+            kernels[-1]["launches_bf16_serving"] = \
+                qb["runs"][run]["launches"].get(name, 0)
+            kernels[-1]["bf16_serving_launched_in"] = run
+            kernels[-1]["bf16_serving_served_max_abs_err"] = \
+                qb["served"][name]["max_abs_err"]
+            check(kernels[-1]["launches_bf16_serving"] > 0,
+                  f"{name} was not launched on the bf16 serving path")
+        if name in ("flash_attention", "decode_attention"):
+            kernels[-1]["launches_bf16_one_rank"] = \
+                s_out["one_rank"]["launches"].get(name, 0)
         for key in ("hd256_window", "hd256_causal", "hd192_128",
                     "hd192_128_h128", "hd192_128_h128_1024",
                     "hd256_ring", "hd256_global", "hd128", "hd128_mha",
@@ -4719,9 +5164,43 @@ def main() -> int:
         "occupancy": kres["flash_attention"]["bf16_one_pass"][
             "occupancy_128"],
         "first_flash_call": d["first_flash_call"]})
+    # the bf16 forward at (192, 128): flash_wgmma_kernel on deepseek-v2's
+    # MLA prefill (phase 3's 128-head rows), its launches counted in phase
+    # 22's bf16 run() of deepseek-v2-236b
+    dv = s_out["deepseek_v2"]
+    n = dv["runs"]["deepseek-v2 bf16 dense run()"]["launches"].get(
+        "flash_attention", 0)
+    check(n > 0, "the bf16 flash forward at (192, 128) was not launched on "
+          "the deepseek-v2 bf16 serving path")
+    fa = kres["flash_attention"]
+    r = fa["hd192_128_h128"]["bf16"]
+    kernels.append({
+        "name": "flash_attention_bf16_mla", "route": "cuda",
+        "source": sources["flash_attention"],
+        "replaces": replaces["flash_attention"], "launches": n,
+        "launched_in": "deepseek-v2 bf16 dense run() "
+                       f"({dv['layers']} layers, bf16 params and cache)",
+        "max_abs_err": r["max_abs_err"],
+        "max_abs_err_vs_mirror": r["max_abs_err_vs_mirror"],
+        "tolerance": tolerance["flash_attention"][1],
+        "ms": r["ms"], "earlier_ms": r["earlier_ms"],
+        "earlier": r["earlier"], "ms_turns": r["ms_turns"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"], "kernel": "flash_wgmma_kernel",
+        "ptxas": r["ptxas"], "occupancy": r["occupancy"],
+        "bucket_1024": {x: fa["hd192_128_h128_1024"]["bf16"][x] for x in (
+            "ms", "earlier_ms", "ms_turns", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err",
+            "max_abs_err_vs_mirror", "shape")},
+        "heads_16": {x: fa["hd192_128"]["bf16"][x] for x in (
+            "ms", "earlier_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err", "shape")},
+        "first_flash_call": dv["first_flash_call"]})
     log(f"  phase 18 (training) {t_out['s']:.1f} s; phase 19 (multi-rank) "
         f"{p_out['s']:.1f} s; phase 20 (narrow caches) {n_out['s']:.1f} s; "
-        f"phase 21 (bf16 training) {b_out['s']:.1f} s")
+        f"phase 21 (bf16 training) {b_out['s']:.1f} s; phase 22 (bf16 "
+        f"serving) {s_out['s']:.1f} s")
     log("  phase 20 roofline against the card: " + json.dumps(
         n_out["roofline"]))
     log(f"  phases 12-17: deepseek-moe-16b {d_out['s']:.1f} s, "

@@ -71,8 +71,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_attention_launch":
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
              _I, _I, _I, _P],
-        # hd: CTAs of the bf16 one-pass kernel an SM holds
-        "flash_wgmma_occupancy": [_I],
+        # hd, hdv: CTAs of the bf16 one-pass kernel an SM holds
+        "flash_wgmma_occupancy": [_I, _I],
     },
     "flash_attention_bwd": {
         # q, k, v, o, dout, dq, dk, dv, scratch, B, Sq, Skv, H, Kh, hd, hdv,

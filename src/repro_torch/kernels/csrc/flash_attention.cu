@@ -7,9 +7,9 @@
 // about 2 * 2 * 512 * 512 / 2 * 64 causal flops against 4 * 512 * 64 * 4
 // bytes of q, k, v and out: ~64 flops per byte, so the products belong on
 // the tensor cores.  Three designs share the file: flash_kernel (f32 at hd
-// <= 64), flash_wgmma_kernel (bf16 at hd <= 64 and at (128, 128)) and the
-// span kernel (f32 at hd >= 128, bf16 at (192, 128) and (256, 256)), each
-// below.  flash_kernel:
+// <= 64), flash_wgmma_kernel (bf16 at hd <= 64, (128, 128) and (192, 128))
+// and the span kernel (f32 at hd >= 128, bf16 at (256, 256)), each below.
+// flash_kernel:
 //   * one CTA of 8 warps per (b*h, tile of 64 query rows): each m16 row
 //     tile has two warps, one per half of every kv tile's keys, each with
 //     its own online-softmax state; the pair merges once, at the end, in
@@ -51,7 +51,7 @@
 // Up to hd = hdv = 64 in f32 flash_kernel runs as above: tiles of 64 keys,
 // the two warps of a row tile splitting them.
 //
-// bf16 at (16, 16), (32, 32), (64, 64) and (128, 128) runs
+// bf16 at (16, 16), (32, 32), (64, 64), (128, 128) and (192, 128) runs
 // flash_wgmma_kernel, on Hopper's warpgroup products (wgmma.cuh).  At
 // qwen1.5-0.5b's training call (B 4, Sq = Skv 512, 16 heads of 64, causal)
 // the bound is bytes:
@@ -67,12 +67,12 @@
 //     (two xor-shuffles, a fixed order) and nothing is merged;
 //   * Q (with the first tile) and 64-key K and V tiles of ABSOLUTE keys
 //     (tile0 = kv_lo / 64 * 64) arrive by 16-byte cp.async into a 3-stage
-//     ring, each chunk XORed into the swizzled layout of its row width
-//     (128, 64 or 32 bytes, wgmma.cuh), rows past Sq and Skv zero-filled;
-//     a thread's chunks lie 2048 bytes apart, so its swizzled offsets and
-//     source strides are fixed and a tile costs it a compare and an add a
-//     copy; fence.proxy.async, then one barrier a tile, hands the copies
-//     to the tensor cores;
+//     ring (wg_stages), each chunk XORed into the swizzled layout of its
+//     row width (128, 64 or 32 bytes, wgmma.cuh), rows past Sq and Skv
+//     zero-filled; a thread's chunks lie whole swizzle patterns apart
+//     (WgCopy), so its swizzled offsets and source strides are fixed and a
+//     tile costs it a compare and an add a copy; fence.proxy.async, then
+//     one barrier a tile, hands the copies to the tensor cores;
 //   * S = Q.K^T: wgmma m64n64k16, both operands K-major from shared memory
 //     (Q stays in place for the whole walk); the 64x64 f32 S lands in
 //     registers in the accumulator layout;
@@ -133,9 +133,41 @@
 // H100, tools/kernel_stages.py bf16fwd): 512 CTAs in two waves, a tile
 // about 600 cycles of copies and barrier, 650 S, 920 softmax and 300 the
 // previous P.V's tail, so a CTA costs 2.7 us + 1.6 per tile.
+// At (192, 128) (MLA prefill: deepseek-v2-236b's 128 heads; the bf16 span
+// kernel took 0.231 ms at the 512 bucket, 5.2x SDPA's bf16 forward and
+// 9.2x its 25.0 us bytes bound: f32 partials of every row past its first
+// span, about 150 MB of traffic beside the 84 MB of q, k, v and out) the
+// walk runs with Q and K rows of 384 bytes, three swizzle atoms:
+//   * Q and K tiles are three 64-column blocks (rt::Swz<192, R>), S's
+//     k-step kk (12 of them) reads block kk / 4, 32 (kk % 4) bytes in, by
+//     the same descriptor as at (128, 128); a thread copies chunk i % 8 of
+//     rows i / 8 + 16 j in each block (128 threads do not divide a row's
+//     24 chunks);
+//   * V and O stay at 128 columns: P.V and its descriptor are (128,
+//     128)'s, and O leaves through the first two blocks of Q's tile;
+//   * S stays 64 x 64, so a thread holds what it holds at (128, 128): 162
+//     registers, no spills;
+//   * a 3-stage ring would take 1,024 + 24,576 + 3 x 40,960 = 148,480 B,
+//     one CTA (4 warps) an SM; 2 stages take 107,520 B, two CTAs an SM.
+//     With 2 stages V lags K by a tile: the pass of tile it loads K of
+//     tile it + 1 (over tile it - 1's, whose S is done) and V of tile it
+//     (over tile it - 2's, whose P.V is done), and the last tile's P.V
+//     waits for its V behind one more barrier: the same products in the
+//     same order, so the same bits as 3 stages.  On an H100 2 stages took
+//     0.054 ms at the 512 bucket and 0.163 at 1024, 3 stages 0.078 and
+//     0.273 (tools/kernel_stages.py bf16fwd, in turns): wg_stages keeps 2.
+//     A CTA costs 3.0 us + 2.2 per tile; copies awaited and the barrier
+//     take 900-1,700 cycles of a tile against S's 700 and the softmax's
+//     850: each of the 8 query tiles of a head streams its K and V (40 KB
+//     a tile) again.  Tried and left out: 128 query rows a CTA (two
+//     warpgroups on one ring, 173,056 B, one CTA an SM: the same bits),
+//     which halved that stream and the copies' wait, but the two
+//     warpgroups' S products then queued behind each other (1,000-1,400
+//     cycles a tile): 0.059 and 0.169 ms, 0.058 and 0.167 with 2 stages.
 //
-// f32 at (128, 128), (192, 128) and (256, 256), and bf16 at (192, 128) and
-// (256, 256), run flash_span_kernel and flash_combine_kernel.  The f32
+// f32 at (128, 128), (192, 128) and (256, 256), and bf16 at (256, 256), run
+// flash_span_kernel and flash_combine_kernel (bf16 (128, 128) and (192,
+// 128) ran it before flash_wgmma_kernel took them).  The f32
 // one-pass layout lost there: at hd 256 f32 tiles of 64 keys do not fit
 // and a warp's O would be 128 registers
 // (53x its bound, behind SDPA); at hd 128 and (192, 128) (168,960 and
@@ -186,8 +218,8 @@
 //     a hi + lo pair), with the same fragment code as flash_kernel.
 //     wgmma is left out: in f32 it needs both operands K-major, so V
 //     transposed in shared memory, and each operand as big and small TF32
-//     copies, twice Q's and the ring's 200 KB, which do not fit; in bf16 it
-//     would need a second code path for one dtype;
+//     copies, twice Q's and the ring's 200 KB, which do not fit (bf16 has
+//     its own path, flash_wgmma_kernel, at every pair but (256, 256));
 //   * fully masked tiles still add exact zeros and exact scales of 1, and
 //     every sum has a fixed order, with no atomics: the same inputs give the
 //     same bits.
@@ -607,16 +639,24 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at (16, 16), (32, 32), (64, 64) and (128, 128): one warpgroup per
-// 64 query rows, its products on wgmma
+// bf16 at (16, 16), (32, 32), (64, 64), (128, 128) and (192, 128): one
+// warpgroup per 64 query rows, its products on wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;    // one warpgroup: warp w owns rows 16w..
-constexpr int kWgStages = 3;       // depth of the K/V ring
 constexpr int kWgAlign = 1024;     // where a swizzle pattern starts
 
-// CTAs an SM the registers must allow: 3 up to hd 64; 2 at hd 128, whose
-// 115,712 B of tiles admit no third, and whose thread holds O (64 f32), S
+// depth of the K/V ring: 3 up to hd 128; kWgStages192 = 2 at (192, 128),
+// whose 3-stage ring (148,480 B with Q) would leave one CTA an SM, where
+// 2 stages (107,520 B) let two share it
+constexpr int kWgStages192 = 2;
+template <int HD>
+__host__ __device__ constexpr int wg_stages() {
+  return HD == 192 ? kWgStages192 : 3;
+}
+
+// CTAs an SM the registers must allow: 3 up to hd 64; 2 at hd 128 and
+// 192, whose tiles admit no third, and whose thread holds O (64 f32), S
 // (32) and the overlapped tile's P hi + lo (32)
 template <int HD>
 __host__ __device__ constexpr int wg_min_ctas() {
@@ -627,8 +667,23 @@ __host__ __device__ constexpr int wg_min_ctas() {
 // tiles, then its V tiles, each in the swizzled layout of its row width
 template <int HD, int HDV>
 __host__ __device__ constexpr size_t wg_smem_bytes() {
-  return kWgAlign + 2 * (kBQ * HD + kWgStages * kTileKeys * (HD + HDV));
+  return kWgAlign +
+         2 * (kBQ * HD + wg_stages<HD>() * kTileKeys * (HD + HDV));
 }
+
+// the 16-byte cp.async copies of a tile of rows of D bf16 by the 128
+// threads: thread i takes chunk i % CW of rows i / CW + j RJ in each of
+// the row's NG groups of CW chunks.  Up to hd 128 a group is the whole row
+// (CW = D / 8); at hd 192 it is one 64-column block (CW = 8: 128 threads
+// do not divide a row of 24 chunks).  A thread's rows lie RJ rows apart,
+// whole swizzle patterns (RJ * row bytes is a multiple of 1,024), so its
+// swizzled offsets differ by a constant
+template <int D>
+struct WgCopy {
+  static constexpr int CW = D / 8 <= 16 ? D / 8 : 8;   // chunks a group
+  static constexpr int NG = D / 8 / CW;                // groups a row
+  static constexpr int RJ = kWgThreads / CW;           // rows a pass
+};
 
 // 2^x in one MUFU.EX2, results below 2^-126 flushed to zero (exp2f adds
 // a range fix-up around it for subnormal results, which P does not need)
@@ -647,6 +702,10 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    int Kh, int q_offset, int causal, int window,
                    float scale) {
   constexpr int BK = kTileKeys;               // keys a tile
+  constexpr int NS = wg_stages<HD>();         // ring stages
+  // at 2 stages V lags K by a tile (below): tile it + 1's V would land on
+  // tile it - 1's, which that tile's P.V still reads
+  constexpr bool kLagV = NS == 2;
   using QTile = rt::Swz<HD, kBQ>;             // Q's tile, then O's
   using KTile = rt::Swz<HD, BK>;
   using VTile = rt::Swz<HDV, BK>;
@@ -658,10 +717,10 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t qa = (raw + kWgAlign - 1) & ~uint32_t(kWgAlign - 1);
-  const uint32_t ka = qa + QT, va = ka + kWgStages * KT;
+  const uint32_t ka = qa + QT, va = ka + NS * KT;
   unsigned char* qs = smem_raw + (qa - raw);
   unsigned char* ks = qs + QT;
-  unsigned char* vs = ks + kWgStages * KT;
+  unsigned char* vs = ks + NS * KT;
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -684,30 +743,38 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = kv_hi > tile0 ? (kv_hi - tile0 + BK - 1) / BK : 0;
 
   // 16-byte cp.async copies by all 128 threads, each to its swizzled
-  // place: thread i copies chunk i % C of rows i / C + j * 128 / C, which
-  // lie RJ atom rows apart within the chunk's column block (2048 bytes up
-  // to hd 64, 1024 at hd 128: whole swizzle patterns), so the swizzle's
-  // XOR is the same for every j; rows past Skv (Sq) are zero-filled
-  static_assert(HD == HDV, "K and V rows share the copy pattern");
-  constexpr int RJ = kWgThreads / QC;         // rows a pass of copies covers
-  static_assert(RJ * KTile::kRow % kWgAlign == 0,
-                "a thread's copies lie whole swizzle patterns apart");
-  const int cr = threadIdx.x / QC, cc = threadIdx.x % QC;
-  const uint32_t csw = KTile::at(cr, cc);     // + j * RJ rows
+  // place (WgCopy), so the swizzle's XOR of a thread's copies is the same
+  // for every row it copies; rows past Skv (Sq) are zero-filled
   const int64_t krow0 = (int64_t)b * Skv * Kh + kh;   // row p at + p * Kh
-  auto load_tile = [&](int it) {
+  // tile it of rows of D from src (K or V) into stage it % NS of dst
+  auto load = [&](auto tile, int it, const __nv_bfloat16* src,
+                  unsigned char* dst) {
+    using Tile = decltype(tile);
+    using Cp = WgCopy<Tile::kD>;
+    constexpr int D = Tile::kD;
+    static_assert(Cp::RJ * Tile::kRow % kWgAlign == 0,
+                  "a thread's copies lie whole swizzle patterns apart");
+    static_assert(Cp::NG == 1 || 16 * Cp::CW == Tile::kRow,
+                  "a group of chunks is one column block");
+    const int cr = threadIdx.x / Cp::CW, cc = threadIdx.x % Cp::CW;
     const int p0 = tile0 + it * BK + cr;
-    const int64_t off = (krow0 + (int64_t)p0 * Kh) * HD + 8 * cc;
-    unsigned char* kd = ks + (it % kWgStages) * KT + csw;
-    unsigned char* vd = vs + (it % kWgStages) * VT + csw;
+    const int64_t off = (krow0 + (int64_t)p0 * Kh) * D + 8 * cc;
+    unsigned char* d =
+        dst + (it % NS) * Tile::kBytes + Tile::at(cr, cc);
 #pragma unroll
-    for (int j = 0; j < BK / RJ; ++j) {
-      const bool ok = p0 + j * RJ < Skv;
-      const int64_t src = ok ? off + (int64_t)j * RJ * Kh * HD : 0;
-      cp_async16(kd + j * RJ * KTile::kRow, k + src, ok);
-      cp_async16(vd + j * RJ * VTile::kRow, v + src, ok);
+    for (int j = 0; j < BK / Cp::RJ; ++j) {
+      const bool ok = p0 + j * Cp::RJ < Skv;
+#pragma unroll
+      for (int gi = 0; gi < Cp::NG; ++gi)
+        cp_async16(d + gi * Tile::kBlock + j * Cp::RJ * Tile::kRow,
+                   src + (ok ? off + (int64_t)j * Cp::RJ * Kh * D +
+                                   8 * Cp::CW * gi
+                             : 0),
+                   ok);
     }
   };
+  auto load_k = [&](int it) { load(KTile{}, it, k, ks); };
+  auto load_v = [&](int it) { load(VTile{}, it, v, vs); };
   if (n_tiles > 0) {
     // q (B, Sq, H, HD): raw rows, zeros past Sq, with the first tile
     for (int i = threadIdx.x; i < kBQ * QC; i += kWgThreads) {
@@ -717,7 +784,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                  q + (((int64_t)b * Sq + (ok ? qi : 0)) * H + h) * HD + 8 * c,
                  ok);
     }
-    load_tile(0);
+    load_k(0);
+    if (!kLagV) load_v(0);
   }
   cp_async_commit();
 
@@ -747,13 +815,20 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<0>();   // this thread's copies of tile it
+    cp_async_wait<0>();   // this thread's copies of tile it (at 2 stages:
+                          // K of tile it, V of tile it - 1)
     rt::fence_proxy_async();
-    __syncthreads();   // every thread's copies landed, and tile it - 2's
-                       // products are done: its stage may be refilled
-    if (it + 1 < n_tiles) load_tile(it + 1);
+    __syncthreads();   // every thread's copies landed, and the products
+                       // that read the stages refilled next are done:
+                       // tile it - 2's (3 stages); at 2 stages tile it -
+                       // 1's S and tile it - 2's P.V
+    if (it + 1 < n_tiles) load_k(it + 1);
+    if (kLagV)
+      load_v(it);   // read by tile it's P.V, issued in the next pass
+    else if (it + 1 < n_tiles)
+      load_v(it + 1);
     cp_async_commit();
-    const int st = it % kWgStages;
+    const int st = it % NS;
 
     // S = Q . K^T, raw scores; then tile it - 1's P.V, which runs on the
     // tensor cores while this tile's softmax runs
@@ -766,7 +841,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                        kk > 0);
     rt::wg_commit();
     if (it > 0) {
-      issue_pv((it - 1) % kWgStages);
+      issue_pv((it - 1) % NS);
       rt::wg_wait<1>();
     } else {
       rt::wg_wait<0>();
@@ -854,8 +929,13 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    pl[c][r]);
   }
   if (n_tiles > 0) {   // the last tile's P.V
+    if (kLagV) {          // its V, issued in the last pass, landed
+      cp_async_wait<0>();
+      rt::fence_proxy_async();
+      __syncthreads();
+    }
     rt::wg_fence();
-    issue_pv((n_tiles - 1) % kWgStages);
+    issue_pv((n_tiles - 1) % NS);
     rt::wg_wait<0>();
     rt::reg_fence(o);
   }
@@ -869,9 +949,10 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   // O through Q's tile (no S reads it any more), each warp its own 16
-  // rows in the swizzled layout of their width, then back as 16-byte
-  // pieces of whole rows
-  static_assert(HD == HDV, "O's rows take Q's place");
+  // rows in the swizzled layout of Q's width (at (192, 128) O fills the
+  // first two of its three column blocks), then back as 16-byte pieces of
+  // whole rows
+  static_assert(HD >= HDV, "O's rows fit in Q's");
   const int r0 = 16 * warp + g;
 #pragma unroll
   for (int n = 0; n < HDV / 8; ++n) {
@@ -1389,7 +1470,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // the dynamic shared memory flash_wgmma_kernel takes, and the carveout
 // that lets wg_min_ctas of it share an SM (at hd 128 two CTAs fill the
-// SM's 233,472 B, each with its 1 KB reserve)
+// SM's 233,472 B, each with its 1 KB reserve; at (192, 128) two take
+// 217,088 B)
 template <int HD, int HDV>
 cudaError_t wg_attributes() {
   constexpr size_t bytes = wg_smem_bytes<HD, HDV>();
@@ -1431,8 +1513,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 // and smem are the geometry the wrapper computed (kernels/
 // flash_attention.py::_geometry): span 0 and smem_bytes for flash_kernel
 // (f32, hd <= 64), span 0 and wg_smem_bytes for flash_wgmma_kernel (bf16,
-// hd <= 128, scale > 0), kSpan and span_smem for the span kernel (f32 at
-// (128, 128), (192, 128) and (256, 256), bf16 at (192, 128) and (256,
+// hd <= 128 and (192, 128), scale > 0), kSpan and span_smem for the span
+// kernel (f32 at (128, 128), (192, 128) and (256, 256), bf16 at (256,
 // 256), which also take the f32 scratch of B x H x Sq x n_spans partials);
 // any other is refused.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -1468,7 +1550,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     RT_SPAN(float, 256, 256)
   } else if (dtype == rt::kDtypeBF16) {
     RT_WG(16, 16) RT_WG(32, 32) RT_WG(64, 64) RT_WG(128, 128)
-    RT_SPAN(__nv_bfloat16, 192, 128) RT_SPAN(__nv_bfloat16, 256, 256)
+    RT_WG(192, 128) RT_SPAN(__nv_bfloat16, 256, 256)
   }
 #undef RT_WG
 #undef RT_CASE
@@ -1476,20 +1558,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// CTAs of flash_wgmma_kernel<hd, hd> an SM holds at once
+// CTAs of flash_wgmma_kernel<hd, hdv> an SM holds at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the attributes its
 // launcher sets), or -1 for a pair it does not take
-extern "C" int flash_wgmma_occupancy(int hd) {
+extern "C" int flash_wgmma_occupancy(int hd, int hdv) {
   int n = -1;
-#define RT_OCC(D)                                                         \
-  if (hd == D) {                                                          \
-    if (wg_attributes<D, D>() != cudaSuccess ||                           \
+#define RT_OCC(D, DV)                                                     \
+  if (hd == D && hdv == DV) {                                             \
+    if (wg_attributes<D, DV>() != cudaSuccess ||                          \
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(                    \
-            &n, flash_wgmma_kernel<D, D>, kWgThreads,                     \
-            wg_smem_bytes<D, D>()) != cudaSuccess)                        \
+            &n, flash_wgmma_kernel<D, DV>, kWgThreads,                    \
+            wg_smem_bytes<D, DV>()) != cudaSuccess)                       \
       return -1;                                                          \
   }
-  RT_OCC(16) RT_OCC(32) RT_OCC(64) RT_OCC(128)
+  RT_OCC(16, 16) RT_OCC(32, 32) RT_OCC(64, 64) RT_OCC(128, 128)
+  RT_OCC(192, 128)
 #undef RT_OCC
   return n;
 }

@@ -17,11 +17,12 @@
 // the swizzled layout of its width: the 16-byte chunk c of row r sits at
 // byte r * 2D + 16 c, with bits [4, 7) of that offset XORed by bits [7,
 // 10) (CUTLASS's Swizzle<B, 4, 3>: B = 1, 2, 3 for 32-, 64- and 128-byte
-// rows), counted from a 1024-byte boundary.  A row of 128 bf16 is stored
-// as two column blocks of 64, each an R-row tile of 128-byte swizzled rows,
-// the second R * 128 bytes after the first.  The descriptor names the
-// mode, so the hardware undoes the XOR on its own addresses: both sides
-// must agree, or the numbers come out wrong without any error.
+// rows), counted from a 1024-byte boundary.  A row of 128 or 192 bf16 is
+// stored as two or three column blocks of 64, each an R-row tile of
+// 128-byte swizzled rows, block b starting b * R * 128 bytes after the
+// first.  The descriptor names the mode, so the hardware undoes the XOR on
+// its own addresses: both sides must agree, or the numbers come out wrong
+// without any error.
 //   * K-major (rows along k: Q and K in S = Q K^T): a k16 step is 32
 //     bytes of each row of one column block; the descriptor of step kk
 //     starts in block kk / (atom / 16), 32 (kk % (atom / 16)) bytes in;
@@ -43,12 +44,15 @@
 
 namespace rt {
 
-// a tile of R rows of D bf16: one swizzle atom a row up to D = 64, two
-// column blocks of 64 at D = 128
+// a tile of R rows of D bf16: one swizzle atom a row up to D = 64; D / 64
+// column blocks of 64 at D = 128 and 192 (a row of 384 bytes is three
+// atoms: the same rule, one block more)
 template <int D, int R>
 struct Swz {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "rows of 16, 32, 64 or 128 bf16");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 192,
+                "rows of 16, 32, 64 bf16 (one atom), or of 128 or 192 (two "
+                "or three 64-column blocks)");
+  static constexpr int kD = D;
   static constexpr int kAtom = D < 64 ? D : 64;    // bf16 an atom row
   static constexpr int kRow = 2 * kAtom;           // bytes an atom row
   static constexpr int kMask = kRow / 16 - 1;      // 16-byte chunks - 1

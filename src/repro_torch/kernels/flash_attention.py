@@ -22,11 +22,12 @@ spans in span order.  ``span_plan``, ``flash_partials_plain`` and
 ``flash_combine_plain`` are the plain versions of that plan and of both
 passes, and ``_geometry`` the launch geometry that the C launcher checks.
 
-At bf16 and (hd, hdv) of at most (64, 64), and at (128, 128), the kernel is
-``flash_wgmma_kernel``: one warpgroup per 64 query rows, 64-key tiles of
-absolute keys, S and P.V on Hopper's wgmma, P entering P.V as bf16 hi + lo
-(f32 accuracy up to the output's rounding); at (128, 128) its rows are two
-64-column blocks of one swizzle atom each.  ``flash_wgmma_plain`` is the
+At bf16 and (hd, hdv) of at most (64, 64), at (128, 128) and at (192, 128),
+the kernel is ``flash_wgmma_kernel``: one warpgroup per 64 query rows,
+64-key tiles of absolute keys, S and P.V on Hopper's wgmma, P entering P.V
+as bf16 hi + lo (f32 accuracy up to the output's rounding); rows of 128 and
+192 are two and three 64-column blocks of one swizzle atom each, and the
+K/V ring is ``wg_stages(hd)`` deep.  ``flash_wgmma_plain`` is the
 plain version of that design's arithmetic, which the tests hold against
 ``flash_attention_plain`` and the Pallas kernel, and the kernel against.
 It takes scale > 0 (its row maxima are taken on the unscaled scores).
@@ -63,13 +64,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
                   (256, 256))
 # the (hd, hdv) the span kernel takes, f32 and bf16; the others run in one
-# pass (at bf16 (128, 128) too, in flash_wgmma_kernel)
+# pass (at bf16 (128, 128) and (192, 128) too, in flash_wgmma_kernel)
 SPAN_PAIRS = ((128, 128), (192, 128), (256, 256))
-SPAN_PAIRS_BF16 = ((192, 128), (256, 256))
+SPAN_PAIRS_BF16 = ((256, 256),)
 SPAN = 128                         # absolute key positions per span (kSpan)
 TILE_Q = 64                        # query rows per CTA (kBQ)
 TILE_K = 64                        # keys per ring tile of the one-pass kernels
 WG_STAGES = 3                      # K/V ring depth of the bf16 one-pass kernel
+WG_STAGES_192 = 2                  # ... at (192, 128) (kWgStages192)
 WG_ALIGN = 1024                    # its tiles' alignment (kWgAlign)
 LOG2E = 1.4426950408889634
 
@@ -86,6 +88,23 @@ def is_span(hd: int, hdv: int, dtype: torch.dtype) -> bool:
                          else SPAN_PAIRS)
 
 
+def wg_stages(hd: int) -> int:
+    """The K/V ring depth of the bf16 one-pass kernel at hd (wg_stages in
+    the .cu): ``WG_STAGES``, or ``WG_STAGES_192`` at (192, 128), where a
+    3-stage ring would leave one CTA an SM."""
+    return WG_STAGES_192 if hd == 192 else WG_STAGES
+
+
+def wg_smem(hd: int, hdv: int, stages: int | None = None) -> int:
+    """The bf16 one-pass kernel's dynamic shared memory (wg_smem_bytes):
+    ``WG_ALIGN`` bytes for rounding the tiles' start up to a swizzle
+    boundary, Q's ``TILE_Q`` rows and a ``stages``-deep ring
+    (``wg_stages(hd)`` by default) of 64-key K and V tiles, unpadded
+    bf16."""
+    stages = wg_stages(hd) if stages is None else stages
+    return WG_ALIGN + 2 * (TILE_Q * hd + stages * TILE_K * (hd + hdv))
+
+
 def _geometry(hd: int, hdv: int, dtype: torch.dtype) -> Geometry:
     """The kernels' launch geometry (csrc/flash_attention.cu: kTileKeys and
     smem_bytes, wg_smem_bytes for the bf16 one-pass kernel, or span_tile
@@ -94,14 +113,11 @@ def _geometry(hd: int, hdv: int, dtype: torch.dtype) -> Geometry:
     ring, rows padded by 16 bytes (f32) or 8 elements (bf16), and in the
     span kernel P and the pair's row maxima and sums in f32; its ring tiles
     hold 64 keys, or 32 for f32 rows wider than 128.  bf16 one-pass
-    (``flash_wgmma_kernel``): unpadded swizzled bf16 rows, Q's tile and a
-    ``WG_STAGES``-deep ring of 64-key K and V tiles, behind ``WG_ALIGN``
-    bytes for rounding the tiles' start up to a swizzle boundary."""
+    (``flash_wgmma_kernel``): ``wg_smem``, unpadded swizzled bf16 rows."""
     es = dtype.itemsize
     if not is_span(hd, hdv, dtype):
         if dtype == torch.bfloat16:
-            return Geometry(TILE_K, 0, WG_ALIGN + es * (
-                TILE_Q * hd + WG_STAGES * TILE_K * (hd + hdv)))
+            return Geometry(TILE_K, 0, wg_smem(hd, hdv))
         return Geometry(TILE_K, 0, _ring_smem(hd, hdv, es, TILE_K))
     return _span_geometry(hd, hdv, es)
 
@@ -663,8 +679,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.dtype == torch.bfloat16 and not is_span(hd, hdv, q.dtype) \
             and not scale > 0:
         raise ValueError("flash attention: the bf16 one-pass kernel (hd <= "
-                         "128) takes scale > 0 (it takes each row's max on "
-                         f"the unscaled scores), got {scale}")
+                         "128 and (192, 128)) takes scale > 0 (it takes each "
+                         f"row's max on the unscaled scores), got {scale}")
     if how == "meta":
         return build.meta_outputs(lambda: q.new_empty((B, Sq, H, hdv)),
                                   q, k, v)

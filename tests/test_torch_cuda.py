@@ -170,8 +170,17 @@ def _over_bf16_ulp(got, want):
     return int(((got - want).abs() > ulp.clamp_min(5e-3)).sum())
 
 
+# the head dims flash_wgmma_kernel takes at bf16; hdv is hd's, or 128 at
+# MLA's hd 192
+WGMMA_HDS = [16, 32, 64, 128, 192]
+
+
+def _hdv(hd):
+    return 128 if hd == 192 else hd
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", WGMMA_HDS)
 @pytest.mark.parametrize("B,Sq,Skv,H,Kh,causal,window,q_offset", [
     (1, 512, 512, 16, 16, True, 0, None),
     (2, 130, 130, 4, 4, True, 40, None),
@@ -184,11 +193,13 @@ def test_cuda_flash_wgmma(cuda_dev, hd, B, Sq, Skv, H, Kh, causal, window,
     """The bf16 one-pass kernel (flash_wgmma_kernel) within one bf16 ulp or
     5e-3 of the plain version and of its design's mirror
     (flash_wgmma_plain), at Sq and Skv off its tiles, windows, q_offset,
-    GQA and rows that see no key; two calls give the same bits."""
+    GQA and rows that see no key, at every pair it takes ((192, 128):
+    three-block rows of Q and K, a 2-stage ring with V a tile behind K);
+    two calls give the same bits."""
     rng = np.random.default_rng(hd + Sq + Skv)
     q = _rand(rng, (B, Sq, H, hd), "bfloat16", cuda_dev)
     k = _rand(rng, (B, Skv, Kh, hd), "bfloat16", cuda_dev)
-    v = _rand(rng, (B, Skv, Kh, hd), "bfloat16", cuda_dev)
+    v = _rand(rng, (B, Skv, Kh, _hdv(hd)), "bfloat16", cuda_dev)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     got = flash_attention(q, k, v, **kw)
     assert _over_bf16_ulp(got, flash_attention_plain(q, k, v, **kw)) == 0
@@ -197,7 +208,7 @@ def test_cuda_flash_wgmma(cuda_dev, hd, B, Sq, Skv, H, Kh, causal, window,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", WGMMA_HDS)
 @pytest.mark.parametrize("window", [0, 100])
 def test_cuda_flash_wgmma_chunked(cuda_dev, hd, window):
     """flash_wgmma_kernel chunk by chunk (16, 64, 128 rows at q_offset c0)
@@ -206,13 +217,30 @@ def test_cuda_flash_wgmma_chunked(cuda_dev, hd, window):
     Sp, H, Kh = 300, 8, 2
     q = _rand(rng, (1, Sp, H, hd), "bfloat16", cuda_dev)
     k = _rand(rng, (1, Sp, Kh, hd), "bfloat16", cuda_dev)
-    v = _rand(rng, (1, Sp, Kh, hd), "bfloat16", cuda_dev)
+    v = _rand(rng, (1, Sp, Kh, _hdv(hd)), "bfloat16", cuda_dev)
     whole = flash_attention(q, k, v, q_offset=0, window=window)
     for chunk in (16, 64, 128):
         parts = [flash_attention(q[:, c0:c0 + chunk].contiguous(), k, v,
                                  q_offset=c0, window=window)
                  for c0 in range(0, Sp, chunk)]
         assert torch.equal(torch.cat(parts, 1), whole), chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WGMMA_HDS)
+def test_cuda_flash_wgmma_registers_and_occupancy(cuda_dev, hd):
+    """flash_wgmma_kernel at each pair: no spills in its build log, and the
+    CTAs an SM holds with the attributes its launcher sets at least its
+    launch bounds' minimum (3 up to hd 64; 2 at (128, 128) and, with its
+    2-stage ring, at (192, 128))."""
+    lib = build.library("flash_attention")
+    name = f"flash_wgmma_kernelILi{hd}ELi{_hdv(hd)}E"
+    found = {k: r for k, r in build.ptxas_report("flash_attention").items()
+             if name in k}
+    assert found, f"{name} not in the build log"
+    for r in found.values():
+        assert not r.get("spill_stores") and not r.get("spill_loads"), r
+    assert lib.flash_wgmma_occupancy(hd, _hdv(hd)) >= (3 if hd <= 64 else 2)
 
 
 def _pools(rng, lens, Kh, hd, bs, M, dt, dev):
@@ -333,7 +361,8 @@ def test_cuda_flash_tile_edges(cuda_dev, dt, hd):
 def test_cuda_flash_wide_heads(cuda_dev, dt, hd, hdv, Sq, Skv, H, Kh, window,
                                q_offset):
     """The head sizes whose tiles differ: hd = hdv = 256 (key tiles of 32 in
-    f32, the warp pair splitting the output columns) and (192, 128)."""
+    f32, the warp pair splitting the output columns) and (192, 128) (at
+    bf16 flash_wgmma_kernel, three-block Q and K rows)."""
     rng = np.random.default_rng(hd + Sq)
     q = _rand(rng, (1, Sq, H, hd), dt, cuda_dev)
     k = _rand(rng, (1, Skv, Kh, hd), dt, cuda_dev)
@@ -421,7 +450,7 @@ FLASH_SPAN_NARROW_CASES = [
 def test_cuda_flash_span_kernel_narrow(cuda_dev, dt, hd, hdv):
     """The span kernel at (128, 128) and (192, 128) across span edges, with
     windows, q_offset, GQA and Sq off the query tile: against the plain
-    version, and the same bits again (bf16 (128, 128) runs the one-pass
+    version, and the same bits again (at bf16 both pairs run the one-pass
     flash_wgmma_kernel, held here at the same cases)."""
     rng = np.random.default_rng(hd + hdv)
     for Sq, Skv, H, Kh, window, q_offset in FLASH_SPAN_NARROW_CASES:
@@ -448,7 +477,7 @@ def test_cuda_flash_span_kernel_narrow(cuda_dev, dt, hd, hdv):
 def test_cuda_flash_chunk_composition_narrow(cuda_dev, dt, hd, hdv, chunk,
                                              Sp, H, Kh, window):
     """Chunk-by-chunk calls give one call's bits in the span kernel at
-    (128, 128) and (192, 128) (flash_wgmma_kernel at bf16 (128, 128)):
+    (128, 128) and (192, 128) (flash_wgmma_kernel at bf16):
     deepseek-moe-16b's bucket, jamba-v0.1-52b's heads at a prompt off the
     spans and tiles, and a window."""
     rng = np.random.default_rng(hd + chunk + Sp)

@@ -2,8 +2,9 @@
 (``flash_wgmma_plain``: 64-key absolute tiles, the log2-domain online
 softmax, P.V as bf16 hi plus bf16 lo products summed in f32) held within
 one bf16 ulp or 5e-3 of ``flash_attention_plain`` and of the Pallas kernel
-in interpret mode, on seeded bf16 inputs at (16, 16), (32, 32), (64, 64)
-and (128, 128); its chunked calls bit-identical to one call; and the launch
+in interpret mode, on seeded bf16 inputs at (16, 16), (32, 32), (64, 64),
+(128, 128) and (192, 128); its chunked calls bit-identical to one call; and
+the launch
 geometry (``_geometry``) the C launcher checks.  The CUDA kernel that runs this
 design (``flash_wgmma_kernel``) is held to the same mirror in
 test_torch_cuda.py and chip_smoke.py."""
@@ -17,12 +18,12 @@ from repro.kernels.flash_attention import flash_attention as pl_flash
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels.flash_attention import (
     TILE_K, TILE_Q, WG_ALIGN, WG_STAGES, flash_attention_plain,
-    flash_wgmma_plain)
+    flash_wgmma_plain, wg_stages)
 
 torch.set_num_threads(2)
 
 BF16_TOL = 5e-3
-PAIRS = [(16, 16), (32, 32), (64, 64), (128, 128)]
+PAIRS = [(16, 16), (32, 32), (64, 64), (128, 128), (192, 128)]
 
 
 def _bf16(rng, *shape):
@@ -111,37 +112,45 @@ def test_flash_wgmma_mirror_rows_without_keys():
 @pytest.mark.parametrize("hd,hdv", PAIRS)
 def test_flash_wgmma_geometry(hd, hdv):
     """wg_smem_bytes: the tiles' start rounded up to a 1024-byte swizzle
-    boundary, Q's 64 rows and a WG_STAGES-deep ring of 64-key K and V
+    boundary, Q's 64 rows and a wg_stages(hd)-deep ring of 64-key K and V
     tiles, all unpadded bf16 rows: at (64, 64) 58,368 B, so three CTAs
     share an SM's 228 KB (wg_min_ctas); at (128, 128) 115,712 B, so two
-    fill it exactly, with each CTA's 1 KB reserve."""
+    fill it exactly, with each CTA's 1 KB reserve; at (192, 128) a 2-stage
+    ring, 107,520 B, so two share it, where a 3-stage ring (148,480 B)
+    would leave one."""
     geo = fk._geometry(hd, hdv, torch.bfloat16)
     assert geo.tile == TILE_K == 64 and geo.span == 0
     assert not fk.is_span(hd, hdv, torch.bfloat16)
+    assert wg_stages(hd) == (2 if hd == 192 else WG_STAGES)
     assert geo.smem == WG_ALIGN + 2 * (TILE_Q * hd
-                                       + WG_STAGES * TILE_K * (hd + hdv))
+                                       + wg_stages(hd) * TILE_K * (hd + hdv))
     ctas = 3 if hd <= 64 else 2
     assert ctas * (geo.smem + 1024) <= 228 * 1024
     if hd == 128:
         assert geo.smem == 115_712
         assert 2 * (geo.smem + 1024) == 228 * 1024
+    if hd == 192:
+        assert geo.smem == 107_520
+        three = WG_ALIGN + 2 * (TILE_Q * hd + 3 * TILE_K * (hd + hdv))
+        assert three == 148_480 and 2 * (three + 1024) > 228 * 1024
 
 
 def test_flash_wgmma_refuses_nonpositive_scale():
     """The kernel takes each row's max on the unscaled scores, which only a
     positive scale keeps: the wrapper's checks (run on meta tensors as for
-    the card) refuse any other at bf16 and hd <= 128, and take it at f32 and
-    at the bf16 span pairs."""
-    def meta(dt, hd, Kh=2):
+    the card) refuse any other at bf16, hd <= 128 and (192, 128), and take
+    it at f32 and at the bf16 span pair (256, 256)."""
+    def meta(dt, hd, Kh=2, hdv=None):
         return (torch.empty((1, 8, 4, hd), dtype=dt, device="meta"),
                 torch.empty((1, 8, Kh, hd), dtype=dt, device="meta"),
-                torch.empty((1, 8, Kh, hd), dtype=dt, device="meta"))
-    for hd in (16, 32, 64, 128):
+                torch.empty((1, 8, Kh, hdv or hd), dtype=dt, device="meta"))
+    for hd, hdv in PAIRS:
         with pytest.raises(ValueError, match="scale > 0"):
-            fk.flash_attention(*meta(torch.bfloat16, hd), scale=-0.125)
-        assert fk.flash_attention(*meta(torch.bfloat16, hd)).shape == \
-            (1, 8, 4, hd)
-        assert fk.flash_attention(*meta(torch.float32, hd),
-                                  scale=-0.125).shape == (1, 8, 4, hd)
+            fk.flash_attention(*meta(torch.bfloat16, hd, hdv=hdv),
+                               scale=-0.125)
+        assert fk.flash_attention(*meta(torch.bfloat16, hd,
+                                        hdv=hdv)).shape == (1, 8, 4, hdv)
+        assert fk.flash_attention(*meta(torch.float32, hd, hdv=hdv),
+                                  scale=-0.125).shape == (1, 8, 4, hdv)
     assert fk.flash_attention(*meta(torch.bfloat16, 256),
                               scale=-0.125).shape == (1, 8, 4, 256)

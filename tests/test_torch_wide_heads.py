@@ -249,14 +249,16 @@ def test_flash_geometry():
     # Q 50,176 + ring (32-key tiles) 83,968 + P 10,240 + 1,024: 64-key f32
     # tiles would need 237,568 B
     (192, 128, torch.float32, (32, SPAN, 145_408)),
-    (192, 128, torch.bfloat16, (64, SPAN, 131_072)),
+    # bf16 runs in one pass (flash_wgmma_kernel): 1,024 to align the
+    # tiles, Q 24,576 and a 2-stage ring of 81,920, no spans
+    (192, 128, torch.bfloat16, (64, 0, 107_520)),
     (256, 256, torch.float32, (32, SPAN, 210_944)),
 ])
 def test_flash_span_geometry(hd, hdv, dtype, want):
     """The span kernel's ring tile, span and shared memory at each pair it
-    takes (and at bf16 (128, 128), which the one-pass kernel takes): the
-    sums in csrc/flash_attention.cu's header, within the 232,448 B a CTA
-    may have."""
+    takes (and at bf16 (128, 128) and (192, 128), which the one-pass kernel
+    takes): the sums in csrc/flash_attention.cu's header, within the
+    232,448 B a CTA may have."""
     geo = fk._geometry(hd, hdv, dtype)
     assert geo == want
     assert geo.smem <= 227 * 1024

@@ -53,13 +53,18 @@ product of the dK/dV kernel removed (its loads, barriers and softmax
 alone; outputs wrong, timing only), timed beside the real call.
 
 bf16fwd: the bf16 flash forward through the tree's own wrapper at
-qwen1.5-0.5b's training call (B 4, Sq = Skv 512, 16 heads of 64, causal)
-and at the (128, 128) template on the same shape (deepseek-moe-16b's
-call), each beside SDPA's bf16 forward (run it on the parent and the
-change in turns in one call); then, where the tree has
-flash_wgmma_kernel, that kernel's registers and spills and its per-CTA
-timeline at each of those two calls it takes (an instrumented copy of
-csrc/flash_attention.cu): each CTA's entry and exit (%globaltimer) and its
+qwen1.5-0.5b's training call (B 4, Sq = Skv 512, 16 heads of 64, causal),
+at the (128, 128) template on the same shape (deepseek-moe-16b's call)
+and at (192, 128) on deepseek-v2-236b's MLA prefill (B 1, 128 heads, a
+512 bucket and the 1024 bucket, causal), each beside SDPA's bf16 forward
+(run it on the parent and the change in turns in one call); where the
+tree's flash_wgmma_kernel takes (192, 128) with a per-pair ring depth
+(kWgStages192), that pair again through a copy of the source built with
+the other depth (2 or 3 stages), in turns with the tree's; then,
+where the tree has flash_wgmma_kernel, that kernel's registers and spills
+and its per-CTA timeline at each of those calls it takes, (192, 128) at
+the 512 bucket (an instrumented copy of csrc/flash_attention.cu): each
+CTA's entry and exit (%globaltimer) and its
 tiles, the time a tile costs under the card's real concurrency, and by
 tiles walked the median cycles of the prologue (Q and the first tile
 issued and awaited), a tile's stages (its copies awaited, the barrier and
@@ -606,13 +611,14 @@ def _fwd_stamp(k):
 
 
 FWD_TIMELINE = [
-    ("  unsigned char* vs = ks + kWgStages * KT;\n",
-     "  unsigned char* vs = ks + kWgStages * KT;\n  " + _fwd_stamp(0)
+    ("  unsigned char* vs = ks + NS * KT;\n",
+     "  unsigned char* vs = ks + NS * KT;\n  " + _fwd_stamp(0)
      + "  " + GTIME.format(v="tl0_") + "\n"),
-    ("    load_tile(0);\n  }\n  cp_async_commit();\n",
-     "    load_tile(0);\n  }\n  cp_async_commit();\n  " + _fwd_stamp(1)),
-    ("    const int st = it % kWgStages;\n",
-     "    const int st = it % kWgStages;\n    const int sl_ = 2 + 4 * "
+    ("    if (!kLagV) load_v(0);\n  }\n  cp_async_commit();\n",
+     "    if (!kLagV) load_v(0);\n  }\n  cp_async_commit();\n  "
+     + _fwd_stamp(1)),
+    ("    const int st = it % NS;\n",
+     "    const int st = it % NS;\n    const int sl_ = 2 + 4 * "
      f"min(it, {FWD_TILES - 1});\n    " + _fwd_stamp("sl_")),
     ("    rt::reg_fence(s);\n",
      "    rt::reg_fence(s);\n    " + _fwd_stamp("sl_ + 1")),
@@ -634,22 +640,59 @@ FWD_TIMELINE = [
 ]
 
 
+# (hd, hdv, B, S, H): the bf16 forward's calls that bf16fwd times
+FWD_CALLS = [(64, 64, 4, 512, 16), (128, 128, 4, 512, 16),
+             (192, 128, 1, 512, 128), (192, 128, 1, 1024, 128)]
+# the ring depth at (192, 128) (kWgStages192), and the other one tried
+DEPTH_192 = "constexpr int kWgStages192 = {};"
+
+
+def _bf16_inputs(torch, rng, dev, hd, hdv, B, S, H):
+    q, k = (torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((B, S, H, hdv)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    return q, k, v
+
+
+def _raw_wgmma(torch, lib, q, k, v, stages, stream):
+    """A causal bf16 call through ``lib``'s launcher with the one-pass
+    geometry of a ``stages``-deep ring."""
+    from repro_torch.kernels import flash_attention as FA
+    B, S, H, hd = q.shape
+    hdv = v.shape[-1]
+    out = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
+    smem = FA.wg_smem(hd, hdv, stages)
+
+    def call():
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            B, S, S, H, H, hd, hdv, 0, 1, 0, hd ** -0.5, 1, 0, smem, stream)
+        assert err == 0, err
+        return out
+    return call
+
+
 def bf16_fwd_stages(torch, dev, stream):
-    """The bf16 forward at qwen1.5-0.5b's training call and at the (128,
-    128) template, through the tree's wrapper, beside SDPA's bf16 forward;
-    then, where the tree has flash_wgmma_kernel, its per-CTA timeline at
-    each of the two that it takes, from an instrumented copy."""
+    """The bf16 forward at FWD_CALLS through the tree's wrapper, beside
+    SDPA's bf16 forward; (192, 128) at the other ring depth in turns with
+    the tree's; then, where the tree has flash_wgmma_kernel, its per-CTA
+    timeline at each of those calls that it takes, from an instrumented
+    copy."""
     import chip_smoke as cs
     import torch.nn.functional as F
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     rng = np.random.default_rng(29)
-    B, S, H = 4, 512, 16
+    src = (CSRC / "flash_attention.cu").read_text()
+    depth = next((n for n in (2, 3) if src.count(DEPTH_192.format(n)) == 1),
+                 None)
+    alt = 5 - depth if depth else None
+    other = instrument("flash_attention", [], tag=f"_depth{alt}", edits=[
+        (DEPTH_192.format(depth), DEPTH_192.format(alt))]) if depth else None
     print(f"bf16 flash forward of {TREE} (CUDA events, ms per call):")
-    for hd in (64, 128):
-        q, k, v = (torch.from_numpy(rng.standard_normal(
-            (B, S, H, hd)).astype(np.float32)).to(dev, torch.bfloat16)
-            for _ in range(3))
+    for hd, hdv, B, S, H in FWD_CALLS:
+        q, k, v = _bf16_inputs(torch, rng, dev, hd, hdv, B, S, H)
         sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         ms, lib = [], []
         with torch.no_grad():
@@ -659,45 +702,50 @@ def bf16_fwd_stages(torch, dev, stream):
                 lib.append(cs.time_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         sq, sk, sv, is_causal=True), iters=50))
-        print(f"  ({hd}, {hd}) B={B} Sq=Skv={S} H={H} causal: "
-              f"{min(ms):.4f} ms ({ms[0]:.4f}, {ms[1]:.4f})  SDPA bf16 "
-              f"forward {min(lib):.4f} ms  ratio {min(ms) / min(lib):.3f}")
-    src = (CSRC / "flash_attention.cu").read_text()
-    if "flash_wgmma_kernel" not in src:
-        print("  (no flash_wgmma_kernel in this tree: no timeline)")
+            print(f"  ({hd}, {hdv}) B={B} Sq=Skv={S} H={H} causal: "
+                  f"{min(ms):.4f} ms ({ms[0]:.4f}, {ms[1]:.4f})  SDPA bf16 "
+                  f"forward {min(lib):.4f} ms  ratio "
+                  f"{min(ms) / min(lib):.3f}")
+            if hd == 192 and other is not None:
+                mine = lambda: FA.flash_attention(q, k, v)  # noqa: E731
+                alt_call = _raw_wgmma(torch, other, q, k, v, alt, stream)
+                ref = mine()
+                same = torch.equal(alt_call(), ref)
+                turns = [cs.time_ms(torch, f, iters=50)
+                         for f in (mine, alt_call, alt_call, mine)]
+                print(f"    ring depth {depth} (the tree's) {turns[0]:.4f}, "
+                      f"{turns[3]:.4f} ms; {alt} stages {turns[1]:.4f}, "
+                      f"{turns[2]:.4f} ms (turns: tree, {alt}, {alt}, "
+                      f"tree); the same bits: {same}")
+    if "flash_wgmma_kernel" not in src or "load_v(0)" not in src:
+        print("  (no flash_wgmma_kernel of this layout in this tree: no "
+              "timeline)")
         return
     build.library("flash_attention")
     regs = {k: r for k, r in build.ptxas_report("flash_attention").items()
             if "flash_wgmma_kernel" in k}
     print(f"  flash_wgmma_kernel registers and spills: {regs}")
     fwd_timeline(torch, dev, stream,
-                 [64] + [128] * ("RT_WG(128, 128)" in src))
+                 [c for c in FWD_CALLS[:3]
+                  if f"RT_WG({c[0]}, {c[1]})" in src])
 
 
-def fwd_timeline(torch, dev, stream, hds, tag="_fwd_timeline"):
-    """flash_wgmma_kernel's per-CTA timeline at the training call's shape
-    at each hd of ``hds``, from an instrumented copy of the tree's
+def fwd_timeline(torch, dev, stream, calls, tag="_fwd_timeline"):
+    """flash_wgmma_kernel's per-CTA timeline at each (hd, hdv, B, S, H) of
+    ``calls``, from an instrumented copy of the tree's
     csrc/flash_attention.cu."""
     timed = instrument("flash_attention", [], tag=tag, edits=FWD_TIMELINE)
-    for hd in hds:
-        _fwd_timeline(torch, dev, stream, timed, hd)
+    for call in calls:
+        _fwd_timeline(torch, dev, stream, timed, *call)
 
 
-def _fwd_timeline(torch, dev, stream, timed, hd):
+def _fwd_timeline(torch, dev, stream, timed, hd, hdv, B, S, H):
     from repro_torch.kernels import flash_attention as FA
     rng = np.random.default_rng(29)
-    B, S, H = 4, 512, 16
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(
-        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
-    out = torch.empty_like(q)
-    geo = FA._geometry(hd, hd, torch.bfloat16)
-
-    def call():
-        err = timed.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-            B, S, S, H, H, hd, hd, 0, 1, 0, hd ** -0.5, 1, geo.span, geo.smem,
-            stream)
-        assert err == 0, err
+    q, k, v = _bf16_inputs(torch, rng, dev, hd, hdv, B, S, H)
+    call = _raw_wgmma(torch, timed, q, k, v, FA.wg_stages(hd), stream)
+    assert B * H * -(-S // FA.TILE_Q) * FWD_SLOTS <= 1 << 16, \
+        "more CTAs than the stamp arrays hold"
     for _ in range(3):
         call()
     torch.cuda.synchronize()
@@ -716,7 +764,7 @@ def _fwd_timeline(torch, dev, stream, timed, hd):
     dur = (g[:, 1] - g[:, 0]) / 1e3
     tiles = g[:, 3]
     fit = np.polyfit(tiles, dur, 1)
-    print(f"  flash_wgmma_kernel<{hd}, {hd}>, B={B} Sq=Skv={S} H={H} "
+    print(f"  flash_wgmma_kernel<{hd}, {hdv}>, B={B} Sq=Skv={S} H={H} "
           "causal: "
           f"{len(g)} CTAs on {len(set(g[:, 2]))} SMs, span "
           f"{(g[:, 1].max() - t0) / 1e3:.2f} us, last entry "
