@@ -24,13 +24,15 @@ Phases, each fatal on failure:
      (from this run's build log, -Xptxas -v), its device time by kernel
      and its combine's share of it (the profiler), and in the log only its
      planned launch geometry (CTAs, cluster size, dynamic shared memory,
-     computed from the wrapper's plan); the bf16 one-pass flash kernel
-     (flash_wgmma_kernel, hd <= 64, (128, 128) and (192, 128)) at each
-     pair against the plain version and its design's mirror, repeat bits,
-     no spills, the CTAs an SM holds; at bf16 (192, 128) (MLA prefill, 16
-     heads and deepseek-v2-236b's 128 at the 512 and 1024 buckets) it is
-     also timed in turns with the span kernel it replaced (built in phase
-     2 from a copy of the source whose bf16 dispatch sends that pair
+     computed from the wrapper's plan); the bf16 flash kernels on wgmma
+     (flash_wgmma_kernel, hd <= 64, (128, 128) and (192, 128), and
+     flash_wgspan_kernel at (256, 256)) at each pair against the plain
+     version and their designs' mirror, repeat bits, no spills, the CTAs
+     an SM holds; at bf16 (192, 128) (MLA prefill, 16 heads and
+     deepseek-v2-236b's 128 at the 512 and 1024 buckets) and (256, 256)
+     (gemma3-1b's 571-token prompt, causal and window 512) each is also
+     timed in turns with the span kernel it replaced (built in phase 2
+     from a copy of the source whose bf16 dispatch sends those pairs
      there);
   4. check the port's logits on the card against its CPU path (smoke size,
      qwen1.5-0.5b, rwkv6-1.6b, gemma3-1b, deepseek-moe-16b and
@@ -189,10 +191,19 @@ Phases, each fatal on failure:
      build_prefill_step / build_decode_step for qwen1.5-0.5b at their
      default bf16 (phase 19's B 8 x 512 prefill and 16 decode steps,
      launches exactly counted, one served call of each kernel held); and
-     phase 4 at bf16 for qwen1.5-0.5b and deepseek-v2 with its MLA heads
-     widened to the served pair (the card's logits within 2x the CPU's
-     own bf16-to-f32 distance, from the same bf16-rounded weights; the
-     argmax agreement recorded).
+     phase 4 at bf16 for qwen1.5-0.5b, deepseek-v2 with its MLA heads
+     widened to the served pair and gemma3-1b with 256-wide heads (the
+     card's logits within 2x the CPU's own bf16-to-f32 distance, from the
+     same bf16-rounded weights; the argmax agreement recorded); and
+     full-width gemma3-1b at bf16 params and bf16 caches on phase 11's
+     requests (run() and a run refactored [0,13] -> [0,7,14,20] ->
+     [0,13], streams bit-identical; flash at (256, 256), on
+     flash_wgspan_kernel, 26 per prefill and the hd-256 decode kernel
+     over the bf16 caches 26 per tick, exactly counted; a local and a
+     global layer's served flash call and one decode call held against
+     their plain versions, flash also against the mirror; the bf16
+     decode-vs-forward distance of requests 8 and 13, recorded; ms/tick,
+     tok/s, three profiled ticks, peak memory).
 The line before the last holds the per-kernel results as JSON, and the last
 line is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of
 the repository, it exits non-zero and prints no result.
@@ -524,11 +535,12 @@ def kernel_checks(torch, span_lib):
 
 
 def wgmma_beside_span(torch, span_lib, q, k, v, kw, label):
-    """flash_wgmma_kernel at bf16 (192, 128) on a causal end-aligned call:
-    within one bf16 ulp or TOL["bfloat16"] of the plain version and of
-    flash_wgmma_plain, its CTAs an SM, and its time in turns with the span
-    kernel it replaced (the earlier design's library: kernel, span, span,
-    kernel)."""
+    """A bf16 kernel on wgmma (flash_wgmma_kernel at (192, 128),
+    flash_wgspan_kernel at (256, 256)) on a causal end-aligned call, with
+    its window: within one bf16 ulp or TOL["bfloat16"] of the plain
+    version and of flash_wgmma_plain, its CTAs an SM, and its time in turns
+    with the span kernel it replaced (the earlier design's library:
+    kernel, span, span, kernel)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     kernel = lambda: FA.flash_attention(q, k, v, **kw)  # noqa: E731
@@ -537,7 +549,8 @@ def wgmma_beside_span(torch, span_lib, q, k, v, kw, label):
         n_p, e_p = _over_ulp(torch, got, FA.flash_attention_plain(q, k, v,
                                                                   **kw))
         n_m, e_m = _over_ulp(torch, got, FA.flash_wgmma_plain(q, k, v, **kw))
-        span = earlier_span_forward(torch, span_lib, q, k, v)
+        span = earlier_span_forward(torch, span_lib, q, k, v,
+                                    kw.get("window", 0))
         n_e, e_e = _over_ulp(torch, span(), FA.flash_attention_plain(
             q, k, v, **kw))
         check(n_p == 0 and n_m == 0, f"flash_wgmma_kernel {label}: {n_p} "
@@ -551,6 +564,7 @@ def wgmma_beside_span(torch, span_lib, q, k, v, kw, label):
     hd, hdv = q.shape[-1], v.shape[-1]
     return dict(ms=min(turns[0], turns[3]), earlier_ms=min(turns[1],
                                                            turns[2]),
+                max_abs_err_vs_plain=e_p,
                 ms_turns=turns, max_abs_err_vs_mirror=e_m,
                 earlier_max_abs_err=e_e,
                 earlier=f"flash_span_kernel<bf16, {hd}, {hdv}> and its "
@@ -668,23 +682,26 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
                      library_ms=sdpa_ms(shape, lib), bound_ms=t_bound,
                      bound_by=by, max_abs_err=err, shape=shape + " f32")
             if dt != "float32":
-                # the bf16 call's own row: the span kernel, or
-                # flash_wgmma_kernel at (128, 128)
-                span = is_span(hd, hdv, torch.bfloat16)
-                r.update(shape=shape + " bf16", kernel="flash_span_kernel"
-                         if span else "flash_wgmma_kernel",
+                # the bf16 call's own row: flash_wgspan_kernel (the span
+                # plan on wgmma) at (256, 256), else flash_wgmma_kernel
+                kname = ("flash_wgspan_kernel" if is_span(
+                    hd, hdv, torch.bfloat16) else "flash_wgmma_kernel")
+                r.update(shape=shape + " bf16", kernel=kname,
                          ptxas=ptxas("flash_attention",
-                                     f"flash_span_kernelI13__nv_bfloat16Li"
-                                     f"{hd}ELi{hdv}E" if span else
-                                     f"flash_wgmma_kernelILi{hd}ELi{hdv}E"))
-                if (hd, hdv) == (192, 128):
+                                     f"{kname}ILi{hd}ELi{hdv}E"))
+                if (hd, hdv) in ((192, 128), (256, 256)) and causal \
+                        and qo == 0 and B == 1 and Sq == Skv:
                     r.update(wgmma_beside_span(torch, span_lib, q, k, v, kw,
                                                shape))
                     check(not r["ptxas"].get("spill_stores")
                           and not r["ptxas"].get("spill_loads")
-                          and r["occupancy"] >= 2, f"flash_wgmma_kernel "
-                          f"(192, 128): spills {r['ptxas']} or "
+                          and r["occupancy"] >= (1 if hd == 256 else 2),
+                          f"{kname} ({hd}, {hdv}): spills {r['ptxas']} or "
                           f"{r['occupancy']} CTAs an SM")
+                if hd == 256:
+                    r.update(split_share(torch, "flash_combine_kernel",
+                                         lambda: flash_attention(q, k, v,
+                                                                 **kw)))
                 results["flash_attention"][key]["bf16"] = r
                 log(f"  {'flash_attention ' + key:24s} {r['ms']:.4f} ms  "
                     f"plain {r['plain_ms']:.4f} ms  SDPA "
@@ -888,16 +905,17 @@ def split_share(torch, combine, fn, reps=20):
 
 
 def wgmma_checks(torch, rnd, results):
-    """The bf16 one-pass flash kernel (flash_wgmma_kernel) at each pair it
-    takes, (16, 16), (32, 32), (64, 64), (128, 128) and (192, 128): causal,
-    windowed,
-    q_offset with Sq and Skv off the 64-row tile and GQA, non-causal, rows
-    that see no key; 0 elements beyond one bf16 ulp or TOL["bfloat16"] of
-    the plain version and of the design's plain mirror (flash_wgmma_plain:
-    the same 64-key tiles, online softmax and P as bf16 hi + lo), a second
+    """The bf16 flash kernels on wgmma at each pair: flash_wgmma_kernel at
+    (16, 16), (32, 32), (64, 64), (128, 128) and (192, 128), and
+    flash_wgspan_kernel (the span plan's items) at (256, 256): causal,
+    windowed, q_offset with Sq and Skv off the 64-row tile and GQA,
+    non-causal, rows that see no key; 0 elements beyond one bf16 ulp or
+    TOL["bfloat16"] of the plain version and of the designs' plain mirror
+    (flash_wgmma_plain: the same 64-key tiles, online softmax and P as bf16
+    hi + lo, at (256, 256) per span and merged in span order), a second
     call's bits equal, no spills in the build log, and the CTAs an SM holds
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at least the
-    launch bounds' minimum (3 up to hd 64, 2 at hd 128 and 192)."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at least the launch
+    bounds' minimum (3 up to hd 64, 2 at hd 128 and 192, 1 at 256)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_plain, flash_wgmma_plain)
@@ -912,7 +930,9 @@ def wgmma_checks(torch, rnd, results):
            "max_abs_err_vs_plain": 0.0, "max_abs_err_vs_mirror": 0.0,
            "tolerance": "one bf16 ulp or %g, of the plain version and of "
                         "flash_wgmma_plain" % TOL["bfloat16"]}
-    for hd, hdv in ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128)):
+    for hd, hdv in ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
+                    (256, 256)):
+        kname = "flash_wgspan_kernel" if hd == 256 else "flash_wgmma_kernel"
         for B, Sq, Skv, H, Kh, win, qo, causal, label in cases:
             q = rnd((B, Sq, H, hd), "bfloat16")
             k, v = rnd((B, Skv, Kh, hd), "bfloat16"), rnd((B, Skv, Kh, hdv),
@@ -926,36 +946,35 @@ def wgmma_checks(torch, rnd, results):
             case = f"({hd}, {hdv}) {label}"
             n_p, e_p = _over_ulp(torch, got, plain)
             n_m, e_m = _over_ulp(torch, got, mirror)
-            log(f"  {'flash_wgmma_kernel':24s} bfloat16 {case:40s} max|err| "
+            log(f"  {kname:24s} bfloat16 {case:40s} max|err| "
                 f"{e_p:.3e} vs plain ({int((got != plain).sum())} of "
                 f"{got.numel()} differ), {e_m:.3e} vs the mirror "
                 f"({int((got != mirror).sum())} differ); {n_p} and {n_m} "
                 "beyond one bf16 ulp or %g" % TOL["bfloat16"])
             check(bool(torch.isfinite(got.float()).all()),
-                  f"flash_wgmma_kernel {case}: non-finite output")
-            check(n_p == 0 and n_m == 0, f"flash_wgmma_kernel {case}: "
+                  f"{kname} {case}: non-finite output")
+            check(n_p == 0 and n_m == 0, f"{kname} {case}: "
                   f"{n_p} elements beyond one bf16 ulp or "
                   f"{TOL['bfloat16']} of the plain version, {n_m} of the "
                   "mirror")
             check(torch.equal(got, again),
-                  f"flash_wgmma_kernel {case}: two calls gave other bits")
+                  f"{kname} {case}: two calls gave other bits")
             out["cases"] += 1
             out["max_abs_err_vs_plain"] = max(out["max_abs_err_vs_plain"],
                                               e_p)
             out["max_abs_err_vs_mirror"] = max(
                 out["max_abs_err_vs_mirror"], e_m)
-        r = ptxas("flash_attention", f"flash_wgmma_kernelILi{hd}ELi{hdv}E")
+        r = ptxas("flash_attention", f"{kname}ILi{hd}ELi{hdv}E")
         out[f"ptxas_{hd}"] = r
-        log(f"  {'flash_wgmma_kernel':24s} ({hd}, {hdv}) registers and "
-            f"spills: {r}")
+        log(f"  {kname:24s} ({hd}, {hdv}) registers and spills: {r}")
         check(not r.get("spill_stores") and not r.get("spill_loads"),
-              f"flash_wgmma_kernel ({hd}, {hdv}) spills: {r}")
+              f"{kname} ({hd}, {hdv}) spills: {r}")
         occ = build.library("flash_attention").flash_wgmma_occupancy(hd,
                                                                      hdv)
         out[f"occupancy_{hd}"] = occ
-        log(f"  {'flash_wgmma_kernel':24s} ({hd}, {hdv}): {occ} CTAs an SM")
-        check(occ >= (3 if hd <= 64 else 2), f"flash_wgmma_kernel ({hd}, "
-              f"{hdv}): {occ} CTAs an SM")
+        log(f"  {kname:24s} ({hd}, {hdv}): {occ} CTAs an SM")
+        check(occ >= (3 if hd <= 64 else 1 if hd == 256 else 2),
+              f"{kname} ({hd}, {hdv}): {occ} CTAs an SM")
     results["flash_attention"]["bf16_one_pass"] = out
 
 
@@ -1349,7 +1368,8 @@ def profile_ticks(torch, eng, ticks):
         f"idle share {out['idle_share']:.3f} (profiler on)")
     ours = ("decode_split_kernel", "decode_combine_kernel", "flash_kernel",
             "flash_wgmma_kernel", "wkv6_kernel", "decode_cluster_kernel",
-            "flash_span_kernel", "flash_combine_kernel")
+            "flash_span_kernel", "flash_combine_kernel",
+            "flash_wgspan_kernel")
     for i, (key, us, n) in enumerate(rows):
         if i < 10 or any(k in key for k in ours):
             log(f"    {us / ticks:10.1f} us/tick {n / ticks:6.1f}/tick  "
@@ -4071,13 +4091,14 @@ def _over_ulp(torch, got, want):
     return int((d > tol).sum()), float(d.max())
 
 
-# phases 3 and 21 time the bf16 forward at (192, 128) and (128, 128)
-# beside the design each replaced, the span kernel: a copy of
-# csrc/flash_attention.cu whose bf16 dispatch sends both pairs to
-# flash_span_kernel again, built with the others in phase 2 into
-# build/earlier/
+# phases 3 and 21 time the bf16 forward at (192, 128), (128, 128) and
+# (256, 256) beside the design each replaced, the span kernel's mma.sync
+# path: a copy of csrc/flash_attention.cu whose bf16 dispatch sends the
+# three pairs to flash_span_kernel again, built with the others in phase 2
+# into build/earlier/
 EARLIER_EDIT = [("RT_WG(128, 128)", "RT_SPAN(__nv_bfloat16, 128, 128)"),
-                ("RT_WG(192, 128)", "RT_SPAN(__nv_bfloat16, 192, 128)")]
+                ("RT_WG(192, 128)", "RT_SPAN(__nv_bfloat16, 192, 128)"),
+                ("RT_WGS(256, 256)", "RT_SPAN(__nv_bfloat16, 256, 256)")]
 
 
 def start_earlier_span():
@@ -4114,11 +4135,12 @@ def finish_earlier_span(started):
     return lib
 
 
-def earlier_span_forward(torch, lib, q, k, v):
+def earlier_span_forward(torch, lib, q, k, v, window=0):
     """A causal, end-aligned bf16 call (q (B, S, H, hd), k (B, S, Kh, hd),
-    v (B, S, Kh, hdv)) through the span kernel of the earlier design's
-    library: a function that launches it into one output.  Its launches
-    count nowhere (build.launches counts the port's)."""
+    v (B, S, Kh, hdv); ``window``: a sliding window) through the span
+    kernel of the earlier design's library: a function that launches it
+    into one output.  Its launches count nowhere (build.launches counts the
+    port's)."""
     from repro_torch.kernels import flash_attention as FA
     B, S, H, hd = q.shape
     Kh, hdv = k.shape[2], v.shape[-1]
@@ -4130,7 +4152,7 @@ def earlier_span_forward(torch, lib, q, k, v):
     def call():
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), B, S, S, H, Kh, hd, hdv, 0, 1, 0,
+            scratch.data_ptr(), B, S, S, H, Kh, hd, hdv, 0, 1, window,
             1.0 / math.sqrt(hd), 1, geo.span, geo.smem,
             torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"the earlier design's launch failed: {err}")
@@ -4356,12 +4378,14 @@ def bf16_card_vs_cpu(torch, f32_step):
 SERVED = ("flash_attention", "decode_attention", "paged_decode_attention")
 
 
-def _watch_served(torch, calls, at):
+def _watch_served(torch, calls, at, flash_at=(0,)):
     """A ``watch`` for serve() (or around a train run): wrap the model's
     flash, decode and paged decode entry points to keep in ``calls``
     (cloned) the inputs of the run's first flash call (layer 0 on the first
-    prompt or batch) and of the ``at``-th call of each decode kind (a real
-    tick's), and count the calls by (q, k) dtypes."""
+    prompt or batch; with ``flash_at``, of each flash call of those
+    indices, under "flash_attention@i" past the first) and of the ``at``-th
+    call of each decode kind (a real tick's), and count the calls by (q, k)
+    dtypes."""
     from repro_torch.models import layers
 
     def watch():
@@ -4372,9 +4396,14 @@ def _watch_served(torch, calls, at):
             def wrapped(*a, **kw):
                 n = sum(v for (k, *_), v in seen.items() if k == name)
                 seen[(name, str(a[0].dtype), str(a[1].dtype))] += 1
-                if n == (0 if name == "flash_attention" else at):
-                    calls[name] = ([x.detach().clone() if torch.is_tensor(x)
-                                    else x for x in a], dict(kw))
+                if name == "flash_attention":
+                    key = None if n not in flash_at else (
+                        name if n == flash_at[0] else f"{name}@{n}")
+                else:
+                    key = name if n == at else None
+                if key:
+                    calls[key] = ([x.detach().clone() if torch.is_tensor(x)
+                                   else x for x in a], dict(kw))
                 return orig[name](*a, **kw)
             return wrapped
         for name in SERVED:
@@ -4389,16 +4418,17 @@ def _watch_served(torch, calls, at):
     return watch
 
 
-def _hold_served(torch, calls, name, label):
-    """The captured call of ``name`` through its kernel against its plain
-    version (flash also against flash_wgmma_plain), within one bf16 ulp or
-    TOL["bfloat16"]; the call must be a real one (flash: q, k and v vary
-    along the sequence; decode: q over the batch, the caches along the
-    rows)."""
+def _hold_served(torch, calls, name, label, key=None):
+    """The captured call of ``name`` (``calls[key]``, ``name`` by default)
+    through its kernel against its plain version (flash also against
+    flash_wgmma_plain), within one bf16 ulp or TOL["bfloat16"]; the call
+    must be a real one (flash: q, k and v vary along the sequence; decode:
+    q over the batch, the caches along the rows)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    check(name in calls, f"{label}: no {name} call captured")
-    a, kw = calls[name]
+    key = key or name
+    check(key in calls, f"{label}: no {key} call captured")
+    a, kw = calls[key]
     if name == "flash_attention":
         real = all(_varies(x, 1) for x in a[:3])
     elif name == "decode_attention":
@@ -4424,6 +4454,8 @@ def _hold_served(torch, calls, name, label):
     out = {"q": list(a[0].shape), "k": list(a[1].shape),
            "dtype": str(a[0].dtype), "cache_dtype": str(a[1].dtype),
            "max_abs_err": e_p}
+    if "window" in kw:
+        out["window"] = kw["window"]
     if e_m is not None:
         out["max_abs_err_vs_mirror"] = e_m
     log(f"  {label}: served {name} {json.dumps(out)}")
@@ -4507,15 +4539,18 @@ def bf16_training_phase(torch, card, f32_step, span_lib):
 
 def bf16_small_model_check(torch, arch):
     """Phase 4 at bf16: the smoke config (smoke_cfg: deepseek-v2 with its
-    MLA heads widened to the served pair) from the same bf16-rounded
-    weights on the card and on the CPU; the card's logits within
-    BF16_FACTOR times the CPU's own bf16-to-f32 distance, and how often the
-    argmax agrees."""
+    MLA heads widened to the served pair; gemma3 with its heads widened to
+    the served 256, here only, so that flash runs at (256, 256)) from the
+    same bf16-rounded weights on the card and on the CPU; the card's logits
+    within BF16_FACTOR times the CPU's own bf16-to-f32 distance, and how
+    often the argmax agrees."""
     from repro_torch.models import model as M
     from repro_torch.models.transformer import init_model
     from repro_torch.tree import tree_map
 
     cfg = smoke_cfg(arch)
+    if arch == "gemma3-1b":
+        cfg = dataclasses.replace(cfg, head_dim=256)
     f32 = init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
     cpu = tree_map(lambda t: t.to(torch.bfloat16), f32)
     f32 = tree_map(lambda t: t.float(), cpu)        # the same rounded weights
@@ -4544,11 +4579,12 @@ def bf16_small_model_check(torch, arch):
 def decode_vs_forward_bf16(torch, cfg, params, reqs, rids):
     """For ``rids``: each served stream fed back through the model's own
     prefill (bf16 cache) and decode steps, its logits against one
-    whole-sequence forward's at the same positions, at capacity factor E/K
-    (the same expert assignments): the largest distance and how often the
-    argmax agrees, recorded, not held (bf16 rounds the two paths apart)."""
+    whole-sequence forward's at the same positions, for an MoE config at
+    capacity factor E/K (the same expert assignments): the largest distance
+    and how often the argmax agrees, recorded, not held (bf16 rounds the
+    two paths apart)."""
     from repro_torch.models import model as M
-    cfg = no_drop(cfg)
+    cfg = no_drop(cfg) if cfg.moe is not None else cfg
     out = {}
     with torch.no_grad():
         for req in (r for r in reqs if r.rid in rids):
@@ -4572,7 +4608,7 @@ def decode_vs_forward_bf16(torch, cfg, params, reqs, rids):
                                        .float().mean()),
                 "max_abs_logit": float(full.abs().max())}
             del cache
-    log(f"  bf16 decode vs forward (cf E/K, bf16 cache), not held: "
+    log(f"  bf16 decode vs forward (bf16 cache; MoE at cf E/K), not held: "
         f"{json.dumps(out)}")
     return out
 
@@ -4661,8 +4697,9 @@ def bf16_serving_phase(torch, card, one_rank):
     profiled ticks, peak memory and headroom; the bf16 decode-vs-forward
     distance for requests 8 and 13, recorded.  (c) one rank of the
     pipeline steps at their default bf16 (bf16_one_rank).  (d) phase 4 at
-    bf16 (bf16_small_model_check) for qwen1.5-0.5b and the widened MLA
-    deepseek-v2."""
+    bf16 (bf16_small_model_check) for qwen1.5-0.5b, the widened MLA
+    deepseek-v2 and gemma3-1b with 256-wide heads.  (e) full-width
+    gemma3-1b at bf16 params and bf16 caches (gemma3_bf16)."""
     from repro_torch.configs.base import get_arch, shrink
 
     t0 = time.perf_counter()
@@ -4750,13 +4787,78 @@ def bf16_serving_phase(torch, card, one_rank):
     # (c) one rank of the pipeline steps, (d) phase 4 at bf16
     out["one_rank"] = bf16_one_rank(torch, one_rank)
     out["small"] = {arch: bf16_small_model_check(torch, arch)
-                    for arch in ("qwen1.5-0.5b", "deepseek-v2-236b")}
+                    for arch in ("qwen1.5-0.5b", "deepseek-v2-236b",
+                                 "gemma3-1b")}
+    # (e) gemma3-1b
+    out["gemma3"] = gemma3_bf16(torch, card)
     out["s"] = time.perf_counter() - t0
     log(f"  phase 22 on {card}: " + json.dumps(
-        {k: v for k, v in out.items() if k not in ("qwen", "deepseek_v2")}))
-    for k in ("qwen", "deepseek_v2"):
+        {k: v for k, v in out.items()
+         if k not in ("qwen", "deepseek_v2", "gemma3")}))
+    for k in ("qwen", "deepseek_v2", "gemma3"):
         log(f"  phase 22 {k}: " + json.dumps(
             {a: b for a, b in out[k].items() if a != "runs"}))
+    return out
+
+
+def gemma3_bf16(torch, card):
+    """Phase 22 (e): full-width gemma3-1b (26 layers, 4 heads on 1 of 256,
+    window 512 on the local layers) at bf16 params and bf16 caches (local
+    rings, global rows) on phase 11's 16 requests: run(), then a run
+    refactored [0, 13] -> [0, 7, 14, 20] at tick 10 and back at tick 30,
+    streams bit-identical; flash (flash_wgspan_kernel at (256, 256)) 26
+    per prompt and decode (the hd-256 cluster kernel, a bf16 query over a
+    bf16 cache) 26 per decoding tick, exactly; the refactored run's first
+    prompt's flash calls at layer 0 (local, window 512) and layer 5
+    (global), and one decode call of a real tick, held against their plain
+    versions (flash also against flash_wgmma_plain); the bf16
+    decode-vs-forward distance for requests 8 and 13, recorded; ms/tick,
+    tok/s, three profiled ticks and peak memory."""
+    from repro_torch.configs.base import get_arch
+
+    t0 = time.perf_counter()
+    free_weights(torch)
+    L = get_arch("gemma3-1b").config.n_layers
+    calls = {}
+    cfg, params, reqs, runs = serving(
+        torch, card, "gemma3-1b",
+        torch.Generator(device="cuda").manual_seed(0),
+        {"dense refactored": {}}, prefix="gemma3 bf16 ", boundaries=(0, 13),
+        moves={10: [0, 7, 14, 20], 30: [0, 13]}, dtype=torch.bfloat16,
+        cache_dtype="bfloat16",
+        watches={"gemma3 bf16 dense refactored": _watch_served(
+            torch, calls, KV_HOLD_TICK * L + L // 2, flash_at=(0, 5))})
+    for label, run in runs.items():
+        want_launches(label, run, {
+            "flash_attention": L * len(reqs),
+            "decode_attention": L * run["ticks_decoding"],
+            "paged_decode_attention": 0})
+    served = {
+        "flash_local": _hold_served(torch, calls, "flash_attention",
+                                    "gemma3 bf16 (layer 0, local)"),
+        "flash_global": _hold_served(torch, calls, "flash_attention",
+                                     "gemma3 bf16 (layer 5, global)",
+                                     key="flash_attention@5"),
+        "decode": _hold_served(torch, calls, "decode_attention",
+                               "gemma3 bf16")}
+    check(served["flash_local"].get("window") == cfg.sliding_window
+          and served["flash_global"].get("window") == 0
+          and served["flash_local"]["q"][-1] == 256,
+          f"gemma3 bf16: the held flash calls are not a local and a global "
+          f"layer's at hd 256: {served}")
+    streams = decode_vs_forward_bf16(torch, cfg, params, reqs, (8, 13))
+    prof = profile_moe_ticks(torch, cfg, params, (0, 13),
+                             cache_dtype="bfloat16")
+    mem = peak_memory(torch, "gemma3-1b at bf16")
+    dense = runs["gemma3 bf16 dense refactored"]
+    out = {"runs": runs, "served": served,
+           "calls_by_dtype": calls["by_dtype"], "decode_vs_forward": streams,
+           "decode_ms_per_tick": dense["decode_ms_per_tick"],
+           "decode_tok_per_s": dense["decode_tok_per_s"], **prof, **mem,
+           "s": time.perf_counter() - t0}
+    del params
+    free_weights(torch)
+    log(f"  phase 22 (e) gemma3-1b at bf16 on {card}: {out['s']:.1f} s")
     return out
 
 
@@ -4896,7 +4998,8 @@ def main() -> int:
     b_out = bf16_training_phase(torch, card, t_out["card_vs_cpu"],
                                 span_lib)
     log("== 22. serving at bf16 params: qwen1.5-0.5b, deepseek-v2-236b "
-        f"({DSV2_LAYERS} layers), one rank's steps, phase 4 at bf16")
+        f"({DSV2_LAYERS} layers), one rank's steps, phase 4 at bf16, "
+        "gemma3-1b")
     s_out = bf16_serving_phase(torch, card, p_out["one_rank"])
 
     paths = {"decode_attention": "dense run()",
@@ -5049,6 +5152,15 @@ def main() -> int:
         if name in ("flash_attention", "decode_attention"):
             kernels[-1]["launches_bf16_one_rank"] = \
                 s_out["one_rank"]["launches"].get(name, 0)
+            # phase 22 (e): gemma3-1b at bf16 params and caches (flash at
+            # (256, 256) is flash_wgspan_kernel)
+            gb = s_out["gemma3"]
+            run = "gemma3 bf16 dense refactored"
+            kernels[-1]["launches_bf16_serving_gemma3"] = \
+                gb["runs"][run]["launches"].get(name, 0)
+            kernels[-1]["bf16_serving_gemma3_launched_in"] = run
+            check(kernels[-1]["launches_bf16_serving_gemma3"] > 0,
+                  f"{name} was not launched on the gemma3 bf16 path")
         for key in ("hd256_window", "hd256_causal", "hd192_128",
                     "hd192_128_h128", "hd192_128_h128_1024",
                     "hd256_ring", "hd256_global", "hd128", "hd128_mha",
@@ -5197,6 +5309,35 @@ def main() -> int:
             "ms", "earlier_ms", "plain_ms", "bound_ms", "library_ms",
             "max_abs_err", "shape")},
         "first_flash_call": dv["first_flash_call"]})
+    # the bf16 forward at (256, 256): flash_wgspan_kernel on gemma3-1b's
+    # 571-token prompt (phase 3's hd256 rows), its launches counted in
+    # phase 22 (e)'s refactored bf16 run of gemma3-1b
+    gb = s_out["gemma3"]
+    run = "gemma3 bf16 dense refactored"
+    n = gb["runs"][run]["launches"].get("flash_attention", 0)
+    check(n > 0, "the bf16 flash forward at (256, 256) was not launched on "
+          "the gemma3-1b bf16 serving path")
+    r = fa["hd256_causal"]["bf16"]
+    kernels.append({
+        "name": "flash_attention_bf16_hd256", "route": "cuda",
+        "source": sources["flash_attention"],
+        "replaces": replaces["flash_attention"], "launches": n,
+        "launched_in": f"{run} (26 layers, bf16 params and caches)",
+        "max_abs_err": r["max_abs_err_vs_plain"],
+        "max_abs_err_vs_mirror": r["max_abs_err_vs_mirror"],
+        "tolerance": tolerance["flash_attention"][1],
+        "ms": r["ms"], "earlier_ms": r["earlier_ms"],
+        "earlier": r["earlier"], "ms_turns": r["ms_turns"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"], "kernel": "flash_wgspan_kernel",
+        "ptxas": r["ptxas"], "occupancy": r["occupancy"],
+        "kernels_us": r.get("kernels_us"),
+        "window_512": {x: fa["hd256_window"]["bf16"].get(x) for x in (
+            "ms", "earlier_ms", "ms_turns", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err_vs_plain",
+            "max_abs_err_vs_mirror", "kernels_us", "shape")},
+        "served": gb["served"]})
     log(f"  phase 18 (training) {t_out['s']:.1f} s; phase 19 (multi-rank) "
         f"{p_out['s']:.1f} s; phase 20 (narrow caches) {n_out['s']:.1f} s; "
         f"phase 21 (bf16 training) {b_out['s']:.1f} s; phase 22 (bf16 "

@@ -71,7 +71,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_attention_launch":
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
              _I, _I, _I, _P],
-        # hd, hdv: CTAs of the bf16 one-pass kernel an SM holds
+        # hd, hdv: CTAs of the bf16 wgmma kernel of that pair an SM holds
         "flash_wgmma_occupancy": [_I, _I],
     },
     "flash_attention_bwd": {

@@ -6,9 +6,10 @@
 // Bound on an H100: operations.  At Sq = Skv = 512 and hd = 64 a head does
 // about 2 * 2 * 512 * 512 / 2 * 64 causal flops against 4 * 512 * 64 * 4
 // bytes of q, k, v and out: ~64 flops per byte, so the products belong on
-// the tensor cores.  Three designs share the file: flash_kernel (f32 at hd
-// <= 64), flash_wgmma_kernel (bf16 at hd <= 64, (128, 128) and (192, 128))
-// and the span kernel (f32 at hd >= 128, bf16 at (256, 256)), each below.
+// the tensor cores.  Four designs share the file: flash_kernel (f32 at hd
+// <= 64), flash_wgmma_kernel (bf16 at hd <= 64, (128, 128) and (192, 128)),
+// the span kernel (f32 at hd >= 128) and flash_wgspan_kernel (bf16 at
+// (256, 256): the span plan's items on wgmma), each below.
 // flash_kernel:
 //   * one CTA of 8 warps per (b*h, tile of 64 query rows): each m16 row
 //     tile has two warps, one per half of every kv tile's keys, each with
@@ -165,9 +166,12 @@
 //     warpgroups' S products then queued behind each other (1,000-1,400
 //     cycles a tile): 0.059 and 0.169 ms, 0.058 and 0.167 with 2 stages.
 //
-// f32 at (128, 128), (192, 128) and (256, 256), and bf16 at (256, 256), run
-// flash_span_kernel and flash_combine_kernel (bf16 (128, 128) and (192,
-// 128) ran it before flash_wgmma_kernel took them).  The f32
+// f32 at (128, 128), (192, 128) and (256, 256) runs flash_span_kernel and
+// flash_combine_kernel (bf16 ran it at those pairs before
+// flash_wgmma_kernel and flash_wgspan_kernel took them; its bf16 branches,
+// scores and accumulate on m16n8k16, stay only for chip_smoke.py, which
+// builds that earlier design from a copy of this file to time the new
+// ones beside it).  The f32
 // one-pass layout lost there: at hd 256 f32 tiles of 64 keys do not fit
 // and a warp's O would be 128 registers
 // (53x its bound, behind SDPA); at hd 128 and (192, 128) (168,960 and
@@ -219,7 +223,7 @@
 //     wgmma is left out: in f32 it needs both operands K-major, so V
 //     transposed in shared memory, and each operand as big and small TF32
 //     copies, twice Q's and the ring's 200 KB, which do not fit (bf16 has
-//     its own path, flash_wgmma_kernel, at every pair but (256, 256));
+//     its own paths, flash_wgmma_kernel and flash_wgspan_kernel);
 //   * fully masked tiles still add exact zeros and exact scales of 1, and
 //     every sum has a fixed order, with no atomics: the same inputs give the
 //     same bits.
@@ -238,6 +242,65 @@
 // by float4, 1-4 % faster, for a second S path.
 // TMA is not used: its descriptors would come from cuTensorMapEncodeTiled
 // in libcuda, and cp.async keeps the ring full at these tile sizes.
+//
+// bf16 at (256, 256) (gemma3-1b's heads: 4 on 1 kv head, a 571-token
+// prompt, window 512 on the local layers) runs flash_wgspan_kernel.  The
+// bytes bound of that call is 2.9 MB, 0.9 us; what sets its time is
+// parallelism: flash_wgmma_kernel's one-pass walk would have B x H x
+// Sq/64 = 36 CTAs on 132 SMs, the longest walking 9 tiles of 16 S k-steps
+// each.  The span kernel's bf16 instantiation (its m16n8k16 fragment code,
+// two warps a row tile exchanging maxima and P through shared memory,
+// 188,416 B, f32 partials for every row past its first span) took 0.0218
+// ms against SDPA's 0.0211.  The design keeps the span plan and puts each
+// item on wgmma:
+//   * one CTA of one warpgroup per item of the span plan (find_item on 128
+//     threads, longest items first): 100 CTAs of one or two 64-key tiles
+//     at the 571 call, fewer than the card's SMs; the partials and the
+//     combine are the span kernel's, so a row's spans and their merge
+//     order depend only on its absolute position, and chunked calls equal
+//     one call bit for bit;
+//   * Q (64 rows) and both tiles of the span's K and V, each a 64-row tile
+//     of four 64-column swizzled blocks (rt::Swz<256, R>), arrive by
+//     cp.async in four commit groups, Q and K0, V0, K1, V1 (a thread
+//     copies chunk i % 8 of rows i / 8 + 16 j in each block): S of tile 0
+//     starts when K0 lands; 164,864 B, one CTA an SM, nothing refilled;
+//   * S = Q.K^T in 16 SS wgmma m64n64k16 k-steps; the softmax on S's
+//     registers (wg_softmax, flash_wgmma_kernel's: raw-score maxima, one
+//     fma and ex2 a score, the finite -1e30 mask only on cut tiles);
+//   * O (64 x 256 f32) as two m64n128 accumulators, 128 registers a
+//     thread; O += P_lo.V + P_hi.V as two RS m64n128k16 products a chunk
+//     and half of P, one on V's blocks 0-1 and one on 2-3, each reaching
+//     its second block through LBO (flash_wgmma_kernel's (128, 128)
+//     descriptor); tile 0's P.V is issued behind tile 1's S and runs
+//     under tile 1's softmax, the same products in the same order;
+//   * each row's partial (m, l, acc) is written as the span kernel writes
+//     it, and a row whose keys lie in this one span writes its output,
+//     both staged through shared memory (the free K and V tiles) and
+//     stored by whole rows, 256 contiguous bytes a warp's store; the
+//     combine merges the others, launched as a programmatic dependent
+//     (griddepcontrol): the items let it start once their tiles are done,
+//     and it waits for their end before it reads;
+//   * the combine issues the loads of 8 spans' partials before it uses
+//     any (kCombineGroup), so a row of up to 8 spans waits on one round of
+//     loads; its sums keep span order.
+// It holds 218 registers, no spills.  On an H100 (tools/kernel_stages.py
+// bf16fwd) the 571 call takes 0.0157-0.0159 ms against the span
+// kernel's 0.0212-0.0217 and SDPA's 0.0205-0.0209: a 2-tile CTA spends
+// about 1,500 cycles finding its item, 2,700 issuing its copies, 2,600 a
+// tile and 1,250 on the last P.V, then issues its rows' stores for
+// 6,800-7,100: the
+// partials, 6 MB at this call and read back by the combine, set the
+// epilogue's pace.  In turns (the same bits), the dependent launch and
+// the staging together took the call from 0.0173 to 0.0156-0.0158 ms, the
+// staging alone from 0.0162 to 0.0158.  Left out, by what they would cost
+// at this call: the one-pass walk (36 CTAs, the longest 9 tiles of about
+// 2,600 cycles, no partials, slower than 100 CTAs of at most 2); 16
+// positions x the 4 heads of a kv head as the 64-row M tile (K and V
+// loaded once for the group, but 100 items all the same, each loading its
+// span); two warpgroups splitting O's columns (S computed twice, or P
+// through shared memory: needed only if O, S and P spilled, which they do
+// not); spans of 256 keys (half the partials' bytes, but 60 CTAs of up to
+// 4 tiles through a refilled ring).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -693,6 +756,83 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The online softmax of one 64-key tile on S's registers (the raw scores
+// of rows g and g + 8 of the warp; s[4 j + e] is key t0 + 8 j + 2 t + (e &
+// 1)), in the log2 domain with the finite kNegInf: the mask only where
+// `full` is false (the causal bound, the window or the ragged kv edge cuts
+// the tile for some row of the CTA), where a masked raw score becomes
+// kNegInf, whose 2^(fma) below is 0; the row maxima on the raw scores
+// (scale > 0 rounds monotonically, so max(s) * scale' is the max of the
+// scaled scores); s turned into P = 2^(s scale' - m) in place, one fma a
+// score; the running max m and this lane's sums l updated, each lane
+// summing its 16 values of a row in order.  c0 and c1: O's rescale.
+__device__ __forceinline__ void wg_softmax(float (&s)[32], bool full, int t0,
+                                           int Skv, int causal, int window,
+                                           int qp0, int qp1, int t,
+                                           float qk_scale, float& m0,
+                                           float& m1, float& l0, float& l1,
+                                           float& c0, float& c1) {
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = t0 + 8 * j + 2 * t + (e & 1);
+        const int qp = e < 2 ? qp0 : qp1;
+        bool ok = key < Skv;
+        if (causal) {
+          ok = ok && key <= qp;
+          if (window) ok = ok && key > qp - window;
+        }
+        if (!ok) s[4 * j + e] = rt::kNegInf;
+      }
+  }
+  float mx0 = rt::kNegInf, mx1 = rt::kNegInf;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0 > rt::kNegInf ? mx0 * qk_scale : mx0);
+  const float mn1 = fmaxf(m1, mx1 > rt::kNegInf ? mx1 * qk_scale : mx1);
+  c0 = ex2(m0 - mn0);
+  c1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  // a row that has seen no key yet subtracts 0, so its masked scores give
+  // 0, not 2^0
+  const float b0 = mn0 > rt::kNegInf ? mn0 : 0.f;
+  const float b1 = mn1 > rt::kNegInf ? mn1 : 0.f;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], qk_scale, -b0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], qk_scale, -b0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], qk_scale, -b1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], qk_scale, -b1));
+    sum0 += s[4 * j] + s[4 * j + 1];
+    sum1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * c0 + sum0;
+  l1 = l1 * c1 + sum1;
+}
+
+// P as bf16 pairs hi + lo, already in the A layout of the k16 chunk of
+// keys 16 c .. 16 c + 15 (S's n8 blocks 2c and 2c + 1)
+__device__ __forceinline__ void wg_split(const float (&s)[32],
+                                         uint32_t (&ph)[4][4],
+                                         uint32_t (&pl)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], ph[c][r], pl[c][r]);
+}
+
 template <int HD, int HDV>
 __global__ void __launch_bounds__(kWgThreads, wg_min_ctas<HD>())
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -848,62 +988,14 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     rt::reg_fence(s);
 
-    // the mask matters only where the causal bound, the window or the
-    // ragged kv edge cuts this tile for some row of the CTA: there a
-    // masked raw score becomes kNegInf, whose 2^(fma) below is 0
     const int t0 = tile0 + it * BK;
     const bool full =
         t0 + BK <= Skv &&
         (!causal || (t0 + BK - 1 <= q_offset + q0 &&
                      (!window || t0 > q_offset + q0 + kBQ - 1 - window)));
-    if (!full) {
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = t0 + 8 * j + 2 * t + (e & 1);
-          const int qp = e < 2 ? qp0 : qp1;
-          bool ok = key < Skv;
-          if (causal) {
-            ok = ok && key <= qp;
-            if (window) ok = ok && key > qp - window;
-          }
-          if (!ok) s[4 * j + e] = rt::kNegInf;
-        }
-    }
-    // row maxima of the raw scores: scaling rounds monotonically, so
-    // max(s) * scale' is the max of the scaled scores
-    float mx0 = rt::kNegInf, mx1 = rt::kNegInf;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(rt::kFull, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(rt::kFull, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0 > rt::kNegInf ? mx0 * qk_scale : mx0);
-    const float mn1 = fmaxf(m1, mx1 > rt::kNegInf ? mx1 * qk_scale : mx1);
-    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    // P = 2^(s scale' - m), one fma a score; a row that has seen no key
-    // yet subtracts 0, so its masked scores give 0, not 2^0
-    const float b0 = mn0 > rt::kNegInf ? mn0 : 0.f;
-    const float b1 = mn1 > rt::kNegInf ? mn1 : 0.f;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[4 * j] = ex2(fmaf(s[4 * j], qk_scale, -b0));
-      s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], qk_scale, -b0));
-      s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], qk_scale, -b1));
-      s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], qk_scale, -b1));
-      sum0 += s[4 * j] + s[4 * j + 1];
-      sum1 += s[4 * j + 2] + s[4 * j + 3];
-    }
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
+    float c0, c1;
+    wg_softmax(s, full, t0, Skv, causal, window, qp0, qp1, t, qk_scale, m0,
+               m1, l0, l1, c0, c1);
     // tile it - 1's P.V is done: O and P's registers are free
     rt::wg_wait<0>();
     rt::reg_fence(o);
@@ -919,14 +1011,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       o[4 * n + 2] *= c1;
       o[4 * n + 3] *= c1;
     }
-    // P as bf16 pairs hi + lo, already in the A layout of the k16 chunk of
-    // keys 16 c .. 16 c + 15 (S's n8 blocks 2c and 2c + 1)
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        split_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], ph[c][r],
-                   pl[c][r]);
+    wg_split(s, ph, pl);
   }
   if (n_tiles > 0) {   // the last tile's P.V
     if (kLagV) {          // its V, issued in the last pass, landed
@@ -1082,16 +1167,17 @@ struct Item {
 // The item of CTA idx, found by the CTA's threads together: each takes one
 // query tile, a block-wide scan of the tiles' item counts gives every tile
 // its first index, and the thread whose tile holds idx publishes the item
-// in sh (kThreads / 32 + 3 ints).  One step per kThreads query tiles.
-template <int BK>
+// in sh (NTH / 32 + 3 ints).  One step per NTH query tiles (NTH: the CTA's
+// threads).
+template <int BK, int NTH>
 __device__ Item find_item(int idx, int Sq, int Skv, int q_offset,
                           int causal, int window, int BH, int* sh) {
-  constexpr int NW = kThreads / 32;
+  constexpr int NW = NTH / 32;
   const int n_q = (Sq + kBQ - 1) / kBQ;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   int base = 0;                               // items of the earlier steps
   for (int pass = 0; pass < 2; ++pass)
-    for (int r0 = 0; r0 < n_q; r0 += kThreads) {
+    for (int r0 = 0; r0 < n_q; r0 += NTH) {
       const int r = r0 + threadIdx.x;
       const int q0 = (n_q - 1 - r) * kBQ;
       TileSpans ts{0, 0, 0, 0};
@@ -1166,8 +1252,9 @@ flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pbuf = reinterpret_cast<float*>(vring + 2 * BK * VS);
   float* xbuf = pbuf + kRowWarps * 16 * PS;   // [rw][kg][max, sum][16]
 
-  const Item item = find_item<BK>(blockIdx.x, Sq, Skv, q_offset, causal,
-                                  window, BH, reinterpret_cast<int*>(xbuf));
+  const Item item = find_item<BK, kThreads>(blockIdx.x, Sq, Skv, q_offset,
+                                            causal, window, BH,
+                                            reinterpret_cast<int*>(xbuf));
   const int span = item.span, q0 = item.q0;
   const int b = item.bh / H;
   const int h = item.bh % H;
@@ -1377,15 +1464,25 @@ flash_span_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // kCombineThreads / (HDV / 2) query rows per CTA of the combine
 constexpr int kCombineThreads = 256;
+// spans of a row whose partials the combine loads at once
+constexpr int kCombineGroup = 8;
 
 // Two output columns per thread, one row per HDV / 2 threads: the spans
 // the row can see, merged in span order (a span it cannot see is never
-// read).  A row with one span was written by the span kernel.
+// read).  A row with one span was written by the span kernel; a row that
+// sees no key gets zeros, as an empty merge gives them.  The partials of
+// kCombineGroup spans are loaded together before any is used (loads past
+// the row's last span reread it and are ignored), so a row of up to that
+// many spans waits on one round of loads, not one a span; the sums keep
+// span order, as one span at a time would add them.
 template <typename T, int HDV>
 __global__ void __launch_bounds__(kCombineThreads)
 flash_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
                      int Sq, int Skv, int H, int q_offset, int causal,
                      int window, int n_spans) {
+  // launched as a programmatic dependent of the span kernel, which lets it
+  // start early: every partial is read after that grid's end
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   constexpr int R = kCombineThreads / (HDV / 2);
   const int row = blockIdx.x * R + threadIdx.x / (HDV / 2);
   if (row >= Sq) return;
@@ -1393,23 +1490,345 @@ flash_combine_kernel(const float* __restrict__ part, T* __restrict__ out,
   const int h = blockIdx.y % H;
   const int2 rs = row_spans(q_offset + row, Skv, causal, window);
   if (rs.x == rs.y) return;
+  const int d = 2 * (threadIdx.x % (HDV / 2));
+  T* po = out + (((int64_t)b * Sq + row) * H + h) * HDV + d;
+  if (rs.y < rs.x) {   // a row that sees no key: exact zeros
+    store2<T>(po, 0.f, 0.f);
+    return;
+  }
   const float* pr =
       part + ((int64_t)blockIdx.y * Sq + row) * n_spans * (HDV + 2);
-  const int d = 2 * (threadIdx.x % (HDV / 2));
+  constexpr int G = kCombineGroup;
+  float m[G], l[G];
+  float2 a[G];
+  auto fetch = [&](int s0) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const float* ps = pr + imin(s0 + i, rs.y) * (HDV + 2);
+      m[i] = ps[0];
+      l[i] = ps[1];
+      a[i] = *reinterpret_cast<const float2*>(ps + 2 + d);
+    }
+  };
+  fetch(rs.x);
   float mx = rt::kNegInf;
-  for (int s = rs.x; s <= rs.y; ++s) mx = fmaxf(mx, pr[s * (HDV + 2)]);
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    if (rs.x + i <= rs.y) mx = fmaxf(mx, m[i]);
+  for (int s0 = rs.x + G; s0 <= rs.y; s0 += G) {
+    float mg[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) mg[i] = pr[imin(s0 + i, rs.y) * (HDV + 2)];
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (s0 + i <= rs.y) mx = fmaxf(mx, mg[i]);
+  }
   float L = 0.f, O0 = 0.f, O1 = 0.f;
-  for (int s = rs.x; s <= rs.y; ++s) {
-    const float* ps = pr + s * (HDV + 2);
-    const float c = exp2f(ps[0] - mx);
-    const float2 a = *reinterpret_cast<const float2*>(ps + 2 + d);
-    L += ps[1] * c;
-    O0 += a.x * c;
-    O1 += a.y * c;
+  for (int s0 = rs.x; s0 <= rs.y; s0 += G) {
+    if (s0 > rs.x) fetch(s0);
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+      if (s0 + i <= rs.y) {
+        const float c = exp2f(m[i] - mx);
+        L += l[i] * c;
+        O0 += a[i].x * c;
+        O1 += a[i].y * c;
+      }
   }
   const float inv = 1.f / fmaxf(L, 1e-30f);
-  store2<T>(out + (((int64_t)b * Sq + row) * H + h) * HDV + d, O0 * inv,
-            O1 * inv);
+  store2<T>(po, O0 * inv, O1 * inv);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at (256, 256): the span plan's items on wgmma
+// ---------------------------------------------------------------------------
+
+// Q's tile and both tiles of a span's K and V, each swizzled (wgmma.cuh),
+// after the kWgAlign rounding: a span's tiles are all in shared memory at
+// once, so nothing is refilled
+template <int HD, int HDV>
+__host__ __device__ constexpr size_t wgspan_smem_bytes() {
+  return kWgAlign + 2 * (kBQ * HD + kSpan * (HD + HDV));
+}
+
+// One CTA of one warpgroup per work item of the span plan (find_item: a
+// span of kSpan absolute keys, a tile of 64 query rows and b*h, longest
+// items first), as flash_span_kernel, with flash_wgmma_kernel's products:
+// S = Q.K^T by wgmma m64n64k16 from shared memory, the online softmax on
+// S's registers, O += P_lo.V + P_hi.V by register-A wgmma.  Q, K and V of
+// the item's one or two 64-key tiles arrive by cp.async in four commit
+// groups (Q and K0, V0, K1, V1), so S of tile 0 starts when its K lands
+// and tile 0's P.V runs behind tile 1's S.  O (64 x 256 f32) is two
+// m64n128 accumulators, 128 registers a thread.  Each row's partial (m, l,
+// acc) goes to part, or, for a row whose keys all lie in this span, its
+// output to out, as flash_span_kernel writes them.
+template <int HD, int HDV>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgspan_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+                    int Sq, int Skv, int H, int Kh, int q_offset, int causal,
+                    int window, float scale, int n_spans, int BH) {
+  constexpr int BK = kTileKeys;               // keys a tile
+  constexpr int NT = kSpan / BK;              // tiles a span
+  constexpr int NH = HDV / 128;               // m64n128 products of P.V
+  static_assert(HDV % 128 == 0 && HD >= HDV, "O in 128-column halves");
+  using QTile = rt::Swz<HD, kBQ>;
+  using KTile = rt::Swz<HD, BK>;
+  using VTile = rt::Swz<HDV, BK>;
+  constexpr int QT = QTile::kBytes, KT = KTile::kBytes, VT = VTile::kBytes;
+  constexpr int QC = HD / 8;                  // 16-byte chunks a Q row
+  __shared__ int sh[kWgThreads / 32 + 3];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t qa = (raw + kWgAlign - 1) & ~uint32_t(kWgAlign - 1);
+  const uint32_t ka = qa + QT, va = ka + NT * KT;
+  unsigned char* qs = smem_raw + (qa - raw);
+  unsigned char* ks = qs + QT;
+  unsigned char* vs = ks + NT * KT;
+
+  const Item item = find_item<BK, kWgThreads>(blockIdx.x, Sq, Skv, q_offset,
+                                              causal, window, BH, sh);
+  const int span = item.span, q0 = item.q0;
+  const int b = item.bh / H;
+  const int h = item.bh % H;
+  const int kh = h / (H / Kh);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;                     // fragment row group
+  const int t = lane % 4;                     // thread in the group
+
+  const TileKeys tk = tile_keys(q0, Sq, Skv, q_offset, causal, window);
+  const int tile0 = (imax(tk.lo, span * kSpan) / BK) * BK;
+  const int n_tiles = span_tiles<BK>(tk, span);   // 1 or 2
+
+  // 16-byte cp.async copies by all 128 threads to their swizzled places
+  // (WgCopy: at 256 columns chunk i % 8 of rows i / 8 + 16 j in each of
+  // the four column blocks); rows past Skv are zero-filled
+  const int64_t krow0 = (int64_t)b * Skv * Kh + kh;   // row p at + p * Kh
+  auto load = [&](auto tile, int it, const __nv_bfloat16* src,
+                  unsigned char* dst) {
+    using Tile = decltype(tile);
+    using Cp = WgCopy<Tile::kD>;
+    constexpr int D = Tile::kD;
+    static_assert(Cp::RJ * Tile::kRow % kWgAlign == 0 &&
+                      16 * Cp::CW == Tile::kRow,
+                  "a thread's copies lie whole swizzle patterns apart, and "
+                  "a group of chunks is one column block");
+    const int cr = threadIdx.x / Cp::CW, cc = threadIdx.x % Cp::CW;
+    const int p0 = tile0 + it * BK + cr;
+    const int64_t off = (krow0 + (int64_t)p0 * Kh) * D + 8 * cc;
+    unsigned char* d = dst + it * Tile::kBytes + Tile::at(cr, cc);
+#pragma unroll
+    for (int j = 0; j < BK / Cp::RJ; ++j) {
+      const bool ok = p0 + j * Cp::RJ < Skv;
+#pragma unroll
+      for (int gi = 0; gi < Cp::NG; ++gi)
+        cp_async16(d + gi * Tile::kBlock + j * Cp::RJ * Tile::kRow,
+                   src + (ok ? off + (int64_t)j * Cp::RJ * Kh * D +
+                                   8 * Cp::CW * gi
+                             : 0),
+                   ok);
+    }
+  };
+  // q (B, Sq, H, HD): raw rows, zeros past Sq, in the group of K0
+  for (int i = threadIdx.x; i < kBQ * QC; i += kWgThreads) {
+    const int r = i / QC, c = i % QC, qi = q0 + r;
+    const bool ok = qi < Sq;
+    cp_async16(qs + QTile::at(r, c),
+               q + (((int64_t)b * Sq + (ok ? qi : 0)) * H + h) * HD + 8 * c,
+               ok);
+  }
+  static_assert(NT == 2, "four commit groups: (Q, K0), V0, K1, V1");
+  load(KTile{}, 0, k, ks);
+  cp_async_commit();
+  load(VTile{}, 0, v, vs);
+  cp_async_commit();
+  if (n_tiles > 1) load(KTile{}, 1, k, ks);
+  cp_async_commit();
+  if (n_tiles > 1) load(VTile{}, 1, v, vs);
+  cp_async_commit();
+
+  const float qk_scale = scale * kLog2e;
+  const int row0 = q0 + 16 * warp + g;        // query rows g and g + 8
+  const int qp0 = q_offset + row0, qp1 = qp0 + 8;   // absolute positions
+
+  float o[NH][64];
+#pragma unroll
+  for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[hf][i] = 0.f;
+  float m0 = rt::kNegInf, m1 = rt::kNegInf;   // running max, log2 domain
+  float l0 = 0.f, l1 = 0.f;                   // this lane's partial sums
+
+  // O += P_lo . V + P_hi . V of tile it, k16 chunk by chunk, lo first, as
+  // two m64n128 products a chunk and half of P (V's column blocks 0-1 and
+  // 2-3, LBO to the second block of each), issued (not awaited)
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
+  auto issue_pv = [&](int it) {
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf) {
+        const uint64_t dv = rt::desc_mn<VTile>(
+            va + it * VT + 2 * hf * VTile::kBlock + 16 * c * VTile::kRow);
+        rt::wgmma_rs<128>(o[hf], pl[c], dv);
+        rt::wgmma_rs<128>(o[hf], ph[c], dv);
+      }
+    rt::wg_commit();
+  };
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile 0: Q and K0 landed; tile 1: V0 and K1 too
+    if (it == 0)
+      cp_async_wait<3>();
+    else
+      cp_async_wait<1>();
+    rt::fence_proxy_async();
+    __syncthreads();   // every thread's copies of them landed
+
+    // S = Q . K^T, raw scores; then tile 0's P.V behind it
+    float s[32];
+    rt::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      rt::wgmma_ss_n64(s, rt::desc_k<QTile>(qa + QTile::kstep(kk)),
+                       rt::desc_k<KTile>(ka + it * KT + KTile::kstep(kk)),
+                       kk > 0);
+    rt::wg_commit();
+    if (it > 0) {
+      issue_pv(it - 1);
+      rt::wg_wait<1>();
+    } else {
+      rt::wg_wait<0>();
+    }
+    rt::reg_fence(s);   // S of tile it is in registers
+
+    const int t0 = tile0 + it * BK;
+    const bool full =
+        t0 + BK <= Skv &&
+        (!causal || (t0 + BK - 1 <= q_offset + q0 &&
+                     (!window || t0 > q_offset + q0 + kBQ - 1 - window)));
+    float c0, c1;
+    wg_softmax(s, full, t0, Skv, causal, window, qp0, qp1, t, qk_scale, m0,
+               m1, l0, l1, c0, c1);
+    // tile 0's P.V is done: O and P's registers are free
+    rt::wg_wait<0>();
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) {
+      rt::reg_fence(o[hf]);
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        o[hf][4 * n] *= c0;
+        o[hf][4 * n + 1] *= c0;
+        o[hf][4 * n + 2] *= c1;
+        o[hf][4 * n + 3] *= c1;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {
+      rt::reg_fence(ph[c]);
+      rt::reg_fence(pl[c]);
+    }
+    wg_split(s, ph, pl);
+  }
+  // the last tile's P.V, once its V landed
+  cp_async_wait<0>();
+  rt::fence_proxy_async();
+  __syncthreads();
+  if (n_tiles > 0) {
+    rt::wg_fence();
+    issue_pv(n_tiles - 1);
+    rt::wg_wait<0>();
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) rt::reg_fence(o[hf]);
+  }
+
+  // the combine's CTAs may start now: they wait for this grid's end
+  // (griddepcontrol.wait) before they read a partial
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // row sums across the quad, in a fixed order
+  l0 += __shfl_xor_sync(rt::kFull, l0, 1);
+  l0 += __shfl_xor_sync(rt::kFull, l0, 2);
+  l1 += __shfl_xor_sync(rt::kFull, l1, 1);
+  l1 += __shfl_xor_sync(rt::kFull, l1, 2);
+  // each row's (m, l, acc) through shared memory (the K and V tiles, free
+  // once every warp's last P.V is done), in its global layout, then out by
+  // whole rows: a warp's store covers 256 contiguous bytes of one row,
+  // where a store from the accumulator layout covers 32 bytes of 8 rows
+  constexpr int RS = HDV + 8;   // floats a staged row: lanes (g, t) of a
+                                // half warp hit distinct banks
+  static_assert(kBQ * RS * 4 <= NT * (KT + VT) && HDV == 8 * 32,
+                "rows fit in the tiles; a lane writes 8 output columns");
+  float* st = reinterpret_cast<float*>(ks);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* sr = st + (16 * warp + g + 8 * r) * RS;
+    if (t == 0) {
+      sr[0] = r ? m1 : m0;
+      sr[1] = r ? l1 : l0;
+    }
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+      for (int n = 0; n < 16; ++n)
+        *reinterpret_cast<float2*>(sr + 2 + 128 * hf + 8 * n + 2 * t) =
+            make_float2(o[hf][4 * n + 2 * r], o[hf][4 * n + 2 * r + 1]);
+  }
+  __syncthreads();
+  for (int rr = warp; rr < kBQ; rr += kWgThreads / 32) {
+    const int row = q0 + rr;
+    if (row >= Sq) break;
+    const int2 rs = row_spans(q_offset + row, Skv, causal, window);
+    if (span < rs.x || span > rs.y) continue;   // never read
+    const float* sr = st + rr * RS;
+    if (rs.x == rs.y) {        // the row's only span: its output, 8 columns
+      const float inv = 1.f / fmaxf(sr[1], 1e-30f);   // a lane
+      const float* a = sr + 2 + 8 * lane;
+      uint4 w;
+      uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 y =
+            __floats2bfloat162_rn(a[2 * j] * inv, a[2 * j + 1] * inv);
+        wp[j] = *reinterpret_cast<const uint32_t*>(&y);
+      }
+      *reinterpret_cast<uint4*>(
+          out + (((int64_t)b * Sq + row) * H + h) * HDV + 8 * lane) = w;
+      continue;
+    }
+    float2* pp = reinterpret_cast<float2*>(
+        part + (((int64_t)item.bh * Sq + row) * n_spans + span) * (HDV + 2));
+    const float2* s2 = reinterpret_cast<const float2*>(sr);
+    for (int i = lane; i < (HDV + 2) / 2; i += 32) pp[i] = s2[i];
+  }
+}
+
+// the combine of the span design's partials: rows of R = kCombineThreads
+// / (HDV / 2) a CTA, one grid row per b*h; launched with programmatic
+// stream serialization, so its launch overlaps the span kernel's tail (it
+// waits for that grid's end before it reads anything)
+template <typename T, int HDV>
+int launch_combine(const void* scratch, void* out, int B, int Sq, int Skv,
+                   int H, int q_offset, int causal, int window, int n_spans,
+                   cudaStream_t stream) {
+  constexpr int R = kCombineThreads / (HDV / 2);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Sq + R - 1) / R, B * H);
+  cfg.blockDim = dim3(kCombineThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, flash_combine_kernel<T, HDV>, static_cast<const float*>(scratch),
+      static_cast<T*>(out), Sq, Skv, H, q_offset, causal, window, n_spans));
 }
 
 template <typename T, int HD, int HDV>
@@ -1437,12 +1856,53 @@ int launch_span(const void* q, const void* k, const void* v, void* out,
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  constexpr int R = kCombineThreads / (HDV / 2);
-  flash_combine_kernel<T, HDV>
-      <<<dim3((Sq + R - 1) / R, B * H), kCombineThreads, 0, stream>>>(
-          static_cast<const float*>(scratch), static_cast<T*>(out), Sq, Skv,
-          H, q_offset, causal, window, n_spans);
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine<T, HDV>(scratch, out, B, Sq, Skv, H, q_offset,
+                                causal, window, n_spans, stream);
+}
+
+// the span design's item kernel on bf16 (256, 256): flash_wgspan_kernel,
+// then the same combine
+template <int HD, int HDV>
+cudaError_t wgspan_attributes() {
+  constexpr size_t bytes = wgspan_smem_bytes<HD, HDV>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgspan_kernel<HD, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(flash_wgspan_kernel<HD, HDV>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int HD, int HDV>
+int launch_wgspan(const void* q, const void* k, const void* v, void* out,
+                  void* scratch, int B, int Sq, int Skv, int H, int Kh,
+                  int q_offset, int causal, int window, float scale,
+                  int span, int smem, cudaStream_t stream) {
+  constexpr size_t bytes = wgspan_smem_bytes<HD, HDV>();
+  static_assert(bytes <= kMaxSmem, "tiles do not fit in shared memory");
+  // the row maxima are taken on the unscaled scores
+  if (span != kSpan || smem != static_cast<int>(bytes) || !scratch ||
+      !(scale > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = wgspan_attributes<HD, HDV>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_spans = Skv > kSpan ? (Skv + kSpan - 1) / kSpan : 1;
+  const int n_items = count_items<kTileKeys>(Sq, Skv, q_offset, causal,
+                                             window, B * H);
+  if (n_items > 0) {
+    flash_wgspan_kernel<HD, HDV><<<n_items, kWgThreads, bytes, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<float*>(scratch),
+        static_cast<__nv_bfloat16*>(out), Sq, Skv, H, Kh, q_offset, causal,
+        window, scale, n_spans, B * H);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return launch_combine<__nv_bfloat16, HDV>(scratch, out, B, Sq, Skv, H,
+                                            q_offset, causal, window,
+                                            n_spans, stream);
 }
 
 template <int HD, int HDV>
@@ -1544,23 +2004,29 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                      : launch_wgmma<D, DV>(q, k, v, out, B, Sq, Skv, H,    \
                                            Kh, q_offset, causal, window,  \
                                            scale, smem, s);
+#define RT_WGS(D, DV)                                                      \
+  if (hd == D && hdv == DV)                                                \
+    return launch_wgspan<D, DV>(q, k, v, out, scratch, B, Sq, Skv, H, Kh,  \
+                                q_offset, causal, window, scale, span,     \
+                                smem, s);
   if (dtype == rt::kDtypeF32) {
     RT_CASE(16, 16) RT_CASE(32, 32) RT_CASE(64, 64)
     RT_SPAN(float, 128, 128) RT_SPAN(float, 192, 128)
     RT_SPAN(float, 256, 256)
   } else if (dtype == rt::kDtypeBF16) {
     RT_WG(16, 16) RT_WG(32, 32) RT_WG(64, 64) RT_WG(128, 128)
-    RT_WG(192, 128) RT_SPAN(__nv_bfloat16, 256, 256)
+    RT_WG(192, 128) RT_WGS(256, 256)
   }
+#undef RT_WGS
 #undef RT_WG
 #undef RT_CASE
 #undef RT_SPAN
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// CTAs of flash_wgmma_kernel<hd, hdv> an SM holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the attributes its
-// launcher sets), or -1 for a pair it does not take
+// CTAs of flash_wgmma_kernel<hd, hdv> (at (256, 256) flash_wgspan_kernel)
+// an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after
+// the attributes its launcher sets), or -1 for a pair neither takes
 extern "C" int flash_wgmma_occupancy(int hd, int hdv) {
   int n = -1;
 #define RT_OCC(D, DV)                                                     \
@@ -1574,5 +2040,11 @@ extern "C" int flash_wgmma_occupancy(int hd, int hdv) {
   RT_OCC(16, 16) RT_OCC(32, 32) RT_OCC(64, 64) RT_OCC(128, 128)
   RT_OCC(192, 128)
 #undef RT_OCC
+  if (hd == 256 && hdv == 256 &&
+      (wgspan_attributes<256, 256>() != cudaSuccess ||
+       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &n, flash_wgspan_kernel<256, 256>, kWgThreads,
+           wgspan_smem_bytes<256, 256>()) != cudaSuccess))
+    return -1;
   return n;
 }

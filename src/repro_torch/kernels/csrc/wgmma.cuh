@@ -1,6 +1,6 @@
 // Hopper's warpgroup products (wgmma, sm_90a) on bf16 operands with f32
 // accumulators, and the shared-memory layouts they read, for the bf16
-// one-pass flash kernel.
+// flash kernels (flash_wgmma_kernel and flash_wgspan_kernel).
 //
 // A warpgroup is 4 consecutive warps (128 threads); warp w of it holds rows
 // 16 w .. 16 w + 15 of the 64-row tile.  Within a warp the registers are
@@ -17,9 +17,9 @@
 // the swizzled layout of its width: the 16-byte chunk c of row r sits at
 // byte r * 2D + 16 c, with bits [4, 7) of that offset XORed by bits [7,
 // 10) (CUTLASS's Swizzle<B, 4, 3>: B = 1, 2, 3 for 32-, 64- and 128-byte
-// rows), counted from a 1024-byte boundary.  A row of 128 or 192 bf16 is
-// stored as two or three column blocks of 64, each an R-row tile of
-// 128-byte swizzled rows, block b starting b * R * 128 bytes after the
+// rows), counted from a 1024-byte boundary.  A row of 128, 192 or 256 bf16
+// is stored as two, three or four column blocks of 64, each an R-row tile
+// of 128-byte swizzled rows, block b starting b * R * 128 bytes after the
 // first.  The descriptor names the mode, so the hardware undoes the XOR on
 // its own addresses: both sides must agree, or the numbers come out wrong
 // without any error.
@@ -35,7 +35,9 @@
 //     stride between column blocks along n: at 128 columns (N = 128) the
 //     R * 128 bytes to the second block.  Where n fits one atom it is never
 //     used, and is set equal to SBO, which reads the same whichever of the
-//     two fields the hardware takes for the k stride.
+//     two fields the hardware takes for the k stride.  At 256 columns P.V
+//     runs as two N = 128 products, one on blocks 0-1 and one on blocks
+//     2-3, each starting at its first block with the same LBO.
 #pragma once
 
 #include <stdint.h>
@@ -45,13 +47,14 @@
 namespace rt {
 
 // a tile of R rows of D bf16: one swizzle atom a row up to D = 64; D / 64
-// column blocks of 64 at D = 128 and 192 (a row of 384 bytes is three
-// atoms: the same rule, one block more)
+// column blocks of 64 at D = 128, 192 and 256 (a row of 384 or 512 bytes
+// is three or four atoms: the same rule, more blocks)
 template <int D, int R>
 struct Swz {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 192,
-                "rows of 16, 32, 64 bf16 (one atom), or of 128 or 192 (two "
-                "or three 64-column blocks)");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 192 ||
+                    D == 256,
+                "rows of 16, 32, 64 bf16 (one atom), or of 128, 192 or 256 "
+                "(two, three or four 64-column blocks)");
   static constexpr int kD = D;
   static constexpr int kAtom = D < 64 ? D : 64;    // bf16 an atom row
   static constexpr int kRow = 2 * kAtom;           // bytes an atom row

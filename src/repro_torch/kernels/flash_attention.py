@@ -27,10 +27,15 @@ the kernel is ``flash_wgmma_kernel``: one warpgroup per 64 query rows,
 64-key tiles of absolute keys, S and P.V on Hopper's wgmma, P entering P.V
 as bf16 hi + lo (f32 accuracy up to the output's rounding); rows of 128 and
 192 are two and three 64-column blocks of one swizzle atom each, and the
-K/V ring is ``wg_stages(hd)`` deep.  ``flash_wgmma_plain`` is the
-plain version of that design's arithmetic, which the tests hold against
-``flash_attention_plain`` and the Pallas kernel, and the kernel against.
-It takes scale > 0 (its row maxima are taken on the unscaled scores).
+K/V ring is ``wg_stages(hd)`` deep.  At bf16 (256, 256) it is
+``flash_wgspan_kernel``: the span plan's items, each a warpgroup walking
+its span's one or two 64-key tiles with the same products and softmax
+(rows of four column blocks, O as two m64n128 accumulators), then the
+span combine.  ``flash_wgmma_plain`` is the plain version of both designs'
+arithmetic (at (256, 256) per span, merged by ``flash_combine_plain``),
+which the tests hold against ``flash_attention_plain`` and the Pallas
+kernel, and the kernels against.  Both take scale > 0 (their row maxima
+are taken on the unscaled scores).
 
 Where autograd records a call on CUDA tensors (grad mode on, an input
 requiring grad), the wrapper goes through ``FlashAttentionFn``, whose
@@ -63,8 +68,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # package passes (hd 256 is gemma3's; (192, 128) is MLA prefill's)
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
                   (256, 256))
-# the (hd, hdv) the span kernel takes, f32 and bf16; the others run in one
-# pass (at bf16 (128, 128) and (192, 128) too, in flash_wgmma_kernel)
+# the (hd, hdv) split into spans, f32 (flash_span_kernel) and bf16
+# (flash_wgspan_kernel); the others run in one pass (at bf16 (128, 128)
+# and (192, 128) too, in flash_wgmma_kernel)
 SPAN_PAIRS = ((128, 128), (192, 128), (256, 256))
 SPAN_PAIRS_BF16 = ((256, 256),)
 SPAN = 128                         # absolute key positions per span (kSpan)
@@ -83,7 +89,8 @@ class Geometry(NamedTuple):
 
 
 def is_span(hd: int, hdv: int, dtype: torch.dtype) -> bool:
-    """Whether the span kernel serves (hd, hdv) at ``dtype``."""
+    """Whether (hd, hdv) at ``dtype`` runs the span plan (f32: the span
+    kernel; bf16: its wgmma design)."""
     return (hd, hdv) in (SPAN_PAIRS_BF16 if dtype == torch.bfloat16
                          else SPAN_PAIRS)
 
@@ -105,26 +112,38 @@ def wg_smem(hd: int, hdv: int, stages: int | None = None) -> int:
     return WG_ALIGN + 2 * (TILE_Q * hd + stages * TILE_K * (hd + hdv))
 
 
+def wg_span_smem(hd: int, hdv: int) -> int:
+    """The bf16 span design's dynamic shared memory (wgspan_smem_bytes):
+    ``WG_ALIGN`` bytes for the swizzle boundary, Q's ``TILE_Q`` rows and a
+    whole span's K and V (``SPAN`` keys), unpadded bf16: 164,864 B at
+    (256, 256), one CTA an SM."""
+    return WG_ALIGN + 2 * (TILE_Q * hd + SPAN * (hd + hdv))
+
+
 def _geometry(hd: int, hdv: int, dtype: torch.dtype) -> Geometry:
     """The kernels' launch geometry (csrc/flash_attention.cu: kTileKeys and
-    smem_bytes, wg_smem_bytes for the bf16 one-pass kernel, or span_tile
-    and span_smem for the span kernel), which the launcher refuses to
-    differ.  f32 one-pass and the span kernel: Q's tile and a 2-stage K/V
-    ring, rows padded by 16 bytes (f32) or 8 elements (bf16), and in the
-    span kernel P and the pair's row maxima and sums in f32; its ring tiles
-    hold 64 keys, or 32 for f32 rows wider than 128.  bf16 one-pass
-    (``flash_wgmma_kernel``): ``wg_smem``, unpadded swizzled bf16 rows."""
-    es = dtype.itemsize
-    if not is_span(hd, hdv, dtype):
-        if dtype == torch.bfloat16:
-            return Geometry(TILE_K, 0, wg_smem(hd, hdv))
-        return Geometry(TILE_K, 0, _ring_smem(hd, hdv, es, TILE_K))
-    return _span_geometry(hd, hdv, es)
+    smem_bytes, wg_smem_bytes for the bf16 one-pass kernel, wgspan_smem_bytes
+    for the bf16 span design, or span_tile and span_smem for the f32 span
+    kernel), which the launcher refuses to differ.  f32 one-pass and the
+    span kernel: Q's tile and a 2-stage K/V ring, rows padded by 16 bytes,
+    and in the span kernel P and the pair's row maxima and sums in f32; its
+    ring tiles hold 64 keys, or 32 for rows wider than 128.  bf16
+    (``flash_wgmma_kernel``, ``flash_wgspan_kernel``): ``wg_smem`` or
+    ``wg_span_smem``, unpadded swizzled bf16 rows, 64-key tiles."""
+    span = is_span(hd, hdv, dtype)
+    if dtype == torch.bfloat16:
+        return Geometry(TILE_K, SPAN, wg_span_smem(hd, hdv)) if span \
+            else Geometry(TILE_K, 0, wg_smem(hd, hdv))
+    if not span:
+        return Geometry(TILE_K, 0, _ring_smem(hd, hdv, dtype.itemsize,
+                                              TILE_K))
+    return _span_geometry(hd, hdv, dtype.itemsize)
 
 
 def _span_geometry(hd: int, hdv: int, es: int) -> Geometry:
-    """The span kernel's geometry at (hd, hdv) for elements of ``es``
-    bytes (span_tile and span_smem)."""
+    """flash_span_kernel's geometry at (hd, hdv) for elements of ``es``
+    bytes (span_tile and span_smem; at bf16 the design the wgmma kernels
+    replaced, which chip_smoke.py builds to time beside them)."""
     bk = 32 if es == 4 and hd > 128 else 64
     return Geometry(bk, SPAN, _ring_smem(hd, hdv, es, bk)
                     + 4 * (4 * 16 * (bk + 8) + 4 * 2 * 2 * 16))
@@ -214,21 +233,25 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
 
 def flash_wgmma_plain(q, k, v, *, causal=True, window=0, scale=None,
                       q_offset=None):
-    """The bf16 one-pass kernel's arithmetic (``flash_wgmma_kernel``),
-    written out in f32 on the widened inputs: per query tile of ``TILE_Q``
-    rows, the ``TILE_K``-key tiles of absolute keys from the one holding
-    the tile's first visible key, each as S = q.k (every product exact, the
-    hd terms added in order) times scale * log2(e), masked to -1e30; the
-    online softmax in the log2 domain (row max, rescale by 2^(m - m'), P =
-    2^(s scale log2(e) - m') with one rounding, as the kernel's fma; each
-    row's sum kept as the kernel's four lanes' partials,
-    added (0 + 1) + (2 + 3) at the end); P as bf16 hi plus bf16 lo, and O +=
-    P_lo V then P_hi V per 16-key chunk, each chunk's 16 terms added in
-    order; out = O / max(l, 1e-30), rounded to q's dtype.  Every sum runs
-    elementwise in a fixed order, so a row's result depends only on its
-    absolute position and its tile's walk, and the extra tiles a chunk's
-    walk may take add exact zeros at an exact scale of 1: chunked calls
-    equal one call bit for bit, as the kernel's do."""
+    """The bf16 kernels' arithmetic (``flash_wgmma_kernel``, and at the
+    span pairs ``flash_wgspan_kernel``), written out in f32 on the widened
+    inputs: per query tile of ``TILE_Q`` rows, the ``TILE_K``-key tiles of
+    absolute keys from the one holding the tile's first visible key, each
+    as S = q.k (every product exact, the hd terms added in order) times
+    scale * log2(e), masked to -1e30; the online softmax in the log2 domain
+    (row max, rescale by 2^(m - m'), P = 2^(s scale log2(e) - m') with one
+    rounding, as the kernel's fma; each row's sum kept as the kernel's four
+    lanes' partials, added (0 + 1) + (2 + 3) at the end); P as bf16 hi plus
+    bf16 lo, and O += P_lo V then P_hi V per 16-key chunk, each chunk's 16
+    terms added in order; out = O / max(l, 1e-30), rounded to q's dtype.
+    At the span pairs (``is_span``) each (query tile, span) of ``span_plan``
+    walks only that span's tiles, and each row's spans are merged by
+    ``flash_combine_plain`` (one span: O / max(l, 1e-30), as the kernel
+    writes it).  Every sum runs elementwise in a fixed order, so a row's
+    result depends only on its absolute position and its tile's walk, and
+    the extra tiles a chunk's walk may take add exact zeros at an exact
+    scale of 1: chunked calls equal one call bit for bit, as the kernels'
+    do."""
     B, Sq, H, hd = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     hdv = v.shape[-1]
@@ -244,58 +267,95 @@ def flash_wgmma_plain(q, k, v, *, causal=True, window=0, scale=None,
     vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)) \
         .permute(0, 2, 1, 3)                         # (B, Kh, keys, hdv)
     qf = q.float().reshape(B, Sq, Kh, G, hd).permute(0, 2, 3, 1, 4)
-    out = torch.zeros((B, Kh, G, Sq, hdv), dtype=torch.float32,
-                      device=q.device)
+    spans = is_span(hd, hdv, torch.bfloat16)
+    ns = n_spans(Skv)
+    dev = q.device
+    if spans:        # each row's partial per span, as the kernel writes it
+        pm = torch.full((B, H, Sq, ns), NEG_INF, device=dev)
+        pl = torch.zeros((B, H, Sq, ns), device=dev)
+        pacc = torch.zeros((B, H, Sq, ns, hdv), device=dev)
+    else:
+        out = torch.zeros((B, Kh, G, Sq, hdv), dtype=torch.float32,
+                          device=dev)
     for q0 in range(0, Sq, TILE_Q):
         R = min(TILE_Q, Sq - q0)
         lo, hi = _key_range(q0, q0 + R - 1, Skv, q_offset, causal, window)
-        tile0 = lo // TILE_K * TILE_K
         qt = qf[:, :, :, q0:q0 + R, None, :]         # (B, Kh, G, R, 1, hd)
-        qp = q_offset + q0 + torch.arange(R, device=q.device)[:, None]
-        m = torch.full((B, Kh, G, R), NEG_INF, device=q.device)
-        lanes = torch.zeros((B, Kh, G, R, 4), device=q.device)
-        o = torch.zeros((B, Kh, G, R, hdv), device=q.device)
-        for t0 in range(tile0, hi, TILE_K):
-            kt = kf[:, :, None, None, t0:t0 + TILE_K]   # (B, Kh, 1, 1, K, hd)
-            vt = vf[:, :, None, None, t0:t0 + TILE_K]
-            s = torch.zeros((B, Kh, G, R, TILE_K), device=q.device)
-            for d in range(hd):
-                s = s + qt[..., d] * kt[..., d]
-            key = t0 + torch.arange(TILE_K, device=q.device)[None, :]
-            ok = key < Skv
-            if causal:
-                ok = ok & (key <= qp)
-                if window:
-                    ok = ok & (key > qp - window)
-            x = torch.where(ok, s * qk, torch.full_like(s, NEG_INF))
-            mn = torch.maximum(m, x.amax(dim=-1))
-            c = torch.exp2(m - mn)
-            m = mn
-            # 2^(s qk - m) with s qk - m rounded once, as the kernel's fma
-            # (s qk is exact in f64); a row without a key subtracts 0
-            b = torch.where(mn > NEG_INF, mn, torch.zeros_like(mn))
-            e = (s.double() * qk - b[..., None].double()).float()
-            p = torch.where(ok, torch.exp2(e), torch.zeros_like(e))
-            # lane t holds keys 8 j + 2 t and 8 j + 2 t + 1, j in order
-            pairs = p.reshape(*p.shape[:-1], TILE_K // 8, 4, 2)
-            pairs = pairs[..., 0] + pairs[..., 1]
-            part = pairs[..., 0, :]
-            for j in range(1, TILE_K // 8):
-                part = part + pairs[..., j, :]
-            lanes = lanes * c[..., None] + part
-            o = o * c[..., None]
-            p_hi = p.to(torch.bfloat16).float()
-            p_lo = (p - p_hi).to(torch.bfloat16).float()
-            for c16 in range(0, TILE_K, 16):
-                for half in (p_lo, p_hi):
-                    acc = half[..., c16, None] * vt[..., c16, :]
-                    for j in range(c16 + 1, c16 + 16):
-                        acc = acc + half[..., j, None] * vt[..., j, :]
-                    o = o + acc
-        l = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
-        out[:, :, :, q0:q0 + R] = o * (1.0 / torch.clamp(l, min=1e-30))[
-            ..., None]
+        qp = q_offset + q0 + torch.arange(R, device=dev)[:, None]
+        if not spans:
+            m, l, o = _wgmma_walk(qt, kf, vf, qp, lo // TILE_K * TILE_K, hi,
+                                  Skv, causal, window, qk)
+            out[:, :, :, q0:q0 + R] = o * (1.0 / torch.clamp(l, min=1e-30))[
+                ..., None]
+            continue
+        for s in range(ns):
+            a, e = max(lo, s * SPAN), min(hi, (s + 1) * SPAN)
+            if a >= e:
+                continue
+            m, l, o = _wgmma_walk(qt, kf, vf, qp, a // TILE_K * TILE_K, e,
+                                  Skv, causal, window, qk)
+            pm[:, :, q0:q0 + R, s] = m.reshape(B, H, R)
+            pl[:, :, q0:q0 + R, s] = l.reshape(B, H, R)
+            pacc[:, :, q0:q0 + R, s] = o.reshape(B, H, R, hdv)
+    if spans:
+        return flash_combine_plain(pm, pl, pacc, Skv=Skv, causal=causal,
+                                   window=window, q_offset=q_offset,
+                                   dtype=q.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hdv).to(q.dtype)
+
+
+def _wgmma_walk(qt, kf, vf, qp, tile0, hi, Skv, causal, window, qk):
+    """One query tile's walk over the ``TILE_K``-key tiles from ``tile0``
+    up to key ``hi`` (``flash_wgmma_plain``): qt (B, Kh, G, R, 1, hd), kf
+    and vf (B, Kh, keys, hd/hdv) padded to whole tiles, qp (R, 1) the rows'
+    absolute positions, qk = scale * log2(e) in f32.  Returns the rows'
+    running max m (log2 domain), the sum l (the four lanes' partials added
+    (0 + 1) + (2 + 3)) and O, unnormalised."""
+    B, Kh, G, R = qt.shape[:4]
+    hd, hdv = qt.shape[-1], vf.shape[-1]
+    dev = qt.device
+    m = torch.full((B, Kh, G, R), NEG_INF, device=dev)
+    lanes = torch.zeros((B, Kh, G, R, 4), device=dev)
+    o = torch.zeros((B, Kh, G, R, hdv), device=dev)
+    for t0 in range(tile0, hi, TILE_K):
+        kt = kf[:, :, None, None, t0:t0 + TILE_K]    # (B, Kh, 1, 1, K, hd)
+        vt = vf[:, :, None, None, t0:t0 + TILE_K]
+        s = torch.zeros((B, Kh, G, R, TILE_K), device=dev)
+        for d in range(hd):
+            s = s + qt[..., d] * kt[..., d]
+        key = t0 + torch.arange(TILE_K, device=dev)[None, :]
+        ok = key < Skv
+        if causal:
+            ok = ok & (key <= qp)
+            if window:
+                ok = ok & (key > qp - window)
+        x = torch.where(ok, s * qk, torch.full_like(s, NEG_INF))
+        mn = torch.maximum(m, x.amax(dim=-1))
+        c = torch.exp2(m - mn)
+        m = mn
+        # 2^(s qk - m) with s qk - m rounded once, as the kernel's fma
+        # (s qk is exact in f64); a row without a key subtracts 0
+        b = torch.where(mn > NEG_INF, mn, torch.zeros_like(mn))
+        e = (s.double() * qk - b[..., None].double()).float()
+        p = torch.where(ok, torch.exp2(e), torch.zeros_like(e))
+        # lane t holds keys 8 j + 2 t and 8 j + 2 t + 1, j in order
+        pairs = p.reshape(*p.shape[:-1], TILE_K // 8, 4, 2)
+        pairs = pairs[..., 0] + pairs[..., 1]
+        part = pairs[..., 0, :]
+        for j in range(1, TILE_K // 8):
+            part = part + pairs[..., j, :]
+        lanes = lanes * c[..., None] + part
+        o = o * c[..., None]
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        for c16 in range(0, TILE_K, 16):
+            for half in (p_lo, p_hi):
+                acc = half[..., c16, None] * vt[..., c16, :]
+                for j in range(c16 + 1, c16 + 16):
+                    acc = acc + half[..., j, None] * vt[..., j, :]
+                o = o + acc
+    l = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+    return m, l, o
 
 
 def flash_partials_plain(q, k, v, *, causal=True, window=0, scale=None,
@@ -676,11 +736,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if H % Kh:
         raise ValueError(f"flash attention: H={H} not a multiple of Kh={Kh}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    if q.dtype == torch.bfloat16 and not is_span(hd, hdv, q.dtype) \
-            and not scale > 0:
-        raise ValueError("flash attention: the bf16 one-pass kernel (hd <= "
-                         "128 and (192, 128)) takes scale > 0 (it takes each "
-                         f"row's max on the unscaled scores), got {scale}")
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError("flash attention: the bf16 kernels take scale > 0 "
+                         "(they take each row's max on the unscaled "
+                         f"scores), got {scale}")
     if how == "meta":
         return build.meta_outputs(lambda: q.new_empty((B, Sq, H, hdv)),
                                   q, k, v)

@@ -8,7 +8,10 @@ deepseek-v2-236b's smoke config with its MLA heads widened to the served
 pair (nope 128, rope 64, v 128: flash at (192, 128)), whose forward is held
 to ``repro.models.model.forward`` at bf16 by the same rule and whose engine
 streams across a refactor equal its unrefactored run (the reference's
-engine cannot serve MLA).  Streams are not held across packages: at bf16
+engine cannot serve MLA), and gemma3-1b's smoke config with its heads widened
+to the served 256 (flash at (256, 256)), whose engine prefill logits are
+held to the JAX engine's by the same rule and whose refactored run equals
+its unrefactored one.  Streams are not held across packages: at bf16
 the two packages round at other places, and a stream may leave the other's
 where a top-2 margin is below bf16's rounding."""
 import dataclasses
@@ -143,10 +146,12 @@ def test_engine_prefill_logits_bf16_vs_reference(boundaries):
 
 def _streams(cfg, params, refactor=False, **ecfg):
     """Six requests (20-69-token prompts, 8 new tokens) on four slots, two
-    slots reused; ``refactor``: [0, 2] -> [0, 1, 2, 3] at tick 4 and back
-    at tick 12.  Each request's greedy stream."""
+    slots reused; ``refactor``: [0, 2] -> the warmed 4-stage partition
+    ([0, 1, 2, 3] at 4 layers) at tick 4 and back at tick 12.  Each
+    request's greedy stream."""
     eng = FlexPipeEngine(cfg, params, [0, 2], EngineConfig(
         max_batch=4, max_seq=128, warm_profiles=(4,), **ecfg), device="cpu")
+    four = eng._boundaries_for(4)
     rng = np.random.default_rng(5)
     reqs = []
     for i in range(6):
@@ -157,7 +162,7 @@ def _streams(cfg, params, refactor=False, **ecfg):
         eng.submit(r, now=0.0)
     for t in range(300):
         if refactor and t in (4, 12):
-            ev = eng.refactor([0, 1, 2, 3] if t == 4 else [0, 2])
+            ev = eng.refactor(four if t == 4 else [0, 2])
             assert ev["compile_cache_hit"]
         eng.step(t * 0.05)
         if not eng.queue and all(s.done for s in eng.slots):
@@ -250,3 +255,49 @@ def test_mla_engine_bf16_refactor_equals_unrefactored():
     eng = FlexPipeEngine(cfg, params, [0, 2], EngineConfig(
         max_batch=4, max_seq=128, cache_dtype="bfloat16"), device="cpu")
     assert {c.dtype for c in tree_leaves(eng.caches)} == {torch.bfloat16}
+
+
+# ---------------------------------------------------------------------------
+# gemma3-1b, its heads widened to the served 256
+# ---------------------------------------------------------------------------
+
+GEMMA = "gemma3-1b"
+
+
+def _gemma_cfgs():
+    """gemma3-1b's smoke config (13 layers, window 8 on the local layers,
+    4 heads on 1) with head_dim 256, the served width, so that its prefill
+    calls flash at (256, 256), in each package."""
+    return (dataclasses.replace(get_arch(GEMMA).smoke_config, head_dim=256),
+            dataclasses.replace(jax_arch(GEMMA).smoke_config, head_dim=256))
+
+
+def test_gemma3_engine_prefill_logits_bf16_vs_reference():
+    """gemma3's engine prefill (two stages, a 23-token prompt that rolls
+    the local layers' 8-row rings) at bf16 params and a bf16 cache against
+    the JAX engine's at bf16, within FACTOR times the reference's own
+    bf16-to-f32 distance; at f32 both agree to 3e-5."""
+    cfg, jcfg = _gemma_cfgs()
+    npp = np_params(cfg, 0)
+    mine = _port_prefill_logits(cfg, npp, torch.bfloat16, "bfloat16",
+                                [0, 7])
+    ref16 = _jax_prefill_logits(jcfg, npp, jnp.bfloat16, "bfloat16", [0, 7])
+    ref32 = _jax_prefill_logits(jcfg, npp, jnp.float32, "float32", [0, 7])
+    mine32 = _port_prefill_logits(cfg, npp, torch.float32, "float32",
+                                  [0, 7])
+    torch.testing.assert_close(mine32, ref32, atol=3e-5, rtol=3e-5)
+    _within(mine, ref16, ref32, "gemma3 prefill logits")
+
+
+def test_gemma3_engine_bf16_refactor_equals_unrefactored():
+    """gemma3 with 256-wide heads served at bf16 params and bf16 caches
+    (local rings and global rows): a run refactored [0, 2] -> [0, 4, 7,
+    10] -> [0, 2] gives the unrefactored run's streams bit for bit."""
+    cfg, _ = _gemma_cfgs()
+    params = _port_params(np_params(cfg, 0), torch.bfloat16)
+    eng = FlexPipeEngine(cfg, params, [0, 2], EngineConfig(
+        max_batch=4, max_seq=128, cache_dtype="bfloat16"), device="cpu")
+    assert {c.dtype for c in tree_leaves(eng.caches)} == {torch.bfloat16}
+    del eng
+    base = _streams(cfg, params, cache_dtype="bfloat16")
+    assert _streams(cfg, params, True, cache_dtype="bfloat16") == base

@@ -170,9 +170,10 @@ def _over_bf16_ulp(got, want):
     return int(((got - want).abs() > ulp.clamp_min(5e-3)).sum())
 
 
-# the head dims flash_wgmma_kernel takes at bf16; hdv is hd's, or 128 at
-# MLA's hd 192
-WGMMA_HDS = [16, 32, 64, 128, 192]
+# the head dims the bf16 kernels on wgmma take (flash_wgmma_kernel; at
+# 256 the span design flash_wgspan_kernel); hdv is hd's, or 128 at MLA's
+# hd 192
+WGMMA_HDS = [16, 32, 64, 128, 192, 256]
 
 
 def _hdv(hd):
@@ -190,12 +191,14 @@ def _hdv(hd):
 ])
 def test_cuda_flash_wgmma(cuda_dev, hd, B, Sq, Skv, H, Kh, causal, window,
                           q_offset):
-    """The bf16 one-pass kernel (flash_wgmma_kernel) within one bf16 ulp or
-    5e-3 of the plain version and of its design's mirror
+    """The bf16 kernels on wgmma (flash_wgmma_kernel; at (256, 256)
+    flash_wgspan_kernel, the span plan's items) within one bf16 ulp or
+    5e-3 of the plain version and of their design's mirror
     (flash_wgmma_plain), at Sq and Skv off its tiles, windows, q_offset,
-    GQA and rows that see no key, at every pair it takes ((192, 128):
-    three-block rows of Q and K, a 2-stage ring with V a tile behind K);
-    two calls give the same bits."""
+    GQA and rows that see no key, at every pair ((192, 128): three-block
+    rows of Q and K, a 2-stage ring with V a tile behind K; (256, 256):
+    four-block rows, O in two m64n128 halves, partials merged by the
+    combine); two calls give the same bits."""
     rng = np.random.default_rng(hd + Sq + Skv)
     q = _rand(rng, (B, Sq, H, hd), "bfloat16", cuda_dev)
     k = _rand(rng, (B, Skv, Kh, hd), "bfloat16", cuda_dev)
@@ -211,8 +214,9 @@ def test_cuda_flash_wgmma(cuda_dev, hd, B, Sq, Skv, H, Kh, causal, window,
 @pytest.mark.parametrize("hd", WGMMA_HDS)
 @pytest.mark.parametrize("window", [0, 100])
 def test_cuda_flash_wgmma_chunked(cuda_dev, hd, window):
-    """flash_wgmma_kernel chunk by chunk (16, 64, 128 rows at q_offset c0)
-    equals one call bit for bit: its tiles are absolute."""
+    """flash_wgmma_kernel (at (256, 256) flash_wgspan_kernel) chunk by
+    chunk (16, 64, 128 rows at q_offset c0) equals one call bit for bit:
+    its tiles (and spans) are absolute."""
     rng = np.random.default_rng(hd + window)
     Sp, H, Kh = 300, 8, 2
     q = _rand(rng, (1, Sp, H, hd), "bfloat16", cuda_dev)
@@ -229,18 +233,22 @@ def test_cuda_flash_wgmma_chunked(cuda_dev, hd, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", WGMMA_HDS)
 def test_cuda_flash_wgmma_registers_and_occupancy(cuda_dev, hd):
-    """flash_wgmma_kernel at each pair: no spills in its build log, and the
-    CTAs an SM holds with the attributes its launcher sets at least its
-    launch bounds' minimum (3 up to hd 64; 2 at (128, 128) and, with its
-    2-stage ring, at (192, 128))."""
+    """flash_wgmma_kernel at each pair (flash_wgspan_kernel at (256,
+    256)): no spills in its build log, and the CTAs an SM holds with the
+    attributes its launcher sets at least its launch bounds' minimum (3 up
+    to hd 64; 2 at (128, 128) and, with its 2-stage ring, at (192, 128); 1
+    at (256, 256), whose span of K and V and O of 128 registers a thread
+    fill an SM)."""
     lib = build.library("flash_attention")
-    name = f"flash_wgmma_kernelILi{hd}ELi{_hdv(hd)}E"
+    kernel = "flash_wgspan_kernel" if hd == 256 else "flash_wgmma_kernel"
+    name = f"{kernel}ILi{hd}ELi{_hdv(hd)}E"
     found = {k: r for k, r in build.ptxas_report("flash_attention").items()
              if name in k}
     assert found, f"{name} not in the build log"
     for r in found.values():
         assert not r.get("spill_stores") and not r.get("spill_loads"), r
-    assert lib.flash_wgmma_occupancy(hd, _hdv(hd)) >= (3 if hd <= 64 else 2)
+    assert lib.flash_wgmma_occupancy(hd, _hdv(hd)) >= (
+        3 if hd <= 64 else 1 if hd == 256 else 2)
 
 
 def _pools(rng, lens, Kh, hd, bs, M, dt, dev):
@@ -361,8 +369,9 @@ def test_cuda_flash_tile_edges(cuda_dev, dt, hd):
 def test_cuda_flash_wide_heads(cuda_dev, dt, hd, hdv, Sq, Skv, H, Kh, window,
                                q_offset):
     """The head sizes whose tiles differ: hd = hdv = 256 (key tiles of 32 in
-    f32, the warp pair splitting the output columns) and (192, 128) (at
-    bf16 flash_wgmma_kernel, three-block Q and K rows)."""
+    f32, the warp pair splitting the output columns; at bf16
+    flash_wgspan_kernel, also within one bf16 ulp of its mirror) and (192,
+    128) (at bf16 flash_wgmma_kernel, three-block Q and K rows)."""
     rng = np.random.default_rng(hd + Sq)
     q = _rand(rng, (1, Sq, H, hd), dt, cuda_dev)
     k = _rand(rng, (1, Skv, Kh, hd), dt, cuda_dev)
@@ -373,6 +382,9 @@ def test_cuda_flash_wide_heads(cuda_dev, dt, hd, hdv, Sq, Skv, H, Kh, window,
     torch.testing.assert_close(out.float(),
                                flash_attention_plain(q, k, v, **kw).float(),
                                **TOL[dt])
+    if dt == "bfloat16":
+        assert _over_bf16_ulp(out, flash_attention_plain(q, k, v, **kw)) == 0
+        assert _over_bf16_ulp(out, flash_wgmma_plain(q, k, v, **kw)) == 0
     assert torch.equal(flash_attention(q, k, v, **kw), out)
 
 
@@ -382,9 +394,10 @@ def test_cuda_flash_wide_heads(cuda_dev, dt, hd, hdv, Sq, Skv, H, Kh, window,
 @pytest.mark.parametrize("chunk", [16, 64, 128])
 @pytest.mark.parametrize("Sp", [512, 571])
 def test_cuda_flash_chunk_composition_hd256(cuda_dev, dt, window, chunk, Sp):
-    """Chunk-by-chunk calls give one call's bits at hd 256 too, with and
-    without a window, at a bucket and at gemma3-1b's longest prompt (571,
-    off the 128-key spans and the 64-row tiles)."""
+    """Chunk-by-chunk calls give one call's bits at hd 256 too (f32: the
+    span kernel; bf16: flash_wgspan_kernel), with and without a window, at
+    a bucket and at gemma3-1b's longest prompt (571, off the 128-key spans
+    and the 64-row tiles)."""
     rng = np.random.default_rng(window + chunk + Sp)
     q = _rand(rng, (1, Sp, 4, 256), dt, cuda_dev)
     k = _rand(rng, (1, Sp, 1, 256), dt, cuda_dev)
@@ -410,9 +423,11 @@ FLASH_SPAN_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_cuda_flash_span_edges_hd256(cuda_dev, dt):
-    """The hd-256 span kernel across span edges (a window one key past a
-    span, rows whose spans start mid-span), off the query tile, and with
-    GQA 1, 4 and 8: against the plain version, and the same bits again."""
+    """The hd-256 span kernels (f32 flash_span_kernel, bf16
+    flash_wgspan_kernel) across span edges (a window one key past a span,
+    rows whose spans start mid-span), off the query tile, and with GQA 1, 4
+    and 8: against the plain version (and at bf16 within one bf16 ulp of it
+    and of the mirror), and the same bits again."""
     rng = np.random.default_rng(128)
     for Sq, Skv, H, Kh, window, q_offset in FLASH_SPAN_CASES:
         q = _rand(rng, (1, Sq, H, 256), dt, cuda_dev)
@@ -425,6 +440,10 @@ def test_cuda_flash_span_edges_hd256(cuda_dev, dt):
             **TOL[dt], msg=lambda m: f"Sq={Sq} Skv={Skv} H={H} Kh={Kh} "
                                      f"window={window} q_offset={q_offset}: "
                                      f"{m}")
+        if dt == "bfloat16":
+            assert _over_bf16_ulp(out, flash_attention_plain(q, k, v,
+                                                             **kw)) == 0
+            assert _over_bf16_ulp(out, flash_wgmma_plain(q, k, v, **kw)) == 0
         assert torch.equal(flash_attention(q, k, v, **kw), out)
 
 

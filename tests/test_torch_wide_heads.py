@@ -223,7 +223,9 @@ def test_flash_geometry():
     (192, 128) and (256, 256); one pass with 64-key tiles below."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert fk._geometry(256, 256, f32) == (32, SPAN, 210_944)
-    assert fk._geometry(256, 256, bf16) == (64, SPAN, 188_416)
+    # bf16 (256, 256): the span plan on wgmma (flash_wgspan_kernel), 1,024
+    # to align the tiles, Q's 64 rows and a whole span's K and V, unpadded
+    assert fk._geometry(256, 256, bf16) == (64, SPAN, 164_864)
     assert fk._geometry(192, 128, f32) == (32, SPAN, 145_408)
     assert fk._geometry(64, 64, f32) == (64, 0, 4 * (64 * 68 + 128 * 136))
     # bf16 one pass (flash_wgmma_kernel): 1,024 to align the tiles, Q's 64
@@ -253,11 +255,14 @@ def test_flash_geometry():
     # tiles, Q 24,576 and a 2-stage ring of 81,920, no spans
     (192, 128, torch.bfloat16, (64, 0, 107_520)),
     (256, 256, torch.float32, (32, SPAN, 210_944)),
+    # bf16 runs the span plan on wgmma (flash_wgspan_kernel): 1,024 to
+    # align the tiles, Q 32,768 and a span's K and V, 131,072
+    (256, 256, torch.bfloat16, (64, SPAN, 164_864)),
 ])
 def test_flash_span_geometry(hd, hdv, dtype, want):
-    """The span kernel's ring tile, span and shared memory at each pair it
-    takes (and at bf16 (128, 128) and (192, 128), which the one-pass kernel
-    takes): the sums in csrc/flash_attention.cu's header, within the
+    """The span kernels' ring tile, span and shared memory at each pair
+    they take (and at bf16 (128, 128) and (192, 128), which the one-pass
+    kernel takes): the sums in csrc/flash_attention.cu's header, within the
     232,448 B a CTA may have."""
     geo = fk._geometry(hd, hdv, dtype)
     assert geo == want

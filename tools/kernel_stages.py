@@ -54,13 +54,19 @@ alone; outputs wrong, timing only), timed beside the real call.
 
 bf16fwd: the bf16 flash forward through the tree's own wrapper at
 qwen1.5-0.5b's training call (B 4, Sq = Skv 512, 16 heads of 64, causal),
-at the (128, 128) template on the same shape (deepseek-moe-16b's call)
-and at (192, 128) on deepseek-v2-236b's MLA prefill (B 1, 128 heads, a
-512 bucket and the 1024 bucket, causal), each beside SDPA's bf16 forward
-(run it on the parent and the change in turns in one call); where the
+at the (128, 128) template on the same shape (deepseek-moe-16b's call),
+at (192, 128) on deepseek-v2-236b's MLA prefill (B 1, 128 heads, a
+512 bucket and the 1024 bucket, causal) and at (256, 256) on gemma3-1b's
+571-token prompt (B 1, 4 heads on 1, causal and window 512), each beside
+SDPA's bf16 forward on the same inputs (GQA heads expanded by
+enable_gqa, the window as a mask) (run it on the parent and the change
+in turns in one call); where the
 tree's flash_wgmma_kernel takes (192, 128) with a per-pair ring depth
 (kWgStages192), that pair again through a copy of the source built with
-the other depth (2 or 3 stages), in turns with the tree's; then,
+the other depth (2 or 3 stages), in turns with the tree's; where the
+tree's span combine loads several spans' partials at once
+(kCombineGroup), the (256, 256) calls again through a copy whose combine
+loads one span at a time, in turns with the tree's; then,
 where the tree has flash_wgmma_kernel, that kernel's registers and spills
 and its per-CTA timeline at each of those calls it takes, (192, 128) at
 the 512 bucket (an instrumented copy of csrc/flash_attention.cu): each
@@ -70,7 +76,15 @@ tiles walked the median cycles of the prologue (Q and the first tile
 issued and awaited), a tile's stages (its copies awaited, the barrier and
 the next tile's copies issued; S, with the last tile's P.V issued behind
 it; the softmax, while that P.V runs; that P.V awaited, O rescaled and P
-split) and the epilogue (the last tile's P.V, O stored).
+split) and the epilogue (the last tile's P.V, O stored); and where the
+tree has flash_wgspan_kernel, its registers and spills and its per-CTA
+timeline at gemma3-1b's two calls: each CTA's entry and exit, its SM, its
+span and tiles, and by tiles walked the median cycles of finding its item,
+issuing its copies, each tile's stages (its copies awaited and the
+barrier; S, with tile 0's P.V issued behind it; the softmax; that P.V
+awaited, O rescaled and P split), the last P.V and the epilogue (rows
+staged in shared memory, their stores issued: thread 0's clock does not
+see them drain), beside the combine kernel's device time.
 
 wkvbwd: the wkv6 backward kernel at the same rwkv6 call, stage by stage:
 cycles that thread 0 of each CTA adds up per stage over the chunk loops
@@ -136,7 +150,8 @@ DECODE = [
 ]
 # the span kernel: one CTA per (span, 64 query rows, b*h) work item
 FLASH = [
-    ("  const Item item = find_item<BK>(blockIdx.x,", "0", "entry", True),
+    ("  const Item item = find_item<BK, kThreads>(blockIdx.x,", "0",
+     "entry", True),
     ("    const T* kt = kring + ((it & 1) * BK + kg * WK) * KS;",
      "1 + 4 * min(it, 3)", "tile ready", True),
     ("    scores<HD, NT, s_chains<T, HD>()>(s, qw, kt, g, t);\n",
@@ -625,8 +640,8 @@ FWD_TIMELINE = [
     ("    // tile it - 1's P.V is done: O and P's registers are free\n",
      "    " + _fwd_stamp("sl_ + 2")
      + "    // tile it - 1's P.V is done: O and P's registers are free\n"),
-    ("                   pl[c][r]);\n  }\n  if (n_tiles > 0) {",
-     "                   pl[c][r]);\n    " + _fwd_stamp("sl_ + 3")
+    ("    wg_split(s, ph, pl);\n  }\n  if (n_tiles > 0) {",
+     "    wg_split(s, ph, pl);\n    " + _fwd_stamp("sl_ + 3")
      + "  }\n  if (n_tiles > 0) {"),
     ("                                                            c));\n"
      "  }\n}",
@@ -640,18 +655,26 @@ FWD_TIMELINE = [
 ]
 
 
-# (hd, hdv, B, S, H): the bf16 forward's calls that bf16fwd times
-FWD_CALLS = [(64, 64, 4, 512, 16), (128, 128, 4, 512, 16),
-             (192, 128, 1, 512, 128), (192, 128, 1, 1024, 128)]
+# (hd, hdv, B, S, H, Kh, window): the bf16 forward's calls that bf16fwd
+# times, causal and end-aligned; gemma3-1b's are its two layer kinds on
+# its longest prompt
+FWD_CALLS = [(64, 64, 4, 512, 16, 16, 0), (128, 128, 4, 512, 16, 16, 0),
+             (192, 128, 1, 512, 128, 128, 0),
+             (192, 128, 1, 1024, 128, 128, 0),
+             (256, 256, 1, 571, 4, 1, 0), (256, 256, 1, 571, 4, 1, 512)]
 # the ring depth at (192, 128) (kWgStages192), and the other one tried
 DEPTH_192 = "constexpr int kWgStages192 = {};"
+# the spans of a row whose partials the combine loads at once, and the
+# one-span-at-a-time combine it replaced (the same sums, the same bits)
+COMBINE_GROUP = ("constexpr int kCombineGroup = 8;",
+                 "constexpr int kCombineGroup = 1;")
 
 
-def _bf16_inputs(torch, rng, dev, hd, hdv, B, S, H):
-    q, k = (torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(
-        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
-    v = torch.from_numpy(rng.standard_normal((B, S, H, hdv)).astype(
+def _bf16_inputs(torch, rng, dev, hd, hdv, B, S, H, Kh=None):
+    Kh = H if Kh is None else Kh
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(dev, torch.bfloat16)
+        for shape in ((B, S, H, hd), (B, S, Kh, hd), (B, S, Kh, hdv)))
     return q, k, v
 
 
@@ -668,6 +691,26 @@ def _raw_wgmma(torch, lib, q, k, v, stages, stream):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
             B, S, S, H, H, hd, hdv, 0, 1, 0, hd ** -0.5, 1, 0, smem, stream)
+        assert err == 0, err
+        return out
+    return call
+
+
+def _raw_wgspan(torch, lib, q, k, v, window, stream):
+    """A causal bf16 call through ``lib``'s launcher with the bf16 span
+    design's geometry (flash_wgspan_kernel, then the combine)."""
+    from repro_torch.kernels import flash_attention as FA
+    B, S, H, hd = q.shape
+    Kh, hdv = k.shape[2], v.shape[-1]
+    out = torch.empty((B, S, H, hdv), dtype=q.dtype, device=q.device)
+    scratch = torch.empty(B * H * S * FA.n_spans(S) * (hdv + 2),
+                          dtype=torch.float32, device=q.device)
+
+    def call():
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), B, S, S, H, Kh, hd, hdv, 0, 1, window,
+            hd ** -0.5, 1, FA.SPAN, FA.wg_span_smem(hd, hdv), stream)
         assert err == 0, err
         return out
     return call
@@ -690,19 +733,28 @@ def bf16_fwd_stages(torch, dev, stream):
     alt = 5 - depth if depth else None
     other = instrument("flash_attention", [], tag=f"_depth{alt}", edits=[
         (DEPTH_192.format(depth), DEPTH_192.format(alt))]) if depth else None
+    one_span = instrument("flash_attention", [], tag="_combine1",
+                          edits=[COMBINE_GROUP]) \
+        if src.count(COMBINE_GROUP[0]) == 1 else None
     print(f"bf16 flash forward of {TREE} (CUDA events, ms per call):")
-    for hd, hdv, B, S, H in FWD_CALLS:
-        q, k, v = _bf16_inputs(torch, rng, dev, hd, hdv, B, S, H)
+    for hd, hdv, B, S, H, Kh, win in FWD_CALLS:
+        q, k, v = _bf16_inputs(torch, rng, dev, hd, hdv, B, S, H, Kh)
         sq, sk, sv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = FA.attention_mask(S, S, causal=True, window=win, q_offset=0,
+                                 device=q.device)
+        sdpa = (lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask, enable_gqa=True)) if win else \
+            (lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=True, enable_gqa=True))
         ms, lib = [], []
         with torch.no_grad():
             for _ in range(2):
                 ms.append(cs.time_ms(
-                    torch, lambda: FA.flash_attention(q, k, v), iters=50))
-                lib.append(cs.time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        sq, sk, sv, is_causal=True), iters=50))
-            print(f"  ({hd}, {hdv}) B={B} Sq=Skv={S} H={H} causal: "
+                    torch, lambda: FA.flash_attention(q, k, v, window=win),
+                    iters=50))
+                lib.append(cs.time_ms(torch, sdpa, iters=50))
+            print(f"  ({hd}, {hdv}) B={B} Sq=Skv={S} H={H} Kh={Kh} "
+                  f"{f'window={win}' if win else 'causal'}: "
                   f"{min(ms):.4f} ms ({ms[0]:.4f}, {ms[1]:.4f})  SDPA bf16 "
                   f"forward {min(lib):.4f} ms  ratio "
                   f"{min(ms) / min(lib):.3f}")
@@ -717,17 +769,39 @@ def bf16_fwd_stages(torch, dev, stream):
                       f"{turns[3]:.4f} ms; {alt} stages {turns[1]:.4f}, "
                       f"{turns[2]:.4f} ms (turns: tree, {alt}, {alt}, "
                       f"tree); the same bits: {same}")
-    if "flash_wgmma_kernel" not in src or "load_v(0)" not in src:
-        print("  (no flash_wgmma_kernel of this layout in this tree: no "
-              "timeline)")
-        return
+            if hd == 256 and one_span is not None \
+                    and f"RT_WGS({hd}, {hdv})" in src:
+                mine = lambda: FA.flash_attention(  # noqa: E731
+                    q, k, v, window=win)
+                alt_call = _raw_wgspan(torch, one_span, q, k, v, win, stream)
+                same = torch.equal(alt_call(), mine())
+                turns = [cs.time_ms(torch, f, iters=50)
+                         for f in (mine, alt_call, alt_call, mine)]
+                print(f"    combine loading 8 spans at once (the tree's) "
+                      f"{turns[0]:.4f}, {turns[3]:.4f} ms; one span at a "
+                      f"time {turns[1]:.4f}, {turns[2]:.4f} ms (turns: "
+                      f"tree, one, one, tree); the same bits: {same}")
     build.library("flash_attention")
     regs = {k: r for k, r in build.ptxas_report("flash_attention").items()
-            if "flash_wgmma_kernel" in k}
-    print(f"  flash_wgmma_kernel registers and spills: {regs}")
-    fwd_timeline(torch, dev, stream,
-                 [c for c in FWD_CALLS[:3]
-                  if f"RT_WG({c[0]}, {c[1]})" in src])
+            if "flash_wgmma_kernel" in k or "flash_wgspan_kernel" in k}
+    print(f"  flash_wgmma_kernel and flash_wgspan_kernel registers and "
+          f"spills: {regs}")
+    if all(src.count(old) == 1 for old, _ in FWD_TIMELINE):
+        fwd_timeline(torch, dev, stream,
+                     [c[:5] for c in FWD_CALLS[:3]
+                      if f"RT_WG({c[0]}, {c[1]})" in src])
+    else:
+        print("  (no flash_wgmma_kernel of this layout in this tree: no "
+              "timeline)")
+    if all(src.count(old) == 1 for old, _ in WGSPAN_TIMELINE):
+        timed = instrument("flash_attention", [], tag="_wgspan_timeline",
+                           edits=WGSPAN_TIMELINE)
+        for hd, hdv, B, S, H, Kh, win in FWD_CALLS:
+            if f"RT_WGS({hd}, {hdv})" in src:
+                _wgspan_timeline(torch, dev, stream, timed, hd, hdv, B, S,
+                                 H, Kh, win)
+    else:
+        print("  (no flash_wgspan_kernel in this tree: no span timeline)")
 
 
 def fwd_timeline(torch, dev, stream, calls, tag="_fwd_timeline"):
@@ -796,6 +870,113 @@ def _fwd_timeline(torch, dev, stream, timed, hd, hdv, B, S, H):
               f"{np.median(dur[sel]):.2f} max {dur[sel].max():.2f}, entry "
               f"median {np.median(g[sel, 0] - t0) / 1e3:.2f}; cycles "
               f"(median): {txt}")
+
+
+# flash_wgspan_kernel (the bf16 span design): thread 0 of each CTA stamps
+# clock64 at its entry (slot 0), its item found (1), its copies issued (2),
+# per tile it (of at most 2): the tile ready (3 + 4 it), S (4 + 4 it), the
+# softmax (5 + 4 it), tile 0's P.V awaited, O rescaled and P split (6 + 4
+# it); the last P.V done (11), its rows staged in shared memory (12) and
+# its end (62); stage_g holds its entry and
+# exit %globaltimer, its SM, its tiles and its span (slots 0-4)
+WGSPAN_TIMELINE = [
+    ("  unsigned char* vs = ks + NT * KT;\n",
+     "  unsigned char* vs = ks + NT * KT;\n  " + _fwd_stamp(0)
+     + "  " + GTIME.format(v="tl0_") + "\n"),
+    ("  const int n_tiles = span_tiles<BK>(tk, span);   // 1 or 2\n",
+     "  const int n_tiles = span_tiles<BK>(tk, span);   // 1 or 2\n  "
+     + _fwd_stamp(1)),
+    ("  if (n_tiles > 1) load(VTile{}, 1, v, vs);\n  cp_async_commit();\n",
+     "  if (n_tiles > 1) load(VTile{}, 1, v, vs);\n  cp_async_commit();\n  "
+     + _fwd_stamp(2)),
+    ("    __syncthreads();   // every thread's copies of them landed\n",
+     "    __syncthreads();   // every thread's copies of them landed\n    "
+     + _fwd_stamp("3 + 4 * it")),
+    ("    rt::reg_fence(s);   // S of tile it is in registers\n",
+     "    rt::reg_fence(s);   // S of tile it is in registers\n    "
+     + _fwd_stamp("4 + 4 * it")),
+    ("    // tile 0's P.V is done: O and P's registers are free\n",
+     "    " + _fwd_stamp("5 + 4 * it")
+     + "    // tile 0's P.V is done: O and P's registers are free\n"),
+    ("    wg_split(s, ph, pl);\n  }\n  // the last tile's P.V, once its V "
+     "landed\n",
+     "    wg_split(s, ph, pl);\n    " + _fwd_stamp("6 + 4 * it")
+     + "  }\n  // the last tile's P.V, once its V landed\n"),
+    ("    for (int hf = 0; hf < NH; ++hf) rt::reg_fence(o[hf]);\n  }\n",
+     "    for (int hf = 0; hf < NH; ++hf) rt::reg_fence(o[hf]);\n  }\n  "
+     + _fwd_stamp(11)),
+    ("  __syncthreads();\n  for (int rr = warp; rr < kBQ; rr += kWgThreads "
+     "/ 32) {\n",
+     "  __syncthreads();\n  " + _fwd_stamp(12) + "  for (int rr = warp; rr "
+     "< kBQ; rr += kWgThreads / 32) {\n"),
+    ("    for (int i = lane; i < (HDV + 2) / 2; i += 32) pp[i] = s2[i];\n"
+     "  }\n}",
+     "    for (int i = lane; i < (HDV + 2) / 2; i += 32) pp[i] = s2[i];\n"
+     "  }\n  " + _fwd_stamp(62) + "  if (threadIdx.x == 0) {\n    "
+     + GTIME.format(v="tl1_") + "\n    unsigned sm_; asm volatile(\"mov.u32 "
+     "%0, %%smid;\" : \"=r\"(sm_));\n    const int id_ = (blockIdx.y * "
+     f"gridDim.x + blockIdx.x) * {FWD_SLOTS};\n    stage_g[id_] = tl0_; "
+     "stage_g[id_ + 1] = tl1_; stage_g[id_ + 2] = sm_; stage_g[id_ + 3] = "
+     "n_tiles; stage_g[id_ + 4] = span;\n  }\n}"),
+]
+
+
+def _wgspan_timeline(torch, dev, stream, timed, hd, hdv, B, S, H, Kh,
+                     window):
+    """flash_wgspan_kernel's per-CTA timeline at one causal call (an
+    instrumented copy), beside the combine kernel's device time."""
+    import chip_smoke as cs
+    rng = np.random.default_rng(29)
+    q, k, v = _bf16_inputs(torch, rng, dev, hd, hdv, B, S, H, Kh)
+    call = _raw_wgspan(torch, timed, q, k, v, window, stream)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    timed.stages_clear()
+    call()
+    torch.cuda.synchronize()
+    n = 1 << 16
+    c = np.zeros(n, np.int64)
+    g = np.zeros(n, np.uint64)
+    timed.stages_get(c.ctypes.data, g.ctypes.data, n)
+    c = c.reshape(-1, FWD_SLOTS)
+    g = g.reshape(-1, FWD_SLOTS).astype(np.int64)
+    live = g[:, 0] != 0
+    assert live.sum() * FWD_SLOTS <= n, "more CTAs than the stamp arrays hold"
+    c, g = c[live], g[live]
+    t0 = g[:, 0].min()
+    dur = (g[:, 1] - g[:, 0]) / 1e3
+    tiles = g[:, 3]
+    rows, _ = cs.kernel_profile(torch, call, 20)
+    kern = "; ".join(f"{key.split('::')[-1][:32]} {us / 20:.2f} us"
+                     for key, us, _ in rows)
+    print(f"  flash_wgspan_kernel<{hd}, {hdv}>, B={B} Sq=Skv={S} H={H} "
+          f"Kh={Kh} {f'window={window}' if window else 'causal'}: "
+          f"{len(g)} CTAs on {len(set(g[:, 2]))} SMs, span "
+          f"{(g[:, 1].max() - t0) / 1e3:.2f} us, last entry "
+          f"{(g[:, 0].max() - t0) / 1e3:.2f} us; device time by kernel "
+          f"(profiler, instrumented copy): {kern}")
+    for nt in sorted(set(tiles)):
+        sel = tiles == nt
+        cc = c[sel]
+        last = 6 + 4 * (nt - 1)
+        txt = (f"item found {np.median(cc[:, 1] - cc[:, 0]):.0f}, copies "
+               f"issued {np.median(cc[:, 2] - cc[:, 1]):.0f}")
+        for it in range(nt):
+            b = 3 + 4 * it
+            ready = np.median(cc[:, b] - cc[:, b - 1])
+            txt += (f"; tile {it}: ready {ready:.0f}"
+                    f", S {np.median(cc[:, b + 1] - cc[:, b]):.0f}, softmax "
+                    f"{np.median(cc[:, b + 2] - cc[:, b + 1]):.0f}, P.V "
+                    "awaited, O rescaled, P split "
+                    f"{np.median(cc[:, b + 3] - cc[:, b + 2]):.0f}")
+        txt += (f"; the last P.V {np.median(cc[:, 11] - cc[:, last]):.0f}, "
+                f"rows staged {np.median(cc[:, 12] - cc[:, 11]):.0f}, their "
+                f"stores issued {np.median(cc[:, 62] - cc[:, 12]):.0f}")
+        print(f"    {nt} tiles: {int(sel.sum()):4d} CTAs, us median "
+              f"{np.median(dur[sel]):.2f} max {dur[sel].max():.2f}, entry "
+              f"median {np.median(g[sel, 0] - t0) / 1e3:.2f}, exit max "
+              f"{(g[sel, 1].max() - t0) / 1e3:.2f}; cycles (median): {txt}")
 
 
 def bwd(torch, dev):
