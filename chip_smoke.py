@@ -309,8 +309,9 @@ def kernel_checks(torch, span_lib):
     beside."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import (
-        CHUNK, decode_attention, decode_attention_plain, gather_pages,
-        paged_decode_attention, paged_decode_attention_plain)
+        CHUNK, decode_attention, decode_attention_plain, decode_mma_plain,
+        gather_pages, paged_decode_attention, paged_decode_attention_plain,
+        uses_mma)
     from repro_torch.kernels.flash_attention import (
         attention_mask, flash_attention, flash_attention_plain)
     import torch.nn.functional as F
@@ -369,7 +370,9 @@ def kernel_checks(torch, span_lib):
     def decode_case(dt, lens, label, geo=None):
         """Dense and paged kernels against their plain versions, then the
         paged kernel, the gather path and the dense kernel on the same live
-        rows: the same bits, and the same bits again on a second call.
+        rows: the same bits, and the same bits again on a second call.  On
+        the mma core (hd < 256, G >= 3) also against its mirror
+        (decode_mma_plain), and with NaN in every dead row: the same bits.
         ``geo``: (H, Kh, hd, Smax) other than qwen's."""
         H, Kh, hd, Smax = geo or (16, 16, 64, 1024)
         M = Smax // bs
@@ -412,6 +415,8 @@ def kernel_checks(torch, span_lib):
                   "differs from the paged kernel on equal live rows")
         log(f"  {'decode paths':24s} {dt:8s} {label:34s} paged kernel == "
             f"gather path == dense kernel == paged again, bit for bit")
+        if uses_mma(hd, H // Kh):
+            mma_holds(torch, q, kc, vc, cl, dt, label)
         return q, kc, vc, cl, kp, vp, bt, pcl, plens
 
     for dt in ("float32", "bfloat16"):
@@ -591,7 +596,7 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
     launch geometry."""
     from repro_torch.kernels.decode_attention import (
         _group_slots, decode_attention, decode_attention_plain,
-        paged_decode_attention, paged_decode_attention_plain)
+        paged_decode_attention, paged_decode_attention_plain, uses_mma)
     from repro_torch.kernels.flash_attention import (
         attention_mask, flash_attention, flash_attention_plain, is_span)
     import torch.nn.functional as F
@@ -759,6 +764,9 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
             torch.cuda.synchronize()
             check(torch.equal(decode_attention(q, kc, vc, M), out),
                   f"decode {dt} {label}: a second call differs")
+            if uses_mma(hd, H // Kh):
+                mma_holds(torch, q, kc, vc, torch.full(
+                    (B,), M, dtype=torch.int32, device=dev), dt, label)
             if dt != "float32":
                 continue
             nbytes = (B * H * hd * 2 + B * M * Kh * 2 * hd) * 4
@@ -775,9 +783,15 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
                      bound_ms=t_bound, bound_by=by, max_abs_err=err,
                      shape=shape)
             results["decode_attention"][key] = r
+            if uses_mma(hd, H // Kh):
+                r.update(mma_row(torch, q, kc, vc, torch.full(
+                    (B,), M, dtype=torch.int32, device=dev), False))
             log(f"  {'decode_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
-                f"bound {t_bound:.4f} ms ({by})  [{shape}]")
+                f"bound {t_bound:.4f} ms ({by})  [{shape}]"
+                + (f"  {r['kernel']} {r['ptxas']}, vs mirror "
+                   f"{r['max_abs_err_vs_mirror']:.3e}" if "kernel" in r
+                   else ""))
     for key, H, Kh, hd, Smax, lens in decode:
         lens = np.array(lens, np.int32)
         label = f"hd={hd} H={H} Kh={Kh} Smax={Smax}"
@@ -806,9 +820,14 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
                      bound_ms=t_bound, bound_by=by, max_abs_err=err,
                      shape=shape)
             results["decode_attention"][key] = r
+            if uses_mma(hd, H // Kh):
+                r.update(mma_row(torch, q, kc, vc, cl, False))
             log(f"  {'decode_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
-                f"bound {t_bound:.4f} ms ({by})  [{shape}]")
+                f"bound {t_bound:.4f} ms ({by})  [{shape}]"
+                + (f"  {r['kernel']} {r['ptxas']}, vs mirror "
+                   f"{r['max_abs_err_vs_mirror']:.3e}" if "kernel" in r
+                   else ""))
             if hd == 256:
                 log(f"  {'  planned launch':24s} " + json.dumps(
                     decode_geometry(torch, lens, Smax, B, H, Kh)))
@@ -839,9 +858,13 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
                      library_ms=None, bound_ms=t_bound, bound_by=by,
                      max_abs_err=err, shape=pshape)
             results["paged_decode_attention"][key] = r
+            if uses_mma(hd, H // Kh):
+                r.update(mma_row(torch, q, (kp, vp, bt), None, pcl, True))
             log(f"  {'paged_decode ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  bound {t_bound:.4f} ms ({by})  "
-                f"[{pshape}]")
+                f"[{pshape}]" + (f"  {r['kernel']} {r['ptxas']}, vs mirror "
+                                 f"{r['max_abs_err_vs_mirror']:.3e}"
+                                 if "kernel" in r else ""))
 
 
 # what phase 3 measures beside each span or cluster kernel's time, and
@@ -888,6 +911,59 @@ def decode_geometry(torch, lens, Smax, B, H, Kh):
                 live_ctas=geo.cluster * sum(len(c) for c in plan) * Kh,
                 loading_ctas=sum(len(sl) for c in plan for sl in c) * Kh,
                 cluster=geo.cluster, dynamic_smem=geo.smem)
+
+
+def mma_holds(torch, q, kc, vc, cl, dt, label):
+    """The mma decode core (hd < 256, G >= 3) on a dense call: within the
+    tolerance of its mirror (decode_mma_plain, its order of sums), and the
+    same bits with NaN in every row at or past cache_len."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_mma_plain)
+    out = decode_attention(q, kc, vc, cl)
+    try:
+        err = _pair_hold(torch, out, decode_mma_plain(q, kc, vc, cl), dt)
+    except SmokeFailure as e:
+        raise SmokeFailure(f"decode {dt} {label} vs its mirror: {e}") \
+            from None
+    kn, vn = kc.clone(), vc.clone()
+    Smax = kc.shape[2]
+    for b, n in enumerate(cl.tolist()):
+        kn[b, :, min(n, Smax):] = float("nan")
+        vn[b, :, min(n, Smax):] = float("nan")
+    pad = (0, 0, 0, 16)                 # 16 more rows past the cache, NaN
+    kn = torch.nn.functional.pad(kn.float(), pad, value=float("nan")).to(
+        kc.dtype)
+    vn = torch.nn.functional.pad(vn.float(), pad, value=float("nan")).to(
+        vc.dtype)
+    nan_dead = decode_attention(q, kn, vn, cl)
+    torch.cuda.synchronize()
+    check(torch.equal(nan_dead, out), f"decode {dt} {label}: NaN in dead "
+          "rows changed the output")
+    log(f"  {'decode_mma_kernel':24s} {dt:8s} {label:34s} vs mirror "
+        f"{err:.3e}; NaN in every dead row: the same bits")
+    return err
+
+
+def mma_row(torch, q, kc, vc, cl, paged):
+    """A phase-3 row on the mma core: its kernel, registers and spills,
+    and its largest error against the mirror (paged: ``kc`` holds the
+    pools and tables, the mirror runs on the gathered view)."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_mma_plain, gather_pages,
+        paged_decode_attention)
+    if paged:
+        kp, vp, bt = kc
+        out = paged_decode_attention(q, kp, vp, bt, cl)
+        kc, vc = gather_pages(kp, bt), gather_pages(vp, bt)
+    else:
+        out = decode_attention(q, kc, vc, cl)
+    err = _pair_hold(torch, out, decode_mma_plain(q, kc, vc, cl),
+                     str(q.dtype)[6:])
+    mangled = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16",
+               torch.float8_e4m3fn: "13__nv_fp8_e4m3"}[kc.dtype]
+    return dict(kernel="decode_mma_kernel", max_abs_err_vs_mirror=err,
+                ptxas=ptxas("decode_attention", f"decode_mma_kernelI{mangled}"
+                            f"Li{q.shape[-1]}ELb{int(paged)}E"))
 
 
 def split_share(torch, combine, fn, reps=20):
@@ -1366,7 +1442,8 @@ def profile_ticks(torch, eng, ticks):
     log(f"  {ticks} decode ticks: wall {out['profiled_ms_per_tick']:.3f} "
         f"ms/tick, device busy {out['busy_ms_per_tick']:.3f} ms/tick, "
         f"idle share {out['idle_share']:.3f} (profiler on)")
-    ours = ("decode_split_kernel", "decode_combine_kernel", "flash_kernel",
+    ours = ("decode_split_kernel", "decode_combine_kernel",
+            "decode_mma_kernel", "flash_kernel",
             "flash_wgmma_kernel", "wkv6_kernel", "decode_cluster_kernel",
             "flash_span_kernel", "flash_combine_kernel",
             "flash_wgspan_kernel")
@@ -3736,7 +3813,7 @@ def decode_pair_checks(torch, card):
     version (the bound halves from bf16 to fp8 and quarters from f32)."""
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain, gather_pages,
-        paged_decode_attention, paged_decode_attention_plain)
+        paged_decode_attention, paged_decode_attention_plain, uses_mma)
     dev = torch.device("cuda")
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float8_e4m3fn": torch.float8_e4m3fn}
@@ -3779,6 +3856,17 @@ def decode_pair_checks(torch, card):
                                                 gather_pages(vp, bt), cl)
                     torch.cuda.synchronize()
                     check(torch.equal(paged, gathered), "paged != dense")
+                    mirror = None
+                    if uses_mma(hd, H // Kh):
+                        # the mma core: its mirror, NaN in the dead rows,
+                        # and a second call's bits
+                        mirror = mma_holds(torch, q, kc, vc, cl, qdt, label)
+                        again = (decode_attention(q, kc, vc, cl),
+                                 paged_decode_attention(q, kp, vp, bt, cl))
+                        torch.cuda.synchronize()
+                        check(torch.equal(again[0], dense)
+                              and torch.equal(again[1], paged),
+                              "a second call differs")
                 except SmokeFailure as e:
                     raise SmokeFailure(f"phase 20 {label}: {e}") from None
                 es = kc.element_size()
@@ -3787,6 +3875,10 @@ def decode_pair_checks(torch, card):
                 t_bound, by = bound(nbytes, 2 * H * live * 2 * hd,
                                     "float32")
                 r = {"max_abs_err": err, "paged_max_abs_err": perr,
+                     "max_abs_err_vs_mirror": mirror,
+                     "kernel": ("decode_mma_kernel" if mirror is not None
+                                else "decode_cluster_kernel" if hd == 256
+                                else "decode_split_kernel"),
                      "ms": time_ms(torch, lambda: decode_attention(
                          q, kc, vc, cl)),
                      "paged_ms": time_ms(torch, lambda: paged_decode_attention(
@@ -3815,7 +3907,8 @@ def decode_ptxas():
     out = {}
     for fn, r in build.ptxas_report("decode_attention").items():
         core = ("cluster" if "decode_cluster_kernel" in fn else "split"
-                if "decode_split_kernel" in fn else None)
+                if "decode_split_kernel" in fn else "mma"
+                if "decode_mma_kernel" in fn else None)
         if core is None:
             continue
         cdt = ("float8_e4m3fn" if "__nv_fp8_e4m3" in fn else "bfloat16"
@@ -5127,6 +5220,8 @@ def main() -> int:
                 label: {"ms": c[ms_key], "plain_ms": c[plain_key],
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "max_abs_err": c[err_key],
+                        "max_abs_err_vs_mirror": c["max_abs_err_vs_mirror"],
+                        "kernel": c["kernel"],
                         "library_ms": c["library_ms"]}
                 for label, c in n_out["pairs"].items()}
             kernels[-1]["cache_pairs_ptxas"] = n_out["ptxas"]

@@ -35,23 +35,87 @@
 // so an f32/f32 or bf16/bf16 call computes what it did before the cache
 // type was split from q's.
 //
-// hd <= 128 (decode_split_kernel, then decode_combine_kernel: two CUDA
-// launches on one stream, no atomics):
-//   * one CTA of 4 warps per (b*Kh + kh, chunk), so a slot with a long
-//     cache spreads over many SMs; a CTA whose chunk starts at or past
-//     cache_len[b] exits at once;
-//   * inside a chunk warp w takes positions [32w, 32w + 32); each K or V row
-//     is read as 16-byte vectors (float4, 8 bf16 or 16 fp8; 8-byte vectors
-//     of 8 fp8 at G > 4) by the lanes of one row group, so one load
-//     instruction of the warp covers 32 / (lanes per row) whole rows (2 at
-//     hd=64 f32, 8 at hd=64 fp8), and up to four of them are issued before
-//     any is used;
-//   * a row's q.k is reduced by a fixed-order xor-shuffle across its lanes;
-//     each row group keeps an online-softmax state per query row (the G =
-//     H/Kh rows of a kv head share every K/V row read), the groups merge by
-//     an xor butterfly, then the warps merge in warp order through shared
-//     memory;
-//   * decode_combine_kernel runs one CTA per (b, kh).
+// hd <= 128: one CTA of 4 warps per (b*Kh + kh, chunk), so a slot with a
+// long cache spreads over many SMs (a CTA whose chunk starts at or past
+// cache_len[b] exits at once); inside a chunk warp w takes positions [32w,
+// 32w + 32); the warps' states merge in warp order through shared memory
+// into the chunk's partial.  Two cores:
+//
+// G = H/Kh <= 2 (decode_split_kernel<KG 1, 2>, then decode_combine_kernel,
+// one CTA per (b, kh): two CUDA launches on one stream, no atomics): each K
+// or V row is read as 16-byte vectors (float4, 8 bf16 or 16 fp8) by the
+// lanes of one row group, so one load instruction of the warp covers 32 /
+// (lanes per row) whole rows (2 at hd=64 f32, 8 at hd=64 fp8), up to four
+// issued before any is used; a row's q.k is reduced by a fixed-order
+// xor-shuffle across its lanes; each row group keeps an online-softmax
+// state per query row, and the groups merge by an xor butterfly.
+//
+// G >= 3 (decode_mma_kernel, one launch: the KG 4 and 8 instantiations,
+// qwen1.5-110b's G = 8, jamba's and llama-3.2-vision's G = 4).  On the split
+// core each key cost every query row a 5-step shuffle chain (hd 128 f32),
+// two expf and a rescale of acc, on all 32 lanes: at G = 8 40 dependent
+// shuffles and 16 expf a key and warp, 86 % of a CTA's cycles
+// (tools/kernel_stages.py decode), so its time followed G, not the bytes
+// (0.0555 ms at f32, 0.0363 over bf16 and 0.0360 over fp8 for bounds of
+// 0.0057, 0.0029 and 0.0015).  The mma core computes a kv head's group as
+// one tensor-core product per 16 keys, as the Pallas kernel's q @ k.T:
+//   * each warp stages its 32-key tile in two slots of 16 rows by 16-byte
+//     cp.async: K's rows first, then each slot's V once S^T has read its K
+//     (CHUNK rows a CTA: 64 KB at f32 hd 128, three CTAs an SM; mma_smem).
+//     A row at or past cache_len is zero-filled, never read (P = 0 alone
+//     would not do: 0 * NaN is NaN).  Lane r looks the row at position p0 +
+//     r up once (a paged block table read once a row) and the copies take
+//     it by a shuffle.  The 16-byte chunks are XOR-swizzled by row bits 0
+//     and 1 (swz), one layout for both reads below, free of bank conflicts;
+//   * S^T = K_tile Q^T on m16n8k8 TF32 mma.sync: 16 keys as M, the group
+//     as N = 8 (G = 8 fills it, G = 4 half; rows past G are q = 0, never
+//     written), hd as K.  Lane (g, t) reads 16-byte vectors of key rows g
+//     and g + 8 at element (4j + t) EK; each vector's pairs of elements are
+//     the columns t and t + 4 of a k-step, and q's row g the same elements,
+//     so every element of hd meets its own once (the product's order of hd
+//     is a permutation, its sum the same).  The big.big terms and the small
+//     ones run in two accumulator chains;
+//   * one softmax update a tile and query row: the row's max over its 32
+//     keys from the accumulators (4 a lane, then a 3-step xor butterfly),
+//     one expf a (key, row), the sum likewise; no online rescale inside a
+//     warp, whose tile is one update;
+//   * P leaves the accumulators' layout (key, row) for the B fragments'
+//     (row, key) through 1 KB of shared memory a warp; O^T += V^T P^T on the
+//     same products, 16 output columns as M (lane (g, t) reads key rows t
+//     and t + 4, vector j at element (8j + g) EV), the group as N, 8 keys
+//     as K;
+//   * f32 accuracy: q (scaled) and P enter as TF32 big + small halves.  A
+//     bf16 or fp8 value is exact in TF32 (10 mantissa bits), so over a
+//     narrow cache K and V need no split: 2 products where an f32 cache
+//     takes 3 (3xTF32), small terms first.  Every product sums in f32; an
+//     f32 query holds 3e-5 against the plain version over every cache, a
+//     bf16 one a bf16 ulp (or 5e-3): the output is rounded once, at the
+//     end;
+//   * the warps' O^T fragments go to shared memory over their slots, and
+//     the live tiles merge in tile order into the chunk's partial, which
+//     means what it means on the split core (decode_mma_plain in
+//     kernels/decode_attention.py is this order of sums);
+//   * the combine is folded in, as at hd 256: after writing its partial a
+//     CTA takes a ticket of its (b, kh) (B x Kh int32 counters, zeroed once
+//     by the wrapper); the one that takes the last merges the slot's live
+//     chunks in chunk order with decode_combine_kernel's sums (so the bits
+//     that kernel would give on these partials), every live chunk's m and
+//     l gathered into shared memory at once, and sets the counter back to
+//     0.  The atomic decides only who merges, never an order of summation;
+//     calls must be ordered on one stream.  An empty slot's zeros come from
+//     its chunk-0 CTA.
+//   Measured on an H100 at G = 8, f32 (0.0057 ms bound; tools/kernel_stages
+//   .py decode, the designs in turns): the split core 0.0555; both of a
+//   warp's tiles resident (128 KB a CTA, one an SM), the separate combine
+//   0.0318; one bulk copy (cp.async.bulk) a row into rows padded in place
+//   of the swizzle 0.0370 (their issue, one 512-byte request at a time,
+//   took 3,828 cycles against 1,736); 16-key tiles, 8 warps a CTA, on that
+//   design 0.0335 (slower over bf16); the two-slot ring 0.0270; the combine
+//   folded in 0.0231; q read by vectors and the fold's gathers in parallel
+//   0.0226 (kept); the fold's acc loads eight chunks deep 0.0235 against
+//   0.0224 in turns (144 registers against 128; left out).  What bounds it
+//   now is a CTA's serial chain (the copies' issue under three CTAs an SM,
+//   S^T, V's wait, the merge, the ticket and the fold), not the bytes.
 //
 // hd = 256 (gemma3; decode_cluster_kernel, one CUDA launch).  There a
 // 128-position chunk is 256 KB of f32 K and V, and one CTA per chunk left
@@ -118,6 +182,7 @@
 #include <cuda_fp8.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -154,12 +219,12 @@ __device__ __forceinline__ void words(const uint2& u, uint32_t* w) {
   w[1] = u.y;
 }
 
-// a vector of VB bytes (16 or 8) of the cache
-template <int VB> struct Vec;
-template <> struct Vec<16> { using type = uint4; };
-template <> struct Vec<8> { using type = uint2; };
+__device__ __forceinline__ void words(const uint32_t& u, uint32_t* w) {
+  w[0] = u;
+}
 
-// a vector of VB bytes of T, widened to f32 into f[0, VB / sizeof(T))
+// a vector of sizeof(V) bytes of T, widened to f32 into f[0, sizeof(V) /
+// sizeof(T))
 template <typename T, typename V>
 __device__ __forceinline__ void widen(const V& u, float* f) {
   constexpr int NW = sizeof(V) / 4;
@@ -187,6 +252,33 @@ __device__ __forceinline__ void widen(const V& u, float* f) {
 __device__ __forceinline__ float load_q(const void* q, int64_t i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i])
               : static_cast<const float*>(q)[i];
+}
+// N elements of q (a multiple of 4) from element i, to f32: by 16- or
+// 8-byte vectors where q is 16-byte aligned (i a multiple of 4)
+template <int N>
+__device__ __forceinline__ void load_q_vec(const void* q, int64_t i,
+                                           bool bf16, float* f) {
+  const bool vec = (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+#pragma unroll
+  for (int e = 0; e < N; e += 4) {
+    if (vec && bf16) {
+      widen<__nv_bfloat16>(
+          *reinterpret_cast<const uint2*>(
+              static_cast<const __nv_bfloat16*>(q) + i + e),
+          f + e);
+    } else if (vec) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(static_cast<const float*>(q) + i +
+                                           e);
+      f[e] = x.x;
+      f[e + 1] = x.y;
+      f[e + 2] = x.z;
+      f[e + 3] = x.w;
+    } else {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) f[e + x] = load_q(q, i + e + x, bf16);
+    }
+  }
 }
 // element i of the output, in q's dtype
 __device__ __forceinline__ void store_out(void* out, int64_t i, float x,
@@ -220,12 +312,9 @@ decode_split_kernel(const void* __restrict__ q, const T* __restrict__ k,
                     int H, int Kh, int rows, int M, int nch, float scale,
                     bool q_bf16) {
   // rows: Smax (dense) or block_size (paged); M: table width (paged).
-  // A lane loads 16-byte vectors of the cache, or 8-byte ones for fp8 at
-  // KG 8, where 16 elements of q and acc per query row would not fit in
-  // registers; the lanes then hold what they hold at bf16.
-  constexpr int VB = (sizeof(T) == 1 && KG > 4) ? 8 : 16;
-  using V = typename Vec<VB>::type;
-  constexpr int VEC = VB / sizeof(T);         // elements per vector load
+  // A lane loads 16-byte vectors of the cache.
+  using V = uint4;
+  constexpr int VEC = 16 / sizeof(T);         // elements per vector load
   constexpr int LPR = HD / VEC;               // lanes per cache row
   constexpr int RPI = 32 / LPR;               // rows per warp-wide load
   constexpr int STEPS = kPerWarp / RPI;
@@ -373,39 +462,17 @@ decode_split_kernel(const void* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_combine_kernel(const float* __restrict__ part,
-                      const int* __restrict__ cache_len, void* __restrict__ out,
-                      int H, int Kh, int cap, int nch, bool out_bf16) {
-  const int bkh = blockIdx.x;
-  const int b = bkh / Kh;
-  const int kh = bkh % Kh;
-  const int G = H / Kh;
-  const int len = min(cache_len[b], cap);
-  const int live = len > 0 ? (len + kChunk - 1) / kChunk : 0;
-  const int64_t stride = (int64_t)G * (HD + 2);   // from one chunk to the next
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    const int g = i / HD, d = i % HD;
-    const float* pp = part + ((int64_t)bkh * nch * G + g) * (HD + 2);
-    float mx = rt::kNegInf;
-    for (int s = 0; s < live; ++s) mx = fmaxf(mx, pp[s * stride]);
-    float L = 0.f, O = 0.f;
-    for (int s = 0; s < live; ++s) {
-      const float* ps = pp + s * stride;
-      const float cs = expf(ps[0] - mx);
-      L += ps[1] * cs;
-      O += ps[2 + d] * cs;
-    }
-    store_out(out, ((int64_t)b * H + kh * G + g) * HD + d,
-              O / fmaxf(L, 1e-30f), out_bf16);
-  }
+// the ticket counters that fold the combine into the mma and cluster cores
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
 }
 
-// ---------------------------------------------------------------------------
-// hd = 256: a chunk split across a cluster, slices staged by bulk copies
-// ---------------------------------------------------------------------------
-
+// mbarriers and bulk copies (the cluster core)
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -444,6 +511,458 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// hd <= 128 at G >= 3: a kv head's query rows as one tensor-core product
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaTile = 32;                  // keys of a warp: one tile
+constexpr int kMmaWarps = kChunk / kMmaTile;  // warps of a CTA
+constexpr int kMI = kMmaTile / 16;            // a tile's M tiles (slots)
+constexpr int kN = kMaxG;                     // query rows of a product
+constexpr int kFold = 32;     // chunks whose scales the folded combine holds
+
+// byte offset of (row, byte) in a slot of rows of RB bytes; where a row
+// holds 8 or more 16-byte chunks they are XOR-swizzled by bits 0 and 1 of
+// the row (bit 2 of the chunk by row bit 0, bit 1 by row bit 1), so that
+// the K fragment reads (rows g and g + 1, four chunks each, a phase) and
+// the V reads (rows t = 0-3, two chunks each) both hit 8 bank quads
+template <int RB>
+__device__ __forceinline__ int swz(int row, int byte) {
+  if constexpr (RB >= 128)
+    return row * RB +
+           (((byte >> 4) ^ (((row & 1) << 2) | (row & 2))) << 4) +
+           (byte & 15);
+  else
+    return row * RB + byte;
+}
+
+// VB bytes of T in shared memory, widened to f32 into f[0, VB / sizeof(T))
+template <typename T, int VB>
+__device__ __forceinline__ void load_wide(const unsigned char* p, float* f) {
+  if constexpr (VB == 16) {
+    widen<T>(*reinterpret_cast<const uint4*>(p), f);
+  } else if constexpr (VB == 8) {
+    widen<T>(*reinterpret_cast<const uint2*>(p), f);
+  } else if constexpr (VB == 4) {
+    widen<T>(*reinterpret_cast<const uint32_t*>(p), f);
+  } else {
+    static_assert(VB == 2 && sizeof(T) == 1, "two fp8 values");
+    const float2 x = fp8x2_to_float2(*reinterpret_cast<const uint16_t*>(p));
+    f[0] = x.x;
+    f[1] = x.y;
+  }
+}
+
+// a b on m16n8k8 TF32 products, b given as big + small halves, added to d
+// (its big.big terms) and e (its small terms): a in TF32 exactly (a bf16 or
+// fp8 cache) as 2 products, else (f32) split too, as 3 (3xTF32).  With
+// e == d the terms sum in one chain, small terms first
+template <bool EXACT>
+__device__ __forceinline__ void mma_x(float (&d)[4], float (&e)[4],
+                                      const float (&a)[4], uint32_t bb0,
+                                      uint32_t bb1, uint32_t bs0,
+                                      uint32_t bs1) {
+  uint32_t ab[4], as[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (EXACT)
+      ab[i] = __float_as_uint(a[i]);
+    else
+      rt::split(a[i], ab[i], as[i]);
+  }
+  if constexpr (!EXACT) rt::mma_tf32(e, as, bb0, bb1);
+  rt::mma_tf32(e, ab, bs0, bs1);
+  rt::mma_tf32(d, ab, bb0, bb1);
+}
+
+template <typename T, int HD, bool PAGED>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+decode_mma_kernel(const void* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ cache_len,
+                  const int* __restrict__ tables, float* __restrict__ part,
+                  int* __restrict__ tickets, void* __restrict__ out, int H,
+                  int Kh, int rows, int M, int nch, float scale,
+                  bool q_bf16) {
+  constexpr int RB = HD * sizeof(T);          // bytes of a cache row
+  constexpr int CH = RB / 16;                 // its 16-byte chunks
+  constexpr int SLOT = 16 * RB;               // 16 rows: an M tile of keys
+  constexpr bool kExact = sizeof(T) < 4;      // bf16, fp8: exact in TF32
+  // S^T: lane (g, t) reads vectors of VK bytes of key rows g and g + 8,
+  // vector j at element (4 j + t) EK; k-step (j, h) takes its elements 2h
+  // and 2h + 1 as the columns t and t + 4 of the product, and q's row g the
+  // same elements, so every element of hd meets its own in q once
+  constexpr int VK = RB / 4 < 16 ? RB / 4 : 16;
+  constexpr int EK = VK / sizeof(T);
+  constexpr int NK = HD / (4 * EK);
+  // O^T: lane (g, t) reads vectors of VV bytes of key rows t and t + 4,
+  // vector j at element (8 j + g) EV; M tile (j, h) takes its elements 2h
+  // and 2h + 1 as the rows g and g + 8 of V^T
+  constexpr int VV = RB / 8 < 16 ? RB / 8 : 16;
+  constexpr int EV = VV / sizeof(T);
+  constexpr int NV = HD / (8 * EV);
+  constexpr int MT = HD / 16;                 // M tiles of O^T
+  static_assert(RB % 16 == 0 && EK >= 4 && EV >= 2 && NK * 4 * EK == HD &&
+                    NV * 8 * EV == HD && kN == 8 && kMI == 2 &&
+                    kN * HD * 4 <= kMI * SLOT,
+                "layout");
+  extern __shared__ __align__(16) unsigned char smem[];  // per warp: slots
+  __shared__ float wm[kMmaWarps][kN];
+  __shared__ float wl[kMmaWarps][kN];
+  __shared__ float ps[kMmaWarps][kMmaTile][kN];   // P of each warp's tile
+  __shared__ float sc[kFold][kN];             // the folded combine's m, scales
+  __shared__ float sl[kFold][kN];             // and l, kFold chunks at a time
+  __shared__ float sM[kN];
+  __shared__ float sL[kN];
+  __shared__ int last;
+
+  const int bkh = blockIdx.x;
+  const int b = bkh / Kh;
+  const int kh = bkh % Kh;
+  const int chunk = blockIdx.y;
+  const int G = H / Kh;
+  const int cap = PAGED ? M * rows : rows;
+  const int len = min(cache_len[b], cap);
+  const int c0 = chunk * kChunk;
+  if (c0 >= len) {                            // dead chunk: the whole CTA
+    if (len <= 0 && chunk == 0)               // an empty slot's output is 0
+      for (int i = threadIdx.x; i < G * HD; i += blockDim.x)
+        store_out(out, ((int64_t)b * H + kh * G) * HD + i, 0.f, q_bf16);
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int p0 = c0 + warp * kMmaTile;        // the warp's first position
+  const int n = max(0, min(kMmaTile, len - p0));   // its live rows
+  const int nlive = min(kMmaWarps, (len - c0 + kMmaTile - 1) / kMmaTile);
+  unsigned char* tile = smem + warp * kMI * SLOT;
+
+  // q's row g first (rows past G are 0), so that its loads do not queue
+  // behind the tile's; and lane r's cache row (position p0 + r), looked up
+  // once
+  float qv[NK * EK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    if (g < G)
+      load_q_vec<EK>(q, ((int64_t)b * H + kh * G + g) * HD + (4 * j + t) * EK,
+                     q_bf16, qv + j * EK);
+    else
+#pragma unroll
+      for (int e = 0; e < EK; ++e) qv[j * EK + e] = 0.f;
+  }
+  const int64_t my_row =
+      lane < n ? cache_row<PAGED>(tables, b, kh, Kh, rows, M, p0 + lane) : 0;
+  // the 16 rows 16 mi.. of src into slot mi, 16-byte copies; a row at or
+  // past len is zero-filled, never read (P = 0 alone would not do: 0 * NaN
+  // is NaN)
+  auto stage = [&](const T* src, int mi) {
+    unsigned char* dst = tile + mi * SLOT;
+#pragma unroll 4
+    for (int i0 = 0; i0 < 16 * CH; i0 += 32) {
+      const int i = i0 + lane, r = (i / CH) & 15, c = i % CH;
+      const int64_t row = __shfl_sync(rt::kFull, my_row, 16 * mi + r);
+      if (i < 16 * CH)
+        rt::cp_async16(dst + swz<RB>(r, 16 * c),
+                       reinterpret_cast<const unsigned char*>(src + row * HD) +
+                           16 * c,
+                       16 * mi + r < n);
+    }
+    rt::cp_async_commit();
+  };
+  // K's M tiles, then each tile's V into its slot once S^T has read it
+  if (n > 0) {
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) stage(k, mi);
+  }
+  // q, scaled, as the B fragments' big and small halves
+  uint32_t qb[NK * EK], qs[NK * EK];
+#pragma unroll
+  for (int i = 0; i < NK * EK; ++i) rt::split(qv[i] * scale, qb[i], qs[i]);
+
+  if (n > 0) {
+    // S^T (keys x query rows) for the tile's M tiles mi: keys 16 mi + g and
+    // 16 mi + g + 8, query rows 2t and 2t + 1; the big.big terms and the
+    // small ones in two chains
+    float s[kMI][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) {
+      rt::cp_async_wait<kMI - 1>();           // this M tile's K
+      __syncwarp();
+      const unsigned char* ks = tile + mi * SLOT;
+      float sl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[mi][i] = sl[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        float ka[EK], kb[EK];
+        load_wide<T, VK>(ks + swz<RB>(g, (4 * j + t) * VK), ka);
+        load_wide<T, VK>(ks + swz<RB>(g + 8, (4 * j + t) * VK), kb);
+#pragma unroll
+        for (int h = 0; h < EK / 2; ++h) {
+          const float a[4] = {ka[2 * h], kb[2 * h], ka[2 * h + 1],
+                              kb[2 * h + 1]};
+          const int e = j * EK + 2 * h;
+          mma_x<kExact>(s[mi], sl, a, qb[e], qb[e + 1], qs[e], qs[e + 1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[mi][i] += sl[i];
+      __syncwarp();                           // every lane read the slot
+      stage(v, mi);
+    }
+    // one softmax update a tile and query row: positions at or past len
+    // take the finite mask; the row's max over the tile's keys and its sum
+    // by xor butterflies over g (the same bits on every lane)
+    float m[2], l[2];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (16 * mi + g + 8 * hh >= n)
+          s[mi][2 * hh] = s[mi][2 * hh + 1] = rt::kNegInf;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = rt::kNegInf;
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+        x = fmaxf(x, fmaxf(s[mi][r], s[mi][2 + r]));
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        x = fmaxf(x, __shfl_xor_sync(rt::kFull, x, o));
+      m[r] = x;
+      float y = 0.f;
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float p = expf(s[mi][2 * hh + r] - x);
+          s[mi][2 * hh + r] = p;
+          y += p;
+        }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) y += __shfl_xor_sync(rt::kFull, y, o);
+      l[r] = y;
+    }
+    // P from the accumulators' layout (key, row) into the B fragments'
+    // (row g, key t), through shared memory
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(&ps[warp][16 * mi + g + 8 * hh][2 * t]) =
+            make_float2(s[mi][2 * hh], s[mi][2 * hh + 1]);
+    // O^T (columns x query rows) += V^T P^T over the tile's 8-key k-steps,
+    // two to a slot
+    float o[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[mt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kMmaTile / 8; ++kk) {
+      if (kk % 2 == 0) {
+        if (kk / 2 + 1 < kMI)
+          rt::cp_async_wait<1>();             // this slot's V
+        else
+          rt::cp_async_wait<0>();
+        __syncwarp();                         // and every lane's P
+      }
+      const unsigned char* vs = tile + (kk / 2) * SLOT;
+      const int r0 = 8 * (kk % 2) + t;        // key rows r0, r0 + 4
+      uint32_t pb0, pb1, ps0, ps1;
+      rt::split(ps[warp][8 * kk + t][g], pb0, ps0);
+      rt::split(ps[warp][8 * kk + t + 4][g], pb1, ps1);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float va[EV], vb[EV];
+        load_wide<T, VV>(vs + swz<RB>(r0, (8 * j + g) * VV), va);
+        load_wide<T, VV>(vs + swz<RB>(r0 + 4, (8 * j + g) * VV), vb);
+#pragma unroll
+        for (int h = 0; h < EV / 2; ++h) {
+          const float a[4] = {va[2 * h], va[2 * h + 1], vb[2 * h],
+                              vb[2 * h + 1]};
+          float(&acc)[4] = o[j * (EV / 2) + h];
+          mma_x<kExact>(acc, acc, a, pb0, pb1, ps0, ps1);
+        }
+      }
+    }
+    // the warp's state: m and l of rows 2t and 2t + 1, and O (kN x HD)
+    // over its slots, which no lane reads any more
+    __syncwarp();
+    if (g == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        wm[warp][2 * t + r] = m[r];
+        wl[warp][2 * t + r] = l[r];
+      }
+    }
+    float* wo = reinterpret_cast<float*>(tile);
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int h = 0; h < EV / 2; ++h) {
+        const int mt = j * (EV / 2) + h, d = (8 * j + g) * EV + 2 * h;
+        *reinterpret_cast<float2*>(wo + 2 * t * HD + d) =
+            make_float2(o[mt][0], o[mt][2]);
+        *reinterpret_cast<float2*>(wo + (2 * t + 1) * HD + d) =
+            make_float2(o[mt][1], o[mt][3]);
+      }
+  }
+  __syncthreads();
+
+  // the live tiles merge in tile order into one partial (m, l, acc[HD]) per
+  // query row, as decode_split_kernel writes it: thread g takes row g's
+  // max, the tiles' scales and l first
+  float* pc = part + ((int64_t)bkh * nch + chunk) * G * (HD + 2);
+  if ((int)threadIdx.x < G) {
+    const int gg = threadIdx.x;
+    float mx = rt::kNegInf;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w)
+      if (w < nlive) mx = fmaxf(mx, wm[w][gg]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) {
+      if (w < nlive) {
+        const float cw = expf(wm[w][gg] - mx);
+        wm[w][gg] = cw;
+        L += wl[w][gg] * cw;
+      }
+    }
+    pc[gg * (HD + 2)] = mx;
+    pc[gg * (HD + 2) + 1] = L;
+  }
+  __syncthreads();
+  constexpr int NT = kMmaWarps * 32;
+#pragma unroll
+  for (int e = 0; e < (kN * HD + NT - 1) / NT; ++e) {
+    const int i = threadIdx.x + e * NT;
+    if (i < G * HD) {
+      const int gg = i / HD, d = i % HD;
+      float O = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMmaWarps; ++w)
+        if (w < nlive)
+          O += reinterpret_cast<const float*>(smem + w * kMI * SLOT)
+                   [gg * HD + d] *
+               wm[w][gg];
+      pc[gg * (HD + 2) + 2 + d] = O;
+    }
+  }
+
+  // the combine, folded in: the chunk's partial is written; the CTA of
+  // this (b, kh) that takes the last ticket merges every live chunk's, in
+  // chunk order, with the sums of decode_combine_kernel (so the same bits
+  // as that kernel on these partials), and sets the counter back to 0 for
+  // the next call.  The atomic decides only who merges.  kFold chunks at a
+  // time, every thread loads one chunk's m (then m and l) of one query
+  // row; thread g takes row g's max over the chunks and its l sum, every
+  // thread its outputs' acc sums.  Loads bypass L1: other SMs wrote the
+  // partials
+  const int live = (len + kChunk - 1) / kChunk;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomic_add_acq_rel(tickets + bkh, 1) == live - 1;
+    if (last) tickets[bkh] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  const float* pb = part + (int64_t)bkh * nch * G * (HD + 2);
+  const int64_t stride = (int64_t)G * (HD + 2);    // one chunk to the next
+  constexpr int PER = (kN * HD + NT - 1) / NT;
+  float mx = rt::kNegInf, L = 0.f, Oc[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) Oc[e] = 0.f;
+  for (int f0 = 0; f0 < live; f0 += kFold) {
+    const int nc = min(kFold, live - f0);
+    for (int x = threadIdx.x; x < nc * G; x += NT)
+      sc[x / G][x % G] =
+          __ldcg(pb + (f0 + x / G) * stride + (x % G) * (HD + 2));
+    __syncthreads();
+    if ((int)threadIdx.x < G)
+      for (int c = 0; c < nc; ++c) mx = fmaxf(mx, sc[c][threadIdx.x]);
+    __syncthreads();
+  }
+  if ((int)threadIdx.x < G) sM[threadIdx.x] = mx;
+  __syncthreads();
+  for (int f0 = 0; f0 < live; f0 += kFold) {
+    const int nc = min(kFold, live - f0);
+    for (int x = threadIdx.x; x < nc * G; x += NT) {
+      const float* pp = pb + (f0 + x / G) * stride + (x % G) * (HD + 2);
+      sc[x / G][x % G] = expf(__ldcg(pp) - sM[x % G]);
+      sl[x / G][x % G] = __ldcg(pp + 1);
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < G)
+      for (int c = 0; c < nc; ++c)
+        L += sl[c][threadIdx.x] * sc[c][threadIdx.x];
+#pragma unroll 2
+    for (int c = 0; c < nc; ++c) {
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int i = threadIdx.x + e * NT;
+        if (i < G * HD)
+          Oc[e] += __ldcg(pb + (f0 + c) * stride + (i / HD) * (HD + 2) + 2 +
+                          i % HD) *
+                   sc[c][i / HD];
+      }
+    }
+    __syncthreads();                          // sc, sl read before the next
+  }
+  if ((int)threadIdx.x < G) sL[threadIdx.x] = L;
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int i = threadIdx.x + e * NT;
+    if (i < G * HD)
+      store_out(out, ((int64_t)b * H + kh * G) * HD + i,
+                Oc[e] / fmaxf(sL[i / HD], 1e-30f), q_bf16);
+  }
+}
+
+// dynamic shared memory of decode_mma_kernel<T, HD, *>: each warp's two
+// slots of 16 rows, K's then V's; the wrapper's _geometry computes the same
+// and the launcher refuses any other
+template <typename T, int HD>
+__host__ __device__ constexpr int mma_smem() {
+  return kChunk * HD * (int)sizeof(T);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32)
+decode_combine_kernel(const float* __restrict__ part,
+                      const int* __restrict__ cache_len, void* __restrict__ out,
+                      int H, int Kh, int cap, int nch, bool out_bf16) {
+  const int bkh = blockIdx.x;
+  const int b = bkh / Kh;
+  const int kh = bkh % Kh;
+  const int G = H / Kh;
+  const int len = min(cache_len[b], cap);
+  const int live = len > 0 ? (len + kChunk - 1) / kChunk : 0;
+  const int64_t stride = (int64_t)G * (HD + 2);   // from one chunk to the next
+  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
+    const int g = i / HD, d = i % HD;
+    const float* pp = part + ((int64_t)bkh * nch * G + g) * (HD + 2);
+    float mx = rt::kNegInf;
+    for (int s = 0; s < live; ++s) mx = fmaxf(mx, pp[s * stride]);
+    float L = 0.f, O = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float* ps = pp + s * stride;
+      const float cs = expf(ps[0] - mx);
+      L += ps[1] * cs;
+      O += ps[2 + d] * cs;
+    }
+    store_out(out, ((int64_t)b * H + kh * G + g) * HD + d,
+              O / fmaxf(L, 1e-30f), out_bf16);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// hd = 256: a chunk split across a cluster, slices staged by bulk copies
+// ---------------------------------------------------------------------------
+
 // dynamic shared memory of decode_cluster_kernel<T, KG, *>; the wrapper's
 // _geometry computes the same and the launcher refuses any other
 template <typename T, int KG>
@@ -459,14 +978,6 @@ __host__ __device__ constexpr int wide_capacity() {
   return 2 * kSlice * kWideHD * (int)sizeof(T) / (2 * (int)sizeof(float) * KG);
 }
 
-__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
-  int old;
-  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n"
-               : "=r"(old)
-               : "l"(p), "r"(v)
-               : "memory");
-  return old;
-}
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
@@ -763,18 +1274,40 @@ decode_cluster_kernel(const void* __restrict__ q, const T* __restrict__ k,
 // launchers
 // ---------------------------------------------------------------------------
 
+// decode_split_kernel<T, HD, KG> (KG 1 and 2, no dynamic shared memory),
+// then the combine; or, with KG = 0, decode_mma_kernel<T, HD> (mma_smem
+// bytes, the combine folded in through the tickets)
 template <typename T, int HD, int KG, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* cache_len, void* scratch, void* out, int B, int H,
-           int Kh, int rows, int M, float scale, bool q_bf16,
-           cudaStream_t stream) {
+           const void* cache_len, void* scratch, void* tickets, void* out,
+           int B, int H, int Kh, int rows, int M, float scale, bool q_bf16,
+           int smem, cudaStream_t stream) {
   const int cap = PAGED ? M * rows : rows;
   const int nch = cap > 0 ? (cap + kChunk - 1) / kChunk : 1;
-  decode_split_kernel<T, HD, KG, PAGED>
-      <<<dim3(B * Kh, nch), kWarps * 32, 0, stream>>>(
-          q, static_cast<const T*>(k), static_cast<const T*>(v),
-          static_cast<const int*>(cache_len), static_cast<const int*>(tables),
-          static_cast<float*>(scratch), H, Kh, rows, M, nch, scale, q_bf16);
+  const dim3 grid(B * Kh, nch);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const int* cl = static_cast<const int*>(cache_len);
+  const int* bt = static_cast<const int*>(tables);
+  float* part = static_cast<float*>(scratch);
+  if constexpr (KG == 0) {
+    constexpr int bytes = mma_smem<T, HD>();
+    static_assert(bytes <= 227 * 1024 - 8192, "slots do not fit");
+    if (smem != bytes || !tickets)
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto kern = decode_mma_kernel<T, HD, PAGED>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kern<<<grid, kMmaWarps * 32, bytes, stream>>>(
+        q, kt, vt, cl, bt, part, static_cast<int*>(tickets), out, H, Kh,
+        rows, M, nch, scale, q_bf16);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    if (smem != 0) return static_cast<int>(cudaErrorInvalidValue);
+    decode_split_kernel<T, HD, KG, PAGED><<<grid, kWarps * 32, 0, stream>>>(
+        q, kt, vt, cl, bt, part, H, Kh, rows, M, nch, scale, q_bf16);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   decode_combine_kernel<HD><<<B * Kh, kWarps * 32, 0, stream>>>(
@@ -824,8 +1357,8 @@ int launch_wide(const void* q, const void* k, const void* v,
 
 // qdtype: q's and the output's (f32 or bf16); cdtype: the cache's (f32,
 // bf16 or fp8).  cluster and smem: the geometry kernels/decode_attention.py
-// computed (1 and 0 for hd <= 128; kCluster and wide_smem at hd 256); any
-// other is refused
+// computed (1 and 0 for hd <= 128 at G <= 2; 1 and mma_smem at G >= 3;
+// kCluster and wide_smem at hd 256); any other is refused
 template <bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const void* tables,
              const void* cache_len, void* scratch, void* tickets, void* out,
@@ -858,17 +1391,17 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
 #undef RT_W
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (cluster != 1 || smem != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster != 1) return static_cast<int>(cudaErrorInvalidValue);
 #define RT_G(T, D, KG)                                                     \
-  return launch<T, D, KG, PAGED>(q, k, v, tables, cache_len, scratch, out, \
-                                 B, H, Kh, rows, M, scale, q_bf16, s);
+  return launch<T, D, KG, PAGED>(q, k, v, tables, cache_len, scratch,      \
+                                 tickets, out, B, H, Kh, rows, M, scale,   \
+                                 q_bf16, smem, s);
+  // G 1 and 2 on the split core; 3 to 8 (KG 4 and 8) on the mma core
 #define RT_CASE(T, D)                                                      \
   if (hd == D && hdv == D) {                                               \
     if (G == 1) RT_G(T, D, 1)                                              \
     if (G == 2) RT_G(T, D, 2)                                              \
-    if (G <= 4) RT_G(T, D, 4)                                              \
-    RT_G(T, D, 8)                                                          \
+    RT_G(T, D, 0)                                                          \
   }
   if (cdtype == rt::kDtypeF32) {
     RT_CASE(float, 16) RT_CASE(float, 32) RT_CASE(float, 64)

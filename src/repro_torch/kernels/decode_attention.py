@@ -18,8 +18,8 @@ plain cast with no scale, as ``PipelinePlan(kv_dtype="fp8")`` writes it).
 The kernel splits the logical positions into fixed chunks of ``CHUNK``
 (split-KV), writes one partial softmax state per live chunk into an f32
 scratch tensor that the wrapper allocates, and merges the live chunks in
-chunk order (at hd 256 the CTAs that finish last merge them, in the same
-kernel).  ``chunk_plan``, ``decode_partials_plain`` and
+chunk order (on the mma core and at hd 256 the CTAs that finish last merge
+them, in the same kernel).  ``chunk_plan``, ``decode_partials_plain`` and
 ``decode_combine_plain`` are the plain versions of that plan, of the chunk
 pass and of the combine pass.  At hd 256 each chunk is split further across
 a cluster of ``CLUSTER`` CTAs, one fixed slice of ``SLICE`` positions each,
@@ -27,6 +27,25 @@ merged in slice order into the chunk's partial: ``cluster_plan``,
 ``decode_partials_plain(..., width=SLICE)`` and ``decode_cluster_merge_plain``
 are its plain versions, and ``_geometry`` the launch geometry that the C
 launcher checks.
+
+Below hd 256 at G = H / Kh >= 3 (``uses_mma``: qwen1.5-110b's G = 8,
+jamba's and llama-3.2-vision's G = 4) the chunk runs on the mma core.  What
+bounds it there is the group, not the bytes: the split core reduced every
+key's q.k per query row by a shuffle chain and ran an online-softmax step
+per key and row on all 32 lanes, 8x G = 1's work at G = 8 (0.0555 ms at
+qwen1.5-110b's shape for a 0.0057 ms bytes bound, and no faster over
+narrower caches).  The mma core maps the group onto the tensor cores with
+keys as M and the group as N: each warp stages its ``TILE``-key tile of K,
+then of V, by ``cp.async`` in two 16-row slots, computes S^T = K Q^T and
+O^T += V^T P^T on m16n8k8 TF32 products (q and P as big + small halves; a
+bf16 or fp8 cache is exact in TF32, so K and V take no split and each
+product 2 passes, an f32 cache 3), and runs one softmax update a tile and
+query row.  The tiles of a chunk merge in tile order into its partial, and
+the combine is folded into the same launch on tickets, as at hd 256:
+``decode_mma_plain`` (``decode_partials_plain(..., width=TILE)``,
+``decode_cluster_merge_plain(..., width=TILE)``, then the combine) is that
+order of sums; the kernel header in ``csrc/decode_attention.cu`` gives the
+layouts and the designs measured.
 
 Decode is never differentiated: on CUDA tensors both wrappers raise where
 autograd would record the call (``build.refuse_grad``), since the kernel
@@ -52,6 +71,7 @@ CHUNK = 128                        # positions per chunk (kChunk, .cu)
 WIDE_HD = 256                      # head size split across a cluster
 CLUSTER = 4                        # CTAs per chunk at WIDE_HD (kCluster)
 SLICE = CHUNK // CLUSTER           # positions per CTA at WIDE_HD (kSlice)
+TILE = 32                          # keys of a warp in the mma core (kMmaTile)
 _WARPS = 4                         # kWarps
 
 
@@ -67,13 +87,23 @@ def _group_slots(G: int) -> int:
     return next(kg for kg in (1, 2, 4, MAX_GROUP) if G <= kg)
 
 
+def uses_mma(hd: int, G: int) -> bool:
+    """Whether a call runs the mma core (``decode_mma_kernel``): below
+    WIDE_HD at G >= 3, the KG 4 and 8 instantiations; G 1 and 2 run the
+    split core."""
+    return hd != WIDE_HD and _group_slots(G) >= 4
+
+
 def _geometry(hd: int, dtype: torch.dtype, G: int) -> Geometry:
     """The kernels' launch geometry for a cache of ``dtype``: one CTA per
-    chunk below WIDE_HD; at WIDE_HD a cluster of CLUSTER CTAs per chunk with
-    ``wide_smem`` bytes of dynamic shared memory (csrc/decode_attention.cu),
-    which the launcher refuses to differ."""
+    chunk below WIDE_HD, with ``mma_smem`` bytes of dynamic shared memory
+    (each warp's two 16-row slots, K's rows then V's: CHUNK rows in all) on
+    the mma core and none on the split core; at WIDE_HD a cluster of
+    CLUSTER CTAs per chunk with ``wide_smem`` bytes
+    (csrc/decode_attention.cu).  The launcher refuses any other."""
     if hd != WIDE_HD:
-        return Geometry(1, CHUNK, 0, 0)
+        smem = CHUNK * hd * dtype.itemsize if uses_mma(hd, G) else 0
+        return Geometry(1, CHUNK, smem, 0)
     es, kg = dtype.itemsize, _group_slots(G)
     staging = 2 * SLICE * hd * es                          # K, then V rows
     smem = 16 + staging + 4 * (kg * hd + _WARPS * kg * SLICE + kg * SLICE
@@ -202,21 +232,40 @@ def _merge_plain(m, l, acc, live):
     return mx, L, O
 
 
-def decode_cluster_merge_plain(m, l, acc, cache_len, *, cap: int):
+def decode_cluster_merge_plain(m, l, acc, cache_len, *, cap: int,
+                               width: int = SLICE):
     """The cluster's merge at hd 256: each chunk's live slices (those
     starting below min(cache_len, cap)) in rank order, into the chunk's
     partial (m, l, acc), as ``decode_partials_plain`` gives it; a dead chunk
-    holds (-1e30, 0, 0).  Takes the (B, Kh, n_chunks * CLUSTER, G) slice
-    states."""
+    holds (-1e30, 0, 0).  Takes the (B, Kh, n_chunks * CHUNK / width, G)
+    states of ``decode_partials_plain(..., width=width)``: the cluster's
+    slices (SLICE), or the mma core's warp tiles (TILE), merged the same
+    way, in tile order."""
     B, Kh, n, G = m.shape
-    C = n // CLUSTER
+    per = CHUNK // width
+    C = n // per
     cl = torch.clamp(_lengths(cache_len, B, m.device), max=cap)
-    starts = torch.arange(n, device=m.device) * SLICE
-    live = (starts[None, :] < cl[:, None]).reshape(B, C, CLUSTER)
-    parts = [_merge_plain(*(x[:, :, c * CLUSTER:(c + 1) * CLUSTER]
+    starts = torch.arange(n, device=m.device) * width
+    live = (starts[None, :] < cl[:, None]).reshape(B, C, per)
+    parts = [_merge_plain(*(x[:, :, c * per:(c + 1) * per]
                             for x in (m, l, acc)), live[:, c])
              for c in range(C)]
     return tuple(torch.stack([p[i] for p in parts], dim=2) for i in range(3))
+
+
+def decode_mma_plain(q, k_cache, v_cache, cache_len, *, scale=None):
+    """The mma core's order of sums (``decode_mma_kernel``, hd < WIDE_HD at
+    G >= 3): each warp's TILE-key tile's softmax state (its max, the sum of
+    its exps, its P.V), the live tiles of each chunk merged in tile order
+    into the chunk's partial, then the combine, in f32.  Dense layout; a
+    paged cache goes through ``gather_pages`` first.  The kernel is held
+    against it on the card, nothing on the CUDA path calls it."""
+    cap = k_cache.shape[2]
+    parts = decode_partials_plain(q, k_cache, v_cache, cache_len, scale=scale,
+                                  width=TILE)
+    merged = decode_cluster_merge_plain(*parts, cache_len, cap=cap,
+                                        width=TILE)
+    return decode_combine_plain(*merged, cache_len, cap=cap, dtype=q.dtype)
 
 
 def decode_combine_plain(m, l, acc, cache_len, *, cap: int, dtype):
@@ -308,10 +357,11 @@ _TICKETS: dict = {}
 
 
 def _tickets(geo: Geometry, n: int, device):
-    """The hd-256 kernel's counters, one per (slot, kv head, cluster rank),
-    zeroed once per device and left at zero by every launch (None below
-    hd 256)."""
-    if geo.cluster == 1:
+    """The counters of the kernels that fold the combine in (the mma core
+    and the hd-256 cluster core: those with dynamic shared memory), one per
+    (slot, kv head, cluster rank), zeroed once per device and left at zero
+    by every launch (None for the split core)."""
+    if geo.smem == 0:
         return None
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:

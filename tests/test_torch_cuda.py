@@ -16,8 +16,8 @@ from repro_torch.configs.base import get_arch
 from repro_torch.convert import tree_from_numpy, tree_to_numpy
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
-    CHUNK, decode_attention, decode_attention_plain, gather_pages,
-    paged_decode_attention, paged_decode_attention_plain)
+    CHUNK, TILE, decode_attention, decode_attention_plain, decode_mma_plain,
+    gather_pages, paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (HEAD_DIM_PAIRS,
                                                  flash_attention,
                                                  flash_attention_bwd_plain,
@@ -105,30 +105,21 @@ def test_cuda_decode_dtype_pairs(cuda_dev, qdt, cdt, B, H, Kh, hd, Smax):
     """Every (q, cache) pair of {f32, bf16} x {f32, bf16, fp8}: the dense
     and paged kernels against their plain versions (which widen the cache
     to f32 as the kernels do, so an f32 query holds at 3e-5 whatever the
-    cache), and paged == the dense kernel on the gathered view, bit for
-    bit; lengths at the chunk edges, G 1, 4 and 8, hd 16 to 256."""
+    cache) and, below hd 256, the mma core's mirror, paged == the gather
+    path == the dense kernel bit for bit, the same bits again, and dead rows
+    holding NaN adding nothing; lengths at the chunk and tile edges, G 1, 4
+    and 8, hd 16 to 256."""
     rng = np.random.default_rng(hd + H)
     q = _rand(rng, (B, H, hd), qdt, cuda_dev)
-    lens = np.array(([0, 1, CHUNK, CHUNK + 1, Smax] * 2)[:B], np.int32)
+    lens = np.array(([0, 1, TILE + 1, CHUNK, CHUNK + 1, TILE, Smax,
+                      2 * TILE - 1] * 2)[:B], np.int32)
     cl = torch.from_numpy(np.minimum(lens, Smax)).to(cuda_dev)
     cd = CACHE_DTYPES[cdt]
     kc = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
     vc = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
-    dense = decode_attention(q, kc, vc, cl)
-    assert dense.dtype == q.dtype
-    torch.testing.assert_close(dense.float(),
-                               decode_attention_plain(q, kc, vc, cl).float(),
-                               **TOL[qdt])
     kp, vp, bt = _pools(rng, cl.tolist(), Kh, hd, 16, -(-Smax // 16),
                         "float32", cuda_dev)
-    kp, vp = kp.to(cd), vp.to(cd)
-    paged = paged_decode_attention(q, kp, vp, bt, cl)
-    torch.testing.assert_close(
-        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
-        **TOL[qdt])
-    gathered = decode_attention(q, gather_pages(kp, bt), gather_pages(vp, bt),
-                                cl)
-    assert torch.equal(paged, gathered)
+    _hold_decode(q, kc, vc, cl, kp.to(cd), vp.to(cd), bt, qdt)
 
 
 @pytest.mark.cuda
@@ -251,6 +242,42 @@ def test_cuda_flash_wgmma_registers_and_occupancy(cuda_dev, hd):
         3 if hd <= 64 else 1 if hd == 256 else 2)
 
 
+def _hold_decode(q, kc, vc, cl, kp, vp, bt, qdt):
+    """Dense and paged decode against their plain versions and, below hd
+    256, against the mma core's mirror (``decode_mma_plain``, its order of
+    sums: every shape's semantics, whichever core runs it); the paged
+    kernel == the gather path == the dense kernel on a cache holding the
+    same live rows (and NaN in every dead row: dead rows add exactly 0),
+    bit for bit; and a second call of each gives the same bits."""
+    dense = decode_attention(q, kc, vc, cl)
+    assert dense.dtype == q.dtype
+    plain = decode_attention_plain(q, kc, vc, cl).float()
+    torch.testing.assert_close(dense.float(), plain, **TOL[qdt])
+    if q.shape[-1] < 256:
+        torch.testing.assert_close(
+            dense.float(), decode_mma_plain(q, kc, vc, cl).float(),
+            **TOL[qdt])
+    paged = paged_decode_attention(q, kp, vp, bt, cl)
+    torch.testing.assert_close(
+        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
+        **TOL[qdt])
+    kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
+    Smax = kc.shape[2]
+    kd = torch.full_like(kc, float("nan"))
+    vd = torch.full_like(vc, float("nan"))
+    for b, n in enumerate(cl.tolist()):
+        n = min(n, Smax)
+        kd[b, :, :n] = kg[b, :, :n]
+        vd[b, :, :n] = vg[b, :, :n]
+    gather = decode_attention(q, kg, vg, cl)
+    nan_dead = decode_attention(q, kd, vd, cl)
+    assert torch.equal(paged, gather) and torch.equal(paged, nan_dead)
+    assert torch.equal(paged_decode_attention(q, kp, vp, bt, cl), paged)
+    assert torch.equal(decode_attention(q, kc, vc, cl), dense)
+    assert bool(torch.isfinite(dense.float()).all())
+    return dense, paged
+
+
 def _pools(rng, lens, Kh, hd, bs, M, dt, dev):
     """Pools with each slot's live blocks at shuffled ids, one dead block
     after them, and null (0) entries elsewhere."""
@@ -296,35 +323,28 @@ def test_cuda_decode_chunk_boundaries(cuda_dev, dt, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 4])
-def test_cuda_decode_paths_bit_identical(cuda_dev, dt, G):
+@pytest.mark.parametrize("cdt", list(CACHE_DTYPES))
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_cuda_decode_paths_bit_identical(cuda_dev, dt, cdt, G):
     """The paged kernel, the gather path (the dense kernel on the gathered
     view, Smax = M * bs) and the dense kernel on a cache of another Smax
-    holding the same live rows give the same bits, and so does a second
-    call."""
+    holding the same live rows (NaN in its dead ones) give the same bits,
+    and so does a second call; each against the plain version and the mma
+    core's mirror, over every (q, cache) pair, lengths at the tile and
+    chunk edges."""
     rng = np.random.default_rng(7 + G)
-    lens = [1024, 1, 17, CHUNK, 600, 333, 1000, 0]
+    lens = [1024, 1, 17, CHUNK, 600, 333, 1000, 0, TILE - 1, TILE,
+            TILE + 1, 3 * TILE + 1]
     B, Kh, hd, bs, M = len(lens), 4, 64, 16, 65
     H = Kh * G
+    cd = CACHE_DTYPES[cdt]
     q = _rand(rng, (B, H, hd), dt, cuda_dev)
-    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, M, dt, cuda_dev)
+    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, M, "float32", cuda_dev)
     cl = torch.tensor(lens, dtype=torch.int32, device=cuda_dev)
-    paged = paged_decode_attention(q, kp, vp, bt, cl)
-    kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
-    gather = decode_attention(q, kg, vg, cl)
     Smax = 1024                      # another width than M * bs = 1040
-    kd = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
-    vd = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
-    for b, n in enumerate(lens):
-        kd[b, :, :n] = kg[b, :, :n]
-        vd[b, :, :n] = vg[b, :, :n]
-    dense = decode_attention(q, kd, vd, cl)
-    assert torch.equal(paged, gather) and torch.equal(paged, dense)
-    assert torch.equal(paged_decode_attention(q, kp, vp, bt, cl), paged)
-    assert torch.equal(decode_attention(q, kd, vd, cl), dense)
-    torch.testing.assert_close(
-        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
-        **TOL[dt])
+    kd = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
+    vd = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
+    _hold_decode(q, kd, vd, cl, kp.to(cd), vp.to(cd), bt, dt)
 
 
 # Sq off the 64-row tile, with and without q_offset, a window, GQA 2 and 8
@@ -867,37 +887,30 @@ def test_cuda_controller_run(cuda_dev, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cdt", list(CACHE_DTYPES))
 @pytest.mark.parametrize("H,Kh", [(16, 16), (32, 8)],
                          ids=["deepseek-moe", "jamba"])
-def test_cuda_hd128_decode_at_model_heads(cuda_dev, dt, H, Kh):
+def test_cuda_hd128_decode_at_model_heads(cuda_dev, dt, cdt, H, Kh):
     """Decode at hd 128 with deepseek-moe-16b's 16 heads and
-    jamba-v0.1-52b's 32 on 8 kv heads, at batch 8 and 1024 rows (8
-    chunks), block 16: dense and paged kernels against their plain
-    versions, and the paged kernel == gather path == dense kernel bit for
-    bit on equal live rows."""
+    jamba-v0.1-52b's 32 on 8 kv heads (G = 4, the mma core), at batch 8
+    and 1024 rows (8 chunks), block 16, over every (q, cache) pair: dense
+    and paged kernels against their plain versions and the mma core's
+    mirror, the paged kernel == gather path == dense kernel bit for bit on
+    equal live rows (NaN in the dead ones), and the same bits again;
+    lengths at the tile and chunk edges."""
     rng = np.random.default_rng(H)
-    B, hd, Smax, bs = 8, 128, 1024, 16
-    lens = np.array([1024, 1, 17, 512, 600, 333, 1000, 64], np.int32)
+    B, hd, Smax, bs = 10, 128, 1024, 16
+    lens = np.array([1024, 1, 17, 512, 600, 333, 1000, 64, TILE + 1,
+                     3 * TILE - 1], np.int32)
     lens = np.minimum(lens, Smax - bs)
+    cd = CACHE_DTYPES[cdt]
     q = _rand(rng, (B, H, hd), dt, cuda_dev)
-    kc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
-    vc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
+    vc = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
     cl = torch.from_numpy(lens).to(cuda_dev)
-    torch.testing.assert_close(decode_attention(q, kc, vc, cl).float(),
-                               decode_attention_plain(q, kc, vc, cl).float(),
-                               **TOL[dt])
-    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, Smax // bs, dt, cuda_dev)
-    paged = paged_decode_attention(q, kp, vp, bt, cl)
-    torch.testing.assert_close(
-        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
-        **TOL[dt])
-    kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
-    kd, vd = kc.clone(), vc.clone()
-    for b, n in enumerate(lens.tolist()):
-        kd[b, :, :n] = kg[b, :, :n]
-        vd[b, :, :n] = vg[b, :, :n]
-    assert torch.equal(decode_attention(q, kg, vg, cl), paged)
-    assert torch.equal(decode_attention(q, kd, vd, cl), paged)
+    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, Smax // bs, "float32",
+                        cuda_dev)
+    _hold_decode(q, kc, vc, cl, kp.to(cd), vp.to(cd), bt, dt)
 
 
 @pytest.mark.cuda
@@ -1028,56 +1041,61 @@ def test_cuda_flash_padded_bucket_rows(cuda_dev, dt, hd, H, Kh, Skv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cdt", list(CACHE_DTYPES))
 @pytest.mark.parametrize("H,Kh,hd,M", [(32, 8, 128, 1601), (6, 6, 64, 1500)],
                          ids=["vision", "whisper"])
-def test_cuda_cross_decode_over_memory_rows(cuda_dev, dt, H, Kh, hd, M):
+def test_cuda_cross_decode_over_memory_rows(cuda_dev, dt, cdt, H, Kh, hd,
+                                            M):
     """Cross decode: every slot reads all M memory rows (cache_len = M, a
-    scalar or per slot) of a cache M rows long, against the plain version;
-    the same bits again."""
+    scalar or per slot) of a cache M rows long, against the plain version
+    and the mma core's mirror (vision's G = 4 runs it; 1601 rows end one
+    key into a tile), over every (q, cache) pair; the same bits again, and
+    from a cache 16 rows longer whose rows past M hold NaN."""
     rng = np.random.default_rng(M)
     B = 8
+    cd = CACHE_DTYPES[cdt]
     q = _rand(rng, (B, H, hd), dt, cuda_dev)
-    kc = _rand(rng, (B, Kh, M, hd), dt, cuda_dev)
-    vc = _rand(rng, (B, Kh, M, hd), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, M, hd), "float32", cuda_dev).to(cd)
+    vc = _rand(rng, (B, Kh, M, hd), "float32", cuda_dev).to(cd)
     out = decode_attention(q, kc, vc, M)
     torch.testing.assert_close(out.float(),
                                decode_attention_plain(q, kc, vc, M).float(),
                                **TOL[dt])
+    torch.testing.assert_close(out.float(),
+                               decode_mma_plain(q, kc, vc, M).float(),
+                               **TOL[dt])
     cl = torch.full((B,), M, dtype=torch.int32, device=cuda_dev)
     assert torch.equal(decode_attention(q, kc, vc, cl), out)
+    pad = (0, 0, 0, 16)
+    kn = torch.nn.functional.pad(kc.float(), pad, value=float("nan")).to(cd)
+    vn = torch.nn.functional.pad(vc.float(), pad, value=float("nan")).to(cd)
+    assert torch.equal(decode_attention(q, kn, vn, cl), out)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_cuda_decode_g8_at_chunk_edges(cuda_dev, dt):
-    """qwen1.5-110b's 64 heads on 8 (G = 8, the kernel's MAX_GROUP) at hd
-    128, lengths at the chunk edges: dense and paged kernels against their
-    plain versions, and paged kernel == gather path == dense kernel bit for
-    bit on equal live rows."""
-    rng = np.random.default_rng(64)
-    lens = np.array([0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1,
-                     1008, 600], np.int32)
-    B, H, Kh, hd, Smax, bs = len(lens), 64, 8, 128, 1024, 16
+@pytest.mark.parametrize("cdt", list(CACHE_DTYPES))
+@pytest.mark.parametrize("G", [3, 5, 8])
+def test_cuda_decode_g8_at_chunk_edges(cuda_dev, dt, cdt, G):
+    """qwen1.5-110b's 64 heads on 8 (G = 8, the kernel's MAX_GROUP), and G
+    3 and 5 on the same 8 kv heads (the mma core's rows past G unused), at
+    hd 128 over every (q, cache) pair, lengths at the tile and chunk edges:
+    dense and paged kernels against their plain versions and the mma
+    core's mirror, paged kernel == gather path == dense kernel bit for bit
+    on equal live rows (NaN in the dead ones), and the same bits again."""
+    rng = np.random.default_rng(64 + G)
+    lens = np.array([0, 1, TILE - 1, TILE, TILE + 1, CHUNK - 1, CHUNK,
+                     CHUNK + 1, 2 * CHUNK + 1, 1008, 600], np.int32)
+    B, Kh, hd, Smax, bs = len(lens), 8, 128, 1024, 16
+    H = Kh * G
+    cd = CACHE_DTYPES[cdt]
     q = _rand(rng, (B, H, hd), dt, cuda_dev)
-    kc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
-    vc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
+    vc = _rand(rng, (B, Kh, Smax, hd), "float32", cuda_dev).to(cd)
     cl = torch.from_numpy(lens).to(cuda_dev)
-    torch.testing.assert_close(decode_attention(q, kc, vc, cl).float(),
-                               decode_attention_plain(q, kc, vc, cl).float(),
-                               **TOL[dt])
-    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, Smax // bs, dt, cuda_dev)
-    paged = paged_decode_attention(q, kp, vp, bt, cl)
-    torch.testing.assert_close(
-        paged.float(), paged_decode_attention_plain(q, kp, vp, bt, cl).float(),
-        **TOL[dt])
-    kg, vg = gather_pages(kp, bt), gather_pages(vp, bt)
-    kd, vd = kc.clone(), vc.clone()
-    for b, n in enumerate(lens.tolist()):
-        kd[b, :, :n] = kg[b, :, :n]
-        vd[b, :, :n] = vg[b, :, :n]
-    assert torch.equal(decode_attention(q, kg, vg, cl), paged)
-    assert torch.equal(decode_attention(q, kd, vd, cl), paged)
-    assert torch.equal(paged_decode_attention(q, kp, vp, bt, cl), paged)
+    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, Smax // bs, "float32",
+                        cuda_dev)
+    _hold_decode(q, kc, vc, cl, kp.to(cd), vp.to(cd), bt, dt)
 
 
 def _cross_streams(arch, params, device, max_seq=64):

@@ -16,9 +16,9 @@ from repro.kernels.decode_attention import (
 from repro.kernels.flash_attention import flash_attention as pl_flash
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (
-    CHUNK, chunk_plan, decode_attention, decode_attention_plain,
-    decode_combine_plain, decode_partials_plain, gather_pages,
-    paged_decode_attention, paged_decode_attention_plain)
+    CHUNK, TILE, chunk_plan, decode_attention, decode_attention_plain,
+    decode_cluster_merge_plain, decode_combine_plain, decode_partials_plain,
+    gather_pages, paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rwkv6_wkv import wkv6
@@ -189,14 +189,19 @@ def test_gather_pages_layout():
 BOUNDARY_LENS = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1, 300]
 
 
+@pytest.mark.parametrize("order", ["chunks", "tiles"])
 @pytest.mark.parametrize("B,H,Kh,hd,Smax,lens", [
     (7, 4, 2, 16, 300, BOUNDARY_LENS),
     (3, 8, 1, 64, 1024, [1024, 513, 640]),   # G = 8, whole chunks
     (2, 4, 4, 32, 100, [100, 37]),           # Smax under one chunk
+    (5, 16, 2, 32, 300, [31, 32, 33, 97, 300]),   # tile edges, G = 8
 ])
-def test_chunked_plain_equals_whole_softmax(B, H, Kh, hd, Smax, lens):
+def test_chunked_plain_equals_whole_softmax(B, H, Kh, hd, Smax, lens, order):
     """The masked softmax cut at the fixed chunk boundaries and merged in
-    chunk order (the kernel's plan) equals the whole-cache plain version."""
+    chunk order (the kernel's plan) equals the whole-cache plain version.
+    ``tiles``: each chunk's partial from its TILE-key tiles merged in tile
+    order (the mma core's order) equals the chunk's own: the same max bit
+    for bit, l and acc within f32 rounding (1e-6 of their largest)."""
     rng = np.random.default_rng(Smax + hd)
     q, _ = _rand(rng, (B, H, hd))
     kc, _ = _rand(rng, (B, Kh, Smax, hd))
@@ -204,6 +209,16 @@ def test_chunked_plain_equals_whole_softmax(B, H, Kh, hd, Smax, lens):
     cl = torch.tensor(lens, dtype=torch.int32)
     m, l, acc = decode_partials_plain(q, kc, vc, cl)
     assert m.shape == (B, Kh, -(-Smax // CHUNK), H // Kh)
+    if order == "tiles":
+        tiles = decode_partials_plain(q, kc, vc, cl, width=TILE)
+        assert tiles[0].shape[2] == m.shape[2] * (CHUNK // TILE)
+        merged = decode_cluster_merge_plain(*tiles, cl, cap=Smax, width=TILE)
+        assert torch.equal(merged[0], m)
+        for got, want in zip(merged[1:], (l, acc)):
+            torch.testing.assert_close(
+                got, want, rtol=1e-6,
+                atol=1e-6 * float(want.abs().max()))
+        m, l, acc = merged
     out = decode_combine_plain(m, l, acc, cl, cap=Smax, dtype=q.dtype)
     np.testing.assert_allclose(_np(out), _np(decode_attention_plain(q, kc, vc,
                                                                     cl)),

@@ -4,7 +4,7 @@ stage, on one NVIDIA GPU, and what flash costs over the calls the served
 models make.
 
     python3 tools/kernel_stages.py [--tree DIR] [hd256] [hd128] [served] [bwd]
-                                   [wkvbwd] [bf16bwd] [bf16fwd]
+                                   [wkvbwd] [bf16bwd] [bf16fwd] [decode]
 
 (default: the first three, on this checkout's sources; --tree measures
 another checkout's, such as a parent unpacked under build/: its sources are
@@ -85,6 +85,21 @@ barrier; S, with tile 0's P.V issued behind it; the softmax; that P.V
 awaited, O rescaled and P split), the last P.V and the epilogue (rows
 staged in shared memory, their stores issued: thread 0's clock does not
 see them drain), beside the combine kernel's device time.
+
+decode: decode at hd 128 and G >= 4, f32 unless named, B 8 (chip_smoke.py
+phase 3's hd128_g8, qwen1.5-110b's 64 heads on 8 at lengths 0-1024, dense
+and paged over every (q, cache) pair of phase 20; hd128_gqa, jamba's 32 on
+8 at ragged lengths; hd128_cross, vision's 32 on 8 over 1601 memory
+rows), through each tree's library called raw with its own wrapper's
+geometry.  Unlike the other modes, --tree DIR here names a second tree (a
+parent unpacked under build/): this checkout's kernels and DIR's are timed
+in turns (DIR, checkout, checkout, DIR), each row beside its bytes bound,
+the plain version and SDPA's masked GQA call (dense, one dtype), with the
+combine kernel's share of the checkout's device time (profiler); then each
+tree's per-stage timeline at hd128_g8, f32, dense: cycles that thread 0 of
+each CTA adds up per stage (an instrumented copy; decode_split_kernel's
+stages inside its loop are summed over it), median and largest over the
+live CTAs.
 
 wkvbwd: the wkv6 backward kernel at the same rwkv6 call, stage by stage:
 cycles that thread 0 of each CTA adds up per stage over the chunk loops
@@ -167,8 +182,12 @@ FLASH = [
 ]
 
 
-def instrument(name, points, tag="", edits=()):
-    src = (CSRC / f"{name}.cu").read_text()
+def instrument(name, points, tag="", edits=(), csrc=None, defer=False):
+    """An instrumented copy of csrc/``name``.cu, built and loaded; with
+    ``defer``, its nvcc started and a function returned that waits for it
+    and loads the library (so several copies build at once)."""
+    csrc = csrc or CSRC
+    src = (csrc / f"{name}.cu").read_text()
     for text, k, _, before in points:
         if src.count(text) != 1:
             raise SystemExit(f"{name}.cu changed: stage anchor not found "
@@ -191,15 +210,20 @@ def instrument(name, points, tag="", edits=()):
     cu.write_text(src)
     lib = OUT / f"lib{name}{tag}.so"
     from repro_torch.kernels import build
-    r = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
-                        str(CSRC), "-o", str(lib), str(cu)],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise SystemExit(r.stdout + r.stderr)
-    lib = ctypes.CDLL(str(lib))
-    for fn, sig in build.SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = sig
-    return lib
+    proc = subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS, "-I",
+                             str(csrc), "-o", str(lib), str(cu)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+    def load():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(log)
+        out = ctypes.CDLL(str(lib))
+        for fn, sig in build.SIGNATURES[name].items():
+            getattr(out, fn).argtypes = sig
+        return out
+    return load if defer else load()
 
 
 def report(lib, n_ctas, names, label):
@@ -979,6 +1003,316 @@ def _wgspan_timeline(torch, dev, stream, timed, hd, hdv, B, S, H, Kh,
               f"{(g[sel, 1].max() - t0) / 1e3:.2f}; cycles (median): {txt}")
 
 
+# ---------------------------------------------------------------------------
+# decode: the hd <= 128 decode core at G >= 4, two trees in turns
+# ---------------------------------------------------------------------------
+
+# per-stage cycles that thread 0 of each CTA adds up (STG(k) adds the
+# cycles since the last STG; DEP(x) waits for x's producer first), stored
+# to stage_c at the kernel's end
+STG_MACROS = (
+    "#define STG(k) if (threadIdx.x == 0) { long long c_ = clock64(); "
+    "c_acc_[k] += c_ - c_last_; c_last_ = c_; }\n"
+    "#define DEP(x) asm volatile(\"\" :: \"f\"(x));\n")
+STG_INIT = "  long long c_last_ = clock64(), c_acc_[13] = {0};\n"
+STG_STORE = ("  if (threadIdx.x == 0) {\n    const int id_ = blockIdx.y * "
+             "gridDim.x + blockIdx.x;\n    for (int k_ = 0; k_ < 13; ++k_) "
+             "stage_c[id_ * 32 + k_] = c_acc_[k_];\n  }\n")
+# the split core (decode_split_kernel, the parent's KG 8): stages inside its
+# loop over 4 rows at a time are summed over the loop
+SPLIT_STAGES = ["q loads issued", "cache loads issued", "cache loads landed",
+                "q.k and its shuffles", "softmax (m, l)", "P.V (acc)",
+                "row groups merged (butterfly)",
+                "warp state written, barrier", "warps merged, partial written"]
+SPLIT_EDITS = [
+    ("  const int r = lane / LPR;                   // row within a warp-wide "
+     "load\n",
+     "  const int r = lane / LPR;                   // row within a warp-wide "
+     "load\n" + STG_INIT),
+    ("  float m[KG], l[KG], acc[KG][VEC];\n",
+     "  STG(0)\n  float m[KG], l[KG], acc[KG][VEC];\n"),
+    ("    }\n#pragma unroll\n    for (int u = 0; u < U; ++u) {\n"
+     "      float kf[VEC], vf[VEC];\n",
+     "    }\n    STG(1)\n    { const float w_ = __uint_as_float(kr[U - 1].x ^ "
+     "vr[U - 1].x); DEP(w_) }\n    STG(2)\n#pragma unroll\n    for (int u = "
+     "0; u < U; ++u) {\n      float kf[VEC], vf[VEC];\n"),
+    ("          s += __shfl_xor_sync(rt::kFull, s, o);\n"
+     "        if (ok[u] && g < G) {\n",
+     "          s += __shfl_xor_sync(rt::kFull, s, o);\n        STG(3)\n"
+     "        if (ok[u] && g < G) {\n"),
+    ("          l[g] = l[g] * corr + p;\n",
+     "          l[g] = l[g] * corr + p;\n          DEP(l[g]) STG(4)\n"),
+    ("          m[g] = mn;\n        }\n",
+     "          m[g] = mn;\n          DEP(acc[g][VEC - 1]) STG(5)\n"
+     "        }\n"),
+    ("  // once a multiply-add is contracted the butterfly's lanes need not "
+     "agree\n",
+     "  DEP(acc[KG - 1][VEC - 1]) STG(6)\n  // once a multiply-add is "
+     "contracted the butterfly's lanes need not agree\n"),
+    ("  __syncthreads();\n\n  // the warps merge in warp order; one partial",
+     "  __syncthreads();\n  STG(7)\n\n  // the warps merge in warp order; one "
+     "partial"),
+    ("    pp[2 + d] = O;\n  }\n}\n\ntemplate <int HD>\n",
+     "    pp[2 + d] = O;\n  }\n  STG(8)\n" + STG_STORE + "}\n\n"
+     "template <int HD>\n"),
+]
+# the mma core (decode_mma_kernel): thread 0's warp walks the chunk's first
+# tile, its two M tiles' stages summed; the CTAs that do not merge store
+# their stages at their ticket, the last one again after the folded
+# combine
+MMA_STAGES = ["q loads issued", "row looked up, K copies issued",
+              "q scaled and split", "K landed", "S^T on the tensor cores",
+              "V copies issued", "softmax (one update a tile)",
+              "P written, V landed", "P.V on the tensor cores",
+              "warp state written, barrier", "tiles merged, partial written",
+              "ticket taken", "the folded combine (the last CTA)"]
+MMA_EDITS = [
+    ("  unsigned char* tile = smem + warp * kMI * SLOT;\n",
+     "  unsigned char* tile = smem + warp * kMI * SLOT;\n" + STG_INIT),
+    ("  const int64_t my_row =\n", "  STG(0)\n  const int64_t my_row =\n"),
+    ("  // q, scaled, as the B fragments' big and small halves\n",
+     "  STG(1)\n  // q, scaled, as the B fragments' big and small halves\n"),
+    ("  if (n > 0) {\n    // S^T (keys x query rows)",
+     "  DEP(__uint_as_float(qs[NK * EK - 1])) STG(2)\n"
+     "  if (n > 0) {\n    // S^T (keys x query rows)"),
+    ("      rt::cp_async_wait<kMI - 1>();           // this M tile's K\n"
+     "      __syncwarp();\n",
+     "      rt::cp_async_wait<kMI - 1>();           // this M tile's K\n"
+     "      __syncwarp();\n      STG(3)\n"),
+    ("      for (int i = 0; i < 4; ++i) s[mi][i] += sl[i];\n",
+     "      for (int i = 0; i < 4; ++i) s[mi][i] += sl[i];\n"
+     "      DEP(s[mi][3]) STG(4)\n"),
+    ("      stage(v, mi);\n    }\n", "      stage(v, mi);\n      STG(5)\n"
+     "    }\n"),
+    ("    // P from the accumulators' layout",
+     "    DEP(l[1]) STG(6)\n    // P from the accumulators' layout"),
+    ("        __syncwarp();                         // and every lane's P\n",
+     "        __syncwarp();                         // and every lane's P\n"
+     "        STG(7)\n"),
+    ("    // the warp's state: m and l of rows",
+     "    DEP(o[MT - 1][3]) STG(8)\n    // the warp's state: m and l of "
+     "rows"),
+    ("  __syncthreads();\n\n  // the live tiles merge in tile order",
+     "  __syncthreads();\n  STG(9)\n\n  // the live tiles merge in tile "
+     "order"),
+    ("      pc[gg * (HD + 2) + 2 + d] = O;\n    }\n  }\n",
+     "      pc[gg * (HD + 2) + 2 + d] = O;\n    }\n  }\n  STG(10)\n"),
+    ("  if (!last) return;\n",
+     "  STG(11)\n" + STG_STORE + "  if (!last) return;\n"),
+    ("                Oc[e] / fmaxf(sL[i / HD], 1e-30f), q_bf16);\n  }\n}\n",
+     "                Oc[e] / fmaxf(sL[i / HD], 1e-30f), q_bf16);\n  }\n"
+     "  STG(12)\n" + STG_STORE + "}\n"),
+]
+_RAGGED = [1024, 1, 17, 512, 600, 333, 1000, 64]
+_G8_LENS = [0, 1, 127, 128, 129, 257, 1024, 600]
+# (row, H, Kh, Smax, cache_len or None for every row): chip_smoke.py phase
+# 3's and phase 20's decode shapes at hd 128 and G >= 4
+DECODE_ROWS = [("hd128_g8", 64, 8, 1024, _G8_LENS),
+               ("hd128_gqa", 32, 8, 1024, _RAGGED),
+               ("hd128_cross", 32, 8, 1601, None)]
+
+
+def _tree_module(tree, tag):
+    """``tree``'s kernels/decode_attention.py as a module of its own (its
+    _geometry and dtype codes)."""
+    import importlib.util
+    path = tree / "src" / "repro_torch" / "kernels" / "decode_attention.py"
+    spec = importlib.util.spec_from_file_location(f"decode_{tag}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _raw_decode(torch, lib, mod, q, k, v, cl, stream, tables=None):
+    """One call through ``lib``'s launcher (dense, or paged with
+    ``tables``) with the geometry of ``mod`` (its tree's wrapper)."""
+    B, H, hd = q.shape
+    Kh, rows = k.shape[1], k.shape[2]
+    M = tables.shape[1] if tables is not None else 0
+    cap = M * rows if tables is not None else rows
+    geo = mod._geometry(hd, k.dtype, H // Kh)
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    scratch = mod._scratch(B, H, Kh, cap, hd, q.device)
+    qd, cd = mod._DTYPES[q.dtype], mod.CACHE_DTYPES[k.dtype]
+    tickets = mod._ptr(mod._tickets(geo, B * Kh * geo.cluster, q.device))
+
+    def call():
+        if tables is None:
+            err = lib.decode_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
+                scratch.data_ptr(), tickets, out.data_ptr(), B, H, Kh, rows,
+                hd, hd, hd ** -0.5, qd, cd, geo.cluster, geo.smem, stream)
+        else:
+            err = lib.paged_decode_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(),
+                cl.data_ptr(), scratch.data_ptr(), tickets, out.data_ptr(),
+                B, H, Kh, rows, M, hd, hd, hd ** -0.5, qd, cd, geo.cluster,
+                geo.smem, stream)
+        assert err == 0, err
+        return out
+    return call
+
+
+def _decode_inputs(torch, rng, dev, H, Kh, Smax, lens, cdt, qdt):
+    """q, the dense caches, pools of 16-row blocks at shuffled ids holding
+    the same live rows, their tables and cache_len (B 8, hd 128)."""
+    B, hd, bs = 8, 128, 16
+    lens = lens or [Smax] * B
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(
+        np.float32)).to(dev, qdt)
+    kc, vc = (torch.from_numpy(rng.standard_normal((B, Kh, Smax, hd)).astype(
+        np.float32)).to(dev, cdt) for _ in range(2))
+    M = -(-Smax // bs)
+    n_blocks = 1 + B * M
+    perm = rng.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((B, M), np.int32)
+    pools = [torch.zeros((n_blocks, Kh, bs, hd), dtype=cdt, device=dev)
+             for _ in range(2)]
+    i = 0
+    for b, n in enumerate(lens):
+        nb = -(-n // bs)
+        tables[b, :nb] = perm[i:i + nb]
+        i += nb
+    bt = torch.from_numpy(tables).to(dev)
+    for pool, dense in zip(pools, (kc, vc)):
+        pad = torch.nn.functional.pad(dense, (0, 0, 0, M * bs - Smax))
+        pool[bt.long()] = pad.reshape(B, Kh, M, bs, hd).movedim(1, 2)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kc, vc, pools[0], pools[1], bt, cl
+
+
+def _stage_report(torch, lib, call, n_ctas, names, label):
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    lib.stages_clear()
+    call()
+    torch.cuda.synchronize()
+    n = n_ctas * 32
+    c = np.zeros(n, np.int64)
+    g = np.zeros(n, np.uint64)
+    lib.stages_get(c.ctypes.data, g.ctypes.data, n)
+    c = c.reshape(-1, 32)[:, :len(names)]
+    c = c[c.sum(axis=1) > 0]
+    print(f"  {label}: {len(c)} live CTAs, thread 0's cycles a stage "
+          "(median, max):")
+    for k, name in enumerate(names):
+        on = c[:, k] > 0               # a stage some CTAs skip: over the rest
+        x = c[on, k] if 0 < on.sum() < len(c) else c[:, k]
+        print(f"    {name:34s} {np.median(x):8.0f} {x.max():8.0f}"
+              + (f"  ({int(on.sum())} CTAs)" if 0 < on.sum() < len(c)
+                 else ""))
+    tot = c.sum(axis=1)
+    print(f"    {'all':34s} {np.median(tot):8.0f} {tot.max():8.0f}")
+
+
+def decode_stages(torch, dev, stream):
+    """Decode at hd 128 and G >= 4 (DECODE_ROWS, and the G = 8 row over
+    every (q, cache) pair): this checkout's kernels and, with --tree, the
+    tree's (a parent), in turns (tree, checkout, checkout, tree), each
+    beside its bytes bound, the plain version and SDPA's masked GQA call
+    (dense, one dtype); device time by kernel and the combine's share
+    (profiler); and each tree's per-stage timeline at hd128_g8, f32 (an
+    instrumented copy)."""
+    import chip_smoke as cs
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    trees = [("checkout", ROOT)] + ([("tree", TREE)] if TREE != ROOT else [])
+    libs, mods, timed = {}, {}, {}
+    for name, tree in trees:
+        csrc = tree / "src" / "repro_torch" / "kernels" / "csrc"
+        src = (csrc / "decode_attention.cu").read_text()
+        mods[name] = _tree_module(tree, name)
+        libs[name] = instrument("decode_attention", [], tag=f"_{name}",
+                                csrc=csrc, defer=True)
+        edits, stages = ((MMA_EDITS, MMA_STAGES) if "decode_mma_kernel" in src
+                         else (SPLIT_EDITS, SPLIT_STAGES))
+        timed[name] = (instrument(
+            "decode_attention", [], tag=f"_{name}_stages", csrc=csrc,
+            edits=[("namespace cg = cooperative_groups;\n",
+                    "namespace cg = cooperative_groups;\n" + STG_MACROS)]
+            + edits, defer=True), stages)
+        kern = "decode_split_kernel" if edits is SPLIT_EDITS else \
+            "decode_mma_kernel"
+        print(f"{name}: {tree}, {kern} at G = 8")
+    libs = {n: load() for n, load in libs.items()}    # every build at once
+    timed = {n: (load(), st) for n, (load, st) in timed.items()}
+    rng = np.random.default_rng(33)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float8_e4m3fn": torch.float8_e4m3fn}
+    print("decode at hd 128, B 8 (CUDA events, ms per call; turns: tree, "
+          "checkout, checkout, tree):")
+    for key, H, Kh, Smax, lens in DECODE_ROWS:
+        pairs = ([(q, c) for q in ("float32", "bfloat16")
+                  for c in ("float32", "bfloat16", "float8_e4m3fn")]
+                 if key == "hd128_g8" else [("float32", "float32")])
+        for qdt, cdt in pairs:
+            q, kc, vc, kp, vp, bt, cl = _decode_inputs(
+                torch, rng, dev, H, Kh, Smax, lens, dts[cdt], dts[qdt])
+            live = int(cl.sum())
+            nbytes = (8 * H * 128 * 2 * q.element_size()
+                      + live * Kh * 2 * 128 * kc.element_size() + 8 * 4)
+            t_bound, by = cs.bound(nbytes, 2 * H * live * 2 * 128, "float32")
+            for paged in (False, True) if lens else (False,):
+                args = (kp, vp, cl) if paged else (kc, vc, cl)
+                tables = bt if paged else None
+                calls = {n: _raw_decode(torch, libs[n], mods[n], q, *args,
+                                        stream, tables) for n in libs}
+                with torch.no_grad():
+                    ref = (DA.paged_decode_attention_plain(q, kp, vp, bt, cl)
+                           if paged else DA.decode_attention_plain(q, kc, vc,
+                                                                   cl))
+                    got = {n: c().clone() for n, c in calls.items()}
+                errs = {n: float((o.float() - ref.float()).abs().max())
+                        for n, o in got.items()}
+                order = (["tree", "checkout", "checkout", "tree"]
+                         if "tree" in calls else ["checkout", "checkout"])
+                turns = [cs.time_ms(torch, calls[n], iters=50) for n in order]
+                ms = {n: [t for o, t in zip(order, turns) if o == n]
+                      for n in calls}
+                plain = cs.time_ms(torch, lambda: (
+                    DA.paged_decode_attention_plain(q, kp, vp, bt, cl)
+                    if paged else DA.decode_attention_plain(q, kc, vc, cl)),
+                    iters=5)
+                sdpa = None
+                if not paged and qdt == cdt:
+                    mask = (torch.arange(Smax, device=dev)[None, :]
+                            < cl[:, None])[:, None, None, :]
+                    q4 = q[:, :, None, :]
+                    sdpa = cs.time_ms(torch, lambda: (
+                        F.scaled_dot_product_attention(
+                            q4, kc, vc, attn_mask=mask, enable_gqa=True)))
+                split = cs.split_share(torch, "decode_combine",
+                                       calls["checkout"])
+                share = split["combine_share"]
+                share = share if isinstance(share, str) else f"{share:.3f}"
+                us = {k.split("(")[0].split("::")[-1][-32:]: round(x, 2)
+                      for k, x in split["kernels_us"].items()}
+                print(f"  {key} {'paged' if paged else 'dense'} q={qdt} "
+                      f"cache={cdt}: checkout "
+                      f"{', '.join(f'{t:.4f}' for t in ms['checkout'])}"
+                      + "".join(f"; {n} {', '.join(f'{t:.4f}' for t in v)}"
+                                for n, v in ms.items() if n != "checkout")
+                      + f"; bound {t_bound:.4f} ({by}); plain {plain:.4f}; "
+                      f"SDPA {'%.4f' % sdpa if sdpa else 'none'}; max|err| vs "
+                      f"plain {errs}; the checkout's device us by kernel "
+                      f"(profiler) {us}, the combine's share {share}")
+                if "tree" in calls and key == "hd128_g8" and not paged:
+                    split = cs.split_share(torch, "decode_combine",
+                                           calls["tree"])
+                    us = {k.split("(")[0].split("::")[-1][-32:]: round(x, 2)
+                          for k, x in split["kernels_us"].items()}
+                    print(f"    the tree's device us by kernel {us}, the "
+                          f"combine's share {split['combine_share']}")
+    for name, (lib, stages) in timed.items():
+        q, kc, vc, kp, vp, bt, cl = _decode_inputs(
+            torch, rng, dev, 64, 8, 1024, _G8_LENS, torch.float32,
+            torch.float32)
+        call = _raw_decode(torch, lib, mods[name], q, kc, vc, cl, stream)
+        _stage_report(torch, lib, call, 64 * 8, stages,
+                      f"{name}: hd128_g8 dense f32, per-stage timeline")
+
+
 def bwd(torch, dev):
     import math
 
@@ -1042,7 +1376,12 @@ def main():
         TREE = Path(args[1]).resolve()
         CSRC = TREE / "src" / "repro_torch" / "kernels" / "csrc"
         args = args[2:]
-    sys.path.insert(0, str(TREE / "src"))
+    if "decode" in args and TREE != ROOT and len(args) > 1:
+        print("decode with --tree compares two trees: run it alone",
+              file=sys.stderr)
+        return 2
+    # decode times this checkout against --tree: this checkout's package
+    sys.path.insert(0, str((ROOT if "decode" in args else TREE) / "src"))
     sys.path.insert(0, str(ROOT))
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
@@ -1068,6 +1407,8 @@ def main():
         bf16_bwd_stages(torch, dev, stream)
     if "bf16fwd" in which:
         bf16_fwd_stages(torch, dev, stream)
+    if "decode" in which:
+        decode_stages(torch, dev, stream)
     return 0
 
 
