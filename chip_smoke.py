@@ -266,6 +266,10 @@ def check(cond, msg):
 
 
 def log(*a):
+    """Print a line; a phase's heading ("== N. ...") with the seconds
+    since the script started, so that each phase's share of the run shows."""
+    if a and str(a[0]).startswith("== "):
+        a = (f"{a[0]} [{time.perf_counter() - T_START:.1f} s]",) + a[1:]
     print(*a, flush=True)
 
 
@@ -309,9 +313,8 @@ def kernel_checks(torch, span_lib):
     beside."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import (
-        CHUNK, decode_attention, decode_attention_plain, decode_mma_plain,
-        gather_pages, paged_decode_attention, paged_decode_attention_plain,
-        uses_mma)
+        CHUNK, WIDE_HD, decode_attention, decode_attention_plain,
+        gather_pages, paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
         attention_mask, flash_attention, flash_attention_plain)
     import torch.nn.functional as F
@@ -371,9 +374,10 @@ def kernel_checks(torch, span_lib):
         """Dense and paged kernels against their plain versions, then the
         paged kernel, the gather path and the dense kernel on the same live
         rows: the same bits, and the same bits again on a second call.  On
-        the mma core (hd < 256, G >= 3) also against its mirror
-        (decode_mma_plain), and with NaN in every dead row: the same bits.
-        ``geo``: (H, Kh, hd, Smax) other than qwen's."""
+        a tile core (hd < 256: the lane core at G <= 2, the mma core above)
+        also against its mirror (decode_mma_plain), a second dense call and
+        NaN in every dead row: the same bits.  ``geo``: (H, Kh, hd, Smax)
+        other than qwen's."""
         H, Kh, hd, Smax = geo or (16, 16, 64, 1024)
         M = Smax // bs
         n_blocks = 1 + B * M
@@ -415,8 +419,8 @@ def kernel_checks(torch, span_lib):
                   "differs from the paged kernel on equal live rows")
         log(f"  {'decode paths':24s} {dt:8s} {label:34s} paged kernel == "
             f"gather path == dense kernel == paged again, bit for bit")
-        if uses_mma(hd, H // Kh):
-            mma_holds(torch, q, kc, vc, cl, dt, label)
+        if hd < WIDE_HD:
+            tile_holds(torch, q, kc, vc, cl, dt, label)
         return q, kc, vc, cl, kp, vp, bt, pcl, plens
 
     for dt in ("float32", "bfloat16"):
@@ -440,7 +444,8 @@ def kernel_checks(torch, span_lib):
                     q4, kc, vc, attn_mask=mask)),
                 bound_ms=t_bound, bound_by=by,
                 shape=f"B={B} H=Kh={H} hd={hd} Smax={Smax} f32, "
-                      f"sum(cache_len)={live}")
+                      f"sum(cache_len)={live}",
+                **tile_row(torch, q, kc, vc, cl, False))
             plive = int(plens.sum())
             pbytes = (B * H * hd * 2 + plive * Kh * 2 * hd) * es + B * 4 \
                 + sum(-(-int(x) // bs) for x in plens) * 4
@@ -452,7 +457,8 @@ def kernel_checks(torch, span_lib):
                     q, kp, vp, bt, pcl), iters=5),
                 library_ms=None, bound_ms=t_bound, bound_by=by,
                 shape=f"B={B} H=Kh={H} hd={hd} bs={bs} n_blocks={n_blocks} "
-                      f"f32, sum(cache_len)={plive}")
+                      f"f32, sum(cache_len)={plive}",
+                **tile_row(torch, q, (kp, vp, bt), None, pcl, True))
 
     # --- flash prefill ----------------------------------------------------
     cases = [  # (B, Sq, Skv, H, Kh, window, q_offset, label)
@@ -595,8 +601,8 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
     registers, spills and device time by kernel, and logs its planned
     launch geometry."""
     from repro_torch.kernels.decode_attention import (
-        _group_slots, decode_attention, decode_attention_plain,
-        paged_decode_attention, paged_decode_attention_plain, uses_mma)
+        WIDE_HD, _group_slots, decode_attention, decode_attention_plain,
+        paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import (
         attention_mask, flash_attention, flash_attention_plain, is_span)
     import torch.nn.functional as F
@@ -764,8 +770,8 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
             torch.cuda.synchronize()
             check(torch.equal(decode_attention(q, kc, vc, M), out),
                   f"decode {dt} {label}: a second call differs")
-            if uses_mma(hd, H // Kh):
-                mma_holds(torch, q, kc, vc, torch.full(
+            if hd < WIDE_HD:
+                tile_holds(torch, q, kc, vc, torch.full(
                     (B,), M, dtype=torch.int32, device=dev), dt, label)
             if dt != "float32":
                 continue
@@ -783,8 +789,8 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
                      bound_ms=t_bound, bound_by=by, max_abs_err=err,
                      shape=shape)
             results["decode_attention"][key] = r
-            if uses_mma(hd, H // Kh):
-                r.update(mma_row(torch, q, kc, vc, torch.full(
+            if hd < WIDE_HD:
+                r.update(tile_row(torch, q, kc, vc, torch.full(
                     (B,), M, dtype=torch.int32, device=dev), False))
             log(f"  {'decode_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
@@ -820,8 +826,8 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
                      bound_ms=t_bound, bound_by=by, max_abs_err=err,
                      shape=shape)
             results["decode_attention"][key] = r
-            if uses_mma(hd, H // Kh):
-                r.update(mma_row(torch, q, kc, vc, cl, False))
+            if hd < WIDE_HD:
+                r.update(tile_row(torch, q, kc, vc, cl, False))
             log(f"  {'decode_attention ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                 f"bound {t_bound:.4f} ms ({by})  [{shape}]"
@@ -858,8 +864,8 @@ def head_shape_checks(torch, rnd, compare, decode_case, results, span_lib):
                      library_ms=None, bound_ms=t_bound, bound_by=by,
                      max_abs_err=err, shape=pshape)
             results["paged_decode_attention"][key] = r
-            if uses_mma(hd, H // Kh):
-                r.update(mma_row(torch, q, (kp, vp, bt), None, pcl, True))
+            if hd < WIDE_HD:
+                r.update(tile_row(torch, q, (kp, vp, bt), None, pcl, True))
             log(f"  {'paged_decode ' + key:24s} {r['ms']:.4f} ms  plain "
                 f"{r['plain_ms']:.4f} ms  bound {t_bound:.4f} ms ({by})  "
                 f"[{pshape}]" + (f"  {r['kernel']} {r['ptxas']}, vs mirror "
@@ -913,11 +919,12 @@ def decode_geometry(torch, lens, Smax, B, H, Kh):
                 cluster=geo.cluster, dynamic_smem=geo.smem)
 
 
-def mma_holds(torch, q, kc, vc, cl, dt, label):
-    """The mma decode core (hd < 256, G >= 3) on a dense call: within the
-    tolerance of its mirror (decode_mma_plain, its order of sums), and the
-    same bits with NaN in every row at or past cache_len."""
-    from repro_torch.kernels.decode_attention import (decode_attention,
+def tile_holds(torch, q, kc, vc, cl, dt, label):
+    """A tile decode core (hd < 256: the lane core at G <= 2, the mma core
+    above) on a dense call: within the tolerance of its mirror
+    (decode_mma_plain, its order of sums), the same bits again on a second
+    call, and the same bits with NaN in every row at or past cache_len."""
+    from repro_torch.kernels.decode_attention import (core, decode_attention,
                                                       decode_mma_plain)
     out = decode_attention(q, kc, vc, cl)
     try:
@@ -936,20 +943,25 @@ def mma_holds(torch, q, kc, vc, cl, dt, label):
     vn = torch.nn.functional.pad(vn.float(), pad, value=float("nan")).to(
         vc.dtype)
     nan_dead = decode_attention(q, kn, vn, cl)
+    again = decode_attention(q, kc, vc, cl)
     torch.cuda.synchronize()
     check(torch.equal(nan_dead, out), f"decode {dt} {label}: NaN in dead "
           "rows changed the output")
-    log(f"  {'decode_mma_kernel':24s} {dt:8s} {label:34s} vs mirror "
-        f"{err:.3e}; NaN in every dead row: the same bits")
+    check(torch.equal(again, out), f"decode {dt} {label}: a second call "
+          "differs")
+    name = core(q.shape[-1], q.shape[1] // kc.shape[1])
+    log(f"  {name:24s} {dt:8s} {label:34s} vs mirror {err:.3e}; a second "
+        "call and NaN in every dead row: the same bits")
     return err
 
 
-def mma_row(torch, q, kc, vc, cl, paged):
-    """A phase-3 row on the mma core: its kernel, registers and spills,
-    and its largest error against the mirror (paged: ``kc`` holds the
-    pools and tables, the mirror runs on the gathered view)."""
+def tile_row(torch, q, kc, vc, cl, paged):
+    """A phase-3 row on a tile core (the lane or the mma core): its kernel,
+    registers and spills, and its largest error against the mirror (paged:
+    ``kc`` holds the pools and tables, the mirror runs on the gathered
+    view)."""
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_mma_plain, gather_pages,
+        core, decode_attention, decode_mma_plain, gather_pages,
         paged_decode_attention)
     if paged:
         kp, vp, bt = kc
@@ -959,11 +971,22 @@ def mma_row(torch, q, kc, vc, cl, paged):
         out = decode_attention(q, kc, vc, cl)
     err = _pair_hold(torch, out, decode_mma_plain(q, kc, vc, cl),
                      str(q.dtype)[6:])
+    return dict(kernel=core(q.shape[-1], q.shape[1] // kc.shape[1]),
+                max_abs_err_vs_mirror=err, ptxas=decode_core_ptxas(
+                    torch, q.shape[-1], q.shape[1] // kc.shape[1], kc.dtype,
+                    paged))
+
+
+def decode_core_ptxas(torch, hd, G, cdt, paged):
+    """Registers and spills of the tile core's instantiation that a call
+    at (hd, G) over a cache of ``cdt`` runs."""
+    from repro_torch.kernels.decode_attention import core
     mangled = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16",
-               torch.float8_e4m3fn: "13__nv_fp8_e4m3"}[kc.dtype]
-    return dict(kernel="decode_mma_kernel", max_abs_err_vs_mirror=err,
-                ptxas=ptxas("decode_attention", f"decode_mma_kernelI{mangled}"
-                            f"Li{q.shape[-1]}ELb{int(paged)}E"))
+               torch.float8_e4m3fn: "13__nv_fp8_e4m3"}[cdt]
+    name = core(hd, G)
+    kg = f"ELi{G}" if name == "decode_lane_kernel" else ""
+    return ptxas("decode_attention",
+                 f"{name}I{mangled}Li{hd}{kg}ELb{int(paged)}E")
 
 
 def split_share(torch, combine, fn, reps=20):
@@ -1442,8 +1465,7 @@ def profile_ticks(torch, eng, ticks):
     log(f"  {ticks} decode ticks: wall {out['profiled_ms_per_tick']:.3f} "
         f"ms/tick, device busy {out['busy_ms_per_tick']:.3f} ms/tick, "
         f"idle share {out['idle_share']:.3f} (profiler on)")
-    ours = ("decode_split_kernel", "decode_combine_kernel",
-            "decode_mma_kernel", "flash_kernel",
+    ours = ("decode_lane_kernel", "decode_mma_kernel", "flash_kernel",
             "flash_wgmma_kernel", "wkv6_kernel", "decode_cluster_kernel",
             "flash_span_kernel", "flash_combine_kernel",
             "flash_wgspan_kernel")
@@ -3813,7 +3835,8 @@ def decode_pair_checks(torch, card):
     version (the bound halves from bf16 to fp8 and quarters from f32)."""
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_plain, gather_pages,
-        paged_decode_attention, paged_decode_attention_plain, uses_mma)
+        WIDE_HD, core, paged_decode_attention, paged_decode_attention_plain)
+    import torch.nn.functional as F
     dev = torch.device("cuda")
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float8_e4m3fn": torch.float8_e4m3fn}
@@ -3857,10 +3880,10 @@ def decode_pair_checks(torch, card):
                     torch.cuda.synchronize()
                     check(torch.equal(paged, gathered), "paged != dense")
                     mirror = None
-                    if uses_mma(hd, H // Kh):
-                        # the mma core: its mirror, NaN in the dead rows,
-                        # and a second call's bits
-                        mirror = mma_holds(torch, q, kc, vc, cl, qdt, label)
+                    if hd < WIDE_HD:
+                        # a tile core: its mirror, NaN in the dead rows, and
+                        # a second call's bits
+                        mirror = tile_holds(torch, q, kc, vc, cl, qdt, label)
                         again = (decode_attention(q, kc, vc, cl),
                                  paged_decode_attention(q, kp, vp, bt, cl))
                         torch.cuda.synchronize()
@@ -3876,9 +3899,7 @@ def decode_pair_checks(torch, card):
                                     "float32")
                 r = {"max_abs_err": err, "paged_max_abs_err": perr,
                      "max_abs_err_vs_mirror": mirror,
-                     "kernel": ("decode_mma_kernel" if mirror is not None
-                                else "decode_cluster_kernel" if hd == 256
-                                else "decode_split_kernel"),
+                     "kernel": core(hd, H // Kh),
                      "ms": time_ms(torch, lambda: decode_attention(
                          q, kc, vc, cl)),
                      "paged_ms": time_ms(torch, lambda: paged_decode_attention(
@@ -3890,11 +3911,20 @@ def decode_pair_checks(torch, card):
                              q, kp, vp, bt, cl), iters=5),
                      "bound_ms": t_bound, "bound_by": by,
                      "library_ms": None}
+                if qdt == cdt:
+                    # SDPA's masked call (GQA heads by enable_gqa), dense
+                    mask = (torch.arange(Smax, device=dev)[None, :]
+                            < cl[:, None])[:, None, None, :]
+                    r["library_ms"] = time_ms(torch, lambda: (
+                        F.scaled_dot_product_attention(
+                            q[:, :, None, :], kc, vc, attn_mask=mask,
+                            enable_gqa=True)))
                 out[label] = r
                 log(f"  {label:50s} max|err| {err:.3e} (paged {perr:.3e}, "
                     f"== dense bits) {r['ms']:.4f} ms, paged "
                     f"{r['paged_ms']:.4f}, plain {r['plain_ms']:.4f} and "
-                    f"{r['paged_plain_ms']:.4f}, bound {t_bound:.4f} ({by})")
+                    f"{r['paged_plain_ms']:.4f}, bound {t_bound:.4f} ({by}), "
+                    f"SDPA {r['library_ms']}, {r['kernel']}")
     log(f"  phase 20 (a) on {card}: {len(out)} (shape, q, cache) "
         "cases held")
     return out, decode_ptxas()
@@ -3906,8 +3936,8 @@ def decode_ptxas():
     from repro_torch.kernels import build
     out = {}
     for fn, r in build.ptxas_report("decode_attention").items():
-        core = ("cluster" if "decode_cluster_kernel" in fn else "split"
-                if "decode_split_kernel" in fn else "mma"
+        core = ("cluster" if "decode_cluster_kernel" in fn else "lane"
+                if "decode_lane_kernel" in fn else "mma"
                 if "decode_mma_kernel" in fn else None)
         if core is None:
             continue
@@ -5134,6 +5164,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "launched_in": paths[name]})
+        if "kernel" in r:                  # the decode core at this shape
+            kernels[-1]["kernel"] = r["kernel"]
         if name == "flash_attention":
             kernels[-1]["chunk"] = r["chunk"]
             kernels[-1]["bf16_one_pass"] = r["bf16_one_pass"]

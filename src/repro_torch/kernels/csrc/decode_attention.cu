@@ -37,28 +37,82 @@
 //
 // hd <= 128: one CTA of 4 warps per (b*Kh + kh, chunk), so a slot with a
 // long cache spreads over many SMs (a CTA whose chunk starts at or past
-// cache_len[b] exits at once); inside a chunk warp w takes positions [32w,
-// 32w + 32); the warps' states merge in warp order through shared memory
-// into the chunk's partial.  Two cores:
+// cache_len[b] exits at once); inside a chunk warp w takes the tile of
+// kTile = 32 positions [32w, 32w + 32), runs one softmax update a tile and
+// query row, and the live tiles merge in tile order into the chunk's
+// partial (merge_tiles; decode_mma_plain in kernels/decode_attention.py is
+// this order of sums); the combine is folded into the same launch on
+// tickets.  Two tile cores, one launch each:
 //
-// G = H/Kh <= 2 (decode_split_kernel<KG 1, 2>, then decode_combine_kernel,
-// one CTA per (b, kh): two CUDA launches on one stream, no atomics): each K
-// or V row is read as 16-byte vectors (float4, 8 bf16 or 16 fp8) by the
-// lanes of one row group, so one load instruction of the warp covers 32 /
-// (lanes per row) whole rows (2 at hd=64 f32, 8 at hd=64 fp8), up to four
-// issued before any is used; a row's q.k is reduced by a fixed-order
-// xor-shuffle across its lanes; each row group keeps an online-softmax
-// state per query row, and the groups merge by an xor butterfly.
+// G = H/Kh <= 2 (decode_lane_kernel<KG 1, 2>: qwen1.5-0.5b, deepseek-moe-16b,
+// whisper-tiny).  The core it replaced walked each row group's keys one at a
+// time (a 3-step shuffle chain a key for q.k at bf16 hd 64, two expf and a
+// rescale of acc a key), held 128 bytes of K and V a lane in flight, and
+// merged the chunks in a second launch; at qwen1.5-0.5b's bf16 shape it took
+// 0.0115 ms for a 0.0044 bound, the q.k chain and the per-key softmax 53 %
+// of a CTA's cycles and the combine 0.29 of the device time
+// (tools/kernel_stages.py decode), and from f32 to fp8 its time fell by a
+// fifth while the bytes fell 4x.  The lane core:
+//   * each warp stages its tile's live rows of K and V by bulk asynchronous
+//     copies (cp.async.bulk), one a run of rows contiguous in memory (the
+//     tile of a dense cache, its part in one block of a paged one),
+//     completing on an mbarrier each for K and V, so the chunk's bytes are
+//     all in flight at once (2 x CHUNK rows up to 32 KB a CTA, six CTAs an
+//     SM; past that, f32 at hd 64 and 128 and bf16 at hd 128, V goes into
+//     K's rows once S has read them: lane_smem).  Rows at or past cache_len
+//     are neither copied nor read (NaN there changes no bit).  Lane r looks
+//     the row at position p0 + r up once (a paged block table read once a
+//     row); q's loads go out before the copies;
+//   * S with one key a lane on the CUDA cores: lane j reads key row j's
+//     16-byte chunks from chunk j on (mod the row's chunks), so the 8 lanes
+//     of a shared-memory phase read 8 bank quads, against q's elements of
+//     the same chunk, scaled, in shared memory by chunk planes (16-byte
+//     steps across the lanes);
+//   * the tile's softmax: its max and its sum by xor butterflies over the
+//     lanes, one expf a (key, query row), P to shared memory;
+//   * P.V by output columns: lane (kq, c) reads its EPL elements of the
+//     tile's V rows kq, kq + KS, ... (the warp reads whole rows, conflict
+//     free) with their P, 8 rows' loads at a time; below hd 64 the KS key
+//     groups add by an xor butterfly;
+//   * the combine folded in as on the mma core (merge_fold): after the
+//     partial a ticket of its (b, kh); the CTA that takes the last merges
+//     the chunks in chunk order with decode_combine_plain's sums, its acc
+//     loaded 8 chunks deep (fold_deep: two outputs a thread at most), every
+//     chunk's m and l gathered once;
+//   * everything after the widening is f32, and the output is rounded once:
+//     an f32 query holds 3e-5 against the plain version over every cache, a
+//     bf16 one a bf16 ulp (or 5e-3).
+//   Every (hd, cache type) runs it: timed against the split core in turns
+//   at each instantiation (hd 16, 32, 64 and 128 at G 1 and 2 over each
+//   cache type), none lost: 0.0064-0.0287 ms against 0.0089-0.0329, the
+//   closest qwen1.5-0.5b's f32 dense call, 0.0134 against 0.0136.
+//   Measured on an H100 at qwen1.5-0.5b's shape (B 8, 16 heads of 64, 3551
+//   live rows; tools/kernel_stages.py decode, the designs in turns with the
+//   split core): 16-byte cp.async copies, K and V of a warp's tile together,
+//   0.0127 ms against the split core's 0.0112 at bf16 (the copies' issue,
+//   16 a lane, took 4,533 cycles); the mma core run at G <= 2 (the group
+//   as N = 8, 7 of 8 rows wasted at G = 1) 0.0141-0.0153; one bulk copy a
+//   run of rows 0.0106 (f32 0.0150 against 0.0134: 64 KB CTAs in two
+//   waves); V into K's rows past 32 KB a CTA and the fold's loads 8 deep
+//   0.0108 against 0.0118, and at f32 0.0133 against 0.0137; P.V's loop
+//   bounded by the tile's live keys and q's loads ahead of the copies
+//   0.0090 against 0.0116, paged 0.0090 against 0.0138 (kept); the ticket
+//   taken at a CTA's start and the partials published by flags, the fold
+//   waiting for them, 0.0093 against 0.0090 (thread 0 waited ~700 cycles
+//   for the atomic's return; left out).  The bound is 0.0044 (bytes): what
+//   holds it now is a CTA's serial chain (the copies' issue and K's wait,
+//   about 2,800 of 8,700 cycles; the merge, the ticket and the fold about
+//   2,600), not the bytes (f32 q over fp8 0.0087 for a 0.0022 bound).
 //
 // G >= 3 (decode_mma_kernel, one launch: the KG 4 and 8 instantiations,
-// qwen1.5-110b's G = 8, jamba's and llama-3.2-vision's G = 4).  On the split
-// core each key cost every query row a 5-step shuffle chain (hd 128 f32),
-// two expf and a rescale of acc, on all 32 lanes: at G = 8 40 dependent
-// shuffles and 16 expf a key and warp, 86 % of a CTA's cycles
-// (tools/kernel_stages.py decode), so its time followed G, not the bytes
-// (0.0555 ms at f32, 0.0363 over bf16 and 0.0360 over fp8 for bounds of
-// 0.0057, 0.0029 and 0.0015).  The mma core computes a kv head's group as
-// one tensor-core product per 16 keys, as the Pallas kernel's q @ k.T:
+// qwen1.5-110b's G = 8, jamba's and llama-3.2-vision's G = 4).  On the core
+// the lane core replaced, each key cost every query row a 5-step shuffle
+// chain (hd 128 f32), two expf and a rescale of acc, on all 32 lanes: at G
+// = 8 40 dependent shuffles and 16 expf a key and warp, 86 % of a CTA's
+// cycles (tools/kernel_stages.py decode), so its time followed G, not the
+// bytes (0.0555 ms at f32, 0.0363 over bf16 and 0.0360 over fp8 for bounds
+// of 0.0057, 0.0029 and 0.0015).  The mma core computes a kv head's group
+// as one tensor-core product per 16 keys, as the Pallas kernel's q @ k.T:
 //   * each warp stages its 32-key tile in two slots of 16 rows by 16-byte
 //     cp.async: K's rows first, then each slot's V once S^T has read its K
 //     (CHUNK rows a CTA: 64 KB at f32 hd 128, three CTAs an SM; mma_smem).
@@ -92,16 +146,16 @@
 //     bf16 one a bf16 ulp (or 5e-3): the output is rounded once, at the
 //     end;
 //   * the warps' O^T fragments go to shared memory over their slots, and
-//     the live tiles merge in tile order into the chunk's partial, which
-//     means what it means on the split core (decode_mma_plain in
-//     kernels/decode_attention.py is this order of sums);
+//     the live tiles merge in tile order into the chunk's partial, as on
+//     the lane core (decode_mma_plain in kernels/decode_attention.py is
+//     this order of sums);
 //   * the combine is folded in, as at hd 256: after writing its partial a
 //     CTA takes a ticket of its (b, kh) (B x Kh int32 counters, zeroed once
 //     by the wrapper); the one that takes the last merges the slot's live
-//     chunks in chunk order with decode_combine_kernel's sums (so the bits
-//     that kernel would give on these partials), every live chunk's m and
-//     l gathered into shared memory at once, and sets the counter back to
-//     0.  The atomic decides only who merges, never an order of summation;
+//     chunks in chunk order with decode_combine_plain's sums (so the bits
+//     a separate combine would give on these partials), every live chunk's
+//     m and l gathered into shared memory at once, and sets the counter back
+//     to 0.  The atomic decides only who merges, never an order of summation;
 //     calls must be ordered on one stream.  An empty slot's zeros come from
 //     its chunk-0 CTA.
 //   Measured on an H100 at G = 8, f32 (0.0057 ms bound; tools/kernel_stages
@@ -156,7 +210,7 @@
 //     atom.add.acq_rel.gpu after a CTA barrier, so the partial is published
 //     before the ticket); the CTA that takes the last one merges its 64
 //     columns over every live chunk in chunk order, with the sums of
-//     decode_combine_kernel, and sets the counter back to 0 for the next
+//     decode_combine_plain, and sets the counter back to 0 for the next
 //     call.  The atomic decides only who merges, never an order of
 //     summation, so the bits stay fixed.  The counters (B x Kh x 4 int32,
 //     zeroed once by the wrapper) are why calls must be ordered on one
@@ -300,169 +354,7 @@ __device__ __forceinline__ int64_t cache_row(const int* tables, int b, int kh,
   return ((int64_t)b * Kh + kh) * rows + p;
 }
 
-// ---------------------------------------------------------------------------
-// hd <= 128: one CTA per chunk
-// ---------------------------------------------------------------------------
-
-template <typename T, int HD, int KG, bool PAGED>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_split_kernel(const void* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ cache_len,
-                    const int* __restrict__ tables, float* __restrict__ part,
-                    int H, int Kh, int rows, int M, int nch, float scale,
-                    bool q_bf16) {
-  // rows: Smax (dense) or block_size (paged); M: table width (paged).
-  // A lane loads 16-byte vectors of the cache.
-  using V = uint4;
-  constexpr int VEC = 16 / sizeof(T);         // elements per vector load
-  constexpr int LPR = HD / VEC;               // lanes per cache row
-  constexpr int RPI = 32 / LPR;               // rows per warp-wide load
-  constexpr int STEPS = kPerWarp / RPI;
-  constexpr int U = STEPS < 4 ? STEPS : 4;    // rows before use
-  static_assert(HD % VEC == 0 && LPR <= 32 && 32 % LPR == 0 &&
-                    kPerWarp % RPI == 0, "");
-  __shared__ float wm[kWarps][KG];
-  __shared__ float wl[kWarps][KG];
-  __shared__ float wacc[kWarps][KG][HD];
-
-  const int bkh = blockIdx.x;
-  const int b = bkh / Kh;
-  const int kh = bkh % Kh;
-  const int chunk = blockIdx.y;
-  const int G = H / Kh;
-  const int cap = PAGED ? M * rows : rows;
-  const int len = min(cache_len[b], cap);
-  const int c0 = chunk * kChunk;
-  if (c0 >= len) return;                      // dead chunk: the whole CTA
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = lane / LPR;                   // row within a warp-wide load
-  const int c = lane % LPR;                   // 16-byte column of the row
-
-  // element e of a lane is column c * VEC + e
-  float qv[KG][VEC];
-#pragma unroll
-  for (int g = 0; g < KG; ++g) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      qv[g][e] = g < G ? load_q(q,
-                                ((int64_t)b * H + kh * G + g) * HD + c * VEC +
-                                    e,
-                                q_bf16) *
-                             scale
-                       : 0.f;
-  }
-  float m[KG], l[KG], acc[KG][VEC];
-#pragma unroll
-  for (int g = 0; g < KG; ++g) {
-    m[g] = rt::kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
-  }
-
-  const int w0 = c0 + warp * kPerWarp;
-#pragma unroll 1
-  for (int i0 = 0; i0 < STEPS && w0 + i0 * RPI < len; i0 += U) {
-    V kr[U], vr[U];
-    bool ok[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int p = w0 + (i0 + u) * RPI + r;
-      ok[u] = p < len;
-      kr[u] = V{};
-      vr[u] = kr[u];
-      if (ok[u]) {
-        const int64_t row = cache_row<PAGED>(tables, b, kh, Kh, rows, M, p);
-        kr[u] = __ldg(reinterpret_cast<const V*>(k + row * HD) + c);
-        vr[u] = __ldg(reinterpret_cast<const V*>(v + row * HD) + c);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[VEC], vf[VEC];
-      widen<T>(kr[u], kf);
-      widen<T>(vr[u], vf);
-#pragma unroll
-      for (int g = 0; g < KG; ++g) {
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) s += qv[g][e] * kf[e];
-#pragma unroll
-        for (int o = LPR / 2; o > 0; o >>= 1)
-          s += __shfl_xor_sync(rt::kFull, s, o);
-        if (ok[u] && g < G) {
-          const float mn = fmaxf(m[g], s);
-          const float corr = expf(m[g] - mn);
-          const float p = expf(s - mn);
-          l[g] = l[g] * corr + p;
-#pragma unroll
-          for (int e = 0; e < VEC; ++e)
-            acc[g][e] = acc[g][e] * corr + p * vf[e];
-          m[g] = mn;
-        }
-      }
-    }
-  }
-
-  // merge the row groups of the warp (lanes c, c + LPR, ...): xor butterfly
-#pragma unroll
-  for (int o = LPR; o < 32; o <<= 1) {
-#pragma unroll
-    for (int g = 0; g < KG; ++g) {
-      const float mo = __shfl_xor_sync(rt::kFull, m[g], o);
-      const float lo = __shfl_xor_sync(rt::kFull, l[g], o);
-      const float mn = fmaxf(m[g], mo);
-      const float ca = expf(m[g] - mn);
-      const float cb = expf(mo - mn);
-      l[g] = l[g] * ca + lo * cb;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float ao = __shfl_xor_sync(rt::kFull, acc[g][e], o);
-        acc[g][e] = acc[g][e] * ca + ao * cb;
-      }
-      m[g] = mn;
-    }
-  }
-  // once a multiply-add is contracted the butterfly's lanes need not agree
-  // bit for bit, so one fixed row group writes the warp's state
-  if (r == 0) {
-#pragma unroll
-    for (int g = 0; g < KG; ++g) {
-      if (c == 0) {
-        wm[warp][g] = m[g];
-        wl[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) wacc[warp][g][c * VEC + e] = acc[g][e];
-    }
-  }
-  __syncthreads();
-
-  // the warps merge in warp order; one partial (m, l, acc[HD]) per query row
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    const int g = i / HD, d = i % HD;
-    float mx = rt::kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w][g]);
-    float L = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float cw = expf(wm[w][g] - mx);
-      L += wl[w][g] * cw;
-      O += wacc[w][g][d] * cw;
-    }
-    float* pp = part + (((int64_t)bkh * nch + chunk) * G + g) * (HD + 2);
-    if (d == 0) {
-      pp[0] = mx;
-      pp[1] = L;
-    }
-    pp[2 + d] = O;
-  }
-}
-
-// the ticket counters that fold the combine into the mma and cluster cores
+// the ticket counters that fold the combine into every core
 __device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
   int old;
   asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], %2;\n"
@@ -515,9 +407,9 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 // hd <= 128 at G >= 3: a kv head's query rows as one tensor-core product
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaTile = 32;                  // keys of a warp: one tile
-constexpr int kMmaWarps = kChunk / kMmaTile;  // warps of a CTA
-constexpr int kMI = kMmaTile / 16;            // a tile's M tiles (slots)
+constexpr int kTile = 32;                  // keys of a warp: one tile
+constexpr int kTileWarps = kChunk / kTile;  // warps of a CTA
+constexpr int kMI = kTile / 16;            // a tile's M tiles (slots)
 constexpr int kN = kMaxG;                     // query rows of a product
 constexpr int kFold = 32;     // chunks whose scales the folded combine holds
 
@@ -575,8 +467,237 @@ __device__ __forceinline__ void mma_x(float (&d)[4], float (&e)[4],
   rt::mma_tf32(d, ab, bb0, bb1);
 }
 
+// The live tiles of a chunk's CTA on a tile core (decode_lane_kernel,
+// decode_mma_kernel: warps w < nlive, each with its state wm[w], wl[w] and
+// its O, NR x HD f32 at wo + w * wstride bytes) merged in tile order into
+// the chunk's partial (m, l, acc[HD]) per query row g < G at pc, as
+// decode_partials_plain writes it: thread g takes row g's max, the tiles'
+// scales and l first
+template <int HD, int NR>
+__device__ __forceinline__ void merge_tiles(
+    float (&wm)[kTileWarps][NR], const float (&wl)[kTileWarps][NR],
+    const unsigned char* wo, int wstride, int nlive, int G,
+    float* __restrict__ pc) {
+  if ((int)threadIdx.x < G) {
+    const int gg = threadIdx.x;
+    float mx = rt::kNegInf;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w)
+      if (w < nlive) mx = fmaxf(mx, wm[w][gg]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) {
+      if (w < nlive) {
+        const float cw = expf(wm[w][gg] - mx);
+        wm[w][gg] = cw;
+        L += wl[w][gg] * cw;
+      }
+    }
+    pc[gg * (HD + 2)] = mx;
+    pc[gg * (HD + 2) + 1] = L;
+  }
+  __syncthreads();
+  constexpr int NT = kTileWarps * 32;
+#pragma unroll
+  for (int e = 0; e < (NR * HD + NT - 1) / NT; ++e) {
+    const int i = threadIdx.x + e * NT;
+    if (i < G * HD) {
+      const int gg = i / HD, d = i % HD;
+      float O = 0.f;
+#pragma unroll
+      for (int w = 0; w < kTileWarps; ++w)
+        if (w < nlive)
+          O += reinterpret_cast<const float*>(wo + w * wstride)[gg * HD + d] *
+               wm[w][gg];
+      pc[gg * (HD + 2) + 2 + d] = O;
+    }
+  }
+}
+
+// The combine, folded in: the CTA of a (b, kh) that takes its last ticket
+// merges the partials of its live chunks (pb, one chunk stride floats
+// apart) in chunk order, with the sums of decode_combine_plain, into the
+// output (out from element o0, q's dtype).  kFold chunks at a time, every thread loads one
+// chunk's m (then m and l) of one query row; thread g takes row g's max
+// over the chunks and its l sum, every thread its outputs' acc sums.  Loads
+// bypass L1: other SMs wrote the partials
+template <int HD, int NR>
+__device__ __forceinline__ void fold_chunks(const float* __restrict__ pb,
+                                            int live, int G,
+                                            void* __restrict__ out,
+                                            int64_t o0, bool q_bf16) {
+  __shared__ float sc[kFold][NR];   // the folded combine's m, scales
+  __shared__ float sl[kFold][NR];   // and l, kFold chunks at a time
+  __shared__ float sM[NR];
+  __shared__ float sL[NR];
+  constexpr int NT = kTileWarps * 32;
+  const int64_t stride = (int64_t)G * (HD + 2);    // one chunk to the next
+  constexpr int PER = (NR * HD + NT - 1) / NT;
+  float mx = rt::kNegInf, L = 0.f, Oc[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) Oc[e] = 0.f;
+  for (int f0 = 0; f0 < live; f0 += kFold) {
+    const int nc = min(kFold, live - f0);
+    for (int x = threadIdx.x; x < nc * G; x += NT)
+      sc[x / G][x % G] =
+          __ldcg(pb + (f0 + x / G) * stride + (x % G) * (HD + 2));
+    __syncthreads();
+    if ((int)threadIdx.x < G)
+      for (int c = 0; c < nc; ++c) mx = fmaxf(mx, sc[c][threadIdx.x]);
+    __syncthreads();
+  }
+  if ((int)threadIdx.x < G) sM[threadIdx.x] = mx;
+  __syncthreads();
+  for (int f0 = 0; f0 < live; f0 += kFold) {
+    const int nc = min(kFold, live - f0);
+    for (int x = threadIdx.x; x < nc * G; x += NT) {
+      const float* pp = pb + (f0 + x / G) * stride + (x % G) * (HD + 2);
+      sc[x / G][x % G] = expf(__ldcg(pp) - sM[x % G]);
+      sl[x / G][x % G] = __ldcg(pp + 1);
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < G)
+      for (int c = 0; c < nc; ++c)
+        L += sl[c][threadIdx.x] * sc[c][threadIdx.x];
+#pragma unroll 2
+    for (int c = 0; c < nc; ++c) {
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int i = threadIdx.x + e * NT;
+        if (i < G * HD)
+          Oc[e] += __ldcg(pb + (f0 + c) * stride + (i / HD) * (HD + 2) + 2 +
+                          i % HD) *
+                   sc[c][i / HD];
+      }
+    }
+    __syncthreads();                          // sc, sl read before the next
+  }
+  if ((int)threadIdx.x < G) sL[threadIdx.x] = L;
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int i = threadIdx.x + e * NT;
+    if (i < G * HD)
+      store_out(out, o0 + i, Oc[e] / fmaxf(sL[i / HD], 1e-30f), q_bf16);
+  }
+}
+
+// The fold where the live chunks fit in kFold and each thread holds few
+// outputs (PER <= 2): each thread loads its acc kDeep chunks at a time,
+// the first group before every chunk's m and l (gathered once): one round
+// trip to L2 up to kDeep chunks.  The same sums, in the same order, as
+// fold_chunks
+template <int HD, int NR>
+__device__ __forceinline__ void fold_deep(const float* __restrict__ pb,
+                                          int live, int G,
+                                          void* __restrict__ out, int64_t o0,
+                                          bool q_bf16) {
+  __shared__ float sc[kFold][NR];   // m, then the scales
+  __shared__ float sl[kFold][NR];   // l
+  __shared__ float sL[NR];
+  constexpr int NT = kTileWarps * 32;
+  const int64_t stride = (int64_t)G * (HD + 2);    // one chunk to the next
+  constexpr int PER = (NR * HD + NT - 1) / NT;
+  constexpr int kDeep = 8;
+  float a[kDeep][PER];
+  auto load = [&](int c0) {
+#pragma unroll
+    for (int u = 0; u < kDeep; ++u)
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int i = threadIdx.x + e * NT;
+        a[u][e] = c0 + u < live && i < G * HD
+                      ? __ldcg(pb + (c0 + u) * stride +
+                               (i / HD) * (HD + 2) + 2 + i % HD)
+                      : 0.f;
+      }
+  };
+  load(0);
+  for (int x = threadIdx.x; x < live * G; x += NT) {
+    const float* pp = pb + (x / G) * stride + (x % G) * (HD + 2);
+    sc[x / G][x % G] = __ldcg(pp);
+    sl[x / G][x % G] = __ldcg(pp + 1);
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < G) {
+    const int g = threadIdx.x;
+    float mx = rt::kNegInf, L = 0.f;
+    for (int c = 0; c < live; ++c) mx = fmaxf(mx, sc[c][g]);
+    for (int c = 0; c < live; ++c) {
+      const float cs = expf(sc[c][g] - mx);
+      sc[c][g] = cs;
+      L += sl[c][g] * cs;
+    }
+    sL[g] = L;
+  }
+  __syncthreads();
+  float Oc[PER];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) Oc[e] = 0.f;
+  for (int c0 = 0;;) {
+#pragma unroll
+    for (int u = 0; u < kDeep; ++u)
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const int i = threadIdx.x + e * NT;
+        if (c0 + u < live && i < G * HD)
+          Oc[e] += a[u][e] * sc[c0 + u][i / HD];
+      }
+    c0 += kDeep;
+    if (c0 >= live) break;
+    load(c0);
+  }
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int i = threadIdx.x + e * NT;
+    if (i < G * HD)
+      store_out(out, o0 + i, Oc[e] / fmaxf(sL[i / HD], 1e-30f), q_bf16);
+  }
+}
+
+// The end of a CTA of a tile core (decode_lane_kernel, decode_mma_kernel):
+// its tiles merged into the chunk's partial, then a ticket of its (b, kh)
+// (B x Kh int32 counters, zeroed once by the wrapper): the CTA that takes
+// the last one folds the combine in and sets the counter back to 0 for the
+// next call.  The atomic decides only who merges, never an order of
+// summation.  Where a thread holds at most two outputs (the lane core's KG
+// <= 2 rows, the mma core's below hd 64) the fold loads its acc kDeep
+// chunks deep (fold_deep), else a chunk at a time (fold_chunks: at G = 8
+// hd 128 the deep loads took 144 registers and ran slower).  fold_deep
+// against fold_chunks alone, in turns on an H100 (tools/kernel_stages.py
+// decode, the chunks variant; the same bits): qwen1.5-0.5b bf16 0.0095 ms
+// against 0.0107, paged 0.0099 against 0.0111; deepseek-moe-16b's hd 128
+// 0.0274 against 0.0289; whisper's cross 0.0127 against 0.0140; the mma
+// core at hd 32, G = 8 0.0105 against 0.0110
+template <int HD, int NR>
+__device__ __forceinline__ void merge_fold(
+    float (&wm)[kTileWarps][NR], const float (&wl)[kTileWarps][NR],
+    const unsigned char* wo, int wstride, int nlive, int len, int G,
+    float* __restrict__ part, int* __restrict__ tickets,
+    void* __restrict__ out, int bkh, int b, int kh, int H, int nch,
+    int chunk, bool q_bf16) {
+  __shared__ int last;
+  merge_tiles<HD, NR>(wm, wl, wo, wstride, nlive, G,
+                      part + ((int64_t)bkh * nch + chunk) * G * (HD + 2));
+  const int live = (len + kChunk - 1) / kChunk;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomic_add_acq_rel(tickets + bkh, 1) == live - 1;
+    if (last) tickets[bkh] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  const float* pb = part + (int64_t)bkh * nch * G * (HD + 2);
+  const int64_t o0 = ((int64_t)b * H + kh * G) * HD;
+  constexpr int PER = (NR * HD + kTileWarps * 32 - 1) / (kTileWarps * 32);
+  if (PER <= 2 && live <= kFold)
+    fold_deep<HD, NR>(pb, live, G, out, o0, q_bf16);
+  else
+    fold_chunks<HD, NR>(pb, live, G, out, o0, q_bf16);
+}
+
 template <typename T, int HD, bool PAGED>
-__global__ void __launch_bounds__(kMmaWarps * 32)
+__global__ void __launch_bounds__(kTileWarps * 32)
 decode_mma_kernel(const void* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ cache_len,
                   const int* __restrict__ tables, float* __restrict__ part,
@@ -606,14 +727,10 @@ decode_mma_kernel(const void* __restrict__ q, const T* __restrict__ k,
                     kN * HD * 4 <= kMI * SLOT,
                 "layout");
   extern __shared__ __align__(16) unsigned char smem[];  // per warp: slots
-  __shared__ float wm[kMmaWarps][kN];
-  __shared__ float wl[kMmaWarps][kN];
-  __shared__ float ps[kMmaWarps][kMmaTile][kN];   // P of each warp's tile
-  __shared__ float sc[kFold][kN];             // the folded combine's m, scales
-  __shared__ float sl[kFold][kN];             // and l, kFold chunks at a time
-  __shared__ float sM[kN];
-  __shared__ float sL[kN];
-  __shared__ int last;
+  __shared__ float wm[kTileWarps][kN];
+  __shared__ float wl[kTileWarps][kN];
+  // P of each warp's tile (read and written as float2: 8-byte aligned)
+  __shared__ __align__(8) float ps[kTileWarps][kTile][kN];
 
   const int bkh = blockIdx.x;
   const int b = bkh / Kh;
@@ -634,9 +751,9 @@ decode_mma_kernel(const void* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int p0 = c0 + warp * kMmaTile;        // the warp's first position
-  const int n = max(0, min(kMmaTile, len - p0));   // its live rows
-  const int nlive = min(kMmaWarps, (len - c0 + kMmaTile - 1) / kMmaTile);
+  const int p0 = c0 + warp * kTile;        // the warp's first position
+  const int n = max(0, min(kTile, len - p0));   // its live rows
+  const int nlive = min(kTileWarps, (len - c0 + kTile - 1) / kTile);
   unsigned char* tile = smem + warp * kMI * SLOT;
 
   // q's row g first (rows past G are 0), so that its loads do not queue
@@ -761,7 +878,7 @@ decode_mma_kernel(const void* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[mt][i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kMmaTile / 8; ++kk) {
+    for (int kk = 0; kk < kTile / 8; ++kk) {
       if (kk % 2 == 0) {
         if (kk / 2 + 1 < kMI)
           rt::cp_async_wait<1>();             // this slot's V
@@ -812,114 +929,8 @@ decode_mma_kernel(const void* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // the live tiles merge in tile order into one partial (m, l, acc[HD]) per
-  // query row, as decode_split_kernel writes it: thread g takes row g's
-  // max, the tiles' scales and l first
-  float* pc = part + ((int64_t)bkh * nch + chunk) * G * (HD + 2);
-  if ((int)threadIdx.x < G) {
-    const int gg = threadIdx.x;
-    float mx = rt::kNegInf;
-#pragma unroll
-    for (int w = 0; w < kMmaWarps; ++w)
-      if (w < nlive) mx = fmaxf(mx, wm[w][gg]);
-    float L = 0.f;
-#pragma unroll
-    for (int w = 0; w < kMmaWarps; ++w) {
-      if (w < nlive) {
-        const float cw = expf(wm[w][gg] - mx);
-        wm[w][gg] = cw;
-        L += wl[w][gg] * cw;
-      }
-    }
-    pc[gg * (HD + 2)] = mx;
-    pc[gg * (HD + 2) + 1] = L;
-  }
-  __syncthreads();
-  constexpr int NT = kMmaWarps * 32;
-#pragma unroll
-  for (int e = 0; e < (kN * HD + NT - 1) / NT; ++e) {
-    const int i = threadIdx.x + e * NT;
-    if (i < G * HD) {
-      const int gg = i / HD, d = i % HD;
-      float O = 0.f;
-#pragma unroll
-      for (int w = 0; w < kMmaWarps; ++w)
-        if (w < nlive)
-          O += reinterpret_cast<const float*>(smem + w * kMI * SLOT)
-                   [gg * HD + d] *
-               wm[w][gg];
-      pc[gg * (HD + 2) + 2 + d] = O;
-    }
-  }
-
-  // the combine, folded in: the chunk's partial is written; the CTA of
-  // this (b, kh) that takes the last ticket merges every live chunk's, in
-  // chunk order, with the sums of decode_combine_kernel (so the same bits
-  // as that kernel on these partials), and sets the counter back to 0 for
-  // the next call.  The atomic decides only who merges.  kFold chunks at a
-  // time, every thread loads one chunk's m (then m and l) of one query
-  // row; thread g takes row g's max over the chunks and its l sum, every
-  // thread its outputs' acc sums.  Loads bypass L1: other SMs wrote the
-  // partials
-  const int live = (len + kChunk - 1) / kChunk;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomic_add_acq_rel(tickets + bkh, 1) == live - 1;
-    if (last) tickets[bkh] = 0;
-  }
-  __syncthreads();
-  if (!last) return;
-  const float* pb = part + (int64_t)bkh * nch * G * (HD + 2);
-  const int64_t stride = (int64_t)G * (HD + 2);    // one chunk to the next
-  constexpr int PER = (kN * HD + NT - 1) / NT;
-  float mx = rt::kNegInf, L = 0.f, Oc[PER];
-#pragma unroll
-  for (int e = 0; e < PER; ++e) Oc[e] = 0.f;
-  for (int f0 = 0; f0 < live; f0 += kFold) {
-    const int nc = min(kFold, live - f0);
-    for (int x = threadIdx.x; x < nc * G; x += NT)
-      sc[x / G][x % G] =
-          __ldcg(pb + (f0 + x / G) * stride + (x % G) * (HD + 2));
-    __syncthreads();
-    if ((int)threadIdx.x < G)
-      for (int c = 0; c < nc; ++c) mx = fmaxf(mx, sc[c][threadIdx.x]);
-    __syncthreads();
-  }
-  if ((int)threadIdx.x < G) sM[threadIdx.x] = mx;
-  __syncthreads();
-  for (int f0 = 0; f0 < live; f0 += kFold) {
-    const int nc = min(kFold, live - f0);
-    for (int x = threadIdx.x; x < nc * G; x += NT) {
-      const float* pp = pb + (f0 + x / G) * stride + (x % G) * (HD + 2);
-      sc[x / G][x % G] = expf(__ldcg(pp) - sM[x % G]);
-      sl[x / G][x % G] = __ldcg(pp + 1);
-    }
-    __syncthreads();
-    if ((int)threadIdx.x < G)
-      for (int c = 0; c < nc; ++c)
-        L += sl[c][threadIdx.x] * sc[c][threadIdx.x];
-#pragma unroll 2
-    for (int c = 0; c < nc; ++c) {
-#pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        const int i = threadIdx.x + e * NT;
-        if (i < G * HD)
-          Oc[e] += __ldcg(pb + (f0 + c) * stride + (i / HD) * (HD + 2) + 2 +
-                          i % HD) *
-                   sc[c][i / HD];
-      }
-    }
-    __syncthreads();                          // sc, sl read before the next
-  }
-  if ((int)threadIdx.x < G) sL[threadIdx.x] = L;
-  __syncthreads();
-#pragma unroll
-  for (int e = 0; e < PER; ++e) {
-    const int i = threadIdx.x + e * NT;
-    if (i < G * HD)
-      store_out(out, ((int64_t)b * H + kh * G) * HD + i,
-                Oc[e] / fmaxf(sL[i / HD], 1e-30f), q_bf16);
-  }
+  merge_fold<HD, kN>(wm, wl, smem, kMI * SLOT, nlive, len, G, part, tickets,
+                     out, bkh, b, kh, H, nch, chunk, q_bf16);
 }
 
 // dynamic shared memory of decode_mma_kernel<T, HD, *>: each warp's two
@@ -930,33 +941,228 @@ __host__ __device__ constexpr int mma_smem() {
   return kChunk * HD * (int)sizeof(T);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32)
-decode_combine_kernel(const float* __restrict__ part,
-                      const int* __restrict__ cache_len, void* __restrict__ out,
-                      int H, int Kh, int cap, int nch, bool out_bf16) {
+// ---------------------------------------------------------------------------
+// hd <= 128 at G <= 2: one key a lane on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// whether a chunk's K and V rows fit in shared memory together at 32 KB a
+// CTA (six CTAs an SM: qwen1.5-0.5b's 496 live CTAs in one wave); else V
+// takes K's rows once S has read them
+template <typename T, int HD>
+__host__ __device__ constexpr bool lane_kv_together() {
+  return 2 * kChunk * HD * (int)sizeof(T) <= 32 * 1024;
+}
+// dynamic shared memory of decode_lane_kernel<T, HD, *, *>: each warp's
+// kTile rows of K and of V; the wrapper's _geometry computes the same and
+// the launcher refuses any other
+template <typename T, int HD>
+__host__ __device__ constexpr int lane_smem() {
+  return (lane_kv_together<T, HD>() ? 2 : 1) * kChunk * HD * (int)sizeof(T);
+}
+
+template <typename T, int HD, int KG, bool PAGED>
+__global__ void __launch_bounds__(kTileWarps * 32)
+decode_lane_kernel(const void* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ cache_len,
+                   const int* __restrict__ tables, float* __restrict__ part,
+                   int* __restrict__ tickets, void* __restrict__ out, int H,
+                   int Kh, int rows, int M, int nch, float scale,
+                   bool q_bf16) {
+  constexpr int RB = HD * sizeof(T);          // bytes of a cache row
+  constexpr int CH = RB / 16;                 // its 16-byte chunks
+  constexpr int VEC = 16 / sizeof(T);         // elements of a chunk
+  constexpr int QV = VEC / 4;                 // q's float4s a chunk
+  constexpr int TB = kTile * RB;              // a warp's tile of K or V
+  constexpr bool kTogether = lane_kv_together<T, HD>();
+  // P.V: lane (kq, c) reads elements [EPL c, EPL c + EPL) of the keys kq,
+  // kq + KS, ... of the tile; the KS key groups' sums are added by an xor
+  // butterfly (KS = 1 from hd 64 up)
+  constexpr int EPL = HD / 32 >= 2 ? HD / 32 : 2;
+  constexpr int LPR = HD / EPL;               // lanes a row
+  constexpr int KS = 32 / LPR;                // key groups
+  constexpr int VB = EPL * sizeof(T);         // bytes a lane reads of a row
+  constexpr int NT = kTileWarps * 32;
+  constexpr int QPT = (KG * HD + NT - 1) / NT;   // q elements a thread
+  static_assert(KG <= 2 && (CH & (CH - 1)) == 0 && LPR * KS == 32 &&
+                    kTile == 32,
+                "layout");
+  extern __shared__ __align__(16) unsigned char smem[];  // per warp: K, V
+  // q, scaled: element 4h + e of chunk c (VEC elements) at qs[g][h][c].e,
+  // so lanes reading chunks c, c + 1, ... read 16-byte steps
+  __shared__ __align__(16) float4 qs[KG][QV][CH];
+  __shared__ float ps[kTileWarps][KG][kTile];  // P of each warp's tile
+  __shared__ float wm[kTileWarps][KG];
+  __shared__ float wl[kTileWarps][KG];
+  __shared__ __align__(8) uint64_t bars[kTileWarps][2];  // a tile's K, V
+
   const int bkh = blockIdx.x;
   const int b = bkh / Kh;
   const int kh = bkh % Kh;
-  const int G = H / Kh;
+  const int chunk = blockIdx.y;
+  const int cap = PAGED ? M * rows : rows;
   const int len = min(cache_len[b], cap);
-  const int live = len > 0 ? (len + kChunk - 1) / kChunk : 0;
-  const int64_t stride = (int64_t)G * (HD + 2);   // from one chunk to the next
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    const int g = i / HD, d = i % HD;
-    const float* pp = part + ((int64_t)bkh * nch * G + g) * (HD + 2);
-    float mx = rt::kNegInf;
-    for (int s = 0; s < live; ++s) mx = fmaxf(mx, pp[s * stride]);
-    float L = 0.f, O = 0.f;
-    for (int s = 0; s < live; ++s) {
-      const float* ps = pp + s * stride;
-      const float cs = expf(ps[0] - mx);
-      L += ps[1] * cs;
-      O += ps[2 + d] * cs;
-    }
-    store_out(out, ((int64_t)b * H + kh * G + g) * HD + d,
-              O / fmaxf(L, 1e-30f), out_bf16);
+  const int c0 = chunk * kChunk;
+  if (c0 >= len) {                            // dead chunk: the whole CTA
+    if (len <= 0 && chunk == 0)               // an empty slot's output is 0
+      for (int i = threadIdx.x; i < KG * HD; i += NT)
+        store_out(out, ((int64_t)b * H + kh * KG) * HD + i, 0.f, q_bf16);
+    return;
   }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int p0 = c0 + warp * kTile;           // the warp's first position
+  const int n = max(0, min(kTile, len - p0));   // its live rows
+  const int nlive = min(kTileWarps, (len - c0 + kTile - 1) / kTile);
+  unsigned char* kt = smem + warp * (kTogether ? 2 : 1) * TB;
+  unsigned char* vt = kTogether ? kt + TB : kt;
+  const uint32_t kbar = smem_addr(&bars[warp][0]);
+  const uint32_t vbar = smem_addr(&bars[warp][1]);
+
+  // the barriers first (their fence waits for no load yet); then q's
+  // loads, ahead of the tile's in the memory system; then lane r's cache
+  // row (position p0 + r), looked up once
+  if (n > 0 && lane == 0) {
+    mbar_init(kbar, 1);
+    mbar_init(vbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  float qr[QPT];
+#pragma unroll
+  for (int e = 0; e < QPT; ++e) {
+    const int i = threadIdx.x + e * NT;
+    qr[e] = i < KG * HD
+                ? load_q(q, ((int64_t)b * H + kh * KG) * HD + i, q_bf16)
+                : 0.f;
+  }
+  const int64_t my_row =
+      lane < n ? cache_row<PAGED>(tables, b, kh, Kh, rows, M, p0 + lane) : 0;
+  // the tile's n live rows of src into dst, completing on bar: one bulk
+  // copy a run of rows contiguous in memory (the tile in a dense cache, its
+  // part in one block of a paged one), issued by the lane that starts it;
+  // rows at or past len are neither copied nor read
+  auto stage = [&](const T* src, unsigned char* dst, uint32_t bar) {
+    if (lane == 0) mbar_expect_tx(bar, n * RB);
+    const int p = p0 + lane;
+    if (lane < n && (lane == 0 || (PAGED && p % rows == 0)))
+      bulk_copy(dst + lane * RB, src + my_row * HD,
+                (PAGED ? min(n - lane, rows - p % rows) : n - lane) * RB,
+                bar);
+  };
+  if (n > 0) {
+    __syncwarp();
+    stage(k, kt, kbar);
+    if (kTogether) stage(v, vt, vbar);        // all the chunk's bytes in flight
+  }
+  // q, scaled, into shared memory while the tile lands
+#pragma unroll
+  for (int e = 0; e < QPT; ++e) {
+    const int i = threadIdx.x + e * NT;
+    if (i < KG * HD) {
+      const int c = (i % HD) / VEC, h = (i % VEC) / 4;
+      reinterpret_cast<float*>(&qs[i / HD][h][c])[i % 4] = qr[e] * scale;
+    }
+  }
+  __syncthreads();
+
+  if (n > 0) {
+    mbar_wait0(kbar);
+    // S: lane j takes key j; its row's chunks from chunk j on (mod CH), so
+    // the 8 lanes of a shared-memory phase read 8 bank quads, against q's
+    // elements of the same chunk
+    float s[KG];
+#pragma unroll
+    for (int g = 0; g < KG; ++g) s[g] = 0.f;
+    if (lane < n) {
+      const unsigned char* kr = kt + lane * RB;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int cc = (c + lane) & (CH - 1);
+        float kf[VEC];
+        widen<T>(*reinterpret_cast<const uint4*>(kr + 16 * cc), kf);
+#pragma unroll
+        for (int g = 0; g < KG; ++g) {
+          float x = 0.f;
+#pragma unroll
+          for (int h = 0; h < QV; ++h) {
+            const float4 qv = qs[g][h][cc];
+            x += qv.x * kf[4 * h] + qv.y * kf[4 * h + 1] +
+                 qv.z * kf[4 * h + 2] + qv.w * kf[4 * h + 3];
+          }
+          s[g] += x;
+        }
+      }
+    }
+    // one softmax update a tile and query row: the row's max over the
+    // tile's live keys, one expf a key, the sum (xor butterflies: the same
+    // bits on every lane); P to shared memory for P.V
+    float m[KG], l[KG];
+#pragma unroll
+    for (int g = 0; g < KG; ++g) {
+      m[g] = rt::warp_max(lane < n ? s[g] : rt::kNegInf);
+      const float p = lane < n ? expf(s[g] - m[g]) : 0.f;
+      l[g] = rt::warp_sum(p);
+      ps[warp][g][lane] = p;
+    }
+    if (!kTogether) {
+      // V into K's rows: every lane has read its K row (generic proxy)
+      // before the bulk copy (async proxy) writes there
+      __syncwarp();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      stage(v, vt, vbar);
+    }
+    mbar_wait0(vbar);
+    __syncwarp();                             // every lane's P
+    // P.V over the tile's live keys, in key order within a key group (a
+    // loop bounded by n, unrolled by 8, so that 8 rows' loads issue
+    // together; a full unroll with a guard a key ran them one by one)
+    const int kq = lane / LPR, cl = lane % LPR;
+    float acc[KG][EPL];
+#pragma unroll
+    for (int g = 0; g < KG; ++g)
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+#pragma unroll 8
+    for (int j = kq; j < n; j += KS) {
+      float vf[EPL];
+      load_wide<T, VB>(vt + j * RB + cl * VB, vf);
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        const float p = ps[warp][g][j];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] += p * vf[e];
+      }
+    }
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+      for (int g = 0; g < KG; ++g)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          acc[g][e] += __shfl_xor_sync(rt::kFull, acc[g][e], o);
+    // the warp's state: m, l, and O (KG x HD f32) over its K rows, which
+    // no lane reads any more
+    __syncwarp();
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < KG; ++g) {
+        wm[warp][g] = m[g];
+        wl[warp][g] = l[g];
+      }
+    }
+    float* wo = reinterpret_cast<float*>(kt);
+    if (kq == 0) {
+#pragma unroll
+      for (int g = 0; g < KG; ++g)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) wo[g * HD + cl * EPL + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+
+  merge_fold<HD, KG>(wm, wl, smem, (kTogether ? 2 : 1) * TB, nlive, len, KG,
+                     part, tickets, out, bkh, b, kh, H, nch, chunk, q_bf16);
 }
 
 // ---------------------------------------------------------------------------
@@ -1222,7 +1428,7 @@ decode_cluster_kernel(const void* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   if (last) {
     // columns [CW rank, CW rank + CW) of each query row over the live
-    // chunks in chunk order, the sums of decode_combine_kernel; each
+    // chunks in chunk order, the sums of decode_combine_plain; each
     // chunk's m and l are gathered once into the free K/V staging memory
     // (live x G each, which wide_capacity bounds) and row g's max, scales
     // and sum taken by thread g.  Loads bypass L1: other SMs wrote them.
@@ -1274,9 +1480,9 @@ decode_cluster_kernel(const void* __restrict__ q, const T* __restrict__ k,
 // launchers
 // ---------------------------------------------------------------------------
 
-// decode_split_kernel<T, HD, KG> (KG 1 and 2, no dynamic shared memory),
-// then the combine; or, with KG = 0, decode_mma_kernel<T, HD> (mma_smem
-// bytes, the combine folded in through the tickets)
+// decode_lane_kernel<T, HD, KG> (KG 1 and 2, lane_smem bytes) or, with KG
+// = 0, decode_mma_kernel<T, HD> (mma_smem bytes); both fold the combine in
+// through the tickets
 template <typename T, int HD, int KG, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* tables,
            const void* cache_len, void* scratch, void* tickets, void* out,
@@ -1284,35 +1490,23 @@ int launch(const void* q, const void* k, const void* v, const void* tables,
            int smem, cudaStream_t stream) {
   const int cap = PAGED ? M * rows : rows;
   const int nch = cap > 0 ? (cap + kChunk - 1) / kChunk : 1;
-  const dim3 grid(B * Kh, nch);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const int* cl = static_cast<const int*>(cache_len);
-  const int* bt = static_cast<const int*>(tables);
-  float* part = static_cast<float*>(scratch);
-  if constexpr (KG == 0) {
-    constexpr int bytes = mma_smem<T, HD>();
-    static_assert(bytes <= 227 * 1024 - 8192, "slots do not fit");
-    if (smem != bytes || !tickets)
-      return static_cast<int>(cudaErrorInvalidValue);
-    auto kern = decode_mma_kernel<T, HD, PAGED>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<grid, kMmaWarps * 32, bytes, stream>>>(
-        q, kt, vt, cl, bt, part, static_cast<int*>(tickets), out, H, Kh,
-        rows, M, nch, scale, q_bf16);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    if (smem != 0) return static_cast<int>(cudaErrorInvalidValue);
-    decode_split_kernel<T, HD, KG, PAGED><<<grid, kWarps * 32, 0, stream>>>(
-        q, kt, vt, cl, bt, part, H, Kh, rows, M, nch, scale, q_bf16);
-  }
-  cudaError_t e = cudaGetLastError();
+  constexpr int bytes = KG ? lane_smem<T, HD>() : mma_smem<T, HD>();
+  static_assert(bytes <= 227 * 1024 - 8192, "tiles do not fit");
+  if (smem != bytes || !tickets) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = [] {
+    if constexpr (KG == 0)
+      return decode_mma_kernel<T, HD, PAGED>;
+    else
+      return decode_lane_kernel<T, HD, KG, PAGED>;
+  }();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  decode_combine_kernel<HD><<<B * Kh, kWarps * 32, 0, stream>>>(
-      static_cast<const float*>(scratch), static_cast<const int*>(cache_len),
-      out, H, Kh, cap, nch, q_bf16);
+  kern<<<dim3(B * Kh, nch), kTileWarps * 32, bytes, stream>>>(
+      q, static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(cache_len), static_cast<const int*>(tables),
+      static_cast<float*>(scratch), static_cast<int*>(tickets), out, H, Kh,
+      rows, M, nch, scale, q_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1357,8 +1551,8 @@ int launch_wide(const void* q, const void* k, const void* v,
 
 // qdtype: q's and the output's (f32 or bf16); cdtype: the cache's (f32,
 // bf16 or fp8).  cluster and smem: the geometry kernels/decode_attention.py
-// computed (1 and 0 for hd <= 128 at G <= 2; 1 and mma_smem at G >= 3;
-// kCluster and wide_smem at hd 256); any other is refused
+// computed (1 and lane_smem for hd <= 128 at G <= 2; 1 and mma_smem at G >=
+// 3; kCluster and wide_smem at hd 256); any other is refused
 template <bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const void* tables,
              const void* cache_len, void* scratch, void* tickets, void* out,
@@ -1396,11 +1590,15 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
   return launch<T, D, KG, PAGED>(q, k, v, tables, cache_len, scratch,      \
                                  tickets, out, B, H, Kh, rows, M, scale,   \
                                  q_bf16, smem, s);
-  // G 1 and 2 on the split core; 3 to 8 (KG 4 and 8) on the mma core
+  // G 1 and 2 on the lane core; 3 to 8 on the mma core
+#define RT_LANE(T, D)                                                      \
+  {                                                                        \
+    if (G == 1) RT_G(T, D, 1)                                              \
+    RT_G(T, D, 2)                                                          \
+  }
 #define RT_CASE(T, D)                                                      \
   if (hd == D && hdv == D) {                                               \
-    if (G == 1) RT_G(T, D, 1)                                              \
-    if (G == 2) RT_G(T, D, 2)                                              \
+    if (G <= 2) RT_LANE(T, D)                                              \
     RT_G(T, D, 0)                                                          \
   }
   if (cdtype == rt::kDtypeF32) {
@@ -1413,6 +1611,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
     RT_CASE(fp8, 16) RT_CASE(fp8, 32) RT_CASE(fp8, 64) RT_CASE(fp8, 128)
   }
 #undef RT_CASE
+#undef RT_LANE
 #undef RT_G
   return static_cast<int>(cudaErrorInvalidValue);
 }

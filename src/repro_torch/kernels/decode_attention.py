@@ -18,33 +18,32 @@ plain cast with no scale, as ``PipelinePlan(kv_dtype="fp8")`` writes it).
 The kernel splits the logical positions into fixed chunks of ``CHUNK``
 (split-KV), writes one partial softmax state per live chunk into an f32
 scratch tensor that the wrapper allocates, and merges the live chunks in
-chunk order (on the mma core and at hd 256 the CTAs that finish last merge
-them, in the same kernel).  ``chunk_plan``, ``decode_partials_plain`` and
-``decode_combine_plain`` are the plain versions of that plan, of the chunk
-pass and of the combine pass.  At hd 256 each chunk is split further across
-a cluster of ``CLUSTER`` CTAs, one fixed slice of ``SLICE`` positions each,
-merged in slice order into the chunk's partial: ``cluster_plan``,
-``decode_partials_plain(..., width=SLICE)`` and ``decode_cluster_merge_plain``
-are its plain versions, and ``_geometry`` the launch geometry that the C
-launcher checks.
+chunk order: the CTA of a (slot, kv head) that finishes last merges them in
+the same launch, on ticket counters (``_tickets``).  ``chunk_plan``,
+``decode_partials_plain`` and ``decode_combine_plain`` are the plain
+versions of that plan, of the chunk pass and of the combine.  At hd 256
+each chunk is split further across a cluster of ``CLUSTER`` CTAs, one fixed
+slice of ``SLICE`` positions each, merged in slice order into the chunk's
+partial: ``cluster_plan``, ``decode_partials_plain(..., width=SLICE)`` and
+``decode_cluster_merge_plain`` are its plain versions, and ``_geometry`` the
+launch geometry that the C launcher checks.
 
-Below hd 256 at G = H / Kh >= 3 (``uses_mma``: qwen1.5-110b's G = 8,
-jamba's and llama-3.2-vision's G = 4) the chunk runs on the mma core.  What
-bounds it there is the group, not the bytes: the split core reduced every
-key's q.k per query row by a shuffle chain and ran an online-softmax step
-per key and row on all 32 lanes, 8x G = 1's work at G = 8 (0.0555 ms at
-qwen1.5-110b's shape for a 0.0057 ms bytes bound, and no faster over
-narrower caches).  The mma core maps the group onto the tensor cores with
-keys as M and the group as N: each warp stages its ``TILE``-key tile of K,
-then of V, by ``cp.async`` in two 16-row slots, computes S^T = K Q^T and
-O^T += V^T P^T on m16n8k8 TF32 products (q and P as big + small halves; a
-bf16 or fp8 cache is exact in TF32, so K and V take no split and each
-product 2 passes, an f32 cache 3), and runs one softmax update a tile and
-query row.  The tiles of a chunk merge in tile order into its partial, and
-the combine is folded into the same launch on tickets, as at hd 256:
-``decode_mma_plain`` (``decode_partials_plain(..., width=TILE)``,
-``decode_cluster_merge_plain(..., width=TILE)``, then the combine) is that
-order of sums; the kernel header in ``csrc/decode_attention.cu`` gives the
+Below hd 256 (``core``) each warp of a chunk's CTA takes a ``TILE``-key
+tile, stages its K and V rows by asynchronous copies, runs one softmax
+update a tile and query row, and the live tiles merge in tile order into
+the chunk's partial.  At G = H / Kh <= 2 (qwen1.5-0.5b, deepseek-moe-16b,
+whisper-tiny) the lane core, ``decode_lane_kernel``, stages the tile's live
+rows by bulk copies (``cp.async.bulk``, one a run of contiguous rows),
+computes S with one key a lane on the CUDA cores and P.V by output
+columns.  At G >= 3
+(``uses_mma``: qwen1.5-110b's G = 8, jamba's and llama-3.2-vision's G = 4)
+the mma core maps the group onto the tensor cores with keys as M and the
+group as N: S^T = K Q^T and O^T += V^T P^T on m16n8k8 TF32 products (q and
+P as big + small halves; a bf16 or fp8 cache is exact in TF32, so K and V
+take no split and each product 2 passes, an f32 cache 3).  Both run the
+same order of sums, ``decode_mma_plain`` (``decode_partials_plain(...,
+width=TILE)``, ``decode_cluster_merge_plain(..., width=TILE)``, then the
+combine); the kernel header in ``csrc/decode_attention.cu`` gives the
 layouts and the designs measured.
 
 Decode is never differentiated: on CUDA tensors both wrappers raise where
@@ -71,7 +70,7 @@ CHUNK = 128                        # positions per chunk (kChunk, .cu)
 WIDE_HD = 256                      # head size split across a cluster
 CLUSTER = 4                        # CTAs per chunk at WIDE_HD (kCluster)
 SLICE = CHUNK // CLUSTER           # positions per CTA at WIDE_HD (kSlice)
-TILE = 32                          # keys of a warp in the mma core (kMmaTile)
+TILE = 32                          # keys of a warp in a tile core (kTile)
 _WARPS = 4                         # kWarps
 
 
@@ -90,20 +89,33 @@ def _group_slots(G: int) -> int:
 def uses_mma(hd: int, G: int) -> bool:
     """Whether a call runs the mma core (``decode_mma_kernel``): below
     WIDE_HD at G >= 3, the KG 4 and 8 instantiations; G 1 and 2 run the
-    split core."""
+    lane core."""
     return hd != WIDE_HD and _group_slots(G) >= 4
+
+
+def core(hd: int, G: int) -> str:
+    """The CUDA kernel a call at head size ``hd`` and group ``G`` runs:
+    below WIDE_HD ``decode_lane_kernel`` at G <= 2 and ``decode_mma_kernel``
+    above (both held against ``decode_mma_plain``, their order of sums), at
+    WIDE_HD ``decode_cluster_kernel``."""
+    if hd == WIDE_HD:
+        return "decode_cluster_kernel"
+    return "decode_mma_kernel" if uses_mma(hd, G) else "decode_lane_kernel"
 
 
 def _geometry(hd: int, dtype: torch.dtype, G: int) -> Geometry:
     """The kernels' launch geometry for a cache of ``dtype``: one CTA per
     chunk below WIDE_HD, with ``mma_smem`` bytes of dynamic shared memory
-    (each warp's two 16-row slots, K's rows then V's: CHUNK rows in all) on
-    the mma core and none on the split core; at WIDE_HD a cluster of
-    CLUSTER CTAs per chunk with ``wide_smem`` bytes
-    (csrc/decode_attention.cu).  The launcher refuses any other."""
+    on the mma core (each warp's two 16-row slots, K's rows then V's: CHUNK
+    rows in all) and ``lane_smem`` on the lane core (each warp's TILE rows
+    of K and of V: 2 x CHUNK rows where they fit in 32 KiB, else CHUNK, V
+    taking K's rows once S has read them); at WIDE_HD a cluster of CLUSTER
+    CTAs per chunk with ``wide_smem`` bytes (csrc/decode_attention.cu).
+    The launcher refuses any other."""
     if hd != WIDE_HD:
-        smem = CHUNK * hd * dtype.itemsize if uses_mma(hd, G) else 0
-        return Geometry(1, CHUNK, smem, 0)
+        rows = CHUNK * hd * dtype.itemsize
+        together = not uses_mma(hd, G) and 2 * rows <= 32 * 1024
+        return Geometry(1, CHUNK, 2 * rows if together else rows, 0)
     es, kg = dtype.itemsize, _group_slots(G)
     staging = 2 * SLICE * hd * es                          # K, then V rows
     smem = 16 + staging + 4 * (kg * hd + _WARPS * kg * SLICE + kg * SLICE
@@ -149,7 +161,7 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *, scale=None):
 
 
 def n_chunks(cap: int) -> int:
-    """The split kernel's grid width for ``cap`` rows per slot."""
+    """The decode kernels' grid width (chunks) for ``cap`` rows per slot."""
     return max(1, -(-int(cap) // CHUNK))
 
 
@@ -254,12 +266,13 @@ def decode_cluster_merge_plain(m, l, acc, cache_len, *, cap: int,
 
 
 def decode_mma_plain(q, k_cache, v_cache, cache_len, *, scale=None):
-    """The mma core's order of sums (``decode_mma_kernel``, hd < WIDE_HD at
-    G >= 3): each warp's TILE-key tile's softmax state (its max, the sum of
-    its exps, its P.V), the live tiles of each chunk merged in tile order
-    into the chunk's partial, then the combine, in f32.  Dense layout; a
-    paged cache goes through ``gather_pages`` first.  The kernel is held
-    against it on the card, nothing on the CUDA path calls it."""
+    """The tile cores' order of sums (``decode_lane_kernel`` at G <= 2 and
+    ``decode_mma_kernel`` above, hd < WIDE_HD): each warp's TILE-key tile's
+    softmax state (its max, the sum of its exps, its P.V), the live tiles
+    of each chunk merged in tile order into the chunk's partial, then the
+    combine, in f32.  Dense layout; a paged cache goes through
+    ``gather_pages`` first.  The kernels are held against it on the card,
+    nothing on the CUDA path calls it."""
     cap = k_cache.shape[2]
     parts = decode_partials_plain(q, k_cache, v_cache, cache_len, scale=scale,
                                   width=TILE)
@@ -356,22 +369,15 @@ def _scratch(B, H, Kh, cap, hdv, device):
 _TICKETS: dict = {}
 
 
-def _tickets(geo: Geometry, n: int, device):
-    """The counters of the kernels that fold the combine in (the mma core
-    and the hd-256 cluster core: those with dynamic shared memory), one per
-    (slot, kv head, cluster rank), zeroed once per device and left at zero
-    by every launch (None for the split core)."""
-    if geo.smem == 0:
-        return None
+def _tickets(n: int, device):
+    """The counters through which every core folds the combine into its
+    launch, one per (slot, kv head, cluster rank), zeroed once per device
+    and left at zero by every launch."""
     t = _TICKETS.get(device)
     if t is None or t.numel() < n:
         t = _TICKETS[device] = torch.zeros(max(n, 64), dtype=torch.int32,
                                            device=device)
     return t
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
@@ -399,11 +405,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None):
     scratch = _scratch(B, H, Kh, Smax, hdv, q.device)
     geo = _geometry(hd, k_cache.dtype, H // Kh)
     _check_chunks(geo, Smax)
-    tickets = _tickets(geo, B * Kh * geo.cluster, q.device)
+    tickets = _tickets(B * Kh * geo.cluster, q.device)
     lib = build.library("decode_attention")
     err = lib.decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cl.data_ptr(),
-        scratch.data_ptr(), _ptr(tickets), out.data_ptr(), B, H, Kh, Smax,
+        scratch.data_ptr(), tickets.data_ptr(), out.data_ptr(), B, H, Kh, Smax,
         hd, hdv, scale,
         _DTYPES[q.dtype], CACHE_DTYPES[k_cache.dtype], geo.cluster, geo.smem,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -448,12 +454,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
     scratch = _scratch(B, H, Kh, M * bs, hdv, q.device)
     geo = _geometry(hd, k_pool.dtype, H // Kh)
     _check_chunks(geo, M * bs)
-    tickets = _tickets(geo, B * Kh * geo.cluster, q.device)
+    tickets = _tickets(B * Kh * geo.cluster, q.device)
     lib = build.library("decode_attention")
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), cl.data_ptr(), scratch.data_ptr(),
-        _ptr(tickets), out.data_ptr(), B, H, Kh, bs, M, hd, hdv, scale,
+        tickets.data_ptr(), out.data_ptr(), B, H, Kh, bs, M, hd, hdv, scale,
         _DTYPES[q.dtype], CACHE_DTYPES[k_pool.dtype], geo.cluster, geo.smem,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_attention")

@@ -105,7 +105,7 @@ def test_cuda_decode_dtype_pairs(cuda_dev, qdt, cdt, B, H, Kh, hd, Smax):
     """Every (q, cache) pair of {f32, bf16} x {f32, bf16, fp8}: the dense
     and paged kernels against their plain versions (which widen the cache
     to f32 as the kernels do, so an f32 query holds at 3e-5 whatever the
-    cache) and, below hd 256, the mma core's mirror, paged == the gather
+    cache) and, below hd 256, the tile cores' mirror, paged == the gather
     path == the dense kernel bit for bit, the same bits again, and dead rows
     holding NaN adding nothing; lengths at the chunk and tile edges, G 1, 4
     and 8, hd 16 to 256."""
@@ -244,8 +244,8 @@ def test_cuda_flash_wgmma_registers_and_occupancy(cuda_dev, hd):
 
 def _hold_decode(q, kc, vc, cl, kp, vp, bt, qdt):
     """Dense and paged decode against their plain versions and, below hd
-    256, against the mma core's mirror (``decode_mma_plain``, its order of
-    sums: every shape's semantics, whichever core runs it); the paged
+    256, against the tile cores' mirror (``decode_mma_plain``, the order of
+    sums of the lane core at G <= 2 and the mma core above); the paged
     kernel == the gather path == the dense kernel on a cache holding the
     same live rows (and NaN in every dead row: dead rows add exactly 0),
     bit for bit; and a second call of each gives the same bits."""
@@ -295,36 +295,53 @@ def _pools(rng, lens, Kh, hd, bs, M, dt, dev):
             torch.from_numpy(tables).to(dev))
 
 
-# cache lengths that straddle the split kernel's chunk boundaries
+# cache lengths that straddle the decode kernels' chunk boundaries
 BOUNDARY_LENS = [0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK + 1, 320]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
-def test_cuda_decode_chunk_boundaries(cuda_dev, dt, hd):
-    """Lengths {0, 1, C-1, C, C+1, 2C+1, Smax}, dense and paged, against the
-    plain versions."""
-    rng = np.random.default_rng(hd)
-    B, H, Kh, Smax, bs = len(BOUNDARY_LENS), 8, 4, 320, 16
-    q = _rand(rng, (B, H, hd), dt, cuda_dev)
+@pytest.mark.parametrize("G", [1, 2])
+def test_cuda_decode_chunk_boundaries(cuda_dev, dt, hd, G):
+    """Lengths {0, 1, C-1, C, C+1, 2C+1, Smax} at G 1 and 2 (below hd 256
+    the lane core), dense and paged, against the plain versions and, below
+    hd 256, the lane core's mirror; paged == gather path == dense bit for
+    bit with NaN in the dead rows, and the same bits again."""
+    rng = np.random.default_rng(hd + G)
+    B, Kh, Smax, bs = len(BOUNDARY_LENS), 4, 320, 16
+    q = _rand(rng, (B, Kh * G, hd), dt, cuda_dev)
     kc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
     vc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
     cl = torch.tensor(BOUNDARY_LENS, dtype=torch.int32, device=cuda_dev)
-    torch.testing.assert_close(decode_attention(q, kc, vc, cl).float(),
-                               decode_attention_plain(q, kc, vc, cl).float(),
-                               **TOL[dt])
     kp, vp, bt = _pools(rng, BOUNDARY_LENS, Kh, hd, bs, Smax // bs, dt,
                         cuda_dev)
-    torch.testing.assert_close(
-        paged_decode_attention(q, kp, vp, bt, cl).float(),
-        paged_decode_attention_plain(q, kp, vp, bt, cl).float(), **TOL[dt])
+    _hold_decode(q, kc, vc, cl, kp, vp, bt, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 2])
+def test_cuda_decode_many_chunks(cuda_dev, dt, hd, G):
+    """Caches of 40 chunks and of 39 chunks and 5 rows at G 1 and 2, more
+    live chunks than the folded combine takes at once, dense and paged,
+    held as at the chunk edges."""
+    rng = np.random.default_rng(40 * hd + G)
+    lens = [40 * CHUNK, 39 * CHUNK + 5]
+    B, Kh, Smax, bs = len(lens), 2, 40 * CHUNK, 16
+    q = _rand(rng, (B, Kh * G, hd), dt, cuda_dev)
+    kc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    vc = _rand(rng, (B, Kh, Smax, hd), dt, cuda_dev)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda_dev)
+    kp, vp, bt = _pools(rng, lens, Kh, hd, bs, Smax // bs, dt, cuda_dev)
+    _hold_decode(q, kc, vc, cl, kp, vp, bt, dt)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cdt", list(CACHE_DTYPES))
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 4, 8, 2])
 def test_cuda_decode_paths_bit_identical(cuda_dev, dt, cdt, G):
     """The paged kernel, the gather path (the dense kernel on the gathered
     view, Smax = M * bs) and the dense kernel on a cache of another Smax
@@ -1048,8 +1065,9 @@ def test_cuda_cross_decode_over_memory_rows(cuda_dev, dt, cdt, H, Kh, hd,
                                             M):
     """Cross decode: every slot reads all M memory rows (cache_len = M, a
     scalar or per slot) of a cache M rows long, against the plain version
-    and the mma core's mirror (vision's G = 4 runs it; 1601 rows end one
-    key into a tile), over every (q, cache) pair; the same bits again, and
+    and the tile cores' mirror (vision's G = 4 runs the mma core, whisper's
+    G = 1 the lane core; 1601 rows end one key into a tile), over every
+    (q, cache) pair; the same bits again, and
     from a cache 16 rows longer whose rows past M hold NaN."""
     rng = np.random.default_rng(M)
     B = 8

@@ -1,12 +1,13 @@
-"""The mma decode core's order of sums on the CPU (``decode_mma_plain``):
-each warp's 32-key tile's softmax state, the live tiles of a chunk merged
-in tile order, then the chunk combine.  Held against the whole-cache plain
-version and the Pallas decode kernel in interpret mode at G 3 to 8 (the
-KG 4 and 8 instantiations that run the core on the card), hd 16 to 128,
-every (q, cache) dtype pair, lengths at the tile and chunk edges and 0;
-dead rows holding NaN; paged (through ``gather_pages``) equal to dense bit
-for bit; and the launch geometry the C launcher checks.  The kernel itself
-is held against this mirror in test_torch_cuda.py and chip_smoke.py."""
+"""The tile cores' order of sums on the CPU (``decode_mma_plain``): each
+warp's 32-key tile's softmax state, the live tiles of a chunk merged in
+tile order, then the chunk combine.  Held against the whole-cache plain
+version and the Pallas decode kernel in interpret mode at G 1 and 2 (the
+lane core, ``decode_lane_kernel``) and 3 to 8 (the mma core's KG 4 and 8
+instantiations), hd 16 to 128, every (q, cache) dtype pair, lengths at the
+tile and chunk edges and 0; dead rows holding NaN; paged (through
+``gather_pages``) equal to dense bit for bit; and the launch geometry the C
+launcher checks.  The kernels themselves are held against this mirror in
+test_torch_cuda.py and chip_smoke.py."""
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -59,7 +60,7 @@ def _hold(got, want, qdt):
 @pytest.mark.parametrize("qdt", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cdt", list(NP_DTYPES))
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("G", [4, 8])
+@pytest.mark.parametrize("G", [4, 8, 1, 2])
 def test_mma_mirror_vs_plain_and_pallas(qdt, cdt, hd, G):
     """The tile order against the whole-cache plain version and the Pallas
     kernel (interpret mode) at the tile and chunk edges."""
@@ -80,7 +81,7 @@ def test_mma_mirror_vs_plain_and_pallas(qdt, cdt, hd, G):
     assert torch.equal(out[0], torch.zeros_like(out[0]))   # an empty slot
 
 
-@pytest.mark.parametrize("G", [3, 4, 5, 8])
+@pytest.mark.parametrize("G", [3, 4, 5, 8, 1, 2])
 def test_mma_mirror_dead_rows_hold_nan(G):
     """Rows at or past cache_len may hold anything, NaN included: the tile
     order never reads them (the kernel zero-fills their tile rows)."""
@@ -137,19 +138,25 @@ def test_mma_core_geometry(hd, G):
     checks: below hd 256 at G >= 3 (KG 4 and 8) the mma core, each warp's
     two 16-row slots (K's rows, then V's): CHUNK rows of hd x the cache's
     bytes, 64 KiB at f32 hd 128, three CTAs an SM with its static 6,468
-    bytes and the 1 KiB a CTA reserves; G 1 and 2 the split core with none;
-    hd 256 the cluster core.  The cores with dynamic shared memory fold the
-    combine in, on tickets; the split core takes none."""
+    bytes and the 1 KiB a CTA reserves; G 1 and 2 the lane core, each
+    warp's TILE rows of K and of V (2 x CHUNK rows, or CHUNK where those
+    would pass 32 KiB), three CTAs an SM or more; hd 256 the cluster core.
+    Every core folds the combine in, on tickets."""
     for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
         geo = dk._geometry(hd, dt, G)
         mma = dk.uses_mma(hd, G)
         assert mma == (hd < 256 and G >= 3)
+        assert dk.core(hd, G) == ("decode_cluster_kernel" if hd == 256 else
+                                  "decode_mma_kernel" if mma else
+                                  "decode_lane_kernel")
+        assert dk._tickets(8, "cpu").numel() >= 8
         if hd == 256:
             assert geo.cluster == dk.CLUSTER
             continue
-        assert geo == (1, CHUNK, CHUNK * hd * dt.itemsize if mma else 0, 0)
+        rows = CHUNK * hd * dt.itemsize
+        want = rows if mma or 2 * rows > 32_768 else 2 * rows
+        assert geo == (1, CHUNK, want, 0)
         assert 3 * (geo.smem + 6_468 + 1024) <= 228 * 1024
-        assert (dk._tickets(geo, 8, "cpu") is None) == (not mma)
     assert dk._geometry(128, torch.float32, 8).smem == 65_536
     assert dk._geometry(128, torch.bfloat16, 4).smem == 32_768
 

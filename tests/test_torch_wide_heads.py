@@ -382,11 +382,12 @@ def test_decode_geometry():
     """The cluster geometry the C launcher checks: wide_smem's sums of
     csrc/decode_attention.cu's header, and the chunks per slot the folded
     combine can hold; one CTA per chunk below hd 256, with the mma core's
-    K and V tiles (mma_smem) at G >= 3 and no dynamic shared memory at G
-    <= 2."""
+    K and V tiles (mma_smem) at G >= 3 and the lane core's (lane_smem: at
+    f32 hd 128 CHUNK rows, V into K's after S) at G <= 2."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert dk._geometry(128, f32, 4) == (1, CHUNK, 65_536, 0)
-    assert dk._geometry(128, f32, 2) == (1, CHUNK, 0, 0)
+    assert dk._geometry(128, f32, 2) == (1, CHUNK, 65_536, 0)
+    assert dk._geometry(64, bf16, 1) == (1, CHUNK, 32_768, 0)
     assert dk._geometry(256, f32, 4) == (CLUSTER, SLICE, 76_336, 2048)
     assert dk._geometry(256, f32, 3) == dk._geometry(256, f32, 4)
     assert dk._geometry(256, bf16, 8) == (CLUSTER, SLICE, 54_352, 512)

@@ -7,7 +7,7 @@
 ``save`` builds TREE's kernels (into build/kernels_<tree>/ beside the usual
 build directory, so two trees never share a library) and stores their
 outputs on fixed inputs made from seed 0: dense and paged decode at hd 16,
-32, 64, 128 and 256 with G = 1, 4 and 8 and cache lengths at chunk edges
+32, 64, 128 and 256 with G = 1, 2, 4 and 8 and cache lengths at chunk edges
 (with q and the cache in one dtype, and, where TREE's decode takes them,
 over a cache in another dtype than q: names holding "cache="), and
 flash at every (hd, hdv) the kernel takes, causal, with a window and a
@@ -58,7 +58,7 @@ def save(tree: str, out: str) -> int:
         cl = torch.tensor([300, 1, 129, 0, 257], dtype=torch.int32,
                           device=dev)
         for hd in (16, 32, 64, 128, 256):
-            for H, Kh in ((16, 16), (8, 2), (8, 1)):
+            for H, Kh in ((16, 16), (16, 8), (8, 2), (8, 1)):
                 q = rnd(5, H, hd)
                 kc, vc = rnd(5, Kh, 300, hd), rnd(5, Kh, 300, hd)
                 outs[f"decode {dt} hd={hd} H={H} Kh={Kh}"] = \

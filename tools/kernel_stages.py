@@ -86,20 +86,26 @@ awaited, O rescaled and P split), the last P.V and the epilogue (rows
 staged in shared memory, their stores issued: thread 0's clock does not
 see them drain), beside the combine kernel's device time.
 
-decode: decode at hd 128 and G >= 4, f32 unless named, B 8 (chip_smoke.py
-phase 3's hd128_g8, qwen1.5-110b's 64 heads on 8 at lengths 0-1024, dense
-and paged over every (q, cache) pair of phase 20; hd128_gqa, jamba's 32 on
-8 at ragged lengths; hd128_cross, vision's 32 on 8 over 1601 memory
-rows), through each tree's library called raw with its own wrapper's
-geometry.  Unlike the other modes, --tree DIR here names a second tree (a
-parent unpacked under build/): this checkout's kernels and DIR's are timed
-in turns (DIR, checkout, checkout, DIR), each row beside its bytes bound,
-the plain version and SDPA's masked GQA call (dense, one dtype), with the
-combine kernel's share of the checkout's device time (profiler); then each
-tree's per-stage timeline at hd128_g8, f32, dense: cycles that thread 0 of
-each CTA adds up per stage (an instrumented copy; decode_split_kernel's
-stages inside its loop are summed over it), median and largest over the
-live CTAs.
+decode: decode at DECODE_ROWS, B 8: qwen1.5-0.5b's G = 1 shape (16 heads
+of 64, Smax 1024, ragged lengths) over every (q, cache) pair of {f32, bf16}
+x {f32, bf16, fp8}, deepseek-moe-16b's 16 heads of 128 and whisper-tiny's
+cross decode over 1500 rows (f32), qwen1.5-110b's G = 8 at the chunk edges
+(f32 and bf16), jamba's 32 on 8, vision's cross decode over 1601 rows, and
+gemma3-1b's bf16 decode at hd 256 (a 512-row ring and 1024 rows), and an
+f32 query over each cache type at the lane core's other instantiations (hd
+16 and 32 at G 1 and 2, hd 64 at G 2, hd 128) and the mma core at hd 32,
+dense and paged, through each tree's library called raw with its own
+wrapper's geometry.  Unlike the other modes, --tree DIR here names a
+second tree (a parent unpacked under build/): this checkout's kernels,
+copies of its source with VARIANTS' edits (below hd 256) and DIR's are
+timed in turns (DIR, checkout, the variants and back; whether each gives
+the checkout's bits), each row beside its bytes bound, the
+plain version and SDPA's masked call (dense, q and the cache in one
+dtype), with device time by kernel and the combine kernel's share
+(profiler); then each tree's G <= 2 core at qwen1.5-0.5b's bf16 shape,
+dense, stage by stage: cycles that thread 0 of each CTA adds up per stage
+(an instrumented copy; decode_split_kernel's stages inside its loop are
+summed over it), median and largest over the live CTAs.
 
 wkvbwd: the wkv6 backward kernel at the same rwkv6 call, stage by stage:
 cycles that thread 0 of each CTA adds up per stage over the chunk loops
@@ -303,7 +309,7 @@ def hd256(torch, dk, fk, dev, stream):
         out = torch.empty(B, H, hd, device=dev)
         scratch = dk._scratch(B, H, Kh, Smax, hd, dev)
         geo = dk._geometry(hd, torch.float32, H // Kh)
-        tickets = dk._tickets(geo, B * Kh * geo.cluster, dev)
+        tickets = dk._tickets(B * Kh * geo.cluster, dev)
 
         def call():
             err = lib.decode_attention_launch(
@@ -1018,8 +1024,8 @@ STG_INIT = "  long long c_last_ = clock64(), c_acc_[13] = {0};\n"
 STG_STORE = ("  if (threadIdx.x == 0) {\n    const int id_ = blockIdx.y * "
              "gridDim.x + blockIdx.x;\n    for (int k_ = 0; k_ < 13; ++k_) "
              "stage_c[id_ * 32 + k_] = c_acc_[k_];\n  }\n")
-# the split core (decode_split_kernel, the parent's KG 8): stages inside its
-# loop over 4 rows at a time are summed over the loop
+# the split core (decode_split_kernel, before the lane core): stages inside
+# its loop over 4 rows at a time are summed over the loop
 SPLIT_STAGES = ["q loads issued", "cache loads issued", "cache loads landed",
                 "q.k and its shuffles", "softmax (m, l)", "P.V (acc)",
                 "row groups merged (butterfly)",
@@ -1052,64 +1058,96 @@ SPLIT_EDITS = [
     ("  __syncthreads();\n\n  // the warps merge in warp order; one partial",
      "  __syncthreads();\n  STG(7)\n\n  // the warps merge in warp order; one "
      "partial"),
-    ("    pp[2 + d] = O;\n  }\n}\n\ntemplate <int HD>\n",
+    ("    pp[2 + d] = O;\n  }\n}\n\n// the ticket counters",
      "    pp[2 + d] = O;\n  }\n  STG(8)\n" + STG_STORE + "}\n\n"
-     "template <int HD>\n"),
+     "// the ticket counters"),
 ]
-# the mma core (decode_mma_kernel): thread 0's warp walks the chunk's first
-# tile, its two M tiles' stages summed; the CTAs that do not merge store
-# their stages at their ticket, the last one again after the folded
-# combine
-MMA_STAGES = ["q loads issued", "row looked up, K copies issued",
-              "q scaled and split", "K landed", "S^T on the tensor cores",
-              "V copies issued", "softmax (one update a tile)",
-              "P written, V landed", "P.V on the tensor cores",
-              "warp state written, barrier", "tiles merged, partial written",
-              "ticket taken", "the folded combine (the last CTA)"]
-MMA_EDITS = [
-    ("  unsigned char* tile = smem + warp * kMI * SLOT;\n",
-     "  unsigned char* tile = smem + warp * kMI * SLOT;\n" + STG_INIT),
-    ("  const int64_t my_row =\n", "  STG(0)\n  const int64_t my_row =\n"),
-    ("  // q, scaled, as the B fragments' big and small halves\n",
-     "  STG(1)\n  // q, scaled, as the B fragments' big and small halves\n"),
-    ("  if (n > 0) {\n    // S^T (keys x query rows)",
-     "  DEP(__uint_as_float(qs[NK * EK - 1])) STG(2)\n"
-     "  if (n > 0) {\n    // S^T (keys x query rows)"),
-    ("      rt::cp_async_wait<kMI - 1>();           // this M tile's K\n"
-     "      __syncwarp();\n",
-     "      rt::cp_async_wait<kMI - 1>();           // this M tile's K\n"
-     "      __syncwarp();\n      STG(3)\n"),
-    ("      for (int i = 0; i < 4; ++i) s[mi][i] += sl[i];\n",
-     "      for (int i = 0; i < 4; ++i) s[mi][i] += sl[i];\n"
-     "      DEP(s[mi][3]) STG(4)\n"),
-    ("      stage(v, mi);\n    }\n", "      stage(v, mi);\n      STG(5)\n"
-     "    }\n"),
-    ("    // P from the accumulators' layout",
-     "    DEP(l[1]) STG(6)\n    // P from the accumulators' layout"),
-    ("        __syncwarp();                         // and every lane's P\n",
-     "        __syncwarp();                         // and every lane's P\n"
-     "        STG(7)\n"),
-    ("    // the warp's state: m and l of rows",
-     "    DEP(o[MT - 1][3]) STG(8)\n    // the warp's state: m and l of "
+# the lane core (decode_lane_kernel): thread 0's warp walks the chunk's
+# first tile; a CTA that did not take the last ticket stores its stages
+# when it publishes its partial, the last one again after the fold
+LANE_STAGES = ["barriers set, q issued, row looked up",
+               "bulk copies issued", "q to shared memory, barrier",
+               "K landed", "S (one key a lane)", "softmax (one update a tile)",
+               "V landed", "P.V", "warp state written, barrier",
+               "merged, ticket (fold: last CTA)"]
+LANE_EDITS = [
+    ("  unsigned char* vt = kTogether ? kt + TB : kt;\n",
+     "  unsigned char* vt = kTogether ? kt + TB : kt;\n" + STG_INIT),
+    ("  // the tile's n live rows of src into dst",
+     "  STG(0)\n  // the tile's n live rows of src into dst"),
+    ("    if (kTogether) stage(v, vt, vbar);        // all the chunk's bytes "
+     "in flight\n  }\n",
+     "    if (kTogether) stage(v, vt, vbar);        // all the chunk's bytes "
+     "in flight\n  }\n  STG(1)\n"),
+    ("  __syncthreads();\n\n  if (n > 0) {\n    mbar_wait0(kbar);\n",
+     "  __syncthreads();\n  STG(2)\n\n  if (n > 0) {\n    mbar_wait0(kbar);"
+     "\n    STG(3)\n"),
+    ("    // one softmax update a tile and query row: the row's max over the\n",
+     "    DEP(s[KG - 1]) STG(4)\n    // one softmax update a tile and query "
+     "row: the row's max over the\n"),
+    ("    if (!kTogether) {\n      // V into K's rows",
+     "    DEP(l[KG - 1]) STG(5)\n    if (!kTogether) {\n      // V into K's "
      "rows"),
-    ("  __syncthreads();\n\n  // the live tiles merge in tile order",
-     "  __syncthreads();\n  STG(9)\n\n  // the live tiles merge in tile "
-     "order"),
-    ("      pc[gg * (HD + 2) + 2 + d] = O;\n    }\n  }\n",
-     "      pc[gg * (HD + 2) + 2 + d] = O;\n    }\n  }\n  STG(10)\n"),
-    ("  if (!last) return;\n",
-     "  STG(11)\n" + STG_STORE + "  if (!last) return;\n"),
-    ("                Oc[e] / fmaxf(sL[i / HD], 1e-30f), q_bf16);\n  }\n}\n",
-     "                Oc[e] / fmaxf(sL[i / HD], 1e-30f), q_bf16);\n  }\n"
-     "  STG(12)\n" + STG_STORE + "}\n"),
+    ("    mbar_wait0(vbar);\n    __syncwarp();                             "
+     "// every lane's P\n",
+     "    mbar_wait0(vbar);\n    __syncwarp();                             "
+     "// every lane's P\n    STG(6)\n"),
+    ("    // the warp's state: m, l, and O (KG x HD f32) over its K rows",
+     "    DEP(acc[KG - 1][EPL - 1]) STG(7)\n    // the warp's state: m, l, and "
+     "O (KG x HD f32) over its K rows"),
+    ("  __syncthreads();\n\n  merge_fold<HD, KG>(",
+     "  __syncthreads();\n  STG(8)\n  merge_fold<HD, KG>("),
+    ("                     part, tickets, out, bkh, b, kh, H, nch, chunk, "
+     "q_bf16);\n}\n",
+     "                     part, tickets, out, bkh, b, kh, H, nch, chunk, "
+     "q_bf16);\n  STG(9)\n" + STG_STORE + "}\n"),
 ]
 _RAGGED = [1024, 1, 17, 512, 600, 333, 1000, 64]
 _G8_LENS = [0, 1, 127, 128, 129, 257, 1024, 600]
-# (row, H, Kh, Smax, cache_len or None for every row): chip_smoke.py phase
-# 3's and phase 20's decode shapes at hd 128 and G >= 4
-DECODE_ROWS = [("hd128_g8", 64, 8, 1024, _G8_LENS),
-               ("hd128_gqa", 32, 8, 1024, _RAGGED),
-               ("hd128_cross", 32, 8, 1601, None)]
+_RING_LENS = [1, 127, 128, 129, 512, 255, 384, 511]
+_PAIRS = [(q, c) for q in ("float32", "bfloat16")
+          for c in ("float32", "bfloat16", "float8_e4m3fn")]
+_F32 = [("float32", "float32")]
+_BF16 = [("bfloat16", "bfloat16")]
+_F32Q = [("float32", c) for c in ("float32", "bfloat16", "float8_e4m3fn")]
+# (row, H, Kh, hd, Smax, cache_len or None for every row, (q, cache)
+# pairs), B 8: chip_smoke.py's decode shapes.  G <= 2: qwen1.5-0.5b's
+# (phases 3, 20 and 22), deepseek-moe-16b's 16 heads of 128 (phase 12),
+# whisper-tiny's cross decode over 1500 frames (phase 15); G >= 4 at hd
+# 128: qwen1.5-110b's G = 8 at the chunk edges, jamba's 32 on 8, vision's
+# cross decode over 1601 rows; hd 256: gemma3-1b's bf16 decode (phase 22
+# (e)) over a local layer's 512-row ring and a global layer's 1024 rows;
+# then the lane core's other instantiations (hd 16 and 32 at G 1 and 2, hd
+# 64 at G 2, hd 128 at G 1 and 2), an f32 query over each cache type, and
+# the mma core at hd 32 (G = 8)
+DECODE_ROWS = [("qwen", 16, 16, 64, 1024, _RAGGED, _PAIRS),
+               ("deepseek_moe", 16, 16, 128, 1024, _RAGGED, _F32),
+               ("whisper_cross", 6, 6, 64, 1500, None, _F32),
+               ("hd128_g8", 64, 8, 128, 1024, _G8_LENS, _F32 + _BF16),
+               ("hd128_gqa", 32, 8, 128, 1024, _RAGGED, _F32),
+               ("hd128_cross", 32, 8, 128, 1601, None, _F32),
+               ("gemma3_ring", 4, 1, 256, 512, _RING_LENS, _BF16),
+               ("gemma3_global", 4, 1, 256, 1024, _RAGGED, _BF16),
+               ("hd16_g1", 16, 16, 16, 1024, _RAGGED, _F32Q),
+               ("hd16_g2", 16, 8, 16, 1024, _RAGGED, _F32Q),
+               ("hd32_g1", 16, 16, 32, 1024, _RAGGED, _F32Q),
+               ("hd32_g2", 16, 8, 32, 1024, _RAGGED, _F32Q),
+               ("hd64_g2", 16, 8, 64, 1024, _RAGGED, _F32Q),
+               ("hd128_g1", 16, 16, 128, 1024, _RAGGED, _F32Q[1:]),
+               ("hd128_g2", 16, 8, 128, 1024, _RAGGED, _F32Q),
+               ("hd32_g8", 64, 8, 32, 1024, _G8_LENS, _F32)]
+# copies of this checkout's source timed beside it below hd 256: (name, its
+# edits (old text, found once, and new), the launch's dynamic shared memory
+# at (hd, the cache's bytes an element); None: the checkout's geometry).
+# chunks: the folded combine always a chunk at a time (fold_chunks), never
+# its acc loaded 8 chunks deep (fold_deep).  (The lane core's design rounds
+# were timed the same way: PERF.md section 6)
+VARIANTS = [
+    ("chunks",
+     [("  if (PER <= 2 && live <= kFold)\n    fold_deep<HD, NR>(pb, live, G, "
+       "out, o0, q_bf16);\n  else\n    fold_chunks", "  fold_chunks")],
+     None),
+]
 
 
 def _tree_module(tree, tag):
@@ -1123,18 +1161,34 @@ def _tree_module(tree, tag):
     return mod
 
 
-def _raw_decode(torch, lib, mod, q, k, v, cl, stream, tables=None):
+def _tickets_ptr(mod, geo, B, Kh, device):
+    """``mod``'s ticket counters for a launch of ``geo`` (None where its
+    core takes none: a parent whose split core has a separate combine and
+    whose ``_tickets`` takes the geometry)."""
+    import inspect
+    n = B * Kh * geo.cluster
+    t = (mod._tickets(geo, n, device)
+         if len(inspect.signature(mod._tickets).parameters) == 3
+         else mod._tickets(n, device))
+    return None if t is None else t.data_ptr()
+
+
+def _raw_decode(torch, lib, mod, q, k, v, cl, stream, tables=None,
+                smem=None):
     """One call through ``lib``'s launcher (dense, or paged with
-    ``tables``) with the geometry of ``mod`` (its tree's wrapper)."""
+    ``tables``) with the geometry of ``mod`` (its tree's wrapper), its
+    dynamic shared memory ``smem`` where given."""
     B, H, hd = q.shape
     Kh, rows = k.shape[1], k.shape[2]
     M = tables.shape[1] if tables is not None else 0
     cap = M * rows if tables is not None else rows
     geo = mod._geometry(hd, k.dtype, H // Kh)
+    if smem is not None:
+        geo = geo._replace(smem=smem)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     scratch = mod._scratch(B, H, Kh, cap, hd, q.device)
     qd, cd = mod._DTYPES[q.dtype], mod.CACHE_DTYPES[k.dtype]
-    tickets = mod._ptr(mod._tickets(geo, B * Kh * geo.cluster, q.device))
+    tickets = _tickets_ptr(mod, geo, B, Kh, q.device)
 
     def call():
         if tables is None:
@@ -1153,10 +1207,10 @@ def _raw_decode(torch, lib, mod, q, k, v, cl, stream, tables=None):
     return call
 
 
-def _decode_inputs(torch, rng, dev, H, Kh, Smax, lens, cdt, qdt):
+def _decode_inputs(torch, rng, dev, H, Kh, hd, Smax, lens, cdt, qdt):
     """q, the dense caches, pools of 16-row blocks at shuffled ids holding
-    the same live rows, their tables and cache_len (B 8, hd 128)."""
-    B, hd, bs = 8, 128, 16
+    the same live rows, their tables and cache_len (B 8)."""
+    B, bs = 8, 16
     lens = lens or [Smax] * B
     q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(
         np.float32)).to(dev, qdt)
@@ -1206,58 +1260,80 @@ def _stage_report(torch, lib, call, n_ctas, names, label):
     print(f"    {'all':34s} {np.median(tot):8.0f} {tot.max():8.0f}")
 
 
+def _by_kernel(torch, cs, call):
+    split = cs.split_share(torch, "decode_combine", call)
+    share = split["combine_share"]
+    us = {}
+    for k, x in split["kernels_us"].items():
+        name = re.search(r"(\w+)(<|\(|$)", k.replace("void ", "").replace(
+            "(anonymous namespace)::", "")).group(1)[-32:]
+        us[name] = round(us.get(name, 0.0) + x, 2)
+    return us, share if isinstance(share, str) else f"{share:.3f}"
+
+
 def decode_stages(torch, dev, stream):
-    """Decode at hd 128 and G >= 4 (DECODE_ROWS, and the G = 8 row over
-    every (q, cache) pair): this checkout's kernels and, with --tree, the
-    tree's (a parent), in turns (tree, checkout, checkout, tree), each
-    beside its bytes bound, the plain version and SDPA's masked GQA call
-    (dense, one dtype); device time by kernel and the combine's share
-    (profiler); and each tree's per-stage timeline at hd128_g8, f32 (an
-    instrumented copy)."""
+    """Decode at DECODE_ROWS: this checkout's kernels, its VARIANTS below
+    hd 256 and, with --tree, the tree's (a parent), in turns (tree,
+    checkout, the variants and back), each beside its bytes bound, the
+    plain version and SDPA's masked call (dense, q and the cache in one
+    dtype); device time by kernel and the combine's share (profiler); then
+    each tree's G <= 2 core at qwen1.5-0.5b's bf16 shape, dense, stage by
+    stage (an instrumented copy)."""
     import chip_smoke as cs
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
     trees = [("checkout", ROOT)] + ([("tree", TREE)] if TREE != ROOT else [])
-    libs, mods, timed = {}, {}, {}
+    libs, mods, timed, smems = {}, {}, {}, {}
     for name, tree in trees:
         csrc = tree / "src" / "repro_torch" / "kernels" / "csrc"
         src = (csrc / "decode_attention.cu").read_text()
         mods[name] = _tree_module(tree, name)
         libs[name] = instrument("decode_attention", [], tag=f"_{name}",
                                 csrc=csrc, defer=True)
-        edits, stages = ((MMA_EDITS, MMA_STAGES) if "decode_mma_kernel" in src
-                         else (SPLIT_EDITS, SPLIT_STAGES))
+        split = "\ndecode_split_kernel(" in src     # its definition
+        edits, stages = ((SPLIT_EDITS, SPLIT_STAGES) if split
+                         else (LANE_EDITS, LANE_STAGES))
         timed[name] = (instrument(
             "decode_attention", [], tag=f"_{name}_stages", csrc=csrc,
             edits=[("namespace cg = cooperative_groups;\n",
                     "namespace cg = cooperative_groups;\n" + STG_MACROS)]
             + edits, defer=True), stages)
-        kern = "decode_split_kernel" if edits is SPLIT_EDITS else \
-            "decode_mma_kernel"
-        print(f"{name}: {tree}, {kern} at G = 8")
+        print(f"{name}: {tree}, "
+              f"{'decode_split_kernel' if split else 'decode_lane_kernel'} "
+              "at G <= 2")
+        if name != "checkout":
+            continue
+        for vname, edits, vsmem in VARIANTS:
+            if all(src.count(old) == 1 for old, _ in edits):
+                libs[vname] = instrument(
+                    "decode_attention", [], tag=f"_{vname}", csrc=csrc,
+                    edits=edits, defer=True)
+                mods[vname] = mods[name]
+                smems[vname] = vsmem
+                print(f"{vname}: a copy of the checkout with {len(edits)} "
+                      "edits")
     libs = {n: load() for n, load in libs.items()}    # every build at once
     timed = {n: (load(), st) for n, (load, st) in timed.items()}
-    rng = np.random.default_rng(33)
+    rng = np.random.default_rng(34)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float8_e4m3fn": torch.float8_e4m3fn}
-    print("decode at hd 128, B 8 (CUDA events, ms per call; turns: tree, "
-          "checkout, checkout, tree):")
-    for key, H, Kh, Smax, lens in DECODE_ROWS:
-        pairs = ([(q, c) for q in ("float32", "bfloat16")
-                  for c in ("float32", "bfloat16", "float8_e4m3fn")]
-                 if key == "hd128_g8" else [("float32", "float32")])
+    print("decode, B 8 (CUDA events, ms per call; turns: tree, checkout, "
+          "the variants and back):")
+    for key, H, Kh, hd, Smax, lens, pairs in DECODE_ROWS:
         for qdt, cdt in pairs:
             q, kc, vc, kp, vp, bt, cl = _decode_inputs(
-                torch, rng, dev, H, Kh, Smax, lens, dts[cdt], dts[qdt])
+                torch, rng, dev, H, Kh, hd, Smax, lens, dts[cdt], dts[qdt])
             live = int(cl.sum())
-            nbytes = (8 * H * 128 * 2 * q.element_size()
-                      + live * Kh * 2 * 128 * kc.element_size() + 8 * 4)
-            t_bound, by = cs.bound(nbytes, 2 * H * live * 2 * 128, "float32")
+            nbytes = (8 * H * hd * 2 * q.element_size()
+                      + live * Kh * 2 * hd * kc.element_size() + 8 * 4)
+            t_bound, by = cs.bound(nbytes, 2 * H * live * 2 * hd, "float32")
             for paged in (False, True) if lens else (False,):
                 args = (kp, vp, cl) if paged else (kc, vc, cl)
                 tables = bt if paged else None
-                calls = {n: _raw_decode(torch, libs[n], mods[n], q, *args,
-                                        stream, tables) for n in libs}
+                calls = {n: _raw_decode(
+                    torch, libs[n], mods[n], q, *args, stream, tables,
+                    smems[n](hd, kc.element_size()) if smems.get(n) else
+                    None) for n in libs if n not in smems or hd < 256}
                 with torch.no_grad():
                     ref = (DA.paged_decode_attention_plain(q, kp, vp, bt, cl)
                            if paged else DA.decode_attention_plain(q, kc, vc,
@@ -1265,8 +1341,13 @@ def decode_stages(torch, dev, stream):
                     got = {n: c().clone() for n, c in calls.items()}
                 errs = {n: float((o.float() - ref.float()).abs().max())
                         for n, o in got.items()}
-                order = (["tree", "checkout", "checkout", "tree"]
-                         if "tree" in calls else ["checkout", "checkout"])
+                vs = [n for n in calls if n in smems]
+                eq = {n: torch.equal(got[n], got["checkout"]) for n in got
+                      if n != "checkout"}
+                same = "".join(f"; {n} {'==' if e else '!='} the checkout's "
+                               "bits" for n, e in eq.items())
+                order = [n for n in ["tree", "checkout", *vs, *vs[::-1],
+                                     "checkout", "tree"] if n in calls]
                 turns = [cs.time_ms(torch, calls[n], iters=50) for n in order]
                 ms = {n: [t for o, t in zip(order, turns) if o == n]
                       for n in calls}
@@ -1282,35 +1363,30 @@ def decode_stages(torch, dev, stream):
                     sdpa = cs.time_ms(torch, lambda: (
                         F.scaled_dot_product_attention(
                             q4, kc, vc, attn_mask=mask, enable_gqa=True)))
-                split = cs.split_share(torch, "decode_combine",
-                                       calls["checkout"])
-                share = split["combine_share"]
-                share = share if isinstance(share, str) else f"{share:.3f}"
-                us = {k.split("(")[0].split("::")[-1][-32:]: round(x, 2)
-                      for k, x in split["kernels_us"].items()}
+                us, share = _by_kernel(torch, cs, calls["checkout"])
                 print(f"  {key} {'paged' if paged else 'dense'} q={qdt} "
                       f"cache={cdt}: checkout "
                       f"{', '.join(f'{t:.4f}' for t in ms['checkout'])}"
                       + "".join(f"; {n} {', '.join(f'{t:.4f}' for t in v)}"
                                 for n, v in ms.items() if n != "checkout")
                       + f"; bound {t_bound:.4f} ({by}); plain {plain:.4f}; "
-                      f"SDPA {'%.4f' % sdpa if sdpa else 'none'}; max|err| vs "
+                      f"SDPA {'%.4f' % sdpa if sdpa else 'none'}{same}; "
+                      "max|err| vs "
                       f"plain {errs}; the checkout's device us by kernel "
                       f"(profiler) {us}, the combine's share {share}")
-                if "tree" in calls and key == "hd128_g8" and not paged:
-                    split = cs.split_share(torch, "decode_combine",
-                                           calls["tree"])
-                    us = {k.split("(")[0].split("::")[-1][-32:]: round(x, 2)
-                          for k, x in split["kernels_us"].items()}
-                    print(f"    the tree's device us by kernel {us}, the "
-                          f"combine's share {split['combine_share']}")
+                if key == "qwen" and cdt == qdt:
+                    for n in calls:
+                        if n != "checkout":
+                            us, share = _by_kernel(torch, cs, calls[n])
+                            print(f"    {n}'s device us by kernel {us}, the "
+                                  f"combine's share {share}")
     for name, (lib, stages) in timed.items():
         q, kc, vc, kp, vp, bt, cl = _decode_inputs(
-            torch, rng, dev, 64, 8, 1024, _G8_LENS, torch.float32,
-            torch.float32)
+            torch, rng, dev, 16, 16, 64, 1024, _RAGGED, torch.bfloat16,
+            torch.bfloat16)
         call = _raw_decode(torch, lib, mods[name], q, kc, vc, cl, stream)
-        _stage_report(torch, lib, call, 64 * 8, stages,
-                      f"{name}: hd128_g8 dense f32, per-stage timeline")
+        _stage_report(torch, lib, call, 8 * 16 * 8, stages,
+                      f"{name}: qwen dense bf16/bf16, per-stage timeline")
 
 
 def bwd(torch, dev):
